@@ -1,0 +1,169 @@
+"""Fused strided conv1d + bias + PReLU: the port of the Pallas kernel
+``segan_pytorch_tpu/ops/pallas/conv1d.py:fused_conv1d_prelu``.
+
+Three pieces, as for every kernel of the port:
+
+- ``conv1d_prelu_plain``: the same function in plain PyTorch. CPU tensors take it, and
+  the tests and ``chip_smoke.py`` hold the CUDA kernel against it.
+- ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
+  a CUDA tensor it launches the hand-written kernel (``csrc/conv1d_prelu.cu``) or
+  raises. ``launches`` counts the kernel launches.
+- ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
+  JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
+
+Layout (torch's, not the JAX package's): x (B, Cin, T_in), already padded; w (Cout,
+Cin, K); b (Cout,) or None; a (Cout,). Both outputs, y = PReLU(pre) and pre =
+conv(x, w) + b, are (B, Cout, T_out) in x's dtype, with T_out = (T_in - K)//stride + 1.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..conv import conv_transpose1d
+from . import build
+
+# kernel launches since the counter was last set to 0 (the wrapper alone adds to it)
+launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _prelu(pre: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(pre, 0) + a.view(1, -1, 1) * torch.clamp_max(pre, 0)
+
+
+def conv1d_prelu_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                       a: torch.Tensor, stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: (y, pre)."""
+    pre = F.conv1d(x, w, b, stride=stride)
+    return _prelu(pre, a), pre
+
+
+def _check(x, w, b, a, stride) -> int:
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"need x (B, Cin, T_in) and w (Cout, Cin, K), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    B, cin, t_in = x.shape
+    cout, w_cin, k = w.shape
+    if w_cin != cin:
+        raise ValueError(f"x has {cin} channels, w expects {w_cin}")
+    if a.shape != (cout,) or (b is not None and b.shape != (cout,)):
+        raise ValueError(f"b and a must be ({cout},), got "
+                         f"{None if b is None else tuple(b.shape)} and {tuple(a.shape)}")
+    if not isinstance(stride, int) or stride < 1:
+        raise ValueError(f"stride must be a positive int, got {stride!r}")
+    t_out = (t_in - k) // stride + 1
+    if t_out < 1:
+        raise ValueError(f"input of length {t_in} is shorter than the kernel ({k})")
+    tensors = [x, w, a] + ([b] if b is not None else [])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, w, b and a must lie on one device")
+    if any(t.dtype != x.dtype for t in tensors):
+        raise TypeError(f"x, w, b and a must share one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+    return t_out
+
+
+@functools.cache
+def _entries():
+    lib = build.load_library("conv1d_prelu")
+    launch = lib.conv1d_prelu_launch
+    launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+    splits = lib.conv1d_prelu_splits
+    splits.argtypes = [ctypes.c_int] * 6
+    splits.restype = ctypes.c_int
+    return launch, splits
+
+
+@functools.cache
+def _sm_count(device_index) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _launch(x, w, b, a, stride: int, t_out: int):
+    global launches
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
+    if not all(t.is_contiguous() for t in (x, w, a) + ((b,) if b is not None else ())):
+        raise ValueError("the CUDA kernel needs contiguous x, w, b and a")
+    B, cin, t_in = x.shape
+    cout, _, k = w.shape
+    if max(B, cin * k, t_in, cout) >= 2 ** 31:
+        raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
+    launch, splits_of = _entries()
+    splits = splits_of(B, cin, cout, t_out, k, _sm_count(x.device.index))
+    y = torch.empty((B, cout, t_out), dtype=x.dtype, device=x.device)
+    pre = torch.empty_like(y)
+    # split-K workspace: fp32 partial sums, one (B, Cout, T_out) slab per depth slice
+    partial = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = launch(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
+                     b.data_ptr() if b is not None else None, a.data_ptr(),
+                     y.data_ptr(), pre.data_ptr(),
+                     partial.data_ptr() if partial is not None else None, splits,
+                     B, cin, t_in, cout, t_out, k, stride, stream)
+    if err != 0:
+        raise RuntimeError(f"conv1d_prelu kernel launch failed: cudaError {err}")
+    launches += 1
+    return y, pre
+
+
+def fused_conv1d_prelu(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                       a: torch.Tensor, stride: int = 4
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, pre) = (PReLU(conv(x, w) + b, a), conv(x, w) + b).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    t_out = _check(x, w, b, a, stride)
+    if x.device.type == "cpu":
+        return conv1d_prelu_plain(x, w, b, a, stride)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv1d_prelu runs on cpu or cuda, not {x.device}")
+    return _launch(x, w, b, a, stride, t_out)
+
+
+class Conv1dPReLU(torch.autograd.Function):
+    """Differentiable ``fused_conv1d_prelu``; backward as the JAX ``_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, a, stride):
+        y, pre = fused_conv1d_prelu(x, w, b, a, stride)
+        ctx.stride = stride
+        ctx.has_bias = b is not None
+        ctx.save_for_backward(x, w, a, pre)
+        return y, pre
+
+    @staticmethod
+    def backward(ctx, gy, gpre):
+        x, w, a, pre = ctx.saved_tensors
+        s = ctx.stride
+        # PReLU: dpre = gy * (pre > 0 ? 1 : a) + gpre; da = sum gy * min(pre, 0)
+        af = a.float().view(1, -1, 1)
+        gyf, pref = gy.float(), pre.float()
+        dpre = torch.where(pref > 0, gyf, gyf * af) + gpre.float()
+        da = (gyf * torch.clamp_max(pref, 0)).sum(dim=(0, 2)).to(a.dtype)
+        db = dpre.sum(dim=(0, 2)).to(a.dtype) if ctx.has_bias else None
+        dpre = dpre.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv_transpose1d(dpre, w, stride=s)
+            # when (T_in - K) % stride != 0 the last samples touch no window: zero grad
+            dx = F.pad(dx, (0, x.shape[2] - dx.shape[2]))
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv1d_weight(x, w.shape, dpre, stride=s)
+        return dx, dw, db, da, None
+
+
+def conv1d_prelu(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                 a: torch.Tensor, stride: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable fused conv + bias + PReLU; see the module docstring."""
+    return Conv1dPReLU.apply(x, w, b, a, stride)

@@ -1,0 +1,26 @@
+"""Host-side waveform helpers: copies of the numpy functions of
+``segan_pytorch_tpu/ops/signal.py`` (pinned by ``tests/test_torch_config.py``)."""
+from __future__ import annotations
+
+import numpy as np
+from scipy.signal import lfilter
+
+
+def normalize_wave_minmax(x: np.ndarray) -> np.ndarray:
+    """int16 PCM -> [-1, 1] float: (2/65535)*(x - 32767) + 1."""
+    return (2.0 / 65535.0) * (np.asarray(x).astype(np.float32) - 32767.0) + 1.0
+
+
+def pre_emphasize_np(x: np.ndarray, coef: float = 0.95) -> np.ndarray:
+    """y[0] = x[0]; y[t] = x[t] - coef*x[t-1]."""
+    if coef <= 0:
+        return x
+    x0 = np.reshape(x[0], (1,))
+    return np.concatenate((x0, x[1:] - coef * x[:-1]), axis=0)
+
+
+def de_emphasize_np(y: np.ndarray, coef: float = 0.95) -> np.ndarray:
+    """Inverse IIR x[t] = coef*x[t-1] + y[t], exact and sequential (scipy lfilter)."""
+    if coef <= 0:
+        return y
+    return lfilter([1.0], [1.0, -coef], y, axis=-1).astype(np.float32)
