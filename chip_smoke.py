@@ -6,26 +6,36 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build the hand-written kernel from segan_pytorch_tpu_torch/csrc/ with nvcc;
-  3. kernel vs its plain PyTorch version on the card, at the five SEGAN+ encoder
-     shapes for 1 and 8 16384-sample chunks and two ragged shapes, fp32 (TF32 off,
-     relative error <= 1e-4) and bf16 (<= 2e-2), with per-layer times (CUDA events,
-     median of 25 after warm-up);
+  2. build both hand-written kernels from segan_pytorch_tpu_torch/csrc/, one nvcc each,
+     started together;
+  3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the
+     card, at the five SEGAN+ encoder shapes for 1 and 8 16384-sample chunks and two
+     ragged shapes, fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), into
+     NaN-filled outputs, with per-layer times (CUDA events, median of 20 after 3 warm-ups);
+  3b. the chained kernel (fused_enc23_fwd) vs enc23_plain, into NaN-filled outputs, at
+     the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256) for B = 1, 8 and 300,
+     with and without bias, and at two narrow odd shapes, in fp32 and bf16 with the same
+     limits; at B = 300 also vs the per-layer kernel chain. Times of the three arms of
+     the A/B tool at B = 1, 8 and 300, fp32 and bf16;
+  3c. the A/B tool (python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench) at its
+     defaults, batch 300 bf16: both kernels must launch in it, and the chained kernel's
+     outputs must agree with the plain chain within 2e-2;
   4. the slice: a full-width SEGAN+ generator (seeded init, PReLU slopes U(0, 0.3))
      saved as a reference-format .ckpt + train.opts, then the port's clean.py CLI on
      8 synthetic wavs with --batch_utts 1 and 4. Checks: outputs finite and of their
      inputs' lengths, the kernel launched 5 times per G forward, batched == sequential,
      and the card's generate() == a CPU copy's (plain ops) within 1e-3 relative. Prints
      audio seconds enhanced per wall second and G chunks/s at batch 64.
-The line before the last is the JSON kernel report; the last is
+The line before the last is the JSON kernel report (launches of fused_conv1d_prelu
+from phase 4, of fused_enc23_fwd from phase 3c); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import json
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -36,33 +46,36 @@ SR = 16000
 FP32_TOL = 1e-4   # fp32 sums in another order than cuDNN's (TF32 off)
 BF16_TOL = 2e-2   # bf16 outputs: one rounding of 2^-8 relative, plus the inputs'
 SLICE_TOL = 1e-3  # whole G, card vs CPU: 10 layers of reordered fp32 sums
-KERNEL = dict(name="fused_conv1d_prelu", route="cuda",
-              source="segan_pytorch_tpu_torch/csrc/conv1d_prelu.cu",
-              replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127")
+KERNELS = [  # the fixed fields of the kernels line, in its order
+    dict(name="fused_conv1d_prelu", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/conv1d_prelu.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
+    dict(name="fused_enc23_fwd", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/encoder_fused.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/encoder_fused.py:112"),
+]
 
 
 def rel_err(got, ref) -> float:
     """max |got - ref| / max |ref|: an absolute tolerance would pass anything once the
-    N(0, 0.02) weights have shrunk the deep activations."""
+    N(0, 0.02) weights have shrunk the deep activations. NaN (an output row the kernel
+    never wrote) makes it NaN, which fails every bound."""
     ref = ref.float()
     return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of fn() in ms, one pair of CUDA events per call."""
+def worst(values) -> float:
+    """The largest of the values, NaN if any is NaN: the built-in max() drops a NaN
+    that is not in first place, and would pass an output the kernel left unwritten."""
+    return float(np.max(list(values)))
+
+
+def nan_outputs(*shapes, dtype):
+    """Outputs filled with NaN, so that a row the kernel does not write cannot pass for
+    a right one left behind in the allocator's memory."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return tuple(torch.full(s, float("nan"), dtype=dtype, device="cuda") for s in shapes)
 
 
 def phase_device():
@@ -84,13 +97,17 @@ def phase_device():
 def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
+    names = ("conv1d_prelu", "encoder_fused")
     t0 = time.perf_counter()
-    path, log = build.build_library("conv1d_prelu")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
+        built = list(pool.map(build.build_library, names))
     secs = time.perf_counter() - t0
-    print(f"build: conv1d_prelu in {secs:.2f} s "
-          f"({'compiled' if log is not None else 'already built'}) -> {path}")
-    if log:
-        print(log.strip())
+    for name, (path, log) in zip(names, built):
+        print(f"build: {name} ({'compiled' if log is not None else 'already built'}) "
+              f"-> {path}")
+        if log:
+            print(log.strip())
+    print(f"build: {len(names)} kernels in {secs:.2f} s")
 
 
 def phase_kernel():
@@ -100,6 +117,7 @@ def phase_kernel():
     encoder layers at batch 8."""
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import cuda_ms
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,22 +143,25 @@ def phase_kernel():
         w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
         bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
         a = (torch.rand((cout,), generator=g) * 0.3).cuda()
-        y, pre = K.fused_conv1d_prelu(x, w, bias, a, s)
+        t_out = K._check(x, w, bias, a, s)
+        shape = (b, cout, t_out)
+        assert t_out == (t_in - kw) // s + 1, (label, t_out)
+        y, pre = K._launch(x, w, bias, a, s, t_out,
+                           out=nan_outputs(shape, shape, dtype=x.dtype))
         y_ref, pre_ref = K.conv1d_prelu_plain(x, w, bias, a, s)
         torch.cuda.synchronize()
-        t_out = (t_in - kw) // s + 1
-        assert y.shape == pre.shape == (b, cout, t_out), (label, y.shape)
-        e32 = max(rel_err(y, y_ref), rel_err(pre, pre_ref))
+        e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
         assert e32 <= FP32_TOL, f"{label}: fp32 kernel vs plain rel err {e32:.3e} > {FP32_TOL}"
         if main:
-            max_abs = max(max_abs, float((y - y_ref).abs().max()),
-                          float((pre - pre_ref).abs().max()))
+            max_abs = worst([max_abs, float((y - y_ref).abs().max()),
+                             float((pre - pre_ref).abs().max())])
         hb = [v.bfloat16() if v is not None else None for v in (x, w, bias, a)]
-        yb, preb = K.fused_conv1d_prelu(*hb, s)
+        yb, preb = K._launch(*hb, s, t_out,
+                             out=nan_outputs(shape, shape, dtype=torch.bfloat16))
         yb_ref, preb_ref = K.conv1d_prelu_plain(*hb, s)
         torch.cuda.synchronize()
         assert yb.dtype == torch.bfloat16
-        e16 = max(rel_err(yb, yb_ref), rel_err(preb, preb_ref))
+        e16 = worst([rel_err(yb, yb_ref), rel_err(preb, preb_ref)])
         assert e16 <= BF16_TOL, f"{label}: bf16 kernel vs plain rel err {e16:.3e} > {BF16_TOL}"
         k_ms = cuda_ms(lambda: K.fused_conv1d_prelu(x, w, bias, a, s))
         p_ms = cuda_ms(lambda: K.conv1d_prelu_plain(x, w, bias, a, s))
@@ -155,6 +176,81 @@ def phase_kernel():
     for b, (k_ms, p_ms) in totals.items():
         print(f"encoder total (B={b}, fp32): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     return max_abs, totals[8][0], totals[8][1]
+
+
+def phase_enc23():
+    """The chained kernel vs enc23_plain on the card, into NaN-filled outputs; at B = 300
+    also vs the per-layer kernel chain. Returns the max fp32 abs error at the SEGAN+
+    widths."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
+    from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 4)
+    cases = [  # (label, B, T1, C1, C2, C3, bias, SEGAN+ widths)
+        ("B=1", 1, 4096, 64, 128, 256, False, True),
+        ("B=8", 8, 4096, 64, 128, 256, False, True),
+        ("B=300", 300, 4096, 64, 128, 256, False, True),
+        ("B=8 bias", 8, 4096, 64, 128, 256, True, True),
+        ("narrow T1=64", 3, 64, 5, 24, 40, True, False),
+        ("ragged tile T1=592", 2, 592, 5, 24, 40, False, False),
+    ]
+    timed = {(label, dtype) for label in ("B=1", "B=8", "B=300")
+             for dtype in (torch.float32, torch.bfloat16)}
+    max_abs = 0.0
+    print(f"{'case':>18} {'dtype':>8} | {'rel err':>9} {'vs x2':>9} | "
+          f"{'plain ms':>9} {'x2 ms':>9} {'fused ms':>9}")
+    for label, b, t1, c1, c2, c3, has_bias, full in cases:
+        h1 = torch.randn((b, c1, t1), generator=g).cuda()
+        w2 = (torch.randn((c2, c1, EF.K), generator=g) / (c1 * EF.K) ** 0.5).cuda()
+        w3 = (torch.randn((c3, c2, EF.K), generator=g) / (c2 * EF.K) ** 0.5).cuda()
+        b2, b3 = ((torch.randn((c,), generator=g) * 0.1).cuda() if has_bias else None
+                  for c in (c2, c3))
+        a2, a3 = ((torch.rand((c,), generator=g) * 0.3).cuda() for c in (c2, c3))
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            args = [v.to(dtype) if v is not None else None
+                    for v in (h1, w2, b2, a2, w3, b3, a3)]
+            EF._check(*args)
+            shapes = [(b, c2, t1 // 4), (b, c3, t1 // 16), (b, c3, t1 // 16)]
+            got = EF._launch(*args, out=nan_outputs(*shapes, dtype=dtype))
+            ref = EF.enc23_plain(*args)
+            torch.cuda.synchronize()
+            err = worst(rel_err(o, r) for o, r in zip(got, ref))
+            assert err <= tol, f"{label} {dtype}: chained vs plain rel err {err:.3e} > {tol}"
+            if full and dtype == torch.float32:
+                max_abs = worst([max_abs] + [float((o - r).abs().max())
+                                             for o, r in zip(got, ref)])
+            err_x2 = float("nan")
+            if b == 300:
+                err_x2 = worst(rel_err(o, r) for o, r in zip(got, bench.kernel_x2(*args)))
+                assert err_x2 <= tol, f"{label} {dtype}: chained vs kernel x2 {err_x2:.3e}"
+            del got, ref
+            line = f"{label:>18} {str(dtype)[6:]:>8} | {err:9.2e} {err_x2:9.2e} |"
+            if (label, dtype) in timed:
+                line += " ".join(f"{bench.cuda_ms(lambda: arm(*args)):9.4f}"
+                                 for arm in bench.ARMS.values())
+            print(line, flush=True)
+    return max_abs
+
+
+def phase_tool():
+    """The A/B tool at its defaults (batch 300, bf16), the path of the chained kernel.
+    Returns its results and the launches of both kernels in it."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
+    from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
+
+    K.launches = EF.launches = 0
+    res = bench.main([])
+    torch.cuda.synchronize()
+    counts = {"fused_conv1d_prelu": K.launches, "fused_enc23_fwd": EF.launches}
+    print(f"kernel launches in the A/B tool: {counts}")
+    assert all(n > 0 for n in counts.values()), counts
+    assert all(e <= BF16_TOL for e in res["rel"].values()), res["rel"]
+    return res, counts
 
 
 def _write_wavs(wav_dir: Path):
@@ -179,6 +275,7 @@ def phase_slice(work: Path):
     from segan_pytorch_tpu_torch.models.generator import build_generator
     from segan_pytorch_tpu_torch.models.segan import SEGAN
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import cuda_ms
     from segan_pytorch_tpu_torch.utils.checkpoint import save_generator
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig, dump_train_opts
 
@@ -278,11 +375,17 @@ def main():
     smi = phase_device()
     phase_build()
     max_abs, k_ms, p_ms = phase_kernel()
+    enc23_abs = phase_enc23()
+    tool, tool_launches = phase_tool()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         launches = phase_slice(Path(work))
-    print(json.dumps({"kernels": [dict(KERNEL, launches=launches, max_abs_err=max_abs,
-                                       ms=k_ms, plain_ms=p_ms)]}))
+    measured = [
+        dict(launches=launches, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms),
+        dict(launches=tool_launches["fused_enc23_fwd"], max_abs_err=enc23_abs,
+             ms=tool["ms"]["fused 2+3"], plain_ms=tool["ms"]["plain chain"]),
+    ]
+    print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

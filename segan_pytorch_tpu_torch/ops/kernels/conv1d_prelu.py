@@ -87,7 +87,10 @@ def _sm_count(device_index) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _launch(x, w, b, a, stride: int, t_out: int):
+def _launch(x, w, b, a, stride: int, t_out: int,
+            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """Launch the kernel on checked CUDA tensors, into ``out`` (y, pre) when it is
+    given, else into new tensors."""
     global launches
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
@@ -99,8 +102,15 @@ def _launch(x, w, b, a, stride: int, t_out: int):
         raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
     launch, splits_of = _entries()
     splits = splits_of(B, cin, cout, t_out, k, _sm_count(x.device.index))
-    y = torch.empty((B, cout, t_out), dtype=x.dtype, device=x.device)
-    pre = torch.empty_like(y)
+    shape = (B, cout, t_out)
+    if out is None:
+        out = (torch.empty(shape, dtype=x.dtype, device=x.device),
+               torch.empty(shape, dtype=x.dtype, device=x.device))
+    elif any(o.shape != shape or o.dtype != x.dtype or o.device != x.device
+             or not o.is_contiguous() for o in out):
+        raise ValueError(f"out must be two contiguous {x.dtype} tensors on {x.device} of "
+                         f"shape {shape}")
+    y, pre = out
     # split-K workspace: fp32 partial sums, one (B, Cout, T_out) slab per depth slice
     partial = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
                if splits > 1 else None)

@@ -1,0 +1,138 @@
+"""Chained enc2 + enc3 forward: the port of the Pallas kernel
+``segan_pytorch_tpu/ops/pallas/encoder_fused.py:fused_enc23_fwd``.
+
+Two GConv1DBlocks of the SEGAN+ encoder (reflect pad (14, 15), stride-4 31-tap conv +
+bias + PReLU) in one kernel, enc2's post-activation kept on chip. As in the JAX
+package, no model calls it: its caller is the A/B tool
+``segan_pytorch_tpu_torch/tools/encoder_fused_bench.py``. Three pieces, as for every
+kernel of the port:
+
+- ``enc23_plain``: the same function in plain PyTorch. CPU tensors take it, and the
+  tests and ``chip_smoke.py`` hold the CUDA kernel against it.
+- ``fused_enc23_fwd``: the wrapper. On a CPU tensor it returns the plain version; on a
+  CUDA tensor it launches the hand-written kernel (``csrc/encoder_fused.cu``) or raises.
+  ``launches`` counts the kernel launches. Forward only, as the Pallas kernel.
+- ``_launch``: the launch itself, which also takes preallocated outputs.
+
+Layout (torch's, not the JAX package's): h1, enc1's post-activation, (B, C1, T1)
+unpadded, with T1 % 16 == 0 and T1 >= 64; w2 (C2, C1, 31); b2 (C2,) or None; a2 (C2,);
+likewise w3, b3, a3 with C3. Outputs, in h1's dtype: pre2 (B, C2, T1/4), pre3 and post3
+(B, C3, T1/16). The Pallas kernel's ``batch_tile`` is a VMEM tiling knob and has no
+counterpart here.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from ..conv import reflect_pad_1d
+from . import build
+from .conv1d_prelu import conv1d_prelu_plain
+
+# kernel launches since the counter was last set to 0 (the wrapper alone adds to it)
+launches = 0
+
+K = 31  # taps and stride are fixed, as in the Pallas kernel
+S = 4
+PAD = (K // 2 - 1, K // 2)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def enc23_plain(h1: torch.Tensor, w2: torch.Tensor, b2: Optional[torch.Tensor],
+                a2: torch.Tensor, w3: torch.Tensor, b3: Optional[torch.Tensor],
+                a3: torch.Tensor) -> Outputs:
+    """The kernel's function in plain PyTorch: (pre2, pre3, post3)."""
+    post2, pre2 = conv1d_prelu_plain(reflect_pad_1d(h1, *PAD), w2, b2, a2, S)
+    # post2 is in h1's dtype, so in bf16 enc3 reads it rounded, as the kernels do
+    post3, pre3 = conv1d_prelu_plain(reflect_pad_1d(post2, *PAD), w3, b3, a3, S)
+    return pre2, pre3, post3
+
+
+def _check(h1, w2, b2, a2, w3, b3, a3) -> None:
+    if h1.dim() != 3 or w2.dim() != 3 or w3.dim() != 3:
+        raise ValueError(f"need h1 (B, C1, T1), w2 (C2, C1, {K}) and w3 (C3, C2, {K}), got "
+                         f"{tuple(h1.shape)}, {tuple(w2.shape)} and {tuple(w3.shape)}")
+    _, c1, t1 = h1.shape
+    c2, c3 = w2.shape[0], w3.shape[0]
+    if t1 % (S * S) != 0:
+        raise ValueError(f"T1 = {t1} must be a multiple of {S * S}")
+    if t1 < 64:
+        raise ValueError(f"T1 = {t1} < 64: the reflect pad of {PAD[1]} needs T1/{S} >= 16")
+    if w2.shape[2] != K or w3.shape[2] != K:
+        raise ValueError(f"the kernel has {K} taps, got w2 {tuple(w2.shape)} and "
+                         f"w3 {tuple(w3.shape)}")
+    if w2.shape[1] != c1 or w3.shape[1] != c2:
+        raise ValueError(f"channels do not chain: h1 has {c1}, w2 is {tuple(w2.shape)}, "
+                         f"w3 is {tuple(w3.shape)}")
+    for name, v, c in (("b2", b2, c2), ("a2", a2, c2), ("b3", b3, c3), ("a3", a3, c3)):
+        if v is not None and v.shape != (c,):
+            raise ValueError(f"{name} must be ({c},), got {tuple(v.shape)}")
+    tensors = [t for t in (h1, w2, b2, a2, w3, b3, a3) if t is not None]
+    if any(t.device != h1.device for t in tensors):
+        raise ValueError("h1, the weights, biases and slopes must lie on one device")
+    if any(t.dtype != h1.dtype for t in tensors):
+        raise TypeError(f"h1, the weights, biases and slopes must share one dtype, got "
+                        f"{[t.dtype for t in tensors]}")
+
+
+@functools.cache
+def _entry():
+    launch = build.load_library("encoder_fused").encoder_fused_launch
+    launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return launch
+
+
+def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None) -> Outputs:
+    """Launch the kernel on checked CUDA tensors, into ``out`` (pre2, pre3, post3) when
+    it is given, else into new tensors."""
+    global launches
+    if h1.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {h1.dtype}")
+    inputs = [t for t in (h1, w2, b2, a2, w3, b3, a3) if t is not None]
+    if not all(t.is_contiguous() for t in inputs):
+        raise ValueError("the CUDA kernel needs contiguous inputs")
+    B, c1, t1 = h1.shape
+    c2, c3 = w2.shape[0], w3.shape[0]
+    if max(B, c1 * K, t1, c2 * K, c3) >= 2 ** 31:
+        raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
+    shapes = ((B, c2, t1 // S), (B, c3, t1 // (S * S)), (B, c3, t1 // (S * S)))
+    if out is None:
+        out = tuple(torch.empty(s, dtype=h1.dtype, device=h1.device) for s in shapes)
+    elif any(o.shape != s or o.dtype != h1.dtype or o.device != h1.device
+             or not o.is_contiguous() for o, s in zip(out, shapes)):
+        raise ValueError(f"out must be contiguous {h1.dtype} tensors on {h1.device} of "
+                         f"shapes {shapes}")
+    pre2, pre3, post3 = out
+    with torch.cuda.device(h1.device):
+        stream = torch.cuda.current_stream(h1.device).cuda_stream
+        err = _entry()(_DTYPE_CODES[h1.dtype], h1.data_ptr(), w2.data_ptr(),
+                       b2.data_ptr() if b2 is not None else None, a2.data_ptr(),
+                       w3.data_ptr(), b3.data_ptr() if b3 is not None else None,
+                       a3.data_ptr(), pre2.data_ptr(), pre3.data_ptr(), post3.data_ptr(),
+                       B, c1, t1, c2, c3, stream)
+    if err != 0:
+        raise RuntimeError(f"encoder_fused kernel launch failed: cudaError {err}")
+    launches += 1
+    return pre2, pre3, post3
+
+
+def fused_enc23_fwd(h1: torch.Tensor, w2: torch.Tensor, b2: Optional[torch.Tensor],
+                    a2: torch.Tensor, w3: torch.Tensor, b3: Optional[torch.Tensor],
+                    a3: torch.Tensor) -> Outputs:
+    """Chained enc2 + enc3 forward: (pre2, pre3, post3). pre2 and pre3 are the skip
+    tensors; post3 feeds enc4.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
+    _check(h1, w2, b2, a2, w3, b3, a3)
+    if h1.device.type == "cpu":
+        return enc23_plain(h1, w2, b2, a2, w3, b3, a3)
+    if h1.device.type != "cuda":
+        raise ValueError(f"fused_enc23_fwd runs on cpu or cuda, not {h1.device}")
+    return _launch(h1, w2, b2, a2, w3, b3, a3)
