@@ -12,11 +12,13 @@ and when the port's package is not beside it):
      card, at the five SEGAN+ encoder shapes for 1 and 8 16384-sample chunks and two
      ragged shapes, fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), into
      NaN-filled outputs, with per-layer times (CUDA events, median of 20 after 3 warm-ups);
-  3b. the chained kernel (fused_enc23_fwd) vs enc23_plain, into NaN-filled outputs, at
-     the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256) for B = 1, 8 and 300,
-     with and without bias, and at two narrow odd shapes, in fp32 and bf16 with the same
-     limits; at B = 300 also vs the per-layer kernel chain. Times of the three arms of
-     the A/B tool at B = 1, 8 and 300, fp32 and bf16;
+  3b. the chained kernel (fused_enc23_fwd: fp32 FMAs, bf16 on the tensor cores) vs
+     enc23_plain, into NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64,
+     4096) -> 128 -> 256) for B = 1, 8 and 300, with and without bias, and at two narrow
+     odd shapes, in fp32 and bf16 with the same limits; at B = 300 also vs the per-layer
+     kernel chain. Times of the three arms of the A/B tool at B = 1, 8 and 300, fp32 and
+     bf16. A bf16 call with C3 = 36 must raise ValueError (whole n8 tiles) and launch
+     nothing;
   3c. the A/B tool (python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench) at its
      defaults, batch 300 bf16: both kernels must launch in it, and the chained kernel's
      outputs must agree with the plain chain within 2e-2;
@@ -232,6 +234,16 @@ def phase_enc23():
                 line += " ".join(f"{bench.cuda_ms(lambda: arm(*args)):9.4f}"
                                  for arm in bench.ARMS.values())
             print(line, flush=True)
+    bad = [(torch.randn(s, generator=g) * 0.1).cuda().bfloat16()
+           for s in ((1, 5, 64), (24, 5, EF.K), (24,), (24,), (36, 24, EF.K), (36,), (36,))]
+    before = EF.launches
+    try:
+        EF.fused_enc23_fwd(*bad)
+    except ValueError as e:
+        print(f"bf16 C3 = 36 refused: {e}")
+    else:
+        raise AssertionError("the bf16 kernel took C3 = 36, which is not whole n8 tiles")
+    assert EF.launches == before, "a refused call launched the kernel"
     return max_abs
 
 

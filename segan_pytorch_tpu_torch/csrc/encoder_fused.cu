@@ -11,30 +11,55 @@
 // written in h1's dtype (fp32 or bf16); sums are fp32. post2 is rounded to h1's dtype
 // before enc3 reads it, as the TPU kernel rounds it.
 //
-// What bounds it on the H100. At the SEGAN+ widths (64 -> 128 -> 256 channels, T1 = 4096
-// per 16384-sample chunk) each layer costs 2 * T_out * Cout * Cin * 31 = 0.52 GFLOP per
-// chunk against about 1 MB of activations in bf16: some 500 FLOP per byte, so the pair is
-// bound by arithmetic (312 GFLOP at batch 300). Chaining saves only post2's round trip
-// through device memory and the two reflect-padded copies, about 0.4 GB at batch 300 in
-// bf16 (~0.13 ms at 3.35 TB/s).
+// Two kernels, one per dtype, and no path from one dtype to the other's kernel:
+//   fp32: enc23_kernel<float>, fp32 FMAs on the CUDA cores;
+//   bf16: enc23_mma_kernel, bf16 tensor cores (mma.sync m16n8k16, fp32 sums).
 //
-// What the design does about it. One 256-thread block per (batch row, tile of TILE enc3
-// output rows), in no order; nothing passes between blocks.
-//   Phase A computes post2, for all C2 channels, on the real rows the tile's enc3 windows
-//   read: at most 4 * TILE + 27 rows, so the halo is recomputed (1.21x enc2's work at
-//   TILE = 32) rather than read from a neighbour. h1's taps are gathered through the
-//   reflect map at T1 (no padded copy in device memory). post2 goes to shared memory in
-//   h1's dtype; pre2 is stored only for the 4 * TILE rows the tile owns, so every pre2 row
-//   is written by exactly one block.
-//   Phase B computes enc3's TILE rows x C3 channels from that shared memory, through the
-//   reflect map at T2, and stores pre3 and post3.
-// Both phases are implicit GEMMs in tiles of 32 rows x 128 channels: each 16-deep stage
-// of the contraction (the weights' own order, ci-major then tap) is staged in shared
-// memory as fp32 and every thread accumulates a 2 x 8 sub-tile with FMAs; the weights
-// (1 + 4 MB in fp32) stay in the 50 MB L2. The Pallas kernel's space-to-depth fold, its
-// zero 32nd tap and its zero-padded tail rows exist to feed the TPU's matrix unit and are
-// not carried over: the 31 taps are computed directly. No tensor cores yet (wgmma fed by
-// TMA is later work), so at batch 1 only T1 / 512 blocks run, on a card of 132 SMs.
+// What bounds the work on the H100. At the SEGAN+ widths (64 -> 128 -> 256 channels,
+// T1 = 4096 per 16384-sample chunk) each layer costs 2 * T_out * Cout * Cin * 31 = 0.52
+// GFLOP per chunk against about 1 MB of activations in bf16: some 500 FLOP per byte, so
+// the pair is bound by arithmetic (312 GFLOP at batch 300). Chaining saves only post2's
+// round trip through device memory and the two reflect-padded copies, about 0.4 GB at
+// batch 300 in bf16 (~0.13 ms at 3.35 TB/s).
+//
+// Both kernels: one 256-thread block per (batch row, tile of TILE enc3 output rows), in
+// no order; nothing passes between blocks. Phase A computes post2, for all C2 channels,
+// on the real rows the tile's enc3 windows read, so enc2's halo is recomputed rather
+// than read from a neighbour; post2 goes to shared memory in h1's dtype, and pre2 is
+// stored only for the 4 * TILE rows the tile owns, so every pre2 row is written by one
+// block. Phase B computes enc3's TILE rows x C3 channels from that shared memory and
+// stores pre3 and post3.
+//
+// fp32 (enc23_kernel<float>). Both phases are implicit GEMMs in tiles of 32 rows x 128
+// channels over the weights' own depth order (ci-major, then 31 taps): each 16-deep
+// stage is gathered through the reflect maps (a division by 31 per element) into shared
+// memory, and every thread accumulates a 2 x 8 sub-tile with FMAs. The weights (1 + 4 MB)
+// stay in the 50 MB L2. Bound by the FMA pipes and the unoverlapped staging (PERF.md).
+//
+// bf16 (enc23_mma_kernel). The wrapper pads w2 and w3 to 32 taps, tap 31 zero (as the
+// Pallas kernel's _fold_weights does), so each input channel is two 16-deep MMA steps and
+// no division by 31 is left. The reflect pads are applied once, while staging, so that
+// every operand is a plain strided read of shared memory:
+//   Phase A stages h1, a chunk of CC channels at a time, over the window of padded rows
+//   [4 lo, 4 lo + WIN) that the tile's post2 rows read (reflected at T1, clamped past the
+//   end where only discarded rows read). post2 lives in shared memory by padded row:
+//   slot p holds padded post2 row 4 t0 + p; phase A writes the real rows, then one pass
+//   fills the mirrored slots at either end of the sequence (reflect at T2) and zeroes the
+//   slots no real row maps to, which only discarded rows and zero taps read.
+//   In both phases the A operand of output row m, input channel ci and tap k is then
+//   buf[ci][4 m + k]. Within a channel the contraction takes the taps in the order that
+//   makes each lane's operands contiguous: lane quad t feeds taps 8 t + 4 h + {0..3} at
+//   MMA step h, so its A fragment is one 8-byte shared load per row (bank-conflict free:
+//   lane (g, t) reads 8-byte unit g + 2 t + const) and its B fragment for both steps is
+//   one 16-byte load of the padded weights, read straight from L2 (w2 0.25 MB, w3 2 MB).
+//   tests/test_torch_encoder_fused.py emulates exactly these index maps in float64.
+//   Warps: phase A 2 x 4 warps of 80 rows x 32 channels (160 >= 156 rows), phase B 8
+//   warps of 32 rows x 32 channels. One synchronous mainloop: no cp.async, TMA or wgmma,
+//   so the L2 latency of the weight loads and the single-buffered h1 staging are what
+//   bounds it next; every block reads all of w3 (2 MB) from L2, 4.8 GB at batch 300.
+// Needs C2 % 8 == 0 and C3 % 8 == 0 (whole n8 tiles); C1 is free.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -56,14 +81,23 @@ constexpr int BS_LD = BN + 4;                      // keeps float4 rows 16-byte 
 static_assert(TM == 2 && TN == 8, "the inner loop reads a float2 and two float4s");
 static_assert(BK * BM == 2 * THREADS && BK * BN == 8 * THREADS, "stage load mapping");
 
+// the bf16 kernel's constants
+constexpr int KP = 32;                             // taps, padded by the wrapper
+constexpr int SLOTS = STRIDE * TILE + KP - STRIDE; // 156 padded post2 rows one tile reads
+constexpr int MA = 160;                            // phase A rows: 10 m16 tiles >= SLOTS
+constexpr int WIN = STRIDE * (MA - 1) + KP;        // 668 padded h1 rows that they read
+constexpr int CC = 16;                             // h1 channels staged at a time
+constexpr int NT = 4;                              // n8 tiles per warp (32 channels)
+constexpr int MTA = 5;                             // phase A: m16 tiles per warp (80 rows)
+constexpr int MTB = TILE / 16;                     // phase B: m16 tiles per warp (32 rows)
+static_assert(MA >= SLOTS && 2 * MTA * 16 == MA && THREADS == 256, "2 x 4 warps in phase A");
+static_assert(SLOTS % 4 == 0 && WIN % 4 == 0, "8-byte aligned rows of shared memory");
+
+// The fp32 kernel's conversions: float only, so that nothing instantiates it for bf16.
 __device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // torch's 'reflect' (and the JAX _reflect_pad_rows): mirror without repeating the edge.
 // Valid for -n < r < 2n - 1.
@@ -213,23 +247,200 @@ enc23_kernel(const T* __restrict__ h1, const T* __restrict__ w2, const T* __rest
   }
 }
 
-template <typename T>
-int launch(const void* h1, const void* w2, const void* b2, const void* a2, const void* w3,
-           const void* b3, const void* a3, void* pre2, void* pre3, void* post3, int B, int C1,
-           int T1, int C2, int C3, cudaStream_t stream) {
+// c += a (16 x 16, row-major) * b (16 x 8, column-major) on the tensor cores; fragments
+// as the PTX ISA lays them out for m16n8k16: lane (g = lane / 4, t = lane % 4) holds
+// a = {A[g][2t..2t+1], A[g+8][2t..2t+1], A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]},
+// b = {B[2t..2t+1][g], B[2t+8..2t+9][g]}, c = {C[g][2t..2t+1], C[g+8][2t..2t+1]}.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp's share of a strided conv with 32 taps, on the tensor cores:
+//   acc[i][j] += sum over ci < cin, k < KP of a[ci * lda + 4 m + k] * w[(n * w_cin + ci) * KP + k]
+// for rows m = m0 + 16 i + (0..15) and channels n = n0 + 8 j + (0..7). m16 tiles
+// i >= mt_live and n8 tiles j >= nt_live are skipped (both warp-uniform). The 16-deep
+// step h of channel ci takes, at contraction index 2t + e and 2t + 8 + e (e = 0, 1), the
+// taps 8t + 4h + e and 8t + 4h + 2 + e: lane quad t's A values of a row are then four
+// adjacent bf16 (one 8-byte load) and its B values of both steps eight (one 16-byte load).
+template <int MT>
+__device__ __forceinline__ void warp_conv_mma(float (&acc)[MT][NT][4],
+                                              const __nv_bfloat16* a, int lda, int m0,
+                                              int mt_live,
+                                              const __nv_bfloat16* __restrict__ w, int w_cin,
+                                              int n0, int nt_live, int cin) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const __nv_bfloat16* a_lane = a + STRIDE * (m0 + g) + 8 * t;
+  const __nv_bfloat16* w_lane = w + (long long)(n0 + g) * w_cin * KP + 8 * t;
+#pragma unroll 2
+  for (int ci = 0; ci < cin; ++ci) {
+    uint4 b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      b[j] = j < nt_live ? __ldg(reinterpret_cast<const uint4*>(
+                               w_lane + ((long long)8 * j * w_cin + ci) * KP))
+                         : make_uint4(0, 0, 0, 0);
+    const __nv_bfloat16* a_ci = a_lane + ci * lda;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i >= mt_live) continue;
+        const __nv_bfloat16* p = a_ci + STRIDE * 16 * i + 4 * h;
+        const uint2 r0 = *reinterpret_cast<const uint2*>(p);               // row g
+        const uint2 r8 = *reinterpret_cast<const uint2*>(p + STRIDE * 8);  // row g + 8
+        const uint32_t af[4] = {r0.x, r8.x, r0.y, r8.y};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          if (j < nt_live) mma_bf16(acc[i][j], af, h ? b[j].z : b[j].x, h ? b[j].w : b[j].y);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float prelu(float p, float a) {
+  return fmaxf(p, 0.f) + a * fminf(p, 0.f);
+}
+
+// The bf16 kernel: w2 (C2, C1, KP) and w3 (C3, C2, KP), tap 31 zero. Dynamic shared
+// memory: post2 [C2][SLOTS], then the h1 chunk [CC][WIN].
+__global__ void __launch_bounds__(THREADS, 2)
+enc23_mma_kernel(const __nv_bfloat16* __restrict__ h1, const __nv_bfloat16* __restrict__ w2,
+                 const __nv_bfloat16* __restrict__ b2, const __nv_bfloat16* __restrict__ a2,
+                 const __nv_bfloat16* __restrict__ w3, const __nv_bfloat16* __restrict__ b3,
+                 const __nv_bfloat16* __restrict__ a3, __nv_bfloat16* __restrict__ pre2,
+                 __nv_bfloat16* __restrict__ pre3, __nv_bfloat16* __restrict__ post3, int C1,
+                 int T1, int C2, int C3, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* post2 = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* xs = post2 + C2 * SLOTS;  // C2 % 8 == 0 keeps it 16-byte aligned
+
+  const int T2 = T1 / STRIDE;
+  const int T3 = T2 / STRIDE;
+  const long long b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x % tiles) * TILE;
+  const int t_end = min(t0 + TILE, T3);
+  const int p0 = STRIDE * t0 - PAD_L;  // the real post2 row of slot 0, before reflection
+  // real post2 rows that land in slots [0, SLOTS); the mirrored ones are among them
+  const int lo = max(0, p0);
+  const int hi = min(T2 - 1, p0 + SLOTS - 1);
+  const int rows = hi - lo + 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const __nv_bfloat16* x = h1 + b * C1 * T1;
+
+  // Phase A: enc2 on post2 rows lo + m, m < rows, as 2 x 4 warps of 80 rows x 32 channels.
+  const int ma0 = (warp / 4) * MTA * 16;
+  const int mt_live_a = min(MTA, max(0, (rows - ma0 + 15) / 16));
+  for (int nb = 0; nb < C2; nb += 4 * NT * 8) {
+    const int n0 = nb + (warp % 4) * NT * 8;
+    const int nt_live = min(NT, max(0, (C2 - n0) / 8));
+    float acc[MTA][NT][4] = {};
+    for (int c0 = 0; c0 < C1; c0 += CC) {
+      const int cc = min(CC, C1 - c0);
+      __syncthreads();  // the previous chunk is no longer read
+      // padded h1 row STRIDE * lo + j of each channel, reflected at T1; rows past the
+      // padded end are clamped: only discarded rows m >= rows read them
+      for (int e = threadIdx.x; e < cc * WIN; e += THREADS) {
+        const int c = e / WIN;
+        const int j = e - c * WIN;
+        const int r = min(max(reflect(STRIDE * lo + j - PAD_L, T1), 0), T1 - 1);
+        xs[e] = x[(long long)(c0 + c) * T1 + r];
+      }
+      __syncthreads();
+      if (mt_live_a > 0 && nt_live > 0)
+        warp_conv_mma<MTA>(acc, xs, WIN, ma0, mt_live_a, w2 + c0 * KP, C1, n0, nt_live, cc);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt_live) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = n0 + 8 * j + 2 * t + (e & 1);
+        const float bco = b2 != nullptr ? __bfloat162float(b2[co]) : 0.f;
+        const float aco = __bfloat162float(a2[co]);
+#pragma unroll
+        for (int i = 0; i < MTA; ++i) {
+          const int m = ma0 + 16 * i + g + 8 * (e >> 1);
+          if (m >= rows) continue;
+          const float p = acc[i][j][e] + bco;
+          const int r = lo + m;
+          post2[co * SLOTS + r - p0] = __float2bfloat16(prelu(p, aco));
+          if (r >= STRIDE * t0 && r < STRIDE * t_end)
+            pre2[(b * C2 + co) * (long long)T2 + r] = __float2bfloat16(p);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every real row is in its slot
+  // The other slots: mirrored rows at either end (reflect at T2), else zero.
+  for (int co = warp; co < C2; co += THREADS / 32) {
+    for (int s = lane; s < SLOTS; s += 32) {
+      const int r = p0 + s;
+      if (r >= lo && r <= hi) continue;
+      const int src = r < 0 ? -r : 2 * T2 - 2 - r;
+      post2[co * SLOTS + s] = src >= lo && src <= hi ? post2[co * SLOTS + src - p0]
+                                                     : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();  // post2 complete before phase B reads it
+
+  // Phase B: enc3 on rows t0 + m, m < t_end - t0, as 8 warps of 32 rows x 32 channels.
+  const int mt_live_b = (t_end - t0 + 15) / 16;
+  for (int nb = 0; nb < C3; nb += (THREADS / 32) * NT * 8) {
+    const int n0 = nb + warp * NT * 8;
+    const int nt_live = min(NT, max(0, (C3 - n0) / 8));
+    if (nt_live <= 0) continue;
+    float acc[MTB][NT][4] = {};
+    warp_conv_mma<MTB>(acc, post2, SLOTS, 0, mt_live_b, w3, C2, n0, nt_live, C2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt_live) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = n0 + 8 * j + 2 * t + (e & 1);
+        const float bco = b3 != nullptr ? __bfloat162float(b3[co]) : 0.f;
+        const float aco = __bfloat162float(a3[co]);
+#pragma unroll
+        for (int i = 0; i < MTB; ++i) {
+          const int tt = t0 + 16 * i + g + 8 * (e >> 1);
+          if (tt >= t_end) continue;
+          const float p = acc[i][j][e] + bco;
+          const long long off = (b * C3 + co) * (long long)T3 + tt;
+          pre3[off] = __float2bfloat16(p);
+          post3[off] = __float2bfloat16(prelu(p, aco));
+        }
+      }
+    }
+  }
+}
+
+// Launches `kernel` on one block per (batch row, tile) with `smem` bytes of dynamic
+// shared memory, which above 48 KB must be allowed explicitly, or the launch is refused.
+template <typename T, typename Kernel>
+int launch(Kernel kernel, size_t smem, const void* h1, const void* w2, const void* b2,
+           const void* a2, const void* w3, const void* b3, const void* a3, void* pre2,
+           void* pre3, void* post3, int B, int C1, int T1, int C2, int C3,
+           cudaStream_t stream) {
   const int T3 = T1 / (STRIDE * STRIDE);
   const int tiles = (T3 + TILE - 1) / TILE;
   const long long blocks = (long long)B * tiles;
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  // post2's tile above 48 KB must be allowed explicitly, or the launch is refused
-  const size_t smem = (size_t)C2 * ROWS2 * sizeof(T);
-  const cudaError_t err = cudaFuncSetAttribute(
-      enc23_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it, so that a later launch does not report it
     return (int)err;
   }
-  enc23_kernel<T><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
       static_cast<const T*>(h1), static_cast<const T*>(w2), static_cast<const T*>(b2),
       static_cast<const T*>(a2), static_cast<const T*>(w3), static_cast<const T*>(b3),
       static_cast<const T*>(a3), static_cast<T*>(pre2), static_cast<T*>(pre3),
@@ -239,9 +450,11 @@ int launch(const void* h1, const void* w2, const void* b2, const void* a2, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. b2 and b3 may be null. Needs T1 % 16 == 0 and
-// T1 >= 64 (the reflect pad of 15 needs T1 / 4 >= 16). Launches on `stream` and returns
-// the cudaError_t (0 on success); it does not synchronise and allocates nothing.
+// dtype: 0 = float32, w2 (C2, C1, 31) and w3 (C3, C2, 31), the FMA kernel; 1 = bfloat16,
+// w2 (C2, C1, 32) and w3 (C3, C2, 32) with tap 31 zero, C2 % 8 == 0 and C3 % 8 == 0, the
+// MMA kernel. b2 and b3 may be null. Needs T1 % 16 == 0 and T1 >= 64 (the reflect pad of
+// 15 needs T1 / 4 >= 16). Launches on `stream` and returns the cudaError_t (0 on
+// success); it does not synchronise and allocates nothing.
 extern "C" int encoder_fused_launch(int dtype, const void* h1, const void* w2,
                                     const void* b2, const void* a2, const void* w3,
                                     const void* b3, const void* a3, void* pre2, void* pre3,
@@ -252,10 +465,13 @@ extern "C" int encoder_fused_launch(int dtype, const void* h1, const void* w2,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(h1, w2, b2, a2, w3, b3, a3, pre2, pre3, post3, B, C1, T1, C2, C3,
-                           s);
+      return launch<float>(enc23_kernel<float>, (size_t)C2 * ROWS2 * sizeof(float), h1, w2,
+                           b2, a2, w3, b3, a3, pre2, pre3, post3, B, C1, T1, C2, C3, s);
     case 1:
-      return launch<__nv_bfloat16>(h1, w2, b2, a2, w3, b3, a3, pre2, pre3, post3, B, C1, T1,
+      if (C2 % 8 != 0 || C3 % 8 != 0) return (int)cudaErrorInvalidValue;
+      return launch<__nv_bfloat16>(enc23_mma_kernel,
+                                   ((size_t)C2 * SLOTS + CC * WIN) * sizeof(__nv_bfloat16),
+                                   h1, w2, b2, a2, w3, b3, a3, pre2, pre3, post3, B, C1, T1,
                                    C2, C3, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -14,6 +14,10 @@ kernel of the port:
   ``launches`` counts the kernel launches. Forward only, as the Pallas kernel.
 - ``_launch``: the launch itself, which also takes preallocated outputs.
 
+The kernel is two: fp32 runs FMAs on the CUDA cores; bf16 runs on the tensor cores
+(``mma.sync``) and takes the weights padded to 32 taps (``_pad_taps``), with C2 and C3
+multiples of 8.
+
 Layout (torch's, not the JAX package's): h1, enc1's post-activation, (B, C1, T1)
 unpadded, with T1 % 16 == 0 and T1 >= 64; w2 (C2, C1, 31); b2 (C2,) or None; a2 (C2,);
 likewise w3, b3, a3 with C3. Outputs, in h1's dtype: pre2 (B, C2, T1/4), pre3 and post3
@@ -27,6 +31,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..conv import reflect_pad_1d
 from . import build
@@ -38,6 +43,7 @@ launches = 0
 K = 31  # taps and stride are fixed, as in the Pallas kernel
 S = 4
 PAD = (K // 2 - 1, K // 2)
+KP = 32  # taps of the bf16 kernel's weights: K and a zero tap
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -51,6 +57,14 @@ def enc23_plain(h1: torch.Tensor, w2: torch.Tensor, b2: Optional[torch.Tensor],
     # post2 is in h1's dtype, so in bf16 enc3 reads it rounded, as the kernels do
     post3, pre3 = conv1d_prelu_plain(reflect_pad_1d(post2, *PAD), w3, b3, a3, S)
     return pre2, pre3, post3
+
+
+def _pad_taps(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 31) weights as (Cout, Cin, 32), tap 31 zero: the counterpart of the
+    Pallas kernel's ``_fold_weights``, which pads to 32 taps too. A stride-4 conv of the
+    reflect-padded input (T + 29 rows) with these gives the same T / 4 rows: the last
+    window's tap 31 still lies in range, and adds zero."""
+    return F.pad(w, (0, KP - K)).contiguous()
 
 
 def _check(h1, w2, b2, a2, w3, b3, a3) -> None:
@@ -100,8 +114,13 @@ def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None) -> Output
         raise ValueError("the CUDA kernel needs contiguous inputs")
     B, c1, t1 = h1.shape
     c2, c3 = w2.shape[0], w3.shape[0]
-    if max(B, c1 * K, t1, c2 * K, c3) >= 2 ** 31:
+    if max(B, c1 * KP, t1, c2 * KP, c3) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
+    if h1.dtype == torch.bfloat16:
+        if c2 % 8 or c3 % 8:
+            raise ValueError(f"the bf16 kernel runs whole n8 tiles of the tensor cores: C2 = "
+                             f"{c2} and C3 = {c3} must be multiples of 8")
+        w2, w3 = _pad_taps(w2), _pad_taps(w3)
     shapes = ((B, c2, t1 // S), (B, c3, t1 // (S * S)), (B, c3, t1 // (S * S)))
     if out is None:
         out = tuple(torch.empty(s, dtype=h1.dtype, device=h1.device) for s in shapes)

@@ -153,6 +153,129 @@ def test_tool_main_needs_cuda(monkeypatch):
         bench.main(["--batch", "1"])
 
 
+# enc23_mma_kernel's tiling, its constants as in csrc/encoder_fused.cu
+TILE, SLOTS, MA, WIN, CC = 32, 156, 160, 668, 16
+
+
+def _mma_taps():
+    """taps[h, k]: the tap that MMA step h of an input channel takes at contraction index
+    k. In the m16n8k16 fragments lane quad q holds k = 2q, 2q + 1 and 2q + 8, 2q + 9; the
+    kernel loads taps 8q + 4h + 0..3 of its row (A) and of its channel (B) there."""
+    taps = np.empty((2, 16), np.int64)
+    for h in range(2):
+        for q in range(4):
+            taps[h, [2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9]] = 8 * q + 4 * h + np.arange(4)
+    return taps
+
+
+def _reflect(r, n):
+    r = np.abs(r)
+    return np.where(r >= n, 2 * n - 2 - r, r)
+
+
+def _prelu(p, a):
+    return np.maximum(p, 0) + a * np.minimum(p, 0)
+
+
+def _emulate_mma_kernel(h1, w2, b2, a2, w3, b3, a3):
+    """What enc23_mma_kernel computes, block by block, in float64 numpy (port layout):
+    the h1 window staged CC channels at a time (reflected at T1 from the even row 4 lo,
+    clamped past the end), the 32-tap padded weights, post2 by padded slot with the mirror
+    fill at both ends, and the A operand read at 4 m + tap. Output rows that no block
+    writes stay NaN."""
+    B, C1, T1 = h1.shape
+    C2, C3 = w2.shape[0], w3.shape[0]
+    T2, T3 = T1 // 4, T1 // 16
+    w2p, w3p = (EF._pad_taps(torch.from_numpy(w)).numpy() for w in (w2, w3))
+    b2 = np.zeros(C2) if b2 is None else b2
+    b3 = np.zeros(C3) if b3 is None else b3
+    taps = _mma_taps()
+    pre2 = np.full((B, C2, T2), np.nan)
+    pre3, post3 = np.full((B, C3, T3), np.nan), np.full((B, C3, T3), np.nan)
+    dot = lambda a, w: np.tensordot(a, w, axes=([0, 2], [1, 2]))  # (ci, m, k) x (n, ci, k)
+    for b in range(B):
+        for t0 in range(0, T3, TILE):
+            t_end = min(t0 + TILE, T3)
+            p0 = 4 * t0 - 14  # the real post2 row of slot 0
+            lo, hi = max(0, p0), min(T2 - 1, p0 + SLOTS - 1)
+            assert lo % 2 == 0
+            # phase A: rows m < MA; window row j is padded h1 row 4 lo + j
+            win = np.clip(_reflect(4 * lo + np.arange(WIN) - 14, T1), 0, T1 - 1)
+            m = np.arange(MA)[:, None]
+            acc = np.zeros((MA, C2))
+            for c0 in range(0, C1, CC):
+                xs = h1[b, c0:c0 + CC][:, win]
+                for h in range(2):
+                    acc += dot(xs[:, 4 * m + taps[h]], w2p[:, c0:c0 + CC][:, :, taps[h]])
+            pre = acc[:hi - lo + 1] + b2
+            post2 = np.full((C2, SLOTS), np.nan)  # slot s: padded post2 row 4 t0 + s
+            post2[:, lo - p0:hi - p0 + 1] = _prelu(pre, a2).T
+            pre2[b, :, 4 * t0:4 * t_end] = pre[4 * t0 - lo:4 * t_end - lo].T
+            for s in range(SLOTS):
+                r = p0 + s
+                if lo <= r <= hi:
+                    continue
+                src = -r if r < 0 else 2 * T2 - 2 - r
+                post2[:, s] = post2[:, src - p0] if lo <= src <= hi else 0.0
+            assert not np.isnan(post2).any()
+            # phase B: rows m < TILE, those past t_end discarded
+            m = np.arange(TILE)[:, None]
+            acc = sum(dot(post2[:, 4 * m + taps[h]], w3p[:, :, taps[h]]) for h in range(2))
+            pre = acc[:t_end - t0] + b3
+            pre3[b, :, t0:t_end] = pre.T
+            post3[b, :, t0:t_end] = _prelu(pre, a3).T
+    return pre2, pre3, post3
+
+
+def test_mma_taps_cover_the_padded_taps():
+    taps = _mma_taps()
+    assert sorted(taps.ravel()) == list(range(EF.KP))
+    # each lane's four A values of a row, and eight B values of both steps, are adjacent
+    for q in range(4):
+        quad = taps[:, [2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9]]
+        assert quad.ravel().tolist() == list(range(8 * q, 8 * q + 8))
+
+
+@pytest.mark.parametrize("B,T1,C1,C2,C3,bias", [
+    (1, 4096, 64, 128, 256, False),  # SEGAN+ widths, 8 tiles
+    (3, 64, 5, 24, 40, True),        # one tile touching both mirrored ends
+    (2, 592, 5, 24, 40, False),      # a last tile of 5 rows
+], ids=["full width B=1", "T1=64", "ragged T1=592"])
+def test_mma_kernel_index_maps_match_plain(B, T1, C1, C2, C3, bias):
+    inputs = [None if v is None else torch.from_numpy(np.ascontiguousarray(v)).double()
+              for v in _to_port(*_jax_inputs(B, T1, C1, C2, C3, bias))]
+    want = EF.enc23_plain(*inputs)
+    got = _emulate_mma_kernel(*[None if v is None else v.numpy() for v in inputs])
+    for g, w in zip(got, want):
+        assert g.shape == tuple(w.shape)
+        np.testing.assert_allclose(g, w.numpy(), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("T1", [64, 592, 4096])
+def test_pad_taps_adds_a_zero_tap(T1):
+    rng = np.random.RandomState(T1)
+    x = EF.reflect_pad_1d(torch.from_numpy(rng.randn(2, 5, T1)), *EF.PAD)
+    w = torch.from_numpy(rng.randn(7, 5, EF.K))
+    wp = EF._pad_taps(w)
+    assert x.shape[2] == T1 + 29 and wp.shape == (7, 5, EF.KP) and wp.is_contiguous()
+    assert torch.equal(wp[..., :EF.K], w) and not wp[..., EF.K:].any()
+    want = torch.nn.functional.conv1d(x, w, stride=EF.S)
+    got = torch.nn.functional.conv1d(x, wp, stride=EF.S)
+    assert got.shape == (2, 7, T1 // EF.S)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_bf16_launch_needs_whole_n8_tiles():
+    """The bf16 kernel's rule, which _launch checks before it reaches the card (on the
+    card chip_smoke.py checks it too); the public wrapper takes the plain version here."""
+    args = [None if v is None else v.bfloat16()
+            for v in _to_port(*_jax_inputs(1, 64, 5, 24, 36, True))]
+    before = EF.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        EF._launch(*args)
+    assert EF.launches == before
+
+
 def _bad_inputs(case):
     args = list(_to_port(*_jax_inputs(1, 128, 3, 4, 5, True)))
     if case == "T1 % 16":
