@@ -6,32 +6,45 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build both hand-written kernels from segan_pytorch_tpu_torch/csrc/, one nvcc each,
-     started together;
-  3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the
-     card, at the five SEGAN+ encoder shapes for 1 and 8 16384-sample chunks and two
-     ragged shapes, fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), into
-     NaN-filled outputs, with per-layer times (CUDA events, median of 20 after 3 warm-ups);
+  2. build both hand-written kernel sources from segan_pytorch_tpu_torch/csrc/, one nvcc
+     each, started together;
+  3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
+     into NaN-filled outputs, at the five SEGAN+ encoder shapes for 1, 8, 64 and 300
+     16384-sample chunks and at edge shapes (bias, T_in = 4 (T_out - 1) + 31, ragged,
+     stride 1): fp32 (TF32 off, relative error <= 1e-4) on the FMA kernel; bf16 (<= 2e-2)
+     on the route the wrapper picks, read from its counters (main-path shapes: tensor
+     cores, the ragged and stride-1 shapes: FMA), and on the FMA route forced. Times in
+     turns (CUDA events, median of 20 after 3 warm-ups): kernel, plain and cuDNN's
+     F.conv1d alone, and in bf16 both routes; TFLOP/s and share of peak, bounds, and
+     encoder sums per batch. At 64 and 300 chunks the tensor cores must take at most
+     half the FMA route's time;
   3b. the chained kernel (fused_enc23_fwd: fp32 FMAs, bf16 on the tensor cores) vs
      enc23_plain, into NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64,
      4096) -> 128 -> 256) for B = 1, 8 and 300, with and without bias, and at two narrow
      odd shapes, in fp32 and bf16 with the same limits; at B = 300 also vs the per-layer
-     kernel chain. Times of the three arms of the A/B tool at B = 1, 8 and 300, fp32 and
-     bf16. A bf16 call with C3 = 36 must raise ValueError (whole n8 tiles) and launch
-     nothing;
+     kernel chain. Times of the three arms of the A/B tool and of cuDNN's two convs
+     alone at B = 1, 8 and 300, fp32 and bf16. A bf16 call with C3 = 36 must raise
+     ValueError (whole n8 tiles) and launch nothing;
   3c. the A/B tool (python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench) at its
      defaults, batch 300 bf16: both kernels must launch in it, and the chained kernel's
      outputs must agree with the plain chain within 2e-2;
+  3d. the TF32 policy: with cuDNN's TF32 on process-wide, a bare fp32 GDeconv1DBlock and
+     Conv1dPReLU's backward convs on the card vs float64 on the CPU (<= 1e-4); the
+     deconv's error with the ops' policy bypassed is printed beside it;
   4. the slice: a full-width SEGAN+ generator (seeded init, PReLU slopes U(0, 0.3))
-     saved as a reference-format .ckpt + train.opts, then the port's clean.py CLI on
-     8 synthetic wavs with --batch_utts 1 and 4. Checks: outputs finite and of their
-     inputs' lengths, the kernel launched 5 times per G forward, batched == sequential,
-     and the card's generate() == a CPU copy's (plain ops) within 1e-3 relative. Prints
-     audio seconds enhanced per wall second and G chunks/s at batch 64.
-The line before the last is the JSON kernel report (launches of fused_conv1d_prelu
-from phase 4, of fused_enc23_fwd from phase 3c); the last is
+     saved as a reference-format .ckpt + train.opts, then the port's clean.py CLI
+     (--device cuda) on 8 synthetic wavs with --batch_utts 1 and 4 in fp32 and 4 in bf16.
+     Checks: outputs finite and of their inputs' lengths, the kernel launched 5 times per
+     G forward (in bf16 all 5 on the tensor cores), batched == sequential, and the card's
+     generate() == a CPU copy's (plain ops) within 1e-3 relative. Prints audio seconds
+     enhanced per wall second and G chunks/s at batch 64, fp32 and bf16 (both routes of
+     the per-layer kernel, in turns).
+The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
+phase 4, its times the bf16 encoder sum at 64 chunks; launches of fused_enc23_fwd from
+phase 3c, its times the tool's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -112,35 +125,62 @@ def phase_build():
     print(f"build: {len(names)} kernels in {secs:.2f} s")
 
 
+BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
+FP32_PEAK = 67e12   # fp32 FLOP/s outside the tensor cores
+HBM_RATE = 3.35e12  # device memory bytes/s
+
+
+def enc23_work(b, t1, c1, c2, c3, has_bias, itemsize):
+    """(operations, bytes) of fused_enc23_fwd: the two convs' useful FLOPs; h1, the
+    weights, biases and slopes read once, pre2, pre3 and post3 written once."""
+    kw = 31
+    flops = 2.0 * b * kw * (t1 // 4 * c2 * c1 + t1 // 16 * c3 * c2)
+    elems = (b * c1 * t1 + kw * (c2 * c1 + c3 * c2) + (2 if has_bias else 1) * (c2 + c3)
+             + b * c2 * t1 // 4 + 2 * b * c3 * t1 // 16)
+    return flops, itemsize * elems
+
+
+def bound_ms(flops, nbytes, peak) -> float:
+    """The least time the card could take: the larger of the operations at `peak` and
+    the bytes (each input read once, each output written once) at HBM_RATE."""
+    return 1e3 * max(flops / peak, nbytes / HBM_RATE)
+
+
 def phase_kernel():
-    """Kernel vs plain on the card, at the encoder shapes of one chunk (clean.py on a
-    short wav) and of batch 8, and at two ragged shapes. Returns (max fp32 abs error
-    at the encoder shapes, kernel ms, plain ms), the times summed over the five
-    encoder layers at batch 8."""
+    """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks and
+    at edge shapes; each route's choice read from its counter. Returns the bf16 results
+    at B = 64 for the kernels line."""
     import torch
+    import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import cuda_ms
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(SEED)
     T, Kw, S = 16384, 31, 4
     chans = [1, 64, 128, 256, 512, 1024]
-    cases = []  # (label, B, Cin, T_in, Cout, K, stride, bias, main_path)
-    for B in (1, 8):
+    cases = []  # (label, B, Cin, T_in, Cout, K, stride, bias, main path, bf16 route)
+    for B in (1, 8, 64, 300):
         t = T
         for i in range(5):
-            cases.append((f"B={B} enc{i + 1}", B, chans[i], t + Kw - 2, chans[i + 1], Kw, S,
-                          False, True))
             t //= S
-    cases.append(("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, False))
-    cases.append(("stride 1", 2, 48, 300, 40, Kw, 1, True, False))
-    max_abs = 0.0
-    totals = {}  # B -> [kernel ms, plain ms] over the encoder layers
-    print(f"{'layer':>17} {'x shape':>18} {'Cout':>5} {'T_out':>5} | "
-          f"{'rel fp32':>9} {'rel bf16':>9} | {'kernel ms':>9} {'plain ms':>9} | "
-          f"{'bf16 k ms':>9} {'bf16 p ms':>9}")
-    for label, b, cin, t_in, cout, kw, s, has_bias, main in cases:
+            cases.append((f"B={B} enc{i + 1}", B, chans[i], S * t + Kw - 2, chans[i + 1], Kw,
+                          S, False, True, "mma"))
+    cases += [
+        ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, False, "mma"),
+        ("T_in=91 bias", 3, 512, 91, 1024, Kw, S, True, False, "mma"),  # reads x[91]: 0
+        ("T_in=1051 bias", 2, 128, 1051, 256, Kw, S, True, False, "mma"),
+        ("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, False, "fma"),
+        ("stride 1", 2, 48, 300, 40, Kw, 1, True, False, "fma"),
+    ]
+    sums = {}  # (B, column) -> ms summed over the five encoder layers
+    max_abs = {}  # B -> max |mma - plain| over the bf16 encoder layers
+    print(f"{'layer':>16} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
+          f"{'bf16':>8} {'bf16 fma':>8} | {'fp32 ms':>8} {'plain':>8} {'cuDNN':>8} | "
+          f"{'mma ms':>8} {'fma ms':>8} {'plain':>8} {'cuDNN':>8} | {'TFLOP/s':>7} "
+          f"{'peak':>6} | bound ms fp32, bf16")
+    for label, b, cin, t_in, cout, kw, s, has_bias, main, route in cases:
         x = torch.randn((b, cin, t_in), generator=g).cuda()
         w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
         bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
@@ -148,36 +188,92 @@ def phase_kernel():
         t_out = K._check(x, w, bias, a, s)
         shape = (b, cout, t_out)
         assert t_out == (t_in - kw) // s + 1, (label, t_out)
+        if (t_in - kw) % s == 0 and route == "mma":
+            assert s * (t_out - 1) + K.KP - 1 == t_in, label  # the zero tap reads x[T_in]
+        # fp32: the FMA kernel, as before
+        before = K.launches_mma
         y, pre = K._launch(x, w, bias, a, s, t_out,
                            out=nan_outputs(shape, shape, dtype=x.dtype))
         y_ref, pre_ref = K.conv1d_prelu_plain(x, w, bias, a, s)
         torch.cuda.synchronize()
+        assert K.launches_mma == before, f"{label}: fp32 took the MMA route"
         e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
         assert e32 <= FP32_TOL, f"{label}: fp32 kernel vs plain rel err {e32:.3e} > {FP32_TOL}"
-        if main:
-            max_abs = worst([max_abs, float((y - y_ref).abs().max()),
-                             float((pre - pre_ref).abs().max())])
+        del y, pre, y_ref, pre_ref
+        t32 = ms_in_turns({
+            "kernel": lambda: K.fused_conv1d_prelu(x, w, bias, a, s),
+            "plain": lambda: K.conv1d_prelu_plain(x, w, bias, a, s),
+            "cuDNN": lambda: F.conv1d(x, w, bias, stride=s)})
+        # bf16: the route that _route picks, then the FMA kernel forced
         hb = [v.bfloat16() if v is not None else None for v in (x, w, bias, a)]
+        del x, w
+        before = K.launches_mma
         yb, preb = K._launch(*hb, s, t_out,
                              out=nan_outputs(shape, shape, dtype=torch.bfloat16))
         yb_ref, preb_ref = K.conv1d_prelu_plain(*hb, s)
         torch.cuda.synchronize()
+        took = "mma" if K.launches_mma == before + 1 else "fma"
+        assert took == route, f"{label}: bf16 took the {took} route, not {route}"
         assert yb.dtype == torch.bfloat16
         e16 = worst([rel_err(yb, yb_ref), rel_err(preb, preb_ref)])
-        assert e16 <= BF16_TOL, f"{label}: bf16 kernel vs plain rel err {e16:.3e} > {BF16_TOL}"
-        k_ms = cuda_ms(lambda: K.fused_conv1d_prelu(x, w, bias, a, s))
-        p_ms = cuda_ms(lambda: K.conv1d_prelu_plain(x, w, bias, a, s))
-        kb_ms = cuda_ms(lambda: K.fused_conv1d_prelu(*hb, s))
-        pb_ms = cuda_ms(lambda: K.conv1d_prelu_plain(*hb, s))
+        assert e16 <= BF16_TOL, f"{label}: bf16 {took} vs plain rel err {e16:.3e} > {BF16_TOL}"
         if main:
-            tot = totals.setdefault(b, [0.0, 0.0])
-            tot[0] += k_ms
-            tot[1] += p_ms
-        print(f"{label:>17} {str((b, cin, t_in)):>18} {cout:>5} {t_out:>5} | "
-              f"{e32:9.2e} {e16:9.2e} | {k_ms:9.4f} {p_ms:9.4f} | {kb_ms:9.4f} {pb_ms:9.4f}")
-    for b, (k_ms, p_ms) in totals.items():
-        print(f"encoder total (B={b}, fp32): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return max_abs, totals[8][0], totals[8][1]
+            max_abs[b] = worst([max_abs.get(b, 0.0), float((yb - yb_ref).abs().max()),
+                                float((preb - preb_ref).abs().max())])
+        del yb, preb
+        e16f = float("nan")
+        arms = {"mma": lambda: K.fused_conv1d_prelu(*hb, s)}
+        if route == "mma":
+            yf, pref = K._launch(*hb, s, t_out, force_fma=True,
+                                 out=nan_outputs(shape, shape, dtype=torch.bfloat16))
+            torch.cuda.synchronize()
+            e16f = worst([rel_err(yf, yb_ref), rel_err(pref, preb_ref)])
+            assert e16f <= BF16_TOL, f"{label}: bf16 fma vs plain rel err {e16f:.3e}"
+            del yf, pref
+            arms["fma"] = lambda: K._launch(*hb, s, t_out, force_fma=True)
+        else:
+            arms = {"fma": arms["mma"]}
+        del yb_ref, preb_ref
+        arms["plain"] = lambda: K.conv1d_prelu_plain(*hb, s)
+        arms["cuDNN"] = lambda: F.conv1d(hb[0], hb[1], hb[2], stride=s)
+        t16 = ms_in_turns(arms)
+        flops = 2.0 * b * t_out * cout * cin * kw
+        nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
+                      + 2 * b * cout * t_out)  # in bf16: x, w, b, a read, y, pre written
+        kernel_ms = t16.get("mma", t16["fma"])
+        if cin == 1:  # bound by memory: bytes/s and the share of the memory rate
+            rate = nbytes / kernel_ms * 1e3
+            rate = f"{rate * 1e-12:.3f} TB/s {rate / HBM_RATE:6.1%}"
+        else:  # bound by operations: TFLOP/s and the share of the bf16 peak
+            rate = flops / kernel_ms * 1e3
+            rate = f"{rate * 1e-12:7.1f} {rate / BF16_PEAK:6.1%}"
+        b32 = bound_ms(flops, 2 * nbytes, FP32_PEAK)
+        b16 = bound_ms(flops, nbytes, BF16_PEAK)
+        if main:
+            for col, v in [("fp32 kernel", t32["kernel"]), ("fp32 plain", t32["plain"]),
+                           ("fp32 cuDNN", t32["cuDNN"]), ("fp32 bound", b32),
+                           ("bf16 mma", t16["mma"]), ("bf16 fma", t16["fma"]),
+                           ("bf16 plain", t16["plain"]), ("bf16 cuDNN", t16["cuDNN"]),
+                           ("bf16 bound", b16)]:
+                sums[b, col] = sums.get((b, col), 0.0) + v
+        print(f"{label:>16} {str((b, cin, t_in)):>19} {cout:>5} {t_out:>5} | {e32:8.1e} "
+              f"{e16:8.1e} {e16f:8.1e} | {t32['kernel']:8.4f} {t32['plain']:8.4f} "
+              f"{t32['cuDNN']:8.4f} | {t16.get('mma', float('nan')):8.4f} "
+              f"{t16['fma']:8.4f} {t16['plain']:8.4f} {t16['cuDNN']:8.4f} | {rate} | "
+              f"{b32:.4f} {b16:.4f}", flush=True)
+        del hb
+    for b in (1, 8, 64, 300):
+        print(f"encoder sum B={b}: " + ", ".join(
+            f"{col} {sums[b, col]:.4f}" for col in ("fp32 kernel", "fp32 plain", "fp32 cuDNN",
+                                                    "fp32 bound", "bf16 mma", "bf16 fma",
+                                                    "bf16 plain", "bf16 cuDNN", "bf16 bound"))
+              + f" ms; bf16 mma / fma {sums[b, 'bf16 mma'] / sums[b, 'bf16 fma']:.3f}, "
+              f"mma / cuDNN {sums[b, 'bf16 mma'] / sums[b, 'bf16 cuDNN']:.3f}")
+        if b >= 64:  # the tensor cores must at least halve the FMA route's time there
+            assert sums[b, "bf16 mma"] <= 0.5 * sums[b, "bf16 fma"], (b, sums)
+    return dict(max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
+                plain_ms=sums[64, "bf16 plain"], bound_ms=sums[64, "bf16 bound"],
+                bound_by="operations", library_ms=sums[64, "bf16 cuDNN"])
 
 
 def phase_enc23():
@@ -185,7 +281,10 @@ def phase_enc23():
     also vs the per-layer kernel chain. Returns the max fp32 abs error at the SEGAN+
     widths."""
     import torch
+    import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.ops.conv import reflect_pad_1d
     from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
+    from segan_pytorch_tpu_torch.ops.kernels.conv1d_prelu import conv1d_prelu_plain
     from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
 
     torch.backends.cudnn.allow_tf32 = False
@@ -203,7 +302,7 @@ def phase_enc23():
              for dtype in (torch.float32, torch.bfloat16)}
     max_abs = 0.0
     print(f"{'case':>18} {'dtype':>8} | {'rel err':>9} {'vs x2':>9} | "
-          f"{'plain ms':>9} {'x2 ms':>9} {'fused ms':>9}")
+          f"{'plain ms':>9} {'x2 ms':>9} {'fused ms':>9} {'cuDNN x2':>9} {'bound':>9}")
     for label, b, t1, c1, c2, c3, has_bias, full in cases:
         h1 = torch.randn((b, c1, t1), generator=g).cuda()
         w2 = (torch.randn((c2, c1, EF.K), generator=g) / (c1 * EF.K) ** 0.5).cuda()
@@ -233,6 +332,16 @@ def phase_enc23():
             if (label, dtype) in timed:
                 line += " ".join(f"{bench.cuda_ms(lambda: arm(*args)):9.4f}"
                                  for arm in bench.ARMS.values())
+                # the library's share of the plain chain: cuDNN's two convs alone
+                h1p = reflect_pad_1d(args[0], *EF.PAD)
+                p2p = reflect_pad_1d(conv1d_prelu_plain(h1p, *args[1:4], EF.S)[0], *EF.PAD)
+                line += " {:9.4f}".format(bench.cuda_ms(lambda: (
+                    F.conv1d(h1p, args[1], args[2], stride=EF.S),
+                    F.conv1d(p2p, args[4], args[5], stride=EF.S))))
+                del h1p, p2p
+                flops, nbytes = enc23_work(b, t1, c1, c2, c3, has_bias, args[0].element_size())
+                line += " {:9.4f}".format(bound_ms(
+                    flops, nbytes, BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK))
             print(line, flush=True)
     bad = [(torch.randn(s, generator=g) * 0.1).cuda().bfloat16()
            for s in ((1, 5, 64), (24, 5, EF.K), (24,), (24,), (36, 24, EF.K), (36,), (36,))]
@@ -255,14 +364,66 @@ def phase_tool():
     from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
     from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
 
-    K.launches = EF.launches = 0
+    K.launches = K.launches_mma = EF.launches = 0
     res = bench.main([])
     torch.cuda.synchronize()
     counts = {"fused_conv1d_prelu": K.launches, "fused_enc23_fwd": EF.launches}
-    print(f"kernel launches in the A/B tool: {counts}")
+    print(f"kernel launches in the A/B tool: {counts}, {K.launches_mma} of the per-layer "
+          f"kernel's on the tensor cores")
     assert all(n > 0 for n in counts.values()), counts
+    assert K.launches_mma == K.launches, "kernel x2 left the tensor cores"
     assert all(e <= BF16_TOL for e in res["rel"].values()), res["rel"]
     return res, counts
+
+
+def phase_tf32():
+    """The port's TF32 policy: with cuDNN's TF32 switched on process-wide (PyTorch's
+    default), a bare fp32 GDeconv1DBlock at G's second decoder shape and the convs of
+    Conv1dPReLU's backward at enc3's shape still match float64 on the CPU. TF32 stays on
+    for phase 4, whose card-vs-CPU check then rests on the ops' policy alone."""
+    import torch
+    from segan_pytorch_tpu_torch.models.modules import GDeconv1DBlock
+    from segan_pytorch_tpu_torch.ops import conv as conv_ops
+    from segan_pytorch_tpu_torch.ops.conv import conv1d_weight, conv_transpose1d
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    torch.backends.cudnn.allow_tf32 = True
+    gen = torch.Generator().manual_seed(SEED + 5)
+    blk = GDeconv1DBlock(1024, 256, 31, stride=4, generator=gen)
+    with torch.no_grad():
+        blk.act.weight.uniform_(0.0, 0.3, generator=gen)
+    x = torch.randn((8, 1024, 64), generator=gen)
+    with torch.no_grad():
+        got = blk.cuda()(x.cuda()).cpu()
+        # the same with the policy bypassed: what the check would see without it
+        policy = conv_ops.full_precision
+        conv_ops.full_precision = lambda dtype: contextlib.nullcontext()
+        try:
+            bypassed = blk(x.cuda()).cpu()
+        finally:
+            conv_ops.full_precision = policy
+        want = blk.cpu().double()(x.double())
+    e_dec, e_bypassed = rel_err(got, want), rel_err(bypassed, want)
+    # Conv1dPReLU's backward on the card vs its convs in float64, from the card's own
+    # pre (a pre within rounding of 0 may take the other PReLU branch in float64)
+    x = torch.randn((8, 128, 1053), generator=gen)
+    w = torch.randn((256, 128, 31), generator=gen) / (128 * 31) ** 0.5
+    a = torch.rand((256,), generator=gen) * 0.3
+    gy, gpre = (torch.randn((8, 256, 256), generator=gen) for _ in range(2))
+    xc, wc, ac = (v.cuda().requires_grad_() for v in (x, w, a))
+    y, pre = K.conv1d_prelu(xc, wc, None, ac, 4)
+    torch.autograd.backward([y, pre], [gy.cuda(), gpre.cuda()])
+    pre64 = pre.detach().cpu().double()
+    dpre = torch.where(pre64 > 0, gy.double(), gy.double() * a.double().view(1, -1, 1))
+    dpre = dpre + gpre.double()
+    dx = conv_transpose1d(dpre, w.double(), stride=4)
+    dx = torch.nn.functional.pad(dx, (0, x.shape[2] - dx.shape[2]))
+    dw = conv1d_weight(x.double(), w.shape, dpre, stride=4)
+    e_dx, e_dw = rel_err(xc.grad.cpu(), dx), rel_err(wc.grad.cpu(), dw)
+    print(f"TF32 on process-wide: fp32 GDeconv1DBlock (8, 1024, 64) -> 256 vs float64 rel "
+          f"err {e_dec:.3e} ({e_bypassed:.3e} with the ops' policy bypassed); "
+          f"Conv1dPReLU backward dx {e_dx:.3e}, dw {e_dw:.3e}")
+    assert worst([e_dec, e_dx, e_dw]) <= FP32_TOL, (e_dec, e_dx, e_dw)
 
 
 def _write_wavs(wav_dir: Path):
@@ -287,7 +448,7 @@ def phase_slice(work: Path):
     from segan_pytorch_tpu_torch.models.generator import build_generator
     from segan_pytorch_tpu_torch.models.segan import SEGAN
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import cuda_ms
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import cuda_ms, ms_in_turns
     from segan_pytorch_tpu_torch.utils.checkpoint import save_generator
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig, dump_train_opts
 
@@ -310,37 +471,52 @@ def phase_slice(work: Path):
     chunks = [-(-n // cfg.slice_size) for n in lengths]
     print(f"wavs: {len(lengths)}, {audio_s:.2f} s of audio, chunks per wav {chunks}")
 
-    outs = {}
-    K.launches = 0
-    n_forwards = 0
-    for b in (1, 4):
-        out_dir = work / f"synth_b{b}"
+    def run_clean(opts, b, out_dir):
         out_dir.mkdir()
         args = clean.build_parser().parse_args([
-            "--g_pretrained_ckpt", str(ckpt), "--cfg_file", opts_file,
+            "--g_pretrained_ckpt", str(ckpt), "--cfg_file", opts,
             "--test_files", str(wav_dir), "--synthesis_path", str(out_dir),
-            "--seed", str(SEED), "--batch_utts", str(b)])
+            "--seed", str(SEED), "--batch_utts", str(b), "--device", "cuda"])
         t0 = time.perf_counter()
         clean.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        n_forwards += -(-len(lengths) // b)
-        print(f"clean.py --batch_utts {b}: {audio_s / wall:.2f} s of audio per wall second "
-              f"({audio_s:.2f} s in {wall:.3f} s, model load included)")
-        outs[b] = []
+        ys = []
         for i, n in enumerate(lengths):
             path = out_dir / f"utt{i}.wav"
             assert path.exists(), f"missing output {path}"
             _, y = read_wav_raw(str(path))
             assert y.shape == (n,), f"{path}: {y.shape} != ({n},)"
             assert np.isfinite(y).all(), f"{path}: non-finite samples"
-            outs[b].append(y)
-    launches = K.launches
-    print(f"kernel launches on the main path: {launches} for {n_forwards} G forwards")
-    assert launches >= 5 * n_forwards, f"{launches} launches < 5 per G forward"
-    for y1, y4 in zip(outs[1], outs[4]):
+            ys.append(y)
+        return ys, wall
+
+    # the main path: clean.py in fp32 (the FMA kernel), then in bf16 (the tensor cores)
+    cfg_bf16 = SEGANConfig(no_bias=True, compute_dtype="bfloat16", save_path=str(work))
+    opts_bf16 = dump_train_opts(cfg_bf16, str(work / "bf16"))
+    outs = {}
+    K.launches = K.launches_mma = 0
+    n_forwards = 0
+    for b in (1, 4):
+        outs[b], wall = run_clean(opts_file, b, work / f"synth_b{b}")
+        n_forwards += -(-len(lengths) // b)
+        print(f"clean.py --batch_utts {b}: {audio_s / wall:.2f} s of audio per wall second "
+              f"({audio_s:.2f} s in {wall:.3f} s, model load included)")
+    fp32_launches = K.launches
+    assert fp32_launches >= 5 * n_forwards and K.launches_mma == 0, (
+        f"{fp32_launches} launches ({K.launches_mma} MMA) for {n_forwards} fp32 G forwards")
+    y_bf, wall = run_clean(opts_bf16, 4, work / "synth_bf16")
+    n_bf16 = -(-len(lengths) // 4)
+    launches, launches_mma = K.launches, K.launches_mma
+    print(f"clean.py bf16 --batch_utts 4: {audio_s / wall:.2f} s of audio per wall second")
+    print(f"kernel launches on the main path: {launches} ({launches_mma} on the MMA route) "
+          f"for {n_forwards} fp32 and {n_bf16} bf16 G forwards")
+    assert launches_mma == 5 * n_bf16 == launches - fp32_launches, (launches, launches_mma)
+    for y1, y4, yb in zip(outs[1], outs[4], y_bf):
         e = float(np.abs(y1 - y4).max() / np.abs(y1).max())
         assert e <= FP32_TOL, f"batched vs sequential rel err {e:.3e}"
+    e_wav_bf = worst(np.abs(yb - y4).max() / np.abs(y4).max() for y4, yb in zip(outs[4], y_bf))
+    print(f"clean.py bf16 vs fp32 wavs: rel err {e_wav_bf:.3e}")
 
     # the card vs a CPU copy of the same model (plain ops), same z
     gpu = SEGAN(cfg, device="cuda", seed=SEED)
@@ -362,17 +538,32 @@ def phase_slice(work: Path):
     z64 = gpu.G.sample_z(tuple(x64.shape), torch.Generator().manual_seed(SEED)).cuda()
     ms = cuda_ms(lambda: gpu.infer_G(x64, z64), reps=10, warmup=2)
     print(f"G forward at batch 64 (fp32): {ms:.3f} ms, {64e3 / ms:.1f} chunks/s")
-    cfg_bf16 = SEGANConfig(no_bias=True, compute_dtype="bfloat16")
     bf = SEGAN(cfg_bf16, generator=gpu.G, device="cuda")
+    before = K.launches_mma
     y_bf = bf.infer_G(x64, z64)
+    assert K.launches_mma - before == 5, f"{K.launches_mma - before} MMA launches, not 5"
     y32 = gpu.infer_G(x64, z64)
     e_bf = rel_err(y_bf, y32)
-    ms_bf = cuda_ms(lambda: bf.infer_G(x64, z64), reps=10, warmup=2)
-    print(f"G forward at batch 64 (bf16): {ms_bf:.3f} ms, {64e3 / ms_bf:.1f} chunks/s, "
-          f"rel err vs fp32 {e_bf:.3e}")
     # a sanity bound: bf16 rounds every one of the 10 layers' inputs and outputs
     assert torch.isfinite(y_bf).all() and e_bf <= 0.1, e_bf
-    return launches
+
+    def fma_route_forward():
+        route = K._route
+        K._route = lambda *shape: "fma"
+        try:
+            return bf.infer_G(x64, z64)
+        finally:
+            K._route = route
+
+    before = K.launches_mma
+    e_fma = rel_err(fma_route_forward(), y32)
+    assert K.launches_mma == before and e_fma <= 0.1, e_fma
+    t = ms_in_turns({"mma": lambda: bf.infer_G(x64, z64), "fma": fma_route_forward},
+                    reps=10, warmup=2)
+    print(f"G forward at batch 64 (bf16): {t['mma']:.3f} ms, {64e3 / t['mma']:.1f} chunks/s "
+          f"(tensor cores); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s (FMA route, "
+          f"same call); rel err vs fp32 {e_bf:.3e} (FMA route {e_fma:.3e})")
+    return launches, launches_mma
 
 
 def main():
@@ -386,16 +577,20 @@ def main():
 
     smi = phase_device()
     phase_build()
-    max_abs, k_ms, p_ms = phase_kernel()
+    per_layer = phase_kernel()
     enc23_abs = phase_enc23()
     tool, tool_launches = phase_tool()
+    phase_tf32()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        launches = phase_slice(Path(work))
+        launches, launches_mma = phase_slice(Path(work))
+    flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)  # the tool's defaults
     measured = [
-        dict(launches=launches, max_abs_err=max_abs, ms=k_ms, plain_ms=p_ms),
+        dict(launches=launches, launches_mma=launches_mma, **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"], max_abs_err=enc23_abs,
-             ms=tool["ms"]["fused 2+3"], plain_ms=tool["ms"]["plain chain"]),
+             ms=tool["ms"]["fused 2+3"], plain_ms=tool["ms"]["plain chain"],
+             bound_ms=bound_ms(flops, nbytes, BF16_PEAK), bound_by="operations",
+             library_ms=None),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

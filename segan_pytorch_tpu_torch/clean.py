@@ -5,7 +5,8 @@ wav of --test_files (chunked SEGAN inference) into --synthesis_path.
     python -m segan_pytorch_tpu_torch.clean --g_pretrained_ckpt G.ckpt \\
         --cfg_file train.opts --test_files noisy_dir --synthesis_path out --soundfile
 
-It runs on CUDA when a card is present, else on the CPU.
+It runs on the CUDA card, and raises without one; ``--device cpu`` asks for the CPU (the
+port's counterpart of ``JAX_PLATFORMS=cpu``).
 """
 import argparse
 import glob
@@ -26,7 +27,7 @@ def main(opts):
     from .utils.engine import build_enhancement_engine
 
     cfg, segan = build_enhancement_engine(opts.cfg_file, opts.g_pretrained_ckpt,
-                                          opts.seed)
+                                          opts.seed, device=opts.device)
     print('Loaded train config: ')
     print(cfg.to_json())
 
@@ -102,6 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--soundfile', action='store_true', default=False,
                         help='Write PCM16 wavs (like the ref soundfile path)')
     parser.add_argument('--cfg_file', type=str, default=None)
+    parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
+                        help='cuda (the default) needs a card; cpu runs the plain '
+                             'PyTorch versions of the kernels')
     return parser
 
 

@@ -13,31 +13,72 @@
 // enc2..enc5 each cost about 0.52 GFLOP per chunk over a deep contraction
 // (Cin*K = 1984..15872), so they are bound by arithmetic. enc1 has Cin=1: a depth of 31
 // against 64 outputs is about 15 FLOP per byte moved, so it is bound by memory
-// bandwidth. Deep layers have few output rows per chunk (enc5: 16), which starves a
-// kernel that tiles one chunk at a time.
+// bandwidth (writing y and pre). Deep layers have few output rows per chunk (enc5: 16),
+// which starves a kernel that tiles one chunk at a time.
 //
-// What the design does about it. It is an implicit GEMM: M = B*T_out rows (batch and
-// time flattened, so enc5's 16 rows per chunk still fill 64-row tiles), N = Cout,
-// depth Cin*K in the weights' own order (ci-major, then k). The Pallas kernel folds the
-// stride into channels (space-to-depth) to feed the TPU's MXU; that is a TPU layout
-// trick and is not carried over: here each thread gathers its row's taps straight from
-// x (the window overlaps between neighbouring rows and stays in L1). A 64x64 output tile
-// per 256-thread block; each stage stages a 16-deep slice of x and w in shared memory,
-// converted to fp32, and every thread accumulates a 4x4 sub-tile with FMAs. The
-// epilogue adds the bias (none under --no_bias), applies the PReLU and stores y and pre
-// with neighbouring threads on neighbouring time steps. Ragged edges in M, N and depth
-// are masked, so any T_out, Cin (including 1) and stride is taken.
-// Split-K: when the output tiles alone would not give every SM two blocks (the deep,
+// Two kernels; the wrapper (ops/kernels/conv1d_prelu.py, `_route`) picks one by shape:
+//   conv1d_mma_kernel: bf16 with stride 4, K <= 32, Cout % 8 == 0 and T_out % 16 == 0
+//     (every main-path layer), on the tensor cores (mma.sync m16n8k16);
+//   conv1d_prelu_kernel<T>: everything else, fp32 always, on fp32 FMAs.
+//
+// Both are implicit GEMMs: M = B*T_out rows (batch and time flattened, so enc5's 16 rows
+// per chunk still fill the tiles), N = Cout, depth Cin*K. The Pallas kernel folds the
+// stride into channels (space-to-depth) to feed the TPU's MXU; that is a TPU layout trick
+// and is not carried over.
+//
+// conv1d_prelu_kernel<T> (FMAs). Each thread gathers its row's taps straight from x in
+// the weights' own depth order (ci-major, then k; the window overlaps between
+// neighbouring rows and stays in L1). A 64x64 output tile per 256-thread block; each
+// stage stages a 16-deep slice of x and w in shared memory, converted to fp32, and every
+// thread accumulates a 4x4 sub-tile with FMAs. Ragged edges in M, N and depth are masked,
+// so any T_out, Cin (including 1) and stride is taken.
+//
+// conv1d_mma_kernel (tensor cores; the design of enc23_mma_kernel in encoder_fused.cu).
+// The wrapper pads w to 32 taps, tap 31 zero, so each input channel is two 16-deep MMA
+// steps and the A operand of row t, channel ci and tap k is x[b][ci][4t + k], with no
+// division by 31. Every T_out is a multiple of 16, so an m16 group of rows lies in one
+// chunk b. Staging is per m16 group, whatever the tile: group q (rows from t0) gets a
+// window of WG = 96 samples of each channel, x[b][ci][4 t0 + j] (4*15 + 32 = 92 are read,
+// padded to 16 bytes), so tiles that span chunks (enc4, enc5) take the same path as tiles
+// inside one (at a cost of 96 staged samples per 64 rows, against 64 + 28 for a
+// contiguous window). Samples at or past T_in are staged as 0: the zero tap 31 of the last
+// row reads sample 4 (T_out - 1) + 31, which is T_in when (T_in - 31) % 4 == 0, and a
+// staged slot must be finite even where a zero weight multiplies it (0 x NaN = NaN).
+// Staging takes STAGED = 128 group windows at a time (CC = 128 / groups channels, 24 KB);
+// each thread stages fixed window positions of every channel of the chunk, so that its
+// loads are independent and its address arithmetic is done once.
+// The mainloop is warp_conv_mma (csrc/mma_bf16.cuh): lane quad t takes taps 8t + 4h +
+// 0..3 at step h, one 8-byte shared-memory load per A row and one 16-byte __ldg of the
+// padded weights per channel (from L2) for both steps. Each warp computes 64 rows x 32
+// channels; the 8 warps of a block are laid out warps_m x (8 / warps_m), chosen by the
+// wrapper: 4 x 2 (256 rows x 64 channels) for Cout <= 64 (enc1), 2 x 4 (128 x 128) for
+// Cout <= 128 (enc2), else 1 x 8 (64 x 256), which stages the least x per MMA.
+// The epilogue adds the bias (none under --no_bias), applies the PReLU and stores y and
+// pre in bf16. A fragment holds 2 channels x 2 time steps, so stores straight from it
+// would write 2 bytes a lane; each warp passes its 64 x 32 tile through shared memory
+// instead and writes 16 bytes a lane (enc1, which only writes, is bound by these stores).
+// One synchronous mainloop (no cp.async, TMA or wgmma), 2 blocks per SM: the staging of
+// x is not overlapped with the MMAs of the same block. tests/test_torch_conv1d_mma.py
+// emulates these index maps in float64.
+//
+// Split-K, both kernels: when the output tiles alone would not fill the card (the deep,
 // short layers, and any layer at serving batch sizes), the depth is cut into `splits`
-// ranges, one per grid z-slice. Each writes its fp32 partial sums to a workspace the
-// wrapper allocates, and a second kernel adds them in a fixed order (deterministic),
-// then applies the bias and PReLU.
-// Later work: tensor cores (wgmma) fed by TMA.
+// slices, one per grid z-slice (the MMA kernel cuts on whole input channels). Each writes
+// its fp32 partial sums to a workspace the wrapper allocates, and a second kernel adds
+// them in a fixed order (deterministic), then applies the bias and PReLU.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using mma_conv::KP;
+using mma_conv::NT;
+using mma_conv::prelu;
+using mma_conv::STRIDE;
+using mma_conv::warp_conv_mma;
 
 constexpr int BM = 64;        // output rows (flattened batch * time) per block
 constexpr int BN = 64;        // output channels per block
@@ -182,6 +223,19 @@ long long num_tiles(int B, int Cout, int T_out) {
   return (((long long)B * T_out + BM - 1) / BM) * ((Cout + BN - 1) / BN);
 }
 
+// Sums `splits` slices of partial sums (B, Cout, T_out) into y and pre.
+template <typename T>
+void launch_splitk_epilogue(const float* partial, const void* bias, const void* slope,
+                            void* y, void* pre, long long total, int Cout, int T_out,
+                            int splits, cudaStream_t stream) {
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  splitk_epilogue_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536), threads, 0,
+                              stream>>>(partial, static_cast<const T*>(bias),
+                                        static_cast<const T*>(slope), static_cast<T*>(y),
+                                        static_cast<T*>(pre), total, Cout, T_out, splits);
+}
+
 template <typename T>
 int launch(const void* x, const void* w, const void* bias, const void* slope, void* y,
            void* pre, float* partial, int splits, int B, int Cin, int T_in, int Cout,
@@ -197,16 +251,171 @@ int launch(const void* x, const void* w, const void* bias, const void* slope, vo
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
       static_cast<const T*>(slope), static_cast<T*>(y), static_cast<T*>(pre),
       splits > 1 ? partial : nullptr, B, Cin, T_in, Cout, T_out, K, stride, per * BK);
-  if (splits > 1) {
-    const long long total = M * Cout;
-    const int threads = 256;
-    const long long blocks = (total + threads - 1) / threads;
-    splitk_epilogue_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536), threads, 0,
-                                stream>>>(partial, static_cast<const T*>(bias),
-                                          static_cast<const T*>(slope),
-                                          static_cast<T*>(y), static_cast<T*>(pre), total,
-                                          Cout, T_out, splits);
+  if (splits > 1)
+    launch_splitk_epilogue<T>(partial, bias, slope, y, pre, M * Cout, Cout, T_out, splits,
+                              stream);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel's constants.
+constexpr int MMA_MT = 4;    // m16 tiles per warp: 64 rows
+constexpr int WG = 96;       // staged samples per m16 group and channel (92 read)
+constexpr int STAGED = 128;  // group windows staged at a time (channels x groups)
+constexpr int OUT_LD = MMA_MT * 16 + 8;  // a warp's output tile in shared memory: one
+                                         // channel's 64 rows, padded (bank-conflict free)
+constexpr int SMEM = STAGED * WG > 8 * 32 * OUT_LD ? STAGED * WG : 8 * 32 * OUT_LD;
+static_assert(WG >= STRIDE * 15 + KP && WG % 8 == 0, "a group's window, in 16-byte units");
+static_assert(OUT_LD % 8 == 0, "16-byte rows of the output tile");
+
+// bf16 only. w is (Cout, Cin, KP), the taps padded with zeros; `slice` input channels
+// per split-K slice (blockIdx.z). Block tile: WM x (8 / WM) warps of 64 rows x 32
+// channels. y and pre must be 16-byte aligned.
+template <int WM>
+__global__ void __launch_bounds__(THREADS, 2)
+conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                  const __nv_bfloat16* __restrict__ bias,
+                  const __nv_bfloat16* __restrict__ slope, __nv_bfloat16* __restrict__ y,
+                  __nv_bfloat16* __restrict__ pre, float* __restrict__ partial, int B,
+                  int Cin, int T_in, int Cout, int T_out, int slice) {
+  constexpr int WN = 8 / WM;
+  constexpr int NQ = WM * MMA_MT;     // m16 groups per block
+  constexpr int TILE_M = NQ * 16;
+  constexpr int TILE_N = WN * NT * 8;
+  constexpr int CC = STAGED / NQ;     // channels staged at a time
+  static_assert(WM * WN == THREADS / 32 && CC * NQ == STAGED, "8 warps, 128 windows");
+  // the x chunk [channel][group][sample] in the mainloop, then each warp's output tile
+  // [channel][row] in the epilogue
+  __shared__ __align__(16) __nv_bfloat16 smem[SMEM];
+  __shared__ long long q_in[NQ];   // group q's window in x: b Cin T_in + 4 t0
+  __shared__ long long q_out[NQ];  // its row 0 in y and pre, channel 0: b Cout T_out + t0
+  __shared__ int q_len[NQ];        // samples of its window inside x (0: no such group)
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const long long M = (long long)B * T_out;
+  const long long m0 = (long long)blockIdx.x * TILE_M;
+  const int wm = warp / WN;
+  const int n0 = blockIdx.y * TILE_N + (warp % WN) * NT * 8;
+  const int c_begin = blockIdx.z * slice;
+  const int c_end = min(Cin, c_begin + slice);
+  if (threadIdx.x < NQ) {
+    const long long r = m0 + 16 * threadIdx.x;
+    const long long b = r / T_out;
+    const int t0 = (int)(r - b * T_out);
+    const bool live = r < M;
+    q_in[threadIdx.x] = live ? b * Cin * T_in + STRIDE * t0 : 0;
+    q_out[threadIdx.x] = live ? b * Cout * T_out + t0 : 0;
+    q_len[threadIdx.x] = live ? T_in - STRIDE * t0 : 0;
   }
+  // M % 16 == 0: whole m16 tiles
+  const int mt_live = (int)min((long long)MMA_MT, max(0LL, (M - m0) / 16 - wm * MMA_MT));
+  const int nt_live = min(NT, max(0, (Cout - n0) / 8));
+
+  float acc[MMA_MT][NT][4] = {};
+  for (int c0 = c_begin; c0 < c_end; c0 += CC) {
+    const int cc = min(CC, c_end - c0);
+    __syncthreads();  // the group table is written; the previous chunk is no longer read
+    // each thread stages fixed window positions p (group q, sample j) of every channel:
+    // the address arithmetic is done once, and the channels' loads are independent
+    for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {
+      const int q = p / WG;
+      const int j = p - q * WG;
+      const bool inside = j < q_len[q];
+      const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * T_in + j;
+#pragma unroll 8
+      for (int c = 0; c < cc; ++c)
+        smem[c * NQ * WG + p] = inside ? src[(long long)c * T_in] : __float2bfloat16(0.f);
+    }
+    __syncthreads();
+    if (mt_live > 0 && nt_live > 0)
+      warp_conv_mma<MMA_MT, WG>(acc, smem + wm * MMA_MT * WG, NQ * WG, 0, mt_live,
+                                w + (long long)c0 * KP, Cin, n0, nt_live, cc);
+  }
+
+  if (partial != nullptr) {  // split-K: fp32 partial sums; the epilogue kernel finishes
+    float* part = partial + (long long)blockIdx.z * M * Cout;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt_live) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = n0 + 8 * j + 2 * t + (e & 1);
+#pragma unroll
+        for (int i = 0; i < MMA_MT; ++i) {
+          if (i >= mt_live) continue;
+          part[q_out[wm * MMA_MT + i] + (long long)co * T_out + g + 8 * (e >> 1)] =
+              acc[i][j][e];
+        }
+      }
+    }
+    return;
+  }
+  // y and pre through shared memory: a fragment holds 2 channels x 2 rows, and a store
+  // straight from it would write 2 bytes a lane. Each warp puts its 32 channels x 64
+  // rows there, then writes 16 bytes a lane: 8 rows of one channel of one m16 group.
+  __syncthreads();  // every warp is done with the x chunk
+  __nv_bfloat16* tile = smem + warp * 32 * OUT_LD;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {  // pre, then y
+    __nv_bfloat16* out = pass == 0 ? pre : y;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int cl = 8 * j + 2 * t + (e & 1);
+        if (j >= nt_live) continue;
+        const float bco = bias != nullptr ? __bfloat162float(bias[n0 + cl]) : 0.f;
+        const float aco = __bfloat162float(slope[n0 + cl]);
+#pragma unroll
+        for (int i = 0; i < MMA_MT; ++i) {
+          const float p = acc[i][j][e] + bco;
+          tile[cl * OUT_LD + 16 * i + g + 8 * (e >> 1)] =
+              __float2bfloat16(pass == 0 ? p : prelu(p, aco));
+        }
+      }
+    }
+    __syncwarp();
+    // 32 channels x 4 groups x 2 halves of 8 rows: lane l of step s takes unit s*32 + l
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int u = s * 32 + lane;
+      const int half = u & 1;
+      const int i = (u >> 1) & (MMA_MT - 1);
+      const int cl = u >> 3;
+      if (i < mt_live && cl < 8 * nt_live) {
+        const long long off = q_out[wm * MMA_MT + i] + (long long)(n0 + cl) * T_out + 8 * half;
+        *reinterpret_cast<uint4*>(out + off) =
+            *reinterpret_cast<const uint4*>(tile + cl * OUT_LD + 16 * i + 8 * half);
+      }
+    }
+    __syncwarp();  // the tile is read before the next pass writes it
+  }
+}
+
+template <int WM>
+int launch_mma(const void* x, const void* w, const void* bias, const void* slope, void* y,
+               void* pre, float* partial, int splits, int B, int Cin, int T_in, int Cout,
+               int T_out, cudaStream_t stream) {
+  constexpr int TILE_M = WM * MMA_MT * 16;
+  constexpr int TILE_N = (8 / WM) * NT * 8;
+  const long long M = (long long)B * T_out;
+  const int slice = (Cin + splits - 1) / splits;  // input channels per split
+  splits = (Cin + slice - 1) / slice;             // no empty slice
+  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles_m = (M + TILE_M - 1) / TILE_M;
+  if (tiles_m >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles_m, (unsigned)((Cout + TILE_N - 1) / TILE_N),
+                  (unsigned)splits);
+  conv1d_mma_kernel<WM><<<grid, THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(slope),
+      static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(pre),
+      splits > 1 ? partial : nullptr, B, Cin, T_in, Cout, T_out, slice);
+  if (splits > 1)
+    launch_splitk_epilogue<__nv_bfloat16>(partial, bias, slope, y, pre, M * Cout, Cout,
+                                          T_out, splits, stream);
   return (int)cudaGetLastError();
 }
 
@@ -246,6 +455,38 @@ extern "C" int conv1d_prelu_launch(int dtype, const void* x, const void* w,
     case 1:
       return launch<__nv_bfloat16>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in,
                                    Cout, T_out, K, stride, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core route, bfloat16 only: x (B, Cin, T_in), w (Cout, Cin, 32) with the taps
+// past the conv's K zero, stride 4. Needs Cout % 8 == 0 and T_out % 16 == 0; window
+// samples at or past T_in read as 0. warps_m (1, 2 or 4) picks the block tile, 64 warps_m
+// rows x 256 / warps_m channels; splits the split-K slices, cut on whole input channels
+// (the wrapper allocates a float32 workspace of splits * B * Cout * T_out when > 1). bias
+// may be null. Launches on `stream` and returns cudaGetLastError() (0 on success); it
+// does not synchronise and allocates nothing.
+extern "C" int conv1d_prelu_mma_launch(const void* x, const void* w, const void* bias,
+                                       const void* slope, void* y, void* pre,
+                                       void* partial, int warps_m, int splits, int B,
+                                       int Cin, int T_in, int Cout, int T_out,
+                                       void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % 8 != 0 ||
+      T_out % 16 != 0 || (long long)STRIDE * (T_out - 1) >= T_in)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(partial);
+  switch (warps_m) {
+    case 1:
+      return launch_mma<1>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
+                           T_out, s);
+    case 2:
+      return launch_mma<2>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
+                           T_out, s);
+    case 4:
+      return launch_mma<4>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
+                           T_out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

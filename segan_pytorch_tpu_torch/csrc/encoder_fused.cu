@@ -54,17 +54,23 @@
 //   one 16-byte load of the padded weights, read straight from L2 (w2 0.25 MB, w3 2 MB).
 //   tests/test_torch_encoder_fused.py emulates exactly these index maps in float64.
 //   Warps: phase A 2 x 4 warps of 80 rows x 32 channels (160 >= 156 rows), phase B 8
-//   warps of 32 rows x 32 channels. One synchronous mainloop: no cp.async, TMA or wgmma,
+//   warps of 32 rows x 32 channels; the mainloop (warp_conv_mma, csrc/mma_bf16.cuh) is
+//   shared with the per-layer kernel. One synchronous mainloop: no cp.async, TMA or wgmma,
 //   so the L2 latency of the weight loads and the single-buffered h1 staging are what
 //   bounds it next; every block reads all of w3 (2 MB) from L2, 4.8 GB at batch 300.
 // Needs C2 % 8 == 0 and C3 % 8 == 0 (whole n8 tiles); C1 is free.
 
-#include <cstdint>
-
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using mma_conv::KP;  // 32 taps, padded by the wrapper
+using mma_conv::NT;  // n8 tiles per warp (32 channels)
+using mma_conv::prelu;
+using mma_conv::warp_conv_mma;
 
 constexpr int KW = 31;                             // taps, hard-coded as in the TPU kernel
 constexpr int STRIDE = 4;
@@ -82,12 +88,10 @@ static_assert(TM == 2 && TN == 8, "the inner loop reads a float2 and two float4s
 static_assert(BK * BM == 2 * THREADS && BK * BN == 8 * THREADS, "stage load mapping");
 
 // the bf16 kernel's constants
-constexpr int KP = 32;                             // taps, padded by the wrapper
 constexpr int SLOTS = STRIDE * TILE + KP - STRIDE; // 156 padded post2 rows one tile reads
 constexpr int MA = 160;                            // phase A rows: 10 m16 tiles >= SLOTS
 constexpr int WIN = STRIDE * (MA - 1) + KP;        // 668 padded h1 rows that they read
 constexpr int CC = 16;                             // h1 channels staged at a time
-constexpr int NT = 4;                              // n8 tiles per warp (32 channels)
 constexpr int MTA = 5;                             // phase A: m16 tiles per warp (80 rows)
 constexpr int MTB = TILE / 16;                     // phase B: m16 tiles per warp (32 rows)
 static_assert(MA >= SLOTS && 2 * MTA * 16 == MA && THREADS == 256, "2 x 4 warps in phase A");
@@ -245,67 +249,6 @@ enc23_kernel(const T* __restrict__ h1, const T* __restrict__ w2, const T* __rest
       }
     }
   }
-}
-
-// c += a (16 x 16, row-major) * b (16 x 8, column-major) on the tensor cores; fragments
-// as the PTX ISA lays them out for m16n8k16: lane (g = lane / 4, t = lane % 4) holds
-// a = {A[g][2t..2t+1], A[g+8][2t..2t+1], A[g][2t+8..2t+9], A[g+8][2t+8..2t+9]},
-// b = {B[2t..2t+1][g], B[2t+8..2t+9][g]}, c = {C[g][2t..2t+1], C[g+8][2t..2t+1]}.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp's share of a strided conv with 32 taps, on the tensor cores:
-//   acc[i][j] += sum over ci < cin, k < KP of a[ci * lda + 4 m + k] * w[(n * w_cin + ci) * KP + k]
-// for rows m = m0 + 16 i + (0..15) and channels n = n0 + 8 j + (0..7). m16 tiles
-// i >= mt_live and n8 tiles j >= nt_live are skipped (both warp-uniform). The 16-deep
-// step h of channel ci takes, at contraction index 2t + e and 2t + 8 + e (e = 0, 1), the
-// taps 8t + 4h + e and 8t + 4h + 2 + e: lane quad t's A values of a row are then four
-// adjacent bf16 (one 8-byte load) and its B values of both steps eight (one 16-byte load).
-template <int MT>
-__device__ __forceinline__ void warp_conv_mma(float (&acc)[MT][NT][4],
-                                              const __nv_bfloat16* a, int lda, int m0,
-                                              int mt_live,
-                                              const __nv_bfloat16* __restrict__ w, int w_cin,
-                                              int n0, int nt_live, int cin) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const __nv_bfloat16* a_lane = a + STRIDE * (m0 + g) + 8 * t;
-  const __nv_bfloat16* w_lane = w + (long long)(n0 + g) * w_cin * KP + 8 * t;
-#pragma unroll 2
-  for (int ci = 0; ci < cin; ++ci) {
-    uint4 b[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      b[j] = j < nt_live ? __ldg(reinterpret_cast<const uint4*>(
-                               w_lane + ((long long)8 * j * w_cin + ci) * KP))
-                         : make_uint4(0, 0, 0, 0);
-    const __nv_bfloat16* a_ci = a_lane + ci * lda;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        if (i >= mt_live) continue;
-        const __nv_bfloat16* p = a_ci + STRIDE * 16 * i + 4 * h;
-        const uint2 r0 = *reinterpret_cast<const uint2*>(p);               // row g
-        const uint2 r8 = *reinterpret_cast<const uint2*>(p + STRIDE * 8);  // row g + 8
-        const uint32_t af[4] = {r0.x, r8.x, r0.y, r8.y};
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          if (j < nt_live) mma_bf16(acc[i][j], af, h ? b[j].z : b[j].x, h ? b[j].w : b[j].y);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float prelu(float p, float a) {
-  return fmaxf(p, 0.f) + a * fminf(p, 0.f);
 }
 
 // The bf16 kernel: w2 (C2, C1, KP) and w3 (C3, C2, KP), tap 31 zero. Dynamic shared

@@ -35,7 +35,11 @@ def compute_dtype_of(cfg) -> torch.dtype:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """CUDA; without a card it raises rather than run on the CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found: pass device='cpu' (the CLI: --device cpu) "
+                           "to run on the CPU")
+    return torch.device("cuda")
 
 
 class SEGAN:
@@ -48,12 +52,6 @@ class SEGAN:
         self.device = torch.device(device) if device is not None else default_device()
         self.compute_dtype = compute_dtype_of(cfg)
         seed = cfg.seed if seed is None else seed
-        if self.device.type == "cuda" and self.compute_dtype == torch.float32:
-            # The JAX package runs fp32 convs at Precision.HIGHEST. PyTorch would send
-            # fp32 convolutions through cuDNN in TF32 (about 1e-3 relative drift in the
-            # decoder deconvs), so the fp32 engine turns TF32 off, process-wide.
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         if generator is None:
             generator = build_generator(cfg, torch.Generator().manual_seed(seed))
         self.G = generator.to(self.device).eval()

@@ -3,10 +3,16 @@
 
 Weights are in torch's layouts: conv (Cout, Cin, K), transposed conv (Cin, Cout, K).
 The JAX package keeps (K, Cin, Cout) for both; ``utils/checkpoint.py`` converts.
+
+Precision: the JAX package runs every fp32 conv at ``Precision.HIGHEST``. cuDNN would run
+an fp32 conv in TF32 by default (``torch.backends.cudnn.allow_tf32`` is True), about
+1e-3 relative off, so every conv of the port goes through ``full_precision``, which turns
+TF32 off for fp32 inputs around the call and then restores the caller's setting.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -25,10 +31,37 @@ def zero_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
     return F.pad(x, (pad_left, pad_right))
 
 
+class _NoTF32:
+    """Sets ``torch.backends.cudnn.allow_tf32`` to False inside, and back to what it
+    was on exit; no other cuDNN flag is touched (``torch.backends.cudnn.flags`` would
+    reset ``enabled`` and ``benchmark`` to its defaults as well)."""
+
+    def __enter__(self):
+        self._prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32 = self._prev
+
+
+def full_precision(dtype: torch.dtype):
+    """The port's one TF32 policy: a context in which a conv of ``dtype`` runs as the
+    JAX package's does. fp32 turns TF32 off; other dtypes need nothing."""
+    return _NoTF32() if dtype == torch.float32 else contextlib.nullcontext()
+
+
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride: int = 1) -> torch.Tensor:
     """VALID 1-D convolution: x (B, Cin, T), weight (Cout, Cin, K) -> (B, Cout, T')."""
-    return F.conv1d(x, weight, bias, stride=stride)
+    with full_precision(x.dtype):
+        return F.conv1d(x, weight, bias, stride=stride)
+
+
+def conv1d_weight(x: torch.Tensor, weight_shape: Sequence[int], grad: torch.Tensor,
+                  stride: int = 1) -> torch.Tensor:
+    """The gradient of ``conv1d`` with respect to its weight (Cout, Cin, K)."""
+    with full_precision(x.dtype):
+        return torch.nn.grad.conv1d_weight(x, weight_shape, grad, stride=stride)
 
 
 def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
@@ -42,11 +75,12 @@ def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
     conv returned sums off by 1.0-2.4 on outputs of magnitude 3-6 (held against
     float64) for 512 and more input channels, and differed from call to call; torch's
     own CPU kernel agrees with float64 to 2e-6."""
-    if x.device.type != "cpu":
-        return F.conv_transpose1d(x, weight, bias, stride=stride, padding=padding)
-    prev = torch.backends.mkldnn.enabled
-    torch.backends.mkldnn.enabled = False
-    try:
-        return F.conv_transpose1d(x, weight, bias, stride=stride, padding=padding)
-    finally:
-        torch.backends.mkldnn.enabled = prev
+    with full_precision(x.dtype):
+        if x.device.type != "cpu":
+            return F.conv_transpose1d(x, weight, bias, stride=stride, padding=padding)
+        prev = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+        try:
+            return F.conv_transpose1d(x, weight, bias, stride=stride, padding=padding)
+        finally:
+            torch.backends.mkldnn.enabled = prev

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C entry point and is compiled on its own into a
 shared library under ``build/torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``). The library's name carries a hash of the source and the flags, so an
-edited source builds anew and an unchanged one is reused within a checkout. Nothing
+``.gitignore``); the ``csrc/*.cuh`` headers they include are found beside them. The
+library's name carries a hash of the source, the headers and the flags, so an edited
+source or header builds anew and an unchanged one is reused within a checkout. Nothing
 is built or loaded when a module is imported: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -37,8 +38,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where csrc/<name>.cu builds to: the name carries a hash of source and flags."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """Where csrc/<name>.cu builds to: the name carries a hash of source, headers and
+    flags."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,7 +7,13 @@ Three pieces, as for every kernel of the port:
   the tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
   a CUDA tensor it launches the hand-written kernel (``csrc/conv1d_prelu.cu``) or
-  raises. ``launches`` counts the kernel launches.
+  raises. ``launches`` counts the kernel launches, ``launches_mma`` those of them that
+  took the tensor-core route.
+- Two routes on the card, chosen by shape (``_route``), never as a fallback: bf16 with
+  stride 4, K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) runs on
+  the tensor cores (``mma.sync``), with the weights padded to 32 taps (``_pad_taps``,
+  once per weight: ``_padded_weights``); every other shape, and all of fp32, runs the
+  FMA kernel.
 - ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
   JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
 
@@ -23,14 +29,76 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
-from ..conv import conv_transpose1d
+from ..conv import conv1d, conv1d_weight, conv_transpose1d
 from . import build
 
-# kernel launches since the counter was last set to 0 (the wrapper alone adds to it)
+# kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
+# all of them, and those of the tensor-core route
 launches = 0
+launches_mma = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KP = 32  # taps of the tensor-core kernels' weights: K and zero taps
+MMA_MIN_SLICE = 4  # input channels per split-K slice of the MMA route, at least
+# the MMA route's padded weights, by the weight tensor they were made from:
+# weight -> (its version when padded, padded copy)
+_padded = WeakIdKeyDictionary()
+
+
+def _pad_taps(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, K <= 32) weights as (Cout, Cin, 32), the taps past K zero: the
+    counterpart of the Pallas kernels' ``_fold_weights``, which pad 31 taps to 32 too. A
+    stride-4 conv with these gives the same rows: a window's extra taps add zero."""
+    return F.pad(w, (0, KP - w.shape[-1])).contiguous()
+
+
+def _padded_weights(w: torch.Tensor) -> torch.Tensor:
+    """``_pad_taps(w)``, made once while w lives and is not changed in place, so that a
+    model's forward pads no weight on every call (at a batch of one chunk the host time
+    of the pad is as long as the kernel). A change in place is seen by w's version
+    counter, which an optimizer step or ``load_state_dict`` bumps and which autograd
+    also relies on; writes through ``w.data`` bypass it, as they bypass autograd."""
+    if torch.is_inference(w):  # inference tensors keep no version counter
+        return _pad_taps(w)
+    hit = _padded.get(w)
+    if hit is None or hit[0] != w._version:
+        hit = _padded[w] = (w._version, _pad_taps(w))
+    return hit[1]
+
+
+def _route(dtype: torch.dtype, cout: int, k: int, stride: int, t_out: int) -> str:
+    """Which kernel a CUDA call takes: "mma" (tensor cores) for bf16 with stride 4,
+    K <= 32, whole n8 tiles of channels and whole m16 tiles of time steps, so that an
+    m16 tile never spans two batch rows; "fma" for every other shape and all of fp32."""
+    if (dtype == torch.bfloat16 and stride == 4 and k <= KP and cout % 8 == 0
+            and t_out % 16 == 0):
+        return "mma"
+    return "fma"
+
+
+def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int]:
+    """(warps_m, splits) of the MMA route. The block tile is warps_m x (8 / warps_m)
+    warps of 64 rows x 32 channels: 4 x 2 for Cout <= 64 (enc1), 2 x 4 for Cout <= 128
+    and more than 64 rows (enc2), else 1 x 8, the widest, which stages the least x per
+    MMA."""
+    warps_m = 4 if cout <= 64 else (2 if cout <= 128 and B * t_out > 64 else 1)
+    return warps_m, _mma_splits(B, cin, cout, t_out, num_sms, warps_m)
+
+
+def _mma_splits(B: int, cin: int, cout: int, t_out: int, num_sms: int,
+                warps_m: int) -> int:
+    """Split-K slices of the MMA route for a tile of warps_m x (8 / warps_m) warps: when
+    the tiles would not give every SM a block, the input channels are cut into slices of
+    at least MMA_MIN_SLICE, aiming at two blocks per SM. Counts the slices, none of them
+    empty, as the kernel cuts them."""
+    tiles = -(-B * t_out // (64 * warps_m)) * -(-cout // (256 // warps_m))
+    splits = 1
+    if tiles < num_sms:
+        splits = max(1, min(-(-2 * num_sms // tiles), cin // MMA_MIN_SLICE))
+    per = -(-cin // splits)
+    return -(-cin // per)
 
 
 def _prelu(pre: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -40,7 +108,7 @@ def _prelu(pre: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def conv1d_prelu_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                        a: torch.Tensor, stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: (y, pre)."""
-    pre = F.conv1d(x, w, b, stride=stride)
+    pre = conv1d(x, w, b, stride)
     return _prelu(pre, a), pre
 
 
@@ -79,7 +147,10 @@ def _entries():
     splits = lib.conv1d_prelu_splits
     splits.argtypes = [ctypes.c_int] * 6
     splits.restype = ctypes.c_int
-    return launch, splits
+    launch_mma = lib.conv1d_prelu_mma_launch
+    launch_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch_mma.restype = ctypes.c_int
+    return launch, splits, launch_mma
 
 
 @functools.cache
@@ -88,20 +159,21 @@ def _sm_count(device_index) -> int:
 
 
 def _launch(x, w, b, a, stride: int, t_out: int,
-            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            force_fma: bool = False):
     """Launch the kernel on checked CUDA tensors, into ``out`` (y, pre) when it is
-    given, else into new tensors."""
-    global launches
+    given, else into new tensors. ``force_fma`` takes the FMA kernel whatever the shape,
+    for same-call comparisons of the two routes."""
+    global launches, launches_mma
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
     if not all(t.is_contiguous() for t in (x, w, a) + ((b,) if b is not None else ())):
         raise ValueError("the CUDA kernel needs contiguous x, w, b and a")
     B, cin, t_in = x.shape
     cout, _, k = w.shape
-    if max(B, cin * k, t_in, cout) >= 2 ** 31:
+    if max(B, cin * KP, t_in, cout) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
-    launch, splits_of = _entries()
-    splits = splits_of(B, cin, cout, t_out, k, _sm_count(x.device.index))
+    route = "fma" if force_fma else _route(x.dtype, cout, k, stride, t_out)
     shape = (B, cout, t_out)
     if out is None:
         out = (torch.empty(shape, dtype=x.dtype, device=x.device),
@@ -111,19 +183,34 @@ def _launch(x, w, b, a, stride: int, t_out: int,
         raise ValueError(f"out must be two contiguous {x.dtype} tensors on {x.device} of "
                          f"shape {shape}")
     y, pre = out
+    if route == "mma" and (y.data_ptr() % 16 or pre.data_ptr() % 16):
+        raise ValueError("the MMA route stores 16-byte units: y and pre must be 16-byte "
+                         "aligned")
+    launch, splits_of, launch_mma = _entries()
+    if route == "mma":
+        warps_m, splits = _mma_plan(B, cin, cout, t_out, _sm_count(x.device.index))
+        w = _padded_weights(w)
+    else:
+        splits = splits_of(B, cin, cout, t_out, k, _sm_count(x.device.index))
     # split-K workspace: fp32 partial sums, one (B, Cout, T_out) slab per depth slice
     partial = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
+            a.data_ptr(), y.data_ptr(), pre.data_ptr(),
+            partial.data_ptr() if partial is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = launch(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                     b.data_ptr() if b is not None else None, a.data_ptr(),
-                     y.data_ptr(), pre.data_ptr(),
-                     partial.data_ptr() if partial is not None else None, splits,
-                     B, cin, t_in, cout, t_out, k, stride, stream)
+        if route == "mma":
+            err = launch_mma(*ptrs, warps_m, splits, B, cin, t_in, cout, t_out, stream)
+        else:
+            err = launch(_DTYPE_CODES[x.dtype], *ptrs, splits, B, cin, t_in, cout, t_out,
+                         k, stride, stream)
     if err != 0:
-        raise RuntimeError(f"conv1d_prelu kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"conv1d_prelu kernel launch failed ({route} route): "
+                           f"cudaError {err}")
     launches += 1
+    if route == "mma":
+        launches_mma += 1
     return y, pre
 
 
@@ -169,7 +256,7 @@ class Conv1dPReLU(torch.autograd.Function):
             # when (T_in - K) % stride != 0 the last samples touch no window: zero grad
             dx = F.pad(dx, (0, x.shape[2] - dx.shape[2]))
         if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv1d_weight(x, w.shape, dpre, stride=s)
+            dw = conv1d_weight(x, w.shape, dpre, stride=s)
         return dx, dw, db, da, None
 
 

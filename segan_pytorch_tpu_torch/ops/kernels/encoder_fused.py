@@ -31,11 +31,10 @@ import functools
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..conv import reflect_pad_1d
 from . import build
-from .conv1d_prelu import conv1d_prelu_plain
+from .conv1d_prelu import KP, _pad_taps, conv1d_prelu_plain
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to it)
 launches = 0
@@ -43,7 +42,6 @@ launches = 0
 K = 31  # taps and stride are fixed, as in the Pallas kernel
 S = 4
 PAD = (K // 2 - 1, K // 2)
-KP = 32  # taps of the bf16 kernel's weights: K and a zero tap
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -57,14 +55,6 @@ def enc23_plain(h1: torch.Tensor, w2: torch.Tensor, b2: Optional[torch.Tensor],
     # post2 is in h1's dtype, so in bf16 enc3 reads it rounded, as the kernels do
     post3, pre3 = conv1d_prelu_plain(reflect_pad_1d(post2, *PAD), w3, b3, a3, S)
     return pre2, pre3, post3
-
-
-def _pad_taps(w: torch.Tensor) -> torch.Tensor:
-    """(Cout, Cin, 31) weights as (Cout, Cin, 32), tap 31 zero: the counterpart of the
-    Pallas kernel's ``_fold_weights``, which pads to 32 taps too. A stride-4 conv of the
-    reflect-padded input (T + 29 rows) with these gives the same T / 4 rows: the last
-    window's tap 31 still lies in range, and adds zero."""
-    return F.pad(w, (0, KP - K)).contiguous()
 
 
 def _check(h1, w2, b2, a2, w3, b3, a3) -> None:

@@ -82,6 +82,25 @@ def cuda_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def ms_in_turns(arms: Dict[str, Callable], reps: int = 20, warmup: int = 3
+                ) -> Dict[str, float]:
+    """Median device time in ms of each of `arms` (name -> fn), timed in turns: one call
+    of each per round, a pair of CUDA events per call, synchronised after each, after
+    `warmup` rounds. Versions compared so share the card's state (clocks, heat, L2)."""
+    times: Dict[str, list] = {name: [] for name in arms}
+    for i in range(warmup + reps):
+        for name, fn in arms.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Run the A/B; returns {"ms": {arm: ms}, "max_abs": {...}, "rel": {...}}, the
     errors of 'fused 2+3' against 'plain chain' by output."""

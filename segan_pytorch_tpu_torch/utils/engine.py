@@ -8,8 +8,8 @@ from typing import Optional
 def build_enhancement_engine(cfg_file: str, g_ckpt: str, seed: int = 111,
                              device: Optional[str] = None):
     """Returns (cfg, engine): the train.opts config and a SEGAN engine on `device`
-    (default: CUDA when available) with G loaded strictly and the per-utterance z
-    stream seeded from `seed`."""
+    (default: CUDA, which raises without a card) with G loaded strictly and the
+    per-utterance z stream seeded from `seed`."""
     from ..models.segan import SEGAN
     from .config import load_train_opts
 

@@ -135,7 +135,7 @@ def test_clean_cli_writes_the_enhanced_wavs(engines, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "segan_pytorch_tpu_torch.clean", "--g_pretrained_ckpt",
          ckpt, "--cfg_file", opts, "--test_files", str(noisy), "--synthesis_path",
-         str(out), "--seed", "5", "--batch_utts", "2"],
+         str(out), "--seed", "5", "--batch_utts", "2", "--device", "cpu"],
         cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "Cleaned 3/3" in proc.stdout
