@@ -11,13 +11,14 @@ and when the port's package is not beside it):
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
      into NaN-filled outputs, at the five SEGAN+ encoder shapes for 1, 8, 64 and 300
      16384-sample chunks and at edge shapes (bias, T_in = 4 (T_out - 1) + 31, ragged,
-     stride 1): fp32 (TF32 off, relative error <= 1e-4) on the FMA kernel; bf16 (<= 2e-2)
-     on the route the wrapper picks, read from its counters (main-path shapes: tensor
-     cores, the ragged and stride-1 shapes: FMA), and on the FMA route forced. Times in
-     turns (CUDA events, median of 20 after 3 warm-ups): kernel, plain and cuDNN's
-     F.conv1d alone, and in bf16 both routes; TFLOP/s and share of peak, bounds, and
-     encoder sums per batch. At 64 and 300 chunks the tensor cores must take at most
-     half the FMA route's time;
+     stride 1), in fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), each on the
+     route the wrapper picks, read from its counters (main-path shapes: the tensor cores,
+     fp32 by 3xTF32; the ragged and stride-1 shapes: FMA), and on the FMA route forced; in
+     fp32 enc5 at 64 and 300 chunks also vs a float64 conv (<= 1e-4). Times in turns (CUDA
+     events, median of 20 after 3 warm-ups): both routes, plain and cuDNN's F.conv1d
+     alone, in each dtype; TFLOP/s, share of peak, bounds, and encoder sums per batch. At
+     64 and 300 chunks the tensor cores must take at most half the FMA route's time in
+     bf16 and no more than it in fp32;
   3b. the chained kernel (fused_enc23_fwd: fp32 FMAs, bf16 on the tensor cores) vs
      enc23_plain, into NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64,
      4096) -> 128 -> 256) for B = 1, 8 and 300, with and without bias, and at two narrow
@@ -35,13 +36,14 @@ and when the port's package is not beside it):
      saved as a reference-format .ckpt + train.opts, then the port's clean.py CLI
      (--device cuda) on 8 synthetic wavs with --batch_utts 1 and 4 in fp32 and 4 in bf16.
      Checks: outputs finite and of their inputs' lengths, the kernel launched 5 times per
-     G forward (in bf16 all 5 on the tensor cores), batched == sequential, and the card's
-     generate() == a CPU copy's (plain ops) within 1e-3 relative. Prints audio seconds
-     enhanced per wall second and G chunks/s at batch 64, fp32 and bf16 (both routes of
-     the per-layer kernel, in turns).
+     G forward, all on the tensor cores (fp32 counted apart), batched == sequential, and
+     the card's generate() == a CPU copy's (plain ops) within 1e-3 relative. Prints audio
+     seconds enhanced per wall second, the device memory that the first fp32 forward
+     keeps (the split weights), and G chunks/s at batch 64, fp32 and bf16, each on both
+     routes of the per-layer kernel, in turns.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
-phase 4, its times the bf16 encoder sum at 64 chunks; launches of fused_enc23_fwd from
-phase 3c, its times the tool's); the last is
+phase 4, its times the bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one;
+launches of fused_enc23_fwd from phase 3c, its times the tool's); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -127,6 +129,7 @@ def phase_build():
 
 BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
 FP32_PEAK = 67e12   # fp32 FLOP/s outside the tensor cores
+TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
 HBM_RATE = 3.35e12  # device memory bytes/s
 
 
@@ -148,8 +151,8 @@ def bound_ms(flops, nbytes, peak) -> float:
 
 def phase_kernel():
     """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks and
-    at edge shapes; each route's choice read from its counter. Returns the bf16 results
-    at B = 64 for the kernels line."""
+    at edge shapes; each route's choice read from its counters. Returns the bf16 and
+    fp32 results at B = 64 for the kernels line."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -176,10 +179,11 @@ def phase_kernel():
     ]
     sums = {}  # (B, column) -> ms summed over the five encoder layers
     max_abs = {}  # B -> max |mma - plain| over the bf16 encoder layers
+    max_abs32 = 0.0  # max |tensor cores - plain| over the fp32 encoder layers at B = 64
     print(f"{'layer':>16} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
-          f"{'bf16':>8} {'bf16 fma':>8} | {'fp32 ms':>8} {'plain':>8} {'cuDNN':>8} | "
-          f"{'mma ms':>8} {'fma ms':>8} {'plain':>8} {'cuDNN':>8} | {'TFLOP/s':>7} "
-          f"{'peak':>6} | bound ms fp32, bf16")
+          f"{'fp32 fma':>8} {'bf16':>8} {'bf16 fma':>8} | {'tf32 ms':>8} {'fma ms':>8} "
+          f"{'plain':>8} {'cuDNN':>8} | {'mma ms':>8} {'fma ms':>8} {'plain':>8} "
+          f"{'cuDNN':>8} | {'TFLOP/s':>7} {'peak':>6} | fp32 TFLOP/s | bound ms fp32, bf16")
     for label, b, cin, t_in, cout, kw, s, has_bias, main, route in cases:
         x = torch.randn((b, cin, t_in), generator=g).cuda()
         w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
@@ -190,20 +194,45 @@ def phase_kernel():
         assert t_out == (t_in - kw) // s + 1, (label, t_out)
         if (t_in - kw) % s == 0 and route == "mma":
             assert s * (t_out - 1) + K.KP - 1 == t_in, label  # the zero tap reads x[T_in]
-        # fp32: the FMA kernel, as before
-        before = K.launches_mma
+        # fp32: the route that _route picks (3xTF32 on the tensor cores at the main-path
+        # shapes), read from the counters, then the FMA kernel forced
+        before = (K.launches_mma, K.launches_tf32)
         y, pre = K._launch(x, w, bias, a, s, t_out,
                            out=nan_outputs(shape, shape, dtype=x.dtype))
         y_ref, pre_ref = K.conv1d_prelu_plain(x, w, bias, a, s)
         torch.cuda.synchronize()
-        assert K.launches_mma == before, f"{label}: fp32 took the MMA route"
+        took = ("mma" if (K.launches_mma, K.launches_tf32) == (before[0] + 1, before[1] + 1)
+                else "fma")
+        assert took == route, f"{label}: fp32 took the {took} route, not {route}"
         e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
-        assert e32 <= FP32_TOL, f"{label}: fp32 kernel vs plain rel err {e32:.3e} > {FP32_TOL}"
-        del y, pre, y_ref, pre_ref
-        t32 = ms_in_turns({
-            "kernel": lambda: K.fused_conv1d_prelu(x, w, bias, a, s),
-            "plain": lambda: K.conv1d_prelu_plain(x, w, bias, a, s),
-            "cuDNN": lambda: F.conv1d(x, w, bias, stride=s)})
+        assert e32 <= FP32_TOL, f"{label}: fp32 {took} vs plain rel err {e32:.3e} > {FP32_TOL}"
+        if main and cin == 512 and b in (64, 300):
+            # the deepest layer against float64: the tensor cores' own fp32 sums do not
+            # promise to round to nearest, and the plain version has errors of its own
+            pre64 = F.conv1d(x.double(), w.double(), None, stride=s)
+            e64, e64_plain = rel_err(pre, pre64), rel_err(pre_ref, pre64)
+            print(f"{label}: fp32 pre vs a float64 conv: rel err {e64:.3e} on the {took} "
+                  f"route, {e64_plain:.3e} for the plain version", flush=True)
+            assert e64 <= FP32_TOL, f"{label}: fp32 {took} vs float64 rel err {e64:.3e}"
+            del pre64
+        if main and b == 64:
+            max_abs32 = worst([max_abs32, float((y - y_ref).abs().max()),
+                               float((pre - pre_ref).abs().max())])
+        del y, pre
+        e32f = float("nan")
+        arms32 = {took: lambda: K.fused_conv1d_prelu(x, w, bias, a, s)}
+        if route == "mma":
+            yf, pref = K._launch(x, w, bias, a, s, t_out, force_fma=True,
+                                 out=nan_outputs(shape, shape, dtype=x.dtype))
+            torch.cuda.synchronize()
+            e32f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
+            assert e32f <= FP32_TOL, f"{label}: fp32 fma vs plain rel err {e32f:.3e}"
+            del yf, pref
+            arms32["fma"] = lambda: K._launch(x, w, bias, a, s, t_out, force_fma=True)
+        del y_ref, pre_ref
+        arms32["plain"] = lambda: K.conv1d_prelu_plain(x, w, bias, a, s)
+        arms32["cuDNN"] = lambda: F.conv1d(x, w, bias, stride=s)
+        t32 = ms_in_turns(arms32)
         # bf16: the route that _route picks, then the FMA kernel forced
         hb = [v.bfloat16() if v is not None else None for v in (x, w, bias, a)]
         del x, w
@@ -247,33 +276,46 @@ def phase_kernel():
         else:  # bound by operations: TFLOP/s and the share of the bf16 peak
             rate = flops / kernel_ms * 1e3
             rate = f"{rate * 1e-12:7.1f} {rate / BF16_PEAK:6.1%}"
-        b32 = bound_ms(flops, 2 * nbytes, FP32_PEAK)
+        tc32 = t32.get("mma", t32["fma"])
+        rate32 = f"{flops / tc32 * 1e-9:7.1f}"  # useful fp32 TFLOP/s
+        # fp32: the smaller of the FMA pipes' bound and the 3xTF32 tensor cores' (three
+        # TF32 products per fp32 product); bytes of fp32 x, w, b, a, y and pre
+        b32 = min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
+                  bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
         b16 = bound_ms(flops, nbytes, BF16_PEAK)
         if main:
-            for col, v in [("fp32 kernel", t32["kernel"]), ("fp32 plain", t32["plain"]),
-                           ("fp32 cuDNN", t32["cuDNN"]), ("fp32 bound", b32),
-                           ("bf16 mma", t16["mma"]), ("bf16 fma", t16["fma"]),
-                           ("bf16 plain", t16["plain"]), ("bf16 cuDNN", t16["cuDNN"]),
-                           ("bf16 bound", b16)]:
+            for col, v in [("fp32 tc", t32["mma"]), ("fp32 fma", t32["fma"]),
+                           ("fp32 plain", t32["plain"]), ("fp32 cuDNN", t32["cuDNN"]),
+                           ("fp32 bound", b32), ("bf16 mma", t16["mma"]),
+                           ("bf16 fma", t16["fma"]), ("bf16 plain", t16["plain"]),
+                           ("bf16 cuDNN", t16["cuDNN"]), ("bf16 bound", b16)]:
                 sums[b, col] = sums.get((b, col), 0.0) + v
         print(f"{label:>16} {str((b, cin, t_in)):>19} {cout:>5} {t_out:>5} | {e32:8.1e} "
-              f"{e16:8.1e} {e16f:8.1e} | {t32['kernel']:8.4f} {t32['plain']:8.4f} "
-              f"{t32['cuDNN']:8.4f} | {t16.get('mma', float('nan')):8.4f} "
-              f"{t16['fma']:8.4f} {t16['plain']:8.4f} {t16['cuDNN']:8.4f} | {rate} | "
-              f"{b32:.4f} {b16:.4f}", flush=True)
+              f"{e32f:8.1e} {e16:8.1e} {e16f:8.1e} | {t32.get('mma', float('nan')):8.4f} "
+              f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} | "
+              f"{t16.get('mma', float('nan')):8.4f} {t16['fma']:8.4f} {t16['plain']:8.4f} "
+              f"{t16['cuDNN']:8.4f} | {rate} | {rate32} | {b32:.4f} {b16:.4f}", flush=True)
         del hb
     for b in (1, 8, 64, 300):
         print(f"encoder sum B={b}: " + ", ".join(
-            f"{col} {sums[b, col]:.4f}" for col in ("fp32 kernel", "fp32 plain", "fp32 cuDNN",
-                                                    "fp32 bound", "bf16 mma", "bf16 fma",
-                                                    "bf16 plain", "bf16 cuDNN", "bf16 bound"))
-              + f" ms; bf16 mma / fma {sums[b, 'bf16 mma'] / sums[b, 'bf16 fma']:.3f}, "
+            f"{col} {sums[b, col]:.4f}" for col in ("fp32 tc", "fp32 fma", "fp32 plain",
+                                                    "fp32 cuDNN", "fp32 bound", "bf16 mma",
+                                                    "bf16 fma", "bf16 plain", "bf16 cuDNN",
+                                                    "bf16 bound"))
+              + f" ms; fp32 tc / fma {sums[b, 'fp32 tc'] / sums[b, 'fp32 fma']:.3f}, "
+              f"tc / cuDNN {sums[b, 'fp32 tc'] / sums[b, 'fp32 cuDNN']:.3f}; "
+              f"bf16 mma / fma {sums[b, 'bf16 mma'] / sums[b, 'bf16 fma']:.3f}, "
               f"mma / cuDNN {sums[b, 'bf16 mma'] / sums[b, 'bf16 cuDNN']:.3f}")
-        if b >= 64:  # the tensor cores must at least halve the FMA route's time there
+        if b >= 64:  # the tensor cores must at least halve the FMA route's time in bf16,
+            # and in fp32 (3xTF32) be no slower than it
             assert sums[b, "bf16 mma"] <= 0.5 * sums[b, "bf16 fma"], (b, sums)
+            assert sums[b, "fp32 tc"] <= sums[b, "fp32 fma"], (b, sums)
     return dict(max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
                 plain_ms=sums[64, "bf16 plain"], bound_ms=sums[64, "bf16 bound"],
-                bound_by="operations", library_ms=sums[64, "bf16 cuDNN"])
+                bound_by="operations", library_ms=sums[64, "bf16 cuDNN"],
+                fp32_max_abs_err=max_abs32, fp32_ms=sums[64, "fp32 tc"],
+                fp32_fma_ms=sums[64, "fp32 fma"], fp32_plain_ms=sums[64, "fp32 plain"],
+                fp32_bound_ms=sums[64, "fp32 bound"], fp32_library_ms=sums[64, "fp32 cuDNN"])
 
 
 def phase_enc23():
@@ -448,7 +490,7 @@ def phase_slice(work: Path):
     from segan_pytorch_tpu_torch.models.generator import build_generator
     from segan_pytorch_tpu_torch.models.segan import SEGAN
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import cuda_ms, ms_in_turns
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
     from segan_pytorch_tpu_torch.utils.checkpoint import save_generator
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig, dump_train_opts
 
@@ -491,11 +533,11 @@ def phase_slice(work: Path):
             ys.append(y)
         return ys, wall
 
-    # the main path: clean.py in fp32 (the FMA kernel), then in bf16 (the tensor cores)
+    # the main path: clean.py in fp32 (3xTF32 on the tensor cores), then in bf16
     cfg_bf16 = SEGANConfig(no_bias=True, compute_dtype="bfloat16", save_path=str(work))
     opts_bf16 = dump_train_opts(cfg_bf16, str(work / "bf16"))
     outs = {}
-    K.launches = K.launches_mma = 0
+    K.launches = K.launches_mma = K.launches_tf32 = 0
     n_forwards = 0
     for b in (1, 4):
         outs[b], wall = run_clean(opts_file, b, work / f"synth_b{b}")
@@ -503,29 +545,44 @@ def phase_slice(work: Path):
         print(f"clean.py --batch_utts {b}: {audio_s / wall:.2f} s of audio per wall second "
               f"({audio_s:.2f} s in {wall:.3f} s, model load included)")
     fp32_launches = K.launches
-    assert fp32_launches >= 5 * n_forwards and K.launches_mma == 0, (
-        f"{fp32_launches} launches ({K.launches_mma} MMA) for {n_forwards} fp32 G forwards")
+    assert fp32_launches >= 5 * n_forwards and fp32_launches % 5 == 0, (
+        f"{fp32_launches} launches for {n_forwards} fp32 G forwards")
+    assert K.launches_tf32 == K.launches_mma == fp32_launches, (
+        f"{fp32_launches} fp32 launches, {K.launches_tf32} on the tensor cores")
     y_bf, wall = run_clean(opts_bf16, 4, work / "synth_bf16")
     n_bf16 = -(-len(lengths) // 4)
-    launches, launches_mma = K.launches, K.launches_mma
+    launches, launches_mma, launches_tf32 = K.launches, K.launches_mma, K.launches_tf32
     print(f"clean.py bf16 --batch_utts 4: {audio_s / wall:.2f} s of audio per wall second")
-    print(f"kernel launches on the main path: {launches} ({launches_mma} on the MMA route) "
-          f"for {n_forwards} fp32 and {n_bf16} bf16 G forwards")
-    assert launches_mma == 5 * n_bf16 == launches - fp32_launches, (launches, launches_mma)
+    print(f"kernel launches on the main path: {launches} ({launches_mma} on the tensor "
+          f"cores, {launches_tf32} of them in fp32) for {n_forwards} fp32 and {n_bf16} bf16 "
+          f"G forwards")
+    assert launches_tf32 == fp32_launches, (launches_tf32, fp32_launches)
+    assert launches_mma - launches_tf32 == 5 * n_bf16 == launches - fp32_launches, (
+        launches, launches_mma, launches_tf32)
     for y1, y4, yb in zip(outs[1], outs[4], y_bf):
         e = float(np.abs(y1 - y4).max() / np.abs(y1).max())
         assert e <= FP32_TOL, f"batched vs sequential rel err {e:.3e}"
     e_wav_bf = worst(np.abs(yb - y4).max() / np.abs(y4).max() for y4, yb in zip(outs[4], y_bf))
     print(f"clean.py bf16 vs fp32 wavs: rel err {e_wav_bf:.3e}")
 
-    # the card vs a CPU copy of the same model (plain ops), same z
+    # the card vs a CPU copy of the same model (plain ops), same z; the device memory of
+    # the split weights that the first fp32 forward caches
     gpu = SEGAN(cfg, device="cuda", seed=SEED)
     gpu.g_load_pretrained(str(ckpt))
     cpu = SEGAN(cfg, device="cpu", seed=SEED)
     cpu.g_load_pretrained(str(ckpt))
     wav = np.random.RandomState(SEED + 1).randn(lengths[3]).astype(np.float32) * 0.3
     z = np.random.RandomState(SEED + 2).randn(16, cfg.z_dim).astype(np.float32)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
     y_gpu, gc_gpu = gpu.generate(wav, z=z)
+    torch.cuda.synchronize()
+    cached = torch.cuda.memory_allocated() - mem0
+    ours = {id(p) for p in gpu.G.parameters()}
+    want = sum(2 * 4 * w.shape[0] * w.shape[1] * K.KP  # (big, small), 32 taps, fp32
+               for w in K._padded.keys() if id(w) in ours)
+    print(f"device memory held after the first fp32 forward: {cached / 2**20:.1f} MiB "
+          f"(the split encoder weights: {want / 2**20:.1f} MiB expected)")
     y_cpu, gc_cpu = cpu.generate(wav, z=z)
     e_wav = float(np.abs(y_gpu - y_cpu).max() / np.abs(y_cpu).max())
     e_gc = float(np.abs(gc_gpu - gc_cpu).max() / np.abs(gc_cpu).max())
@@ -536,34 +593,42 @@ def phase_slice(work: Path):
     x64 = torch.from_numpy(np.random.RandomState(SEED + 3).randn(
         64, cfg.slice_size, 1).astype(np.float32) * 0.3).cuda()
     z64 = gpu.G.sample_z(tuple(x64.shape), torch.Generator().manual_seed(SEED)).cuda()
-    ms = cuda_ms(lambda: gpu.infer_G(x64, z64), reps=10, warmup=2)
-    print(f"G forward at batch 64 (fp32): {ms:.3f} ms, {64e3 / ms:.1f} chunks/s")
+
+    def fma_route_forward(engine):
+        route = K._route
+        K._route = lambda *shape: "fma"
+        try:
+            return engine.infer_G(x64, z64)
+        finally:
+            K._route = route
+
+    before = K.launches_tf32
+    y32 = gpu.infer_G(x64, z64)
+    assert K.launches_tf32 - before == 5, f"{K.launches_tf32 - before} fp32 MMA launches"
+    before = K.launches_mma
+    e32_fma = rel_err(fma_route_forward(gpu), y32)
+    assert K.launches_mma == before and e32_fma <= SLICE_TOL, e32_fma
+    t = ms_in_turns({"tc": lambda: gpu.infer_G(x64, z64),
+                     "fma": lambda: fma_route_forward(gpu)}, reps=10, warmup=2)
+    print(f"G forward at batch 64 (fp32): {t['tc']:.3f} ms, {64e3 / t['tc']:.1f} chunks/s "
+          f"(3xTF32 tensor cores); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s (FMA "
+          f"route, same call); tensor cores vs FMA route rel err {e32_fma:.3e}")
     bf = SEGAN(cfg_bf16, generator=gpu.G, device="cuda")
     before = K.launches_mma
     y_bf = bf.infer_G(x64, z64)
     assert K.launches_mma - before == 5, f"{K.launches_mma - before} MMA launches, not 5"
-    y32 = gpu.infer_G(x64, z64)
     e_bf = rel_err(y_bf, y32)
     # a sanity bound: bf16 rounds every one of the 10 layers' inputs and outputs
     assert torch.isfinite(y_bf).all() and e_bf <= 0.1, e_bf
-
-    def fma_route_forward():
-        route = K._route
-        K._route = lambda *shape: "fma"
-        try:
-            return bf.infer_G(x64, z64)
-        finally:
-            K._route = route
-
     before = K.launches_mma
-    e_fma = rel_err(fma_route_forward(), y32)
+    e_fma = rel_err(fma_route_forward(bf), y32)
     assert K.launches_mma == before and e_fma <= 0.1, e_fma
-    t = ms_in_turns({"mma": lambda: bf.infer_G(x64, z64), "fma": fma_route_forward},
-                    reps=10, warmup=2)
+    t = ms_in_turns({"mma": lambda: bf.infer_G(x64, z64),
+                     "fma": lambda: fma_route_forward(bf)}, reps=10, warmup=2)
     print(f"G forward at batch 64 (bf16): {t['mma']:.3f} ms, {64e3 / t['mma']:.1f} chunks/s "
           f"(tensor cores); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s (FMA route, "
           f"same call); rel err vs fp32 {e_bf:.3e} (FMA route {e_fma:.3e})")
-    return launches, launches_mma
+    return launches, launches_mma, launches_tf32
 
 
 def main():
@@ -583,10 +648,11 @@ def main():
     phase_tf32()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        launches, launches_mma = phase_slice(Path(work))
+        launches, launches_mma, launches_tf32 = phase_slice(Path(work))
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)  # the tool's defaults
     measured = [
-        dict(launches=launches, launches_mma=launches_mma, **per_layer),
+        dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
+             **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"], max_abs_err=enc23_abs,
              ms=tool["ms"]["fused 2+3"], plain_ms=tool["ms"]["plain chain"],
              bound_ms=bound_ms(flops, nbytes, BF16_PEAK), bound_by="operations",

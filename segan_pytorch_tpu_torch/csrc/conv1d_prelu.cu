@@ -16,12 +16,14 @@
 // bandwidth (writing y and pre). Deep layers have few output rows per chunk (enc5: 16),
 // which starves a kernel that tiles one chunk at a time.
 //
-// Two kernels; the wrapper (ops/kernels/conv1d_prelu.py, `_route`) picks one by shape:
-//   conv1d_mma_kernel: bf16 with stride 4, K <= 32, Cout % 8 == 0 and T_out % 16 == 0
-//     (every main-path layer), on the tensor cores (mma.sync m16n8k16);
-//   conv1d_prelu_kernel<T>: everything else, fp32 always, on fp32 FMAs.
+// Three kernels; the wrapper (ops/kernels/conv1d_prelu.py, `_route`) picks one by shape
+// and dtype. Stride 4, K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path
+// layer) take the tensor cores:
+//   conv1d_mma_kernel: bf16, on mma.sync m16n8k16;
+//   conv1d_tf32_kernel: fp32, by 3xTF32 on mma.sync m16n8k8;
+//   conv1d_prelu_kernel<T>: every other shape, on fp32 FMAs.
 //
-// Both are implicit GEMMs: M = B*T_out rows (batch and time flattened, so enc5's 16 rows
+// All are implicit GEMMs: M = B*T_out rows (batch and time flattened, so enc5's 16 rows
 // per chunk still fill the tiles), N = Cout, depth Cin*K. The Pallas kernel folds the
 // stride into channels (space-to-depth) to feed the TPU's MXU; that is a TPU layout trick
 // and is not carried over.
@@ -61,7 +63,33 @@
 // x is not overlapped with the MMAs of the same block. tests/test_torch_conv1d_mma.py
 // emulates these index maps in float64.
 //
-// Split-K, both kernels: when the output tiles alone would not fill the card (the deep,
+// conv1d_tf32_kernel (fp32 on the tensor cores). The fp32 limit against the plain
+// version is 1e-4 relative, and one TF32 product (10 mantissa bits) gives about 1e-3, so
+// each operand is split into two TF32 parts and every product takes three MMAs
+// (mainloop warp_conv_3xtf32, csrc/mma_tf32.cuh; its header has the error terms). What
+// bounds it: on enc2..enc5 the operations, 3 x 2 x 0.52 GFLOP of TF32 MMAs per chunk and
+// layer, 6x the MMA instructions of the bf16 kernel (m16n8k8 TF32 issues at the rate of
+// m16n8k16 bf16); on enc1 the bytes, y and pre now in fp32. The design keeps the bf16
+// kernel's plan (per m16 group windows of 96 samples, zero at or past T_in, warps of 64
+// rows x 32 channels, the same block tiles and split-K) and gives the extra MMAs the
+// issue slots: the weights are split once by the wrapper (`_padded_weights` keeps the
+// (big, small) pair per weight and version), x is split in registers as its fragments
+// are loaded (one cvt, sub, cvt per value for three MMAs, and one staged plane); splitting
+// w in registers or x at staging measured 4-9 % slower at B >= 64. The
+// tensor cores' own fp32 sums are not rounded to nearest (one accumulator over enc5's
+// depth drifted 1.2e-4 from float64 on the H100), so each m16 tile sums half a channel
+// in fresh registers and adds that to its accumulators with fp32 adds. The tap
+// order follows m16n8k8's fragments: step s of a channel takes taps 8t + 2s and
+// 8t + 2s + 1 at contraction index t and t + 4, so a row's A values are one 8-byte load
+// and a channel's B values two 16-byte loads of each part. Staging takes STAGED_TF32 = 64
+// group windows at a time (24 KB of static shared memory, 2 blocks per SM). y and pre are
+// stored straight from the fragments: in fp32 the 8 lanes that hold one channel's 8
+// consecutive time steps fill a 32-byte sector, so the bf16 kernel's pass through shared
+// memory is not needed (tools/conv1d_mma_ab.py measures both). Split-K sums in fp32
+// through the same epilogue kernel. tests/test_torch_conv1d_tf32.py emulates these index
+// maps and the split in float64.
+//
+// Split-K, all three kernels: when the output tiles alone would not fill the card (the deep,
 // short layers, and any layer at serving batch sizes), the depth is cut into `splits`
 // slices, one per grid z-slice (the MMA kernel cuts on whole input channels). Each writes
 // its fp32 partial sums to a workspace the wrapper allocates, and a second kernel adds
@@ -71,6 +99,7 @@
 #include <cuda_bf16.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -78,6 +107,7 @@ using mma_conv::KP;
 using mma_conv::NT;
 using mma_conv::prelu;
 using mma_conv::STRIDE;
+using mma_conv::warp_conv_3xtf32;
 using mma_conv::warp_conv_mma;
 
 constexpr int BM = 64;        // output rows (flattened batch * time) per block
@@ -419,6 +449,128 @@ int launch_mma(const void* x, const void* w, const void* bias, const void* slope
   return (int)cudaGetLastError();
 }
 
+// The fp32 tensor-core kernel's staging: STAGED_TF32 group windows at a time,
+// 64 x 96 x 4 B = 24 KB of static shared memory (128 windows would be 48 KB).
+constexpr int STAGED_TF32 = 64;
+
+// fp32 only, by 3xTF32. w_big and w_small are the TF32 parts of w, each (Cout, Cin, KP)
+// with the taps padded with zeros; the rest as conv1d_mma_kernel.
+template <int WM>
+__global__ void __launch_bounds__(THREADS, 2)
+conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
+                   const float* __restrict__ w_small, const float* __restrict__ bias,
+                   const float* __restrict__ slope, float* __restrict__ y,
+                   float* __restrict__ pre, float* __restrict__ partial, int B, int Cin,
+                   int T_in, int Cout, int T_out, int slice) {
+  constexpr int WN = 8 / WM;
+  constexpr int NQ = WM * MMA_MT;       // m16 groups per block
+  constexpr int TILE_M = NQ * 16;
+  constexpr int TILE_N = WN * NT * 8;
+  constexpr int CC = STAGED_TF32 / NQ;  // channels staged at a time
+  static_assert(WM * WN == THREADS / 32 && CC * NQ == STAGED_TF32, "8 warps, 64 windows");
+  __shared__ __align__(16) float smem[STAGED_TF32 * WG];  // [channel][group][sample]
+  __shared__ long long q_in[NQ];   // group q's window in x: b Cin T_in + 4 t0
+  __shared__ long long q_out[NQ];  // its row 0 in y and pre, channel 0: b Cout T_out + t0
+  __shared__ int q_len[NQ];        // samples of its window inside x (0: no such group)
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const long long M = (long long)B * T_out;
+  const long long m0 = (long long)blockIdx.x * TILE_M;
+  const int wm = warp / WN;
+  const int n0 = blockIdx.y * TILE_N + (warp % WN) * NT * 8;
+  const int c_begin = blockIdx.z * slice;
+  const int c_end = min(Cin, c_begin + slice);
+  if (threadIdx.x < NQ) {
+    const long long r = m0 + 16 * threadIdx.x;
+    const long long b = r / T_out;
+    const int t0 = (int)(r - b * T_out);
+    const bool live = r < M;
+    q_in[threadIdx.x] = live ? b * Cin * T_in + STRIDE * t0 : 0;
+    q_out[threadIdx.x] = live ? b * Cout * T_out + t0 : 0;
+    q_len[threadIdx.x] = live ? T_in - STRIDE * t0 : 0;
+  }
+  // M % 16 == 0: whole m16 tiles
+  const int mt_live = (int)min((long long)MMA_MT, max(0LL, (M - m0) / 16 - wm * MMA_MT));
+  const int nt_live = min(NT, max(0, (Cout - n0) / 8));
+
+  float acc[MMA_MT][NT][4] = {};
+  for (int c0 = c_begin; c0 < c_end; c0 += CC) {
+    const int cc = min(CC, c_end - c0);
+    __syncthreads();  // the group table is written; the previous chunk is no longer read
+    for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {
+      const int q = p / WG;
+      const int j = p - q * WG;
+      const bool inside = j < q_len[q];
+      const float* src = x + q_in[q] + (long long)c0 * T_in + j;
+#pragma unroll 8
+      for (int c = 0; c < cc; ++c)
+        smem[c * NQ * WG + p] = inside ? src[(long long)c * T_in] : 0.f;
+    }
+    __syncthreads();
+    if (mt_live > 0 && nt_live > 0)
+      warp_conv_3xtf32<MMA_MT, WG>(acc, smem + wm * MMA_MT * WG, NQ * WG, 0, mt_live,
+                                   w_big + (long long)c0 * KP, w_small + (long long)c0 * KP,
+                                   Cin, n0, nt_live, cc);
+  }
+
+  // Straight from the fragments: for one channel, the 8 lanes of a quad position write 8
+  // consecutive time steps, one whole 32-byte sector. Under split-K, fp32 partial sums;
+  // the epilogue kernel finishes.
+  float* const part =
+      partial != nullptr ? partial + (long long)blockIdx.z * M * Cout : nullptr;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt_live) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int co = n0 + 8 * j + 2 * t + (e & 1);
+      const float bco = bias != nullptr ? bias[co] : 0.f;
+      const float aco = slope[co];
+#pragma unroll
+      for (int i = 0; i < MMA_MT; ++i) {
+        if (i >= mt_live) continue;
+        const long long off =
+            q_out[wm * MMA_MT + i] + (long long)co * T_out + g + 8 * (e >> 1);
+        if (part != nullptr) {
+          part[off] = acc[i][j][e];
+          continue;
+        }
+        const float p = acc[i][j][e] + bco;
+        pre[off] = p;
+        y[off] = prelu(p, aco);
+      }
+    }
+  }
+}
+
+template <int WM>
+int launch_tf32(const void* x, const void* w_big, const void* w_small, const void* bias,
+                const void* slope, void* y, void* pre, float* partial, int splits, int B,
+                int Cin, int T_in, int Cout, int T_out, cudaStream_t stream) {
+  constexpr int TILE_M = WM * MMA_MT * 16;
+  constexpr int TILE_N = (8 / WM) * NT * 8;
+  const long long M = (long long)B * T_out;
+  const int slice = (Cin + splits - 1) / splits;  // input channels per split
+  splits = (Cin + slice - 1) / slice;             // no empty slice
+  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles_m = (M + TILE_M - 1) / TILE_M;
+  if (tiles_m >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles_m, (unsigned)((Cout + TILE_N - 1) / TILE_N),
+                  (unsigned)splits);
+  conv1d_tf32_kernel<WM><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w_big),
+      static_cast<const float*>(w_small), static_cast<const float*>(bias),
+      static_cast<const float*>(slope), static_cast<float*>(y), static_cast<float*>(pre),
+      splits > 1 ? partial : nullptr, B, Cin, T_in, Cout, T_out, slice);
+  if (splits > 1)
+    launch_splitk_epilogue<float>(partial, bias, slope, y, pre, M * Cout, Cout, T_out,
+                                  splits, stream);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // How many depth slices to cut the contraction into: enough output tiles for two blocks
@@ -487,6 +639,35 @@ extern "C" int conv1d_prelu_mma_launch(const void* x, const void* w, const void*
     case 4:
       return launch_mma<4>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
                            T_out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tensor-core route in float32, by 3xTF32: as conv1d_prelu_mma_launch, with w given
+// as its TF32 parts w_big and w_small, each (Cout, Cin, 32) with the taps past the conv's
+// K zero, 16-byte aligned. y and pre need no alignment beyond fp32's.
+extern "C" int conv1d_prelu_tf32_launch(const void* x, const void* w_big,
+                                        const void* w_small, const void* bias,
+                                        const void* slope, void* y, void* pre,
+                                        void* partial, int warps_m, int splits, int B,
+                                        int Cin, int T_in, int Cout, int T_out,
+                                        void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % 8 != 0 ||
+      T_out % 16 != 0 || (long long)STRIDE * (T_out - 1) >= T_in)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(partial);
+  switch (warps_m) {
+    case 1:
+      return launch_tf32<1>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
+                            T_in, Cout, T_out, s);
+    case 2:
+      return launch_tf32<2>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
+                            T_in, Cout, T_out, s);
+    case 4:
+      return launch_tf32<4>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
+                            T_in, Cout, T_out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

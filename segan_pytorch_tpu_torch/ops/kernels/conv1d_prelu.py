@@ -8,12 +8,13 @@ Three pieces, as for every kernel of the port:
 - ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
   a CUDA tensor it launches the hand-written kernel (``csrc/conv1d_prelu.cu``) or
   raises. ``launches`` counts the kernel launches, ``launches_mma`` those of them that
-  took the tensor-core route.
-- Two routes on the card, chosen by shape (``_route``), never as a fallback: bf16 with
-  stride 4, K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) runs on
-  the tensor cores (``mma.sync``), with the weights padded to 32 taps (``_pad_taps``,
-  once per weight: ``_padded_weights``); every other shape, and all of fp32, runs the
-  FMA kernel.
+  took the tensor-core route (both dtypes), ``launches_tf32`` those of them in fp32.
+- Two routes on the card, chosen by shape (``_route``), never as a fallback: stride 4,
+  K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) runs on the tensor
+  cores (``mma.sync``: bf16 as it is, fp32 by a 3xTF32 split), with the weights padded
+  to 32 taps (``_pad_taps``) and in fp32 split into their TF32 parts (``_split_tf32``),
+  once per weight and version (``_padded_weights``); every other shape runs the FMA
+  kernel.
 - ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
   JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
 
@@ -35,9 +36,10 @@ from ..conv import conv1d, conv1d_weight, conv_transpose1d
 from . import build
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
-# all of them, and those of the tensor-core route
+# all of them, those of the tensor-core route, and of those the fp32 (3xTF32) ones
 launches = 0
 launches_mma = 0
+launches_tf32 = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KP = 32  # taps of the tensor-core kernels' weights: K and zero taps
@@ -54,35 +56,58 @@ def _pad_taps(w: torch.Tensor) -> torch.Tensor:
     return F.pad(w, (0, KP - w.shape[-1])).contiguous()
 
 
-def _padded_weights(w: torch.Tensor) -> torch.Tensor:
-    """``_pad_taps(w)``, made once while w lives and is not changed in place, so that a
-    model's forward pads no weight on every call (at a batch of one chunk the host time
+def _tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 v rounded to TF32 (10 mantissa bits) as ``cvt.rna.tf32.f32`` rounds: to
+    nearest, ties away from zero, on the 13 low bits of the bit pattern (a carry goes
+    into the exponent, so the largest finite values round to infinity). NaN stays NaN."""
+    r = ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(v), v, r)
+
+
+def _split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 v as its two TF32 parts (big, small): big = tf32(v) and small =
+    tf32(v - big), so that v = big + small to about 2^-22 |v|."""
+    big = _tf32_round(v)
+    return big, _tf32_round(v - big)
+
+
+def _mma_weights(w: torch.Tensor):
+    """The tensor-core route's weights: (Cout, Cin, 32) padded in bf16; in fp32 also
+    split, a (big, small) pair of them (a pair, not one stacked tensor: indexing a
+    tensor on every call costs the wrapper microseconds)."""
+    wp = _pad_taps(w.detach())
+    return _split_tf32(wp) if w.dtype == torch.float32 else wp
+
+
+def _padded_weights(w: torch.Tensor):
+    """``_mma_weights(w)``, made once while w lives and is not changed in place, so that
+    a model's forward pads no weight on every call (at a batch of one chunk the host time
     of the pad is as long as the kernel). A change in place is seen by w's version
     counter, which an optimizer step or ``load_state_dict`` bumps and which autograd
     also relies on; writes through ``w.data`` bypass it, as they bypass autograd."""
     if torch.is_inference(w):  # inference tensors keep no version counter
-        return _pad_taps(w)
+        return _mma_weights(w)
     hit = _padded.get(w)
     if hit is None or hit[0] != w._version:
-        hit = _padded[w] = (w._version, _pad_taps(w))
+        hit = _padded[w] = (w._version, _mma_weights(w))
     return hit[1]
 
 
 def _route(dtype: torch.dtype, cout: int, k: int, stride: int, t_out: int) -> str:
-    """Which kernel a CUDA call takes: "mma" (tensor cores) for bf16 with stride 4,
-    K <= 32, whole n8 tiles of channels and whole m16 tiles of time steps, so that an
-    m16 tile never spans two batch rows; "fma" for every other shape and all of fp32."""
-    if (dtype == torch.bfloat16 and stride == 4 and k <= KP and cout % 8 == 0
+    """Which kernel a CUDA call takes: "mma" (tensor cores; fp32 by 3xTF32) for bf16 or
+    fp32 with stride 4, K <= 32, whole n8 tiles of channels and whole m16 tiles of time
+    steps, so that an m16 tile never spans two batch rows; "fma" for every other shape."""
+    if (dtype in _DTYPE_CODES and stride == 4 and k <= KP and cout % 8 == 0
             and t_out % 16 == 0):
         return "mma"
     return "fma"
 
 
 def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int]:
-    """(warps_m, splits) of the MMA route. The block tile is warps_m x (8 / warps_m)
-    warps of 64 rows x 32 channels: 4 x 2 for Cout <= 64 (enc1), 2 x 4 for Cout <= 128
-    and more than 64 rows (enc2), else 1 x 8, the widest, which stages the least x per
-    MMA."""
+    """(warps_m, splits) of the MMA route, both dtypes. The block tile is warps_m x
+    (8 / warps_m) warps of 64 rows x 32 channels: 4 x 2 for Cout <= 64 (enc1), 2 x 4 for
+    Cout <= 128 and more than 64 rows (enc2), else 1 x 8, the widest, which stages the
+    least x per MMA."""
     warps_m = 4 if cout <= 64 else (2 if cout <= 128 and B * t_out > 64 else 1)
     return warps_m, _mma_splits(B, cin, cout, t_out, num_sms, warps_m)
 
@@ -150,7 +175,10 @@ def _entries():
     launch_mma = lib.conv1d_prelu_mma_launch
     launch_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     launch_mma.restype = ctypes.c_int
-    return launch, splits, launch_mma
+    launch_tf32 = lib.conv1d_prelu_tf32_launch
+    launch_tf32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch_tf32.restype = ctypes.c_int
+    return launch, splits, launch_mma, launch_tf32
 
 
 @functools.cache
@@ -164,7 +192,7 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     """Launch the kernel on checked CUDA tensors, into ``out`` (y, pre) when it is
     given, else into new tensors. ``force_fma`` takes the FMA kernel whatever the shape,
     for same-call comparisons of the two routes."""
-    global launches, launches_mma
+    global launches, launches_mma, launches_tf32
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
     if not all(t.is_contiguous() for t in (x, w, a) + ((b,) if b is not None else ())):
@@ -183,10 +211,11 @@ def _launch(x, w, b, a, stride: int, t_out: int,
         raise ValueError(f"out must be two contiguous {x.dtype} tensors on {x.device} of "
                          f"shape {shape}")
     y, pre = out
-    if route == "mma" and (y.data_ptr() % 16 or pre.data_ptr() % 16):
-        raise ValueError("the MMA route stores 16-byte units: y and pre must be 16-byte "
-                         "aligned")
-    launch, splits_of, launch_mma = _entries()
+    tf32 = route == "mma" and x.dtype == torch.float32
+    if route == "mma" and not tf32 and (y.data_ptr() % 16 or pre.data_ptr() % 16):
+        raise ValueError("the bf16 MMA route stores 16-byte units: y and pre must be "
+                         "16-byte aligned")
+    launch, splits_of, launch_mma, launch_tf32 = _entries()
     if route == "mma":
         warps_m, splits = _mma_plan(B, cin, cout, t_out, _sm_count(x.device.index))
         w = _padded_weights(w)
@@ -195,12 +224,15 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     # split-K workspace: fp32 partial sums, one (B, Cout, T_out) slab per depth slice
     partial = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
-    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr() if b is not None else None,
+    w_ptrs = (w[0].data_ptr(), w[1].data_ptr()) if tf32 else (w.data_ptr(),)
+    ptrs = (x.data_ptr(), *w_ptrs, b.data_ptr() if b is not None else None,
             a.data_ptr(), y.data_ptr(), pre.data_ptr(),
             partial.data_ptr() if partial is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "mma":
+        if tf32:
+            err = launch_tf32(*ptrs, warps_m, splits, B, cin, t_in, cout, t_out, stream)
+        elif route == "mma":
             err = launch_mma(*ptrs, warps_m, splits, B, cin, t_in, cout, t_out, stream)
         else:
             err = launch(_DTYPE_CODES[x.dtype], *ptrs, splits, B, cin, t_in, cout, t_out,
@@ -211,6 +243,7 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     launches += 1
     if route == "mma":
         launches_mma += 1
+        launches_tf32 += tf32
     return y, pre
 
 

@@ -200,14 +200,19 @@ def test_main_path_takes_the_mma_route(B, layer):
 
 
 @pytest.mark.parametrize("dtype,cout,k,stride,t_out", [
-    (torch.float32, 128, 31, 4, 1024),   # fp32: the FMA kernel, bit for bit as before
+    (torch.float32, 128, 31, 4, 250),    # fp32 off the main path: T_out % 16 != 0
     (torch.bfloat16, 40, 31, 1, 270),    # stride 1 (chip_smoke.py's stride-1 case)
     (torch.bfloat16, 70, 31, 4, 243),    # ragged (chip_smoke.py's T_out = 243 case)
     (torch.bfloat16, 68, 31, 4, 256),    # Cout % 8 != 0
     (torch.bfloat16, 64, 31, 4, 250),    # T_out % 16 != 0
     (torch.bfloat16, 64, 33, 4, 256),    # more taps than the padded 32
     (torch.bfloat16, 64, 31, 2, 256),    # another stride
-], ids=["fp32", "stride 1", "ragged", "Cout%8", "T_out%16", "K=33", "stride 2"])
+    (torch.float32, 40, 31, 1, 270),     # fp32 off the main path as bf16: stride 1,
+    (torch.float32, 70, 31, 4, 243),     # ragged,
+    (torch.float32, 68, 31, 4, 256),     # Cout % 8 != 0,
+    (torch.float32, 64, 33, 4, 256),     # more taps than the padded 32
+], ids=["fp32", "stride 1", "ragged", "Cout%8", "T_out%16", "K=33", "stride 2",
+        "fp32 stride 1", "fp32 ragged", "fp32 Cout%8", "fp32 K=33"])
 def test_other_shapes_take_the_fma_route(dtype, cout, k, stride, t_out):
     assert K._route(dtype, cout, k, stride, t_out) == "fma"
 
@@ -235,7 +240,8 @@ def test_mma_route_refuses_unaligned_outputs():
 
 
 def test_padded_weights_are_made_once_per_weight_and_version():
-    w = torch.randn(8, 3, 31)
+    """bf16 weights are padded; fp32 ones are also split (test_torch_conv1d_tf32.py)."""
+    w = torch.randn(8, 3, 31).bfloat16()
     wp = K._padded_weights(w)
     assert torch.equal(wp, K._pad_taps(w)) and K._padded_weights(w) is wp
     with torch.no_grad():
@@ -245,7 +251,7 @@ def test_padded_weights_are_made_once_per_weight_and_version():
     other = w.clone()
     assert K._padded_weights(other) is not wp2
     with torch.inference_mode():
-        inf = torch.randn(8, 3, 31)
+        inf = torch.randn(8, 3, 31).bfloat16()
     assert torch.equal(K._padded_weights(inf), K._pad_taps(inf))
     n = len(K._padded)
     del other
@@ -341,6 +347,7 @@ def test_tools_need_cuda(monkeypatch, tool):
 
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::conv1d_mma_kernel<1>(...)", 0),
+    ("void (anonymous namespace)::conv1d_tf32_kernel<2>(...)", 0),
     ("void (anonymous namespace)::splitk_epilogue_kernel<float>(...)", 0),
     ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816dgrad_optimized>", 1),
     ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>(...)", 1),
