@@ -19,16 +19,23 @@ and when the port's package is not beside it):
      alone, in each dtype; TFLOP/s, share of peak, bounds, and encoder sums per batch. At
      64 and 300 chunks the tensor cores must take at most half the FMA route's time in
      bf16 and no more than it in fp32;
-  3b. the chained kernel (fused_enc23_fwd: fp32 FMAs, bf16 on the tensor cores) vs
-     enc23_plain, into NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64,
-     4096) -> 128 -> 256) for B = 1, 8 and 300, with and without bias, and at two narrow
-     odd shapes, in fp32 and bf16 with the same limits; at B = 300 also vs the per-layer
-     kernel chain. Times of the three arms of the A/B tool and of cuDNN's two convs
-     alone at B = 1, 8 and 300, fp32 and bf16. A bf16 call with C3 = 36 must raise
-     ValueError (whole n8 tiles) and launch nothing;
+  3b. the chained kernel (fused_enc23_fwd: fp32 on the tensor cores by 3xTF32 where C2
+     and C3 are multiples of 8, else on FMAs; bf16 on mma.sync) vs enc23_plain, into
+     NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256)
+     for B = 1, 8 and 300, with and without bias, and at two narrow odd shapes, in fp32
+     and bf16 with the same limits, each route and tile read from the counters: fp32 on
+     the route and tile the wrapper picks, then at tiles 16 and 32 and on the FMA kernel
+     forced; at B = 300 also vs the per-layer kernel chain (bf16: bit for bit) and fp32
+     pre3 vs a float64 chain (<= 1e-4). Times in turns at B = 1, 8 and 300 of the A/B
+     tool's three arms, fp32 at both tiles and on the FMA kernel forced, and cuDNN's two
+     convs alone; in fp32 at B >= 8 the tensor cores must take no more time than the FMA
+     kernel. An fp32 call with C3 = 36 must take the FMA kernel and be right; a bf16 one
+     must raise ValueError (whole n8 tiles) and launch nothing. Both fp32 tiles in turns
+     at B = 16, 32, 48 and 64, where the tile rule switches;
   3c. the A/B tool (python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench) at its
-     defaults, batch 300 bf16: both kernels must launch in it, and the chained kernel's
-     outputs must agree with the plain chain within 2e-2;
+     defaults, batch 300 bf16, then with --dtype float32: both kernels must launch in it,
+     the chained kernel on mma.sync in bf16 and on the 3xTF32 route at tile 32 in fp32,
+     and agree with the plain chain within 2e-2 and 1e-4;
   3d. the TF32 policy: with cuDNN's TF32 on process-wide, a bare fp32 GDeconv1DBlock and
      Conv1dPReLU's backward convs on the card vs float64 on the CPU (<= 1e-4); the
      deconv's error with the ops' policy bypassed is printed beside it;
@@ -43,7 +50,9 @@ and when the port's package is not beside it):
      routes of the per-layer kernel, in turns.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, its times the bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one;
-launches of fused_enc23_fwd from phase 3c, its times the tool's); the last is
+launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
+the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
+from phase 3b); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -319,9 +328,11 @@ def phase_kernel():
 
 
 def phase_enc23():
-    """The chained kernel vs enc23_plain on the card, into NaN-filled outputs; at B = 300
-    also vs the per-layer kernel chain. Returns the max fp32 abs error at the SEGAN+
-    widths."""
+    """The chained kernel vs enc23_plain on the card, into NaN-filled outputs, each route
+    read from its counters: fp32 on the 3xTF32 tensor cores at both tiles and on the FMA
+    kernel forced, bf16 on mma.sync; at B = 300 also vs the per-layer kernel chain and
+    fp32 pre3 vs a float64 chain. Times in turns. Returns the max abs errors at the SEGAN+
+    widths and the B = 300 times for the kernels line."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.conv import reflect_pad_1d
@@ -332,6 +343,7 @@ def phase_enc23():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [  # (label, B, T1, C1, C2, C3, bias, SEGAN+ widths)
         ("B=1", 1, 4096, 64, 128, 256, False, True),
         ("B=8", 8, 4096, 64, 128, 256, False, True),
@@ -340,11 +352,23 @@ def phase_enc23():
         ("narrow T1=64", 3, 64, 5, 24, 40, True, False),
         ("ragged tile T1=592", 2, 592, 5, 24, 40, False, False),
     ]
-    timed = {(label, dtype) for label in ("B=1", "B=8", "B=300")
-             for dtype in (torch.float32, torch.bfloat16)}
-    max_abs = 0.0
-    print(f"{'case':>18} {'dtype':>8} | {'rel err':>9} {'vs x2':>9} | "
-          f"{'plain ms':>9} {'x2 ms':>9} {'fused ms':>9} {'cuDNN x2':>9} {'bound':>9}")
+    timed = ("B=1", "B=8", "B=300")
+    max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    at300 = {}
+    counters = lambda: (EF.launches, EF.launches_tf32, EF.launches_tile16)
+    start = counters()
+
+    def launched(run, want):
+        """run() and check that it made one launch of the route and tile `want`."""
+        before = counters()
+        out = run()
+        torch.cuda.synchronize()
+        moved = tuple(n - b for n, b in zip(counters(), before))
+        assert moved == want, f"launches (all, tf32, tile 16) moved by {moved}, not {want}"
+        return out
+
+    print(f"{'case':>18} {'dtype':>8} {'tile':>4} | {'rel err':>9} {'tile 16':>9} "
+          f"{'tile 32':>9} {'fma':>9} {'vs x2':>9} {'vs f64':>9}")
     for label, b, t1, c1, c2, c3, has_bias, full in cases:
         h1 = torch.randn((b, c1, t1), generator=g).cuda()
         w2 = (torch.randn((c2, c1, EF.K), generator=g) / (c1 * EF.K) ** 0.5).cuda()
@@ -357,64 +381,129 @@ def phase_enc23():
                     for v in (h1, w2, b2, a2, w3, b3, a3)]
             EF._check(*args)
             shapes = [(b, c2, t1 // 4), (b, c3, t1 // 16), (b, c3, t1 // 16)]
-            got = EF._launch(*args, out=nan_outputs(*shapes, dtype=dtype))
+            fp32 = dtype == torch.float32
+            tile = EF._tf32_tile(b, t1, sms) if fp32 else 32
+            # the route that _route picks: fp32 on the 3xTF32 kernel at the tile by batch
+            want = (1, 1, int(tile == 16)) if fp32 else (1, 0, 0)
+            got = launched(lambda: EF._launch(*args, out=nan_outputs(*shapes, dtype=dtype)),
+                           want)
             ref = EF.enc23_plain(*args)
-            torch.cuda.synchronize()
             err = worst(rel_err(o, r) for o, r in zip(got, ref))
             assert err <= tol, f"{label} {dtype}: chained vs plain rel err {err:.3e} > {tol}"
-            if full and dtype == torch.float32:
-                max_abs = worst([max_abs] + [float((o - r).abs().max())
-                                             for o, r in zip(got, ref)])
-            err_x2 = float("nan")
+            if full:
+                max_abs[dtype] = worst([max_abs[dtype]] + [float((o - r).abs().max())
+                                                           for o, r in zip(got, ref)])
+            errs = {}
+            if fp32:  # both tiles, then the FMA kernel forced
+                for t in (16, 32):
+                    o = launched(lambda: EF._launch(*args, tile=t, out=nan_outputs(
+                        *shapes, dtype=dtype)), (1, 1, int(t == 16)))
+                    errs[f"tile {t}"] = worst(rel_err(v, r) for v, r in zip(o, ref))
+                o = launched(lambda: EF._launch(*args, force_fma=True,
+                                                out=nan_outputs(*shapes, dtype=dtype)),
+                             (1, 0, 0))
+                errs["fma"] = worst(rel_err(v, r) for v, r in zip(o, ref))
+                del o
+                bad = {k: e for k, e in errs.items() if not e <= tol}
+                assert not bad, f"{label} fp32 vs plain rel err over {tol}: {bad}"
             if b == 300:
-                err_x2 = worst(rel_err(o, r) for o, r in zip(got, bench.kernel_x2(*args)))
-                assert err_x2 <= tol, f"{label} {dtype}: chained vs kernel x2 {err_x2:.3e}"
+                errs["x2"] = worst(rel_err(o, r) for o, r in zip(got, bench.kernel_x2(*args)))
+                assert errs["x2"] <= tol, f"{label} {dtype}: chained vs kernel x2 {errs['x2']}"
+                # bf16: the same MMAs in the same order as the per-layer kernel twice
+                assert fp32 or errs["x2"] == 0, f"bf16 chained vs kernel x2 {errs['x2']}"
+                if fp32:  # the deepest sum, pre3, against a float64 chain
+                    ref64 = EF.enc23_plain(*[v.double() if v is not None else None
+                                             for v in args])
+                    errs["f64"] = rel_err(got[1], ref64[1])
+                    e_plain = rel_err(ref[1], ref64[1])
+                    del ref64
+                    print(f"{label}: fp32 pre3 vs a float64 chain: rel err {errs['f64']:.3e} "
+                          f"(the plain chain {e_plain:.3e})")
+                    assert errs["f64"] <= FP32_TOL, f"{label}: pre3 vs float64 {errs['f64']}"
             del got, ref
-            line = f"{label:>18} {str(dtype)[6:]:>8} | {err:9.2e} {err_x2:9.2e} |"
-            if (label, dtype) in timed:
-                line += " ".join(f"{bench.cuda_ms(lambda: arm(*args)):9.4f}"
-                                 for arm in bench.ARMS.values())
-                # the library's share of the plain chain: cuDNN's two convs alone
-                h1p = reflect_pad_1d(args[0], *EF.PAD)
-                p2p = reflect_pad_1d(conv1d_prelu_plain(h1p, *args[1:4], EF.S)[0], *EF.PAD)
-                line += " {:9.4f}".format(bench.cuda_ms(lambda: (
-                    F.conv1d(h1p, args[1], args[2], stride=EF.S),
-                    F.conv1d(p2p, args[4], args[5], stride=EF.S))))
-                del h1p, p2p
-                flops, nbytes = enc23_work(b, t1, c1, c2, c3, has_bias, args[0].element_size())
-                line += " {:9.4f}".format(bound_ms(
-                    flops, nbytes, BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK))
-            print(line, flush=True)
-    bad = [(torch.randn(s, generator=g) * 0.1).cuda().bfloat16()
-           for s in ((1, 5, 64), (24, 5, EF.K), (24,), (24,), (36, 24, EF.K), (36,), (36,))]
-    before = EF.launches
+            print(f"{label:>18} {str(dtype)[6:]:>8} {tile:>4} | {err:9.2e} " + " ".join(
+                f"{errs.get(k, float('nan')):9.2e}"
+                for k in ("tile 16", "tile 32", "fma", "x2", "f64")), flush=True)
+            if label not in timed:
+                continue
+            # in turns: the arms of the A/B tool, fp32 at both tiles and on the FMA kernel
+            # forced, and cuDNN's two convs alone (the library's share of the plain chain)
+            h1p = reflect_pad_1d(args[0], *EF.PAD)
+            p2p = reflect_pad_1d(conv1d_prelu_plain(h1p, *args[1:4], EF.S)[0], *EF.PAD)
+            arms = {name: lambda arm=arm: arm(*args) for name, arm in bench.ARMS.items()}
+            if fp32:
+                for t in (16, 32):
+                    arms[f"tile {t}"] = lambda t=t: EF._launch(*args, tile=t)
+                arms["fma"] = lambda: EF._launch(*args, force_fma=True)
+            arms["cuDNN x2"] = lambda: (F.conv1d(h1p, args[1], args[2], stride=EF.S),
+                                        F.conv1d(p2p, args[4], args[5], stride=EF.S))
+            ms = bench.ms_in_turns(arms)
+            del h1p, p2p
+            flops, nbytes = enc23_work(b, t1, c1, c2, c3, has_bias, args[0].element_size())
+            # fp32: the smaller of the FMA pipes' bound and the 3xTF32 tensor cores'
+            ms["bound"] = (min(bound_ms(flops, nbytes, FP32_PEAK),
+                               bound_ms(3 * flops, nbytes, TF32_PEAK)) if fp32
+                           else bound_ms(flops, nbytes, BF16_PEAK))
+            print(f"{label:>18} {str(dtype)[6:]:>8} ms: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+            if fp32 and b >= 8:  # the tensor cores no slower than the FMA kernel forced
+                assert ms["fused 2+3"] <= ms["fma"], (label, ms)
+            if b == 300:
+                at300[dtype] = ms
+    # fp32 C3 = 36 (not whole n8 tiles) takes the FMA kernel, and is right
+    odd = [(torch.randn(s, generator=g) * 0.1).cuda()
+           for s in ((2, 5, 128), (24, 5, EF.K), (24,), (24,), (36, 24, EF.K), (36,), (36,))]
+    shapes = [(2, 24, 32), (2, 36, 8), (2, 36, 8)]
+    got = launched(lambda: EF._launch(*odd, out=nan_outputs(*shapes, dtype=torch.float32)),
+                   (1, 0, 0))
+    err = worst(rel_err(o, r) for o, r in zip(got, EF.enc23_plain(*odd)))
+    print(f"fp32 C3 = 36: FMA kernel, rel err {err:.2e}")
+    assert err <= FP32_TOL, f"fp32 C3 = 36 vs plain rel err {err:.3e}"
+    bad = [v.bfloat16() for v in odd]
+    before = counters()
     try:
         EF.fused_enc23_fwd(*bad)
     except ValueError as e:
         print(f"bf16 C3 = 36 refused: {e}")
     else:
         raise AssertionError("the bf16 kernel took C3 = 36, which is not whole n8 tiles")
-    assert EF.launches == before, "a refused call launched the kernel"
-    return max_abs
+    assert counters() == before, "a refused call launched the kernel"
+    print("chained kernel launches in phase 3b (all, 3xTF32, of those at tile 16): "
+          f"{tuple(n - b for n, b in zip(counters(), start))}")
+    # where the tile rule switches: both tiles in turns around B * 8 = SMs
+    for b in (16, 32, 48, 64):
+        args = bench.make_inputs(b, dtype=torch.float32, device="cuda")
+        ms = bench.ms_in_turns({t: lambda t=t: EF._launch(*args, tile=t) for t in (16, 32)})
+        print(f"fp32 tiles at B={b}: 16 {ms[16]:.4f} ms, 32 {ms[32]:.4f} ms; the rule takes "
+              f"{EF._tf32_tile(b, 4096, sms)}", flush=True)
+    return max_abs, at300
 
 
 def phase_tool():
-    """The A/B tool at its defaults (batch 300, bf16), the path of the chained kernel.
-    Returns its results and the launches of both kernels in it."""
+    """The A/B tool at its defaults (batch 300, bf16), then in fp32 (the 3xTF32 route),
+    the path of the chained kernel. Returns its results by dtype and the launches of both
+    kernels in it."""
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
     from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
 
-    K.launches = K.launches_mma = EF.launches = 0
-    res = bench.main([])
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    EF.launches = EF.launches_tf32 = EF.launches_tile16 = 0
+    res = {"bfloat16": bench.main([])}
+    tf32_before = EF.launches_tf32
+    res["float32"] = bench.main(["--dtype", "float32"])
     torch.cuda.synchronize()
-    counts = {"fused_conv1d_prelu": K.launches, "fused_enc23_fwd": EF.launches}
+    counts = {"fused_conv1d_prelu": K.launches, "fused_enc23_fwd": EF.launches,
+              "fused_enc23_fwd tf32": EF.launches_tf32}
     print(f"kernel launches in the A/B tool: {counts}, {K.launches_mma} of the per-layer "
           f"kernel's on the tensor cores")
     assert all(n > 0 for n in counts.values()), counts
     assert K.launches_mma == K.launches, "kernel x2 left the tensor cores"
-    assert all(e <= BF16_TOL for e in res["rel"].values()), res["rel"]
+    assert tf32_before == 0 and EF.launches_tile16 == 0, "bf16 or tile 16 at batch 300"
+    assert (res["bfloat16"]["route"], res["float32"]["route"]) == ("mma", "tf32"), res
+    assert all(e <= BF16_TOL for e in res["bfloat16"]["rel"].values()), res["bfloat16"]
+    assert all(e <= FP32_TOL for e in res["float32"]["rel"].values()), res["float32"]
     return res, counts
 
 
@@ -643,20 +732,30 @@ def main():
     smi = phase_device()
     phase_build()
     per_layer = phase_kernel()
-    enc23_abs = phase_enc23()
+    enc23_abs, enc23_ms = phase_enc23()
     tool, tool_launches = phase_tool()
     phase_tf32()
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         launches, launches_mma, launches_tf32 = phase_slice(Path(work))
-    flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)  # the tool's defaults
+    # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
+    # forced at batch 300 from phase 3b
+    flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
+    bf16, fp32 = (enc23_ms[torch.bfloat16], enc23_ms[torch.float32])
     measured = [
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
              **per_layer),
-        dict(launches=tool_launches["fused_enc23_fwd"], max_abs_err=enc23_abs,
-             ms=tool["ms"]["fused 2+3"], plain_ms=tool["ms"]["plain chain"],
+        dict(launches=tool_launches["fused_enc23_fwd"],
+             launches_tf32=tool_launches["fused_enc23_fwd tf32"],
+             max_abs_err=enc23_abs[torch.bfloat16], ms=tool["bfloat16"]["ms"]["fused 2+3"],
+             plain_ms=tool["bfloat16"]["ms"]["plain chain"],
              bound_ms=bound_ms(flops, nbytes, BF16_PEAK), bound_by="operations",
-             library_ms=None),
+             library_ms=bf16["cuDNN x2"], fp32_max_abs_err=enc23_abs[torch.float32],
+             fp32_ms=tool["float32"]["ms"]["fused 2+3"], fp32_fma_ms=fp32["fma"],
+             fp32_plain_ms=tool["float32"]["ms"]["plain chain"],
+             fp32_bound_ms=min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
+                               bound_ms(3 * flops, 2 * nbytes, TF32_PEAK)),
+             fp32_library_ms=fp32["cuDNN x2"]),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

@@ -11,8 +11,11 @@
 // written in h1's dtype (fp32 or bf16); sums are fp32. post2 is rounded to h1's dtype
 // before enc3 reads it, as the TPU kernel rounds it.
 //
-// Two kernels, one per dtype, and no path from one dtype to the other's kernel:
-//   fp32: enc23_kernel<float>, fp32 FMAs on the CUDA cores;
+// Three kernels; the wrapper (ops/kernels/encoder_fused.py, `_route`) picks one by dtype
+// and shape, never as a fallback:
+//   fp32, C2 % 8 == 0 and C3 % 8 == 0 (every SEGAN+ shape): enc23_tf32_kernel<TILE>, fp32
+//     by 3xTF32 on the tensor cores (mma.sync m16n8k8), TILE 16 or 32 chosen by batch;
+//   fp32, any other shape: enc23_kernel<float>, fp32 FMAs on the CUDA cores;
 //   bf16: enc23_mma_kernel, bf16 tensor cores (mma.sync m16n8k16, fp32 sums).
 //
 // What bounds the work on the H100. At the SEGAN+ widths (64 -> 128 -> 256 channels,
@@ -22,7 +25,7 @@
 // round trip through device memory and the two reflect-padded copies, about 0.4 GB at
 // batch 300 in bf16 (~0.13 ms at 3.35 TB/s).
 //
-// Both kernels: one 256-thread block per (batch row, tile of TILE enc3 output rows), in
+// All three: one 256-thread block per (batch row, tile of TILE enc3 output rows), in
 // no order; nothing passes between blocks. Phase A computes post2, for all C2 channels,
 // on the real rows the tile's enc3 windows read, so enc2's halo is recomputed rather
 // than read from a neighbour; post2 goes to shared memory in h1's dtype, and pre2 is
@@ -30,8 +33,8 @@
 // block. Phase B computes enc3's TILE rows x C3 channels from that shared memory and
 // stores pre3 and post3.
 //
-// fp32 (enc23_kernel<float>). Both phases are implicit GEMMs in tiles of 32 rows x 128
-// channels over the weights' own depth order (ci-major, then 31 taps): each 16-deep
+// fp32 FMAs (enc23_kernel<float>). Both phases are implicit GEMMs in tiles of 32 rows x
+// 128 channels over the weights' own depth order (ci-major, then 31 taps): each 16-deep
 // stage is gathered through the reflect maps (a division by 31 per element) into shared
 // memory, and every thread accumulates a 2 x 8 sub-tile with FMAs. The weights (1 + 4 MB)
 // stay in the 50 MB L2. Bound by the FMA pipes and the unoverlapped staging (PERF.md).
@@ -59,17 +62,49 @@
 //   so the L2 latency of the weight loads and the single-buffered h1 staging are what
 //   bounds it next; every block reads all of w3 (2 MB) from L2, 4.8 GB at batch 300.
 // Needs C2 % 8 == 0 and C3 % 8 == 0 (whole n8 tiles); C1 is free.
+//
+// fp32 on the tensor cores (enc23_tf32_kernel<TILE>). The fp32 limit against the plain
+// version is 1e-4 relative and one TF32 product gives ~1e-3, so every product is taken
+// in 3xTF32 by the per-layer fp32 kernel's mainloop, warp_conv_3xtf32 (csrc/mma_tf32.cuh,
+// whose header has the error terms): each operand as a (big, small) pair of TF32 parts,
+// three MMAs per product, and half a channel's MMAs summed in fresh registers and added
+// with fp32 adds (the tensor cores' own sums truncate; enc3's depth is 128 x 32). The
+// wrapper pads w2 and w3 to 32 taps and splits them once per weight and version; h1 and
+// post2 are split in registers as their fragments are loaded. post2 stays fp32 and is not
+// rounded (h1's dtype is fp32). The plan is enc23_mma_kernel's: h1 staged per chunk of
+// channels over the window [4 lo, 4 lo + WIN), reflected at T1 while staging; post2 by
+// padded slot, the mirror fill at T2 and zeroes where no real row maps; every A operand
+// read as buf[ci][4 m + k]. What changes in fp32:
+//   Registers. A warp's m16 tile costs 16 fp32 accumulators per 32 channels, and the
+//   mainloop adds 16 partial sums, 32 registers of weight parts and the split A values,
+//   inside the 128 registers that two blocks per SM allow. So phase A (2 x 4 warps, each
+//   MA / 32 rows x 32 channels, as the bf16 kernel) runs its rows in passes of at most
+//   PT = 3 m16 tiles, restaging h1 for each pass (two passes at TILE 32, one at 16);
+//   phase B is 8 warps of TILE rows x 32 channels.
+//   Shared memory: post2 in fp32 (C2 x SLOTS x 4 B, 80 KB at TILE 32) and an h1 chunk of
+//   CC channels: 101 KB at TILE 32 (CC 8), 73 KB at TILE 16 (CC 16), so two blocks fit.
+//   Tile by batch. At TILE 32 a chunk of one batch row is 8 blocks on 132 SMs. TILE 16
+//   halves the rows per block and recomputes more of enc2's halo (92 post2 rows for 64
+//   owned against 156 for 128: ~11 % more MMAs), so the wrapper takes it only where the
+//   TILE 32 grid would leave SMs idle (B * ceil(T3 / 32) < SMs: B <= 16 at T1 = 4096).
+//   What bounds it: the operations, 3 x 32/31 of the useful FLOPs in TF32 MMAs, and the
+//   weight parts read from L2 by every block (w3's 8.4 MB in phase B, w2's 2.1 MB once
+//   per row group and pass in phase A); no cp.async, TMA or wgmma.
+// tests/test_torch_encoder_fused_tf32.py emulates these index maps and the split in
+// float64, and reads the constants below.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using mma_conv::KP;  // 32 taps, padded by the wrapper
 using mma_conv::NT;  // n8 tiles per warp (32 channels)
 using mma_conv::prelu;
+using mma_conv::warp_conv_3xtf32;
 using mma_conv::warp_conv_mma;
 
 constexpr int KW = 31;                             // taps, hard-coded as in the TPU kernel
@@ -96,6 +131,18 @@ constexpr int MTA = 5;                             // phase A: m16 tiles per war
 constexpr int MTB = TILE / 16;                     // phase B: m16 tiles per warp (32 rows)
 static_assert(MA >= SLOTS && 2 * MTA * 16 == MA && THREADS == 256, "2 x 4 warps in phase A");
 static_assert(SLOTS % 4 == 0 && WIN % 4 == 0, "8-byte aligned rows of shared memory");
+
+// The fp32 tensor-core kernel's constants, by its tile of TILE enc3 rows per block: SLOTS
+// padded post2 rows, MA phase A rows (whole m16 tiles, two rows of warps), WIN padded h1
+// rows that they read, CC h1 channels staged at a time.
+template <int TILE> struct Tf32Tile;
+template <> struct Tf32Tile<16> {
+  static constexpr int SLOTS = 92, MA = 96, WIN = 412, CC = 16;
+};
+template <> struct Tf32Tile<32> {
+  static constexpr int SLOTS = 156, MA = 160, WIN = 668, CC = 8;
+};
+constexpr int PT = 3;  // phase A: m16 tiles per warp and pass
 
 // The fp32 kernel's conversions: float only, so that nothing instantiates it for bf16.
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -366,6 +413,139 @@ enc23_mma_kernel(const __nv_bfloat16* __restrict__ h1, const __nv_bfloat16* __re
   }
 }
 
+// The fp32 tensor-core kernel: w2 and w3 as their TF32 parts (big, small), each (Cout,
+// Cin, KP) with tap 31 zero. Dynamic shared memory: post2 [C2][SLOTS], then the h1 chunk
+// [CC][WIN], both fp32.
+template <int TILE>
+__global__ void __launch_bounds__(THREADS, 2)
+enc23_tf32_kernel(const float* __restrict__ h1, const float* __restrict__ w2_big,
+                  const float* __restrict__ w2_small, const float* __restrict__ b2,
+                  const float* __restrict__ a2, const float* __restrict__ w3_big,
+                  const float* __restrict__ w3_small, const float* __restrict__ b3,
+                  const float* __restrict__ a3, float* __restrict__ pre2,
+                  float* __restrict__ pre3, float* __restrict__ post3, int C1, int T1,
+                  int C2, int C3, int tiles) {
+  using P = Tf32Tile<TILE>;
+  constexpr int RT = P::MA / 32;  // phase A: m16 tiles per row of warps (3 or 5)
+  constexpr int MTB = TILE / 16;  // phase B: m16 tiles per warp
+  static_assert(P::SLOTS == STRIDE * TILE + KP - STRIDE && P::MA % 32 == 0 &&
+                    P::MA >= P::SLOTS && P::MA - 16 < P::SLOTS &&
+                    P::WIN == STRIDE * (P::MA - 1) + KP && THREADS == 256,
+                "2 x 4 warps in phase A, whole m16 tiles over the slots");
+  static_assert(P::SLOTS % 2 == 0 && P::WIN % 2 == 0,
+                "8-byte aligned rows of shared memory");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* post2 = reinterpret_cast<float*>(smem);
+  float* xs = post2 + C2 * P::SLOTS;  // C2 % 8 == 0 keeps it 16-byte aligned
+
+  const int T2 = T1 / STRIDE;
+  const int T3 = T2 / STRIDE;
+  const long long b = blockIdx.x / tiles;
+  const int t0 = (blockIdx.x % tiles) * TILE;
+  const int t_end = min(t0 + TILE, T3);
+  const int p0 = STRIDE * t0 - PAD_L;  // the real post2 row of slot 0, before reflection
+  // real post2 rows that land in slots [0, SLOTS); the mirrored ones are among them
+  const int lo = max(0, p0);
+  const int hi = min(T2 - 1, p0 + P::SLOTS - 1);
+  const int rows = hi - lo + 1;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const float* x = h1 + b * C1 * T1;
+
+  // Phase A: enc2 on post2 rows lo + m, m < rows, as 2 x 4 warps of RT m16 tiles x 32
+  // channels, in passes of at most PT m16 tiles; h1 is staged anew for each pass.
+  for (int nb = 0; nb < C2; nb += 4 * NT * 8) {
+    const int n0 = nb + (warp % 4) * NT * 8;
+    const int nt_live = min(NT, max(0, (C2 - n0) / 8));
+    for (int pass = 0; pass * PT < RT; ++pass) {
+      const int ma0 = ((warp / 4) * RT + pass * PT) * 16;
+      const int mt_live = min(min(PT, RT - pass * PT), max(0, (rows - ma0 + 15) / 16));
+      float acc[PT][NT][4] = {};
+      for (int c0 = 0; c0 < C1; c0 += P::CC) {
+        const int cc = min(P::CC, C1 - c0);
+        __syncthreads();  // the previous chunk is no longer read
+        // padded h1 row STRIDE * lo + j of each channel, reflected at T1; rows past the
+        // padded end are clamped: only discarded rows m >= rows read them
+        for (int e = threadIdx.x; e < cc * P::WIN; e += THREADS) {
+          const int c = e / P::WIN;
+          const int j = e - c * P::WIN;
+          const int r = min(max(reflect(STRIDE * lo + j - PAD_L, T1), 0), T1 - 1);
+          xs[e] = x[(long long)(c0 + c) * T1 + r];
+        }
+        __syncthreads();
+        if (mt_live > 0 && nt_live > 0)
+          warp_conv_3xtf32<PT>(acc, xs, P::WIN, ma0, mt_live, w2_big + c0 * KP,
+                               w2_small + c0 * KP, C1, n0, nt_live, cc);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (j >= nt_live) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int co = n0 + 8 * j + 2 * t + (e & 1);
+          const float bco = b2 != nullptr ? b2[co] : 0.f;
+          const float aco = a2[co];
+#pragma unroll
+          for (int i = 0; i < PT; ++i) {
+            // tiles i >= mt_live belong to the next pass or to the next row of warps
+            const int m = ma0 + 16 * i + g + 8 * (e >> 1);
+            if (i >= mt_live || m >= rows) continue;
+            const float p = acc[i][j][e] + bco;
+            const int r = lo + m;
+            post2[co * P::SLOTS + r - p0] = prelu(p, aco);
+            if (r >= STRIDE * t0 && r < STRIDE * t_end)
+              pre2[(b * C2 + co) * (long long)T2 + r] = p;
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every real row is in its slot
+  // The other slots: mirrored rows at either end (reflect at T2), else zero.
+  for (int co = warp; co < C2; co += THREADS / 32) {
+    for (int s = lane; s < P::SLOTS; s += 32) {
+      const int r = p0 + s;
+      if (r >= lo && r <= hi) continue;
+      const int src = r < 0 ? -r : 2 * T2 - 2 - r;
+      post2[co * P::SLOTS + s] =
+          src >= lo && src <= hi ? post2[co * P::SLOTS + src - p0] : 0.f;
+    }
+  }
+  __syncthreads();  // post2 complete before phase B reads it
+
+  // Phase B: enc3 on rows t0 + m, m < t_end - t0, as 8 warps of TILE rows x 32 channels.
+  const int mt_live_b = (t_end - t0 + 15) / 16;
+  for (int nb = 0; nb < C3; nb += (THREADS / 32) * NT * 8) {
+    const int n0 = nb + warp * NT * 8;
+    const int nt_live = min(NT, max(0, (C3 - n0) / 8));
+    if (nt_live <= 0) continue;
+    float acc[MTB][NT][4] = {};
+    warp_conv_3xtf32<MTB>(acc, post2, P::SLOTS, 0, mt_live_b, w3_big, w3_small, C2, n0,
+                          nt_live, C2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt_live) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int co = n0 + 8 * j + 2 * t + (e & 1);
+        const float bco = b3 != nullptr ? b3[co] : 0.f;
+        const float aco = a3[co];
+#pragma unroll
+        for (int i = 0; i < MTB; ++i) {
+          const int tt = t0 + 16 * i + g + 8 * (e >> 1);
+          if (tt >= t_end) continue;
+          const float p = acc[i][j][e] + bco;
+          const long long off = (b * C3 + co) * (long long)T3 + tt;
+          pre3[off] = p;
+          post3[off] = prelu(p, aco);
+        }
+      }
+    }
+  }
+}
+
 // Launches `kernel` on one block per (batch row, tile) with `smem` bytes of dynamic
 // shared memory, which above 48 KB must be allowed explicitly, or the launch is refused.
 template <typename T, typename Kernel>
@@ -388,6 +568,34 @@ int launch(Kernel kernel, size_t smem, const void* h1, const void* w2, const voi
       static_cast<const T*>(a2), static_cast<const T*>(w3), static_cast<const T*>(b3),
       static_cast<const T*>(a3), static_cast<T*>(pre2), static_cast<T*>(pre3),
       static_cast<T*>(post3), C1, T1, C2, C3, tiles);
+  return (int)cudaGetLastError();
+}
+
+// enc23_tf32_kernel<TILE> on one block per (batch row, tile), as `launch`.
+template <int TILE>
+int launch_tf32(const void* h1, const void* w2_big, const void* w2_small, const void* b2,
+                const void* a2, const void* w3_big, const void* w3_small, const void* b3,
+                const void* a3, void* pre2, void* pre3, void* post3, int B, int C1, int T1,
+                int C2, int C3, cudaStream_t stream) {
+  using P = Tf32Tile<TILE>;
+  const int T3 = T1 / (STRIDE * STRIDE);
+  const int tiles = (T3 + TILE - 1) / TILE;
+  const long long blocks = (long long)B * tiles;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)C2 * P::SLOTS + P::CC * P::WIN) * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      enc23_tf32_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it, so that a later launch does not report it
+    return (int)err;
+  }
+  enc23_tf32_kernel<TILE><<<(unsigned)blocks, THREADS, smem, stream>>>(
+      static_cast<const float*>(h1), static_cast<const float*>(w2_big),
+      static_cast<const float*>(w2_small), static_cast<const float*>(b2),
+      static_cast<const float*>(a2), static_cast<const float*>(w3_big),
+      static_cast<const float*>(w3_small), static_cast<const float*>(b3),
+      static_cast<const float*>(a3), static_cast<float*>(pre2), static_cast<float*>(pre3),
+      static_cast<float*>(post3), C1, T1, C2, C3, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -416,6 +624,34 @@ extern "C" int encoder_fused_launch(int dtype, const void* h1, const void* w2,
                                    ((size_t)C2 * SLOTS + CC * WIN) * sizeof(__nv_bfloat16),
                                    h1, w2, b2, a2, w3, b3, a3, pre2, pre3, post3, B, C1, T1,
                                    C2, C3, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The fp32 tensor-core route, by 3xTF32: w2 and w3 given as their TF32 parts, each
+// (Cout, Cin, 32) with tap 31 zero and 16-byte aligned; tile (16 or 32) enc3 rows per
+// block. Needs C2 % 8 == 0, C3 % 8 == 0, T1 % 16 == 0 and T1 >= 64; b2 and b3 may be
+// null. As encoder_fused_launch, it launches on `stream`, returns the cudaError_t (0 on
+// success), does not synchronise and allocates nothing.
+extern "C" int encoder_fused_tf32_launch(const void* h1, const void* w2_big,
+                                         const void* w2_small, const void* b2,
+                                         const void* a2, const void* w3_big,
+                                         const void* w3_small, const void* b3,
+                                         const void* a3, void* pre2, void* pre3,
+                                         void* post3, int tile, int B, int C1, int T1,
+                                         int C2, int C3, void* stream) {
+  if (B <= 0 || C1 <= 0 || C2 <= 0 || C3 <= 0 || T1 % (STRIDE * STRIDE) != 0 || T1 < 64 ||
+      C2 % 8 != 0 || C3 % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 16:
+      return launch_tf32<16>(h1, w2_big, w2_small, b2, a2, w3_big, w3_small, b3, a3, pre2,
+                             pre3, post3, B, C1, T1, C2, C3, s);
+    case 32:
+      return launch_tf32<32>(h1, w2_big, w2_small, b2, a2, w3_big, w3_small, b3, a3, pre2,
+                             pre3, post3, B, C1, T1, C2, C3, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -11,12 +11,18 @@ kernel of the port:
   tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_enc23_fwd``: the wrapper. On a CPU tensor it returns the plain version; on a
   CUDA tensor it launches the hand-written kernel (``csrc/encoder_fused.cu``) or raises.
-  ``launches`` counts the kernel launches. Forward only, as the Pallas kernel.
+  Forward only, as the Pallas kernel.
 - ``_launch``: the launch itself, which also takes preallocated outputs.
 
-The kernel is two: fp32 runs FMAs on the CUDA cores; bf16 runs on the tensor cores
-(``mma.sync``) and takes the weights padded to 32 taps (``_pad_taps``), with C2 and C3
-multiples of 8.
+Three kernels on the card, chosen by dtype and shape (``_route``), never as a fallback:
+fp32 with C2 and C3 multiples of 8 (every SEGAN+ shape) runs on the tensor cores by a
+3xTF32 split (``enc23_tf32_kernel``), with a tile of 16 or 32 enc3 rows per block chosen
+by batch (``_tf32_tile``); any other fp32 shape runs FMAs on the CUDA cores; bf16 runs on
+the tensor cores (``mma.sync``) and needs C2 and C3 multiples of 8. The tensor-core
+kernels take the weights padded to 32 taps, in fp32 split into their TF32 parts, made
+once per weight and version (``conv1d_prelu._padded_weights``). ``launches`` counts all
+launches, ``launches_tf32`` those of the 3xTF32 kernel and ``launches_tile16`` those of
+them at the tile of 16.
 
 Layout (torch's, not the JAX package's): h1, enc1's post-activation, (B, C1, T1)
 unpadded, with T1 % 16 == 0 and T1 >= 64; w2 (C2, C1, 31); b2 (C2,) or None; a2 (C2,);
@@ -34,10 +40,14 @@ import torch
 
 from ..conv import reflect_pad_1d
 from . import build
-from .conv1d_prelu import KP, _pad_taps, conv1d_prelu_plain
+from .conv1d_prelu import KP, _pad_taps, _padded_weights, _sm_count, conv1d_prelu_plain
 
-# kernel launches since the counter was last set to 0 (the wrapper alone adds to it)
+# kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
+# all of them, those of the fp32 tensor-core (3xTF32) kernel, and of those the ones at
+# the tile of 16 enc3 rows
 launches = 0
+launches_tf32 = 0
+launches_tile16 = 0
 
 K = 31  # taps and stride are fixed, as in the Pallas kernel
 S = 4
@@ -84,19 +94,43 @@ def _check(h1, w2, b2, a2, w3, b3, a3) -> None:
                         f"{[t.dtype for t in tensors]}")
 
 
+def _route(dtype: torch.dtype, c2: int, c3: int) -> str:
+    """Which kernel a CUDA call takes: "tf32" (the tensor cores by 3xTF32) for fp32 with
+    whole n8 tiles of channels (C2 and C3 multiples of 8), "fma" for any other fp32
+    shape, "mma" for bf16 (which needs whole n8 tiles; ``_launch`` raises otherwise)."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    return "tf32" if c2 % 8 == 0 and c3 % 8 == 0 else "fma"
+
+
+def _tf32_tile(B: int, t1: int, num_sms: int) -> int:
+    """enc3 rows per block of the 3xTF32 kernel: 32, unless its blocks would leave SMs
+    idle (B * ceil(T3 / 32) < SMs, B <= 16 at T1 = 4096 on 132 SMs); then 16, which
+    recomputes more of enc2's halo per row but fills twice the SMs. On the H100 TILE 16
+    won at B = 1, 8 and 16 and lost at 32 and 64 (PERF.md)."""
+    return 16 if B * -(-(t1 // (S * S)) // 32) < num_sms else 32
+
+
 @functools.cache
-def _entry():
-    launch = build.load_library("encoder_fused").encoder_fused_launch
+def _entries():
+    lib = build.load_library("encoder_fused")
+    launch = lib.encoder_fused_launch
     launch.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
         ctypes.c_void_p]
     launch.restype = ctypes.c_int
-    return launch
+    launch_tf32 = lib.encoder_fused_tf32_launch
+    launch_tf32.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    launch_tf32.restype = ctypes.c_int
+    return launch, launch_tf32
 
 
-def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None) -> Outputs:
+def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None,
+            force_fma: bool = False, tile: Optional[int] = None) -> Outputs:
     """Launch the kernel on checked CUDA tensors, into ``out`` (pre2, pre3, post3) when
-    it is given, else into new tensors."""
-    global launches
+    it is given, else into new tensors. For same-call comparisons only: ``force_fma``
+    takes the fp32 FMA kernel whatever the shape, ``tile`` (16 or 32) sets the 3xTF32
+    kernel's tile."""
+    global launches, launches_tf32, launches_tile16
     if h1.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {h1.dtype}")
     inputs = [t for t in (h1, w2, b2, a2, w3, b3, a3) if t is not None]
@@ -106,11 +140,17 @@ def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None) -> Output
     c2, c3 = w2.shape[0], w3.shape[0]
     if max(B, c1 * KP, t1, c2 * KP, c3) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
-    if h1.dtype == torch.bfloat16:
-        if c2 % 8 or c3 % 8:
-            raise ValueError(f"the bf16 kernel runs whole n8 tiles of the tensor cores: C2 = "
-                             f"{c2} and C3 = {c3} must be multiples of 8")
-        w2, w3 = _pad_taps(w2), _pad_taps(w3)
+    if force_fma and h1.dtype != torch.float32:
+        raise ValueError("force_fma takes the fp32 FMA kernel: h1 must be float32")
+    route = "fma" if force_fma else _route(h1.dtype, c2, c3)
+    if route == "mma" and (c2 % 8 or c3 % 8):
+        raise ValueError(f"the bf16 kernel runs whole n8 tiles of the tensor cores: C2 = "
+                         f"{c2} and C3 = {c3} must be multiples of 8")
+    if tile is not None and (route != "tf32" or tile not in (16, 32)):
+        raise ValueError(f"tile (16 or 32) is the 3xTF32 kernel's, got {tile} on the "
+                         f"{route} route")
+    if route != "fma":
+        w2, w3 = _padded_weights(w2), _padded_weights(w3)
     shapes = ((B, c2, t1 // S), (B, c3, t1 // (S * S)), (B, c3, t1 // (S * S)))
     if out is None:
         out = tuple(torch.empty(s, dtype=h1.dtype, device=h1.device) for s in shapes)
@@ -119,16 +159,29 @@ def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None) -> Output
         raise ValueError(f"out must be contiguous {h1.dtype} tensors on {h1.device} of "
                          f"shapes {shapes}")
     pre2, pre3, post3 = out
+    ptr = lambda v: v.data_ptr() if v is not None else None
+    launch, launch_tf32 = _entries()
     with torch.cuda.device(h1.device):
         stream = torch.cuda.current_stream(h1.device).cuda_stream
-        err = _entry()(_DTYPE_CODES[h1.dtype], h1.data_ptr(), w2.data_ptr(),
-                       b2.data_ptr() if b2 is not None else None, a2.data_ptr(),
-                       w3.data_ptr(), b3.data_ptr() if b3 is not None else None,
-                       a3.data_ptr(), pre2.data_ptr(), pre3.data_ptr(), post3.data_ptr(),
-                       B, c1, t1, c2, c3, stream)
+        if route == "tf32":
+            if tile is None:
+                tile = _tf32_tile(B, t1, _sm_count(h1.device.index))
+            err = launch_tf32(h1.data_ptr(), w2[0].data_ptr(), w2[1].data_ptr(), ptr(b2),
+                              a2.data_ptr(), w3[0].data_ptr(), w3[1].data_ptr(), ptr(b3),
+                              a3.data_ptr(), pre2.data_ptr(), pre3.data_ptr(),
+                              post3.data_ptr(), tile, B, c1, t1, c2, c3, stream)
+        else:
+            err = launch(_DTYPE_CODES[h1.dtype], h1.data_ptr(), w2.data_ptr(), ptr(b2),
+                         a2.data_ptr(), w3.data_ptr(), ptr(b3), a3.data_ptr(),
+                         pre2.data_ptr(), pre3.data_ptr(), post3.data_ptr(), B, c1, t1, c2,
+                         c3, stream)
     if err != 0:
-        raise RuntimeError(f"encoder_fused kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"encoder_fused kernel launch failed ({route} route): "
+                           f"cudaError {err}")
     launches += 1
+    if route == "tf32":
+        launches_tf32 += 1
+        launches_tile16 += tile == 16
     return pre2, pre3, post3
 
 

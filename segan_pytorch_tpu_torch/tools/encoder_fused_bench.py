@@ -11,8 +11,10 @@ default, the training batch) it times three arms, each returning (pre2, pre3, po
   kernel x2   : reflect pad -> the per-layer kernel (``fused_conv1d_prelu``) twice
   fused 2+3   : the chained kernel (``fused_enc23_fwd``), post2 kept on chip
 
-and prints each arm's time (CUDA events, median of 20 after 3 warm-ups) and the max
-|plain - fused| of each output beside its relative error. The data is the JAX tool's:
+and prints each arm's time (CUDA events, median of 20 after 3 warm-ups), the route and
+tile the chained kernel took (read from its launch counters: in fp32 the 3xTF32 tensor
+cores at every SEGAN+ shape, in bf16 ``mma.sync``) and the max |plain - fused| of each
+output beside its relative error. The data is the JAX tool's:
 ``np.random.RandomState(0)`` in the same order and scales. The JAX tool's ``--bt`` (the
 Pallas kernel's VMEM batch tile) has no counterpart. The CLI needs a CUDA device; the
 arm functions take tensors on any device.
@@ -101,9 +103,24 @@ def ms_in_turns(arms: Dict[str, Callable], reps: int = 20, warmup: int = 3
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def route_taken(run: Callable, dtype: torch.dtype) -> Tuple[str, int]:
+    """(route, tile) that the chained kernel took in run(), read from its counters:
+    "tf32" (3xTF32), "mma" (bf16) or "fma", and its enc3 rows per block."""
+    before = (EF.launches, EF.launches_tf32, EF.launches_tile16)
+    run()
+    launched, tf32, tile16 = (n - b for n, b in zip(
+        (EF.launches, EF.launches_tf32, EF.launches_tile16), before))
+    if launched != 1:
+        raise RuntimeError(f"the chained kernel launched {launched} times, not once")
+    if tf32:
+        return "tf32", 16 if tile16 else 32
+    return ("mma" if dtype == torch.bfloat16 else "fma"), 32
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Run the A/B; returns {"ms": {arm: ms}, "max_abs": {...}, "rel": {...}}, the
-    errors of 'fused 2+3' against 'plain chain' by output."""
+    """Run the A/B; returns {"ms": {arm: ms}, "max_abs": {...}, "rel": {...}, "route":
+    ..., "tile": ...}, the errors of 'fused 2+3' against 'plain chain' by output and the
+    chained kernel's route and tile."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=300)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
@@ -122,6 +139,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         outs[name] = arm(*inputs)
         res["ms"][name] = cuda_ms(lambda: arm(*inputs))
         print(f"{name:<12}: {res['ms'][name]:8.3f} ms", flush=True)
+    res["route"], res["tile"] = route_taken(lambda: EF.fused_enc23_fwd(*inputs), dtype)
+    print(f"fused 2+3 took the {res['route']} route, {res['tile']} enc3 rows per block")
     for i, name in enumerate(("pre2", "pre3", "post3")):
         ref = outs["plain chain"][i].float()
         diff = float((outs["fused 2+3"][i].float() - ref).abs().max())
