@@ -48,8 +48,34 @@ and when the port's package is not beside it):
      seconds enhanced per wall second, the device memory that the first fp32 forward
      keeps (the split weights), and G chunks/s at batch 64, fp32 and bf16, each on both
      routes of the per-layer kernel, in turns.
+  5. the train path (models/segan.py SEGAN.train_step), every check fatal:
+     5a. Conv1dPReLU's backward (dx, dw, db, da) on the card vs autograd of
+     conv1d_prelu_plain on the card at the five encoder shapes at B = 8 and enc2 at
+     B = 300, fp32 (TF32 off, <= 1e-4) and bf16 (<= 2e-2), slopes U(0, 0.3), the upstream
+     gradient gy zeroed where pre lies within the limit of 0 (there the PReLU's branch
+     depends on the last bit); then per dtype one RMSprop and one Adam step (the port's
+     build_optimizer) on w in place, after which the kernel must equal the plain version
+     with the new w (its padded weights cached by w's version must not be stale);
+     5b. a full-width SEGAN+ G + D (--no_bias, slopes U(0, 0.3)), one fp32 step at B = 4
+     (one row masked) on the card and on a CPU copy (oneDNN off), same init, batch, z and
+     phase draws, both held against the step in float64 on the CPU: the card's losses
+     (g_adv in the step with D's learning rate 0, below) and Genh <= 1e-3 relative; D's
+     gradients, all tensors together, within max(1e-3, 4 x the CPU fp32 ones' error) in
+     L2 and each within max(1e-2, 4 x the CPU's) (the step's per-channel gradient sums
+     cancel; D's conv biases, which feed a BatchNorm
+     and so have a true gradient of 0, are checked to be noise). G's step gradients go
+     through D after its RMSprop step and through PReLU kinks, where last-bit differences
+     flip a sign: printed; G's backward from a fixed gradient of Genh, card vs float64,
+     each tensor <= 1e-3; with D's learning rate 0, g_adv <= 1e-3 and G's step gradients
+     <= 5e-2 all together;
+     5c. the step at full width, batch 300, fp32 and bf16: 3 warm-up steps, then 10 timed
+     by CUDA events with the kernel's counters set to 0 just before and read just after
+     (5 launches per step, all on the tensor cores); losses finite; slices/s, the median
+     split into G forward / D update / G update, peak device memory; then
+     `python -m segan_pytorch_tpu_torch.bench --steps 5 --warmup 2` in bf16 and fp32.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
-phase 4, its times the bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one;
+phase 4 and train_launches_per_step from 5c, its times the bf16 encoder sum at 64 chunks
+and, under fp32_*, the fp32 one;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -720,6 +746,320 @@ def phase_slice(work: Path):
     return launches, launches_mma, launches_tf32
 
 
+# G's step gradients on the card vs float64 with D' = D: a PReLU kink taken the other way
+# moves them by some 1e-3, so ten times that
+KINK_TOL = 5e-2
+# D's conv biases feed a BatchNorm, which takes the per-channel mean out: their true
+# gradient is 0 and what autograd returns for them is rounding noise
+BIAS_BEFORE_BN = tuple(f"enc_blocks.{i}.conv.bias" for i in range(5))
+
+
+def phase_train_kernel():
+    """5a: Conv1dPReLU's backward vs autograd of the plain version, on the card, and the
+    kernel's cached weights across optimizer steps."""
+    import torch
+    from segan_pytorch_tpu_torch.models.segan import build_optimizer
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    torch.backends.cudnn.allow_tf32 = False  # the plain version's backward convs: fp32
+    g = torch.Generator().manual_seed(SEED + 6)
+    T, Kw, S = 16384, 31, 4
+    chans = [1, 64, 128, 256, 512, 1024]
+    print(f"{'layer':>12} {'dtype':>8} | {'dx':>9} {'dw':>9} {'db':>9} {'da':>9} | gy zeroed")
+    for b, i in [(8, i) for i in range(5)] + [(300, 1)]:
+        t_out = T // S ** (i + 1)
+        cin, cout = chans[i], chans[i + 1]
+        x = torch.randn((b, cin, S * t_out + Kw - 2), generator=g)
+        w = torch.randn((cout, cin, Kw), generator=g) / (cin * Kw) ** 0.5
+        bias = torch.randn((cout,), generator=g) * 0.1
+        a = torch.rand((cout,), generator=g) * 0.3
+        gy, gpre = (torch.randn((b, cout, t_out), generator=g) for _ in range(2))
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            leaves = [v.to(dtype).cuda().requires_grad_() for v in (x, w, bias, a)]
+            refs = [v.detach().clone().requires_grad_() for v in leaves]
+            before = (K.launches_mma, K.launches_tf32)
+            y, pre = K.conv1d_prelu(*leaves, S)
+            moved = (K.launches_mma - before[0], K.launches_tf32 - before[1])
+            assert moved == (1, int(dtype == torch.float32)), f"routes moved by {moved}"
+            y_r, pre_r = K.conv1d_prelu_plain(*refs, S)
+            p = pre_r.detach().float().abs()
+            near = p <= tol * p.max()
+            gy_d = torch.where(near, 0.0, gy.cuda()).to(dtype)
+            gpre_d = gpre.cuda().to(dtype)
+            torch.autograd.backward([y, pre], [gy_d, gpre_d])
+            torch.autograd.backward([y_r, pre_r], [gy_d, gpre_d])
+            errs = [rel_err(v.grad, r.grad) for v, r in zip(leaves, refs)]
+            label = f"B={b} enc{i + 1}"
+            print(f"{label:>12} {str(dtype)[6:]:>8} | " + " ".join(f"{e:9.2e}" for e in errs)
+                  + f" | {float(near.float().mean()):.2%}", flush=True)
+            assert worst(errs) <= tol, f"{label} {dtype}: backward vs plain {errs} > {tol}"
+            del leaves, refs, y, pre, y_r, pre_r
+    # the cached padded (fp32: split) weights after an in-place optimizer step
+    x = torch.randn((8, 128, 1053), generator=g).cuda()
+    a = (torch.rand((256,), generator=g) * 0.3).cuda()
+    w0 = torch.randn((256, 128, Kw), generator=g) / (128 * Kw) ** 0.5
+    shape = (8, 256, 256)
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        xd, ad = x.to(dtype), a.to(dtype)
+        for opt in ("rmsprop", "adam"):
+            w = torch.nn.Parameter(w0.to(dtype).cuda())
+            o = build_optimizer(opt, 1e-2, [w])
+            y0, _ = K.fused_conv1d_prelu(xd, w, None, ad, S)  # caches w's padded copy
+            w.grad = torch.randn(w.shape, generator=g).to(dtype).cuda()
+            o.step()
+            with torch.no_grad():
+                y1, pre1 = K._launch(xd, w, None, ad, S, 256,
+                                     out=nan_outputs(shape, shape, dtype=dtype))
+                y_ref, pre_ref = K.conv1d_prelu_plain(xd, w, None, ad, S)
+            e = worst([rel_err(y1, y_ref), rel_err(pre1, pre_ref)])
+            moved = rel_err(y0, y_ref)
+            print(f"after one {opt} step ({str(dtype)[6:]}): kernel vs plain with the new w "
+                  f"rel err {e:.2e}; the old output differs by {moved:.2e}")
+            assert e <= tol and moved > 10 * tol, (opt, dtype, e, moved)
+    w = torch.nn.Parameter(w0.cuda())
+    version = w._version
+    w.grad = torch.ones_like(w)
+    torch.optim.Adam([w], lr=1e-3, fused=True).step()
+    print(f"for the record: fused Adam bumps the weight's version counter: "
+          f"{w._version > version} (the port never uses fused=True)")
+
+
+def _train_models(cfg, seed):
+    """A seeded SEGAN+ G and D with every PReLU slope drawn from U(0, 0.3)."""
+    import torch
+    from segan_pytorch_tpu_torch.models.discriminator import build_discriminator
+    from segan_pytorch_tpu_torch.models.generator import build_generator
+
+    gen = torch.Generator().manual_seed(seed)
+    G, D = build_generator(cfg, gen), build_discriminator(cfg, gen)
+    with torch.no_grad():
+        for name, p in list(G.named_parameters()) + list(D.named_parameters()):
+            if name.endswith("act.weight"):
+                p.uniform_(0.0, 0.3, generator=gen)
+    return G, D
+
+
+def _train_batch(b, t, seed):
+    """bench.py's synthetic batch: clean ~ N(0, 0.1^2), noisy = clean + N(0, 0.02^2)."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    clean = (rng.randn(b, t, 1) * 0.1).astype(np.float32)
+    noisy = clean + (rng.randn(b, t, 1) * 0.02).astype(np.float32)
+    return torch.from_numpy(clean), torch.from_numpy(noisy)
+
+
+def phase_train_parity():
+    """5b: one full-width fp32 step at B = 4 on the card and on a CPU copy, both held
+    against the same step in float64 on the CPU; then G's backward alone, and a step
+    with D's learning rate 0.
+
+    The step is ill-conditioned in places, so its gradients are held to the CPU's own
+    fp32 error, up to a factor: D's per-channel gradients (BatchNorm's scales, shifts,
+    PReLU slopes) sum B x T terms that nearly cancel (the CPU's fp32 gradients of D's
+    first block read ~2e-3 off float64). G's gradient goes through D after an RMSprop step that moves
+    each weight by ~10 lr sign(g), so a last-bit difference in a gradient near 0 moves a
+    weight of D' by 20 lr (G's gradients then read several 1e-2 off float64 on the card,
+    printed, not held); and through PReLU kinks that a BatchNorm output within 1e-6 of 0
+    may take either way, in D' as in D, each of which moves them by some 1e-3. So: the
+    card's losses and Genh <= 1e-3 relative (g_adv, which goes through D' as well, in the
+    second step below); D's gradients, all tensors together, within max(1e-3, 4 x the
+    CPU fp32 ones' error) in L2 and each within max(1e-2, 4 x the CPU's);
+    G's backward from a fixed upstream gradient, each tensor <= 1e-3; and in a second
+    step with D's learning rate 0 (D' = D, no sign flips) g_adv <= 1e-3 and G's step
+    gradients, all tensors together, <= KINK_TOL."""
+    import copy
+    import dataclasses
+    import torch
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.ops import conv as conv_ops
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    cfg = SEGANConfig(no_bias=True)
+    G, D = _train_models(cfg, SEED + 7)
+    clean, noisy = _train_batch(4, cfg.slice_size, SEED + 8)
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0])
+    z = torch.randn((4, 16, cfg.z_dim), generator=torch.Generator().manual_seed(SEED + 9))
+    phase = D.sample_phase(torch.Generator().manual_seed(SEED + 10), passes=3)
+
+    def step(device, dtype=torch.float32, c=cfg):
+        """One step of copies of G and D: (losses, Genh, gradients) on the CPU in
+        float64. A float64 step runs on float64 copies of the fp32 weights (the engine's
+        compute dtype set to float64); the CPU's convs are torch's own (oneDNN off)."""
+        seg = SEGAN(c, generator=copy.deepcopy(G), discriminator=copy.deepcopy(D),
+                    device=device)
+        seg.compute_dtype = dtype
+        with torch.backends.mkldnn.flags(enabled=False):
+            m, genh, _ = seg.train_step(clean, noisy, mask, 100.0, z=z, phase=phase)
+        grads = {f"{side}.{n}": p.grad.cpu().double() for side in ("G", "D")
+                 for n, p in getattr(seg, side).named_parameters()
+                 if not (side == "D" and n in BIAS_BEFORE_BN)}
+        bias_noise = worst(float(blk.conv.bias.grad.norm() / blk.norm.bias.grad.norm())
+                           for blk in seg.D.enc_blocks)
+        return ({k: float(v) for k, v in m.items()}, genh.cpu().double(), grads,
+                bias_noise)
+
+    def g_backward(device, dtype=torch.float32):
+        """G's gradients from a fixed upstream gradient of Genh, as the CPU's float64."""
+        g = copy.deepcopy(G).to(device, dtype).train()
+        with conv_ops.full_precision(dtype), torch.backends.mkldnn.flags(enabled=False):
+            y = g(noisy.to(device, dtype), z.to(device, dtype))
+            y.backward(d_genh.to(device, dtype))
+        return {f"G.{n}": p.grad.cpu().double() for n, p in g.named_parameters()}
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm().clamp_min(1e-300))
+
+    def rel_all(a, ref, keys):
+        num = sum(float((a[k] - ref[k]).norm()) ** 2 for k in keys)
+        return (num / sum(float(ref[k].norm()) ** 2 for k in keys)) ** 0.5
+
+    def show(e_card, e_cpu, keys):
+        top = sorted(keys, key=lambda k: -e_card[k])[:3]
+        return ", ".join(f"{k} ({e_card[k]:.1e}, {e_cpu[k]:.1e})" for k in top)
+
+    before = K.launches_tf32
+    t0 = time.perf_counter()
+    card = step("cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    assert K.launches_tf32 - before == 5, f"{K.launches_tf32 - before} 3xTF32 launches"
+    t0 = time.perf_counter()
+    cpu = step("cpu")
+    t_cpu = time.perf_counter() - t0
+    ref = step("cpu", torch.float64)
+    losses = {}
+    for name, a in (("card", card), ("CPU", cpu)):
+        losses[name] = {k: abs(a[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]}
+        losses[name]["Genh"] = rel_err(a[1], ref[1])
+    e_card = {k: rel(v, ref[2][k]) for k, v in card[2].items()}
+    e_cpu = {k: rel(v, ref[2][k]) for k, v in cpu[2].items()}
+    d_keys = [k for k in ref[2] if k.startswith("D.")]
+    g_keys = [k for k in ref[2] if k.startswith("G.")]
+    d_all = {n: rel_all(a[2], ref[2], d_keys) for n, a in (("card", card), ("CPU", cpu))}
+    g_all = {n: rel_all(a[2], ref[2], g_keys) for n, a in (("card", card), ("CPU", cpu))}
+    d_genh = torch.randn(clean.shape, generator=torch.Generator().manual_seed(SEED + 14)) * 1e-3
+    before = K.launches_tf32
+    gb = {"card": g_backward("cuda"), "CPU": g_backward("cpu")}
+    assert K.launches_tf32 - before == 5, f"{K.launches_tf32 - before} 3xTF32 launches"
+    gb_ref = g_backward("cpu", torch.float64)
+    gb_err = {n: {k: rel(v, gb_ref[k]) for k, v in a.items()} for n, a in gb.items()}
+    frozen = dataclasses.replace(cfg, d_lr=0.0)
+    ref0 = step("cpu", torch.float64, frozen)
+    card0 = step("cuda", c=frozen)
+    g0_all = {n: rel_all(a[2], ref0[2], g_keys)
+              for n, a in (("card", card0), ("CPU", step("cpu", c=frozen)))}
+    g_adv0 = abs(card0[0]["g_adv"] - ref0[0]["g_adv"]) / abs(ref0[0]["g_adv"])
+    print(f"train step, B=4 fp32, one row masked, vs float64 on the CPU (card {t_card:.2f} s,"
+          f" CPU {t_cpu:.2f} s): losses and Genh card " + ", ".join(
+              f"{k} {v:.1e}" for k, v in losses["card"].items()) + "; CPU " + ", ".join(
+              f"{k} {v:.1e}" for k, v in losses["CPU"].items())
+          + f"\n  D's gradients, all {len(d_keys)} tensors: card {d_all['card']:.1e}, CPU "
+          f"{d_all['CPU']:.1e}; worst (card, CPU) {show(e_card, e_cpu, d_keys)}"
+          f"\n  G's gradients, all {len(g_keys)} tensors: card {g_all['card']:.1e}, CPU "
+          f"{g_all['CPU']:.1e}; worst (card, CPU) {show(e_card, e_cpu, g_keys)}"
+          f"\n  G's backward from a fixed gradient of Genh: worst (card, CPU) "
+          f"{show(gb_err['card'], gb_err['CPU'], list(gb_ref))}"
+          f"\n  with d_lr = 0 (D' = D): card g_adv {g_adv0:.1e}; G's gradients, all "
+          f"tensors: card {g0_all['card']:.1e}, CPU {g0_all['CPU']:.1e}"
+          f"\n  D's BN-fed conv bias gradients / BN bias gradients: card {card[3]:.1e}, "
+          f"float64 {ref[3]:.1e}", flush=True)
+    # g_adv goes through D' too: held in the step with D' = D
+    assert worst(v for k, v in losses["card"].items() if k != "g_adv") <= SLICE_TOL, losses
+    assert g_adv0 <= SLICE_TOL, g_adv0
+    assert d_all["card"] <= max(SLICE_TOL, 4 * d_all["CPU"]), d_all
+    bad = {k: (e_card[k], e_cpu[k]) for k in d_keys
+           if not e_card[k] <= max(10 * SLICE_TOL, 4 * e_cpu[k])}
+    assert not bad, bad
+    assert worst(gb_err["card"].values()) <= SLICE_TOL, gb_err["card"]
+    assert g0_all["card"] <= KINK_TOL, g0_all
+    assert card[3] <= 1e-3, card[3]
+
+
+def phase_train_b300():
+    """5c: the step at full width and batch 300 in fp32 and bf16, timed by CUDA events;
+    then the bench entry point. Returns the kernel's launches per step."""
+    import statistics
+    import torch
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    B, n_steps = 300, 10
+    per_step = set()
+    for dtype in ("float32", "bfloat16"):
+        cfg = SEGANConfig(no_bias=True, compute_dtype=dtype, batch_size=B)
+        G, D = _train_models(cfg, SEED + 11)
+        seg = SEGAN(cfg, generator=G, discriminator=D, device="cuda")
+        clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 12))
+        mask = torch.ones((B,), device="cuda")
+        marks = {"G forward": [], "D update": [], "G update": []}
+
+        def timed(fn, name):
+            def run(*args, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                marks[name].append((start, end))
+                return out
+            return run
+
+        seg._g_forward = timed(seg._g_forward, "G forward")
+        seg._d_update = timed(seg._d_update, "D update")
+        seg._g_update = timed(seg._g_update, "G update")
+        for _ in range(3):
+            metrics, _, _ = seg.train_step(clean, noisy, mask, 100.0)
+        float(metrics["d_real"])
+        for v in marks.values():
+            v.clear()
+        torch.cuda.reset_peak_memory_stats()
+        steps, losses = [], []
+        K.launches = K.launches_mma = K.launches_tf32 = 0
+        for _ in range(n_steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics, _, _ = seg.train_step(clean, noisy, mask, 100.0)
+            end.record()
+            steps.append((start, end))
+            losses.append(torch.stack(list(metrics.values())))
+        torch.cuda.synchronize()
+        launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
+        losses = torch.stack(losses).cpu()
+        assert torch.isfinite(losses).all(), losses
+        assert launches == mma == 5 * n_steps, (launches, mma)
+        assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
+        per_step.add(launches // n_steps)
+        ms = [s.elapsed_time(e) for s, e in steps]
+        total = steps[0][0].elapsed_time(steps[-1][1])
+        split = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+                 for k, v in marks.items()}
+        print(f"train step B={B} {dtype}: {B * n_steps / total * 1e3:.2f} slices/s "
+              f"({total:.2f} ms for {n_steps} steps, median {statistics.median(ms):.3f} "
+              f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"fused_conv1d_prelu launches {launches} ({mma} on the tensor cores, {tf32} "
+              f"3xTF32); last losses " + ", ".join(
+                  f"{k} {float(v):.4f}" for k, v in zip(metrics, losses[-1])), flush=True)
+        del seg, G, D, clean, noisy, metrics
+        torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        out = subprocess.run(
+            [sys.executable, "-m", "segan_pytorch_tpu_torch.bench", "--steps", "5",
+             "--warmup", "2", "--compute_dtype", dtype],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"bench ({dtype}): {json.dumps(res)}", flush=True)
+        assert (res["metric"], res["batch"], res["compute_dtype"]) == (
+            "train_slices_per_sec_per_chip", B, dtype) and res["value"] > 0, res
+    assert len(per_step) == 1, per_step
+    return per_step.pop()
+
+
 def main():
     import torch
 
@@ -738,13 +1078,16 @@ def main():
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         launches, launches_mma, launches_tf32 = phase_slice(Path(work))
+    phase_train_kernel()
+    phase_train_parity()
+    train_per_step = phase_train_b300()
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
     bf16, fp32 = (enc23_ms[torch.bfloat16], enc23_ms[torch.float32])
     measured = [
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
-             **per_layer),
+             train_launches_per_step=train_per_step, **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],
              max_abs_err=enc23_abs[torch.bfloat16], ms=tool["bfloat16"]["ms"]["fused 2+3"],

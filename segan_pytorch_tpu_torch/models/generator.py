@@ -125,13 +125,15 @@ class Generator(nn.Module):
 
     def sample_z(self, x_shape: Tuple[int, ...],
                  generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
-        """z ~ N(0, 1) of shape (B, T_bottleneck, z_dim), on the CPU from `generator`."""
+        """z ~ N(0, 1) of shape (B, T_bottleneck, z_dim), from `generator` and on its
+        device (the CPU without one)."""
         if self.no_z:
             return None
         t = x_shape[1]
         for p in self.poolings:
             t //= p
-        return torch.randn((x_shape[0], t, self.z_dim), generator=generator)
+        return torch.randn((x_shape[0], t, self.z_dim), generator=generator,
+                           device=generator.device if generator is not None else None)
 
     def forward(self, x: torch.Tensor, z: Optional[torch.Tensor] = None,
                 ret_hid: bool = False):

@@ -1,13 +1,14 @@
-"""Generator building blocks as torch ``nn.Module``s on the (B, C, T) layout: the
-counterparts of ``segan_pytorch_tpu/models/modules.py``.
+"""Generator and Discriminator building blocks as torch ``nn.Module``s on the (B, C, T)
+layout: the counterparts of ``segan_pytorch_tpu/models/modules.py``.
 
 Parameter names and layouts are the upstream torch state_dict's ('conv.weight'
-(Cout, Cin, K), 'deconv.weight' (Cin, Cout, K), 'act.weight' (C,), ...), so a
-reference-format checkpoint loads strictly. Every module draws its initial values
-from the ``torch.Generator`` it is given.
+(Cout, Cin, K), 'deconv.weight' (Cin, Cout, K), 'act.weight' (C,), 'norm.running_mean',
+...), so a reference-format checkpoint loads strictly. Every module draws its initial
+values from the ``torch.Generator`` it is given.
 
-Only the norm-free blocks are ported: ``bnorm`` and ``snorm`` raise
-``NotImplementedError`` (ROADMAP.md, queue A item 1).
+Norms: ``bnorm`` is ported for GConv1DBlock (the Discriminator's blocks); a bnorm
+GDeconv1DBlock (a bnorm generator) and ``snorm`` anywhere raise ``NotImplementedError``
+(ROADMAP.md, queue A items 7 and 4).
 """
 from __future__ import annotations
 
@@ -21,25 +22,79 @@ from ..ops import initializers as init
 from ..ops.kernels.conv1d_prelu import conv1d_prelu
 
 
-def _check_norm(norm_type: Optional[str]):
-    if norm_type in ("bnorm", "snorm"):
+def _check_norm(norm_type: Optional[str], bnorm: bool = False):
+    """Refuse the norms a block does not have: snorm always, bnorm unless ``bnorm``."""
+    if norm_type == "snorm":
         raise NotImplementedError(
-            f"norm_type={norm_type!r} is not ported yet (ROADMAP.md, queue A item 1: "
-            f"BatchNorm1d and spectral norm)")
-    if norm_type not in (None, "none"):
+            "norm_type='snorm' is not ported yet (ROADMAP.md, queue A item 4: spectral "
+            "norm with WSEGAN)")
+    if norm_type == "bnorm" and not bnorm:
+        raise NotImplementedError(
+            "a bnorm GDeconv1DBlock (gnorm_type='bnorm') is not ported yet (ROADMAP.md, "
+            "queue A item 7)")
+    if norm_type not in (None, "none", "bnorm"):
         raise TypeError(f"Unrecognized norm type: {norm_type}")
 
 
 class PReLU(nn.Module):
-    """Per-channel PReLU over (B, C, T), slope 'weight' of shape (C,)."""
+    """Per-channel PReLU over (B, C, T) or (B, C), slope 'weight' of shape (C,)."""
 
     def __init__(self, num_parameters: int, init_val: float = 0.25):
         super().__init__()
         self.weight = nn.Parameter(torch.full((num_parameters,), float(init_val)))
 
     def forward(self, x):
-        a = self.weight.view(1, -1, 1)
+        a = self.weight.view((1, -1) + (1,) * (x.dim() - 2))
         return torch.clamp_min(x, 0) + a * torch.clamp_max(x, 0)
+
+
+class BatchNorm1d(nn.Module):
+    """torch nn.BatchNorm1d on (B, C, T): statistics per channel over (B, T), in fp32
+    (or wider) whatever the input's dtype; the output in the input's dtype.
+
+    In training mode an optional (B,) ``mask`` takes the rows with mask 0 (the padding
+    of a ragged last batch) out of the statistics, so the masked batch normalises as
+    the smaller batch would. The running statistics move by ``momentum`` towards the
+    batch mean and the unbiased batch variance; eval mode normalises with them.
+
+    The variance is the two-pass mean of squared deviations. The JAX package's default
+    (``bn_impl`` 'onepass', E[x^2] - E[x]^2) is a TPU lowering knob; the two agree to
+    rounding at activation scale (``tests/test_torch_discriminator.py`` holds both).
+    The JAX ``stats_groups`` (the fused real/fake D pass of the ``fuse_d`` knob, off by
+    default) is not ported."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x, mask: Optional[torch.Tensor] = None):
+        xf = conv_ops.at_least_fp32(x)
+        if self.training:
+            if mask is None:
+                n = float(x.shape[0] * x.shape[2])
+                mean = xf.mean(dim=(0, 2))
+                var = (xf - mean.view(1, -1, 1)).square().mean(dim=(0, 2))
+            else:
+                w = mask.float().view(-1, 1, 1)
+                n = torch.clamp_min(w.sum() * x.shape[2], 1.0)
+                mean = (xf * w).sum(dim=(0, 2)) / n
+                var = ((xf - mean.view(1, -1, 1)).square() * w).sum(dim=(0, 2)) / n
+            with torch.no_grad():
+                m = self.momentum
+                unbiased = var * (n / (n - 1).clamp_min(1) if torch.is_tensor(n)
+                                  else n / max(n - 1, 1))
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * unbiased)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean.view(1, -1, 1)) * torch.rsqrt(var.view(1, -1, 1) + self.eps)
+        return (y * self.weight.view(1, -1, 1) + self.bias.view(1, -1, 1)).to(x.dtype)
 
 
 class Conv1d(nn.Module):
@@ -55,6 +110,23 @@ class Conv1d(nn.Module):
 
     def forward(self, x):
         return conv_ops.conv1d(x, self.weight, self.bias, self.stride)
+
+
+class Linear(nn.Module):
+    """torch nn.Linear: weight (out, in) xavier-uniform (SEGAN's init), bias torch's
+    default U(±1/sqrt(in))."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(init.xavier_uniform((out_features, in_features),
+                                                       generator))
+        self.bias = (nn.Parameter(init.torch_default_bias((out_features,), in_features,
+                                                          generator))
+                     if use_bias else None)
+
+    def forward(self, x):
+        return conv_ops.linear(x, self.weight, self.bias)
 
 
 class ConvTranspose1d(nn.Module):
@@ -76,29 +148,36 @@ class ConvTranspose1d(nn.Module):
 
 
 class GConv1DBlock(nn.Module):
-    """Reflect pad -> conv1d (+ bias) -> PReLU (slope init 0), norm-free.
+    """Reflect pad -> conv1d (+ bias) -> [BatchNorm1d] -> PReLU (slope init 0).
 
-    The pad is asymmetric, (K//2 - 1, K//2), when strided and symmetric otherwise. The
-    conv, bias and PReLU run as one fused op (``ops/kernels/conv1d_prelu.py``): the
-    hand-written kernel on a CUDA device, its plain version on the CPU. The
-    ``use_pallas`` switch of the JAX package has no counterpart here."""
+    The pad is asymmetric, (K//2 - 1, K//2), when strided and symmetric otherwise.
+    Norm-free, the conv, bias and PReLU run as one fused op (``ops/kernels/
+    conv1d_prelu.py``): the hand-written kernel on a CUDA device, its plain version on
+    the CPU. The ``use_pallas`` switch of the JAX package has no counterpart here. With
+    ``bnorm`` the norm sits between the conv and the PReLU, so the block takes the plain
+    conv, as the JAX block does; ``mask`` reaches the norm."""
 
     def __init__(self, ninp: int, fmaps: int, kwidth: int, stride: int = 1,
                  use_bias: bool = True, norm_type: Optional[str] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_norm(norm_type)
+        _check_norm(norm_type, bnorm=True)
         self.kwidth, self.stride = kwidth, stride
         self.conv = Conv1d(ninp, fmaps, kwidth, stride=stride, use_bias=use_bias,
                            generator=generator)
+        self.norm = BatchNorm1d(fmaps) if norm_type == "bnorm" else None
         self.act = PReLU(fmaps, init_val=0.0)
 
-    def forward(self, x, ret_linear: bool = False):
+    def forward(self, x, ret_linear: bool = False, mask: Optional[torch.Tensor] = None):
         kw = self.kwidth
         pad = (kw // 2 - 1, kw // 2) if self.stride > 1 else (kw // 2, kw // 2)
         x_p = conv_ops.reflect_pad_1d(x, *pad)
-        h, a = conv1d_prelu(x_p, self.conv.weight, self.conv.bias, self.act.weight,
-                            self.stride)
+        if self.norm is None:
+            h, a = conv1d_prelu(x_p, self.conv.weight, self.conv.bias, self.act.weight,
+                                self.stride)
+        else:
+            a = self.norm(self.conv(x_p), mask)
+            h = self.act(a)
         return (h, a) if ret_linear else h
 
 

@@ -4,10 +4,13 @@
 Weights are in torch's layouts: conv (Cout, Cin, K), transposed conv (Cin, Cout, K).
 The JAX package keeps (K, Cin, Cout) for both; ``utils/checkpoint.py`` converts.
 
-Precision: the JAX package runs every fp32 conv at ``Precision.HIGHEST``. cuDNN would run
-an fp32 conv in TF32 by default (``torch.backends.cudnn.allow_tf32`` is True), about
-1e-3 relative off, so every conv of the port goes through ``full_precision``, which turns
-TF32 off for fp32 inputs around the call and then restores the caller's setting.
+Precision: the JAX package runs every fp32 conv and matmul at ``Precision.HIGHEST``.
+cuDNN would run an fp32 conv in TF32 by default (``torch.backends.cudnn.allow_tf32`` is
+True), about 1e-3 relative off, so every conv and matmul of the port goes through
+``full_precision``, which turns TF32 off for fp32 inputs around the call and then restores
+the caller's setting. Autograd runs a conv's backward after the forward's context has
+closed, so the train step (``models/segan.py``) holds the same context around its
+forward and backward passes both.
 """
 from __future__ import annotations
 
@@ -32,16 +35,18 @@ def zero_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
 
 
 class _NoTF32:
-    """Sets ``torch.backends.cudnn.allow_tf32`` to False inside, and back to what it
-    was on exit; no other cuDNN flag is touched (``torch.backends.cudnn.flags`` would
-    reset ``enabled`` and ``benchmark`` to its defaults as well)."""
+    """Sets ``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.
+    allow_tf32`` to False inside, and back to what they were on exit; no other cuDNN
+    flag is touched (``torch.backends.cudnn.flags`` would reset ``enabled`` and
+    ``benchmark`` to its defaults as well)."""
 
     def __enter__(self):
-        self._prev = torch.backends.cudnn.allow_tf32
+        self._prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
 
     def __exit__(self, *exc):
-        torch.backends.cudnn.allow_tf32 = self._prev
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self._prev
 
 
 def full_precision(dtype: torch.dtype):
@@ -50,11 +55,24 @@ def full_precision(dtype: torch.dtype):
     return _NoTF32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """x in fp32, or as it is when wider: the dtype of statistics, losses and the PReLU's
+    backward under bf16 compute (a float64 reference keeps its precision)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride: int = 1) -> torch.Tensor:
     """VALID 1-D convolution: x (B, Cin, T), weight (Cout, Cin, K) -> (B, Cout, T')."""
     with full_precision(x.dtype):
         return F.conv1d(x, weight, bias, stride=stride)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (..., in) @ weight (out, in).T + bias: torch's ``F.linear``."""
+    with full_precision(x.dtype):
+        return F.linear(x, weight, bias)
 
 
 def conv1d_weight(x: torch.Tensor, weight_shape: Sequence[int], grad: torch.Tensor,

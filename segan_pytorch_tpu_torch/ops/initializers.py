@@ -36,6 +36,13 @@ def standard_normal(shape: Sequence[int], generator: Optional[torch.Generator] =
     return torch.empty(tuple(shape)).normal_(0.0, 1.0, generator=generator)
 
 
+def xavier_uniform(shape: Sequence[int], generator: Optional[torch.Generator] = None):
+    """torch ``nn.init.xavier_uniform_`` (gain 1) on a (out, in) Linear weight: U(±a),
+    a = sqrt(6 / (in + out)). SEGAN's Linear weight init."""
+    out_f, in_f = shape
+    return _uniform(shape, math.sqrt(6.0 / (in_f + out_f)), generator)
+
+
 def torch_default_convT_weight(shape: Sequence[int],
                                generator: Optional[torch.Generator] = None):
     """torch ConvTranspose1d default on a (Cin, Cout, K) weight: U(±1/sqrt(Cout*K))."""

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
-from ..conv import conv1d, conv1d_weight, conv_transpose1d
+from ..conv import at_least_fp32, conv1d, conv1d_weight, conv_transpose1d
 from . import build
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
@@ -277,9 +277,9 @@ class Conv1dPReLU(torch.autograd.Function):
         x, w, a, pre = ctx.saved_tensors
         s = ctx.stride
         # PReLU: dpre = gy * (pre > 0 ? 1 : a) + gpre; da = sum gy * min(pre, 0)
-        af = a.float().view(1, -1, 1)
-        gyf, pref = gy.float(), pre.float()
-        dpre = torch.where(pref > 0, gyf, gyf * af) + gpre.float()
+        af = at_least_fp32(a).view(1, -1, 1)
+        gyf, pref = at_least_fp32(gy), at_least_fp32(pre)
+        dpre = torch.where(pref > 0, gyf, gyf * af) + at_least_fp32(gpre)
         da = (gyf * torch.clamp_max(pref, 0)).sum(dim=(0, 2)).to(a.dtype)
         db = dpre.sum(dim=(0, 2)).to(a.dtype) if ctx.has_bias else None
         dpre = dpre.to(x.dtype)

@@ -1,16 +1,17 @@
-"""Where the device time of a full-width SEGAN+ generator forward goes, on one CUDA
-device.
+"""Where the device time of a full-width SEGAN+ generator forward, or of a train step,
+goes on one CUDA device.
 
     python -m segan_pytorch_tpu_torch.tools.g_profile [--batch 64] [--dtype bfloat16]
-        [--forwards 5]
+        [--forwards 5] [--train]
 
-G is built at the SEGAN+ widths from a seed, with PReLU slopes drawn in U(0, 0.3) (a
-fresh G has them at 0), and runs through ``SEGAN.infer_G`` on a batch of 16384-sample
-chunks. After two warm-up forwards, ``torch.profiler`` records ``--forwards`` forwards;
-the kernels' device time is summed by class (the port's fused conv + PReLU kernels,
-cuDNN's convolutions, which in G's forward are the decoder's transposed convs, the
-reflect pads, the concatenations, the rest) and set against the wall time of a forward
-(CUDA events, median of 10), which gives the device's idle share.
+G (and with ``--train`` D) is built at the SEGAN+ widths from a seed, with PReLU slopes
+drawn in U(0, 0.3) (a fresh model has them at 0), and runs ``SEGAN.infer_G`` (with
+``--train``: ``SEGAN.train_step``, l1 weight 100) on a batch of 16384-sample chunks.
+After two warm-up calls, ``torch.profiler`` records ``--forwards`` calls; the kernels'
+device time is summed by class (the port's fused conv + PReLU kernels, cuDNN's
+convolutions (in G's forward: the decoder's transposed convs), the reflect pads,
+the concatenations, the reductions, the optimizer steps, the rest) and set against the
+wall time of a call (CUDA events, median of 10), which gives the device's idle share.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..models.discriminator import build_discriminator
 from ..models.generator import build_generator
 from ..models.segan import SEGAN
 from ..utils.config import SEGANConfig
@@ -28,9 +30,11 @@ from .encoder_fused_bench import cuda_ms
 CLASSES = [  # (class, substrings of a kernel's name), the first match wins
     ("fused conv + PReLU (port kernels)", ("conv1d_mma_kernel", "conv1d_tf32_kernel",
                                            "conv1d_prelu_kernel", "splitk_epilogue_kernel")),
-    ("cuDNN convolutions (decoder deconvs)", ("conv", "gemm", "xmma", "dgrad", "cudnn")),
+    ("cuDNN convolutions", ("conv", "gemm", "xmma", "dgrad", "cudnn")),
     ("reflect pads", ("reflection_pad", "reflect")),
     ("concatenations", ("cat",)),
+    ("reductions (BatchNorm statistics, bias and slope gradients, losses)", ("reduce",)),
+    ("optimizer steps", ("multi_tensor", "foreach")),
 ]
 
 
@@ -43,35 +47,44 @@ def kernel_class(name: str) -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """Profile; returns {"wall_ms": ms per forward, "busy_ms": device ms per forward,
-    "classes": {class: device ms per forward}, "kernels": {name: device ms per
-    forward}}."""
+    """Profile; returns {"wall_ms": ms per call, "busy_ms": device ms per call,
+    "classes": {class: device ms per call}, "kernels": {name: device ms per call}}."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     ap.add_argument("--forwards", type=int, default=5)
     ap.add_argument("--seed", type=int, default=1234)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step (G and D) instead of G's forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("g_profile needs a CUDA device")
     cfg = SEGANConfig(no_bias=True, compute_dtype=args.dtype)
     gen = torch.Generator().manual_seed(args.seed)
     G = build_generator(cfg, gen)
+    D = build_discriminator(cfg, gen) if args.train else None
     with torch.no_grad():
-        for name, p in G.named_parameters():
-            if name.endswith("act.weight"):
-                p.uniform_(0.0, 0.3, generator=gen)
-    engine = SEGAN(cfg, generator=G, device="cuda")
+        for model in (G, D) if args.train else (G,):
+            for name, p in model.named_parameters():
+                if name.endswith("act.weight"):
+                    p.uniform_(0.0, 0.3, generator=gen)
+    engine = SEGAN(cfg, generator=G, discriminator=D, device="cuda")
     x = torch.from_numpy(np.random.RandomState(args.seed).randn(
         args.batch, cfg.slice_size, 1).astype(np.float32) * 0.3).cuda()
     z = G.sample_z(tuple(x.shape), gen).cuda()
+    if args.train:
+        what = "train step"
+        run = lambda: engine.train_step(x, x, None, 100.0, z=z)  # noqa: E731
+    else:
+        what = "G forward"
+        run = lambda: engine.infer_G(x, z)  # noqa: E731
     for _ in range(2):
-        engine.infer_G(x, z)
+        run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(args.forwards):
-            engine.infer_G(x, z)
+            run()
         torch.cuda.synchronize()
     kernels: Dict[str, float] = {}
     for evt in prof.events():
@@ -81,11 +94,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         raise RuntimeError("the profiler recorded no device kernels")
     kernels = {k: v / args.forwards for k, v in kernels.items()}
     busy = sum(kernels.values())
-    wall = cuda_ms(lambda: engine.infer_G(x, z), reps=10, warmup=2)
+    wall = cuda_ms(run, reps=10, warmup=2)
     classes: Dict[str, float] = {}
     for name, ms in kernels.items():
         classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
-    print(f"G forward, batch {args.batch} {args.dtype}, on {torch.cuda.get_device_name(0)}: "
+    print(f"{what}, batch {args.batch} {args.dtype}, on {torch.cuda.get_device_name(0)}: "
           f"{wall:.3f} ms wall (CUDA events, median), device busy {busy:.3f} ms "
           f"({busy / wall:.1%}), idle {1 - busy / wall:.1%}")
     for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):

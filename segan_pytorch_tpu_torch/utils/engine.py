@@ -16,7 +16,7 @@ def build_enhancement_engine(cfg_file: str, g_ckpt: str, seed: int = 111,
     cfg = load_train_opts(cfg_file)
     if getattr(cfg, "aewsegan", False) or cfg.wsegan:
         raise NotImplementedError(
-            "WSEGAN/AEWSEGAN engines are not ported yet (ROADMAP.md, queue A item 6)")
+            "WSEGAN/AEWSEGAN engines are not ported yet (ROADMAP.md, queue A item 4)")
     segan = SEGAN(cfg, device=device, seed=seed)
     segan.g_load_pretrained(g_ckpt)
     return cfg, segan
