@@ -7,7 +7,8 @@ Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
   2. build both hand-written kernel sources from segan_pytorch_tpu_torch/csrc/, one nvcc
-     each, started together;
+     each, and the host libraries of native/ (the wav gather and the P.862 scorer), one
+     g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
      into NaN-filled outputs, at the five SEGAN+ encoder shapes for 1, 8, 64 and 300
      16384-sample chunks and at edge shapes (bias, T_in = 4 (T_out - 1) + 31, ragged,
@@ -73,8 +74,22 @@ and when the port's package is not beside it):
      (5 launches per step, all on the tensor cores); losses finite; slices/s, the median
      split into G forward / D update / G update, peak device memory; then
      `python -m segan_pytorch_tpu_torch.bench --steps 5 --warmup 2` in bf16 and fp32.
+  6. the training run at full SEGAN+ width (`python -m segan_pytorch_tpu_torch.train`'s
+     main in-process, batch 300, fp32, --no_bias, a log point per step): a synthetic
+     corpus of 16 x 20 s pairs (608 slices: batches of 300, 300 and a ragged 8) and 2 x
+     4 s validation pairs; one epoch, then --resume to epoch 2. Every check fatal: finite
+     losses at each log point, "Resumed from step 3" and iterations 4-6 in the second run,
+     the EOE and best-val indices and payloads (the EOE payload with the optimizer state
+     and 6 steps), fused_conv1d_prelu launched 5 x (train steps + G forwards of the
+     training samples and of evaluate) times over both runs, all 3xTF32 on the tensor
+     cores (read from its counters, set to 0 just before the first run), the kernel on the
+     encoder weights that resume() loads equal to the plain version (<= 1e-4, and away from
+     a fresh G's), and the port's clean CLI on the validation wavs with the last EOE G.
+     Prints the PESQ backend, each run's batch-loop, evaluate and checkpoint-save seconds
+     and data wait per step, and the warm loop's slices/s beside 5c's and the bench's.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
-phase 4 and train_launches_per_step from 5c, its times the bf16 encoder sum at 64 chunks
+phase 4, train_launches_per_step from 5c and train_run_launches from phase 6, its times
+the bf16 encoder sum at 64 chunks
 and, under fp32_*, the fp32 one;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
@@ -82,7 +97,10 @@ from phase 3b); the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
+import io
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -150,16 +168,22 @@ def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
     names = ("conv1d_prelu", "encoder_fused")
+    hosts = ("segan_io", "pesq862")  # the C++ wav gather and P.862 scorer of native/
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
-        built = list(pool.map(build.build_library, names))
+    with ThreadPoolExecutor(len(names) + len(hosts)) as pool:  # one compiler per source
+        kernels = [pool.submit(build.build_library, name) for name in names]
+        libs = [pool.submit(build.build_host_library, name) for name in hosts]
+        built = [f.result() for f in kernels]
+        host_paths = [f.result() for f in libs]
     secs = time.perf_counter() - t0
     for name, (path, log) in zip(names, built):
         print(f"build: {name} ({'compiled' if log is not None else 'already built'}) "
               f"-> {path}")
         if log:
             print(log.strip())
-    print(f"build: {len(names)} kernels in {secs:.2f} s")
+    for name, path in zip(hosts, host_paths):
+        print(f"build: native/{name}.cpp -> {path}")
+    print(f"build: {len(names)} kernels and {len(hosts)} host libraries in {secs:.2f} s")
 
 
 BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
@@ -979,7 +1003,8 @@ def phase_train_parity():
 
 def phase_train_b300():
     """5c: the step at full width and batch 300 in fp32 and bf16, timed by CUDA events;
-    then the bench entry point. Returns the kernel's launches per step."""
+    then the bench entry point. Returns the kernel's launches per step and the slices/s
+    of the timed steps and of the bench entry, by dtype."""
     import statistics
     import torch
     from segan_pytorch_tpu_torch.models.segan import SEGAN
@@ -988,6 +1013,7 @@ def phase_train_b300():
 
     B, n_steps = 300, 10
     per_step = set()
+    rates = {}
     for dtype in ("float32", "bfloat16"):
         cfg = SEGANConfig(no_bias=True, compute_dtype=dtype, batch_size=B)
         G, D = _train_models(cfg, SEED + 11)
@@ -1037,6 +1063,7 @@ def phase_train_b300():
         total = steps[0][0].elapsed_time(steps[-1][1])
         split = {k: statistics.median(s.elapsed_time(e) for s, e in v)
                  for k, v in marks.items()}
+        rates[dtype] = B * n_steps / total * 1e3
         print(f"train step B={B} {dtype}: {B * n_steps / total * 1e3:.2f} slices/s "
               f"({total:.2f} ms for {n_steps} steps, median {statistics.median(ms):.3f} "
               f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
@@ -1056,8 +1083,273 @@ def phase_train_b300():
         print(f"bench ({dtype}): {json.dumps(res)}", flush=True)
         assert (res["metric"], res["batch"], res["compute_dtype"]) == (
             "train_slices_per_sec_per_chip", B, dtype) and res["value"] > 0, res
+        rates[f"bench {dtype}"] = res["value"]
     assert len(per_step) == 1, per_step
-    return per_step.pop()
+    return per_step.pop(), rates
+
+
+def _write_corpus(root: Path, n_files: int, seconds: float, seed: int):
+    """Paired int16 16 kHz wavs: clean a harmonic tone complex (f0 100-250 Hz, five
+    harmonics, a syllable-rate envelope), noisy the clean one plus white noise at 0-15 dB
+    SNR. Returns (clean dir, noisy dir)."""
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    dirs = []
+    for sub in ("clean", "noisy"):
+        (root / sub).mkdir(parents=True)
+        dirs.append(str(root / sub))
+    for i in range(n_files):
+        f0 = rng.uniform(100, 250)
+        clean = sum(rng.uniform(0.2, 1.0) / h * np.sin(2 * np.pi * h * f0 * t
+                                                       + rng.uniform(0, 2 * np.pi))
+                    for h in range(1, 6))
+        clean *= 0.55 + 0.45 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
+        clean *= 0.3 / np.abs(clean).max()
+        noise = rng.randn(n) * np.sqrt(np.mean(clean ** 2) / 10 ** (rng.uniform(0, 15) / 10))
+        wavfile.write(f"{dirs[0]}/u{i:02d}.wav", SR, (clean * 32767).astype(np.int16))
+        wavfile.write(f"{dirs[1]}/u{i:02d}.wav", SR,
+                      np.clip((clean + noise) * 32767, -32768, 32767).astype(np.int16))
+    return dirs
+
+
+def _pesq_backend() -> str:
+    """The backend that metrics.pesq.PESQ takes here, in its order."""
+    import importlib.util
+    import os
+    import shutil
+    from segan_pytorch_tpu_torch.metrics import pesq_native
+
+    mode = os.environ.get("SEGAN_TPU_PESQ", "auto")
+    if mode not in ("approx", "native"):
+        if shutil.which("pesqmain"):
+            return "pesqmain (ITU binary)"
+        if importlib.util.find_spec("pesq") is not None:
+            return "the python pesq package"
+        if mode == "strict":
+            return "none (PESQ reads -1)"
+    if mode != "approx" and pesq_native.get_lib() is not None:
+        return "native/pesq862.cpp (P.862 pipeline, not ITU-certified)"
+    return "the spectral approximation (metrics/perceptual.py)"
+
+
+RUN_LINES = ("(Iter", "[*]", "[!]", "[data]", "Val ", "Time to process", "STOPPING")
+LOG_RE = re.compile(r"^\(Iter (\d+)\) Batch (\d+)/(\d+) \(Epoch (\d+)\) d_real:(\S+), "
+                    r"d_fake:(\S+), g_adv:(\S+), g_l1:(\S+) l1_w", re.M)
+
+
+def phase_train_run(work: Path, rates):
+    """6: the training run at full SEGAN+ width on the card: `python -m
+    segan_pytorch_tpu_torch.train`'s main, batch 300, fp32, one epoch with a validation
+    set, then --resume to epoch 2; then the port's clean CLI with the last EOE G. Returns
+    the kernel's launches over the two runs."""
+    import torch
+    from segan_pytorch_tpu_torch import clean as clean_cli
+    from segan_pytorch_tpu_torch import train as train_cli
+    from segan_pytorch_tpu_torch.data import loader as loader_mod
+    from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
+    from segan_pytorch_tpu_torch.models.generator import build_generator
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.utils.checkpoint import save_generator
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig, load_train_opts
+
+    t0 = time.perf_counter()
+    # 16 x 20 s: 38 slices each at stride 0.5, 608 in all: batches of 300, 300 and 8;
+    # validation 2 x 4 s: 6 slices each, one batch of 300 with 12 valid rows
+    train_dirs = _write_corpus(work / "train", 16, 20.0, SEED + 20)
+    valid_dirs = _write_corpus(work / "valid", 2, 4.0, SEED + 21)
+    print(f"corpus: 16 x 20 s training pairs, 2 x 4 s validation pairs, written in "
+          f"{time.perf_counter() - t0:.2f} s; PESQ backend: {_pesq_backend()}", flush=True)
+    # G starts from a checkpoint (--g_pretrained_ckpt) with a quiet output layer (its
+    # weights x 0.01, its bias 0) and learns at 1/100 of SEGAN+'s rate (--g_lr 5e-7). A
+    # random G's output carries a DC offset (the last deconv keeps a bias under
+    # --no_bias, as upstream's does) that de-emphasis multiplies by 20, and RMSprop's
+    # first steps move each weight by ~10 lr whatever its gradient: either puts SSNR near
+    # its floor of -10 dB and COVL + PESQ + SSNR below the loop's first best of 0 (-5.6
+    # on these wavs), so no best-val checkpoint would be written; the quiet G reads 2.5
+    G = build_generator(SEGANConfig(no_bias=True), torch.Generator().manual_seed(SEED + 23))
+    with torch.no_grad():
+        G.dec_blocks[-1].deconv.weight.mul_(0.01)
+        G.dec_blocks[-1].deconv.bias.zero_()
+    save_generator(G, str(work / "g_start.ckpt"))
+    del G
+    save = work / "ckpt"
+    argv = ["--save_path", str(save), "--clean_trainset", train_dirs[0],
+            "--noisy_trainset", train_dirs[1], "--clean_valset", valid_dirs[0],
+            "--noisy_valset", valid_dirs[1], "--cache_dir", str(work / "cache"),
+            "--batch_size", "300", "--no_bias", "--save_freq", "1", "--seed", str(SEED),
+            "--g_lr", "5e-7", "--device", "cuda"]
+
+    # what the loop spends its time on, read by wrapping the engine's methods
+    marks = {}
+    infer, evaluate, save_ckpt, prefetch = (SEGAN.infer_G, SEGAN.evaluate, SEGAN.save,
+                                            loader_mod.device_prefetch)
+
+    def counted_infer(self, *a, **k):
+        marks["forwards"] += 1
+        return infer(self, *a, **k)
+
+    def timed_evaluate(self, *a, **k):
+        marks["loop_end"] = marks.get("loop_end") or time.perf_counter()
+        start = time.perf_counter()
+        try:
+            return evaluate(self, *a, **k)
+        finally:
+            marks["eval"] += time.perf_counter() - start
+
+    def timed_save(self, *a, **k):
+        start = time.perf_counter()
+        try:
+            return save_ckpt(self, *a, **k)
+        finally:
+            marks["save"] += time.perf_counter() - start
+
+    def timed_prefetch(iterator, device, size=2):
+        stream = prefetch(iterator, device, size)
+        while True:
+            start = time.perf_counter()
+            marks["loop_start"] = marks.get("loop_start") or start
+            batch = next(stream, None)
+            if batch is None:
+                return
+            marks["wait"].append(time.perf_counter() - start)
+            yield batch
+
+    runs = []
+    SEGAN.infer_G, SEGAN.evaluate, SEGAN.save = counted_infer, timed_evaluate, timed_save
+    loader_mod.device_prefetch = timed_prefetch
+    try:
+        K.launches = K.launches_mma = K.launches_tf32 = 0
+        for extra in (["--epoch", "1", "--g_pretrained_ckpt", str(work / "g_start.ckpt")],
+                      ["--epoch", "2", "--resume"]):
+            marks.clear()
+            marks.update(forwards=0, eval=0.0, save=0.0, wait=[])
+            out = io.StringIO()
+            start = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    seg = train_cli.main(argv + extra)
+            finally:  # the run's own lines, without its train.opts dump
+                print("\n".join(line for line in out.getvalue().splitlines()
+                                if line.startswith(RUN_LINES)), flush=True)
+            torch.cuda.synchronize()
+            runs.append(dict(marks, wall=time.perf_counter() - start, out=out.getvalue(),
+                             step=seg.step))
+        launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
+    finally:
+        SEGAN.infer_G, SEGAN.evaluate, SEGAN.save = infer, evaluate, save_ckpt
+        loader_mod.device_prefetch = prefetch
+    del seg
+
+    # the loop: resumed at step 3, iterations on from 4, finite losses
+    assert "[*] Resumed from step 3" in runs[1]["out"], runs[1]["out"][-2000:]
+    for run, epoch, first in ((runs[0], 1, 1), (runs[1], 2, 4)):
+        logged = LOG_RE.findall(run["out"])
+        iters = [int(m[0]) for m in logged]
+        assert iters == [first, first + 1, first + 2], iters
+        assert all(int(m[2]) == 3 and int(m[3]) == epoch for m in logged), logged
+        losses = np.array([[float(v) for v in m[4:]] for m in logged])
+        assert np.isfinite(losses).all(), losses
+        run["losses"] = losses[-1]
+    assert (runs[0]["step"], runs[1]["step"]) == (3, 6), [r["step"] for r in runs]
+    steps = 6
+    forwards = runs[0]["forwards"] + runs[1]["forwards"]
+    # a G forward per log point (gen_train_samples) and one for evaluate, per run
+    assert forwards == 8, forwards
+    print(f"fused_conv1d_prelu launches over the two runs: {launches} ({mma} on the tensor "
+          f"cores, {tf32} 3xTF32) for {steps} train steps and {forwards} G forwards")
+    assert launches == mma == tf32 == 5 * (steps + forwards), (launches, mma, tf32)
+
+    # the checkpoints: rotating EOE G and D, and the best-val ones, each index pointing at
+    # payloads that exist, with the optimizer's state and the steps taken
+    # each train() call starts from a best of 0 (as in JAX): a run saves a best-val G and
+    # D when its val_obj is above 0
+    val_objs = [json.loads(line)["value"] for line in
+                (save / "train" / "scalars.jsonl").read_text().splitlines()
+                if json.loads(line)["tag"] == "Genh-val_obj"]
+    assert len(val_objs) == 2, val_objs
+    want_best = [f"SEGAN-G-best_Generator-{i}.ckpt" for v, i in zip(val_objs, (4, 7))
+                 if v > 0]
+    indices = {}
+    for prefix in ("EOE_G-", "EOE_D-", "SEGAN-G-", "SEGAN-D-"):
+        path = save / f"{prefix}checkpoints"
+        assert path.exists(), f"no index {path.name}: {sorted(os.listdir(save))}"
+        indices[prefix] = json.loads(path.read_text())
+        for name in indices[prefix]["latest"]:
+            assert (save / f"weights_{name}").exists(), name
+    assert indices["EOE_G-"]["latest"] == ["EOE_G-Generator-4.ckpt",
+                                           "EOE_G-Generator-7.ckpt"], indices["EOE_G-"]
+    assert indices["SEGAN-G-"]["latest"] == want_best, (val_objs, indices["SEGAN-G-"])
+    last_g = save / "weights_EOE_G-Generator-7.ckpt"
+    payload = torch.load(last_g, map_location="cpu", weights_only=True)
+    assert payload["step"] == 6 and len(payload["optimizer"]["state"]) > 0, payload.keys()
+    del payload
+    print(f"checkpoints: EOE {indices['EOE_G-']['latest']}, best-val "
+          f"{indices['SEGAN-G-']['latest']} (val_obj COVL + PESQ + SSNR of the two runs "
+          + ", ".join(f"{v:.4f}" for v in val_objs) + f"); {last_g.stat().st_size / 2**20:.1f}"
+          f" MiB per EOE G payload (weights + RMSprop state)")
+
+    # after a resume the kernel runs on the loaded encoder weights: fill its weight cache
+    # with a fresh G's, resume, and hold it against the plain version
+    eng = SEGAN(load_train_opts(str(save / "train.opts")), device="cuda", seed=SEED)
+    g = torch.Generator().manual_seed(SEED + 22)
+    xs, before = [], []
+    t_in = 4 * (16384 // 4) + 29
+    for blk in eng.G.enc_blocks:
+        w = blk.conv.weight
+        xs.append(torch.randn((2, w.shape[1], t_in), generator=g).cuda())
+        before.append(K.fused_conv1d_prelu(xs[-1], w, blk.conv.bias, blk.act.weight, 4)[1])
+        t_in = (t_in - 29) // 4 + 29
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert eng.resume(str(save)) == 6
+    errs, moved = [], []
+    with torch.no_grad():
+        for x, blk, old in zip(xs, eng.G.enc_blocks, before):
+            w, b, a = blk.conv.weight, blk.conv.bias, blk.act.weight
+            t_out = K._check(x, w, b, a, 4)
+            shape = (x.shape[0], w.shape[0], t_out)
+            y, pre = K._launch(x, w, b, a, 4, t_out, out=nan_outputs(shape, shape,
+                                                                      dtype=x.dtype))
+            y_ref, pre_ref = K.conv1d_prelu_plain(x, w, b, a, 4)
+            errs.append(worst([rel_err(y, y_ref), rel_err(pre, pre_ref)]))
+            moved.append(rel_err(old, pre_ref))
+    print("after resume: kernel vs plain on the loaded encoder weights, rel err "
+          + ", ".join(f"{e:.1e}" for e in errs) + "; the fresh G's outputs differ by "
+          + ", ".join(f"{m:.1e}" for m in moved))
+    assert worst(errs) <= FP32_TOL and min(moved) > 10 * FP32_TOL, (errs, moved)
+    del eng, xs, before
+
+    # the port's clean CLI with the last EOE G
+    out_dir = work / "enhanced"
+    out_dir.mkdir()
+    opts = clean_cli.build_parser().parse_args([
+        "--g_pretrained_ckpt", str(last_g), "--cfg_file", str(save / "train.opts"),
+        "--test_files", valid_dirs[1], "--synthesis_path", str(out_dir), "--seed",
+        str(SEED), "--device", "cuda"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        clean_cli.main(opts)
+    for name in sorted(os.listdir(valid_dirs[1])):
+        _, y = read_wav_raw(str(out_dir / name))
+        assert y.shape == (64000,) and np.isfinite(y).all(), (name, y.shape)
+    print(f"clean CLI with weights_EOE_G-Generator-7.ckpt: {len(os.listdir(out_dir))} "
+          f"validation wavs enhanced")
+
+    for i, run in enumerate(runs, 1):
+        loop = run["loop_end"] - run["loop_start"]
+        print(f"train run {i}: {run['wall']:.2f} s in main(), of which the batch loop "
+              f"{loop:.3f} s (3 steps of 300, a log point each: losses read, weight norms, "
+              f"20 sample wavs), evaluate {run['eval']:.3f} s, checkpoint saves "
+              f"{run['save']:.3f} s on the calling thread; data wait per step "
+              + ", ".join(f"{1e3 * w:.2f}" for w in run["wait"]) + " ms; last losses "
+              + ", ".join(f"{v:.4f}" for v in run["losses"]), flush=True)
+    loop = runs[1]["loop_end"] - runs[1]["loop_start"]
+    print(f"training loop (run 2, warm): {900 / loop:.2f} slices/s over its 3 steps; the "
+          f"bare fp32 step (5c) {rates['float32']:.2f}, the bench entry "
+          f"{rates['bench float32']:.2f} slices/s", flush=True)
+    return launches
 
 
 def main():
@@ -1080,14 +1372,17 @@ def main():
         launches, launches_mma, launches_tf32 = phase_slice(Path(work))
     phase_train_kernel()
     phase_train_parity()
-    train_per_step = phase_train_b300()
+    train_per_step, train_rates = phase_train_b300()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        train_run = phase_train_run(Path(work), train_rates)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
     bf16, fp32 = (enc23_ms[torch.bfloat16], enc23_ms[torch.float32])
     measured = [
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
-             train_launches_per_step=train_per_step, **per_layer),
+             train_launches_per_step=train_per_step, train_run_launches=train_run,
+             **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],
              max_abs_err=enc23_abs[torch.bfloat16], ms=tool["bfloat16"]["ms"]["fused 2+3"],

@@ -11,6 +11,10 @@ reading a loss on the host after the warm-up and after the timed steps. It print
 JSON line: {"metric": "train_slices_per_sec_per_chip", "value", "unit", "batch",
 "compute_dtype", "device"}. It runs on the CUDA card, and raises without one;
 ``--device cpu`` asks for the CPU.
+
+It times the bare step. The training run around it, with the wav data, the log points,
+validation scoring and checkpoints, is ``python -m segan_pytorch_tpu_torch.train``
+(``SEGAN.train``); ``chip_smoke.py`` phase 6 times its loop beside this entry.
 """
 import argparse
 import json

@@ -1,5 +1,6 @@
 """Host-side waveform helpers: copies of the numpy functions of
-``segan_pytorch_tpu/ops/signal.py`` (pinned by ``tests/test_torch_config.py``)."""
+``segan_pytorch_tpu/ops/signal.py`` (pinned by ``tests/test_torch_config.py``), the
+numpy form of ``normalize_wave_minmax`` among them."""
 from __future__ import annotations
 
 import numpy as np
@@ -24,3 +25,10 @@ def de_emphasize_np(y: np.ndarray, coef: float = 0.95) -> np.ndarray:
     if coef <= 0:
         return y
     return lfilter([1.0], [1.0, -coef], y, axis=-1).astype(np.float32)
+
+
+def slice_signal_indices(n_samples: int, window_size: int, stride: float):
+    """(beg, end) windows of `window_size` at `stride` fraction of it."""
+    assert 0 < stride <= 1, stride
+    offset = int(window_size * stride)
+    return [(b, b + window_size) for b in range(0, n_samples - window_size + 1, offset)]

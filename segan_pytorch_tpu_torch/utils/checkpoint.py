@@ -1,5 +1,5 @@
 """Generator and Discriminator checkpoints: the counterpart of the torch and npz loaders
-of ``segan_pytorch_tpu/utils/checkpoint.py``.
+and of the ``Saver`` of ``segan_pytorch_tpu/utils/checkpoint.py``.
 
 The port's models have the upstream torch state_dict names and layouts, so a
 reference-format ``.ckpt`` (``torch.save({'step', 'state_dict'})``, which upstream
@@ -7,11 +7,18 @@ and the JAX ``export_torch_generator`` / ``export_torch_discriminator`` write) l
 with ``strict=True`` once legacy key names are migrated. A checkpoint that the JAX
 trainer wrote (an npz pytree) is converted with ``generator_state_from_jax`` /
 ``discriminator_state_from_jax``.
+
+``Saver`` keeps the reference's rotating JSON index and file names; its payloads are
+reference-format torch files with the optimizer state beside the weights, so the JAX
+``load_torch_generator`` and ``purge_ckpts.py`` read what the port's trainer writes.
 """
 from __future__ import annotations
 
+import json
+import os
+import threading
 import zipfile
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,13 +72,34 @@ def load_generator(G: torch.nn.Module, path: str) -> None:
     G.load_state_dict(read_generator_state(path), strict=True)
 
 
+def _host_copy(v: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A copy of v on the CPU (in `dtype`), never a view of v's own memory."""
+    out = v.detach().to("cpu", dtype or v.dtype)
+    return out.clone() if out.data_ptr() == v.data_ptr() else out
+
+
+def _cpu_state(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The state_dict copied to the CPU, floating tensors in fp32 and integer buffers
+    (BatchNorm's ``num_batches_tracked``) as they are."""
+    return {k: _host_copy(v, torch.float32 if v.is_floating_point() else None)
+            for k, v in model.state_dict().items()}
+
+
+def _to_cpu(tree):
+    """Every tensor of a nested dict/list (an optimizer's state_dict) copied to the
+    CPU."""
+    if torch.is_tensor(tree):
+        return _host_copy(tree)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
 def _save_model(model: torch.nn.Module, path: str, step: int) -> None:
-    """``torch.save({'step', 'state_dict'})`` on the CPU, floating tensors in fp32 and
-    integer buffers (BatchNorm's ``num_batches_tracked``) as they are."""
-    sd = {k: (v.detach().to("cpu", torch.float32) if v.is_floating_point()
-              else v.detach().cpu()).clone()
-          for k, v in model.state_dict().items()}
-    torch.save({"step": int(step), "state_dict": sd}, path)
+    """``torch.save({'step', 'state_dict'})`` of ``_cpu_state``."""
+    torch.save({"step": int(step), "state_dict": _cpu_state(model)}, path)
 
 
 def save_generator(G: torch.nn.Module, path: str, step: int = 0) -> None:
@@ -191,3 +219,111 @@ def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
         else:
             raise KeyError(f"unexpected discriminator variable {path!r}")
     return out
+
+
+class Saver:
+    """Rotating-index checkpoint writer with the reference's semantics: the index
+    ``{prefix}checkpoints`` holds {'latest': [...], 'current': name}; payload files are
+    ``weights_{prefix}[best_]{model}-{step}.ckpt`` holding {'step', 'state_dict',
+    'optimizer'}; a save beyond ``max_ckpts`` + 1 entries deletes the oldest; the payload
+    is written first and the index second, so a crash between them leaves an orphan
+    payload, never an index that points at nothing.
+
+    With ``async_write=True`` a save copies the model and optimizer state to the CPU on
+    the calling thread (one device-to-host copy, which waits for the device) and writes
+    the file on a background thread. One write is in flight at a time (a new save joins
+    the previous); ``flush()`` joins it and re-raises its failure."""
+
+    def __init__(self, save_path: str, max_ckpts: int = 5, prefix: str = "",
+                 async_write: bool = False):
+        self.save_path = save_path
+        self.ckpt_path = os.path.join(save_path, f"{prefix}checkpoints")
+        self.max_ckpts = max_ckpts
+        self.prefix = prefix
+        self.async_write = async_write
+        self._inflight: Optional[threading.Thread] = None
+        self._bg_error: Optional[BaseException] = None
+
+    def flush(self):
+        """Wait for any in-flight background write; re-raise its failure."""
+        if self._inflight is not None:
+            self._inflight.join()
+            self._inflight = None
+        if self._bg_error is not None:
+            err, self._bg_error = self._bg_error, None
+            raise err
+
+    def save(self, model_name: str, step: int, model: torch.nn.Module,
+             optimizer: Optional[torch.optim.Optimizer] = None,
+             best_val: bool = False, trained_steps: Optional[int] = None) -> str:
+        """Save `model` (and `optimizer`'s state) under the name of step `step`; the
+        payload's 'step' is `trained_steps` (default `step`). Returns the payload's
+        path."""
+        self.flush()
+        payload = {"step": int(step if trained_steps is None else trained_steps),
+                   "state_dict": _cpu_state(model)}
+        if optimizer is not None:
+            payload["optimizer"] = _to_cpu(optimizer.state_dict())
+        name = f"{self.prefix}{'best_' if best_val else ''}{model_name}-{step}.ckpt"
+        if not self.async_write:
+            return self._write(name, payload)
+
+        def run():
+            try:
+                self._write(name, payload)
+            except BaseException as e:  # surfaced on the next save()/flush()
+                self._bg_error = e
+
+        self._inflight = threading.Thread(target=run, name=f"saver-{name}", daemon=False)
+        self._inflight.start()
+        return os.path.join(self.save_path, "weights_" + name)
+
+    def _write(self, model_path: str, payload: dict) -> str:
+        os.makedirs(self.save_path, exist_ok=True)
+        if os.path.exists(self.ckpt_path):
+            with open(self.ckpt_path, "r") as f:
+                ckpts = json.load(f)
+        else:
+            ckpts = {"latest": [], "current": []}
+        latest = ckpts["latest"]
+        if len(latest) > 0 and self.max_ckpts is not None and len(latest) > self.max_ckpts:
+            todel = latest[0]
+            try:
+                os.remove(os.path.join(self.save_path, "weights_" + todel))
+            except FileNotFoundError:
+                # drop the dangling entry all the same: a crash between payload and
+                # index writes must not wedge the rotation
+                print("ERROR: ckpt is not there?")
+            latest = latest[1:]
+        latest += [model_path]
+        ckpts["latest"] = latest
+        ckpts["current"] = model_path
+        out = os.path.join(self.save_path, "weights_" + model_path)
+        torch.save(payload, out)
+        with open(self.ckpt_path, "w") as f:
+            f.write(json.dumps(ckpts, indent=2))
+        return out
+
+    def read_latest_checkpoint(self):
+        self.flush()  # a just-scheduled async write must be visible to readers
+        if not os.path.exists(self.ckpt_path):
+            print(f"[!] No checkpoint found in {self.save_path}")
+            return False
+        with open(self.ckpt_path, "r") as f:
+            ckpts = json.load(f)
+        return ckpts["current"]
+
+    def load_weights(self):
+        """(payload, {'step'}) of the current checkpoint, or None without one."""
+        curr = self.read_latest_checkpoint()
+        if curr is False:
+            return None
+        path = os.path.join(self.save_path, "weights_" + curr)
+        if _is_npz(path):
+            raise NotImplementedError(
+                f"{path} was written by the JAX trainer, whose optimizer state the port "
+                "does not read: load its weights with --g_pretrained_ckpt / "
+                "--d_pretrained_ckpt instead")
+        payload = torch.load(path, map_location="cpu", weights_only=True)
+        print("[*] Loaded weights")
+        return payload, {"step": int(payload.get("step", 0))}

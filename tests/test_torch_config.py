@@ -2,6 +2,7 @@
 segan_pytorch_tpu imports jax, which the CUDA machine lacks) stay equal to their
 originals; and the port imports no jax at all."""
 import dataclasses
+import importlib.util
 import json
 import os
 import re
@@ -19,6 +20,7 @@ from segan_pytorch_tpu.utils import config as jcfg
 from segan_pytorch_tpu_torch.data import wav_io as twav
 from segan_pytorch_tpu_torch.ops import signal as tsig
 from segan_pytorch_tpu_torch.parallel import inference as tinf
+from segan_pytorch_tpu_torch import train as ttrain
 from segan_pytorch_tpu_torch.utils import config as tcfg
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -81,6 +83,55 @@ def test_wav_io_equal(tmp_path, subtype):
     rate_j, y_j = jwav.read_wav_raw(str(tmp_path / "t.wav"))
     assert rate == rate_j == 16000
     np.testing.assert_array_equal(y, y_j)
+
+
+def _root_train_parser():
+    spec = importlib.util.spec_from_file_location("root_train", ROOT / "train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.build_parser()
+
+
+def _options(parser):
+    return {a.dest: (tuple(a.option_strings), a.default, a.nargs, a.type, a.choices,
+                     type(a).__name__) for a in parser._actions if a.dest != "help"}
+
+
+def test_train_parser_equals_train_py():
+    """The port's CLI takes every option of train.py, with the same spelling, default,
+    arity, type and choices, plus its own --device."""
+    want, got = _options(_root_train_parser()), _options(ttrain.build_parser())
+    assert set(got) - set(want) == {"device"}
+    assert {k: got[k] for k in want} == want
+    argv = ["--batch_size", "300", "--no_bias", "--genc_fmaps", "8", "16", "--no-cuda"]
+    assert vars(_root_train_parser().parse_args(argv)).items() <= vars(
+        ttrain.build_parser().parse_args(argv)).items()
+
+
+@pytest.mark.parametrize("rate", [16000, 8000, 22050])
+def test_wav_16k_helpers_equal(tmp_path, rate):
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(3)
+    for name, data in (("i16", (rng.randn(7001) * 3000).astype(np.int16)),
+                       ("f32", rng.uniform(-1, 1, (5000, 2)).astype(np.float32)),
+                       ("u8", rng.randint(0, 255, 4000).astype(np.uint8))):
+        path = str(tmp_path / f"{name}.wav")
+        wavfile.write(path, rate, data)
+        assert twav.wav_num_samples_16k(path) == jwav.wav_num_samples_16k(path)
+        (y, sr), (y_j, sr_j) = twav.read_wav_16k(path), jwav.read_wav_16k(path)
+        assert sr == sr_j and y.dtype == y_j.dtype
+        np.testing.assert_array_equal(y, y_j)
+        np.testing.assert_array_equal(twav._to_float(data), jwav._to_float(data))
+    (tmp_path / "junk.wav").write_bytes(b"not a riff file at all")
+    assert twav.wav_num_samples_16k(str(tmp_path / "junk.wav")) is None
+
+
+@pytest.mark.parametrize("n,window,stride", [(24000, 4096, 0.5), (4096, 4096, 0.5),
+                                             (4095, 4096, 1.0), (50000, 16384, 0.25)])
+def test_slice_signal_indices_equal(n, window, stride):
+    assert tsig.slice_signal_indices(n, window, stride) == jsig.slice_signal_indices(
+        n, window, stride)
 
 
 def test_port_sources_import_no_jax():
