@@ -11,7 +11,8 @@ and when the port's package is not beside it):
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
      into NaN-filled outputs, at the five SEGAN+ encoder shapes for 1, 8, 64 and 300
-     16384-sample chunks and at edge shapes (bias, T_in = 4 (T_out - 1) + 31, ragged,
+     16384-sample chunks, at WSEGAN's first D layer at its batch (B = 150, Cin = 2, Cout
+     64, T_out 4096, bias) and at edge shapes (bias, T_in = 4 (T_out - 1) + 31, ragged,
      stride 1), in fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), each on the
      route the wrapper picks, read from its counters (main-path shapes: the tensor cores,
      fp32 by 3xTF32; the ragged and stride-1 shapes: FMA), and on the FMA route forced; in
@@ -87,10 +88,29 @@ and when the port's package is not beside it):
      a fresh G's), and the port's clean CLI on the validation wavs with the last EOE G.
      Prints the PESQ backend, each run's batch-loop, evaluate and checkpoint-save seconds
      and data wait per step, and the warm loop's slices/s beside 5c's and the bench's.
+  7. WSEGAN on the card (models/wsegan.py, scripts/run_wsegan_train.sh's flags: spectral
+     norm in G and D, Adam, the misaligned pair, biases), every check fatal:
+     7a. one full-width fp32 step at B = 4 (one row masked, one 'additive') on the card
+     and on a CPU copy, both held against the step in float64 on the CPU as 5b holds
+     SEGAN's: the losses but g_adv and g_loss, and Genh, <= 1e-3; D's gradients within
+     max(1e-3, 4 x the CPU's) all together and max(1e-2, 4 x) each; u and v <= 1e-4; with
+     D's learning rate 0, g_adv and g_loss <= 1e-3 and G's gradients <= 5e-2; 25 3xTF32
+     launches;
+     7b. the step at batch 150, fp32 and bf16: 10 timed steps with 25 launches each, all
+     on the tensor cores (fp32 3xTF32); slices/s, the split G forward / D update / G
+     update, peak memory, and the time of the kernel's pad (fp32: and split) of the 25
+     w / sigma of a step, timed alone; then `python -m segan_pytorch_tpu_torch.bench
+     --engine wsegan` and `--engine aewsegan` at batch 150;
+     7c. `train.main` with the script's flags on 4 x 4 s synthetic pairs (two batches of
+     150 an epoch): one epoch, then --resume to epoch 2 ("Resumed from step 2", iterations
+     3-4, EOE G and D named after the steps taken, 25 launches a step); the clean CLI on
+     the last EOE G (the WSEGAN engine: one G pass per wav); then --aewsegan for one epoch
+     with a validation set (Genh_SD at each log point, no D).
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
-phase 4, train_launches_per_step from 5c and train_run_launches from phase 6, its times
-the bf16 encoder sum at 64 chunks
-and, under fp32_*, the fp32 one;
+phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
+wsegan_train_launches_per_step from 7b and wsegan_run_launches from 7c, its times the
+bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one, and under d_enc1_* WSEGAN's
+first D layer at B = 150;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -208,6 +228,9 @@ def bound_ms(flops, nbytes, peak) -> float:
     return 1e3 * max(flops / peak, nbytes / HBM_RATE)
 
 
+D_ENC1 = "B=150 D enc1 bias"  # phase 3's row of WSEGAN's first D layer
+
+
 def phase_kernel():
     """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks and
     at edge shapes; each route's choice read from its counters. Returns the bf16 and
@@ -230,6 +253,9 @@ def phase_kernel():
             cases.append((f"B={B} enc{i + 1}", B, chans[i], S * t + Kw - 2, chans[i + 1], Kw,
                           S, False, True, "mma"))
     cases += [
+        # WSEGAN's D, enc1 at the script's batch: the (judged, noisy) pair, Cin = 2, with
+        # bias, on the train path of phase 7 (both dtypes)
+        (D_ENC1, 150, 2, S * 4096 + Kw - 2, 64, Kw, S, True, False, "mma"),
         ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, False, "mma"),
         ("T_in=91 bias", 3, 512, 91, 1024, Kw, S, True, False, "mma"),  # reads x[91]: 0
         ("T_in=1051 bias", 2, 128, 1051, 256, Kw, S, True, False, "mma"),
@@ -237,6 +263,7 @@ def phase_kernel():
         ("stride 1", 2, 48, 300, 40, Kw, 1, True, False, "fma"),
     ]
     sums = {}  # (B, column) -> ms summed over the five encoder layers
+    d_enc1 = {}  # the D enc1 row's numbers, for the kernels line
     max_abs = {}  # B -> max |mma - plain| over the bf16 encoder layers
     max_abs32 = 0.0  # max |tensor cores - plain| over the fp32 encoder layers at B = 64
     print(f"{'layer':>16} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
@@ -265,6 +292,7 @@ def phase_kernel():
         assert took == route, f"{label}: fp32 took the {took} route, not {route}"
         e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
         assert e32 <= FP32_TOL, f"{label}: fp32 {took} vs plain rel err {e32:.3e} > {FP32_TOL}"
+        e32_abs = worst([float((y - y_ref).abs().max()), float((pre - pre_ref).abs().max())])
         if main and cin == 512 and b in (64, 300):
             # the deepest layer against float64: the tensor cores' own fp32 sums do not
             # promise to round to nearest, and the plain version has errors of its own
@@ -275,8 +303,7 @@ def phase_kernel():
             assert e64 <= FP32_TOL, f"{label}: fp32 {took} vs float64 rel err {e64:.3e}"
             del pre64
         if main and b == 64:
-            max_abs32 = worst([max_abs32, float((y - y_ref).abs().max()),
-                               float((pre - pre_ref).abs().max())])
+            max_abs32 = worst([max_abs32, e32_abs])
         del y, pre
         e32f = float("nan")
         arms32 = {took: lambda: K.fused_conv1d_prelu(x, w, bias, a, s)}
@@ -305,9 +332,9 @@ def phase_kernel():
         assert yb.dtype == torch.bfloat16
         e16 = worst([rel_err(yb, yb_ref), rel_err(preb, preb_ref)])
         assert e16 <= BF16_TOL, f"{label}: bf16 {took} vs plain rel err {e16:.3e} > {BF16_TOL}"
+        e16_abs = worst([float((yb - yb_ref).abs().max()), float((preb - preb_ref).abs().max())])
         if main:
-            max_abs[b] = worst([max_abs.get(b, 0.0), float((yb - yb_ref).abs().max()),
-                                float((preb - preb_ref).abs().max())])
+            max_abs[b] = worst([max_abs.get(b, 0.0), e16_abs])
         del yb, preb
         e16f = float("nan")
         arms = {"mma": lambda: K.fused_conv1d_prelu(*hb, s)}
@@ -342,6 +369,13 @@ def phase_kernel():
         b32 = min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
                   bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
         b16 = bound_ms(flops, nbytes, BF16_PEAK)
+        if label == D_ENC1:
+            d_enc1 = dict(d_enc1_ms=t16["mma"], d_enc1_plain_ms=t16["plain"],
+                          d_enc1_bound_ms=b16, d_enc1_library_ms=t16["cuDNN"],
+                          d_enc1_max_abs_err=e16_abs, fp32_d_enc1_ms=t32["mma"],
+                          fp32_d_enc1_plain_ms=t32["plain"], fp32_d_enc1_bound_ms=b32,
+                          fp32_d_enc1_library_ms=t32["cuDNN"],
+                          fp32_d_enc1_max_abs_err=e32_abs)
         if main:
             for col, v in [("fp32 tc", t32["mma"]), ("fp32 fma", t32["fma"]),
                            ("fp32 plain", t32["plain"]), ("fp32 cuDNN", t32["cuDNN"]),
@@ -369,7 +403,7 @@ def phase_kernel():
             # and in fp32 (3xTF32) be no slower than it
             assert sums[b, "bf16 mma"] <= 0.5 * sums[b, "bf16 fma"], (b, sums)
             assert sums[b, "fp32 tc"] <= sums[b, "fp32 fma"], (b, sums)
-    return dict(max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
+    return dict(d_enc1, max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
                 plain_ms=sums[64, "bf16 plain"], bound_ms=sums[64, "bf16 bound"],
                 bound_by="operations", library_ms=sums[64, "bf16 cuDNN"],
                 fp32_max_abs_err=max_abs32, fp32_ms=sums[64, "fp32 tc"],
@@ -1352,6 +1386,373 @@ def phase_train_run(work: Path, rates):
     return launches
 
 
+# scripts/run_wsegan_train.sh's flags; every other option at its default (G and D with biases)
+WSEGAN_FLAGS = dict(wsegan=True, gnorm_type="snorm", dnorm_type="snorm", opt="adam",
+                    misalign_pair=True)
+WSEGAN_ARGS = ["--no_train_gen", "--batch_size", "150", "--wsegan", "--gnorm_type", "snorm",
+               "--dnorm_type", "snorm", "--opt", "adam", "--data_stride", "0.05",
+               "--misalign_pair"]
+WS_PER_STEP = 5 + 5 * 4  # G's five blocks once, D's five in each of its four passes
+
+
+def _wsegan_models(cfg, seed):
+    """A seeded full-width snorm G and D, Xavier-initialised as WSEGAN's are, every PReLU
+    slope drawn from U(0, 0.3)."""
+    import torch
+    from segan_pytorch_tpu_torch.models.wsegan import apply_wsegan_weights_init
+
+    G, D = _train_models(cfg, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    apply_wsegan_weights_init(G, gen)
+    apply_wsegan_weights_init(D, gen)
+    return G, D
+
+
+def phase_wsegan_parity():
+    """7a: one full-width WSEGAN fp32 step (the script's flags: spectral norm in G and D,
+    Adam, the misaligned pair) at B = 4, one row masked and one 'additive', on the card
+    and on a CPU copy, both held against the step in float64 on the CPU, as 5b holds
+    SEGAN's; then a step with D's learning rate 0 for g_adv, which goes through D'."""
+    import copy
+    import dataclasses
+    import torch
+    from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    cfg = SEGANConfig(**WSEGAN_FLAGS)
+    G, D = _wsegan_models(cfg, SEED + 30)
+    clean, noisy = _train_batch(4, cfg.slice_size, SEED + 31)
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0])
+    amask = torch.tensor([0.0, 1.0, 0.0, 0.0])
+    z = torch.randn((4, 16, cfg.z_dim), generator=torch.Generator().manual_seed(SEED + 32))
+    phase = D.sample_phase(torch.Generator().manual_seed(SEED + 33), passes=4)
+    perm = torch.tensor([2, 0, 3, 1])
+
+    def step(device, dtype=torch.float32, c=cfg):
+        """One step of copies of G and D: (losses, Genh, gradients, u and v) on the CPU
+        in float64; a float64 step runs on float64 copies of the fp32 weights."""
+        seg = WSEGAN(c, generator=copy.deepcopy(G), discriminator=copy.deepcopy(D),
+                     device=device)
+        seg.compute_dtype = dtype
+        with torch.backends.mkldnn.flags(enabled=False):
+            m, genh, _ = seg.train_step(clean, noisy, mask, amask, 100.0, z=z, phase=phase,
+                                        perm=perm)
+        grads = {f"{side}.{n}": p.grad.cpu().double() for side in ("G", "D")
+                 for n, p in getattr(seg, side).named_parameters()}
+        uv = {f"{side}.{n}": b.cpu().double() for side in ("G", "D")
+              for n, b in getattr(seg, side).named_buffers()}
+        return {k: float(v) for k, v in m.items()}, genh.cpu().double(), grads, uv
+
+    def rel(a, ref):
+        return float((a - ref).norm() / ref.norm().clamp_min(1e-300))
+
+    def rel_all(a, ref, keys):
+        num = sum(float((a[k] - ref[k]).norm()) ** 2 for k in keys)
+        return (num / sum(float(ref[k].norm()) ** 2 for k in keys)) ** 0.5
+
+    before = (K.launches, K.launches_tf32)
+    t0 = time.perf_counter()
+    card = step("cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    moved = (K.launches - before[0], K.launches_tf32 - before[1])
+    assert moved == (WS_PER_STEP, WS_PER_STEP), f"launches (all, 3xTF32) {moved}"
+    t0 = time.perf_counter()
+    cpu = step("cpu")
+    t_cpu = time.perf_counter() - t0
+    ref = step("cpu", torch.float64)
+    losses = {}
+    for name, a in (("card", card), ("CPU", cpu)):
+        losses[name] = {k: abs(a[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]}
+        losses[name]["Genh"] = rel_err(a[1], ref[1])
+    d_keys = [k for k in ref[2] if k.startswith("D.")]
+    g_keys = [k for k in ref[2] if k.startswith("G.")]
+    e_card = {k: rel(v, ref[2][k]) for k, v in card[2].items()}
+    e_cpu = {k: rel(v, ref[2][k]) for k, v in cpu[2].items()}
+    d_all = {n: rel_all(a[2], ref[2], d_keys) for n, a in (("card", card), ("CPU", cpu))}
+    g_all = {n: rel_all(a[2], ref[2], g_keys) for n, a in (("card", card), ("CPU", cpu))}
+    uv_err = {k: rel(v, ref[3][k]) for k, v in card[3].items()}
+    frozen = dataclasses.replace(cfg, d_lr=0.0)
+    ref0, card0 = step("cpu", torch.float64, frozen), step("cuda", c=frozen)
+    adv0 = {k: abs(card0[0][k] - ref0[0][k]) / abs(ref0[0][k]) for k in ("g_adv", "g_loss")}
+    g0_all = rel_all(card0[2], ref0[2], g_keys)
+    worst_uv = sorted(uv_err, key=lambda k: -uv_err[k])[:2]
+    print(f"WSEGAN step, B=4 fp32 (snorm G and D, Adam, misaligned pair), one row masked, "
+          f"one 'additive', vs float64 on the CPU (card {t_card:.2f} s, CPU {t_cpu:.2f} s): "
+          f"losses and Genh card " + ", ".join(f"{k} {v:.1e}" for k, v in losses["card"].items())
+          + "; CPU " + ", ".join(f"{k} {v:.1e}" for k, v in losses["CPU"].items())
+          + f"\n  D's gradients, all {len(d_keys)} tensors: card {d_all['card']:.1e}, CPU "
+          f"{d_all['CPU']:.1e}; G's, all {len(g_keys)}: card {g_all['card']:.1e}, CPU "
+          f"{g_all['CPU']:.1e}\n  u and v after the step, card: worst "
+          + ", ".join(f"{k} {uv_err[k]:.1e}" for k in worst_uv)
+          + f"\n  with d_lr = 0 (D' = D): card g_adv {adv0['g_adv']:.1e}, g_loss "
+          f"{adv0['g_loss']:.1e}; G's gradients, all tensors {g0_all:.1e}", flush=True)
+    # g_adv, and g_loss with it, go through D' after an Adam step: held with D' = D
+    assert worst(v for k, v in losses["card"].items()
+                 if k not in ("g_adv", "g_loss")) <= SLICE_TOL, losses
+    assert worst(adv0.values()) <= SLICE_TOL, adv0
+    assert d_all["card"] <= max(SLICE_TOL, 4 * d_all["CPU"]), d_all
+    bad = {k: (e_card[k], e_cpu[k]) for k in d_keys
+           if not e_card[k] <= max(10 * SLICE_TOL, 4 * e_cpu[k])}
+    assert not bad, bad
+    assert worst(uv_err.values()) <= FP32_TOL, uv_err
+    assert g0_all <= KINK_TOL, g0_all
+
+
+def _wsegan_kernel_times(seg, B: int):
+    """The per-layer kernel's share of a WSEGAN step at batch B in the engine's compute
+    dtype: its wrapper on G's five w / sigma and D's five, at the step's shapes, timed in
+    turns with the plain version and cuDNN's F.conv1d alone; ms a step = G's five + 4 x
+    D's five, beside the bound of the same work."""
+    import torch
+    import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+
+    cdt = seg.compute_dtype
+    g = torch.Generator().manual_seed(SEED + 36)
+    calls = {"G": [], "D": []}
+    bound = 0.0
+    for side, model, passes in (("G", seg.G, 1), ("D", seg.D, 4)):
+        t_in = 16384 + 29
+        for blk in model.enc_blocks:
+            with torch.no_grad():  # eval mode: the stored u and v
+                w = blk.conv.get_weight().to(cdt).contiguous()
+            cout, cin, kw = w.shape
+            b = blk.conv.bias.detach().to(cdt) if blk.conv.bias is not None else None
+            a = blk.act.weight.detach().to(cdt)
+            x = torch.randn((B, cin, t_in), generator=g).to(cdt).cuda()
+            calls[side].append((x, w, b, a))
+            t_out = (t_in - kw) // 4 + 1
+            flops = 2.0 * B * t_out * cout * cin * kw
+            nbytes = x.element_size() * (B * cin * t_in + cout * cin * kw + 2 * cout
+                                          + 2 * B * cout * t_out)
+            bound += passes * (bound_ms(flops, nbytes, BF16_PEAK) if cdt == torch.bfloat16
+                               else min(bound_ms(flops, nbytes, FP32_PEAK),
+                                        bound_ms(3 * flops, nbytes, TF32_PEAK)))
+            t_in = t_out + 29
+    fns = {"kernel_ms": K.fused_conv1d_prelu, "plain_ms": K.conv1d_prelu_plain,
+           "library_ms": lambda x, w, b, a, s: F.conv1d(x, w, b, stride=s)}
+    with torch.no_grad():
+        ms = ms_in_turns({f"{name} {side}": (lambda f=f, c=c: [f(*t, 4) for t in c])
+                          for name, f in fns.items() for side, c in calls.items()})
+    return dict({name: ms[f"{name} G"] + 4 * ms[f"{name} D"] for name in fns},
+                bound_ms=bound)
+
+
+def phase_wsegan_b150():
+    """7b: the WSEGAN step at full width and the script's batch, 150, in fp32 and bf16,
+    timed by CUDA events; the weight pad (and fp32 split) that the per-layer kernel makes
+    of each w / sigma, timed alone; then the bench entry with --engine wsegan and
+    aewsegan. Returns the kernel's launches per step, and by dtype the kernel's, the
+    plain version's and cuDNN's ms a step at the step's shapes, their bound and the
+    pad's ms a step."""
+    import statistics
+    import torch
+    from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    B, n_steps = 150, 10
+    per_step = set()
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = SEGANConfig(**WSEGAN_FLAGS, compute_dtype=dtype, batch_size=B)
+        G, D = _wsegan_models(cfg, SEED + 34)
+        seg = WSEGAN(cfg, generator=G, discriminator=D, device="cuda")
+        clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 35))
+        mask = torch.ones((B,), device="cuda")
+        amask = torch.zeros((B,), device="cuda")
+        marks = {"G forward": [], "D update": [], "G update": []}
+
+        def timed(fn, name):
+            def run(*args, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                marks[name].append((start, end))
+                return out
+            return run
+
+        seg._g_forward = timed(seg._g_forward, "G forward")
+        seg._d_update = timed(seg._d_update, "D update")
+        seg._g_update = timed(seg._g_update, "G update")
+        for _ in range(3):
+            metrics, _, _ = seg.train_step(clean, noisy, mask, amask, 100.0)
+        float(metrics["d_loss"])
+        for v in marks.values():
+            v.clear()
+        torch.cuda.reset_peak_memory_stats()
+        steps, losses = [], []
+        K.launches = K.launches_mma = K.launches_tf32 = 0
+        for _ in range(n_steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics, _, _ = seg.train_step(clean, noisy, mask, amask, 100.0)
+            end.record()
+            steps.append((start, end))
+            losses.append(torch.stack(list(metrics.values())))
+        torch.cuda.synchronize()
+        launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
+        losses = torch.stack(losses).cpu()
+        assert torch.isfinite(losses).all(), losses
+        assert launches == mma == WS_PER_STEP * n_steps, (launches, mma)
+        assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
+        per_step.add(launches // n_steps)
+        ms = [s.elapsed_time(e) for s, e in steps]
+        total = steps[0][0].elapsed_time(steps[-1][1])
+        split = {k: statistics.median(s.elapsed_time(e) for s, e in v)
+                 for k, v in marks.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the kernel's padded (fp32: split) copy of each w / sigma, made anew on every
+        # call: G's five once a step, D's five in each of its four passes
+        cdt = seg.compute_dtype
+        with torch.no_grad():
+            gw = [blk.conv.get_weight().to(cdt) for blk in seg.G.enc_blocks]
+            dw = [blk.conv.get_weight().to(cdt) for blk in seg.D.enc_blocks]
+        pad = ms_in_turns({"G": lambda: [K._mma_weights(w) for w in gw],
+                           "D": lambda: [K._mma_weights(w) for w in dw]})
+        pad_step = pad["G"] + 4 * pad["D"]
+        kt = _wsegan_kernel_times(seg, B)
+        times[dtype] = dict(kt, pad_ms=pad_step)
+        print(f"WSEGAN step B={B} {dtype}: {B * n_steps / total * 1e3:.2f} slices/s "
+              f"({total:.2f} ms for {n_steps} steps, median {statistics.median(ms):.3f} ms/step); median split "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f"; peak device memory {peak:.2f} GiB; fused_conv1d_prelu launches {launches}"
+              f" ({mma} on the tensor cores, {tf32} 3xTF32); the weights' pad"
+              f"{' and split' if dtype == 'float32' else ''} {pad_step:.3f} ms a step "
+              f"(G {pad['G']:.3f}, D {pad['D']:.3f} a pass), "
+              f"{pad_step / statistics.median(ms):.2%} of it; the kernel's 25 calls a "
+              f"step {kt['kernel_ms']:.3f} ms (bound {kt['bound_ms']:.3f}, plain "
+              f"{kt['plain_ms']:.3f}, cuDNN {kt['library_ms']:.3f}); last losses " + ", ".join(
+                  f"{k} {float(v):.4f}" for k, v in zip(metrics, losses[-1])), flush=True)
+        del seg, G, D, clean, noisy, metrics, gw, dw
+        torch.cuda.empty_cache()
+    for engine in ("wsegan", "aewsegan"):
+        out = subprocess.run(
+            [sys.executable, "-m", "segan_pytorch_tpu_torch.bench", "--engine", engine,
+             "--batch_size", str(B), "--steps", "5", "--warmup", "2"],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-3000:]
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"bench --engine {engine} (bfloat16): {json.dumps(res)}", flush=True)
+        assert (res["metric"], res["batch"], res["engine"]) == (
+            "train_slices_per_sec_per_chip", B, engine) and res["value"] > 0, res
+    assert per_step == {WS_PER_STEP}, per_step
+    return per_step.pop(), times
+
+
+WS_LOG_RE = re.compile(r"^Iter (\d+)/(\d+) \((\d+) bpe\) d_loss:(\S+), g_loss: (\S+), "
+                       r"pow_loss: (\S+), den_loss: (\S+) btime", re.M)
+
+
+def phase_wsegan_run(work: Path):
+    """7c: `python -m segan_pytorch_tpu_torch.train`'s main with the script's flags at full
+    width on the card, a synthetic corpus of 4 x 4 s pairs (two batches of 150 an epoch
+    at stride 0.05): one epoch, then --resume to epoch 2; the port's clean CLI on the last
+    EOE G, one G pass per wav; then --aewsegan for one epoch with a validation set.
+    Returns the kernel's launches over the two WSEGAN runs."""
+    import torch
+    from segan_pytorch_tpu_torch import clean as clean_cli
+    from segan_pytorch_tpu_torch import train as train_cli
+    from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    train_dirs = _write_corpus(work / "train", 4, 4.0, SEED + 40)
+    valid_dirs = _write_corpus(work / "valid", 2, 4.0, SEED + 41)
+    save = work / "ws"
+    argv = ["--save_path", str(save), "--clean_trainset", train_dirs[0], "--noisy_trainset",
+            train_dirs[1], "--cache_dir", str(work / "cache"), "--save_freq", "1",
+            "--seed", str(SEED), "--device", "cuda"] + WSEGAN_ARGS
+
+    def run(args):
+        out = io.StringIO()
+        start = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                seg = train_cli.main(args)
+        finally:
+            print("\n".join(line for line in out.getvalue().splitlines()
+                            if line.startswith(("Iter", "[*]", "[!]", "[data]"))), flush=True)
+        torch.cuda.synchronize()
+        return seg, out.getvalue(), time.perf_counter() - start
+
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    runs = [run(argv + ["--epoch", "1"]), run(argv + ["--epoch", "2", "--resume"])]
+    launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
+    logged = [WS_LOG_RE.findall(out) for _, out, _ in runs]
+    bpe = int(logged[0][0][2])
+    assert bpe == 2, logged
+    assert [int(m[0]) for m in logged[0]] == [1, 2], logged[0]
+    assert [int(m[0]) for m in logged[1]] == [3, 4], logged[1]
+    assert "[*] Resumed from step 2" in runs[1][1], runs[1][1][-2000:]
+    losses = np.array([[float(v) for v in m[3:]] for log in logged for m in log])
+    assert np.isfinite(losses).all(), losses
+    seg = runs[1][0]
+    assert seg.step == 4, seg.step
+    # launches of one G forward, and of a step: G's blocks once, D's in its four passes
+    g_fwd = len(seg.G.enc_blocks)
+    per_step = g_fwd + 4 * len(seg.D.enc_blocks)
+    print(f"fused_conv1d_prelu launches over the two WSEGAN runs: {launches} ({mma} on the "
+          f"tensor cores, {tf32} 3xTF32) for 4 train steps")
+    assert launches == mma == tf32 == per_step * 4, (launches, mma, tf32)
+    index = json.loads((save / "EOE_G-checkpoints").read_text())
+    assert index["latest"] == ["EOE_G-Generator-2.ckpt", "EOE_G-Generator-4.ckpt"], index
+    d_index = json.loads((save / "EOE_D-checkpoints").read_text())
+    assert d_index["current"] == "EOE_D-Discriminator-4.ckpt", d_index
+    last_g = save / "weights_EOE_G-Generator-4.ckpt"
+    payload = torch.load(last_g, map_location="cpu", weights_only=True)
+    assert payload["step"] == 4 and len(payload["optimizer"]["state"]) > 0
+    assert "enc_blocks.0.conv.weight_u" in payload["state_dict"]
+    del payload, runs, seg
+
+    # the clean CLI through the WSEGAN engine: one padded G pass per wav
+    out_dir = work / "ws_enhanced"
+    out_dir.mkdir()
+    opts = clean_cli.build_parser().parse_args([
+        "--g_pretrained_ckpt", str(last_g), "--cfg_file", str(save / "train.opts"),
+        "--test_files", valid_dirs[1], "--synthesis_path", str(out_dir), "--seed",
+        str(SEED), "--device", "cuda"])
+    before = K.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        clean_cli.main(opts)
+    names = sorted(os.listdir(valid_dirs[1]))
+    assert K.launches - before == g_fwd * len(names), K.launches - before
+    for name in names:
+        _, y = read_wav_raw(str(out_dir / name))
+        assert y.shape == (64000,) and np.isfinite(y).all(), (name, y.shape)
+    print(f"clean CLI (WSEGAN engine) with {last_g.name}: {len(names)} wavs enhanced, one G "
+          f"pass each ({K.launches - before} launches)")
+
+    # AEWSEGAN: G alone, the validation set's spectral distortion at each log point
+    ae_save = work / "ae"
+    before = K.launches
+    seg, out, wall = run(["--save_path", str(ae_save), "--clean_trainset", train_dirs[0],
+                          "--noisy_trainset", train_dirs[1], "--cache_dir",
+                          str(work / "cache"), "--clean_valset", valid_dirs[0],
+                          "--noisy_valset", valid_dirs[1], "--save_freq", "1", "--seed",
+                          str(SEED), "--device", "cuda", "--no_train_gen", "--batch_size",
+                          "150", "--aewsegan", "--opt", "adam", "--data_stride", "0.05",
+                          "--epoch", "1"])
+    assert seg.D is None and seg.step == 2, (seg.D, seg.step)
+    sds = [json.loads(line)["value"] for line in
+           (ae_save / "train" / "scalars.jsonl").read_text().splitlines()
+           if json.loads(line)["tag"] == "Genh_SD"]
+    assert len(sds) == 2 and np.isfinite(sds).all(), sds
+    # a G forward's launches for each of the two steps and each evaluate_sd
+    assert K.launches - before == g_fwd * 2 + g_fwd * 2, K.launches - before
+    assert (ae_save / "AEWSEGAN-G-checkpoints").exists()
+    assert json.loads((ae_save / "train.opts").read_text())["deconv_impl"] == "edge-blocked"
+    print(f"AEWSEGAN run: 2 steps in {wall:.2f} s, Genh_SD " + ", ".join(f"{v:.4f}" for v in sds)
+          + f" dB; fused_conv1d_prelu launches {K.launches - before}", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -1375,6 +1776,10 @@ def main():
     train_per_step, train_rates = phase_train_b300()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         train_run = phase_train_run(Path(work), train_rates)
+    phase_wsegan_parity()
+    ws_per_step, ws_times = phase_wsegan_b150()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        ws_run = phase_wsegan_run(Path(work))
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -1382,6 +1787,9 @@ def main():
     measured = [
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
              train_launches_per_step=train_per_step, train_run_launches=train_run,
+             wsegan_train_launches_per_step=ws_per_step, wsegan_run_launches=ws_run,
+             **{f"{p}wsegan_step_{k}": v for p, dt in (("", "bfloat16"), ("fp32_", "float32"))
+                for k, v in ws_times[dt].items()},
              **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],

@@ -21,13 +21,13 @@ import torch
 
 from .se_dataset import collate_batch
 
-DEVICE_KEYS = ("clean", "noisy", "mask")
+DEVICE_KEYS = ("clean", "noisy", "mask", "additive_mask")
 
 
 def device_prefetch(iterator, device, size: int = 2):
-    """Yield each batch with clean, noisy and mask (those it has) as fp32 tensors on
-    `device`, copied `size` - 1 batches ahead of use; the rest of the batch (names, slice
-    indices) and the host batch, under 'host', pass through.
+    """Yield each batch with clean, noisy, mask and WSEGAN's additive_mask (those it has)
+    as fp32 tensors on `device`, copied `size` - 1 batches ahead of use; the rest of the
+    batch (names, slice indices) and the host batch, under 'host', pass through.
 
     On a CUDA device the host arrays are put in pinned memory and copied with
     non_blocking=True, so the host enqueues the next batch's copy behind the running

@@ -11,6 +11,11 @@ Parameter names are upstream's: 'enc_blocks.<i>.{conv,norm,act}', the 'none' hea
 'gmax'/'gavg' and 'mlp.{0,1,2}' for 'mlp'. The 'none' head flattens (B, C, T) to C*T, as
 upstream does (the JAX D flattens (B, T, C) to T*C; ``utils/checkpoint.py`` permutes
 fc.0 between them).
+
+With ``norm_type='snorm'`` (WSEGAN's D) the blocks have no BatchNorm and their convs are
+spectrally normalised, and so are the heads' layers as upstream has them: in 'none'
+fc.0, fc.2 and the PReLU fc.3 (not fc.1 nor fc.4), in 'conv' pool_conv and fc, in
+'gmax'/'gavg' fc, in 'mlp' mlp.0 and the PReLU mlp.1 (not mlp.2).
 """
 from __future__ import annotations
 
@@ -58,17 +63,22 @@ class Discriminator(nn.Module):
             ninp = fmap
         c = fmaps[-1]
         g = generator
+        sn = norm_type == "snorm"  # spectral norm in the head too, with upstream's quirks
         if pool_type == "none":
-            self.fc = nn.Sequential(Linear(pool_slen * c, 256, generator=g), PReLU(256),
-                                    Linear(256, 128, generator=g), PReLU(128),
+            # the second PReLU is spectrally normalised and the last Linear is not
+            self.fc = nn.Sequential(Linear(pool_slen * c, 256, snorm=sn, generator=g),
+                                    PReLU(256),
+                                    Linear(256, 128, snorm=sn, generator=g),
+                                    PReLU(128, snorm=sn, generator=g),
                                     Linear(128, 1, generator=g))
         elif pool_type == "conv":
-            self.pool_conv = Conv1d(c, 1, 1, generator=g)
-            self.fc = Linear(pool_slen, 1, generator=g)
+            self.pool_conv = Conv1d(c, 1, 1, snorm=sn, generator=g)
+            self.fc = Linear(pool_slen, 1, snorm=sn, generator=g)
         elif pool_type in ("gmax", "gavg"):
-            self.fc = Linear(c, 1, generator=g)
-        else:  # mlp
-            self.mlp = nn.Sequential(Conv1d(c, c, 1, generator=g), PReLU(c),
+            self.fc = Linear(c, 1, snorm=sn, generator=g)
+        else:  # mlp: the last conv is not spectrally normalised
+            self.mlp = nn.Sequential(Conv1d(c, c, 1, snorm=sn, generator=g),
+                                     PReLU(c, snorm=sn, generator=g),
                                      Conv1d(c, 1, 1, generator=g))
 
     def sample_phase(self, generator: Optional[torch.Generator] = None,

@@ -165,11 +165,16 @@ class SEGAN:
         return sum(p.numel() for m in (self.G, self.D) for p in m.parameters())
 
     def _g(self) -> Generator:
-        """G in the compute dtype (a cast copy for bf16; params stay fp32 in self.G)."""
+        """G in the compute dtype (a cast copy for bf16; params stay fp32 in self.G). The
+        copy casts the parameters alone: spectral norm's u and v buffers stay fp32, as
+        the JAX 'spectral' collection does under bf16."""
         if self.compute_dtype == torch.float32:
             return self.G
         if self._G_compute is None:
-            self._G_compute = copy.deepcopy(self.G).to(self.compute_dtype)
+            g = copy.deepcopy(self.G)
+            for p in g.parameters():
+                p.data = p.data.to(self.compute_dtype)
+            self._G_compute = g
         return self._G_compute
 
     def infer_G(self, noisy, z=None, ret_hid: bool = False):
@@ -190,12 +195,13 @@ class SEGAN:
         g_c = hall[f"enc_{len(self.G.enc_blocks) - 1}"]
         return out.cpu().numpy(), g_c.float().cpu().numpy()
 
-    def _z_row(self, z) -> Optional[torch.Tensor]:
-        """One utterance's z row (1, T', z_dim): the given one, or the next draw."""
+    def _z_row(self, z, length: Optional[int] = None) -> Optional[torch.Tensor]:
+        """One utterance's z row (1, T', z_dim): the given one, or the next draw for an
+        input of `length` samples (default: a slice)."""
         if self.G.no_z:
             return None
         if z is None:
-            return self.G.sample_z((1, self.cfg.slice_size, 1), self.z_rng)
+            return self.G.sample_z((1, length or self.cfg.slice_size, 1), self.z_rng)
         z = torch.tensor(np.asarray(z, np.float32))
         return z.reshape((1,) + tuple(z.shape[-2:]))
 
@@ -650,8 +656,6 @@ def unported_options(cfg) -> List[str]:
     """The options of ``cfg`` set to something the port does not run yet, as CLI flags;
     the trainer raises on any of them rather than ignore it."""
     checks = [
-        ("--wsegan", cfg.wsegan),
-        ("--aewsegan", getattr(cfg, "aewsegan", False)),
         ("--h5", cfg.h5),
         ("--noises_dir", getattr(cfg, "noises_dir", None)),
         ("--shuffle_buffer", getattr(cfg, "shuffle_buffer", 0)),

@@ -27,6 +27,14 @@ def de_emphasize_np(y: np.ndarray, coef: float = 0.95) -> np.ndarray:
     return lfilter([1.0], [1.0, -coef], y, axis=-1).astype(np.float32)
 
 
+def make_div_n_np(x: np.ndarray, n: int) -> np.ndarray:
+    """Zero-pad the last axis to a multiple of n, with upstream's quirk (the JAX
+    ``make_div_n``): a length already divisible by n gets a full n more."""
+    T = x.shape[-1]
+    pad = n - T % n
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+
+
 def slice_signal_indices(n_samples: int, window_size: int, stride: float):
     """(beg, end) windows of `window_size` at `stride` fraction of it."""
     assert 0 < stride <= 1, stride

@@ -2,11 +2,14 @@
 goes on one CUDA device.
 
     python -m segan_pytorch_tpu_torch.tools.g_profile [--batch 64] [--dtype bfloat16]
-        [--forwards 5] [--train]
+        [--forwards 5] [--train] [--wsegan]
 
 G (and with ``--train`` D) is built at the SEGAN+ widths from a seed, with PReLU slopes
 drawn in U(0, 0.3) (a fresh model has them at 0), and runs ``SEGAN.infer_G`` (with
 ``--train``: ``SEGAN.train_step``, l1 weight 100) on a batch of 16384-sample chunks.
+``--wsegan`` takes the WSEGAN engine with ``scripts/run_wsegan_train.sh``'s flags
+(spectral norm in G and D, Adam, the misaligned pair, biases) instead of SEGAN+'s
+(``--no_bias``).
 After two warm-up calls, ``torch.profiler`` records ``--forwards`` calls; the kernels'
 device time is summed by class (the port's fused conv + PReLU kernels, cuDNN's
 convolutions (in G's forward: the decoder's transposed convs), the reflect pads,
@@ -34,6 +37,8 @@ CLASSES = [  # (class, substrings of a kernel's name), the first match wins
     ("reflect pads", ("reflection_pad", "reflect")),
     ("concatenations", ("cat",)),
     ("reductions (BatchNorm statistics, bias and slope gradients, losses)", ("reduce",)),
+    ("FFTs (WSEGAN's STFT power loss)", ("fft",)),
+    ("matrix-vector products (spectral norm's power iteration and sigma)", ("gemv", "dot")),
     ("optimizer steps", ("multi_tensor", "foreach")),
 ]
 
@@ -56,10 +61,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seed", type=int, default=1234)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step (G and D) instead of G's forward")
+    ap.add_argument("--wsegan", action="store_true",
+                    help="the WSEGAN engine with scripts/run_wsegan_train.sh's flags")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("g_profile needs a CUDA device")
-    cfg = SEGANConfig(no_bias=True, compute_dtype=args.dtype)
+    if args.wsegan:
+        from ..models.wsegan import WSEGAN as engine_cls
+
+        cfg = SEGANConfig(compute_dtype=args.dtype, wsegan=True, gnorm_type="snorm",
+                          dnorm_type="snorm", opt="adam", misalign_pair=True)
+    else:
+        engine_cls = SEGAN
+        cfg = SEGANConfig(no_bias=True, compute_dtype=args.dtype)
     gen = torch.Generator().manual_seed(args.seed)
     G = build_generator(cfg, gen)
     D = build_discriminator(cfg, gen) if args.train else None
@@ -68,11 +82,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             for name, p in model.named_parameters():
                 if name.endswith("act.weight"):
                     p.uniform_(0.0, 0.3, generator=gen)
-    engine = SEGAN(cfg, generator=G, discriminator=D, device="cuda")
+    engine = engine_cls(cfg, generator=G, discriminator=D, device="cuda")
     x = torch.from_numpy(np.random.RandomState(args.seed).randn(
         args.batch, cfg.slice_size, 1).astype(np.float32) * 0.3).cuda()
     z = G.sample_z(tuple(x.shape), gen).cuda()
-    if args.train:
+    if args.train and args.wsegan:
+        what = "WSEGAN train step"
+        run = lambda: engine.train_step(x, x, None, None, 100.0, z=z)  # noqa: E731
+    elif args.train:
         what = "train step"
         run = lambda: engine.train_step(x, x, None, 100.0, z=z)  # noqa: E731
     else:

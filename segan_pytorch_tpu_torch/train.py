@@ -1,6 +1,7 @@
 """Training CLI of the port: the argparse surface of the repo's ``train.py`` (pinned to it
 by ``tests/test_torch_config.py``) running the SEGAN+ engine of
-``segan_pytorch_tpu_torch/models/segan.py``.
+``segan_pytorch_tpu_torch/models/segan.py``, or with ``--wsegan`` / ``--aewsegan`` those
+of ``models/wsegan.py``.
 
     python -m segan_pytorch_tpu_torch.train --save_path ckpt_segan+ \\
         --clean_trainset data/clean_trainset --noisy_trainset data/noisy_trainset \\
@@ -10,9 +11,19 @@ by ``tests/test_torch_config.py``) running the SEGAN+ engine of
 It slices the wav directories (``data/se_dataset.py``), shuffles and batches them
 (``data/loader.py``), trains with the decaying L1 weight, logs, writes training samples,
 scores the validation set with early stop, and keeps rotating checkpoints that
-``--resume`` continues from; SIGTERM checkpoints and exits 0. It runs on the CUDA card,
+``--resume`` continues from; SIGTERM checkpoints and exits 0. WSEGAN's run is driven by
+iterations (``--epoch`` x batches), with a fixed L1 weight, no validation and checkpoints
+named after the steps taken; AEWSEGAN's trains G alone and scores the validation set by
+spectral distortion. The shipped WSEGAN script's flags:
+
+    python -m segan_pytorch_tpu_torch.train --save_path ckpt_wsegan_misalign \
+        --clean_trainset C --noisy_trainset N --cache_dir data_silent_tmp \
+        --no_train_gen --batch_size 150 --wsegan --gnorm_type snorm \
+        --dnorm_type snorm --opt adam --data_stride 0.05 --misalign_pair
+
+It runs on the CUDA card,
 and raises without one; ``--device cpu`` (or ``--no-cuda``) asks for the CPU. Options
-the port does not run yet (WSEGAN, AEWSEGAN, H5 data, noise augmentation, the streaming
+the port does not run yet (H5 data, noise augmentation, the streaming
 shuffle, several steps per call, profiling, a cast in the loader, more than one device
 or process, random scaling, pre-emphasis before normalisation) raise
 ``NotImplementedError`` when set; the TPU lowering knobs are recorded in ``train.opts``
@@ -164,6 +175,7 @@ def main(argv=None):
     from .data.loader import DataLoader
     from .data.se_dataset import SEDataset
     from .models.segan import SEGAN, default_device, unported_options
+    from .models.wsegan import AEWSEGAN, WSEGAN
     from .utils.config import SEGANConfig, dump_train_opts
 
     opts = vars(build_parser().parse_args(argv))
@@ -181,7 +193,17 @@ def main(argv=None):
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
-    segan = SEGAN(cfg, device=device)
+    if cfg.wsegan:
+        segan = WSEGAN(cfg, device=device)
+    elif cfg.aewsegan:
+        segan = AEWSEGAN(cfg, device=device)
+    else:
+        segan = SEGAN(cfg, device=device)
+    if segan.cfg is not cfg:
+        # the engine resolved a default into a copy of the config (AEWSEGAN's
+        # deconv_impl): train.opts records what the engine runs with
+        cfg = segan.cfg
+        dump_train_opts(cfg)
     print('Total model parameters: ', segan.get_n_params())
     if cfg.resume:
         segan.resume(cfg.save_path)

@@ -121,7 +121,7 @@ def read_discriminator_state(path: str, pool_slen: int,
 
 def load_discriminator(D: torch.nn.Module, path: str) -> None:
     """Load a checkpoint into D strictly: every key present, none extra."""
-    last_fmaps = D.enc_blocks[-1].conv.weight.shape[0]
+    last_fmaps = D.enc_blocks[-1].act.weight.shape[0]
     D.load_state_dict(read_discriminator_state(path, D.pool_slen, last_fmaps), strict=True)
 
 
@@ -135,89 +135,126 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, copy=True))
 
 
-def generator_state_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Turn the JAX Generator's variables, flattened to 'a/b/c' numpy leaves (with or
-    without a leading 'params/'), into the port's state_dict.
-
-    conv (K, Cin, Cout) -> (Cout, Cin, K); deconv (K, Cin, Cout) -> (Cin, Cout, K);
-    alpha skips (C,) -> (1, C, 1); PReLU slopes and biases unchanged. Only the
-    'params' collection exists for the norm-free generator: any other collection
-    (batch_stats, spectral) belongs to a norm the port does not have yet."""
-    out: Dict[str, torch.Tensor] = {}
-    for path, v in flat.items():
-        parts = path.split("/")
-        if parts[0] == "params":
-            parts = parts[1:]
-        elif parts[0] in ("batch_stats", "spectral"):
-            raise NotImplementedError(
-                f"{path}: bnorm/snorm generators are not ported yet (ROADMAP.md A1)")
-        blk, rest = parts[0], parts[1:]
-        if blk.startswith(("enc_blocks_", "dec_blocks_")):
-            group, idx = blk.rsplit("_", 1)
-            sub, leaf = rest
-            if leaf == "weight" and sub == "conv":
-                v = np.transpose(v, (2, 1, 0))
-            elif leaf == "weight" and sub == "deconv":
-                v = np.transpose(v, (1, 2, 0))
-            out[f"{group}.{idx}.{sub}.{leaf}"] = _tensor(v)
-        elif blk.startswith("alpha_") and rest == ["skip_k"]:
-            out[f"{blk}.skip_k"] = _tensor(np.reshape(v, (1, -1, 1)))
-        elif blk.startswith("alpha_") and rest[0] == "skip_k":
-            if rest[1] == "weight":
-                v = np.transpose(v, (2, 1, 0))
-            out[f"{blk}.skip_k.{rest[1]}"] = _tensor(v)
-        else:
-            raise KeyError(f"unexpected generator variable {path!r}")
-    return out
-
-
-def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
-                                 last_fmaps: int) -> Dict[str, torch.Tensor]:
-    """Turn the JAX Discriminator's variables, flattened to 'a/b/c' numpy leaves ('params/'
-    and 'batch_stats/' collections; a leaf without a collection is a param), into the
-    port's state_dict: the inverse of the JAX ``load_torch_discriminator``.
-
-    conv (K, Cin, Cout) -> (Cout, Cin, K); Linear (in, out) -> (out, in), fc_0's input
-    reordered from the JAX flatten (T, C) to upstream's (C, T) with C = ``last_fmaps``,
-    T = ``pool_slen``; PReLU slopes, biases and BatchNorm leaves unchanged. Every
-    BatchNorm gets ``num_batches_tracked`` 0, as the JAX export writes it."""
-    out: Dict[str, torch.Tensor] = {}
+def _collections(flat: Mapping[str, np.ndarray]):
+    """[(collection, path parts, value)] of flattened JAX variables (a leaf without a
+    collection is a param), and the set of module paths ('enc_blocks_0/conv', 'fc_3')
+    that carry spectral-norm state."""
+    leaves = []
     for path, v in flat.items():
         parts = path.split("/")
         coll = "params"
         if parts[0] in ("params", "batch_stats", "spectral"):
             coll, parts = parts[0], parts[1:]
-        if coll == "spectral":
-            raise NotImplementedError(f"{path}: a spectral-norm D is not ported yet "
-                                      "(ROADMAP.md, queue A item 4)")
-        name, rest = parts[0], parts[1:]
-        v = np.asarray(v)
-        if name.startswith("enc_blocks_"):
-            idx = name.rsplit("_", 1)[1]
+        leaves.append((coll, parts, np.asarray(v)))
+    normed = {"/".join(parts[:-1]) for coll, parts, _ in leaves if coll == "spectral"}
+    return leaves, normed
+
+
+def _jax_weight(flat: Mapping[str, np.ndarray], module: str) -> np.ndarray:
+    """The JAX param 'weight' of `module`, with or without the 'params/' prefix."""
+    return np.asarray(flat.get(f"params/{module}/weight", flat.get(f"{module}/weight")))
+
+
+def _snorm_v_from_jax(v: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Spectral norm's v from the JAX column order into torch's: a Conv1d's JAX weight
+    (K, Cin, Cout) is viewed with columns (K, Cin), torch's (Cout, Cin, K) with columns
+    (Cin, K) (the JAX export's ``_snorm_v_to_torch``); the columns of Linears and PReLUs
+    agree (a deconv's too, which callers do not pass here). sigma does not depend on the
+    order, but a loaded u, v pair must match its W."""
+    v = np.reshape(v, -1)
+    if w.ndim == 3:
+        kw, cin, _ = w.shape
+        return v.reshape(kw, cin).T.reshape(-1)
+    return v
+
+
+def generator_state_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Turn the JAX Generator's variables, flattened to 'a/b/c' numpy leaves (with or
+    without a leading 'params/'), into the port's state_dict.
+
+    conv (K, Cin, Cout) -> (Cout, Cin, K); deconv (K, Cin, Cout) -> (Cin, Cout, K);
+    alpha skips (C,) -> (1, C, 1); PReLU slopes and biases unchanged. A spectrally
+    normalised (snorm) layer's weight becomes 'weight_orig', and its 'spectral' u and v
+    'weight_u' and 'weight_v' (a conv's v reordered, ``_snorm_v_from_jax``). A
+    'batch_stats' collection belongs to a bnorm generator, which is not ported."""
+    leaves, normed = _collections(flat)
+    out: Dict[str, torch.Tensor] = {}
+    for coll, parts, v in leaves:
+        if coll == "batch_stats":
+            raise NotImplementedError(
+                f"{'/'.join(parts)}: a bnorm generator is not ported yet (ROADMAP.md, "
+                "queue A item 7)")
+        blk, rest = parts[0], parts[1:]
+        if blk.startswith(("enc_blocks_", "dec_blocks_")):
+            group, idx = blk.rsplit("_", 1)
             sub, leaf = rest
-            if sub == "conv" and leaf == "weight":
+            if coll == "spectral":  # a deconv's v has torch's column order already
+                if leaf == "weight_v" and sub == "conv":
+                    v = _snorm_v_from_jax(v, _jax_weight(flat, f"{blk}/{sub}"))
+            elif leaf == "weight" and sub in ("conv", "deconv"):
+                v = np.transpose(v, (2, 1, 0) if sub == "conv" else (1, 2, 0))
+                if f"{blk}/{sub}" in normed:
+                    leaf = "weight_orig"
+            out[f"{group}.{idx}.{sub}.{leaf}"] = _tensor(v)
+        elif blk.startswith("alpha_") and rest == ["skip_k"]:
+            out[f"{blk}.skip_k"] = _tensor(np.reshape(v, (1, -1, 1)))
+        elif blk.startswith("alpha_") and rest[0] == "skip_k" and coll == "params":
+            if rest[1] == "weight":
                 v = np.transpose(v, (2, 1, 0))
-            out[f"enc_blocks.{idx}.{sub}.{leaf}"] = _tensor(v)
-            if sub == "norm" and leaf == "weight":
-                out[f"enc_blocks.{idx}.norm.num_batches_tracked"] = torch.tensor(0)
-        elif name.startswith(("fc_", "mlp_")):
-            group, idx = name.rsplit("_", 1)
-            (leaf,) = rest
-            if leaf == "weight" and v.ndim == 3:  # mlp conv (K, Cin, Cout)
-                v = np.transpose(v, (2, 1, 0))
-            elif leaf == "weight" and v.ndim == 2:  # Linear (in, out)
-                v = v.T
-                if name == "fc_0":  # (256, T*C) -> (256, T, C) -> (256, C, T)
-                    v = np.transpose(v.reshape(v.shape[0], pool_slen, last_fmaps),
-                                     (0, 2, 1)).reshape(v.shape[0], -1)
-            out[f"{group}.{idx}.{leaf}"] = _tensor(v)
-        elif name in ("fc", "pool_conv"):
-            (leaf,) = rest
-            if leaf == "weight":
-                v = v.T if v.ndim == 2 else np.transpose(v, (2, 1, 0))
-            out[f"{name}.{leaf}"] = _tensor(v)
+            out[f"{blk}.skip_k.{rest[1]}"] = _tensor(v)
         else:
-            raise KeyError(f"unexpected discriminator variable {path!r}")
+            raise KeyError(f"unexpected generator variable {coll}/{'/'.join(parts)}")
+    return out
+
+
+def _d_module_name(module: str) -> str:
+    """The port's name of a JAX D module: 'enc_blocks_0/conv' -> 'enc_blocks.0.conv',
+    'fc_3' -> 'fc.3', 'mlp_1' -> 'mlp.1'; 'fc' and 'pool_conv' as they are."""
+    parts = module.split("/")
+    if parts[0].startswith(("enc_blocks_", "fc_", "mlp_")):
+        parts[0] = ".".join(parts[0].rsplit("_", 1))
+    return ".".join(parts)
+
+
+def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
+                                 last_fmaps: int) -> Dict[str, torch.Tensor]:
+    """Turn the JAX Discriminator's variables, flattened to 'a/b/c' numpy leaves ('params/',
+    'batch_stats/' and 'spectral/' collections; a leaf without a collection is a param),
+    into the port's state_dict: the inverse of the JAX ``load_torch_discriminator``.
+
+    conv (K, Cin, Cout) -> (Cout, Cin, K); Linear (in, out) -> (out, in), fc_0's input
+    reordered from the JAX flatten (T, C) to upstream's (C, T) with C = ``last_fmaps``,
+    T = ``pool_slen``; PReLU slopes, biases and BatchNorm leaves unchanged. Every
+    BatchNorm gets ``num_batches_tracked`` 0, as the JAX export writes it. A spectrally
+    normalised layer's weight becomes 'weight_orig' and its u and v 'weight_u' and
+    'weight_v', v reordered as its weight's columns are (a conv's (K, Cin) -> (Cin, K),
+    fc_0's (T, C) -> (C, T))."""
+    leaves, normed = _collections(flat)
+    out: Dict[str, torch.Tensor] = {}
+    for coll, parts, v in leaves:
+        module, leaf = "/".join(parts[:-1]), parts[-1]
+        if not parts[0].startswith(("enc_blocks_", "fc", "mlp_", "pool_conv")):
+            raise KeyError(f"unexpected discriminator variable {coll}/{'/'.join(parts)}")
+        name = _d_module_name(module)
+        if coll == "spectral":
+            if leaf == "weight_v":
+                v = np.reshape(v, -1)
+                if module == "fc_0":  # (T, C) -> (C, T), as fc.0's weight columns
+                    v = v.reshape(pool_slen, last_fmaps).T.reshape(-1)
+                else:
+                    v = _snorm_v_from_jax(v, _jax_weight(flat, module))
+        elif leaf == "weight" and v.ndim == 3:  # conv (K, Cin, Cout)
+            v = np.transpose(v, (2, 1, 0))
+        elif leaf == "weight" and v.ndim == 2:  # Linear (in, out)
+            v = v.T
+            if module == "fc_0":  # (256, T*C) -> (256, T, C) -> (256, C, T)
+                v = np.transpose(v.reshape(v.shape[0], pool_slen, last_fmaps),
+                                 (0, 2, 1)).reshape(v.shape[0], -1)
+        if coll == "params" and leaf == "weight" and module in normed:
+            leaf = "weight_orig"
+        out[f"{name}.{leaf}"] = _tensor(v)
+        if name.endswith(".norm") and leaf == "weight":
+            out[f"{name}.num_batches_tracked"] = torch.tensor(0)
     return out
 
 

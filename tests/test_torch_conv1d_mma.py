@@ -353,6 +353,8 @@ def test_tools_need_cuda(monkeypatch, tool):
     ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>(...)", 1),
     ("void at::native::reflection_pad1d_out_kernel<float>(...)", 2),
     ("void at::native::CatArrayBatchedCopy_vectorized<...>", 3),
+    ("void vector_fft_r2c<float, 2048u>(...)", 5),
+    ("void gemv2T_kernel_val<int, int, float, float, float, 128, 16>(...)", 6),
     ("void at::native::vectorized_elementwise_kernel<4, CUDAFunctor_add<float>>", None),
 ])
 def test_profile_kernel_classes(name, cls):

@@ -394,7 +394,7 @@ def test_no_silent_cpu(corpus, tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "--wsegan": [], "--aewsegan": [], "--h5": [], "--noises_dir": ["noise"],
+    "--h5": [], "--noises_dir": ["noise"],
     "--shuffle_buffer": ["64"], "--steps_per_call": ["2"], "--profile": [],
     "--loader_dtype": ["bfloat16"], "--dp": ["2"], "--mp": ["2"],
     "--coordinator": ["localhost:1234"], "--num_processes": ["2"],

@@ -112,16 +112,21 @@ def test_constant_skip_is_frozen_and_alpha_learns():
 
 @pytest.mark.parametrize("norm", ["bnorm", "snorm"])
 def test_unported_norms_raise(norm):
-    """snorm is not ported; bnorm is for GConv1DBlock (the Discriminator's blocks, held
-    against JAX in test_torch_discriminator.py), not yet for GDeconv1DBlock."""
+    """bnorm is ported for GConv1DBlock (the Discriminator's blocks, held against JAX in
+    test_torch_discriminator.py), not yet for GDeconv1DBlock (a bnorm G, queue A item 7);
+    snorm is ported for both blocks (held against JAX in test_torch_wsegan_models.py)."""
     if norm == "bnorm":
         blk = tmod.GConv1DBlock(4, 8, 31, stride=4, norm_type=norm)
         assert isinstance(blk.norm, tmod.BatchNorm1d)
-    else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmod.GConv1DBlock(4, 8, 31, stride=4, norm_type=norm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmod.GDeconv1DBlock(8, 4, 31, stride=4, norm_type=norm)
+            tmod.GDeconv1DBlock(8, 4, 31, stride=4, norm_type=norm)
+    else:
+        blk = tmod.GConv1DBlock(4, 8, 31, stride=4, norm_type=norm)
+        assert blk.norm is None and blk.conv.snorm
+        assert {n for n, _ in blk.conv.named_buffers()} == {"weight_u", "weight_v"}
+        dec = tmod.GDeconv1DBlock(8, 4, 31, stride=4, norm_type=norm)
+        assert dec.deconv.weight_orig.shape == (8, 4, 31)
+        assert dec.deconv.weight_v.shape == (8 * 31,)
 
 
 def test_seeded_init_has_the_reference_statistics():

@@ -149,7 +149,9 @@ def test_clean_cli_writes_the_enhanced_wavs(engines, tmp_path):
 
 
 def test_engine_refuses_unported_families(tmp_path):
-    for kw in (dict(wsegan=True), dict(aewsegan=True)):
-        opts = dump_train_opts(SEGANConfig(**TOY, **kw), str(tmp_path / str(kw)))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_enhancement_engine(opts, "unused.ckpt", device="cpu")
+    """A bnorm generator is not ported (queue A item 7): the engine refuses its config
+    before it reads a checkpoint. WSEGAN and AEWSEGAN are ported
+    (test_torch_wsegan_engine.py)."""
+    opts = dump_train_opts(SEGANConfig(**TOY, gnorm_type="bnorm"), str(tmp_path / "bn"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_enhancement_engine(opts, "unused.ckpt", device="cpu")
