@@ -11,16 +11,18 @@ and when the port's package is not beside it):
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
      into NaN-filled outputs, at the five SEGAN+ encoder shapes for 1, 8, 64 and 300
-     16384-sample chunks, at WSEGAN's first D layer at its batch (B = 150, Cin = 2, Cout
-     64, T_out 4096, bias) and at edge shapes (bias, T_in = 4 (T_out - 1) + 31, ragged,
-     stride 1), in fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), each on the
-     route the wrapper picks, read from its counters (main-path shapes: the tensor cores,
-     fp32 by 3xTF32; the ragged and stride-1 shapes: FMA), and on the FMA route forced; in
-     fp32 enc5 at 64 and 300 chunks also vs a float64 conv (<= 1e-4). Times in turns (CUDA
-     events, median of 20 after 3 warm-ups): both routes, plain and cuDNN's F.conv1d
-     alone, in each dtype; TFLOP/s, share of peak, bounds, and encoder sums per batch. At
-     64 and 300 chunks the tensor cores must take at most half the FMA route's time in
-     bf16 and no more than it in fp32;
+     16384-sample chunks, at every shape of WSEGAN's step at its batch, 150, with biases
+     (G's enc1, D's enc1 with Cin = 2, and enc2-5, which G and D share) and at edge shapes
+     (bias, T_in = 4 (T_out - 1) + 31, ragged, stride 1), in fp32 (TF32 off, relative
+     error <= 1e-4) and bf16 (<= 2e-2), each on the route the wrapper picks, read from its
+     counters (main-path shapes: the tensor cores, fp32 by 3xTF32; the ragged and stride-1
+     shapes: FMA), and on the FMA route forced; in fp32 enc5 at 64, 150 and 300 chunks
+     also vs a float64 conv (<= 1e-4). Times in turns (CUDA events, median of 20 after 3
+     warm-ups): both routes, plain and cuDNN's F.conv1d alone, in each dtype; TFLOP/s,
+     share of peak, bounds, encoder sums per batch, and the WSEGAN step's 25 calls (G's
+     five rows once, D's five in each of its four passes). At 64 and 300 chunks the
+     tensor cores must take at most half the FMA route's time in bf16 and no more than it
+     in fp32;
   3b. the chained kernel (fused_enc23_fwd: fp32 on the tensor cores by 3xTF32 where C2
      and C3 are multiples of 8, else on FMAs; bf16 on mma.sync) vs enc23_plain, into
      NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256)
@@ -91,15 +93,16 @@ and when the port's package is not beside it):
   7. WSEGAN on the card (models/wsegan.py, scripts/run_wsegan_train.sh's flags: spectral
      norm in G and D, Adam, the misaligned pair, biases), every check fatal:
      7a. one full-width fp32 step at B = 4 (one row masked, one 'additive') on the card
-     and on a CPU copy, both held against the step in float64 on the CPU as 5b holds
-     SEGAN's: the losses but g_adv and g_loss, and Genh, <= 1e-3; D's gradients within
-     max(1e-3, 4 x the CPU's) all together and max(1e-2, 4 x) each; u and v <= 1e-4; with
-     D's learning rate 0, g_adv and g_loss <= 1e-3 and G's gradients <= 5e-2; 25 3xTF32
-     launches;
+     and on a CPU copy, both held against the step in float64 on the CPU: the losses
+     (g_adv and g_loss, which go through D', with D's learning rate 0) and Genh <= 1e-5;
+     D's gradients within max(1e-5, 4 x the CPU's) all together and max(1e-4, 4 x) each;
+     u and v <= 1e-5; G's gradients with D's learning rate 0 <= 3e-5; 25 3xTF32
+     launches; a control, the card's step with every cuDNN conv and matmul in one TF32
+     pass, must break each of these bounds;
      7b. the step at batch 150, fp32 and bf16: 10 timed steps with 25 launches each, all
      on the tensor cores (fp32 3xTF32); slices/s, the split G forward / D update / G
      update, peak memory, and the time of the kernel's pad (fp32: and split) of the 25
-     w / sigma of a step, timed alone; then `python -m segan_pytorch_tpu_torch.bench
+     w / sigma of a step, timed alone (the kernel itself is timed in phase 3); then `python -m segan_pytorch_tpu_torch.bench
      --engine wsegan` and `--engine aewsegan` at batch 150;
      7c. `train.main` with the script's flags on 4 x 4 s synthetic pairs (two batches of
      150 an epoch): one epoch, then --resume to epoch 2 ("Resumed from step 2", iterations
@@ -109,8 +112,9 @@ and when the port's package is not beside it):
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b and wsegan_run_launches from 7c, its times the
-bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one, and under d_enc1_* WSEGAN's
-first D layer at B = 150;
+bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
+first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
+its weight pad from 7b;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -229,12 +233,18 @@ def bound_ms(flops, nbytes, peak) -> float:
 
 
 D_ENC1 = "B=150 D enc1 bias"  # phase 3's row of WSEGAN's first D layer
+# phase 3's rows of WSEGAN's step at the script's batch, 150, with biases, and the calls a
+# step makes at each: G's enc1 once, D's enc1 (the (judged, noisy) pair, Cin = 2) in each
+# of D's four passes, and enc2-5, whose shapes G and D share, 1 + 4 times
+WS_ROWS = {"B=150 G enc1 bias": 1, D_ENC1: 4,
+           **{f"B=150 enc{i} bias": 5 for i in range(2, 6)}}
 
 
 def phase_kernel():
-    """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks and
-    at edge shapes; each route's choice read from its counters. Returns the bf16 and
-    fp32 results at B = 64 for the kernels line."""
+    """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks, at
+    those of WSEGAN's step at batch 150 and at edge shapes; each route's choice read from
+    its counters. Returns the bf16 and fp32 results at B = 64, WSEGAN's first D layer and
+    the WSEGAN step's 25 calls, for the kernels line."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -245,24 +255,34 @@ def phase_kernel():
     g = torch.Generator().manual_seed(SEED)
     T, Kw, S = 16384, 31, 4
     chans = [1, 64, 128, 256, 512, 1024]
-    cases = []  # (label, B, Cin, T_in, Cout, K, stride, bias, main path, bf16 route)
+    # (label, B, Cin, T_in, Cout, K, stride, bias, kind, bf16 route); kind "enc" for the
+    # SEGAN+ encoder (--no_bias), "ws" for WSEGAN's step (WS_ROWS), "edge" for the rest
+    cases = []
     for B in (1, 8, 64, 300):
         t = T
         for i in range(5):
             t //= S
             cases.append((f"B={B} enc{i + 1}", B, chans[i], S * t + Kw - 2, chans[i + 1], Kw,
-                          S, False, True, "mma"))
+                          S, False, "enc", "mma"))
+    t = T
+    for i in range(5):
+        t //= S
+        label = "B=150 G enc1 bias" if i == 0 else f"B=150 enc{i + 1} bias"
+        cases.append((label, 150, chans[i], S * t + Kw - 2, chans[i + 1], Kw, S, True, "ws",
+                      "mma"))
     cases += [
-        # WSEGAN's D, enc1 at the script's batch: the (judged, noisy) pair, Cin = 2, with
-        # bias, on the train path of phase 7 (both dtypes)
-        (D_ENC1, 150, 2, S * 4096 + Kw - 2, 64, Kw, S, True, False, "mma"),
-        ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, False, "mma"),
-        ("T_in=91 bias", 3, 512, 91, 1024, Kw, S, True, False, "mma"),  # reads x[91]: 0
-        ("T_in=1051 bias", 2, 128, 1051, 256, Kw, S, True, False, "mma"),
-        ("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, False, "fma"),
-        ("stride 1", 2, 48, 300, 40, Kw, 1, True, False, "fma"),
+        (D_ENC1, 150, 2, S * 4096 + Kw - 2, 64, Kw, S, True, "ws", "mma"),
+        ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, "edge", "mma"),
+        ("T_in=91 bias", 3, 512, 91, 1024, Kw, S, True, "edge", "mma"),  # reads x[91]: 0
+        ("T_in=1051 bias", 2, 128, 1051, 256, Kw, S, True, "edge", "mma"),
+        ("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, "edge", "fma"),
+        ("stride 1", 2, 48, 300, 40, Kw, 1, True, "edge", "fma"),
     ]
+    assert {c[0] for c in cases if c[8] == "ws"} == set(WS_ROWS)
     sums = {}  # (B, column) -> ms summed over the five encoder layers
+    # WSEGAN's 25 calls a step by dtype prefix: ms (each row times its calls), bound and
+    # max |kernel - plain|
+    ws = {"fp32_": {}, "": {}}
     d_enc1 = {}  # the D enc1 row's numbers, for the kernels line
     max_abs = {}  # B -> max |mma - plain| over the bf16 encoder layers
     max_abs32 = 0.0  # max |tensor cores - plain| over the fp32 encoder layers at B = 64
@@ -270,7 +290,8 @@ def phase_kernel():
           f"{'fp32 fma':>8} {'bf16':>8} {'bf16 fma':>8} | {'tf32 ms':>8} {'fma ms':>8} "
           f"{'plain':>8} {'cuDNN':>8} | {'mma ms':>8} {'fma ms':>8} {'plain':>8} "
           f"{'cuDNN':>8} | {'TFLOP/s':>7} {'peak':>6} | fp32 TFLOP/s | bound ms fp32, bf16")
-    for label, b, cin, t_in, cout, kw, s, has_bias, main, route in cases:
+    for label, b, cin, t_in, cout, kw, s, has_bias, kind, route in cases:
+        main = kind == "enc"
         x = torch.randn((b, cin, t_in), generator=g).cuda()
         w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
         bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
@@ -293,10 +314,12 @@ def phase_kernel():
         e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
         assert e32 <= FP32_TOL, f"{label}: fp32 {took} vs plain rel err {e32:.3e} > {FP32_TOL}"
         e32_abs = worst([float((y - y_ref).abs().max()), float((pre - pre_ref).abs().max())])
-        if main and cin == 512 and b in (64, 300):
+        if kind != "edge" and cin == 512 and b >= 64:
             # the deepest layer against float64: the tensor cores' own fp32 sums do not
             # promise to round to nearest, and the plain version has errors of its own
-            pre64 = F.conv1d(x.double(), w.double(), None, stride=s)
+            # (at B = 150 enc5's 2400 rows leave the last 64-row tile half full)
+            pre64 = F.conv1d(x.double(), w.double(),
+                             bias.double() if has_bias else None, stride=s)
             e64, e64_plain = rel_err(pre, pre64), rel_err(pre_ref, pre64)
             print(f"{label}: fp32 pre vs a float64 conv: rel err {e64:.3e} on the {took} "
                   f"route, {e64_plain:.3e} for the plain version", flush=True)
@@ -383,6 +406,12 @@ def phase_kernel():
                            ("bf16 fma", t16["fma"]), ("bf16 plain", t16["plain"]),
                            ("bf16 cuDNN", t16["cuDNN"]), ("bf16 bound", b16)]:
                 sums[b, col] = sums.get((b, col), 0.0) + v
+        if kind == "ws":
+            for p, t, bnd, e_abs in (("fp32_", t32, b32, e32_abs), ("", t16, b16, e16_abs)):
+                for col, v in (("kernel_ms", t["mma"]), ("plain_ms", t["plain"]),
+                               ("library_ms", t["cuDNN"]), ("bound_ms", bnd)):
+                    ws[p][col] = ws[p].get(col, 0.0) + WS_ROWS[label] * v
+                ws[p]["max_abs_err"] = worst([ws[p].get("max_abs_err", 0.0), e_abs])
         print(f"{label:>16} {str((b, cin, t_in)):>19} {cout:>5} {t_out:>5} | {e32:8.1e} "
               f"{e32f:8.1e} {e16:8.1e} {e16f:8.1e} | {t32.get('mma', float('nan')):8.4f} "
               f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} | "
@@ -403,7 +432,13 @@ def phase_kernel():
             # and in fp32 (3xTF32) be no slower than it
             assert sums[b, "bf16 mma"] <= 0.5 * sums[b, "bf16 fma"], (b, sums)
             assert sums[b, "fp32 tc"] <= sums[b, "fp32 fma"], (b, sums)
-    return dict(d_enc1, max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
+    print("WSEGAN step B=150, the kernel's 25 calls (G's enc1-5 once, D's enc1-5 in each of "
+          "four passes), ms and max abs err: " + "; ".join(
+              f"{p[:-1] or 'bf16'} " + ", ".join(f"{col} {v:.4g}" for col, v in c.items())
+              for p, c in ws.items()), flush=True)
+    return dict(d_enc1, **{f"{p}wsegan_step_{col}": v for p, c in ws.items()
+                           for col, v in c.items()},
+                max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
                 plain_ms=sums[64, "bf16 plain"], bound_ms=sums[64, "bf16 bound"],
                 bound_by="operations", library_ms=sums[64, "bf16 cuDNN"],
                 fp32_max_abs_err=max_abs32, fp32_ms=sums[64, "fp32 tc"],
@@ -1408,15 +1443,26 @@ def _wsegan_models(cfg, seed):
     return G, D
 
 
+# 7a's bounds. Without BatchNorm the WSEGAN step is well conditioned: on an H100 at 700 W
+# the card's losses and Genh read <= 2.1e-7 off float64, D's gradients 5.3e-7 all together,
+# u and v 7.9e-7, G's gradients with D' = D 1.2e-6; the control below (the cuDNN convs and
+# matmuls in one TF32 pass) 4.3e-5, 2.7e-4, 9.6e-5 and 2.0e-4. Each bound sits between
+WS_TOL = 1e-5     # losses, Genh, D's gradients all together, u and v
+WS_G_TOL = 3e-5   # G's gradients all together, with D' = D
+
+
 def phase_wsegan_parity():
     """7a: one full-width WSEGAN fp32 step (the script's flags: spectral norm in G and D,
     Adam, the misaligned pair) at B = 4, one row masked and one 'additive', on the card
-    and on a CPU copy, both held against the step in float64 on the CPU, as 5b holds
-    SEGAN's; then a step with D's learning rate 0 for g_adv, which goes through D'."""
+    and on a CPU copy, both held against the step in float64 on the CPU; then a step with
+    D's learning rate 0 for g_adv, which goes through D'. A control, the card's step with
+    the ops' TF32 policy bypassed and TF32 on (every cuDNN conv and matmul in one TF32
+    pass; the kernel stays 3xTF32), must land outside each bound that the step meets."""
     import copy
     import dataclasses
     import torch
     from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
+    from segan_pytorch_tpu_torch.ops import conv as conv_ops
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
 
@@ -1428,6 +1474,7 @@ def phase_wsegan_parity():
     z = torch.randn((4, 16, cfg.z_dim), generator=torch.Generator().manual_seed(SEED + 32))
     phase = D.sample_phase(torch.Generator().manual_seed(SEED + 33), passes=4)
     perm = torch.tensor([2, 0, 3, 1])
+    frozen = dataclasses.replace(cfg, d_lr=0.0)
 
     def step(device, dtype=torch.float32, c=cfg):
         """One step of copies of G and D: (losses, Genh, gradients, u and v) on the CPU
@@ -1443,6 +1490,18 @@ def phase_wsegan_parity():
         uv = {f"{side}.{n}": b.cpu().double() for side in ("G", "D")
               for n, b in getattr(seg, side).named_buffers()}
         return {k: float(v) for k, v in m.items()}, genh.cpu().double(), grads, uv
+
+    def tf32_step(c):
+        """The card's step with the ops' TF32 policy bypassed and TF32 on."""
+        policy = conv_ops.full_precision
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        conv_ops.full_precision = lambda dtype: contextlib.nullcontext()
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return step("cuda", c=c)
+        finally:
+            conv_ops.full_precision = policy
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
     def rel(a, ref):
         return float((a - ref).norm() / ref.norm().clamp_min(1e-300))
@@ -1461,93 +1520,54 @@ def phase_wsegan_parity():
     t0 = time.perf_counter()
     cpu = step("cpu")
     t_cpu = time.perf_counter() - t0
-    ref = step("cpu", torch.float64)
-    losses = {}
-    for name, a in (("card", card), ("CPU", cpu)):
-        losses[name] = {k: abs(a[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]}
-        losses[name]["Genh"] = rel_err(a[1], ref[1])
+    ref, ref0 = step("cpu", torch.float64), step("cpu", torch.float64, frozen)
+    runs = {"card": (card, step("cuda", c=frozen)), "CPU": (cpu, step("cpu", c=frozen)),
+            "control": (tf32_step(cfg), tf32_step(frozen))}
     d_keys = [k for k in ref[2] if k.startswith("D.")]
     g_keys = [k for k in ref[2] if k.startswith("G.")]
-    e_card = {k: rel(v, ref[2][k]) for k, v in card[2].items()}
-    e_cpu = {k: rel(v, ref[2][k]) for k, v in cpu[2].items()}
-    d_all = {n: rel_all(a[2], ref[2], d_keys) for n, a in (("card", card), ("CPU", cpu))}
-    g_all = {n: rel_all(a[2], ref[2], g_keys) for n, a in (("card", card), ("CPU", cpu))}
-    uv_err = {k: rel(v, ref[3][k]) for k, v in card[3].items()}
-    frozen = dataclasses.replace(cfg, d_lr=0.0)
-    ref0, card0 = step("cpu", torch.float64, frozen), step("cuda", c=frozen)
-    adv0 = {k: abs(card0[0][k] - ref0[0][k]) / abs(ref0[0][k]) for k in ("g_adv", "g_loss")}
-    g0_all = rel_all(card0[2], ref0[2], g_keys)
-    worst_uv = sorted(uv_err, key=lambda k: -uv_err[k])[:2]
-    print(f"WSEGAN step, B=4 fp32 (snorm G and D, Adam, misaligned pair), one row masked, "
-          f"one 'additive', vs float64 on the CPU (card {t_card:.2f} s, CPU {t_cpu:.2f} s): "
-          f"losses and Genh card " + ", ".join(f"{k} {v:.1e}" for k, v in losses["card"].items())
-          + "; CPU " + ", ".join(f"{k} {v:.1e}" for k, v in losses["CPU"].items())
-          + f"\n  D's gradients, all {len(d_keys)} tensors: card {d_all['card']:.1e}, CPU "
-          f"{d_all['CPU']:.1e}; G's, all {len(g_keys)}: card {g_all['card']:.1e}, CPU "
-          f"{g_all['CPU']:.1e}\n  u and v after the step, card: worst "
-          + ", ".join(f"{k} {uv_err[k]:.1e}" for k in worst_uv)
-          + f"\n  with d_lr = 0 (D' = D): card g_adv {adv0['g_adv']:.1e}, g_loss "
-          f"{adv0['g_loss']:.1e}; G's gradients, all tensors {g0_all:.1e}", flush=True)
-    # g_adv, and g_loss with it, go through D' after an Adam step: held with D' = D
-    assert worst(v for k, v in losses["card"].items()
-                 if k not in ("g_adv", "g_loss")) <= SLICE_TOL, losses
-    assert worst(adv0.values()) <= SLICE_TOL, adv0
-    assert d_all["card"] <= max(SLICE_TOL, 4 * d_all["CPU"]), d_all
-    bad = {k: (e_card[k], e_cpu[k]) for k in d_keys
-           if not e_card[k] <= max(10 * SLICE_TOL, 4 * e_cpu[k])}
+    e = {}  # run -> its readings against float64
+    for name, (a, a0) in runs.items():
+        losses = {k: abs(a[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]
+                  if k not in ("g_adv", "g_loss")}  # these go through D' after Adam's step
+        losses.update({k: abs(a0[0][k] - ref0[0][k]) / abs(ref0[0][k])
+                       for k in ("g_adv", "g_loss")}, Genh=rel_err(a[1], ref[1]))
+        e[name] = dict(losses=losses, d_all=rel_all(a[2], ref[2], d_keys),
+                       d_each={k: rel(a[2][k], ref[2][k]) for k in d_keys},
+                       g_all=rel_all(a[2], ref[2], g_keys), g0_all=rel_all(a0[2], ref0[2], g_keys),
+                       uv={k: rel(v, ref[3][k]) for k, v in a[3].items()})
+    for name, r in e.items():
+        top_d = sorted(d_keys, key=lambda k: -r["d_each"][k])[:2]
+        top_uv = sorted(r["uv"], key=lambda k: -r["uv"][k])[:2]
+        print(f"WSEGAN step, B=4 fp32 (snorm G and D, Adam, misaligned pair), one row masked, "
+              f"one 'additive', {name} vs float64 on the CPU"
+              + (f" (card {t_card:.2f} s, CPU {t_cpu:.2f} s)" if name == "card" else "")
+              + ": losses (g_adv and g_loss with d_lr = 0) and Genh " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in r["losses"].items())
+              + f"\n  D's gradients, all {len(d_keys)} tensors {r['d_all']:.1e}, worst "
+              + ", ".join(f"{k} {r['d_each'][k]:.1e}" for k in top_d)
+              + f"; G's, all {len(g_keys)}: {r['g_all']:.1e}, with d_lr = 0 (D' = D) "
+              f"{r['g0_all']:.1e}\n  u and v after the step: worst "
+              + ", ".join(f"{k} {r['uv'][k]:.1e}" for k in top_uv), flush=True)
+
+    def readings(r):  # each bound's reading: (losses and Genh, D's, G's with D' = D, u v)
+        return (worst(r["losses"].values()), r["d_all"], r["g0_all"], worst(r["uv"].values()))
+
+    card_r, cpu_r, control_r = (readings(e[n]) for n in ("card", "CPU", "control"))
+    bounds = (WS_TOL, max(WS_TOL, 4 * cpu_r[1]), WS_G_TOL, WS_TOL)
+    bad = {k: (e["card"]["d_each"][k], e["CPU"]["d_each"][k]) for k in d_keys
+           if not e["card"]["d_each"][k] <= max(10 * WS_TOL, 4 * e["CPU"]["d_each"][k])}
     assert not bad, bad
-    assert worst(uv_err.values()) <= FP32_TOL, uv_err
-    assert g0_all <= KINK_TOL, g0_all
-
-
-def _wsegan_kernel_times(seg, B: int):
-    """The per-layer kernel's share of a WSEGAN step at batch B in the engine's compute
-    dtype: its wrapper on G's five w / sigma and D's five, at the step's shapes, timed in
-    turns with the plain version and cuDNN's F.conv1d alone; ms a step = G's five + 4 x
-    D's five, beside the bound of the same work."""
-    import torch
-    import torch.nn.functional as F
-    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
-
-    cdt = seg.compute_dtype
-    g = torch.Generator().manual_seed(SEED + 36)
-    calls = {"G": [], "D": []}
-    bound = 0.0
-    for side, model, passes in (("G", seg.G, 1), ("D", seg.D, 4)):
-        t_in = 16384 + 29
-        for blk in model.enc_blocks:
-            with torch.no_grad():  # eval mode: the stored u and v
-                w = blk.conv.get_weight().to(cdt).contiguous()
-            cout, cin, kw = w.shape
-            b = blk.conv.bias.detach().to(cdt) if blk.conv.bias is not None else None
-            a = blk.act.weight.detach().to(cdt)
-            x = torch.randn((B, cin, t_in), generator=g).to(cdt).cuda()
-            calls[side].append((x, w, b, a))
-            t_out = (t_in - kw) // 4 + 1
-            flops = 2.0 * B * t_out * cout * cin * kw
-            nbytes = x.element_size() * (B * cin * t_in + cout * cin * kw + 2 * cout
-                                          + 2 * B * cout * t_out)
-            bound += passes * (bound_ms(flops, nbytes, BF16_PEAK) if cdt == torch.bfloat16
-                               else min(bound_ms(flops, nbytes, FP32_PEAK),
-                                        bound_ms(3 * flops, nbytes, TF32_PEAK)))
-            t_in = t_out + 29
-    fns = {"kernel_ms": K.fused_conv1d_prelu, "plain_ms": K.conv1d_prelu_plain,
-           "library_ms": lambda x, w, b, a, s: F.conv1d(x, w, b, stride=s)}
-    with torch.no_grad():
-        ms = ms_in_turns({f"{name} {side}": (lambda f=f, c=c: [f(*t, 4) for t in c])
-                          for name, f in fns.items() for side, c in calls.items()})
-    return dict({name: ms[f"{name} G"] + 4 * ms[f"{name} D"] for name in fns},
-                bound_ms=bound)
+    assert all(r <= b for r, b in zip(card_r, bounds)), (card_r, bounds)
+    # the control: one TF32 pass in the step's cuDNN convs and matmuls breaks every bound
+    assert all(r > b for r, b in zip(control_r, bounds)), (control_r, bounds)
 
 
 def phase_wsegan_b150():
     """7b: the WSEGAN step at full width and the script's batch, 150, in fp32 and bf16,
     timed by CUDA events; the weight pad (and fp32 split) that the per-layer kernel makes
     of each w / sigma, timed alone; then the bench entry with --engine wsegan and
-    aewsegan. Returns the kernel's launches per step, and by dtype the kernel's, the
-    plain version's and cuDNN's ms a step at the step's shapes, their bound and the
-    pad's ms a step."""
+    aewsegan. Returns the kernel's launches per step and by dtype the pad's ms a step
+    (phase 3 holds and times the kernel at the step's shapes)."""
     import statistics
     import torch
     from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
@@ -1618,8 +1638,7 @@ def phase_wsegan_b150():
         pad = ms_in_turns({"G": lambda: [K._mma_weights(w) for w in gw],
                            "D": lambda: [K._mma_weights(w) for w in dw]})
         pad_step = pad["G"] + 4 * pad["D"]
-        kt = _wsegan_kernel_times(seg, B)
-        times[dtype] = dict(kt, pad_ms=pad_step)
+        times[dtype] = dict(pad_ms=pad_step)
         print(f"WSEGAN step B={B} {dtype}: {B * n_steps / total * 1e3:.2f} slices/s "
               f"({total:.2f} ms for {n_steps} steps, median {statistics.median(ms):.3f} ms/step); median split "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
@@ -1627,9 +1646,7 @@ def phase_wsegan_b150():
               f" ({mma} on the tensor cores, {tf32} 3xTF32); the weights' pad"
               f"{' and split' if dtype == 'float32' else ''} {pad_step:.3f} ms a step "
               f"(G {pad['G']:.3f}, D {pad['D']:.3f} a pass), "
-              f"{pad_step / statistics.median(ms):.2%} of it; the kernel's 25 calls a "
-              f"step {kt['kernel_ms']:.3f} ms (bound {kt['bound_ms']:.3f}, plain "
-              f"{kt['plain_ms']:.3f}, cuDNN {kt['library_ms']:.3f}); last losses " + ", ".join(
+              f"{pad_step / statistics.median(ms):.2%} of it; last losses " + ", ".join(
                   f"{k} {float(v):.4f}" for k, v in zip(metrics, losses[-1])), flush=True)
         del seg, G, D, clean, noisy, metrics, gw, dw
         torch.cuda.empty_cache()

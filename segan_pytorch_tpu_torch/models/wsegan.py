@@ -33,7 +33,7 @@ import torch
 
 from ..ops import conv as conv_ops
 from ..ops.conv import at_least_fp32
-from ..ops.signal import de_emphasize_np, make_div_n_np
+from ..ops.signal import de_emphasize_np, div_n_len, make_div_n_np
 from ..ops.stft import power_spectrum_db
 from ..utils.checkpoint import Saver
 from .discriminator import d_input
@@ -371,7 +371,7 @@ class WSEGAN(SEGAN):
         if z is not None and len(z) != len(inwavs):
             raise ValueError(f"{len(inwavs)} waveforms but {len(z)} z rows")
         wavs = [np.asarray(w, np.float32).reshape(-1) for w in inwavs]
-        lengths = [w.shape[0] + 1024 - w.shape[0] % 1024 for w in wavs]
+        lengths = [div_n_len(w.shape[0], 1024) for w in wavs]
         z_rows = [self._z_row(None if z is None else z[i], L) for i, L in enumerate(lengths)]
         groups: Dict[int, List[int]] = {}
         for i, L in enumerate(lengths):

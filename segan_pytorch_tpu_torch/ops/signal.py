@@ -27,12 +27,16 @@ def de_emphasize_np(y: np.ndarray, coef: float = 0.95) -> np.ndarray:
     return lfilter([1.0], [1.0, -coef], y, axis=-1).astype(np.float32)
 
 
+def div_n_len(T: int, n: int) -> int:
+    """The length ``make_div_n_np`` pads T samples to: the next multiple of n, with
+    upstream's quirk (the JAX ``make_div_n``) that a multiple of n gets a full n more."""
+    return T + n - T % n
+
+
 def make_div_n_np(x: np.ndarray, n: int) -> np.ndarray:
-    """Zero-pad the last axis to a multiple of n, with upstream's quirk (the JAX
-    ``make_div_n``): a length already divisible by n gets a full n more."""
+    """Zero-pad the last axis to ``div_n_len`` of its length."""
     T = x.shape[-1]
-    pad = n - T % n
-    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
+    return np.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, div_n_len(T, n) - T)])
 
 
 def slice_signal_indices(n_samples: int, window_size: int, stride: float):
