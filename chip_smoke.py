@@ -109,10 +109,29 @@ and when the port's package is not beside it):
      3-4, EOE G and D named after the steps taken, 25 launches a step); the clean CLI on
      the last EOE G (the WSEGAN engine: one G pass per wav); then --aewsegan for one epoch
      with a validation set (Genh_SD at each log point, no D).
+  8. serving at full width (`segan_pytorch_tpu_torch.serve`, every check fatal, every
+     request answered 200): the server in this process (`build_server`, `serve_forever`
+     on a thread, --device cuda) on a SEGAN+ G (--no_bias, a quiet output layer) in fp32
+     and then bf16: /healthz; 20 sequential one-chunk /enhance requests (p50 and p95
+     wall); 8 concurrent ones of 1-6 chunks, seeded, overlap 0 and 0.25, in fewer G
+     passes than requests (/metrics); /enhance_stream at windows 16384 and 2048 fed in
+     uneven pieces; 4 concurrent streams through the WindowBatcher with 4 /enhance
+     requests. Each answer against the port's generate() on the card with the seed's z,
+     each stream against the offline chunk_grid + overlap_add path, within SERVE_TOL and
+     STREAM_TOL, and the controls (another seed's z, the other join) outside them. The
+     kernel's counters against the recorded G forwards: 5 launches each, on the route
+     _route picks for each layer. Then a WSEGAN engine (snorm G with biases) with 4
+     concurrent requests of three padded lengths against its generate_batch. 8a: the
+     kernel against its plain version (NaN-filled outputs, route from the counters) at
+     every shape the servers ran and at passes of 1-128 chunks and windows of 2048 and
+     4096 at 1-8 rows, in fp32 and bf16, timed with the FMA route forced, plain and cuDNN
+     beside bounds; then `python -m segan_pytorch_tpu_torch.serve --device cuda` in a
+     subprocess: /healthz, one /enhance, SIGTERM, exit 0 within --drain_seconds.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
-wsegan_train_launches_per_step from 7b and wsegan_run_launches from 7c, its times the
-bf16 encoder sum at 64 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
+wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c and serve_launches
+(_mma, _tf32) from phase 8's served G forwards, its times the bf16 encoder sum at 64
+chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
 its weight pad from 7b;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
@@ -1770,6 +1789,507 @@ def phase_wsegan_run(work: Path):
     return launches
 
 
+# ---- phase 8: serving ----------------------------------------------------------------
+# The bounds of a served answer against generate() with the same z, and of a stream
+# against the offline path (PCM16, past one LSB of rounding), relative. On an H100 at
+# 700 W the readings were <= 2.9e-7 and 0 in fp32, <= 5.8e-3 and 4.7e-3 in bf16 (split-K
+# plans that differ by batch flip bf16 roundings); the controls, the answer against
+# generate() with another seed's z or with the other join (hard cut vs cross-fade),
+# >= 0.32. Each bound sits between, and the phase fails if a control meets it.
+SERVE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+STREAM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SERVE_CHANS = [1, 64, 128, 256, 512, 1024]  # G's encoder widths (SEGAN+ and WSEGAN)
+
+
+def _g_layers(b, t, bias):
+    """The per-layer kernel's five calls in one G forward of b rows of t samples:
+    (B, Cin, T_in, Cout, K, stride, bias); G pads each layer's input by 14 + 15."""
+    return [(b, SERVE_CHANS[i], t // 4 ** i + 29, SERVE_CHANS[i + 1], 31, 4, bias)
+            for i in range(5)]
+
+
+def _pcm(n, seed):
+    """n int16 samples at 16 kHz: a tone and noise."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / SR
+    x = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 800) * t) + 0.05 * rng.randn(n)
+    return np.clip(x * 32767, -32768, 32767).astype("<i2")
+
+
+def _wav_body(n, seed):
+    """`_pcm(n, seed)` as a WAV file's bytes."""
+    from scipy.io import wavfile
+
+    buf = io.BytesIO()
+    wavfile.write(buf, SR, _pcm(n, seed))
+    return buf.getvalue()
+
+
+def _request(url, body=None, timeout=120):
+    """One request that must be answered 200 (urllib raises on an error status):
+    (body, headers, wall seconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(urllib.request.Request(url, data=body),
+                                timeout=timeout) as r:
+        data, status, headers = r.read(), r.status, dict(r.headers)
+    assert status == 200, (url, status)
+    return data, headers, time.perf_counter() - t0
+
+
+def _stream(host, pcm, query, pieces):
+    """A chunked POST of raw PCM16 to /enhance_stream in pieces of the given sizes (the
+    rest in one), which must be answered 200; returns the streamed PCM16."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, timeout=120)
+    try:
+        conn.putrequest("POST", "/enhance_stream?" + query)
+        conn.putheader("Transfer-Encoding", "chunked")
+        conn.endheaders()
+        data, pos = pcm.tobytes(), 0
+        for size in list(pieces) + [len(data)]:
+            piece = data[pos: pos + size]
+            pos += len(piece)
+            if piece:
+                conn.send(b"%x\r\n%s\r\n" % (len(piece), piece))
+        conn.send(b"0\r\n\r\n")
+        resp = conn.getresponse()
+        out = resp.read()
+        assert resp.status == 200, (query, resp.status, out[:300])
+        return np.frombuffer(out, dtype="<i2")
+    finally:
+        conn.close()
+
+
+def _in_threads(jobs):
+    """Run the callables at once on threads; every one must return, and raise nothing."""
+    import threading
+
+    errors = []
+
+    def run(fn):
+        try:
+            fn()
+        except Exception as e:  # re-raised below, on the calling thread
+            errors.append(e)
+
+    ts = [threading.Thread(target=run, args=(fn,)) for fn in jobs]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in ts), "a request did not return"
+    if errors:
+        raise errors[0]
+
+
+def _serving_checkpoints(work: Path):
+    """Full-width G checkpoints: SEGAN+ (--no_bias, slopes U(0, 0.3), the output layer's
+    weights x 0.05 and bias 0, so that the de-emphasized output stays inside PCM16's
+    range) with train.opts in fp32 and bf16; WSEGAN's snorm G with biases, Xavier-
+    initialised, u and v moved near the top singular pairs by three train-mode forwards
+    on the card."""
+    import torch
+    from segan_pytorch_tpu_torch.models.generator import build_generator
+    from segan_pytorch_tpu_torch.models.wsegan import apply_wsegan_weights_init
+    from segan_pytorch_tpu_torch.utils.checkpoint import save_generator
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig, dump_train_opts
+
+    out = {}
+    cfg = SEGANConfig(no_bias=True, save_path=str(work))
+    gen = torch.Generator().manual_seed(SEED + 50)
+    G = build_generator(cfg, gen)
+    with torch.no_grad():
+        for name, p in G.named_parameters():
+            if name.endswith("act.weight"):
+                p.uniform_(0.0, 0.3, generator=gen)
+        G.dec_blocks[-1].deconv.weight.mul_(0.05)
+        G.dec_blocks[-1].deconv.bias.zero_()
+    save_generator(G, str(work / "segan.ckpt"))
+    for name in ("float32", "bfloat16"):
+        out[name] = (work / "segan.ckpt", dump_train_opts(
+            SEGANConfig(no_bias=True, compute_dtype=name), str(work / name)))
+    ws_cfg = SEGANConfig(wsegan=True, gnorm_type="snorm", dnorm_type="snorm")
+    G = build_generator(ws_cfg, gen)
+    apply_wsegan_weights_init(G, gen)
+    with torch.no_grad():
+        for name, p in G.named_parameters():
+            if name.endswith("act.weight"):
+                p.uniform_(0.0, 0.3, generator=gen)
+        G.cuda().train()
+        for _ in range(3):
+            G(torch.randn(1, 16384, 1, generator=gen).cuda(),
+              G.sample_z((1, 16384, 1), gen).cuda())
+    save_generator(G.eval().cpu(), str(work / "wsegan.ckpt"))
+    out["wsegan"] = (work / "wsegan.ckpt", dump_train_opts(ws_cfg, str(work / "wsegan")))
+    return out
+
+
+class _Served:
+    """The port's server in this process: ``serve.build_server`` with --device cuda and
+    ``serve_forever`` on a thread; the engine's G forwards are recorded (thread, rows,
+    samples, milliseconds to the end of the device's work) and so are the kernel's calls
+    (shape, bias, dtype), the kernel's counting left to its wrapper."""
+
+    def __init__(self, ckpt, opts_file, *extra):
+        import threading
+        import torch
+        from segan_pytorch_tpu_torch import serve
+        from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+        self.serve = serve
+        self.srv, self.state = serve.build_server(serve.build_parser().parse_args(
+            ["--g_pretrained_ckpt", str(ckpt), "--cfg_file", str(opts_file), "--port", "0",
+             "--device", "cuda", "--seed", str(SEED), *extra]))
+        self.host = "127.0.0.1:%d" % self.srv.server_address[1]
+        self.base = "http://" + self.host
+        self.engine = self.state["gen"][1]
+        self.passes = []  # (thread name, rows, samples, ms)
+        self.calls = set()  # (B, Cin, T_in, Cout, K, stride, bias, dtype)
+        infer = self.engine.infer_G
+
+        def timed_infer(x, z=None, ret_hid=False):
+            t0 = time.perf_counter()
+            out = infer(x, z, ret_hid)
+            torch.cuda.synchronize()
+            self.passes.append((threading.current_thread().name, int(np.shape(x)[0]),
+                                int(np.shape(x)[1]), 1e3 * (time.perf_counter() - t0)))
+            return out
+
+        self._K, self._launch = K, K._launch
+
+        def recorded_launch(x, w, b, a, stride, t_out, **kw):
+            self.calls.add((*x.shape, w.shape[0], w.shape[2], stride, b is not None,
+                            x.dtype))
+            return self._launch(x, w, b, a, stride, t_out, **kw)
+
+        self.engine.infer_G = timed_infer
+        K._launch = recorded_launch
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+
+    def metrics(self):
+        text = _request(self.base + "/metrics")[0].decode()
+        return {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
+                if ln and not ln.startswith("#")}
+
+    def stop(self):
+        self._K._launch = self._launch
+        self.srv.shutdown()
+        self.serve.close(self.srv, self.state)
+        self.thread.join(timeout=30)
+        assert not self.thread.is_alive()
+
+
+def _expect_launches(K, before, passes, bias, fp32):
+    """The kernel's counters since `before` against the G forwards `passes` (rows,
+    samples): five launches each, on the route that _route picks for each layer's
+    shape (read from the counters), fp32 ones by 3xTF32. Returns the three deltas."""
+    import torch
+
+    want = sum(len(_g_layers(b, t, bias)) for b, t in passes)
+    want_mma = sum(K._route(torch.float32, cout, k, s, (t_in - k) // s + 1) == "mma"
+                   for b, t in passes for (_, _, t_in, cout, k, s, _) in _g_layers(b, t, bias))
+    got = (K.launches - before[0], K.launches_mma - before[1], K.launches_tf32 - before[2])
+    assert got == (want, want_mma, want_mma if fp32 else 0), (got, want, want_mma, passes)
+    return np.array(got)
+
+
+def phase_serve(work: Path, smi: str):
+    """8: the port's server at full width on the card (see the module docstring).
+    Returns the kernel's launches over the in-process servers (all, tensor cores, 3xTF32)."""
+    import signal as signal_mod
+    import torch
+    import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.ops.signal import (de_emphasize_np, normalize_wave_minmax,
+                                                    pre_emphasize_np)
+    from segan_pytorch_tpu_torch.parallel.inference import chunk_grid, overlap_add
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+    from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
+    from scipy.io import wavfile
+
+    ckpts = _serving_checkpoints(work)
+    S = 16384
+
+    def seed_z(G, seed, length=S):
+        return G.sample_z((1, length, 1), torch.Generator().manual_seed(seed))
+
+    def prep(body, preemph):
+        return pre_emphasize_np(normalize_wave_minmax(wavfile.read(io.BytesIO(body))[1]),
+                                preemph)
+
+    def rel(got, want, step=0.0):
+        """max |got - want| beyond `step` (PCM16's rounding: 1) over max |want|."""
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(max(np.abs(got - want).max() - step, 0.0) / np.abs(want).max())
+
+    def offline_pcm(eng, pcm, window, overlap, seed):
+        """The offline chunk_grid + overlap_add path on the card with the stream's z."""
+        pe = pre_emphasize_np(normalize_wave_minmax(pcm), eng.preemph)
+        grid, hop, n = chunk_grid(pe, window, overlap)
+        out = eng.infer_G(grid, seed_z(eng.G, seed, window).expand(n, -1, -1)).cpu().numpy()
+        y = de_emphasize_np(overlap_add(out, hop, len(pcm)), eng.preemph)
+        return np.clip(y * 32767.0, -32768, 32767).astype("<i2")
+
+    totals = np.zeros(3, np.int64)  # the kernel's launches in the served G forwards
+    served = set()  # (B, samples, bias) of every G forward that served
+    calls = set()
+    for name in ("float32", "bfloat16"):
+        fp32 = name == "float32"
+        ckpt, opts_file = ckpts[name]
+        srv = _Served(ckpt, opts_file)  # --warm_seconds 2: generate() and stream warm-up
+        try:
+            info = json.loads(_request(srv.base + "/healthz")[0])
+            assert info["model"] == "SEGAN" and info["status"] == "ok", info
+            srv.passes.clear()
+            before = (K.launches, K.launches_mma, K.launches_tf32)
+            # 20 sequential one-chunk requests
+            one = _wav_body(16000, SEED + 60)
+            walls = []
+            for i in range(20):
+                last, _, wall = _request(srv.base + f"/enhance?seed={i}", one)
+                walls.append(wall)
+            assert [p[1:3] for p in srv.passes] == [(1, S)] * 20, srv.passes
+            one_pass = np.median([p[3] for p in srv.passes])
+            # 8 concurrent requests of 1-6 chunks, seeded, overlap 0 and 0.25
+            m0, n0 = srv.metrics(), len(srv.passes)
+            lengths = [16000, 30000, 45000, 60000, 75000, 90000, 20000, 50000]
+            bodies = [_wav_body(n, SEED + 70 + i) for i, n in enumerate(lengths)]
+            overlaps = [0.0, 0.25] * 4
+            answers = [None] * 8
+            _in_threads([lambda i=i: answers.__setitem__(i, _request(
+                srv.base + f"/enhance?seed={100 + i}&overlap={overlaps[i]}",
+                bodies[i])[0]) for i in range(8)])
+            m1 = srv.metrics()
+            coalesced = srv.passes[n0:]
+            d_req = m1["segan_requests_total"] - m0["segan_requests_total"]
+            d_pass = m1["segan_device_passes_total"] - m0["segan_device_passes_total"]
+            assert d_req == 8 and 1 <= d_pass < d_req, (d_req, d_pass)
+            # one stream at the default window and at 2048, fed in uneven pieces
+            pcm = _pcm(48000, SEED + 80)
+            one_stream = {}
+            for window in (S, 2048):
+                n0 = len(srv.passes)
+                out = _stream(srv.host, pcm, f"seed=7&window={window}",
+                              (3000, 17000, 999, 12345))
+                one_stream[window] = (out, [p[3] for p in srv.passes[n0:]])
+            # concurrent streams through the WindowBatcher, interleaved with /enhance
+            m0 = srv.metrics()
+            streams = [_pcm(40000, SEED + 90 + i) for i in range(4)]
+            st_out, req_out = [None] * 4, [None] * 4
+            jobs = [lambda i=i: st_out.__setitem__(i, _stream(
+                srv.host, streams[i], f"seed={200 + i}", (8000 + 1000 * i,)))
+                for i in range(4)]
+            jobs += [lambda i=i: req_out.__setitem__(i, _request(
+                srv.base + f"/enhance?seed={300 + i}", bodies[i])[0]) for i in range(4)]
+            _in_threads(jobs)
+            m1 = srv.metrics()
+            wins = m1["segan_stream_windows_total"] - m0["segan_stream_windows_total"]
+            wpass = (m1["segan_stream_window_passes_total"]
+                     - m0["segan_stream_window_passes_total"])
+            n_win = sum(chunk_grid(st, S, 0.25)[2] for st in streams)
+            assert wins == n_win and 1 <= wpass < wins, (wins, n_win, wpass)
+            passes = [(r, n) for _, r, n, _ in srv.passes]
+            got = _expect_launches(K, before, passes, False, fp32)
+        finally:
+            srv.stop()
+        totals += got
+        served |= {(r, n, False) for r, n in passes}
+        calls |= srv.calls
+        print(f"serve {name}: fused_conv1d_prelu launches {got[0]} ({got[1]} on the tensor "
+              f"cores, {got[2]} 3xTF32) for {len(passes)} G forwards, 5 each", flush=True)
+
+        # the answers against the engine's own generate() and the offline stream path
+        # on the card, with the same z (the reference's launches come after the count)
+        _, ref = build_enhancement_engine(opts_file, str(ckpt), SEED, device="cuda")
+        e = rel(wavfile.read(io.BytesIO(last))[1],
+                ref.generate(prep(one, ref.preemph), z=seed_z(ref.G, 19))[0])
+        print(f"serve {name}: one-chunk /enhance (1 s of audio), 20 sequential requests: "
+              f"p50 {1e3 * np.percentile(walls, 50):.3f} ms, p95 "
+              f"{1e3 * np.percentile(walls, 95):.3f} ms wall, the G pass {one_pass:.3f} ms "
+              f"(median); vs generate() rel err {e:.3e} ({smi})", flush=True)
+        readings, controls = [e], []
+        for i in range(8):
+            got_i = wavfile.read(io.BytesIO(answers[i]))[1]
+            pw = prep(bodies[i], ref.preemph)
+            readings.append(rel(got_i, ref.generate(pw, z=seed_z(ref.G, 100 + i),
+                                                    overlap=overlaps[i])[0]))
+            controls.append(rel(got_i, ref.generate(pw, z=seed_z(ref.G, 101 + i),
+                                                    overlap=overlaps[i])[0]))
+            if lengths[i] > S:  # the other join (hard cut vs cross-fade)
+                controls.append(rel(got_i, ref.generate(pw, z=seed_z(ref.G, 100 + i),
+                                                        overlap=0.25 - overlaps[i])[0]))
+        print(f"serve {name}: 8 concurrent /enhance requests of 1-6 chunks in {int(d_pass)} "
+              f"G passes (rows, ms: " + ", ".join(f"{r}, {ms:.3f}" for _, r, _, ms in coalesced)
+              + f"); vs generate() with the same z rel err <= {max(readings):.3e} (bound "
+              f"{SERVE_TOL[name]:g}); controls (another seed's z, the other join) >= "
+              f"{min(controls):.3e} ({smi})", flush=True)
+        assert max(readings) <= SERVE_TOL[name] < min(controls), (readings, controls)
+        for window, (out, ms) in one_stream.items():
+            want = offline_pcm(ref, pcm, window, 0.25, 7)
+            e = rel(out, want, step=1)
+            ctrl = rel(out, offline_pcm(ref, pcm, window, 0.25, 8), step=1)
+            print(f"serve {name}: /enhance_stream window {window}: {len(ms)} windows, "
+                  f"{np.median(ms):.3f} ms per window's G pass (median); vs the offline "
+                  f"path rel err {e:.3e} beyond 1 LSB (bound {STREAM_TOL[name]:g}; max |out| "
+                  f"{int(np.abs(want).max())} LSB; control, another seed's z, {ctrl:.3e}) "
+                  f"({smi})", flush=True)
+            assert out.shape == pcm.shape and e <= STREAM_TOL[name] < ctrl, (window, e, ctrl)
+        e_st = worst(rel(st_out[i], offline_pcm(ref, streams[i], S, 0.25, 200 + i), step=1)
+                     for i in range(4))
+        e_req = worst(rel(wavfile.read(io.BytesIO(req_out[i]))[1],
+                          ref.generate(prep(bodies[i], ref.preemph),
+                                       z=seed_z(ref.G, 300 + i))[0]) for i in range(4))
+        print(f"serve {name}: 4 concurrent streams ({int(wins)} windows in {int(wpass)} "
+              f"passes) with 4 /enhance requests: streams vs offline rel err {e_st:.3e}, "
+              f"requests vs generate() {e_req:.3e}", flush=True)
+        assert e_st <= STREAM_TOL[name] and e_req <= SERVE_TOL[name], (e_st, e_req)
+        del ref
+
+    # one WSEGAN engine: snorm G with biases, one padded pass per utterance
+    ckpt, opts_file = ckpts["wsegan"]
+    srv = _Served(ckpt, opts_file, "--no_stream_coalesce", "--warm_seconds", "0.5")
+    try:
+        assert json.loads(_request(srv.base + "/healthz")[0])["model"] == "WSEGAN"
+        srv.passes.clear()
+        before = (K.launches, K.launches_mma, K.launches_tf32)
+        lengths = [20000, 20000, 33000, 5000]
+        bodies = [_wav_body(n, SEED + 100 + i) for i, n in enumerate(lengths)]
+        answers = [None] * 4
+        _in_threads([lambda i=i: answers.__setitem__(i, _request(
+            srv.base + f"/enhance?seed={400 + i}", bodies[i])[0]) for i in range(4)])
+        passes = [(r, n) for _, r, n, _ in srv.passes]
+        got = _expect_launches(K, before, passes, True, True)
+    finally:
+        srv.stop()
+    totals += got
+    served |= {(r, n, True) for r, n in passes}
+    calls |= srv.calls
+    _, ref = build_enhancement_engine(opts_file, str(ckpt), SEED, device="cuda")
+    pads = [n + 1024 - n % 1024 for n in lengths]
+    want = ref.generate_batch([prep(b, ref.preemph) for b in bodies],
+                              z=[seed_z(ref.G, 400 + i, L) for i, L in enumerate(pads)])
+    e = worst(rel(wavfile.read(io.BytesIO(a))[1], w) for a, (w, _) in zip(answers, want))
+    print(f"serve WSEGAN float32: 4 concurrent /enhance requests in G forwards of (rows, "
+          f"samples) {passes}: vs generate_batch rel err {e:.3e} (bound "
+          f"{SERVE_TOL['float32']:g}); kernel launches {tuple(int(v) for v in got)}",
+          flush=True)
+    assert e <= SERVE_TOL["float32"], e
+    del ref
+
+    # 8a: the kernel vs its plain version at every served shape, both dtypes: the passes
+    # that ran, and the shapes of ROADMAP's list (passes of 2-128 chunks, windows of 2048
+    # and 4096 at 1-8 rows) where they did not
+    listed = ({(b, S, False) for b in (1, 2, 4, 16, 32, 128)}
+              | {(b, w, False) for w in (2048, 4096) for b in (1, 2, 4, 8)})
+    layers = {p: _g_layers(*p) for p in served | listed}
+    known = {c for ls in layers.values() for c in ls}
+    assert {c[:7] for c in calls} <= known, sorted({c[:7] for c in calls} - known)
+    g = torch.Generator().manual_seed(SEED + 110)
+    per_shape = {}
+    print(f"{'served shape':>34} | {'route':>5} {'fp32 err':>8} {'bf16 err':>8} | fp32 ms: "
+          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7} | bf16 ms: "
+          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7}")
+    for shape in sorted(known):
+        b, cin, t_in, cout, kw, s, has_bias = shape
+        x = torch.randn((b, cin, t_in), generator=g).cuda()
+        w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
+        bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
+        a = (torch.rand((cout,), generator=g) * 0.3).cuda()
+        t_out = K._check(x, w, bias, a, s)
+        route = K._route(torch.float32, cout, kw, s, t_out)
+        flops = 2.0 * b * t_out * cout * cin * kw
+        nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
+                      + 2 * b * cout * t_out)
+        row = {}
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            args = [v.to(dtype) if v is not None else None for v in (x, w, bias, a)]
+            before = (K.launches_mma, K.launches_tf32)
+            y, pre = K._launch(*args, s, t_out,
+                               out=nan_outputs((b, cout, t_out), (b, cout, t_out), dtype=dtype))
+            y_ref, pre_ref = K.conv1d_prelu_plain(*args, s)
+            took = "mma" if K.launches_mma == before[0] + 1 else "fma"
+            assert took == route and K.launches_tf32 - before[1] == (
+                took == "mma" and dtype == torch.float32), (shape, dtype, took)
+            err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
+            assert err <= tol, (shape, dtype, err)
+            t = ms_in_turns({"kernel": lambda: K.fused_conv1d_prelu(*args, s),
+                             "fma": lambda: K._launch(*args, s, t_out, force_fma=True),
+                             "plain": lambda: K.conv1d_prelu_plain(*args, s),
+                             "cuDNN": lambda: F.conv1d(args[0], args[1], args[2], stride=s)},
+                            reps=10, warmup=2)
+            t["bound"] = (min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
+                              bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
+                          if dtype == torch.float32 else bound_ms(flops, nbytes, BF16_PEAK))
+            row[dtype] = (err, t)
+            del y, pre, y_ref, pre_ref, args
+        per_shape[shape] = row
+        (e32, t32), (e16, t16) = row[torch.float32], row[torch.bfloat16]
+        cols = ("kernel", "fma", "plain", "cuDNN", "bound")
+        print(f"{str(shape[:6]) + (' bias' if has_bias else ''):>34} | {route:>5} "
+              f"{e32:8.1e} {e16:8.1e} | " + " ".join(f"{t32[c]:7.4f}" for c in cols)
+              + " | " + " ".join(f"{t16[c]:7.4f}" for c in cols), flush=True)
+    for p in sorted(layers):
+        sums = {d: {c: sum(per_shape[l][d][1][c] for l in layers[p])
+                    for c in ("kernel", "fma", "plain", "cuDNN", "bound")}
+                for d in (torch.float32, torch.bfloat16)}
+        n_mma = sum(K._route(torch.float32, l[3], l[4], l[5], (l[2] - l[4]) // l[5] + 1)
+                    == "mma" for l in layers[p])
+        print(f"served G forward B={p[0]} T={p[1]}{' bias' if p[2] else ''}"
+              f"{' (ran)' if p in served else ''}: 5 launches ({n_mma} tensor cores); "
+              + "; ".join(f"{'fp32' if d == torch.float32 else 'bf16'} "
+                          + ", ".join(f"{c} {v:.4f}" for c, v in sums[d].items())
+                          for d in sums) + f" ms ({smi})", flush=True)
+
+    # the command line in a subprocess: /healthz, one /enhance, SIGTERM, exit 0 in time
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ckpt, opts_file = ckpts["float32"]
+    drain = 10.0
+    log = open(work / "serve.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "segan_pytorch_tpu_torch.serve", "--g_pretrained_ckpt",
+         str(ckpt), "--cfg_file", str(opts_file), "--port", str(port), "--device", "cuda",
+         "--warm_seconds", "0.5", "--drain_seconds", str(drain)],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=log,
+        stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        base = f"http://127.0.0.1:{port}"
+        while True:
+            assert proc.poll() is None, (work / "serve.log").read_text()[-3000:]
+            try:
+                if json.loads(_request(base + "/healthz", timeout=5)[0])["status"] == "ok":
+                    break
+            except OSError:
+                assert time.perf_counter() - t0 < 180, "the server never answered"
+                time.sleep(0.5)
+        up = time.perf_counter() - t0
+        data, _, wall = _request(base + "/enhance?seed=1", _wav_body(40000, SEED + 120))
+        assert wavfile.read(io.BytesIO(data))[1].shape == (40000,)
+        t1 = time.perf_counter()
+        proc.send_signal(signal_mod.SIGTERM)
+        rc = proc.wait(timeout=drain + 30)
+        took = time.perf_counter() - t1
+        text = (work / "serve.log").read_text()
+        print(f"python -m segan_pytorch_tpu_torch.serve --device cuda: /healthz after "
+              f"{up:.1f} s, one /enhance of 2.5 s in {1e3 * wall:.1f} ms, SIGTERM -> exit "
+              f"{rc} in {took:.2f} s (drain {drain:g} s)", flush=True)
+        assert rc == 0 and took <= drain and "shutdown complete" in text, text[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        log.close()
+    return tuple(int(v) for v in totals)
+
+
 def main():
     import torch
 
@@ -1797,6 +2317,8 @@ def main():
     ws_per_step, ws_times = phase_wsegan_b150()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         ws_run = phase_wsegan_run(Path(work))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        serve_launches = phase_serve(Path(work), smi)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -1805,6 +2327,8 @@ def main():
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
              train_launches_per_step=train_per_step, train_run_launches=train_run,
              wsegan_train_launches_per_step=ws_per_step, wsegan_run_launches=ws_run,
+             serve_launches=serve_launches[0], serve_launches_mma=serve_launches[1],
+             serve_launches_tf32=serve_launches[2],
              **{f"{p}wsegan_step_{k}": v for p, dt in (("", "bfloat16"), ("fp32_", "float32"))
                 for k, v in ws_times[dt].items()},
              **per_layer),

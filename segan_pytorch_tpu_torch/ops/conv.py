@@ -22,10 +22,24 @@ import torch.nn.functional as F
 
 
 def reflect_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
-    """Reflect-pad the time axis of a (B, C, T) tensor (torch F.pad mode='reflect')."""
+    """Reflect-pad the time axis of a (B, C, T) tensor, as ``jnp.pad(mode='reflect')``
+    pads the JAX package's: torch's F.pad where it can (each pad shorter than T); a pad of
+    T or more (G's deep layers on a short window: a stream of 2048 samples reaches enc5
+    with T = 8 and pads it by 14 and 15) reflects again and again, a triangle wave of
+    period 2 (T - 1) over the indices, which F.pad refuses."""
     if pad_left == 0 and pad_right == 0:
         return x
-    return F.pad(x, (pad_left, pad_right), mode="reflect")
+    T = x.shape[-1]
+    if max(pad_left, pad_right) < T:
+        return F.pad(x, (pad_left, pad_right), mode="reflect")
+    idx = torch.arange(-pad_left, T + pad_right, device=x.device)
+    period = 2 * (T - 1)
+    if period:
+        idx = torch.remainder(idx, period)
+        idx = torch.where(idx >= T, period - idx, idx)
+    else:
+        idx = torch.zeros_like(idx)
+    return x.index_select(-1, idx)
 
 
 def zero_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:

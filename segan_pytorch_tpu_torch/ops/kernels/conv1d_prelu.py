@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -40,6 +41,9 @@ from . import build
 launches = 0
 launches_mma = 0
 launches_tf32 = 0
+# the counters and the weight cache are shared by every thread that runs G (the server's
+# two batchers do)
+_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KP = 32  # taps of the tensor-core kernels' weights: K and zero taps
@@ -87,9 +91,10 @@ def _padded_weights(w: torch.Tensor):
     also relies on; writes through ``w.data`` bypass it, as they bypass autograd."""
     if torch.is_inference(w):  # inference tensors keep no version counter
         return _mma_weights(w)
-    hit = _padded.get(w)
-    if hit is None or hit[0] != w._version:
-        hit = _padded[w] = (w._version, _mma_weights(w))
+    with _lock:
+        hit = _padded.get(w)
+        if hit is None or hit[0] != w._version:
+            hit = _padded[w] = (w._version, _mma_weights(w))
     return hit[1]
 
 
@@ -240,10 +245,11 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     if err != 0:
         raise RuntimeError(f"conv1d_prelu kernel launch failed ({route} route): "
                            f"cudaError {err}")
-    launches += 1
-    if route == "mma":
-        launches_mma += 1
-        launches_tf32 += tf32
+    with _lock:
+        launches += 1
+        if route == "mma":
+            launches_mma += 1
+            launches_tf32 += tf32
     return y, pre
 
 

@@ -1,10 +1,17 @@
 """Chunk grid and overlap-add for long-utterance enhancement (numpy only): copies of
-``chunk_grid`` and ``overlap_add`` of ``segan_pytorch_tpu/parallel/inference.py``."""
+``_bucket_pow2``, ``chunk_grid`` and ``overlap_add`` of
+``segan_pytorch_tpu/parallel/inference.py``."""
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+
+
+def _bucket_pow2(n: int) -> int:
+    """The next power of two >= n (1 for n <= 1): the row count by which the serving
+    batchers measure a pass against their budget."""
+    return 1 << (n - 1).bit_length() if n > 1 else 1
 
 
 def chunk_grid(wav: np.ndarray, slice_size: int, overlap: float = 0.0

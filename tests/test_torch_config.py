@@ -135,8 +135,18 @@ def test_slice_signal_indices_equal(n, window, stride):
 
 
 def test_port_sources_import_no_jax():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|segan_pytorch_tpu)\b(?!_torch)",
-                     re.M)
+    """No module of the port and not chip_smoke.py imports jax, flax, optax, the JAX
+    package, or the repo's root scripts serve.py, train.py and clean.py (serve.py's
+    handlers import jax, so such an import would fail on the card at the first
+    request)."""
+    pat = re.compile(r"^\s*(import|from)\s+((jax|flax|optax|segan_pytorch_tpu)\b(?!_torch)"
+                     r"|(serve|train|clean)\b)", re.M)
+    for line in ("import jax", "from segan_pytorch_tpu.ops import signal", "import serve",
+                 "    from train import build_parser", "import clean as c"):
+        assert pat.search(line), line
+    for line in ("from segan_pytorch_tpu_torch import train", "from . import serve",
+                 "from .train import main", "import serve_utils", "import trainer"):
+        assert not pat.search(line), line
     offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
                  if pat.search(p.read_text())]
     offenders += [p for p in ("chip_smoke.py",) if pat.search((ROOT / p).read_text())]
