@@ -127,10 +127,34 @@ and when the port's package is not beside it):
      4096 at 1-8 rows, in fp32 and bf16, timed with the FMA route forced, plain and cuDNN
      beside bounds; then `python -m segan_pytorch_tpu_torch.serve --device cuda` in a
      subprocess: /healthz, one /enhance, SIGTERM, exit 0 within --drain_seconds.
+  9. POST /admin/reload at full width (every check fatal; serve.RETIRE_SECONDS cut to
+     1 s): 9a, an fp32 server of SEGAN+ A answers a reload to a missing file with 500
+     and then the same request bit for bit (with cudnn.deterministic on for that check:
+     cuDNN's default fp32 transposed-conv algorithm sums in no fixed order, and two
+     identical requests without it are printed apart); four clients send one-chunk /enhance
+     requests without pause while a reload swaps in B (other weights): every answer 200
+     and equal to A's or B's generate() with the seed's z within SERVE_TOL (B's for every
+     request sent after the reload's 200), A's and B's own answers apart by more than
+     it, /metrics sampled every 50 ms never going back; p50 / p95 request wall without
+     and during the reload, the reload's load and warm-up seconds and, timed alone, the
+     checkpoint's read and its copy to the card. Then five reloads (A, B, A, B, A) on a
+     server of B: after each retirement and gc.collect() the retired engine is collected,
+     the kernel's weight cache holds the live G's encoder weights and nothing new, and
+     torch.cuda.memory_allocated() is back within RELOAD_MEM_TOL of the one-generation
+     baseline (printed: a generation's bytes). 9b, a bf16 server: a reload A -> B held to
+     B's generate() within the bf16 bound (A's outside it), then a reload to the WSEGAN
+     checkpoint by its cfg_file: /healthz says WSEGAN, 3 concurrent requests equal its
+     generate_batch. The kernel's counters against the recorded G forwards (warm-ups and
+     served passes): 5 launches each, on the routes _route picks. 9d, G forwards at 1
+     and 64 chunks in fp32 and bf16 with cudnn.deterministic off and on, in turns (the
+     cost of bit-reproducible answers). 9c, the reload probe (tools/reload_leak_probe.py)
+     on the card, three generations. TLS and the WebSocket listener are host code held by
+     the CPU tests; the phase says so and checks neither.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
-wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c and serve_launches
-(_mma, _tf32) from phase 8's served G forwards, its times the bf16 encoder sum at 64
+wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
+(_mma, _tf32) from phase 8's served G forwards and reload_launches (_mma, _tf32) from
+phase 9's, its times the bf16 encoder sum at 64
 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
 its weight pad from 7b;
@@ -1888,7 +1912,8 @@ def _in_threads(jobs):
 def _serving_checkpoints(work: Path):
     """Full-width G checkpoints: SEGAN+ (--no_bias, slopes U(0, 0.3), the output layer's
     weights x 0.05 and bias 0, so that the de-emphasized output stays inside PCM16's
-    range) with train.opts in fp32 and bf16; WSEGAN's snorm G with biases, Xavier-
+    range) with train.opts in fp32 and bf16, and a second SEGAN+ of other weights
+    (phase 9's reload target, under "segan_b"); WSEGAN's snorm G with biases, Xavier-
     initialised, u and v moved near the top singular pairs by three train-mode forwards
     on the card."""
     import torch
@@ -1899,18 +1924,22 @@ def _serving_checkpoints(work: Path):
 
     out = {}
     cfg = SEGANConfig(no_bias=True, save_path=str(work))
+    # B's weights from a generator of their own: A's and WSEGAN's stay as phase 8 had them
+    gen_b = torch.Generator().manual_seed(SEED + 51)
     gen = torch.Generator().manual_seed(SEED + 50)
-    G = build_generator(cfg, gen)
-    with torch.no_grad():
-        for name, p in G.named_parameters():
-            if name.endswith("act.weight"):
-                p.uniform_(0.0, 0.3, generator=gen)
-        G.dec_blocks[-1].deconv.weight.mul_(0.05)
-        G.dec_blocks[-1].deconv.bias.zero_()
-    save_generator(G, str(work / "segan.ckpt"))
+    for ckpt, g in (("segan.ckpt", gen), ("segan_b.ckpt", gen_b)):
+        G = build_generator(cfg, g)
+        with torch.no_grad():
+            for name, p in G.named_parameters():
+                if name.endswith("act.weight"):
+                    p.uniform_(0.0, 0.3, generator=g)
+            G.dec_blocks[-1].deconv.weight.mul_(0.05)
+            G.dec_blocks[-1].deconv.bias.zero_()
+        save_generator(G, str(work / ckpt))
     for name in ("float32", "bfloat16"):
         out[name] = (work / "segan.ckpt", dump_train_opts(
             SEGANConfig(no_bias=True, compute_dtype=name), str(work / name)))
+    out["segan_b"] = work / "segan_b.ckpt"
     ws_cfg = SEGANConfig(wsegan=True, gnorm_type="snorm", dnorm_type="snorm")
     G = build_generator(ws_cfg, gen)
     apply_wsegan_weights_init(G, gen)
@@ -1927,24 +1956,65 @@ def _serving_checkpoints(work: Path):
     return out
 
 
-class _Served:
-    """The port's server in this process: ``serve.build_server`` with --device cuda and
-    ``serve_forever`` on a thread; the engine's G forwards are recorded (thread, rows,
-    samples, milliseconds to the end of the device's work) and so are the kernel's calls
+class _InProcess:
+    """``serve.build_server`` (--device cuda) with ``serve_forever`` on a thread."""
+
+    def __init__(self, ckpt, opts_file, *extra):
+        import threading
+        from segan_pytorch_tpu_torch import serve
+
+        self.serve = serve
+        self.srv, self.state = serve.build_server(serve.parse_args(
+            ["--g_pretrained_ckpt", str(ckpt), "--cfg_file", str(opts_file), "--port", "0",
+             "--device", "cuda", "--seed", str(SEED), *extra]))
+        self.host = "127.0.0.1:%d" % self.srv.server_address[1]
+        self.base = "http://" + self.host
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+
+    def metrics(self):
+        text = _request(self.base + "/metrics")[0].decode()
+        return {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
+                if ln and not ln.startswith("#")}
+
+    def reload(self, body):
+        """POST /admin/reload: (status, answer, wall seconds)."""
+        import urllib.error
+        import urllib.request
+
+        t0 = time.perf_counter()
+        req = urllib.request.Request(self.base + "/admin/reload",
+                                     data=json.dumps(body).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read()), time.perf_counter() - t0
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+    def retired(self):
+        """Wait until every replaced generation is retired."""
+        for t in self.state["retiring"]:
+            t.join(timeout=60)
+            assert not t.is_alive(), "a generation was not retired"
+
+    def stop(self):
+        self.srv.shutdown()
+        self.serve.close(self.srv, self.state)
+        self.thread.join(timeout=30)
+        assert not self.thread.is_alive()
+
+
+class _Served(_InProcess):
+    """An ``_InProcess`` server whose engine's G forwards are recorded (thread, rows,
+    samples, milliseconds to the end of the device's work), and so are the kernel's calls
     (shape, bias, dtype), the kernel's counting left to its wrapper."""
 
     def __init__(self, ckpt, opts_file, *extra):
         import threading
         import torch
-        from segan_pytorch_tpu_torch import serve
         from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
 
-        self.serve = serve
-        self.srv, self.state = serve.build_server(serve.build_parser().parse_args(
-            ["--g_pretrained_ckpt", str(ckpt), "--cfg_file", str(opts_file), "--port", "0",
-             "--device", "cuda", "--seed", str(SEED), *extra]))
-        self.host = "127.0.0.1:%d" % self.srv.server_address[1]
-        self.base = "http://" + self.host
+        super().__init__(ckpt, opts_file, *extra)
         self.engine = self.state["gen"][1]
         self.passes = []  # (thread name, rows, samples, ms)
         self.calls = set()  # (B, Cin, T_in, Cout, K, stride, bias, dtype)
@@ -1967,20 +2037,10 @@ class _Served:
 
         self.engine.infer_G = timed_infer
         K._launch = recorded_launch
-        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
-        self.thread.start()
-
-    def metrics(self):
-        text = _request(self.base + "/metrics")[0].decode()
-        return {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
-                if ln and not ln.startswith("#")}
 
     def stop(self):
         self._K._launch = self._launch
-        self.srv.shutdown()
-        self.serve.close(self.srv, self.state)
-        self.thread.join(timeout=30)
-        assert not self.thread.is_alive()
+        super().stop()
 
 
 def _expect_launches(K, before, passes, bias, fp32):
@@ -1997,9 +2057,10 @@ def _expect_launches(K, before, passes, bias, fp32):
     return np.array(got)
 
 
-def phase_serve(work: Path, smi: str):
-    """8: the port's server at full width on the card (see the module docstring).
-    Returns the kernel's launches over the in-process servers (all, tensor cores, 3xTF32)."""
+def phase_serve(work: Path, smi: str, ckpts: dict):
+    """8: the port's server at full width on the card (see the module docstring), on
+    `_serving_checkpoints`. Returns the kernel's launches over the in-process servers
+    (all, tensor cores, 3xTF32)."""
     import signal as signal_mod
     import torch
     import torch.nn.functional as F
@@ -2011,7 +2072,6 @@ def phase_serve(work: Path, smi: str):
     from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
     from scipy.io import wavfile
 
-    ckpts = _serving_checkpoints(work)
     S = 16384
 
     def seed_z(G, seed, length=S):
@@ -2290,6 +2350,351 @@ def phase_serve(work: Path, smi: str):
     return tuple(int(v) for v in totals)
 
 
+# ---- phase 9: reload on the card -------------------------------------------------------
+# How far torch.cuda.memory_allocated() may end from its one-generation baseline after a
+# retired generation is collected. On an H100 at 700 W a full-width fp32 SEGAN+
+# generation held 418.8 MiB (G's weights and the kernel's split copies) and the readings
+# after five retirements were within 1.25 MiB of the baseline (the probe's: 0 B); a leaked
+# generation, or its padded weights alone (~170 MiB), is far outside the bound.
+RELOAD_MEM_TOL = 8 * 1024 * 1024
+RELOAD_RETIRE_SECONDS = 1.0  # serve.RETIRE_SECONDS during the phase (150 in service)
+
+
+def phase_reload(work: Path, smi: str, ckpts: dict):
+    """9: POST /admin/reload at full width on the card (see the module docstring).
+    Returns the kernel's launches over the phase's recorded G forwards (all, tensor
+    cores, 3xTF32)."""
+    import gc
+    import importlib.util
+    import threading
+    import weakref
+    import torch
+    from segan_pytorch_tpu_torch import serve
+    from segan_pytorch_tpu_torch.models.generator import build_generator
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.ops.signal import normalize_wave_minmax, pre_emphasize_np
+    from segan_pytorch_tpu_torch.tools import reload_leak_probe
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+    from segan_pytorch_tpu_torch.utils.checkpoint import read_generator_state
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+    from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
+    from scipy.io import wavfile
+
+    S = 16384
+    ckpt_a, opts32 = ckpts["float32"]
+    _, opts16 = ckpts["bfloat16"]
+    ckpt_b = ckpts["segan_b"]
+    ckpt_w, opts_w = ckpts["wsegan"]
+
+    def seed_z(G, seed, length=S):
+        return G.sample_z((1, length, 1), torch.Generator().manual_seed(seed))
+
+    def prep(body, preemph):
+        return pre_emphasize_np(normalize_wave_minmax(wavfile.read(io.BytesIO(body))[1]),
+                                preemph)
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    def answer(data):
+        return wavfile.read(io.BytesIO(data))[1]
+
+    def refs(opts_file, ckpt, bodies_seeds, lengths=None):
+        """The engine's own answers on the card, generate() (WSEGAN: generate_batch with
+        the padded lengths' z) with each seed's z."""
+        _, eng = build_enhancement_engine(str(opts_file), str(ckpt), SEED, device="cuda")
+        if lengths is None:
+            return [eng.generate(prep(b, eng.preemph), z=seed_z(eng.G, k))[0]
+                    for b, k in bodies_seeds]
+        return [w for w, _ in eng.generate_batch(
+            [prep(b, eng.preemph) for b, _ in bodies_seeds],
+            z=[seed_z(eng.G, k, L) for (_, k), L in zip(bodies_seeds, lengths)])]
+
+    # the G forwards of the phase, recorded on the class: (rows, samples)
+    passes = []
+    infer = SEGAN.infer_G
+
+    def recorded_infer(self, noisy, z=None, ret_hid=False):
+        passes.append((int(np.shape(noisy)[0]), int(np.shape(noisy)[1])))
+        return infer(self, noisy, z, ret_hid)
+
+    totals = np.zeros(3, np.int64)
+    retire = serve.RETIRE_SECONDS
+    serve.RETIRE_SECONDS = RELOAD_RETIRE_SECONDS
+    SEGAN.infer_G = recorded_infer
+    try:
+        # the pieces of a reload's load, timed alone: the checkpoint read on the host and
+        # its copy into a G on the card
+        t0 = time.perf_counter()
+        state_dict = read_generator_state(str(ckpt_b))
+        t_read = time.perf_counter() - t0
+        G = build_generator(SEGANConfig(no_bias=True),
+                            torch.Generator().manual_seed(0)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G.load_state_dict(state_dict)
+        torch.cuda.synchronize()
+        t_copy = time.perf_counter() - t0
+        nbytes = sum(v.numel() * v.element_size() for v in state_dict.values())
+        del G, state_dict
+
+        # 9a: fp32, a reload to a missing file, then A -> B under load
+        srv = _InProcess(ckpt_a, opts32, "--warm_seconds", "1.0")
+        try:
+            one = _wav_body(16000, SEED + 130)
+            passes.clear()
+            before = (K.launches, K.launches_mma, K.launches_tf32)
+            # cuDNN's default algorithm for the fp32 transposed convs sums in no fixed
+            # order: the same request twice is compared bit for bit with
+            # cudnn.deterministic on (its cost is timed below), and read without it
+            plain = [answer(_request(srv.base + "/enhance?seed=0", one)[0]) for _ in "ab"]
+            gen0 = srv.state["gen"]
+            torch.backends.cudnn.deterministic = True
+            try:
+                first = _request(srv.base + "/enhance?seed=0", one)[0]
+                status, info, _ = srv.reload({"g_ckpt": str(work / "missing.ckpt")})
+                again = _request(srv.base + "/enhance?seed=0", one)[0]
+            finally:
+                torch.backends.cudnn.deterministic = False
+            assert status == 500 and "reload failed" in info["error"], (status, info)
+            assert srv.state["gen"] is gen0 and srv.state["reloads"] == 0
+            assert again == first, "A's answer changed after a failed reload"
+            del gen0
+            print(f"reload to a missing file: 500, and A answers bit for bit as before it "
+                  f"(cudnn.deterministic on); without it two identical requests differ by "
+                  f"rel {rel(plain[1], plain[0]):.3e}", flush=True)
+            log, samples, errors, stop = [], [], [], threading.Event()
+
+            def client(k):
+                try:
+                    while not stop.is_set():
+                        seed = k + 4 * (len(log) % 2)
+                        t_in = time.perf_counter()
+                        data, _, _ = _request(srv.base + f"/enhance?seed={seed}", one)
+                        log.append((seed, t_in, time.perf_counter(), data))
+                except Exception as e:  # an answer other than 200: re-raised below
+                    errors.append(e)
+                    stop.set()
+
+            def sampler():
+                while not stop.is_set():
+                    samples.append(srv.metrics())
+                    time.sleep(0.05)
+
+            ts = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+            ts.append(threading.Thread(target=sampler))
+            for t in ts:
+                t.start()
+            try:
+                time.sleep(1.5)
+                t_r0 = time.perf_counter()
+                status, info, wall = srv.reload({"g_ckpt": str(ckpt_b)})
+                t_r1 = time.perf_counter()
+                time.sleep(1.5)
+            finally:
+                stop.set()
+                for t in ts:
+                    t.join(timeout=120)
+            assert not any(t.is_alive() for t in ts), "a client hung"
+            if errors:
+                raise errors[0]
+            assert status == 200 and info["reloads"] == 1, (status, info)
+            srv.retired()
+            samples.append(srv.metrics())
+            got = _expect_launches(K, before, passes, False, True)
+            totals += got
+            n_pass = len(passes)
+            for m0, m1 in zip(samples, samples[1:]):
+                for k in m0:
+                    if k.endswith("_total") or k.endswith("_sum"):
+                        assert m1[k] >= m0[k], ("a counter went back", k, m0[k], m1[k])
+            assert samples[-1]["segan_reloads_total"] == 1
+            n_before = sum(t1 <= t_r0 for _, _, t1, _ in log)
+            n_after = sum(t0 >= t_r1 for _, t0, _, _ in log)
+            print(f"reload fp32 under load: 4 clients, {len(log)} one-chunk requests ("
+                  f"{n_before} answered before the reload began, {n_after} sent after its "
+                  f"200), all 200; {n_pass} G forwards (warm-ups and served passes), "
+                  f"fused_conv1d_prelu launches {tuple(int(v) for v in got)} (5 each); "
+                  f"{len(samples)} /metrics samples, none going back", flush=True)
+            seconds = info["seconds"]
+        finally:
+            srv.stop()
+        # the answers against A's and B's own generate() with each seed's z
+        seeds = sorted({s for s, _, _, _ in log})
+        want = {name: dict(zip(seeds, refs(opts32, c, [(one, k) for k in seeds])))
+                for name, c in (("A", ckpt_a), ("B", ckpt_b))}
+        worst_err, kinds = 0.0, {"A": 0, "B": 0}
+        for seed, t_in, _, data in log:
+            errs = {n: rel(answer(data), want[n][seed]) for n in want}
+            kind = min(errs, key=errs.get)
+            assert errs[kind] <= SERVE_TOL["float32"], (seed, errs)
+            assert t_in < t_r1 or kind == "B", ("A's answer after the reload's 200", seed)
+            kinds[kind] += 1
+            worst_err = max(worst_err, errs[kind])
+        control = min(rel(want["A"][k], want["B"][k]) for k in seeds)
+        assert control > SERVE_TOL["float32"] and kinds["B"] > 0, (control, kinds)
+        walls = {"without a reload": [t1 - t0 for _, t0, t1, _ in log if t1 <= t_r0],
+                 "during the reload": [t1 - t0 for _, t0, t1, _ in log
+                                       if t1 > t_r0 and t0 < t_r1]}
+        print(f"reload fp32: answers A {kinds['A']}, B {kinds['B']}, each vs its engine's "
+              f"generate() with the seed's z rel err <= {worst_err:.3e} (bound "
+              f"{SERVE_TOL['float32']:g}); control, A's answer vs B's, >= {control:.3e}",
+              flush=True)
+        print(f"reload fp32: POST /admin/reload {wall:.3f} s wall: load {seconds['load']:.3f} "
+              f"s (engine build, checkpoint read and copy to the card; alone: read "
+              f"{t_read:.3f} s, copy of {nbytes / 2**20:.1f} MiB {t_copy:.3f} s), warm-up "
+              f"{seconds['warm']:.3f} s ({smi})", flush=True)
+        for name, w in walls.items():
+            assert w, name
+            print(f"reload fp32: one-chunk request wall {name}: p50 "
+                  f"{1e3 * np.percentile(w, 50):.3f} ms, p95 {1e3 * np.percentile(w, 95):.3f} "
+                  f"ms over {len(w)} requests ({smi})", flush=True)
+        del want, log
+
+        # memory: five reloads A, B, A, B, A on a server of B; each retired generation
+        # must be collected and give its memory back
+        srv = _InProcess(ckpt_b, opts32, "--warm_seconds", "1.0")
+        try:
+            _request(srv.base + "/enhance?seed=1", one)
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            pre = [weakref.ref(k) for k in K._padded.keys()]
+            mems, gens, reload_s = [], [], []
+            for i, c in enumerate([ckpt_a, ckpt_b] * 2 + [ckpt_a]):
+                old = weakref.ref(srv.state["gen"][1])
+                status, info, wall = srv.reload({"g_ckpt": str(c)})
+                torch.cuda.synchronize()
+                two = torch.cuda.memory_allocated()
+                assert status == 200, info
+                reload_s.append(wall)
+                _request(srv.base + f"/enhance?seed={i}", one)
+                srv.retired()
+                gc.collect()
+                torch.cuda.synchronize()
+                mems.append(torch.cuda.memory_allocated())
+                gens.append(two - base)
+                assert old() is None, f"reload {i}: the retired engine is still alive"
+                G = srv.state["gen"][1].G
+                live, n_enc = {id(p) for p in G.parameters()}, len(G.enc_blocks)
+                keys = list(K._padded.keys())
+                own = [k for k in keys if id(k) in live]
+                stray = [k for k in keys if id(k) not in live
+                         and not any(r() is k for r in pre)]
+                assert len(own) == n_enc and not stray, (i, len(own), len(stray))
+                del G, keys, own, stray
+            drift = [m - base for m in mems]
+            print(f"reload memory: memory_allocated with one generation {base / 2**20:.1f} "
+                  f"MiB; with two (the new one built, the old not yet retired) +"
+                  f"{np.mean(gens) / 2**20:.1f} MiB (a generation); after each of 5 "
+                  f"retirements and gc.collect() {[int(d) for d in drift]} B from the "
+                  f"baseline (bound {RELOAD_MEM_TOL / 2**20:g} MiB), the retired engines "
+                  f"collected, the kernel's cache one entry per encoder layer of the live G; reloads "
+                  f"{', '.join(f'{w:.3f}' for w in reload_s)} s ({smi})", flush=True)
+            assert max(abs(d) for d in drift) <= RELOAD_MEM_TOL, drift
+            assert max(mems) - min(mems) <= RELOAD_MEM_TOL, mems
+        finally:
+            srv.stop()
+
+        # 9b: bf16 A -> B, then SEGAN+ -> WSEGAN by its cfg_file
+        srv = _InProcess(ckpt_a, opts16, "--warm_seconds", "1.0")
+        try:
+            bodies = [_wav_body(n, SEED + 140 + i) for i, n in enumerate((16000, 40000))]
+            passes.clear()
+            before = (K.launches, K.launches_mma, K.launches_tf32)
+            status, info, wall16 = srv.reload({"g_ckpt": str(ckpt_b)})
+            assert status == 200, info
+            got16 = [_request(srv.base + f"/enhance?seed={500 + i}", b)[0]
+                     for i, b in enumerate(bodies)]
+            totals += _expect_launches(K, before, passes, False, False)
+            n16 = len(passes)
+            passes.clear()
+            before = (K.launches, K.launches_mma, K.launches_tf32)
+            status, info, wall_w = srv.reload({"g_ckpt": str(ckpt_w), "cfg_file": str(opts_w)})
+            assert status == 200, info
+            model = json.loads(_request(srv.base + "/healthz")[0])["model"]
+            assert model == "WSEGAN", model
+            ws_lengths = (20000, 33000, 5000)
+            ws_bodies = [_wav_body(n, SEED + 150 + i) for i, n in enumerate(ws_lengths)]
+            got_w = [None] * 3
+            _in_threads([lambda i=i: got_w.__setitem__(i, _request(
+                srv.base + f"/enhance?seed={600 + i}", ws_bodies[i])[0]) for i in range(3)])
+            got = _expect_launches(K, before, passes, True, True)
+            totals += got
+            nw = len(passes)
+        finally:
+            srv.stop()
+        want16 = refs(opts16, ckpt_b, [(b, 500 + i) for i, b in enumerate(bodies)])
+        ctrl16 = refs(opts16, ckpt_a, [(b, 500 + i) for i, b in enumerate(bodies)])
+        e16 = max(rel(answer(g), w) for g, w in zip(got16, want16))
+        c16 = min(rel(answer(g), w) for g, w in zip(got16, ctrl16))
+        print(f"reload bf16 A -> B in {wall16:.3f} s: 2 requests vs B's generate() rel err "
+              f"{e16:.3e} (bound {SERVE_TOL['bfloat16']:g}), vs A's (control) {c16:.3e}; "
+              f"{n16} G forwards, 5 launches each", flush=True)
+        assert e16 <= SERVE_TOL["bfloat16"] < c16, (e16, c16)
+        pads = [n + 1024 - n % 1024 for n in ws_lengths]
+        want_w = refs(opts_w, ckpt_w, [(b, 600 + i) for i, b in enumerate(ws_bodies)], pads)
+        ew = max(rel(answer(g), w) for g, w in zip(got_w, want_w))
+        print(f"reload SEGAN+ bf16 -> WSEGAN fp32 by its cfg_file in {wall_w:.3f} s: "
+              f"/healthz model WSEGAN; 3 concurrent requests vs generate_batch rel err "
+              f"{ew:.3e} (bound {SERVE_TOL['float32']:g}); {nw} G forwards, launches "
+              f"{tuple(int(v) for v in got)}", flush=True)
+        assert ew <= SERVE_TOL["float32"], ew
+        # 9d: what bit-reproducible answers would cost: G forwards with
+        # cudnn.deterministic off and on, in turns
+        print("reload: G forward ms with cuDNN's default transposed-conv algorithms vs "
+              f"cudnn.deterministic, in turns ({smi}):", flush=True)
+        for name, opts_file in (("float32", opts32), ("bfloat16", opts16)):
+            _, eng = build_enhancement_engine(str(opts_file), str(ckpt_a), SEED,
+                                              device="cuda")
+            for b in (1, 64):
+                x = np.zeros((b, S, 1), np.float32) + 0.1
+                z = seed_z(eng.G, 0).expand(b, -1, -1).contiguous()
+
+                def run(det, eng=eng, x=x, z=z):
+                    torch.backends.cudnn.deterministic = det
+                    eng.infer_G(x, z)
+
+                try:
+                    t = ms_in_turns({"default": lambda: run(False),
+                                     "deterministic": lambda: run(True)}, reps=10, warmup=2)
+                finally:
+                    torch.backends.cudnn.deterministic = False
+                print(f"  {name} B={b}: default {t['default']:.3f}, deterministic "
+                      f"{t['deterministic']:.3f} ({t['deterministic'] / t['default']:.2f}x)",
+                      flush=True)
+            del eng
+    finally:
+        SEGAN.infer_G = infer
+        serve.RETIRE_SECONDS = retire
+
+    # 9c: the reload probe on the card (module level, no HTTP): three generations built
+    # beside a kept one, exercised, closed and dropped
+    report = reload_leak_probe.probe(str(ckpt_a), str(opts32), "cuda", iters=3,
+                                     warm_seconds=0.5, mem_tol_mib=RELOAD_MEM_TOL / 2**20)
+    rows, base = report["rows"], report["baseline"]
+    col = {k: [round(r[k], 3) if isinstance(r[k], float) else r[k] for r in rows]
+           for k in ("generation_bytes", "rss_kb", "load_s", "warm_s")}
+    print(f"reload probe (python -m segan_pytorch_tpu_torch.tools.reload_leak_probe) on the "
+          f"card: verdict {report['verdict']}; baseline {base}; after each generation "
+          f"memory_allocated - baseline "
+          f"{[r['memory_allocated'] - base['memory_allocated'] for r in rows]} B; "
+          + "; ".join(f"{k} {v}" for k, v in col.items()) + f" ({smi})", flush=True)
+    assert all(report["verdict"].values()), report["verdict"]
+    ws = "not installed"
+    if importlib.util.find_spec("websockets") is not None:
+        import websockets
+
+        ws = websockets.__version__
+    print(f"reload: TLS, mutual TLS and the WebSocket listener are host code (the ssl module"
+          f" and the websockets package, here {ws}); the CPU tests "
+          f"tests/test_torch_serve_reload.py and tests/test_torch_serve_ws.py hold them, "
+          f"and this phase does not check them", flush=True)
+    return tuple(int(v) for v in totals)
+
+
 def main():
     import torch
 
@@ -2318,7 +2723,9 @@ def main():
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         ws_run = phase_wsegan_run(Path(work))
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        serve_launches = phase_serve(Path(work), smi)
+        ckpts = _serving_checkpoints(Path(work))
+        serve_launches = phase_serve(Path(work), smi, ckpts)
+        reload_launches = phase_reload(Path(work), smi, ckpts)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -2329,6 +2736,8 @@ def main():
              wsegan_train_launches_per_step=ws_per_step, wsegan_run_launches=ws_run,
              serve_launches=serve_launches[0], serve_launches_mma=serve_launches[1],
              serve_launches_tf32=serve_launches[2],
+             reload_launches=reload_launches[0], reload_launches_mma=reload_launches[1],
+             reload_launches_tf32=reload_launches[2],
              **{f"{p}wsegan_step_{k}": v for p, dt in (("", "bfloat16"), ("fp32_", "float32"))
                 for k, v in ws_times[dt].items()},
              **per_layer),

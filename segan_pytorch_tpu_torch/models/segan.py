@@ -110,6 +110,11 @@ def build_optimizer(opt: str, lr: float, params, betas=(0.0, 0.9)) -> torch.opti
     raise ValueError(f"Unrecognized optimizer {opt}")
 
 
+# the compute-dtype copy of G is built once, whichever thread that runs G asks first (a
+# server's batcher threads, or a handler or WebSocket thread that runs a stream's windows)
+_G_COPY_LOCK = threading.Lock()
+
+
 def default_device() -> torch.device:
     """CUDA; without a card it raises rather than run on the CPU unasked."""
     if not torch.cuda.is_available():
@@ -171,10 +176,12 @@ class SEGAN:
         if self.compute_dtype == torch.float32:
             return self.G
         if self._G_compute is None:
-            g = copy.deepcopy(self.G)
-            for p in g.parameters():
-                p.data = p.data.to(self.compute_dtype)
-            self._G_compute = g
+            with _G_COPY_LOCK:
+                if self._G_compute is None:
+                    g = copy.deepcopy(self.G)
+                    for p in g.parameters():
+                        p.data = p.data.to(self.compute_dtype)
+                    self._G_compute = g
         return self._G_compute
 
     def infer_G(self, noisy, z=None, ret_hid: bool = False):

@@ -15,6 +15,7 @@ forward and backward passes both.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -48,25 +49,47 @@ def zero_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
     return F.pad(x, (pad_left, pad_right))
 
 
-class _NoTF32:
-    """Sets ``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.
-    allow_tf32`` to False inside, and back to what they were on exit; no other cuDNN
-    flag is touched (``torch.backends.cudnn.flags`` would reset ``enabled`` and
-    ``benchmark`` to its defaults as well)."""
+class _HeldFlags:
+    """Holds process-wide backend flags at fixed values while any thread is inside, and
+    gives back the values found when the first thread came in once the last one leaves.
+    The flags are global, and several threads run G at once (a server's batchers, and its
+    handler or WebSocket threads for unbatched streams): a context that restored its own
+    entry values would turn a flag back on under another thread's conv. Re-entrant, so a
+    caller may hold it around ops that enter it again. No other flag is touched
+    (``torch.backends.cudnn.flags`` would reset ``enabled`` and ``benchmark`` too)."""
+
+    def __init__(self, *flags):
+        self._flags = flags  # (namespace, attribute, value inside)
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = ()
 
     def __enter__(self):
-        self._prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        with self._lock:
+            if self._depth == 0:
+                self._saved = tuple(getattr(ns, name) for ns, name, _ in self._flags)
+                for ns, name, value in self._flags:
+                    setattr(ns, name, value)
+            self._depth += 1
 
     def __exit__(self, *exc):
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self._prev
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0:
+                for (ns, name, _), value in zip(self._flags, self._saved):
+                    setattr(ns, name, value)
+
+
+# TF32 off for cuDNN's convs and cuBLAS's matmuls
+_NO_TF32 = _HeldFlags((torch.backends.cudnn, "allow_tf32", False),
+                      (torch.backends.cuda.matmul, "allow_tf32", False))
+_NO_ONEDNN = _HeldFlags((torch.backends.mkldnn, "enabled", False))
 
 
 def full_precision(dtype: torch.dtype):
     """The port's one TF32 policy: a context in which a conv of ``dtype`` runs as the
     JAX package's does. fp32 turns TF32 off; other dtypes need nothing."""
-    return _NoTF32() if dtype == torch.float32 else contextlib.nullcontext()
+    return _NO_TF32 if dtype == torch.float32 else contextlib.nullcontext()
 
 
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
@@ -110,9 +133,5 @@ def conv_transpose1d(x: torch.Tensor, weight: torch.Tensor,
     with full_precision(x.dtype):
         if x.device.type != "cpu":
             return F.conv_transpose1d(x, weight, bias, stride=stride, padding=padding)
-        prev = torch.backends.mkldnn.enabled
-        torch.backends.mkldnn.enabled = False
-        try:
+        with _NO_ONEDNN:
             return F.conv_transpose1d(x, weight, bias, stride=stride, padding=padding)
-        finally:
-            torch.backends.mkldnn.enabled = prev

@@ -1,7 +1,8 @@
-"""Enhancement server of the port: the request path of the repo's ``serve.py``.
+"""Enhancement server of the port: the counterpart of the repo's ``serve.py``.
 
     python -m segan_pytorch_tpu_torch.serve --g_pretrained_ckpt G.ckpt \\
-        --cfg_file train.opts --port 8080 [--device cpu]
+        --cfg_file train.opts --port 8080 [--device cpu] [--ws_port 8081] \\
+        [--tls_cert cert.pem --tls_key key.pem [--tls_client_ca ca.pem]]
 
 It loads the engine as ``clean`` does (train.opts and a checkpoint, through
 ``utils/engine.py``), runs one warm-up enhancement, then serves:
@@ -20,20 +21,34 @@ It loads the engine as ``clean`` does (train.opts and a checkpoint, through
                         arrives (at most window + hop samples late). Query: seed,
                         overlap (default 0.25), window (samples; must divide by G's
                         pooling)
-  POST /admin/reload    501: not ported yet (ROADMAP A5b)
+  POST /admin/reload    body: JSON {"g_ckpt": path[, "cfg_file": path]}: builds and warms
+                        a new generation (engine and batchers) on the server's device,
+                        then swaps it in whole; requests that took the old one finish on
+                        it, and its batchers close RETIRE_SECONDS later. A failed build
+                        answers 500 and the old generation goes on serving
+  WS   /enhance_stream  (--ws_port) the stream over a WebSocket: binary PCM16 frames in
+                        and out, a text frame "end" (or "flush") finalises and is answered
+                        with a JSON "done" frame; the server pings every
+                        --ws_ping_interval seconds, so idle input gaps do not drop the
+                        session at a NAT or load balancer. Same query, token and TLS
 
 Concurrent /enhance requests are coalesced into one G forward by a ``MicroBatcher``,
 and the windows of concurrent streams into shared forwards by a ``WindowBatcher``
 (``--no_stream_coalesce``: one forward per session and window). ``--auth_token`` (or
-$SEGAN_SERVE_TOKEN) gates the POST endpoints behind 'Authorization: Bearer <token>'.
-SIGTERM or SIGINT drains: the listener closes, requests in flight get up to
-``--drain_seconds`` to finish, and the process exits 0.
+$SEGAN_SERVE_TOKEN) gates the POST endpoints and the WebSocket behind 'Authorization:
+Bearer <token>'. ``--tls_cert``/``--tls_key`` serve HTTPS (and wss), the handshake
+deferred to the handler thread; ``--tls_client_ca`` demands a client certificate signed
+by that CA on both listeners (mutual TLS). SIGTERM or SIGINT drains: the listeners
+close, requests and sessions in flight get up to ``--drain_seconds`` to finish, and the
+process exits 0.
 
 ``seed=<int>`` draws z from ``torch.Generator().manual_seed(seed)``: an answer is
-deterministic per seed, and it is not the JAX server's answer for that seed (whose z
-comes from ``jax.random``). It runs on the CUDA card, and raises without one; ``--device
-cpu`` asks for the CPU. TLS, mutual TLS, the WebSocket listener and ``/admin/reload`` are
-not ported yet: their options raise ``NotImplementedError``.
+reproducible per seed (on the card up to the summation order of cuDNN's fp32 transposed
+convs, which ``torch.backends.cudnn.deterministic`` fixes at a price), the WebSocket
+stream's PCM equals the chunked-HTTP stream's, and neither is the JAX server's answer for
+that seed (whose z comes from ``jax.random``). It
+runs on the CUDA card, and raises without one; ``--device cpu`` asks for the CPU. The
+``websockets`` package is imported only under ``--ws_port``.
 """
 import argparse
 import hmac
@@ -52,7 +67,10 @@ import torch
 # ~1 hour of 16 kHz float64 audio as a WAV body: far above any sane request, far below
 # what could wedge the host's allocator
 MAX_BODY_BYTES = 512 * 1024 * 1024
-DEFERRED = "not ported yet (ROADMAP A5b)"
+# seconds that a generation replaced by /admin/reload keeps its batchers open for the
+# requests that took it before the swap (their enhance timeout is 120 s)
+RETIRE_SECONDS = 150
+WS_MAX_FRAME = 16 * 1024 * 1024  # bytes of one WebSocket message, at most
 
 
 class InflightCounter:
@@ -110,28 +128,131 @@ def _seed_rng(seed):
     return None if seed is None else torch.Generator().manual_seed(seed)
 
 
-def make_handler(cfg, segan, state):
+def _authorized(header: str, token: str) -> bool:
+    """The bearer-token gate of the POST endpoints and the WebSocket, compared in constant
+    time as bytes (compare_digest on str raises on non-ASCII)."""
+    if not token:
+        return True
+    return (header.startswith("Bearer ")
+            and hmac.compare_digest(header[7:].encode("utf-8"), token.encode("utf-8")))
+
+
+def new_state(opts, device) -> dict:
+    """The server's settings and counters from its options, with no generation yet."""
+    return {"warm_s": 0.0, "requests": 0, "verbose": opts.verbose,
+            "max_stream_seconds": opts.max_stream_seconds,
+            "target_batch_seconds": opts.target_batch_seconds,
+            "stream_coalesce": not opts.no_stream_coalesce,
+            "auth_token": opts.auth_token or os.environ.get("SEGAN_SERVE_TOKEN", ""),
+            "inflight": InflightCounter(), "draining": False,
+            "cfg_file": opts.cfg_file, "seed": opts.seed, "device": device,
+            "warm_seconds": opts.warm_seconds, "ws_port": opts.ws_port,
+            "reloads": 0, "enh_seconds_sum": 0.0,
+            # passes of the generations that reloads replaced
+            "batches_prev": 0, "win_batches_prev": 0, "win_windows_prev": 0,
+            "mlock": threading.Lock(),        # the counters and sums
+            "reload_lock": threading.Lock(),  # one reload at a time, and close()
+            "closed": threading.Event(),      # set by close(): retire at once
+            "retiring": []}                   # the retire threads
+
+
+def build_generation(state, cfg_file, g_ckpt):
+    """A serving generation, (cfg, engine, batcher, win_batcher), built on the server's
+    device and warmed before anyone can take it: a ``generate()`` of ``warm_seconds`` of
+    silence (it pads the kernel's weights, builds the bf16 copy and cuDNN's plans), the
+    ``MicroBatcher`` (whose constructor builds the compute-dtype copy before its thread
+    starts) and, unless streams are not coalesced, a ``WindowBatcher`` warmed at
+    ``slice_size`` up to 8 rows. Returns (generation, seconds: {"load", "warm"}); what was
+    built is closed again if a later step raises."""
+    from .utils.engine import build_enhancement_engine
+    from .utils.serving import MicroBatcher, WindowBatcher
+
+    t0 = time.perf_counter()
+    cfg, engine = build_enhancement_engine(cfg_file, g_ckpt, state["seed"],
+                                           device=state["device"])
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    warm = float(state["warm_seconds"])
+    batcher = win_batcher = None
+    try:
+        if warm > 0:
+            engine.generate(np.zeros(int(16000 * warm), np.float32))
+        batcher = MicroBatcher(engine, target_batch_seconds=state["target_batch_seconds"])
+        if state["stream_coalesce"]:
+            win_batcher = WindowBatcher(engine)
+            if warm > 0:
+                win_batcher.warm(cfg.slice_size, max_rows=8)
+    except BaseException:
+        close_generation((cfg, engine, batcher, win_batcher))
+        raise
+    return (cfg, engine, batcher, win_batcher), {"load": t1 - t0,
+                                                 "warm": time.perf_counter() - t1}
+
+
+def close_generation(gen):
+    """Stop a generation's batcher threads."""
+    for b in gen[2:]:
+        if b is not None:
+            b.close()
+
+
+def swap_generation(state, gen, cfg_file):
+    """Publish `gen` in one assignment and retire the generation it replaces. The old
+    batchers' pass counts fold into the *_prev counters at once, so that /metrics never
+    goes back; the batchers close RETIRE_SECONDS later (at once under ``close``) on a
+    daemon thread, which then folds in the passes they made after the swap. The caller
+    holds state["reload_lock"]."""
+    _, _, old_b, old_w = state["gen"]
+    state["cfg_file"] = cfg_file
+    with state["mlock"]:  # the counters' readers see the swap and the fold together
+        state["gen"] = gen
+        state["reloads"] += 1
+        swapped = (old_b.batches, old_w.batches if old_w else 0,
+                   old_w.windows if old_w else 0)
+        state["batches_prev"] += swapped[0]
+        state["win_batches_prev"] += swapped[1]
+        state["win_windows_prev"] += swapped[2]
+    t = threading.Thread(target=_retire, args=(state, old_b, old_w, swapped), daemon=True,
+                         name="batcher-retire")
+    state["retiring"] = [r for r in state["retiring"] if r.is_alive()] + [t]
+    t.start()
+
+
+def _retire(state, batcher, win_batcher, swapped):
+    state["closed"].wait(RETIRE_SECONDS)
+    try:
+        close_generation((None, None, batcher, win_batcher))
+    finally:
+        with state["mlock"]:
+            state["batches_prev"] += batcher.batches - swapped[0]
+            if win_batcher is not None:
+                state["win_batches_prev"] += win_batcher.batches - swapped[1]
+                state["win_windows_prev"] += win_batcher.windows - swapped[2]
+
+
+def _counters(state):
+    """(requests, G passes, stream window passes, stream windows, enhance seconds,
+    reloads) over every generation: the retired ones' and the current batchers'."""
+    with state["mlock"]:
+        _, _, bt, wb = state["gen"]
+        return (state["requests"], state["batches_prev"] + bt.batches,
+                state["win_batches_prev"] + (wb.batches if wb else 0),
+                state["win_windows_prev"] + (wb.windows if wb else 0),
+                state["enh_seconds_sum"], state["reloads"])
+
+
+def make_handler(state):
+    """The HTTP handler class over state["gen"], the generation being served."""
     from scipy.io import wavfile as _wavfile
 
     from .ops.signal import normalize_wave_minmax, pre_emphasize_np
-    from .utils.serving import MicroBatcher, StreamingEnhancer, WindowBatcher
+    from .utils.serving import StreamingEnhancer
 
-    # (cfg, engine, batcher, win_batcher) as ONE tuple: a request reads state["gen"] once
-    # and uses one generation throughout (the reload of ROADMAP A5b swaps it whole).
-    # win_batcher coalesces concurrent streams' window forwards (None with
-    # --no_stream_coalesce: one forward per session, whatever the load)
-    wb0 = WindowBatcher(segan) if state.get("stream_coalesce", True) else None
-    if wb0 is not None and float(state.get("warm_seconds", 0)) > 0:
-        t0 = time.perf_counter()
-        wb0.warm(cfg.slice_size, max_rows=8)
-        if state["verbose"]:
-            print(f"[serve] stream-batch warm-up: {time.perf_counter() - t0:.1f} s",
-                  flush=True)
-    state["gen"] = (cfg, segan, MicroBatcher(
-        segan, target_batch_seconds=state.get("target_batch_seconds", 0.0)), wb0)
-    state.setdefault("reloads", 0)
-    state.setdefault("enh_seconds_sum", 0.0)
-    state["mlock"] = threading.Lock()  # the request counters and sums
+    # state["gen"], (cfg, engine, batcher, win_batcher), is ONE tuple: a request reads it
+    # once and uses one generation throughout, and a reload swaps it whole. win_batcher
+    # coalesces concurrent streams' window forwards (None with --no_stream_coalesce: one
+    # forward per session, whatever the load)
     max_stream_s = float(state.get("max_stream_seconds", 0.0))
     auth_token = state.get("auth_token") or ""
     inflight = state["inflight"]
@@ -153,16 +274,6 @@ def make_handler(cfg, segan, state):
             self.end_headers()
             self.wfile.write(body)
 
-        def _authorized(self):
-            """Bearer-token gate of the POST endpoints, compared in constant time as
-            bytes (compare_digest on str raises on non-ASCII). An unauthorized request's
-            body is never read, so its connection must close."""
-            if not auth_token:
-                return True
-            header = self.headers.get("Authorization", "")
-            return (header.startswith("Bearer ")
-                    and hmac.compare_digest(header[7:].encode("utf-8"),
-                                            auth_token.encode("utf-8")))
 
         def do_GET(self):
             path = self.path.split("?")[0]
@@ -171,43 +282,40 @@ def make_handler(cfg, segan, state):
             if path != "/healthz":
                 return self._json(404, {"error": "unknown path"})
             c, eng, bt, wb = state["gen"]
-            with state["mlock"]:
-                requests = state["requests"]
+            requests, passes, win_passes, windows, _, reloads = _counters(state)
             self._json(200, {
                 "status": "draining" if state.get("draining") else "ok",
                 "model": type(eng).__name__,  # the engine's class, not the flags
                 "slice_size": c.slice_size,
                 "warm_s": state["warm_s"],
                 "requests": requests,
-                "batches": bt.batches,
+                "batches": passes,
                 "batch_chunk_budget": bt.effective_max_chunks,
                 "stream_coalesce": wb is not None,
-                "win_batches": wb.batches if wb else 0,
-                "win_windows": wb.windows if wb else 0,
+                "win_batches": win_passes,
+                "win_windows": windows,
                 "inflight": inflight.count(),
                 "auth": bool(auth_token),
-                "reloads": state["reloads"],
-                "ws_port": 0,
+                "reloads": reloads,
+                "ws_port": state["ws_port"],
             })
 
         def _metrics(self):
             """Prometheus text exposition, with the names of serve.py's."""
-            bt, wb = state["gen"][2], state["gen"][3]
-            with state["mlock"]:
-                enh_sum, requests = state["enh_seconds_sum"], state["requests"]
+            requests, passes, win_passes, windows, enh_sum, reloads = _counters(state)
             lines = [
                 "# TYPE segan_requests_total counter",
                 f"segan_requests_total {requests}",
                 "# TYPE segan_device_passes_total counter",
-                f"segan_device_passes_total {bt.batches}",
+                f"segan_device_passes_total {passes}",
                 "# TYPE segan_stream_window_passes_total counter",
-                f"segan_stream_window_passes_total {wb.batches if wb else 0}",
+                f"segan_stream_window_passes_total {win_passes}",
                 "# TYPE segan_stream_windows_total counter",
-                f"segan_stream_windows_total {wb.windows if wb else 0}",
+                f"segan_stream_windows_total {windows}",
                 "# TYPE segan_inflight_requests gauge",
                 f"segan_inflight_requests {inflight.count()}",
                 "# TYPE segan_reloads_total counter",
-                f"segan_reloads_total {state['reloads']}",
+                f"segan_reloads_total {reloads}",
                 "# TYPE segan_enhance_seconds_sum counter",
                 f"segan_enhance_seconds_sum {enh_sum:.6f}",
                 "# TYPE segan_draining gauge",
@@ -225,7 +333,7 @@ def make_handler(cfg, segan, state):
             return _parse_params(query)
 
         def do_POST(self):
-            if not self._authorized():
+            if not _authorized(self.headers.get("Authorization", ""), auth_token):
                 self.close_connection = True  # body unread: no keep-alive
                 return self._json(401, {"error": "unauthorized"},
                                   extra_headers=[("WWW-Authenticate", "Bearer"),
@@ -260,7 +368,7 @@ def make_handler(cfg, segan, state):
             # the next request line on the same connection
             raw = self.rfile.read(n)
             if path == "/admin/reload":
-                return self._json(501, {"error": f"/admin/reload: {DEFERRED}"})
+                return self._admin_reload(raw)
             if path != "/enhance":
                 return self._json(404, {"error": "unknown path"})
             params = self._params()
@@ -307,6 +415,34 @@ def make_handler(cfg, segan, state):
             self.send_header("X-Enhance-Seconds", f"{dt:.4f}")
             self.end_headers()
             self.wfile.write(body)
+
+        def _admin_reload(self, raw: bytes):
+            """Build and warm a new generation, then swap it in (see ``swap_generation``);
+            a failed build answers 500 and leaves the old generation serving."""
+            try:
+                req = json.loads(raw or b"{}")
+            except ValueError as e:
+                return self._json(400, {"error": f"bad json: {e}"})
+            g_ckpt = req.get("g_ckpt") if isinstance(req, dict) else None
+            if not g_ckpt:
+                return self._json(400, {"error": "missing 'g_ckpt'"})
+            cfg_file = req.get("cfg_file") or state["cfg_file"]
+            with state["reload_lock"]:  # one reload at a time
+                if state["closed"].is_set():
+                    return self._json(503, {"error": "server closed"})
+                try:
+                    gen, seconds = build_generation(state, cfg_file, g_ckpt)
+                except Exception as e:  # a bad path or checkpoint: keep serving
+                    return self._json(500, {"error": f"reload failed: {e}"})
+                swap_generation(state, gen, cfg_file)
+                reloads = state["reloads"]
+            if state["verbose"]:
+                print(f"[serve] reloaded {type(gen[1]).__name__} from {g_ckpt} (load "
+                      f"{seconds['load']:.2f} s, warm-up {seconds['warm']:.2f} s)",
+                      flush=True)
+            return self._json(200, {"status": "reloaded", "g_ckpt": g_ckpt,
+                                    "reloads": reloads,
+                                    "seconds": {k: round(v, 4) for k, v in seconds.items()}})
 
         def _drain_input_bounded(self, max_bytes=8 * 1024 * 1024, timeout_s=2.0):
             """Discard up to max_bytes of pending request body (short socket timeout):
@@ -437,6 +573,124 @@ def make_handler(cfg, segan, state):
     return Handler
 
 
+def make_ws_handler(state):
+    """The WebSocket /enhance_stream (``--ws_port``): the session handler of a
+    ``websockets.sync`` server. Unlike chunked HTTP it keeps a stream through input gaps
+    of any length (the server pings). Protocol:
+
+      client -> server  binary frame: raw 16 kHz PCM16 LE audio, any size
+                        text frame "end" (or "flush"): finalise the stream
+      server -> client  binary frame: enhanced PCM16 as samples become final
+                        text frame (after "end"): JSON {"event": "done", "samples_out": N,
+                        "truncated": bool}, then a clean close
+
+    The token, the query (seed, overlap, window), the session's z, the emission rule and
+    the max_stream_seconds cap are the HTTP endpoint's, through the same
+    StreamingEnhancer: for one seed both give the same PCM, byte for byte. A bad token, an
+    unknown path or a bad query closes with code 1008."""
+    import socket
+    import struct
+
+    from websockets.exceptions import ConnectionClosed
+
+    from .ops.signal import normalize_wave_minmax
+    from .utils.serving import StreamingEnhancer
+
+    auth_token = state.get("auth_token") or ""
+    max_stream_s = float(state.get("max_stream_seconds", 0.0))
+    inflight = state["inflight"]
+
+    def handler(ws):
+        if not _authorized(ws.request.headers.get("Authorization", ""), auth_token):
+            ws.close(code=1008, reason="unauthorized")
+            return
+        path, _, query = ws.request.path.partition("?")
+        if path != "/enhance_stream":
+            ws.close(code=1008, reason="unknown path")
+            return
+        gen_cfg, gen_engine, _, gen_wb = state["gen"]  # one generation
+        # bound the sends: a client that stops reading would hold this (non-daemon)
+        # connection thread in sendall past the drain. SO_SNDTIMEO times out sends only;
+        # a plain settimeout would also cut the reader during idle gaps, which the pings
+        # allow. A send that times out raises OSError and ends the session
+        send_timeout = min(60.0, max_stream_s) if max_stream_s > 0 else 60.0
+        ws.socket.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+                             struct.pack("ll", int(send_timeout), 0))
+        try:
+            params = _parse_params(query)
+            overlap = float(params.get("overlap", 0.25))
+            window = int(params.get("window", gen_cfg.slice_size))
+            seed = int(params["seed"]) if "seed" in params else None
+            streamer = StreamingEnhancer(gen_engine, window=window, overlap=overlap,
+                                         rng=_seed_rng(seed), batcher=gen_wb)
+        except ValueError as e:  # bad query param, window or overlap
+            ws.close(code=1008, reason=str(e)[:120])
+            return
+        with inflight:
+            carry = b""
+            t0 = time.perf_counter()
+            n_in = n_out = 0
+            truncated = False
+            while True:
+                # checked on every receive, not only on a timeout: a client that never
+                # stops sending must not hold the process past --drain_seconds
+                if state.get("draining"):
+                    truncated = True
+                    break
+                remaining = (max_stream_s - (time.perf_counter() - t0)
+                             if max_stream_s > 0 else 1e9)
+                if remaining <= 0:
+                    truncated = True
+                    break
+                try:
+                    msg = ws.recv(timeout=min(remaining, 1.0))
+                except TimeoutError:
+                    continue  # an idle gap: the pings hold the connection
+                except ConnectionClosed:
+                    return  # gone without "end": nobody to finalise to
+                if isinstance(msg, str):
+                    if msg.strip().lower() in ("end", "flush"):
+                        break
+                    continue  # other text frames are ignored
+                n_in += len(msg)
+                if n_in > MAX_BODY_BYTES:  # the HTTP endpoint's cap
+                    truncated = True
+                    break
+                carry += msg
+                usable = len(carry) - (len(carry) % 2)
+                if not usable:
+                    continue
+                pcm = np.frombuffer(carry[:usable], dtype="<i2")
+                carry = carry[usable:]
+                out = streamer.feed(normalize_wave_minmax(pcm))
+                if out.size:
+                    pcm_out = np.clip(out * 32767.0, -32768, 32767).astype("<i2")
+                    n_out += pcm_out.size
+                    try:
+                        ws.send(pcm_out.tobytes())
+                    except (ConnectionClosed, OSError):  # OSError: SO_SNDTIMEO
+                        return
+            out = streamer.flush()
+            pcm_out = np.clip(out * 32767.0, -32768, 32767).astype("<i2")
+            n_out += pcm_out.size
+            try:
+                if pcm_out.size:
+                    ws.send(pcm_out.tobytes())
+                ws.send(json.dumps({"event": "done", "samples_out": n_out,
+                                    "truncated": truncated}))
+                ws.close()
+            except (ConnectionClosed, OSError):
+                pass
+            with state["mlock"]:
+                state["requests"] += 1
+            if state["verbose"]:
+                print(f"[serve] ws stream: {n_out} samples in "
+                      f"{time.perf_counter() - t0:.3f}s (window {window}, overlap "
+                      f"{overlap}{', truncated' if truncated else ''})", flush=True)
+
+    return handler
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--g_pretrained_ckpt", required=True)
@@ -445,12 +699,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8080)
     p.add_argument("--seed", type=int, default=111)
     p.add_argument("--warm_seconds", type=float, default=2.0,
-                   help="seconds of silence enhanced once before accepting traffic, "
-                        "with a streaming pass of each power-of-two row count up to 8 "
-                        "(0 = off)")
+                   help="seconds of silence enhanced once before accepting traffic (and "
+                        "by /admin/reload before the swap), with a streaming pass of "
+                        "each power-of-two row count up to 8 (0 = off)")
     p.add_argument("--max_stream_seconds", type=float, default=3600.0,
-                   help="wall-clock cap per /enhance_stream session; past it the stream "
-                        "is finalized and the connection closed (0 = unlimited)")
+                   help="wall-clock cap per streaming session (HTTP or WebSocket); past "
+                        "it the stream is finalized and the connection closed "
+                        "(0 = unlimited)")
     p.add_argument("--target_batch_seconds", type=float, default=0.0,
                    help=">0: adapt the MicroBatcher's chunk budget so that one "
                         "coalesced pass stays under this latency (0 = fixed budget)")
@@ -458,10 +713,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="one G forward per streaming session and window, instead of "
                         "shared passes; a session's output then does not depend on the "
                         "concurrent load")
+    p.add_argument("--ws_port", type=int, default=0,
+                   help="also serve /enhance_stream over a WebSocket on this port "
+                        "(0 = off; needs the websockets package): binary PCM16 frames in "
+                        "and out, text 'end' finalizes; the same token and TLS")
+    p.add_argument("--ws_ping_interval", type=float, default=20.0,
+                   help="seconds between the WebSocket server's keepalive pings "
+                        "(0 = no pings)")
     p.add_argument("--auth_token", default=None,
                    help="require 'Authorization: Bearer <token>' on the POST endpoints "
-                        "(/healthz and /metrics stay open); defaults to "
-                        "$SEGAN_SERVE_TOKEN when set")
+                        "and the WebSocket (/healthz and /metrics stay open); defaults "
+                        "to $SEGAN_SERVE_TOKEN when set")
+    p.add_argument("--tls_cert", default=None,
+                   help="a PEM certificate chain; with --tls_key, serve HTTPS (and wss)")
+    p.add_argument("--tls_key", default=None, help="the PEM private key of --tls_cert")
+    p.add_argument("--tls_client_ca", default=None,
+                   help="a PEM CA bundle for mutual TLS: clients must present a "
+                        "certificate signed by it, on both listeners")
     p.add_argument("--drain_seconds", type=float, default=30.0,
                    help="on SIGTERM/SIGINT: stop accepting connections, wait up to this "
                         "long for requests in flight, then exit 0")
@@ -469,64 +737,99 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (the default) needs a card; cpu runs the plain PyTorch "
                         "versions of the kernels")
     p.add_argument("--verbose", action="store_true")
-    for flag in ("--tls_cert", "--tls_key", "--tls_client_ca"):
-        p.add_argument(flag, default=None, help=DEFERRED)
-    p.add_argument("--ws_port", type=int, default=0, help=DEFERRED)
-    p.add_argument("--ws_ping_interval", type=float, default=None, help=DEFERRED)
     return p
 
 
-def deferred_options(opts) -> list:
-    """The options given that the port does not serve yet, as flags."""
-    return [flag for flag, value in (("--tls_cert", opts.tls_cert),
-                                     ("--tls_key", opts.tls_key),
-                                     ("--tls_client_ca", opts.tls_client_ca),
-                                     ("--ws_port", opts.ws_port),
-                                     ("--ws_ping_interval", opts.ws_ping_interval))
-            if value]
+def parse_args(argv=None):
+    """The options, with the TLS flags' pairing checked by the parser, as serve.py does."""
+    p = build_parser()
+    opts = p.parse_args(argv)
+    if bool(opts.tls_cert) != bool(opts.tls_key):
+        p.error("--tls_cert and --tls_key must be given together")
+    if opts.tls_client_ca and not opts.tls_cert:
+        p.error("--tls_client_ca requires --tls_cert/--tls_key")
+    return opts
+
+
+def tls_context(opts):
+    """The listeners' server-side SSL context (None without --tls_cert); under
+    --tls_client_ca a client without a certificate signed by that CA fails the
+    handshake."""
+    if not opts.tls_cert:
+        return None
+    import ssl
+
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(opts.tls_cert, opts.tls_key)
+    if opts.tls_client_ca:
+        ctx.verify_mode = ssl.CERT_REQUIRED
+        ctx.load_verify_locations(cafile=opts.tls_client_ca)
+    return ctx
 
 
 def build_server(opts):
-    """Load and warm the engine and bind the listener: (server, state). The caller runs
-    ``server.serve_forever()``, and ``close(server, state)`` when it returns."""
-    deferred = deferred_options(opts)
-    if deferred:
-        raise NotImplementedError(f"{', '.join(deferred)}: {DEFERRED}")
+    """Load and warm the engine and bind the listeners: (server, state). The caller runs
+    ``server.serve_forever()``, and ``close(server, state)`` when it returns. The
+    WebSocket listener (``--ws_port``) serves on a daemon thread from here on."""
     from .models.segan import default_device
-    from .utils.engine import build_enhancement_engine
 
+    if opts.ws_port:  # before the engine: a missing package fails at once
+        try:
+            from websockets.sync.server import serve as ws_serve
+        except ImportError as e:
+            raise ImportError("--ws_port needs the 'websockets' package, which is not "
+                              "installed") from e
     device = default_device() if opts.device == "cuda" else torch.device("cpu")
-    cfg, segan = build_enhancement_engine(opts.cfg_file, opts.g_pretrained_ckpt, opts.seed,
-                                          device=device)
-    state = {"warm_s": 0.0, "requests": 0, "verbose": opts.verbose,
-             "max_stream_seconds": opts.max_stream_seconds,
-             "target_batch_seconds": opts.target_batch_seconds,
-             "stream_coalesce": not opts.no_stream_coalesce,
-             "auth_token": opts.auth_token or os.environ.get("SEGAN_SERVE_TOKEN", ""),
-             "inflight": InflightCounter(), "draining": False,
-             "warm_seconds": opts.warm_seconds}
+    state = new_state(opts, device)
+    state["gen"], seconds = build_generation(state, opts.cfg_file, opts.g_pretrained_ckpt)
     if opts.warm_seconds > 0:
-        t0 = time.perf_counter()
-        segan.generate(np.zeros(int(16000 * opts.warm_seconds), np.float32))
-        state["warm_s"] = round(time.perf_counter() - t0, 3)
+        state["warm_s"] = round(seconds["warm"], 3)
         print(f"[serve] warm-up done in {state['warm_s']} s", flush=True)
-    srv = ThreadingHTTPServer((opts.host, opts.port), make_handler(cfg, segan, state))
+    srv = None
+    try:  # a listener that cannot bind stops the batchers' threads again
+        ctx = tls_context(opts)
+        srv = ThreadingHTTPServer((opts.host, opts.port), make_handler(state))
+        if ctx is not None:
+            # the handshake runs on the handler thread's first read, not in accept(): a
+            # client stalled mid-handshake must not block the accept loop
+            srv.socket = ctx.wrap_socket(srv.socket, server_side=True,
+                                         do_handshake_on_connect=False)
+        state["tls"] = ctx is not None
+        if opts.ws_port:
+            ws_srv = ws_serve(make_ws_handler(state), opts.host, opts.ws_port, ssl=ctx,
+                              ping_interval=opts.ws_ping_interval or None,
+                              max_size=WS_MAX_FRAME)
+            state["ws_server"] = ws_srv
+            state["ws_thread"] = threading.Thread(target=ws_srv.serve_forever,
+                                                  daemon=True, name="ws-server")
+            state["ws_thread"].start()
+    except BaseException:
+        if srv is not None:
+            srv.server_close()
+        close_generation(state["gen"])
+        raise
     return srv, state
 
 
 def close(srv, state):
-    """Close the listener and stop the batchers' worker threads."""
+    """Close the listeners and stop every batcher thread: the serving generation's and
+    those of the generations still waiting for retirement (retired at once)."""
     srv.server_close()
-    _, _, batcher, win_batcher = state["gen"]
-    batcher.close()
-    if win_batcher is not None:
-        win_batcher.close()
+    if state.get("ws_server") is not None:
+        state["ws_server"].shutdown()
+        state["ws_thread"].join(timeout=10)
+    state["closed"].set()
+    with state["reload_lock"]:  # a reload under way publishes first, then stops
+        for t in state["retiring"]:
+            t.join(timeout=30)
+        close_generation(state["gen"])
 
 
 def main(argv=None):
-    opts = build_parser().parse_args(argv)
+    opts = parse_args(argv)
     srv, state = build_server(opts)
     inflight = state["inflight"]
+    ws_srv = state.get("ws_server")
 
     def _graceful_stop(signum, _frame):
         state["draining"] = True
@@ -535,11 +838,18 @@ def main(argv=None):
         # shutdown() waits for serve_forever to return, and this handler runs on the
         # main thread, inside serve_forever
         threading.Thread(target=srv.shutdown, daemon=True).start()
+        if ws_srv is not None:  # no new sessions; those in flight see "draining"
+            threading.Thread(target=ws_srv.shutdown, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _graceful_stop)
     signal.signal(signal.SIGINT, _graceful_stop)
     host, port = srv.server_address[:2]
-    print(f"[serve] listening on http://{host}:{port} (slice_size "
+    tls = state["tls"]
+    if ws_srv is not None:
+        print(f"[serve] websocket streaming on {'wss' if tls else 'ws'}://{host}:"
+              f"{opts.ws_port}/enhance_stream (ping every {opts.ws_ping_interval:g}s)",
+              flush=True)
+    print(f"[serve] listening on {'https' if tls else 'http'}://{host}:{port} (slice_size "
           f"{state['gen'][0].slice_size}{', auth required' if state['auth_token'] else ''})",
           flush=True)
     srv.serve_forever()
@@ -547,8 +857,8 @@ def main(argv=None):
     # of waiting in the backlog through the drain; established connections go on
     srv.socket.close()
     # a grace for requests accepted before the signal but not yet counted, then wait
-    # for the ones in flight; handler threads are daemons, so the exit reaps whatever
-    # misses the deadline
+    # for the ones in flight (WebSocket sessions count too, and end at "draining");
+    # handler threads are daemons, so the exit reaps whatever misses the deadline
     deadline = time.time() + max(0.0, opts.drain_seconds)
     time.sleep(min(1.0, max(0.0, opts.drain_seconds)))
     while inflight.count() > 0 and time.time() < deadline:

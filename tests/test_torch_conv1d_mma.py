@@ -304,6 +304,46 @@ def test_tf32_setting_is_restored_when_the_conv_raises(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is True
 
 
+def test_tf32_policy_holds_across_threads(monkeypatch):
+    """Threads that run convs at once (a server's batchers and handlers) each see TF32
+    off for as long as they are inside the policy's context, however the others enter
+    and leave it (fault C4: each context restored the flags it found on entry, so one
+    thread's exit turned TF32 back on under another's conv); the caller's setting comes
+    back when the last one leaves."""
+    import sys
+    import threading
+    import time
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.mkldnn, "enabled", True)
+    seen, interval = [], sys.getswitchinterval()
+
+    def worker():
+        for _ in range(300):
+            with conv_ops.full_precision(torch.float32), conv_ops._NO_ONEDNN:
+                with conv_ops.full_precision(torch.float32):  # re-entered, as the step does
+                    time.sleep(0)  # another thread runs here
+                    seen.append((torch.backends.cudnn.allow_tf32,
+                                 torch.backends.cuda.matmul.allow_tf32,
+                                 torch.backends.mkldnn.enabled))
+                seen.append((torch.backends.cudnn.allow_tf32,
+                             torch.backends.cuda.matmul.allow_tf32,
+                             torch.backends.mkldnn.enabled))
+
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=worker) for _ in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in ts) and len(seen) == 8 * 600
+    assert set(seen) == {(False, False, False)}
+    assert torch.backends.cudnn.allow_tf32 is True and torch.backends.mkldnn.enabled is True
+
+
 def test_no_silent_cpu_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -2,8 +2,9 @@
 ``--device cpu`` at toy width, as ``tests/test_serve.py`` drives the repo's ``serve.py``:
 /healthz, /enhance (formats, seeds, overlap, the 400 / 404 / 413 / 501 answers, the body
 drained before keep-alive reuse), /enhance_stream (chunked and sized, the session guard,
-coalescing), /metrics, bearer auth, the options left for ROADMAP A5b, the SIGTERM drain
-and a WSEGAN checkpoint. The copied helpers are pinned to ``serve.py``'s.
+coalescing), /metrics, bearer auth, the SIGTERM drain and a WSEGAN checkpoint. The copied
+helpers are pinned to ``serve.py``'s. Reload, TLS and the WebSocket listener have files of
+their own: ``test_torch_serve_reload.py`` and ``test_torch_serve_ws.py``.
 
 The servers run in this process (``build_server`` and ``serve_forever`` on a thread),
 apart from one subprocess for the command line and the SIGTERM drain.
@@ -78,7 +79,7 @@ def _checkpoint(root: Path, **kw):
 
 
 def _opts(ckpt, cfg_file, *extra):
-    return serve.build_parser().parse_args(
+    return serve.parse_args(
         ["--g_pretrained_ckpt", str(ckpt), "--cfg_file", str(cfg_file), "--port", "0",
          "--warm_seconds", "0.1", "--device", "cpu", *extra])
 
@@ -229,16 +230,6 @@ def test_device_defaults_to_cuda_and_raises_without_a_card(toy, monkeypatch):
         serve.build_server(opts)
 
 
-@pytest.mark.parametrize("flags", [["--tls_cert", "c.pem", "--tls_key", "k.pem"],
-                                   ["--tls_client_ca", "ca.pem"], ["--ws_port", "8081"],
-                                   ["--ws_ping_interval", "5"]])
-def test_deferred_options_raise(toy, flags):
-    ckpt, cfg_file, _ = toy
-    with pytest.raises(NotImplementedError, match="ROADMAP A5b") as ei:
-        serve.build_server(_opts(ckpt, cfg_file, *flags))
-    assert flags[0] in str(ei.value)
-
-
 # -- /healthz, /enhance ----------------------------------------------------------------
 class TestServe:
     def test_healthz(self, server):
@@ -279,12 +270,15 @@ class TestServe:
         assert _get_json(server.base, "/healthz")["status"] == "ok"
 
     def test_unknown_paths_404_and_reload_501(self, server):
+        """Unknown paths are 404, GET /admin/reload too; the 501 that a POST of it got
+        before the reload was ported is gone (test_torch_serve_reload.py holds it)."""
         assert _error(server.base, "/nothing", b"x").code == 404
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(server.base + "/nothing", timeout=10)
-        assert ei.value.code == 404
-        err = _error(server.base, "/admin/reload", json.dumps({"g_ckpt": "x"}).encode())
-        assert err.code == 501 and "ROADMAP A5b" in json.loads(err.read())["error"]
+        for path in ("/nothing", "/admin/reload"):
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(server.base + path, timeout=10)
+            assert ei.value.code == 404
+        err = _error(server.base, "/admin/reload", json.dumps({"cfg_file": "x"}).encode())
+        assert err.code == 400 and "g_ckpt" in json.loads(err.read())["error"]
 
     def test_too_large_is_413_and_chunked_is_501(self, server):
         conn = http.client.HTTPConnection(server.host, timeout=30)
