@@ -123,13 +123,14 @@ and when the port's package is not beside it):
      _route picks for each layer. Then a WSEGAN engine (snorm G with biases) with 4
      concurrent requests of three padded lengths against its generate_batch. 8a: the
      kernel against its plain version (NaN-filled outputs, route from the counters) at
-     every shape the servers ran and at passes of 1-128 chunks and windows of 2048 and
-     4096 at 1-8 rows, in fp32 and bf16, timed with the FMA route forced, plain and cuDNN
+     every shape the servers ran and at passes of 1-128 chunks (3 among them) and windows
+     of 2048 and 4096 at 1-8 rows, in fp32 and bf16, timed with the FMA route forced, plain and cuDNN
      beside bounds; then `python -m segan_pytorch_tpu_torch.serve --device cuda` in a
      subprocess: /healthz, one /enhance, SIGTERM, exit 0 within --drain_seconds.
   9. POST /admin/reload at full width (every check fatal; serve.RETIRE_SECONDS cut to
-     1 s): 9a, an fp32 server of SEGAN+ A answers a reload to a missing file with 500
-     and then the same request bit for bit (with cudnn.deterministic on for that check:
+     1 s; the servers under --auth_token): 9a, an fp32 server of SEGAN+ A answers a
+     reload without the token with 401, one to a missing file with 500 and then the
+     same request bit for bit (with cudnn.deterministic on for that check:
      cuDNN's default fp32 transposed-conv algorithm sums in no fixed order, and two
      identical requests without it are printed apart); four clients send one-chunk /enhance
      requests without pause while a reload swaps in B (other weights): every answer 200
@@ -140,15 +141,16 @@ and when the port's package is not beside it):
      checkpoint's read and its copy to the card. Then five reloads (A, B, A, B, A) on a
      server of B: after each retirement and gc.collect() the retired engine is collected,
      the kernel's weight cache holds the live G's encoder weights and nothing new, and
-     torch.cuda.memory_allocated() is back within RELOAD_MEM_TOL of the one-generation
+     torch.cuda.memory_allocated() is back within the probe's MEM_TOL of the one-generation
      baseline (printed: a generation's bytes). 9b, a bf16 server: a reload A -> B held to
      B's generate() within the bf16 bound (A's outside it), then a reload to the WSEGAN
      checkpoint by its cfg_file: /healthz says WSEGAN, 3 concurrent requests equal its
      generate_batch. The kernel's counters against the recorded G forwards (warm-ups and
-     served passes): 5 launches each, on the routes _route picks. 9d, G forwards at 1
-     and 64 chunks in fp32 and bf16 with cudnn.deterministic off and on, in turns (the
-     cost of bit-reproducible answers). 9c, the reload probe (tools/reload_leak_probe.py)
-     on the card, three generations. TLS and the WebSocket listener are host code held by
+     served passes): 5 launches each, on the routes _route picks. 9c, the reload probe
+     (tools/reload_leak_probe.py) on the card, three generations. 9d: the kernel's calls
+     through the phase are recorded, and every layer shape that 8a did not hold (WSEGAN's
+     biased warm-ups and one-row passes among them) is held against the plain version
+     as 8a holds its shapes. TLS and the WebSocket listener are host code held by
      the CPU tests; the phase says so and checks neither.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
@@ -1849,13 +1851,14 @@ def _wav_body(n, seed):
     return buf.getvalue()
 
 
-def _request(url, body=None, timeout=120):
+def _request(url, body=None, timeout=120, headers=None):
     """One request that must be answered 200 (urllib raises on an error status):
     (body, headers, wall seconds)."""
     import urllib.request
 
     t0 = time.perf_counter()
-    with urllib.request.urlopen(urllib.request.Request(url, data=body),
+    with urllib.request.urlopen(urllib.request.Request(url, data=body,
+                                                       headers=headers or {}),
                                 timeout=timeout) as r:
         data, status, headers = r.read(), r.status, dict(r.headers)
     assert status == 200, (url, status)
@@ -1957,16 +1960,19 @@ def _serving_checkpoints(work: Path):
 
 
 class _InProcess:
-    """``serve.build_server`` (--device cuda) with ``serve_forever`` on a thread."""
+    """``serve.build_server`` (--device cuda) with ``serve_forever`` on a thread; with a
+    `token`, under --auth_token, which `post` and `reload` send."""
 
-    def __init__(self, ckpt, opts_file, *extra):
+    def __init__(self, ckpt, opts_file, *extra, token=None):
         import threading
         from segan_pytorch_tpu_torch import serve
 
         self.serve = serve
+        self.auth = {"Authorization": f"Bearer {token}"} if token else {}
         self.srv, self.state = serve.build_server(serve.parse_args(
             ["--g_pretrained_ckpt", str(ckpt), "--cfg_file", str(opts_file), "--port", "0",
-             "--device", "cuda", "--seed", str(SEED), *extra]))
+             "--device", "cuda", "--seed", str(SEED), *extra,
+             *(["--auth_token", token] if token else [])]))
         self.host = "127.0.0.1:%d" % self.srv.server_address[1]
         self.base = "http://" + self.host
         self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
@@ -1977,14 +1983,20 @@ class _InProcess:
         return {ln.split()[0]: float(ln.split()[1]) for ln in text.splitlines()
                 if ln and not ln.startswith("#")}
 
-    def reload(self, body):
-        """POST /admin/reload: (status, answer, wall seconds)."""
+    def post(self, path, body):
+        """`_request` of a POST to `path`, with the token."""
+        return _request(self.base + path, body, headers=self.auth)
+
+    def reload(self, body, auth=True):
+        """POST /admin/reload (with the token unless `auth` is false): (status, answer,
+        wall seconds)."""
         import urllib.error
         import urllib.request
 
         t0 = time.perf_counter()
         req = urllib.request.Request(self.base + "/admin/reload",
-                                     data=json.dumps(body).encode())
+                                     data=json.dumps(body).encode(),
+                                     headers=self.auth if auth else {})
         try:
             with urllib.request.urlopen(req, timeout=300) as r:
                 return r.status, json.loads(r.read()), time.perf_counter() - t0
@@ -2004,6 +2016,26 @@ class _InProcess:
         assert not self.thread.is_alive()
 
 
+def _record_launches(calls: set):
+    """Wrap the kernel's `_launch` so that every call adds its (B, Cin, T_in, Cout, K,
+    stride, bias, dtype) to `calls`, the counting left to the wrapper; returns the
+    function that unwraps it."""
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    launch = K._launch
+
+    def recorded_launch(x, w, b, a, stride, t_out, **kw):
+        calls.add((*x.shape, w.shape[0], w.shape[2], stride, b is not None, x.dtype))
+        return launch(x, w, b, a, stride, t_out, **kw)
+
+    K._launch = recorded_launch
+
+    def unwrap():
+        K._launch = launch
+
+    return unwrap
+
+
 class _Served(_InProcess):
     """An ``_InProcess`` server whose engine's G forwards are recorded (thread, rows,
     samples, milliseconds to the end of the device's work), and so are the kernel's calls
@@ -2012,7 +2044,6 @@ class _Served(_InProcess):
     def __init__(self, ckpt, opts_file, *extra):
         import threading
         import torch
-        from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
 
         super().__init__(ckpt, opts_file, *extra)
         self.engine = self.state["gen"][1]
@@ -2028,18 +2059,11 @@ class _Served(_InProcess):
                                 int(np.shape(x)[1]), 1e3 * (time.perf_counter() - t0)))
             return out
 
-        self._K, self._launch = K, K._launch
-
-        def recorded_launch(x, w, b, a, stride, t_out, **kw):
-            self.calls.add((*x.shape, w.shape[0], w.shape[2], stride, b is not None,
-                            x.dtype))
-            return self._launch(x, w, b, a, stride, t_out, **kw)
-
         self.engine.infer_G = timed_infer
-        K._launch = recorded_launch
+        self._unrecord = _record_launches(self.calls)
 
     def stop(self):
-        self._K._launch = self._launch
+        self._unrecord()
         super().stop()
 
 
@@ -2057,18 +2081,74 @@ def _expect_launches(K, before, passes, bias, fp32):
     return np.array(got)
 
 
+def _hold_kernel(shapes, seed):
+    """The kernel against its plain version at each layer shape (B, Cin, T_in, Cout, K,
+    stride, bias) in fp32 and bf16, on random inputs and NaN-filled outputs, the route
+    read from the counters; timed with the FMA route forced, plain and cuDNN beside
+    bounds, a table row per shape. Returns {shape: {dtype: (err, ms)}}."""
+    import torch
+    import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+
+    g = torch.Generator().manual_seed(seed)
+    per_shape = {}
+    print(f"{'served shape':>34} | {'route':>5} {'fp32 err':>8} {'bf16 err':>8} | fp32 ms: "
+          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7} | bf16 ms: "
+          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7}")
+    for shape in sorted(shapes):
+        b, cin, t_in, cout, kw, s, has_bias = shape
+        x = torch.randn((b, cin, t_in), generator=g).cuda()
+        w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
+        bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
+        a = (torch.rand((cout,), generator=g) * 0.3).cuda()
+        t_out = K._check(x, w, bias, a, s)
+        route = K._route(torch.float32, cout, kw, s, t_out)
+        flops = 2.0 * b * t_out * cout * cin * kw
+        nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
+                      + 2 * b * cout * t_out)
+        row = {}
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            args = [v.to(dtype) if v is not None else None for v in (x, w, bias, a)]
+            before = (K.launches_mma, K.launches_tf32)
+            y, pre = K._launch(*args, s, t_out,
+                               out=nan_outputs((b, cout, t_out), (b, cout, t_out), dtype=dtype))
+            y_ref, pre_ref = K.conv1d_prelu_plain(*args, s)
+            took = "mma" if K.launches_mma == before[0] + 1 else "fma"
+            assert took == route and K.launches_tf32 - before[1] == (
+                took == "mma" and dtype == torch.float32), (shape, dtype, took)
+            err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
+            assert err <= tol, (shape, dtype, err)
+            t = ms_in_turns({"kernel": lambda: K.fused_conv1d_prelu(*args, s),
+                             "fma": lambda: K._launch(*args, s, t_out, force_fma=True),
+                             "plain": lambda: K.conv1d_prelu_plain(*args, s),
+                             "cuDNN": lambda: F.conv1d(args[0], args[1], args[2], stride=s)},
+                            reps=10, warmup=2)
+            t["bound"] = (min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
+                              bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
+                          if dtype == torch.float32 else bound_ms(flops, nbytes, BF16_PEAK))
+            row[dtype] = (err, t)
+            del y, pre, y_ref, pre_ref, args
+        per_shape[shape] = row
+        (e32, t32), (e16, t16) = row[torch.float32], row[torch.bfloat16]
+        cols = ("kernel", "fma", "plain", "cuDNN", "bound")
+        print(f"{str(shape[:6]) + (' bias' if has_bias else ''):>34} | {route:>5} "
+              f"{e32:8.1e} {e16:8.1e} | " + " ".join(f"{t32[c]:7.4f}" for c in cols)
+              + " | " + " ".join(f"{t16[c]:7.4f}" for c in cols), flush=True)
+    return per_shape
+
+
 def phase_serve(work: Path, smi: str, ckpts: dict):
     """8: the port's server at full width on the card (see the module docstring), on
     `_serving_checkpoints`. Returns the kernel's launches over the in-process servers
-    (all, tensor cores, 3xTF32)."""
+    (all, tensor cores, 3xTF32) and the layer shapes that 8a held against the plain
+    version."""
     import signal as signal_mod
     import torch
-    import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.ops.signal import (de_emphasize_np, normalize_wave_minmax,
                                                     pre_emphasize_np)
     from segan_pytorch_tpu_torch.parallel.inference import chunk_grid, overlap_add
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
     from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
     from scipy.io import wavfile
 
@@ -2242,56 +2322,14 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
 
     # 8a: the kernel vs its plain version at every served shape, both dtypes: the passes
     # that ran, and the shapes of ROADMAP's list (passes of 2-128 chunks, windows of 2048
-    # and 4096 at 1-8 rows) where they did not
-    listed = ({(b, S, False) for b in (1, 2, 4, 16, 32, 128)}
+    # and 4096 at 1-8 rows) where they did not; 3 rows, the split-K plan that phase 9's
+    # four clients meet
+    listed = ({(b, S, False) for b in (1, 2, 3, 4, 16, 32, 128)}
               | {(b, w, False) for w in (2048, 4096) for b in (1, 2, 4, 8)})
     layers = {p: _g_layers(*p) for p in served | listed}
     known = {c for ls in layers.values() for c in ls}
     assert {c[:7] for c in calls} <= known, sorted({c[:7] for c in calls} - known)
-    g = torch.Generator().manual_seed(SEED + 110)
-    per_shape = {}
-    print(f"{'served shape':>34} | {'route':>5} {'fp32 err':>8} {'bf16 err':>8} | fp32 ms: "
-          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7} | bf16 ms: "
-          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7}")
-    for shape in sorted(known):
-        b, cin, t_in, cout, kw, s, has_bias = shape
-        x = torch.randn((b, cin, t_in), generator=g).cuda()
-        w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
-        bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
-        a = (torch.rand((cout,), generator=g) * 0.3).cuda()
-        t_out = K._check(x, w, bias, a, s)
-        route = K._route(torch.float32, cout, kw, s, t_out)
-        flops = 2.0 * b * t_out * cout * cin * kw
-        nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
-                      + 2 * b * cout * t_out)
-        row = {}
-        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            args = [v.to(dtype) if v is not None else None for v in (x, w, bias, a)]
-            before = (K.launches_mma, K.launches_tf32)
-            y, pre = K._launch(*args, s, t_out,
-                               out=nan_outputs((b, cout, t_out), (b, cout, t_out), dtype=dtype))
-            y_ref, pre_ref = K.conv1d_prelu_plain(*args, s)
-            took = "mma" if K.launches_mma == before[0] + 1 else "fma"
-            assert took == route and K.launches_tf32 - before[1] == (
-                took == "mma" and dtype == torch.float32), (shape, dtype, took)
-            err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
-            assert err <= tol, (shape, dtype, err)
-            t = ms_in_turns({"kernel": lambda: K.fused_conv1d_prelu(*args, s),
-                             "fma": lambda: K._launch(*args, s, t_out, force_fma=True),
-                             "plain": lambda: K.conv1d_prelu_plain(*args, s),
-                             "cuDNN": lambda: F.conv1d(args[0], args[1], args[2], stride=s)},
-                            reps=10, warmup=2)
-            t["bound"] = (min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
-                              bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
-                          if dtype == torch.float32 else bound_ms(flops, nbytes, BF16_PEAK))
-            row[dtype] = (err, t)
-            del y, pre, y_ref, pre_ref, args
-        per_shape[shape] = row
-        (e32, t32), (e16, t16) = row[torch.float32], row[torch.bfloat16]
-        cols = ("kernel", "fma", "plain", "cuDNN", "bound")
-        print(f"{str(shape[:6]) + (' bias' if has_bias else ''):>34} | {route:>5} "
-              f"{e32:8.1e} {e16:8.1e} | " + " ".join(f"{t32[c]:7.4f}" for c in cols)
-              + " | " + " ".join(f"{t16[c]:7.4f}" for c in cols), flush=True)
+    per_shape = _hold_kernel(known, SEED + 110)
     for p in sorted(layers):
         sums = {d: {c: sum(per_shape[l][d][1][c] for l in layers[p])
                     for c in ("kernel", "fma", "plain", "cuDNN", "bound")}
@@ -2347,23 +2385,18 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
             proc.kill()
             proc.wait(timeout=10)
         log.close()
-    return tuple(int(v) for v in totals)
+    return tuple(int(v) for v in totals), known
 
 
 # ---- phase 9: reload on the card -------------------------------------------------------
-# How far torch.cuda.memory_allocated() may end from its one-generation baseline after a
-# retired generation is collected. On an H100 at 700 W a full-width fp32 SEGAN+
-# generation held 418.8 MiB (G's weights and the kernel's split copies) and the readings
-# after five retirements were within 1.25 MiB of the baseline (the probe's: 0 B); a leaked
-# generation, or its padded weights alone (~170 MiB), is far outside the bound.
-RELOAD_MEM_TOL = 8 * 1024 * 1024
 RELOAD_RETIRE_SECONDS = 1.0  # serve.RETIRE_SECONDS during the phase (150 in service)
 
 
-def phase_reload(work: Path, smi: str, ckpts: dict):
-    """9: POST /admin/reload at full width on the card (see the module docstring).
-    Returns the kernel's launches over the phase's recorded G forwards (all, tensor
-    cores, 3xTF32)."""
+def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
+    """9: POST /admin/reload at full width on the card (see the module docstring), on
+    `_serving_checkpoints`; `checked` are the layer shapes phase 8a held. Returns the
+    kernel's launches over the phase's recorded G forwards (all, tensor cores,
+    3xTF32)."""
     import gc
     import importlib.util
     import threading
@@ -2375,7 +2408,6 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.ops.signal import normalize_wave_minmax, pre_emphasize_np
     from segan_pytorch_tpu_torch.tools import reload_leak_probe
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
     from segan_pytorch_tpu_torch.utils.checkpoint import read_generator_state
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
     from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
@@ -2412,8 +2444,9 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
             [prep(b, eng.preemph) for b, _ in bodies_seeds],
             z=[seed_z(eng.G, k, L) for (_, k), L in zip(bodies_seeds, lengths)])]
 
-    # the G forwards of the phase, recorded on the class: (rows, samples)
-    passes = []
+    # the G forwards of the phase, recorded on the class: (rows, samples); and the
+    # kernel's calls, (B, Cin, T_in, Cout, K, stride, bias, dtype), the probe's included
+    passes, calls = [], set()
     infer = SEGAN.infer_G
 
     def recorded_infer(self, noisy, z=None, ret_hid=False):
@@ -2424,6 +2457,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
     retire = serve.RETIRE_SECONDS
     serve.RETIRE_SECONDS = RELOAD_RETIRE_SECONDS
     SEGAN.infer_G = recorded_infer
+    unrecord = _record_launches(calls)
     try:
         # the pieces of a reload's load, timed alone: the checkpoint read on the host and
         # its copy into a G on the card
@@ -2440,29 +2474,33 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
         nbytes = sum(v.numel() * v.element_size() for v in state_dict.values())
         del G, state_dict
 
-        # 9a: fp32, a reload to a missing file, then A -> B under load
-        srv = _InProcess(ckpt_a, opts32, "--warm_seconds", "1.0")
+        # 9a: fp32 under --auth_token: a reload without the token, one to a missing
+        # file, then A -> B under load
+        srv = _InProcess(ckpt_a, opts32, "--warm_seconds", "1.0", token="phase-9")
         try:
             one = _wav_body(16000, SEED + 130)
+            status, info, _ = srv.reload({"g_ckpt": str(ckpt_b)}, auth=False)
+            assert status == 401 and srv.state["reloads"] == 0, (status, info)
             passes.clear()
             before = (K.launches, K.launches_mma, K.launches_tf32)
             # cuDNN's default algorithm for the fp32 transposed convs sums in no fixed
             # order: the same request twice is compared bit for bit with
             # cudnn.deterministic on (its cost is timed below), and read without it
-            plain = [answer(_request(srv.base + "/enhance?seed=0", one)[0]) for _ in "ab"]
+            plain = [answer(srv.post("/enhance?seed=0", one)[0]) for _ in "ab"]
             gen0 = srv.state["gen"]
             torch.backends.cudnn.deterministic = True
             try:
-                first = _request(srv.base + "/enhance?seed=0", one)[0]
+                first = srv.post("/enhance?seed=0", one)[0]
                 status, info, _ = srv.reload({"g_ckpt": str(work / "missing.ckpt")})
-                again = _request(srv.base + "/enhance?seed=0", one)[0]
+                again = srv.post("/enhance?seed=0", one)[0]
             finally:
                 torch.backends.cudnn.deterministic = False
             assert status == 500 and "reload failed" in info["error"], (status, info)
             assert srv.state["gen"] is gen0 and srv.state["reloads"] == 0
             assert again == first, "A's answer changed after a failed reload"
             del gen0
-            print(f"reload to a missing file: 500, and A answers bit for bit as before it "
+            print(f"reload without the token: 401; to a missing file: 500, and A answers "
+                  f"bit for bit as before it "
                   f"(cudnn.deterministic on); without it two identical requests differ by "
                   f"rel {rel(plain[1], plain[0]):.3e}", flush=True)
             log, samples, errors, stop = [], [], [], threading.Event()
@@ -2472,7 +2510,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
                     while not stop.is_set():
                         seed = k + 4 * (len(log) % 2)
                         t_in = time.perf_counter()
-                        data, _, _ = _request(srv.base + f"/enhance?seed={seed}", one)
+                        data, _, _ = srv.post(f"/enhance?seed={seed}", one)
                         log.append((seed, t_in, time.perf_counter(), data))
                 except Exception as e:  # an answer other than 200: re-raised below
                     errors.append(e)
@@ -2555,9 +2593,9 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
 
         # memory: five reloads A, B, A, B, A on a server of B; each retired generation
         # must be collected and give its memory back
-        srv = _InProcess(ckpt_b, opts32, "--warm_seconds", "1.0")
+        srv = _InProcess(ckpt_b, opts32, "--warm_seconds", "1.0", token="phase-9")
         try:
-            _request(srv.base + "/enhance?seed=1", one)
+            srv.post("/enhance?seed=1", one)
             gc.collect()
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
@@ -2570,7 +2608,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
                 two = torch.cuda.memory_allocated()
                 assert status == 200, info
                 reload_s.append(wall)
-                _request(srv.base + f"/enhance?seed={i}", one)
+                srv.post(f"/enhance?seed={i}", one)
                 srv.retired()
                 gc.collect()
                 torch.cuda.synchronize()
@@ -2590,23 +2628,24 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
                   f"MiB; with two (the new one built, the old not yet retired) +"
                   f"{np.mean(gens) / 2**20:.1f} MiB (a generation); after each of 5 "
                   f"retirements and gc.collect() {[int(d) for d in drift]} B from the "
-                  f"baseline (bound {RELOAD_MEM_TOL / 2**20:g} MiB), the retired engines "
+                  f"baseline (bound {reload_leak_probe.MEM_TOL / 2**20:g} MiB), the retired "
+                  f"engines "
                   f"collected, the kernel's cache one entry per encoder layer of the live G; reloads "
                   f"{', '.join(f'{w:.3f}' for w in reload_s)} s ({smi})", flush=True)
-            assert max(abs(d) for d in drift) <= RELOAD_MEM_TOL, drift
-            assert max(mems) - min(mems) <= RELOAD_MEM_TOL, mems
+            assert max(abs(d) for d in drift) <= reload_leak_probe.MEM_TOL, drift
+            assert max(mems) - min(mems) <= reload_leak_probe.MEM_TOL, mems
         finally:
             srv.stop()
 
         # 9b: bf16 A -> B, then SEGAN+ -> WSEGAN by its cfg_file
-        srv = _InProcess(ckpt_a, opts16, "--warm_seconds", "1.0")
+        srv = _InProcess(ckpt_a, opts16, "--warm_seconds", "1.0", token="phase-9")
         try:
             bodies = [_wav_body(n, SEED + 140 + i) for i, n in enumerate((16000, 40000))]
             passes.clear()
             before = (K.launches, K.launches_mma, K.launches_tf32)
             status, info, wall16 = srv.reload({"g_ckpt": str(ckpt_b)})
             assert status == 200, info
-            got16 = [_request(srv.base + f"/enhance?seed={500 + i}", b)[0]
+            got16 = [srv.post(f"/enhance?seed={500 + i}", b)[0]
                      for i, b in enumerate(bodies)]
             totals += _expect_launches(K, before, passes, False, False)
             n16 = len(passes)
@@ -2619,8 +2658,8 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
             ws_lengths = (20000, 33000, 5000)
             ws_bodies = [_wav_body(n, SEED + 150 + i) for i, n in enumerate(ws_lengths)]
             got_w = [None] * 3
-            _in_threads([lambda i=i: got_w.__setitem__(i, _request(
-                srv.base + f"/enhance?seed={600 + i}", ws_bodies[i])[0]) for i in range(3)])
+            _in_threads([lambda i=i: got_w.__setitem__(i, srv.post(
+                f"/enhance?seed={600 + i}", ws_bodies[i])[0]) for i in range(3)])
             got = _expect_launches(K, before, passes, True, True)
             totals += got
             nw = len(passes)
@@ -2642,38 +2681,15 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
               f"{ew:.3e} (bound {SERVE_TOL['float32']:g}); {nw} G forwards, launches "
               f"{tuple(int(v) for v in got)}", flush=True)
         assert ew <= SERVE_TOL["float32"], ew
-        # 9d: what bit-reproducible answers would cost: G forwards with
-        # cudnn.deterministic off and on, in turns
-        print("reload: G forward ms with cuDNN's default transposed-conv algorithms vs "
-              f"cudnn.deterministic, in turns ({smi}):", flush=True)
-        for name, opts_file in (("float32", opts32), ("bfloat16", opts16)):
-            _, eng = build_enhancement_engine(str(opts_file), str(ckpt_a), SEED,
-                                              device="cuda")
-            for b in (1, 64):
-                x = np.zeros((b, S, 1), np.float32) + 0.1
-                z = seed_z(eng.G, 0).expand(b, -1, -1).contiguous()
 
-                def run(det, eng=eng, x=x, z=z):
-                    torch.backends.cudnn.deterministic = det
-                    eng.infer_G(x, z)
-
-                try:
-                    t = ms_in_turns({"default": lambda: run(False),
-                                     "deterministic": lambda: run(True)}, reps=10, warmup=2)
-                finally:
-                    torch.backends.cudnn.deterministic = False
-                print(f"  {name} B={b}: default {t['default']:.3f}, deterministic "
-                      f"{t['deterministic']:.3f} ({t['deterministic'] / t['default']:.2f}x)",
-                      flush=True)
-            del eng
+        # 9c: the reload probe on the card (module level, no HTTP): three generations
+        # built beside a kept one, exercised, closed and dropped
+        report = reload_leak_probe.probe(str(ckpt_a), str(opts32), "cuda", iters=3,
+                                         warm_seconds=0.5)
     finally:
         SEGAN.infer_G = infer
+        unrecord()
         serve.RETIRE_SECONDS = retire
-
-    # 9c: the reload probe on the card (module level, no HTTP): three generations built
-    # beside a kept one, exercised, closed and dropped
-    report = reload_leak_probe.probe(str(ckpt_a), str(opts32), "cuda", iters=3,
-                                     warm_seconds=0.5, mem_tol_mib=RELOAD_MEM_TOL / 2**20)
     rows, base = report["rows"], report["baseline"]
     col = {k: [round(r[k], 3) if isinstance(r[k], float) else r[k] for r in rows]
            for k in ("generation_bytes", "rss_kb", "load_s", "warm_s")}
@@ -2683,6 +2699,16 @@ def phase_reload(work: Path, smi: str, ckpts: dict):
           f"{[r['memory_allocated'] - base['memory_allocated'] for r in rows]} B; "
           + "; ".join(f"{k} {v}" for k, v in col.items()) + f" ({smi})", flush=True)
     assert all(report["verdict"].values()), report["verdict"]
+
+    # 9d: the kernel against its plain version at every layer shape the phase ran
+    # (warm-ups, served passes, the references, the probe) that 8a did not hold
+    ran = {c[:7] for c in calls}
+    new = ran - checked
+    print(f"reload: the kernel ran at {len(ran)} layer shapes in phase 9 ("
+          f"{len(ran & checked)} held in 8a); the other {len(new)}, in fp32 and bf16:",
+          flush=True)
+    if new:
+        _hold_kernel(new, SEED + 160)
     ws = "not installed"
     if importlib.util.find_spec("websockets") is not None:
         import websockets
@@ -2724,8 +2750,8 @@ def main():
         ws_run = phase_wsegan_run(Path(work))
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         ckpts = _serving_checkpoints(Path(work))
-        serve_launches = phase_serve(Path(work), smi, ckpts)
-        reload_launches = phase_reload(Path(work), smi, ckpts)
+        serve_launches, checked = phase_serve(Path(work), smi, ckpts)
+        reload_launches = phase_reload(Path(work), smi, ckpts, checked)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)

@@ -153,7 +153,8 @@ def test_reload_swaps_to_the_new_engine_on_the_servers_device(ckpts, short_retir
         info = _reload(s.base, {"g_ckpt": str(ckpt_b)})
         assert info == {"status": "reloaded", "g_ckpt": str(ckpt_b), "reloads": 1,
                         "seconds": info["seconds"]}
-        assert set(info["seconds"]) == {"load", "warm"}
+        assert set(info["seconds"]) == {"load", "warm", "warm_generate"}
+        assert 0 < info["seconds"]["warm_generate"] <= info["seconds"]["warm"]
         assert devices == [torch.device("cpu")] * 2
         assert s.state["gen"][1].device == torch.device("cpu")
         new = _answer(s.base, body, 11)
@@ -165,6 +166,34 @@ def test_reload_swaps_to_the_new_engine_on_the_servers_device(ckpts, short_retir
         np.testing.assert_allclose(
             old, eng_a.generate(_prep(body, cfg.preemph), z=_seed_z(eng_a.G, 11))[0],
             rtol=SELF_TOL, atol=SELF_TOL)
+    finally:
+        s.stop()
+
+
+def test_healthz_warm_s_times_the_warm_up_generate_only(ckpts, monkeypatch):
+    """/healthz's warm_s is the warm-up generate() alone, as root serve.py times it: the
+    WindowBatcher's warm passes (slowed here) are not in it."""
+    ckpt, opts, _ = ckpts["A"]
+    generate, warm = SEGAN.generate, serving.WindowBatcher.warm
+    spans = []
+
+    def timed_generate(self, *a, **k):
+        t0 = time.perf_counter()
+        out = generate(self, *a, **k)
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    def slow_warm(self, window, max_rows=None):
+        time.sleep(1.0)
+        return warm(self, window, max_rows)
+
+    monkeypatch.setattr(SEGAN, "generate", timed_generate)
+    monkeypatch.setattr(serving.WindowBatcher, "warm", slow_warm)
+    s = Server(ckpt, opts)
+    try:
+        warm_s = _get_json(s.base, "/healthz")["warm_s"]
+        assert len(spans) == 1 and 0 < warm_s <= round(spans[0], 3) + 1e-3 < 1.0, (
+            warm_s, spans)
     finally:
         s.stop()
 
