@@ -152,6 +152,29 @@ and when the port's package is not beside it):
      biased warm-ups and one-row passes among them) is held against the plain version
      as 8a holds its shapes. TLS and the WebSocket listener are host code held by
      the CPU tests; the phase says so and checks neither.
+  10. the train step as a CUDA graph (`train_step_multi`, `models/multistep.py`), every
+     check fatal: 10a, for SEGAN+ at batch 300 (--no_bias) in fp32 and bf16, WSEGAN at 150
+     with its script's flags and AEWSEGAN at 150, one graphed call of 4 sub-steps against
+     4 `train_step` calls of an engine of the same state (the same batches, one ragged,
+     and the same streams), under cudnn.deterministic (the Adam engines' eager twin with
+     capturable Adam): each sub-step's losses, Genh and the changes to the parameters,
+     buffers and optimizer state within 1e-6 (they read 0), a control with sub-steps 2
+     and 3 swapped outside it; the first call's kernel launches (the eager warm-up step's
+     and the capture's), the graph pool beside the eager step's peak; for SEGAN+ fp32 the
+     same under cuDNN's default algorithms beside two eager engines' own difference
+     (printed). 10b (SEGAN+ fp32): an eager G forward through the kernel after each of two
+     graphed calls against a CPU copy of G (<= 1e-3), an eager step between two graphed
+     calls, the next call against the eager engine; the controls: the kernel captured
+     with its cache consulted replays stale weights, and the engine with both guards off
+     (the cache read during capture, no version bump after replays) fails the second
+     forward. 10c: a call that only replays makes no host sync
+     (`set_sync_debug_mode("error")`) and moves no launch counter, and a replay runs the
+     kernel 5 / 25 / 5 times (profiler device events). Then `step_flops()` timed,
+     `bench --steps_per_call 4` and 1 at batch 300 (bf16, fp32) and at 16 in turns, each
+     line with its MFU; 10d: `train.main` at batch 64 for two epochs of six batches with
+     `--steps_per_call 4` (iterations 4-6 and 10-12 logged, checkpoint indices equal to
+     the single-step run's) and `--profile` at batch 32 (the trace, the two [profile]
+     lines, the MFU in the log).
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
@@ -159,7 +182,8 @@ wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launc
 phase 9's, its times the bf16 encoder sum at 64
 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
-its weight pad from 7b;
+its weight pad from 7b, and under graph_launches_per_replay the launches a replay of each
+phase-10 case's graphed step makes;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -1190,7 +1214,7 @@ def phase_train_b300():
     for dtype in ("bfloat16", "float32"):
         out = subprocess.run(
             [sys.executable, "-m", "segan_pytorch_tpu_torch.bench", "--steps", "5",
-             "--warmup", "2", "--compute_dtype", dtype],
+             "--warmup", "2", "--compute_dtype", dtype, "--steps_per_call", "1"],
             cwd=str(ROOT), capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr[-3000:]
         res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -1698,7 +1722,8 @@ def phase_wsegan_b150():
     for engine in ("wsegan", "aewsegan"):
         out = subprocess.run(
             [sys.executable, "-m", "segan_pytorch_tpu_torch.bench", "--engine", engine,
-             "--batch_size", str(B), "--steps", "5", "--warmup", "2"],
+             "--batch_size", str(B), "--steps", "5", "--warmup", "2",
+             "--steps_per_call", "1"],
             cwd=str(ROOT), capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr[-3000:]
         res = json.loads(out.stdout.strip().splitlines()[-1])
@@ -2721,6 +2746,437 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
     return tuple(int(v) for v in totals)
 
 
+# ---- phase 10: the step on a CUDA graph, and the profile -------------------------------
+# 10a's bound, relative: each sub-step's losses, Genh, and all together the changes a call
+# made to the parameters, the buffers (BatchNorm's statistics, spectral norm's u and v)
+# and the optimizers' state, graph against eager steps, both under cudnn.deterministic
+# (cuDNN's default algorithms sum in no fixed order: two eager engines of one state then
+# read ~1e-2 apart in their losses after 4 SEGAN+ steps and ~0.2 in the parameters'
+# changes, the step being ill-conditioned; printed as the phase runs). The Adam engines'
+# eager twin steps with capturable optimizers too: Adam's capturable step takes its bias
+# correction on the card, in other roundings than the host's (also printed). On an H100 at
+# 700 W every reading was 0 (equal bit for bit), the controls (sub-steps 2 and 3 swapped)
+# >= 4.7e-5 (AEWSEGAN's optimizer state; the losses >= 8.8e-4); the bound sits between.
+GRAPH_TOL = 1e-6
+# (label, engine, batch, dtype, flags): SEGAN+ as the script trains it, WSEGAN with its
+# script's flags and batch, AEWSEGAN at the same batch
+GRAPH_CASES = [
+    ("SEGAN+ fp32", "segan", 300, "float32", dict(no_bias=True)),
+    ("SEGAN+ bf16", "segan", 300, "bfloat16", dict(no_bias=True)),
+    ("WSEGAN fp32", "wsegan", 150, "float32", WSEGAN_FLAGS),
+    ("AEWSEGAN fp32", "aewsegan", 150, "float32", dict(aewsegan=True, opt="adam")),
+]
+GRAPH_PER_STEP = {"segan": 5, "wsegan": WS_PER_STEP, "aewsegan": 5}
+KERNEL_RE = re.compile(r"\bconv1d_(mma|tf32|prelu)_kernel\b")
+
+
+def _graph_engines(kind, cfg, seed, n):
+    """`n` engines of one state on the card: the same weights and seed, so the same
+    streams of draws."""
+    import copy
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.models.wsegan import AEWSEGAN, WSEGAN
+
+    G, D = (_wsegan_models if kind == "wsegan" else _train_models)(cfg, seed)
+    out = []
+    for _ in range(n):
+        if kind == "aewsegan":
+            eng = AEWSEGAN(cfg, generator=copy.deepcopy(G), device="cuda")
+        else:
+            cls = WSEGAN if kind == "wsegan" else SEGAN
+            eng = cls(cfg, generator=copy.deepcopy(G), discriminator=copy.deepcopy(D),
+                      device="cuda")
+        eng.init_train()
+        out.append(eng)
+    return out
+
+
+def _engine_state(eng):
+    """Clones of an engine's parameters, buffers and optimizer state, by name."""
+    import torch
+
+    out = {}
+    for side, opt in (("G", eng.g_opt), ("D", eng.d_opt)):
+        m = getattr(eng, side)
+        if m is None:
+            continue
+        for n, t in list(m.named_parameters()) + list(m.named_buffers()):
+            out[f"{side}.{n}"] = t.detach().clone()
+        names = {id(p): n for n, p in m.named_parameters()}
+        for p, st in opt.state.items():
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    out[f"{side}.{names[id(p)]}.{k}"] = v.detach().to("cuda").clone()
+    return out
+
+
+def _noise_only(name: str) -> bool:
+    """D's conv biases that feed a BatchNorm (true gradient 0: RMSprop turns their rounding
+    noise into steps of ~10 lr), their optimizer state and the running means that take
+    them in."""
+    return name.startswith(tuple(f"D.enc_blocks.{i}.conv.bias" for i in range(5))
+                           + tuple(f"D.enc_blocks.{i}.norm.running_mean" for i in range(5)))
+
+
+def _graph_errs(got_losses, want_losses, got, want, before, batchnorm=True):
+    """(max relative error of the losses, {category: relative L2 of the changes since
+    `before`, all tensors of it together}, worst tensor by its own relative error); with
+    `batchnorm` (SEGAN+'s D) the tensors of ``_noise_only`` are only checked finite."""
+    import torch
+
+    loss = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+               for g, w in zip(got_losses, want_losses) for k in w)
+    num, den, worst = {}, {}, (0.0, "")
+    for k, w in want.items():
+        if batchnorm and _noise_only(k):
+            assert torch.isfinite(got[k].float()).all(), k
+            continue
+        cat = ("optimizer" if k.rsplit(".", 1)[-1] in (
+            "step", "square_avg", "exp_avg", "exp_avg_sq") else
+               "buffers" if k.endswith(("running_mean", "running_var", "num_batches_tracked",
+                                        "weight_u", "weight_v")) else "parameters")
+        b = before[k].double() if k in before else 0.0  # optimizer state: made lazily
+        dw, dg = w.double() - b, got[k].double() - b
+        d2, w2 = float((dg - dw).norm()) ** 2, float(dw.norm()) ** 2
+        num[cat] = num.get(cat, 0.0) + d2
+        den[cat] = den.get(cat, 0.0) + w2
+        e = (d2 ** 0.5) / max(w2 ** 0.5, 1e-30) if d2 > 0 else 0.0
+        worst = max(worst, (e, k))
+    return loss, {c: (num[c] / max(den[c], 1e-60)) ** 0.5 for c in num}, worst
+
+
+def _losses(metrics_s):
+    """train_step_multi's (S,) metrics as one dict of floats per sub-step."""
+    rows = {k: v.double().cpu().tolist() for k, v in metrics_s.items()}
+    return [dict(zip(rows, vals)) for vals in zip(*rows.values())]
+
+
+def _g_check(eng, x, z):
+    """An eager G forward through the kernel (evaluate's path) against a CPU copy of G on
+    the same weights (plain ops): the relative error, which must be within phase 4's."""
+    import copy
+    import torch
+
+    got = eng.infer_G(x, z).cpu()
+    G = copy.deepcopy(eng.G).cpu().eval()
+    with torch.no_grad():
+        want = G(torch.from_numpy(x), torch.from_numpy(z))
+    return rel_err(got, want)
+
+
+def _cache_trap():
+    """The kernel captured while its weight cache holds an entry at the weight's version:
+    consulted during capture (the control) a replay after an in-place update of the weight
+    runs the weights of capture time; recorded (the port), it runs the new ones. Returns
+    (the port's error, the control's) against the plain version."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    gen = torch.Generator().manual_seed(SEED + 180)
+    x = torch.randn(8, 256, 4 * 63 + 31, generator=gen).cuda()
+    a = torch.rand(512, generator=gen).cuda() * 0.3
+    errs = []
+    for consult in (False, True):
+        w = torch.nn.Parameter((torch.randn(512, 256, 31, generator=gen) * 0.02).cuda())
+        K.fused_conv1d_prelu(x, w, None, a)  # an entry at w's version
+        capturing = K._capturing
+        if consult:
+            K._capturing = lambda: False
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                y, _ = K.fused_conv1d_prelu(x, w, None, a)
+        finally:
+            K._capturing = capturing
+        with torch.no_grad():
+            w.mul_(-0.5)
+        graph.replay()
+        want, _ = K.conv1d_prelu_plain(x, w.detach(), None, a, 4)
+        errs.append(rel_err(y, want))
+        del graph
+    return tuple(errs)
+
+
+def phase_graph(work: Path, smi: str):
+    """10: the train step as a CUDA graph (train_step_multi) and --profile on the card.
+    Returns the kernel's launches per replay of each case's step (profiler events)."""
+    import gc
+    import torch
+    from segan_pytorch_tpu_torch import bench
+    from segan_pytorch_tpu_torch.models import multistep
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    S = 4
+    replay_launches = {}
+    for label, kind, B, dtype, flags in GRAPH_CASES:
+        t0 = time.perf_counter()
+        cfg = SEGANConfig(batch_size=B, compute_dtype=dtype, no_train_gen=True, **flags)
+        T = cfg.slice_size
+        cleans, noisies = zip(*(_train_batch(B, T, SEED + 171 + i) for i in range(S)))
+        masks = torch.ones((S, B))
+        masks[2, -1] = 0.0  # a ragged batch among them
+        stacked = [torch.stack(cleans).cuda(), torch.stack(noisies).cuda(), masks.cuda()]
+        if kind == "wsegan":
+            stacked.append((torch.arange(B) % 2).float().expand(S, B).contiguous().cuda())
+        l1s = [100.0 - 0.1 * i for i in range(S)] if kind == "segan" else [100.0] * S
+        bn = kind == "segan"
+        adam = kind != "segan"
+
+        def eager_steps(eng, xs, ls):
+            return [{k: float(v) for k, v in eng.train_step(
+                *[s[i] for s in xs], ls[i])[0].items()} for i in range(len(ls))]
+
+        if label == "SEGAN+ fp32":
+            # cuDNN's default algorithms: the graph against eager steps, beside two eager
+            # engines against each other (printed, no bound: the card's own noise)
+            A, E, E2 = _graph_engines(kind, cfg, SEED + 170, 3)
+            before = _engine_state(E)
+            ms, _, _, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
+            eager, twin = eager_steps(E, stacked, l1s), eager_steps(E2, stacked, l1s)
+            ga = _graph_errs(_losses(ms), eager, _engine_state(A), _engine_state(E), before)
+            ee = _graph_errs(twin, eager, _engine_state(E2), _engine_state(E), before)
+            print(f"graph {label} B={B}, cuDNN's default algorithms: graph vs eager losses "
+                  f"{ga[0]:.3g}, changes " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                      ga[1].items())
+                  + f"; eager vs eager losses {ee[0]:.3g}, changes " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in ee[1].items()) + f" ({smi})", flush=True)
+            A.release_multi_step()
+            del A, E, E2
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = True
+        try:
+            A, E, C = _graph_engines(kind, cfg, SEED + 170, 3)
+            if adam:
+                for opt in E._optimizers():
+                    multistep.set_capturable(opt, True)
+            before = _engine_state(E)
+            # 10a: one graphed call of S sub-steps against S eager steps from one state;
+            # the kernel's counters count the warm-up step's launches and the capture's
+            K.launches = K.launches_mma = K.launches_tf32 = 0
+            ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
+            first_call = K.launches
+            routes = (K.launches_mma, K.launches_tf32)
+            eager, peak = [], 0
+            for i in range(S):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                m, g, _ = E.train_step(*[s[i] for s in stacked], l1s[i])
+                eager.append({k: float(v) for k, v in m.items()})
+                peak = max(peak, torch.cuda.max_memory_allocated() - held)
+            loss_err, state_err, worst = _graph_errs(_losses(ms), eager, _engine_state(A),
+                                                     _engine_state(E), before, bn)
+            genh_err = rel_err(genh, g)
+            e4 = _engine_state(E)
+            pool = A._multi.pool_bytes
+            print(f"graph {label} B={B}, cudnn.deterministic: {S} graphed sub-steps vs {S} "
+                  f"train_step calls{' (capturable Adam)' if adam else ''}: losses "
+                  f"{loss_err:.3g}, Genh {genh_err:.3g}, changes " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in state_err.items()) + f" (worst tensor "
+                  f"{worst[1]} {worst[0]:.3g}); kernel launches in the first call "
+                  f"{first_call} (warm-up step and capture); graph pool "
+                  f"{pool / 2**30:.2f} GiB, eager step peak {peak / 2**30:.2f} GiB ({smi})",
+                  flush=True)
+            assert first_call == 2 * GRAPH_PER_STEP[kind], first_call
+            # every layer of these steps on the tensor cores, fp32 by 3xTF32
+            assert routes == (first_call, first_call if dtype == "float32" else 0), routes
+            assert max(loss_err, genh_err, *state_err.values()) <= GRAPH_TOL, (
+                loss_err, genh_err, state_err)
+            if label == "SEGAN+ fp32":
+                # 10b: no stale padded weight: an eager G forward after each graphed
+                # call, and an eager step (a ragged tail) between two graphed calls, all
+                # against the eager engine
+                rng = np.random.RandomState(SEED + 175)
+                xg = (rng.randn(4, T, 1) * 0.3).astype(np.float32)
+                zg = rng.randn(4, T // 1024, 1024).astype(np.float32)
+                g_errs = [_g_check(A, xg, zg)]
+                two = [s[:2] for s in stacked]
+                A.train_step_multi(*two, l1_w_s=[99.0, 98.9])
+                eager_steps(E, two, [99.0, 98.9])
+                g_errs.append(_g_check(A, xg, zg))
+                tail = [s[2] for s in stacked]
+                ma, _, _ = A.train_step(*tail, 98.8)
+                me, _, _ = E.train_step(*tail, 98.8)
+                before_b = _engine_state(E)
+                other = [s[[3, 0]] for s in stacked]
+                ms3, _, _, _ = A.train_step_multi(*other, l1_w_s=[98.7, 98.6])
+                eager3 = eager_steps(E, other, [98.7, 98.6])
+                tail_err = max(abs(float(ma[k]) - float(me[k]))
+                               / max(abs(float(me[k])), 1e-12) for k in me)
+                l3, s3, _ = _graph_errs(_losses(ms3), eager3, _engine_state(A),
+                                        _engine_state(E), before_b)
+                print(f"graph {label}: eager G forward after graphed calls vs a CPU copy "
+                      f"of G (plain ops): " + ", ".join(f"{v:.3g}" for v in g_errs)
+                      + f" (bound {SLICE_TOL}); an eager step between graphed calls: "
+                      f"losses {tail_err:.3g}; the next graphed call: losses {l3:.3g}, "
+                      "changes " + ", ".join(f"{k} {v:.3g}" for k, v in s3.items()),
+                      flush=True)
+                assert all(e <= SLICE_TOL for e in g_errs), g_errs
+                assert max(tail_err, l3, *s3.values()) <= GRAPH_TOL, (tail_err, l3, s3)
+            if adam:  # the same steps with Adam's host-side bias correction
+                (P,) = _graph_engines(kind, cfg, SEED + 170, 1)
+                plain = eager_steps(P, stacked, l1s)
+                pa = _graph_errs(plain, eager, _engine_state(P), e4, before, bn)
+                print(f"graph {label}: eager steps with Adam's usual (host) step vs its "
+                      f"capturable one: losses {pa[0]:.3g}, changes " + ", ".join(
+                          f"{k} {v:.3g}" for k, v in pa[1].items()), flush=True)
+                del P
+            # 10c: a call that only replays: no host sync, no counter moves, and the
+            # kernel runs the step's count of times per replay (the profiler's device
+            # events)
+            one = [s[:1] for s in stacked]
+            K.launches = K.launches_mma = K.launches_tf32 = 0
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                A.train_step_multi(*one, l1_w_s=l1s[:1])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                A.train_step_multi(*one, l1_w_s=l1s[:1])
+                torch.cuda.synchronize()
+            n_kernel = sum(1 for e in prof.events() if KERNEL_RE.search(e.name))
+            replay_launches[label] = n_kernel
+            assert K.launches == 0, K.launches
+            A.release_multi_step()
+            del A
+            gc.collect()
+            # the control: the graph with sub-steps 2 and 3 swapped breaks the bound
+            swapped = [s[[0, 2, 1, 3]] for s in stacked]
+            msc, _, _, _ = C.train_step_multi(*swapped, l1_w_s=l1s)
+            c_loss, c_state, _ = _graph_errs(_losses(msc), eager, _engine_state(C), e4,
+                                             before, bn)
+            C.release_multi_step()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        print(f"graph {label}: a replay runs fused_conv1d_prelu {n_kernel} times (profiler "
+              f"device events), with no host sync and no counter moved; the control "
+              f"(sub-steps 2 and 3 swapped): losses {c_loss:.3g}, changes " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in c_state.items())
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+        assert n_kernel == GRAPH_PER_STEP[kind], n_kernel
+        assert min(c_loss, *c_state.values()) > GRAPH_TOL, (c_loss, c_state)
+        del C, E
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 10b's controls. The kernel's cache consulted during capture (an entry current at
+    # the weight's version then feeds every replay the weights of capture time; the
+    # engine never captures with one current, as its warm-up step's update comes
+    # between). And the engine with both guards off, the wrapper as it was: the in-place
+    # ops recorded at capture bump each weight's version once, so the first eager forward
+    # after a graphed call misses the cache and stores an entry at that version, which
+    # the next call's replays leave stale. At B = 16.
+    port_err, trap_err = _cache_trap()
+    cfg = SEGANConfig(batch_size=16, no_bias=True, no_train_gen=True)
+    (A,) = _graph_engines("segan", cfg, SEED + 176, 1)
+    clean, noisy = (v.cuda().expand((S,) + v.shape) for v in
+                    _train_batch(16, cfg.slice_size, SEED + 177))
+    rng = np.random.RandomState(SEED + 178)
+    xg = (rng.randn(4, cfg.slice_size, 1) * 0.3).astype(np.float32)
+    zg = rng.randn(4, 16, 1024).astype(np.float32)
+    capturing, written = K._capturing, multistep.mark_written
+    K._capturing, multistep.mark_written = (lambda: False), (lambda tensors: None)
+    stale = []
+    try:
+        for _ in range(2):
+            A.train_step_multi(clean, noisy, None, l1_w_s=[100.0] * S)
+            stale.append(_g_check(A, xg, zg))
+    finally:
+        K._capturing, multistep.mark_written = capturing, written
+    print(f"graph: a kernel captured with a current cache entry, replayed after its weight "
+          f"changed: {port_err:.3g} against the plain version (the cache consulted during "
+          f"capture: {trap_err:.3g}); the engine with both guards off, an eager G forward "
+          f"after each of two graphed calls: " + ", ".join(f"{v:.3g}" for v in stale)
+          + f" against its CPU copy (bound {SLICE_TOL})", flush=True)
+    assert port_err <= FP32_TOL < trap_err, (port_err, trap_err)
+    assert stale[1] > SLICE_TOL, stale
+    A.release_multi_step()
+    del A
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # step_flops and rates: bench at S = 4 and S = 1, MFU from its JSON line
+    seg = _graph_engines("segan", SEGANConfig(batch_size=300, no_bias=True), SEED, 1)[0]
+    t0 = time.perf_counter()
+    flops = seg.step_flops()
+    flops_s = time.perf_counter() - t0
+    del seg
+    print(f"graph: step_flops() of SEGAN+ at batch 300: {flops} ({flops / 300 / 1e9:.3f} "
+          f"GFLOP a slice), counted in {flops_s:.2f} s", flush=True)
+    rates = {}
+    runs = [(300, "bfloat16", 4), (300, "bfloat16", 1), (300, "float32", 1),
+            (300, "float32", 4)] + [(16, dt, s) for dt in ("bfloat16", "float32")
+                                   for s in (1, 4, 4, 1)]
+    for B, dtype, s in runs:
+        n = 2 if s > 1 else 8
+        if B == 16:
+            n *= 5
+        res = bench.main(["--batch_size", str(B), "--compute_dtype", dtype,
+                          "--steps_per_call", str(s), "--steps", str(n), "--warmup", "1"])
+        rates.setdefault((B, dtype, s), []).append(res)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for B, dtype, s in sorted(rates):
+        vals = [r["value"] for r in rates[(B, dtype, s)]]
+        mfus = [r.get("mfu") for r in rates[(B, dtype, s)]]
+        print(f"graph: bench B={B} {dtype} steps_per_call {s}: {vals} slices/s, mfu "
+              f"{mfus} ({smi})", flush=True)
+        assert all(m is not None and m > 0 for m in mfus), mfus
+    # 10d: the loop with --steps_per_call 4 against single steps, and --profile
+    _graph_loops(work)
+    print(f"graph: phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return replay_launches
+
+
+def _graph_loops(work: Path):
+    """10d: `train.main` at batch 64 on 9 x 20 s synthetic pairs (342 slices: six batches,
+    the last of 22) for two epochs, with --steps_per_call 4 and with 1: the same iterations
+    logged at the same batches, the same checkpoint names; then --profile at batch 32 for
+    one epoch of 11 batches: the trace, the two [profile] lines, the MFU in the log."""
+    from segan_pytorch_tpu_torch import train as train_cli
+
+    dirs = _write_corpus(work / "corpus", 9, 20.0, SEED + 179)
+    base = ["--clean_trainset", dirs[0], "--noisy_trainset", dirs[1], "--cache_dir",
+            str(work / "cache"), "--no_bias", "--save_freq", "1", "--no_train_gen",
+            "--seed", str(SEED), "--device", "cuda"]
+    out = {}
+    for name, extra in (("s1", ["--epoch", "2", "--batch_size", "64"]),
+                        ("s4", ["--epoch", "2", "--batch_size", "64", "--steps_per_call",
+                                "4"]),
+                        ("profile", ["--epoch", "1", "--batch_size", "32", "--profile"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            seg = train_cli.main(["--save_path", str(work / name)] + base + extra)
+        out[name] = (buf.getvalue(), seg.step, time.perf_counter() - t0)
+        del seg
+    logged = {k: [tuple(int(v) for v in m[:4]) for m in LOG_RE.findall(out[k][0])]
+              for k in out}
+    want4 = [(4, 4, 6, 1), (5, 5, 6, 1), (6, 6, 6, 1), (10, 4, 6, 2), (11, 5, 6, 2),
+             (12, 6, 6, 2)]
+    assert logged["s4"] == want4 and set(want4) <= set(logged["s1"]), logged
+    assert out["s1"][1] == out["s4"][1] == 12, (out["s1"][1], out["s4"][1])
+    for index in ("EOE_G-checkpoints", "EOE_D-checkpoints"):
+        a, b = ((work / k / index).read_text() for k in ("s1", "s4"))
+        assert json.loads(a) == json.loads(b), (a, b)
+    text = out["profile"][0]
+    traces = list((work / "profile" / "profile").glob("trace_*.json"))
+    mfus = [float(v) for v in re.findall(r", mfu: ([\d.]+)%", text)]
+    print(f"graph: train.main --steps_per_call 4 logged iterations {[m[0] for m in logged['s4']]}"
+          f" (single steps: {[m[0] for m in logged['s1']]}), checkpoint indices equal; "
+          f"{out['s4'][2]:.1f} s against {out['s1'][2]:.1f} s; --profile: "
+          f"{[line for line in text.splitlines() if line.startswith('[profile]')]}, trace "
+          f"{[p.name for p in traces]} ({sum(p.stat().st_size for p in traces)} bytes), "
+          f"mfu at batch 32 {mfus} %", flush=True)
+    assert traces and "[profile] device trace written to" in text and \
+        "[profile] memory: {'cuda:0'" in text, text[-2000:]
+    assert len(mfus) == 11 - 2 and all(m > 0 for m in mfus), mfus
+
+
 def main():
     import torch
 
@@ -2752,6 +3208,8 @@ def main():
         ckpts = _serving_checkpoints(Path(work))
         serve_launches, checked = phase_serve(Path(work), smi, ckpts)
         reload_launches = phase_reload(Path(work), smi, ckpts, checked)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        graph = phase_graph(Path(work), smi)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -2764,6 +3222,7 @@ def main():
              serve_launches_tf32=serve_launches[2],
              reload_launches=reload_launches[0], reload_launches_mma=reload_launches[1],
              reload_launches_tf32=reload_launches[2],
+             graph_launches_per_replay=graph,
              **{f"{p}wsegan_step_{k}": v for p, dt in (("", "bfloat16"), ("fp32_", "float32"))
                 for k, v in ws_times[dt].items()},
              **per_layer),

@@ -2,17 +2,22 @@
 
     python -m segan_pytorch_tpu_torch.bench [--engine segan|wsegan|aewsegan]
         [--preset full|tiny] [--batch_size 300] [--compute_dtype bfloat16] [--steps 15]
-        [--warmup 3] [--device cuda|cpu]
+        [--warmup 3] [--steps_per_call 4] [--device cuda|cpu]
 
 Runs one engine's train step (seeded random weights) on one synthetic batch staged on
 the device, as ``bench.py`` builds it: clean ~ N(0, 0.1^2), noisy = clean + N(0,
 0.02^2), every row valid, l1 weight 100. ``segan`` is SEGAN+'s three-phase step;
 ``wsegan`` the WSEGAN step with ``bench.py``'s flags (spectral norm in G and D, Adam,
 the misaligned pair; no utterance 'additive'); ``aewsegan`` the G-only step with Adam.
-Completion is forced by reading a loss on the host after the warm-up and after the
-timed steps. It prints one JSON line: {"metric": "train_slices_per_sec_per_chip",
-"value", "unit", "batch", "compute_dtype", "device", "engine"}. It runs on the CUDA card,
-and raises without one; ``--device cpu`` asks for the CPU.
+Each of ``--steps`` timed calls (and ``--warmup`` untimed ones) runs ``--steps_per_call``
+steps, by default 4 as in ``bench.py``: on the card the step's CUDA graph replayed that
+many times (``train_step_multi``), 1 the plain ``train_step``. Completion is forced by
+reading a loss on the host after the warm-up and after the timed calls. It prints one
+JSON line: {"metric": "train_slices_per_sec_per_chip", "value", "unit", "batch",
+"compute_dtype", "device", "engine"}, with "steps_per_call" when it is above 1 and
+"mfu" (the step's FLOPs, ``step_flops()``, over its time, over the card's dense bf16
+peak) when the card's peak is known. It runs on the CUDA card, and raises without one;
+``--device cpu`` asks for the CPU.
 
 It times the bare step. The training run around it, with the wav data, the log points,
 validation scoring and checkpoints, is ``python -m segan_pytorch_tpu_torch.train``
@@ -49,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default="bfloat16")
     parser.add_argument("--steps", type=int, default=15)
     parser.add_argument("--warmup", type=int, default=3)
+    parser.add_argument("--steps_per_call", type=int, default=4,
+                        help="Train steps per call (one CUDA graph of the step, replayed "
+                             "per step); 1 = one train_step per call.")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return parser
 
@@ -58,6 +66,7 @@ def main(argv=None) -> dict:
     from .models.segan import SEGAN
     from .models.wsegan import AEWSEGAN, WSEGAN
     from .utils.config import SEGANConfig
+    from .utils.profiling import mfu
 
     if args.steps < 1:
         raise ValueError("--steps must be at least 1")
@@ -74,32 +83,39 @@ def main(argv=None) -> dict:
     clean, noisy = clean.to(segan.device), noisy.to(segan.device)
     mask = torch.ones((B,), device=segan.device)
 
+    S = max(1, args.steps_per_call)
+    fetch = "loss" if args.engine == "aewsegan" else "d_real"
+    fields = [clean, noisy, mask]
     if args.engine == "wsegan":
-        amask = torch.zeros((B,), device=segan.device)  # no 'additive' utterance
+        fields.append(torch.zeros((B,), device=segan.device))  # no 'additive' utterance
+    if S > 1:
+        stacked = [f.expand((S,) + f.shape) for f in fields]
 
-        def one_step():
-            return segan.train_step(clean, noisy, mask, amask, 100.0)[0]["d_real"]
-    elif args.engine == "aewsegan":
-        def one_step():
-            return segan.train_step(clean, noisy, mask, 100.0)[0]["loss"]
+        def one_call():
+            return segan.train_step_multi(*stacked, l1_w_s=[100.0] * S)[1][fetch]
     else:
-        def one_step():
-            return segan.train_step(clean, noisy, mask, 100.0)[0]["d_real"]
+        def one_call():
+            return segan.train_step(*fields, 100.0)[0][fetch]
 
     loss = None
     for _ in range(args.warmup):
-        loss = one_step()
+        loss = one_call()
     if loss is not None:
         float(loss)
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        loss = one_step()
+        loss = one_call()
     float(loss)  # waits for the whole chain of steps
     dt = time.perf_counter() - t0
     result = {"metric": "train_slices_per_sec_per_chip",
-              "value": round(args.steps * B / dt, 2), "unit": "slices/s/chip",
+              "value": round(args.steps * S * B / dt, 2), "unit": "slices/s/chip",
               "batch": B, "compute_dtype": args.compute_dtype,
               "device": str(segan.device), "engine": args.engine}
+    if S > 1:
+        result["steps_per_call"] = S
+    step_mfu = mfu(segan.step_flops(), dt / (args.steps * S))
+    if step_mfu is not None:
+        result["mfu"] = round(step_mfu, 4)
     print(json.dumps(result), flush=True)
     return result
 

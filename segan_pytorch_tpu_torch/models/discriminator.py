@@ -34,7 +34,9 @@ class Discriminator(nn.Module):
     The phase shift (WaveGAN's trick) rolls the time axis before every block by a shift
     in [1, phase_shift], right or left. The draws are ``phase``, a (n_layers, 2) array
     of (shift, right) rows, when given; else they come from ``generator``; with
-    neither, nothing rolls, as the JAX D does not roll without its 'phase' stream."""
+    neither, nothing rolls, as the JAX D does not roll without its 'phase' stream. A
+    ``phase`` tensor on x's device is read there (a CUDA graph of the step records the
+    rolls with its buffer); any other is read on the host, where it costs no sync."""
 
     def __init__(self, ninputs: int, fmaps: Sequence[int], kwidth: int,
                  poolings: Sequence[int], pool_type: str = "none",
@@ -100,14 +102,14 @@ class Discriminator(nn.Module):
             phase = None
         elif phase is None and generator is not None:
             phase = self.sample_phase(generator)
-        if torch.is_tensor(phase):
-            phase = phase.tolist()
+        if phase is not None and not (torch.is_tensor(phase) and phase.device == x.device):
+            phase = torch.as_tensor(phase).tolist()
         int_act: Dict[str, torch.Tensor] = {}
         h = x
         for ii, blk in enumerate(self.enc_blocks):
             if phase is not None:
                 shift, right = phase[ii]
-                h = phase_shift_roll(h, shift, bool(right))
+                h = phase_shift_roll(h, shift, right)
             h = blk(h, mask=mask)
             int_act[f"h_{ii}"] = h
         if self.pool_type == "none":

@@ -54,6 +54,7 @@ from ..parallel.inference import chunk_grid, overlap_add
 from ..utils.checkpoint import Saver, load_discriminator, load_generator
 from .discriminator import Discriminator, build_discriminator, d_input
 from .generator import Generator, build_generator
+from .multistep import StepGraph, set_capturable
 
 
 def compute_dtype_of(cfg) -> torch.dtype:
@@ -150,6 +151,8 @@ class SEGAN:
         self.z_rng = torch.Generator().manual_seed(seed)
         self._infer_rng = torch.Generator().manual_seed(seed + 1)
         self.step = 0  # train steps taken (after resume(): the checkpoint's)
+        self._multi: Optional[StepGraph] = None  # the step's CUDA graph, when prepared
+        self._step_flops: Optional[int] = None
         self.pool = None  # the evaluation worker pool, kept across epochs
         self.writer = None
         self._preempted = False
@@ -316,7 +319,7 @@ class SEGAN:
         self.d_opt.step()
         return d_real_loss.detach(), d_fake_loss.detach()
 
-    def _g_update(self, Genh, clean, noisy_c, mask, phase, l1_weight: float):
+    def _g_update(self, Genh, clean, noisy_c, mask, phase, l1_weight: torch.Tensor):
         """Phase 3: G's objective through the updated D, differentiated with respect to
         Genh only (D's gradients stay those of phase 2), then through G; one G step."""
         genh = Genh.detach().requires_grad_()
@@ -329,30 +332,47 @@ class SEGAN:
         self._G_compute = None  # the bf16 inference copy of G is stale now
         return g_adv.detach(), g_l1.detach()
 
-    def train_step(self, clean, noisy, mask=None, l1_weight: float = 100.0, z=None,
-                   phase=None) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
-                                        Optional[torch.Tensor]]:
-        """One three-phase step on clean and noisy (B, T, 1) with a (B,) mask (None: all
-        rows; rows with mask 0 count in no statistic and no loss).
+    # the batch fields of a step, in the order train_step and train_step_multi take them
+    batch_keys = ("clean", "noisy", "mask")
 
-        z (B, T', z_dim) and phase ((3, n_layers, 2) of (shift, right), one row per D
-        pass: real, fake, fake') come from the engine's streams when None. Returns
-        (metrics, Genh, z): metrics 'd_real', 'd_fake', 'g_adv', 'g_l1' as 0-d fp32
-        tensors on the device (reading one waits for the step), Genh (B, T, 1) fp32 and
-        the z used. Afterwards every parameter's ``.grad`` holds this step's gradient."""
-        self.init_train()
-        dev, cdt = self.device, self.compute_dtype
+    def n_d_passes(self) -> int:
+        """D passes of a step: real, fake and G's."""
+        return 3
+
+    def _inputs(self, clean, noisy, mask=None) -> Dict[str, torch.Tensor]:
+        """The batch on the device in fp32; mask None means every row."""
+        dev = self.device
         clean = torch.as_tensor(clean).to(dev, torch.float32)
         noisy = torch.as_tensor(noisy).to(dev, torch.float32)
         mask = (torch.ones(clean.shape[0], device=dev) if mask is None
                 else torch.as_tensor(mask).to(dev, torch.float32))
+        return {"clean": clean, "noisy": noisy, "mask": mask}
+
+    def _draw(self, B: int, T: int, z=None, phase=None) -> Dict[str, Optional[torch.Tensor]]:
+        """A step's draws, each the given one or the next from the engine's streams: z
+        (B, T', z_dim) on the device, and the phase shifts of D's passes (n_d_passes(),
+        n_layers, 2) on the host (None for a D without phase shift)."""
         if z is None and not self.G.no_z:
-            z = self.G.sample_z(tuple(noisy.shape), self._z_train)
-        z = torch.as_tensor(z).to(dev, torch.float32) if z is not None else None
+            z = self.G.sample_z((B, T, 1), self._z_train)
         if phase is None:
-            phase = self.D.sample_phase(self._phase_train, passes=3)
-        if phase is None:  # a D without phase shift
-            phase = [None] * 3
+            phase = self.D.sample_phase(self._phase_train, passes=self.n_d_passes())
+        return {"z": (torch.as_tensor(z).to(self.device, torch.float32)
+                      if z is not None else None),
+                "phase": torch.as_tensor(phase) if phase is not None else None}
+
+    def _l1(self, l1_weight) -> torch.Tensor:
+        """The L1 weight as a 0-d fp32 tensor on the device: the fill takes the value as
+        an argument, so no copy waits for the card (a fp32 product with it equals one
+        with the float)."""
+        return torch.full((), float(l1_weight), device=self.device)
+
+    def _body(self, x: Dict[str, torch.Tensor], l1_weight: torch.Tensor,
+              draws: Dict[str, Optional[torch.Tensor]]):
+        """The three-phase step on device tensors alone, with no host read: what a CUDA
+        graph of the step records. Returns (metrics, Genh)."""
+        cdt = self.compute_dtype
+        clean, noisy, mask, z = x["clean"], x["noisy"], x["mask"], draws["z"]
+        phase = draws["phase"] if draws["phase"] is not None else [None] * 3
         self.g_opt.zero_grad(set_to_none=True)
         self.d_opt.zero_grad(set_to_none=True)
         self.G.train()
@@ -370,9 +390,133 @@ class SEGAN:
         finally:
             self.G.eval()
             self.D.eval()
-        self.step += 1
         metrics = {"d_real": d_real, "d_fake": d_fake, "g_adv": g_adv, "g_l1": g_l1}
-        return metrics, Genh.detach().float(), z
+        return metrics, Genh.detach().float()
+
+    def train_step(self, clean, noisy, mask=None, l1_weight: float = 100.0, z=None,
+                   phase=None) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                        Optional[torch.Tensor]]:
+        """One three-phase step on clean and noisy (B, T, 1) with a (B,) mask (None: all
+        rows; rows with mask 0 count in no statistic and no loss).
+
+        z (B, T', z_dim) and phase ((3, n_layers, 2) of (shift, right), one row per D
+        pass: real, fake, fake') come from the engine's streams when None. Returns
+        (metrics, Genh, z): metrics 'd_real', 'd_fake', 'g_adv', 'g_l1' as 0-d fp32
+        tensors on the device (reading one waits for the step), Genh (B, T, 1) fp32 and
+        the z used. Afterwards every parameter's ``.grad`` holds this step's gradient."""
+        self.init_train()
+        x = self._inputs(clean, noisy, mask)
+        draws = self._draw(*x["clean"].shape[:2], z=z, phase=phase)
+        metrics, Genh = self._body(x, self._l1(l1_weight), draws)
+        self.step += 1
+        return metrics, Genh, draws["z"]
+
+    # -- several steps per call -----------------------------------------------
+    def _parameters(self):
+        return [p for m in (self.G, self.D) if m is not None for p in m.parameters()]
+
+    def _buffers(self):
+        return [b for m in (self.G, self.D) if m is not None for b in m.buffers()]
+
+    def _optimizers(self):
+        return [o for o in (self.g_opt, self.d_opt) if o is not None]
+
+    def prepare_multi_step(self, steps_per_call: int):
+        """Get ready for ``train_step_multi`` (the JAX ``prepare_multi_step``): on a CUDA
+        device the optimizers keep their step counts on the card, and the step's graph
+        (``models/multistep.py`` ``StepGraph``) is captured at the first call's second
+        sub-step; on the CPU nothing changes. ``release_multi_step`` undoes it."""
+        self.init_train()
+        if self.device.type == "cuda" and self._multi is None:
+            for opt in self._optimizers():
+                set_capturable(opt, True)
+            self._multi = StepGraph(self)
+        return self
+
+    def release_multi_step(self):
+        """Free the step's graph and its pool, and give the optimizers their host step
+        counts back."""
+        if self._multi is not None:
+            self._multi.release()
+            self._multi = None
+            for opt in self._optimizers():
+                set_capturable(opt, False)
+
+    def train_step_multi(self, *stacked, l1_w_s: Sequence[float], **draws_s):
+        """S steps in one call (the JAX ``train_step_multi``): ``stacked`` are the batch
+        fields of ``batch_keys`` with a leading (S,) axis (mask may be None), ``l1_w_s``
+        one L1 weight per sub-step, and ``draws_s`` optional stacked draws by name (z,
+        phase; WSEGAN also perm, squares), each drawn from the engine's streams where not
+        given, in the order S ``train_step`` calls draw them.
+
+        On a CUDA device each sub-step is a replay of the step's CUDA graph, with no host
+        sync; on the CPU the same body runs S times. Returns (metrics_s, metrics, Genh,
+        z): each metric of every sub-step as an (S,) tensor, the last sub-step's metrics,
+        its Genh (B, T, 1) fp32 and its z. Afterwards ``step`` is S further on and every
+        parameter's ``.grad`` holds the last sub-step's gradient."""
+        if len(stacked) != len(self.batch_keys):
+            raise TypeError(f"{type(self).__name__}.train_step_multi takes "
+                            f"{', '.join(self.batch_keys)}; got {len(stacked)} arrays")
+        self.init_train()
+        S = len(l1_w_s)
+        xs = [self._inputs(*(v[i] if v is not None else None for v in stacked))
+              for i in range(S)]
+        B, T = xs[0]["clean"].shape[:2]
+        draws = [self._draw(B, T, **{k: (v[i] if v is not None else None)
+                                     for k, v in draws_s.items()}) for i in range(S)]
+        if self.device.type == "cuda":
+            self.prepare_multi_step(S)
+            metrics_s, Genh = self._multi.run(xs, l1_w_s, draws)
+        elif self.device.type == "cpu":
+            rows = [self._body(x, self._l1(l1), d) for x, l1, d in zip(xs, l1_w_s, draws)]
+            metrics_s = {k: torch.stack([m[k] for m, _ in rows]) for k in rows[0][0]}
+            Genh = rows[-1][1]
+        else:
+            raise ValueError(f"train_step_multi runs on cuda or cpu, not {self.device}")
+        self.step += S
+        self._G_compute = None
+        return metrics_s, {k: v[-1] for k, v in metrics_s.items()}, Genh, draws[-1]["z"]
+
+    @staticmethod
+    def _stack_group(batches, extra_keys=()):
+        """Loader batches (on the device) as the stacked fields ``train_step_multi``
+        takes: clean and noisy (S, B, T, 1), mask (S, B) (all ones where a batch has
+        none), then ``extra_keys`` (WSEGAN's additive_mask)."""
+        clean = torch.stack([b["clean"][..., None] for b in batches])
+        noisy = torch.stack([b["noisy"][..., None] for b in batches])
+        mask = torch.stack([b["mask"] if b.get("mask") is not None
+                            else torch.ones(b["clean"].shape[0], device=b["clean"].device)
+                            for b in batches])
+        extras = tuple(torch.stack([torch.as_tensor(b[k]).to(b["clean"].device)
+                                    for b in batches]) for k in extra_keys)
+        return (clean, noisy, mask) + extras
+
+    def step_flops(self) -> int:
+        """The FLOPs of one train step of this engine at its batch (``cfg.batch_size``):
+        every convolution, transposed convolution and matmul, forward and backward, the
+        hand-written kernel's included, as ``torch.utils.flop_counter`` counts them on
+        the plain route. It runs the step's body on a copy of the engine made of fake CPU
+        tensors (``FakeTensorMode``: shapes, no data, no optimizer step), so it is the
+        same on every device, depends on no data and leaves the engine untouched: no
+        parameter, buffer, optimizer state or stream moves. Computed once and cached.
+        The counterpart of the JAX ``step_flops``, which reads XLA's cost analysis and
+        also counts the elementwise work."""
+        if self._step_flops is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            from ..utils.profiling import count_flops
+
+            self.init_train()
+            mode = FakeTensorMode()
+            fake = _fake_engine(self, mode)
+            B, T = int(self.cfg.batch_size), int(self.cfg.slice_size)
+            with mode:
+                x = fake._inputs(*(torch.zeros((B, T, 1) if k in ("clean", "noisy")
+                                               else (B,)) for k in self.batch_keys))
+                draws = fake._draw(B, T)
+                self._step_flops = count_flops(
+                    lambda: fake._body(x, fake._l1(1.0), draws))
+        return self._step_flops
 
     # -- the training run -----------------------------------------------------
     def _install_preempt_handler(self):
@@ -396,9 +540,20 @@ class SEGAN:
     def train(self, cfg, dloader, l1_init: float = 100.0, l1_dec_step: float = 1e-5,
               l1_dec_epoch: int = 100, log_freq: int = 50, va_dloader=None):
         """The SEGAN training loop of one process, with the JAX loop's bookkeeping:
-        iterations, the L1 schedule, log points, checkpoint names and early stop."""
+        iterations, the L1 schedule, log points, checkpoint names and early stop.
+
+        ``cfg.steps_per_call`` S > 1 runs S steps per call (``train_step_multi``: on the
+        card one CUDA graph of the step, replayed S times, freed when the loop ends).
+        Groups never span an epoch: the ragged tail runs single steps, so the EOE
+        evaluation and checkpoints fall at the same steps; the L1 weight decays per
+        sub-step as with single steps. ``cfg.profile`` waits for every step (its times
+        are then the device's), traces batches 2-7 of the first epoch with
+        ``torch.profiler`` into ``save_path/profile``, prints the device memory and,
+        from batch 3, ends each log line with the step's MFU when the card's peak is
+        known (``utils/profiling.py``); it forces S to 1, as in JAX."""
         from ..data.loader import device_prefetch
         from ..utils.logging import StepTimer, TrainLogger
+        from ..utils.profiling import device_memory_stats, device_trace, mfu
 
         unported = unported_options(cfg)
         if unported:
@@ -424,6 +579,18 @@ class SEGAN:
         if past > 0:
             l1_weight = max(0.0, l1_init - l1_dec_step * past)
         timer = StepTimer()
+        profiling = bool(getattr(cfg, "profile", False))
+        trace_ctx = None  # the device trace over batches 2-7 of the first epoch
+        step_mfu = None
+
+        def end_trace():
+            nonlocal trace_ctx
+            trace_ctx.__exit__(None, None, None)
+            trace_ctx = None
+            print(f"[profile] device trace written to "
+                  f"{os.path.join(cfg.save_path, 'profile')}")
+            print(f"[profile] memory: {device_memory_stats()}")
+
         evals = {}
         noisy_evals = {}
         noisy_samples = None
@@ -433,36 +600,70 @@ class SEGAN:
         best_val_obj = 0
         self._seed_step_streams(self.seed + start_step)
         restore_sig = self._install_preempt_handler()
+        S = max(1, int(getattr(cfg, "steps_per_call", 1)))
+        if S > 1 and profiling:
+            print("[!] --profile needs per-step dispatch; steps_per_call -> 1")
+            S = 1
+        if S > 1:
+            self.prepare_multi_step(S)
         for epoch in range(start_epoch, cfg.epoch + 1):
             timer.start()
             stream = device_prefetch(iter(dloader), self.device)
             bidx = 0
             while bidx < num_batches:
                 prev_bidx = bidx
-                if epoch >= l1_dec_epoch and l1_weight > 0:
-                    l1_weight = max(0.0, l1_weight - l1_dec_step)
-                batch = next(stream)
+                n_sub = S if num_batches - bidx >= S else 1
+                if n_sub > 1:
+                    batches = [next(stream) for _ in range(n_sub)]
+                    l1_w_s = []
+                    for _ in range(n_sub):
+                        if epoch >= l1_dec_epoch and l1_weight > 0:
+                            l1_weight = max(0.0, l1_weight - l1_dec_step)
+                        l1_w_s.append(l1_weight)
+                    _, metrics, Genh, z = self.train_step_multi(
+                        *self._stack_group(batches), l1_w_s=l1_w_s)
+                    batch = batches[-1]  # the last sub-batch: samples and histograms
+                else:
+                    if epoch >= l1_dec_epoch and l1_weight > 0:
+                        l1_weight = max(0.0, l1_weight - l1_dec_step)
+                    batch = next(stream)
+                    metrics, Genh, z = self.train_step(batch["clean"][..., None],
+                                                       batch["noisy"][..., None],
+                                                       batch.get("mask"), l1_weight)
                 clean = batch["clean"][..., None]  # (B, T, 1), on the device
                 noisy = batch["noisy"][..., None]
-                metrics, Genh, z = self.train_step(clean, noisy, batch.get("mask"),
-                                                   l1_weight)
-                bidx += 1
+                bidx += n_sub
+                iteration += n_sub - 1  # and one more at the bottom of the loop
                 if noisy_samples is None:  # from the host copy: no device sync
                     noisy_samples = batch["host"]["noisy"][:20, :, None].copy()
                     clean_samples = batch["host"]["clean"][:20, :, None].copy()
                     if z is not None:
                         z_sample = z[:20].clone()
+                if profiling:
+                    float(metrics["d_real"])  # the step's time is the device's
                 timer.stop()
+                if profiling and epoch == start_epoch:
+                    # batches 1-2 build cuDNN's plans and the allocator's pools: trace
+                    # 3-7, then report the MFU of one step and the device memory
+                    if bidx == 2:
+                        trace_ctx = device_trace(os.path.join(cfg.save_path, "profile"))
+                        trace_ctx.__enter__()
+                    elif bidx == 7 and trace_ctx is not None:
+                        end_trace()
+                    if bidx >= 3 and step_mfu is None:
+                        step_mfu = mfu(self.step_flops(), timer.last)
                 timer.start()
                 if bidx // log_freq != prev_bidx // log_freq or bidx >= num_batches:
                     # the losses are read on the host here only: a sync point
                     m = {k: float(v) for k, v in metrics.items()}
+                    mfu_str = (f", mfu: {100 * step_mfu:.1f}%" if step_mfu is not None
+                               else "")
                     print(
                         f"(Iter {iteration}) Batch {bidx}/{num_batches} (Epoch {epoch})"
                         f" d_real:{m['d_real']:.4f}, d_fake:{m['d_fake']:.4f},"
                         f" g_adv:{m['g_adv']:.4f}, g_l1:{m['g_l1']:.4f}"
                         f" l1_w: {l1_weight:.2f}, btime: {timer.last:.4f} s,"
-                        f" mbtime: {timer.mean:.4f} s", flush=True)
+                        f" mbtime: {timer.mean:.4f} s{mfu_str}", flush=True)
                     self.writer.scalar("D_real", m["d_real"], iteration)
                     self.writer.scalar("D_fake", m["d_fake"], iteration)
                     self.writer.scalar("G_adv", m["g_adv"], iteration)
@@ -478,6 +679,8 @@ class SEGAN:
                 iteration += 1
                 if self._preempted:
                     break
+            if trace_ctx is not None:  # a first epoch of fewer than 7 batches
+                end_trace()
 
             if self._preempted:
                 print(f"[!] preempted at iteration {iteration - 1}: saving "
@@ -520,6 +723,7 @@ class SEGAN:
                     or epoch == cfg.epoch:
                 self.save(eoe_g_saver, eoe_d_saver, iteration)
         restore_sig()
+        self.release_multi_step()
         for sv in (eoe_g_saver, eoe_d_saver, best_saver_g, best_saver_d):
             sv.flush()  # every checkpoint byte on disk before train() returns
         self.close_pool()
@@ -539,6 +743,7 @@ class SEGAN:
         optimizers' state and the step count. Returns the step (0 with nothing there)."""
         save_path = save_path or self.cfg.save_path
         self.init_train()
+        self.release_multi_step()  # the optimizers' state is replaced, not copied into
         loaded = Saver(save_path, max_ckpts=3, prefix="EOE_G-").load_weights()
         if loaded is None:
             print("[!] Nothing to resume from")
@@ -659,6 +864,44 @@ class SEGAN:
         return evals
 
 
+class _NoStep:
+    """An optimizer that takes no step: the fake copy of an engine counts the FLOPs of
+    the convolutions and matmuls alone, of which an optimizer step has none."""
+
+    def zero_grad(self, set_to_none: bool = True):
+        pass
+
+    def step(self):
+        pass
+
+
+def _fake_module(module: torch.nn.Module, mode) -> torch.nn.Module:
+    """A copy of `module` whose parameters and buffers are fake CPU tensors of `mode`:
+    the same shapes, no data, nothing copied from the card."""
+    memo = {}
+    with mode:
+        for t in list(module.parameters()) + list(module.buffers()):
+            fake = torch.empty(t.shape, dtype=t.dtype, device="cpu")
+            memo[id(t)] = (torch.nn.Parameter(fake, t.requires_grad)
+                           if isinstance(t, torch.nn.Parameter) else fake)
+    return copy.deepcopy(module, memo)
+
+
+def _fake_engine(engine: "SEGAN", mode) -> "SEGAN":
+    """A shallow copy of `engine` on fake CPU tensors of `mode` for counting a step's
+    FLOPs (the kernel's wrapper takes its plain version there, which the counter sees):
+    optimizers that take no step, streams of draws of its own, no graph, no pool."""
+    fake = copy.copy(engine)
+    fake.device = torch.device("cpu")
+    fake._z_train, fake._phase_train = torch.Generator(), torch.Generator()
+    fake.G = _fake_module(engine.G, mode)
+    fake.D = _fake_module(engine.D, mode) if engine.D is not None else None
+    fake.g_opt = _NoStep()
+    fake.d_opt = _NoStep() if engine.d_opt is not None else None
+    fake._G_compute = fake._multi = fake.pool = fake.writer = None
+    return fake
+
+
 def unported_options(cfg) -> List[str]:
     """The options of ``cfg`` set to something the port does not run yet, as CLI flags;
     the trainer raises on any of them rather than ignore it."""
@@ -666,8 +909,6 @@ def unported_options(cfg) -> List[str]:
         ("--h5", cfg.h5),
         ("--noises_dir", getattr(cfg, "noises_dir", None)),
         ("--shuffle_buffer", getattr(cfg, "shuffle_buffer", 0)),
-        ("--steps_per_call", getattr(cfg, "steps_per_call", 1) > 1),
-        ("--profile", getattr(cfg, "profile", False)),
         ("--loader_dtype", getattr(cfg, "loader_dtype", None)),
         ("--dp", (cfg.dp or 1) > 1),
         ("--mp", (getattr(cfg, "mp", 1) or 1) > 1),

@@ -139,7 +139,7 @@ class WSEGAN(SEGAN):
         self.d_opt.step()
         return d_loss.detach(), {k: v.detach() for k, v in losses.items()}
 
-    def _g_update(self, Genh, clean, noisy_c, mask, phase, l1_weight: float,
+    def _g_update(self, Genh, clean, noisy_c, mask, phase, l1_weight: torch.Tensor,
                   amask=None):
         """G's objective through the updated D: the adversarial cost, pow_weight x the
         masked mean |P(Genh) - P(clean)| of the dB power spectra, and l1_weight x the
@@ -152,11 +152,10 @@ class WSEGAN(SEGAN):
         clean_pow = power_spectrum_db(clean[..., 0], self.n_fft)
         genh_pow = power_spectrum_db(genh32[..., 0], self.n_fft)
         pow_loss = self.pow_weight * masked_mean((genh_pow - clean_pow).abs(), mask)
-        if l1_weight > 0:
-            am = amask.view(-1, 1, 1)
-            den_loss = l1_weight * masked_mean((genh32 * am - clean * am).abs(), mask)
-        else:
-            den_loss = torch.zeros((), device=genh.device)
+        am = amask.view(-1, 1, 1)
+        den_loss = l1_weight * masked_mean((genh32 * am - clean * am).abs(), mask)
+        # 0 unless the weight is positive, decided on the device as in JAX
+        den_loss = torch.where(l1_weight > 0, den_loss, torch.zeros_like(den_loss))
         g_cost = g_adv + pow_loss + den_loss
         (d_genh,) = torch.autograd.grad(g_cost, genh)
         Genh.backward(d_genh)
@@ -169,6 +168,59 @@ class WSEGAN(SEGAN):
     def n_d_passes(self) -> int:
         """D passes of a step: real, fake, [misaligned], [interfered], and G's."""
         return 3 + int(self.misalign_pair) + int(self.interf_pair)
+
+    batch_keys = ("clean", "noisy", "mask", "additive_mask")
+
+    def _inputs(self, clean, noisy, mask=None, additive_mask=None):
+        """SEGAN's, and the additive mask (None: no row) on the device in fp32."""
+        x = super()._inputs(clean, noisy, mask)
+        x["additive_mask"] = (
+            torch.zeros(x["clean"].shape[0], device=self.device) if additive_mask is None
+            else torch.as_tensor(additive_mask).to(self.device, torch.float32))
+        return x
+
+    def _draw(self, B: int, T: int, z=None, phase=None, perm=None, squares=None):
+        """A step's draws, each the given one or the next from the engine's streams: z
+        (on the device), the phase shifts of every D pass, then the misalignment
+        permutation (B,) and the square waves (B, T, 1), each on the host and only with
+        its pair."""
+        draws = super()._draw(B, T, z=z, phase=phase)
+        if perm is None and self.misalign_pair:
+            perm = torch.randperm(B, generator=self._phase_train)
+        if squares is None and self.interf_pair:
+            squares = square_wave_batch(B, T, self._phase_train)
+        draws["perm"] = (torch.as_tensor(perm, dtype=torch.long)
+                         if perm is not None else None)
+        draws["squares"] = (torch.as_tensor(squares, dtype=torch.float32)
+                            if squares is not None else None)
+        return draws
+
+    def _body(self, x, l1_weight, draws):
+        """The WSEGAN step on device tensors alone (the host's perm and squares of an
+        eager step are copied over first). Returns (metrics, Genh)."""
+        cdt = self.compute_dtype
+        clean, noisy, mask, z = x["clean"], x["noisy"], x["mask"], draws["z"]
+        phase = draws["phase"]
+        if phase is None:  # a D without phase shift
+            phase = [None] * self.n_d_passes()
+        perm, squares = (draws[k].to(clean.device) if draws[k] is not None else None
+                         for k in ("perm", "squares"))
+        self.g_opt.zero_grad(set_to_none=True)
+        self.d_opt.zero_grad(set_to_none=True)
+        self.G.train()
+        self.D.train()
+        try:
+            with conv_ops.full_precision(cdt):
+                noisy_c = noisy.to(cdt)
+                Genh = self._g_forward(noisy_c, z.to(cdt) if z is not None else None)
+                d_loss, d_losses = self._d_update(clean.to(cdt), noisy_c, Genh.detach(),
+                                                  mask, phase[:-1], perm, squares)
+                g_metrics = self._g_update(Genh, clean, noisy_c, mask, phase[-1],
+                                           l1_weight, x["additive_mask"])
+        finally:
+            self.G.eval()
+            self.D.eval()
+        return {"d_loss": d_loss, **g_metrics, **d_losses}, Genh.detach().float()
 
     def train_step(self, clean, noisy, mask=None, additive_mask=None,
                    l1_weight: float = 100.0, z=None, phase=None, perm=None, squares=None
@@ -183,47 +235,12 @@ class WSEGAN(SEGAN):
         their pairs, 'd_fake_shuf' and 'd_fake_inter', as 0-d fp32 tensors on the device;
         Genh (B, T, 1) fp32."""
         self.init_train()
-        dev, cdt = self.device, self.compute_dtype
-        clean = torch.as_tensor(clean).to(dev, torch.float32)
-        noisy = torch.as_tensor(noisy).to(dev, torch.float32)
-        B = clean.shape[0]
-        mask = (torch.ones(B, device=dev) if mask is None
-                else torch.as_tensor(mask).to(dev, torch.float32))
-        amask = (torch.zeros(B, device=dev) if additive_mask is None
-                 else torch.as_tensor(additive_mask).to(dev, torch.float32))
-        if z is None and not self.G.no_z:
-            z = self.G.sample_z(tuple(noisy.shape), self._z_train)
-        z = torch.as_tensor(z).to(dev, torch.float32) if z is not None else None
-        if phase is None:
-            phase = self.D.sample_phase(self._phase_train, passes=self.n_d_passes())
-        if phase is None:  # a D without phase shift
-            phase = [None] * self.n_d_passes()
-        if perm is None and self.misalign_pair:
-            perm = torch.randperm(B, generator=self._phase_train)
-        if perm is not None:
-            perm = torch.as_tensor(np.asarray(perm), dtype=torch.long).to(dev)
-        if squares is None and self.interf_pair:
-            squares = square_wave_batch(B, clean.shape[1], self._phase_train)
-        if squares is not None:
-            squares = torch.as_tensor(squares).to(dev, torch.float32)
-        self.g_opt.zero_grad(set_to_none=True)
-        self.d_opt.zero_grad(set_to_none=True)
-        self.G.train()
-        self.D.train()
-        try:
-            with conv_ops.full_precision(cdt):
-                noisy_c = noisy.to(cdt)
-                Genh = self._g_forward(noisy_c, z.to(cdt) if z is not None else None)
-                d_loss, d_losses = self._d_update(clean.to(cdt), noisy_c, Genh.detach(),
-                                                  mask, phase[:-1], perm, squares)
-                g_metrics = self._g_update(Genh, clean, noisy_c, mask, phase[-1],
-                                           l1_weight, amask)
-        finally:
-            self.G.eval()
-            self.D.eval()
+        x = self._inputs(clean, noisy, mask, additive_mask)
+        draws = self._draw(*x["clean"].shape[:2], z=z, phase=phase, perm=perm,
+                           squares=squares)
+        metrics, Genh = self._body(x, self._l1(l1_weight), draws)
         self.step += 1
-        metrics = {"d_loss": d_loss, **g_metrics, **d_losses}
-        return metrics, Genh.detach().float(), z
+        return metrics, Genh, draws["z"]
 
     # -- the training run -----------------------------------------------------
     def _batches(self, dloader, with_additive: bool):
@@ -248,10 +265,14 @@ class WSEGAN(SEGAN):
 
     def _run_loop(self, cfg, dloader, step_fn, log_fn, savers, va_dloader=None):
         """The iteration-driven loop of both engines: ``cfg.epoch`` x batches iterations,
-        less the steps already taken (a resumed run runs only the rest); ``step_fn(batch)``
-        -> (metrics, Genh, z) per iteration; ``log_fn(iteration, total, num_batches,
-        metrics, Genh, batch, timer)`` at every ``log_freq``-th; EOE saves at epoch ends
-        (every ``eoe_save_every``-th and the last); SIGTERM saves and stops."""
+        less the steps already taken (a resumed run runs only the rest); ``step_fn(
+        batches)`` -> (metrics, Genh, z) of one step per batch given, one call;
+        ``log_fn(iteration, total, num_batches, metrics, Genh, batch, timer)`` at every
+        ``log_freq``-th; EOE saves at epoch ends (every ``eoe_save_every``-th and the
+        last); SIGTERM saves and stops. With ``cfg.steps_per_call`` S > 1 each call takes
+        S batches (``train_step_multi``), but never across an epoch's end nor past the
+        last iteration: those run single steps; the log and samples take the last batch
+        of a group. ``--profile`` is not read here, as in JAX."""
         from ..utils.logging import StepTimer
 
         num_batches = len(dloader)
@@ -262,13 +283,19 @@ class WSEGAN(SEGAN):
         samples = None
         timer = StepTimer()
         restore_sig = self._install_preempt_handler()
+        S = max(1, int(getattr(cfg, "steps_per_call", 1)))
+        if S > 1:
+            self.prepare_multi_step(S)
         timer.start()
         try:
             while iteration < total_iters:
                 prev = iteration
-                batch = next(stream)
-                metrics, Genh, z = step_fn(batch)
-                iteration += 1
+                to_epoch_end = num_batches - iteration % num_batches
+                n_sub = S if min(total_iters - iteration, to_epoch_end) >= S else 1
+                batches = [next(stream) for _ in range(n_sub)]
+                metrics, Genh, z = step_fn(batches)
+                batch = batches[-1]
+                iteration += n_sub
                 timer.stop()
                 timer.start()
                 if samples is None:  # from the host copy: no device sync
@@ -297,6 +324,7 @@ class WSEGAN(SEGAN):
                     break
         finally:
             restore_sig()
+            self.release_multi_step()
         for sv in savers:
             if sv is not None:
                 sv.flush()
@@ -318,9 +346,14 @@ class WSEGAN(SEGAN):
         savers = (Saver(cfg.save_path, max_ckpts=3, prefix="EOE_G-", async_write=True),
                   Saver(cfg.save_path, max_ckpts=3, prefix="EOE_D-", async_write=True))
 
-        def step(batch):
-            return self.train_step(batch["clean"][..., None], batch["noisy"][..., None],
-                                   batch.get("mask"), batch["additive_mask"], l1_init)
+        def step(batches):
+            if len(batches) > 1:
+                return self.train_step_multi(
+                    *self._stack_group(batches, ("additive_mask",)),
+                    l1_w_s=[l1_init] * len(batches))[1:]
+            b = batches[0]
+            return self.train_step(b["clean"][..., None], b["noisy"][..., None],
+                                   b.get("mask"), b["additive_mask"], l1_init)
 
         def log(iteration, total, num_batches, metrics, Genh, batch, timer, _va):
             m = {k: float(v) for k, v in metrics.items()}  # waits for the step
@@ -425,19 +458,20 @@ class AEWSEGAN(WSEGAN):
     def get_n_params(self) -> int:
         return sum(p.numel() for p in self.G.parameters())
 
-    def train_step(self, clean, noisy, mask=None, l1_weight: float = 100.0, z=None):
-        """One G step on the masked mean |Genh - clean| (or its square). Returns
-        ({'loss'}, Genh (B, T, 1) fp32, z); l1_weight is taken for the signature's sake
-        (the JAX step's) and unused."""
-        self.init_train()
-        dev, cdt = self.device, self.compute_dtype
-        clean = torch.as_tensor(clean).to(dev, torch.float32)
-        noisy = torch.as_tensor(noisy).to(dev, torch.float32)
-        mask = (torch.ones(clean.shape[0], device=dev) if mask is None
-                else torch.as_tensor(mask).to(dev, torch.float32))
+    batch_keys = SEGAN.batch_keys
+    _inputs = SEGAN._inputs
+
+    def _draw(self, B: int, T: int, z=None):
+        """The step's one draw: z (on the device), the given one or the engine's next."""
         if z is None and not self.G.no_z:
-            z = self.G.sample_z(tuple(noisy.shape), self._z_train)
-        z = torch.as_tensor(z).to(dev, torch.float32) if z is not None else None
+            z = self.G.sample_z((B, T, 1), self._z_train)
+        return {"z": torch.as_tensor(z).to(self.device, torch.float32)
+                if z is not None else None}
+
+    def _body(self, x, l1_weight, draws):
+        """The G step on device tensors alone. Returns ({'loss'}, Genh)."""
+        cdt = self.compute_dtype
+        clean, noisy, mask, z = x["clean"], x["noisy"], x["mask"], draws["z"]
         self.g_opt.zero_grad(set_to_none=True)
         self.G.train()
         try:
@@ -450,8 +484,18 @@ class AEWSEGAN(WSEGAN):
         finally:
             self.G.eval()
         self._G_compute = None
+        return {"loss": loss.detach()}, Genh.detach().float()
+
+    def train_step(self, clean, noisy, mask=None, l1_weight: float = 100.0, z=None):
+        """One G step on the masked mean |Genh - clean| (or its square). Returns
+        ({'loss'}, Genh (B, T, 1) fp32, z); l1_weight is taken for the signature's sake
+        (the JAX step's) and unused."""
+        self.init_train()
+        x = self._inputs(clean, noisy, mask)
+        draws = self._draw(*x["clean"].shape[:2], z=z)
+        metrics, Genh = self._body(x, self._l1(l1_weight), draws)
         self.step += 1
-        return {"loss": loss.detach()}, Genh.detach().float(), z
+        return metrics, Genh, draws["z"]
 
     def evaluate_sd(self, cfg, dloader, max_samples: int = 1) -> float:
         """Spectral distortion in dB, the mean |P(Genh) - P(clean)| of the dB power
@@ -488,9 +532,13 @@ class AEWSEGAN(WSEGAN):
                            async_write=True)
         best = [np.inf]
 
-        def step(batch):
-            return self.train_step(batch["clean"][..., None], batch["noisy"][..., None],
-                                   batch.get("mask"), l1_init)
+        def step(batches):
+            if len(batches) > 1:
+                return self.train_step_multi(*self._stack_group(batches),
+                                             l1_w_s=[l1_init] * len(batches))[1:]
+            b = batches[0]
+            return self.train_step(b["clean"][..., None], b["noisy"][..., None],
+                                   b.get("mask"), l1_init)
 
         def log(iteration, total, num_batches, metrics, Genh, batch, timer, va):
             loss = float(metrics["loss"])  # waits for the step

@@ -6,15 +6,17 @@ Three pieces, as for every kernel of the port:
 - ``conv1d_prelu_plain``: the same function in plain PyTorch. CPU tensors take it, and
   the tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
-  a CUDA tensor it launches the hand-written kernel (``csrc/conv1d_prelu.cu``) or
-  raises. ``launches`` counts the kernel launches, ``launches_mma`` those of them that
-  took the tensor-core route (both dtypes), ``launches_tf32`` those of them in fp32.
+  a CUDA tensor it launches the hand-written kernel (``csrc/conv1d_prelu.cu``) or raises.
+  ``launches`` counts the wrapper's calls that launch the kernel, ``launches_mma`` those
+  of them that took the tensor-core route (both dtypes), ``launches_tf32`` those of them
+  in fp32. A call under CUDA graph capture records the launch into the graph and counts
+  once; the graph's replays run the kernel again and move no counter.
 - Two routes on the card, chosen by shape (``_route``), never as a fallback: stride 4,
   K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) runs on the tensor
   cores (``mma.sync``: bf16 as it is, fp32 by a 3xTF32 split), with the weights padded
   to 32 taps (``_pad_taps``) and in fp32 split into their TF32 parts (``_split_tf32``),
-  once per weight and version (``_padded_weights``); every other shape runs the FMA
-  kernel.
+  once per weight and version (``_padded_weights``; never while a CUDA graph is being
+  captured, which records the pad instead); every other shape runs the FMA kernel.
 - ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
   JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
 
@@ -88,14 +90,23 @@ def _padded_weights(w: torch.Tensor):
     a model's forward pads no weight on every call (at a batch of one chunk the host time
     of the pad is as long as the kernel). A change in place is seen by w's version
     counter, which an optimizer step or ``load_state_dict`` bumps and which autograd
-    also relies on; writes through ``w.data`` bypass it, as they bypass autograd."""
-    if torch.is_inference(w):  # inference tensors keep no version counter
+    also relies on; writes through ``w.data`` bypass it, as they bypass autograd, and so
+    do a CUDA graph's replays, after which the graph's owner bumps the versions of what it
+    wrote (``models/multistep.py``). While a stream is capturing, the pad (and split) is
+    recorded into the graph and the cache is neither read nor written: an entry taken
+    then would feed every replay the weights of capture time."""
+    # inference tensors keep no version counter
+    if torch.is_inference(w) or _capturing():
         return _mma_weights(w)
     with _lock:
         hit = _padded.get(w)
         if hit is None or hit[0] != w._version:
             hit = _padded[w] = (w._version, _mma_weights(w))
     return hit[1]
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def _route(dtype: torch.dtype, cout: int, k: int, stride: int, t_out: int) -> str:

@@ -22,12 +22,14 @@ spectral distortion. The shipped WSEGAN script's flags:
         --dnorm_type snorm --opt adam --data_stride 0.05 --misalign_pair
 
 It runs on the CUDA card,
-and raises without one; ``--device cpu`` (or ``--no-cuda``) asks for the CPU. Options
-the port does not run yet (H5 data, noise augmentation, the streaming
-shuffle, several steps per call, profiling, a cast in the loader, more than one device
-or process, random scaling, pre-emphasis before normalisation) raise
-``NotImplementedError`` when set; the TPU lowering knobs are recorded in ``train.opts``
-and have no effect.
+and raises without one; ``--device cpu`` (or ``--no-cuda``) asks for the CPU.
+``--steps_per_call S`` runs S steps per call, on the card as S replays of one CUDA graph
+of the step (``models/multistep.py``); ``--profile`` traces a few steps of the first
+epoch into ``save_path/profile`` and logs the step's MFU (SEGAN+ only, as in JAX).
+Options the port does not run yet (H5 data, noise augmentation, the streaming shuffle,
+a cast in the loader, more than one device or process, random scaling, pre-emphasis
+before normalisation) raise ``NotImplementedError`` when set; the TPU lowering knobs are
+recorded in ``train.opts`` and have no effect.
 """
 import argparse
 import random
@@ -130,12 +132,14 @@ def build_parser():
                         choices=['dilated', 'blocked', 'edge-blocked', 'phased'],
                         help='TPU knob, recorded in train.opts; no effect in the port.')
     parser.add_argument('--profile', action='store_true', default=False,
-                        help='Not ported yet.')
+                        help='Capture a device trace into save_path/profile and log '
+                             'per-step MFU + device memory stats.')
     parser.add_argument('--eval_max_samples', type=int, default=1,
                         help='Validation batches scored per epoch '
                              '(1 = reference parity, 0 = full valset sweep).')
     parser.add_argument('--steps_per_call', type=int, default=1,
-                        help='Train steps per call (Def: 1; more is not ported yet).')
+                        help='Train steps per dispatched program (one CUDA graph of the '
+                             'step, replayed once per step). All engines; single-process.')
     parser.add_argument('--io_threads', type=int, default=0,
                         help='Native wav-gather thread-pool size '
                              '(0 = hardware concurrency).')

@@ -97,6 +97,18 @@ def _to_cpu(tree):
     return tree
 
 
+def _optimizer_payload(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's state_dict on the CPU, with ``capturable`` off in every group: it
+    says how a CUDA graph of the step runs (``models/multistep.py``), not what the state
+    is, so the payload loads into an eager engine on any device as one written by eager
+    steps does (the step counts are then host tensors, as eager steps keep them)."""
+    payload = _to_cpu(optimizer.state_dict())
+    for group in payload["param_groups"]:
+        if "capturable" in group:
+            group["capturable"] = False
+    return payload
+
+
 def _save_model(model: torch.nn.Module, path: str, step: int) -> None:
     """``torch.save({'step', 'state_dict'})`` of ``_cpu_state``."""
     torch.save({"step": int(step), "state_dict": _cpu_state(model)}, path)
@@ -300,7 +312,7 @@ class Saver:
         payload = {"step": int(step if trained_steps is None else trained_steps),
                    "state_dict": _cpu_state(model)}
         if optimizer is not None:
-            payload["optimizer"] = _to_cpu(optimizer.state_dict())
+            payload["optimizer"] = _optimizer_payload(optimizer)
         name = f"{self.prefix}{'best_' if best_val else ''}{model_name}-{step}.ckpt"
         if not self.async_write:
             return self._write(name, payload)

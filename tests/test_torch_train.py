@@ -9,6 +9,7 @@ rule, mixed precision, the bench entry point and the tensor-core route's weight 
 across optimizer steps.
 """
 import copy
+import importlib
 import json
 import os
 import subprocess
@@ -26,6 +27,7 @@ from segan_pytorch_tpu.utils.checkpoint import flatten_tree, unflatten_tree
 from segan_pytorch_tpu.utils.config import SEGANConfig as JaxConfig
 from segan_pytorch_tpu_torch.models.discriminator import build_discriminator, d_input
 from segan_pytorch_tpu_torch.models.generator import build_generator
+from segan_pytorch_tpu_torch.models.multistep import set_capturable
 from segan_pytorch_tpu_torch.models.segan import SEGAN, build_optimizer, masked_mse
 from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
 from segan_pytorch_tpu_torch.utils.checkpoint import (discriminator_state_from_jax,
@@ -246,16 +248,25 @@ def test_bf16_step_keeps_fp32_masters_and_refreshes_the_inference_copy(jax_run):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("foreach", [False, True])
-@pytest.mark.parametrize("opt", ["rmsprop", "adam"])
-def test_weight_cache_is_fresh_after_an_optimizer_step(opt, foreach, dtype):
+@pytest.mark.parametrize("opt", ["rmsprop", "adam", "rmsprop+capturable", "adam+capturable"])
+def test_weight_cache_is_fresh_after_an_optimizer_step(opt, foreach, dtype, monkeypatch):
     """The tensor-core route pads (and in fp32 splits) each weight once per version
     (``_padded_weights``); the port's optimizer steps update weights in place, so each
-    must bump the version and the next call must see a fresh entry, never a stale one."""
+    must bump the version and the next call must see a fresh entry, never a stale one.
+    Also the capturable steps that a CUDA graph of the train step records
+    (``models/multistep.py`` ``set_capturable``), run here on the CPU."""
+    opt, _, capturable = opt.partition("+")
+    if capturable:  # torch allows them on accelerators only; the math is the same
+        for mod in (importlib.import_module("torch.optim.rmsprop"),
+                    importlib.import_module("torch.optim.adam")):
+            monkeypatch.setattr(mod, "_get_capturable_supported_devices",
+                                lambda supports_xla=True: ["cuda", "cpu"])
     g = torch.Generator().manual_seed(0)
     w = torch.nn.Parameter((torch.randn(16, 8, 31, generator=g) * 0.1).to(dtype))
     o = build_optimizer(opt, 1e-2, [w])
     for group in o.param_groups:
         group["foreach"] = foreach
+    set_capturable(o, bool(capturable))
     as_list = lambda v: list(v) if isinstance(v, tuple) else [v]
     for _ in range(2):
         before = [t.clone() for t in as_list(K._padded_weights(w))]
