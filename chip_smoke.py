@@ -175,6 +175,23 @@ and when the port's package is not beside it):
      `--steps_per_call 4` (iterations 4-6 and 10-12 logged, checkpoint indices equal to
      the single-step run's) and `--profile` at batch 32 (the trace, the two [profile]
      lines, the MFU in the log).
+  11. train.main's data options on the card, every check fatal, the kernel's counters set
+     to 0 before each run and read after: (a) SEGAN+ at batch 300, one epoch of 912
+     slices with --random_scale 0.5 1 2 --preemph_norm --shuffle_buffer 256
+     --loader_dtype bfloat16 --compute_dtype bfloat16: every device batch bf16 (2 bytes
+     a sample) and equal to its host batch bit for bit, n // 300 = 3 steps, finite
+     losses, the training samples written from the bf16 host rows, 5 launches per step
+     and G forward; (b) where h5py is installed, the port's tools/make_h5.py writes
+     train.h5 and valid.h5 and a --h5 run of one epoch with validation follows, else a
+     line says that h5py is absent; (c) WSEGAN with its script's flags at batch 150 on
+     12 of the files at stride 0.5 (four steps) with --noises_dir (three noise wavs of
+     2 s) and --snr_levels 0 5 10: every row's additive mask 1, den_loss nonzero, 25
+     launches a step. (a') runs (a) again with --steps_per_call 3 and with single steps,
+     both under cudnn.deterministic: one graphed call takes the three bf16 batches, and
+     the state and losses equal the single steps' (<= 1e-6). Prints slices/s and the
+     data wait per step of (a) and (c) beside phase 6's warm loop, the host's build of a
+     batch of each over 12 batches drawn with no card work, and a line saying that
+     resuming a JAX run directory is held by the CPU tests alone.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
@@ -182,8 +199,9 @@ wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launc
 phase 9's, its times the bf16 encoder sum at 64
 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
-its weight pad from 7b, and under graph_launches_per_replay the launches a replay of each
-phase-10 case's graphed step makes;
+its weight pad from 7b, under graph_launches_per_replay the launches a replay of each
+phase-10 case's graphed step makes, and data_options_launches (_segan, _h5, _wsegan) those
+of phase 11's runs;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -1285,8 +1303,6 @@ def phase_train_run(work: Path, rates):
     the kernel's launches over the two runs."""
     import torch
     from segan_pytorch_tpu_torch import clean as clean_cli
-    from segan_pytorch_tpu_torch import train as train_cli
-    from segan_pytorch_tpu_torch.data import loader as loader_mod
     from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
     from segan_pytorch_tpu_torch.models.generator import build_generator
     from segan_pytorch_tpu_torch.models.segan import SEGAN
@@ -1321,66 +1337,14 @@ def phase_train_run(work: Path, rates):
             "--batch_size", "300", "--no_bias", "--save_freq", "1", "--seed", str(SEED),
             "--g_lr", "5e-7", "--device", "cuda"]
 
-    # what the loop spends its time on, read by wrapping the engine's methods
-    marks = {}
-    infer, evaluate, save_ckpt, prefetch = (SEGAN.infer_G, SEGAN.evaluate, SEGAN.save,
-                                            loader_mod.device_prefetch)
-
-    def counted_infer(self, *a, **k):
-        marks["forwards"] += 1
-        return infer(self, *a, **k)
-
-    def timed_evaluate(self, *a, **k):
-        marks["loop_end"] = marks.get("loop_end") or time.perf_counter()
-        start = time.perf_counter()
-        try:
-            return evaluate(self, *a, **k)
-        finally:
-            marks["eval"] += time.perf_counter() - start
-
-    def timed_save(self, *a, **k):
-        start = time.perf_counter()
-        try:
-            return save_ckpt(self, *a, **k)
-        finally:
-            marks["save"] += time.perf_counter() - start
-
-    def timed_prefetch(iterator, device, size=2):
-        stream = prefetch(iterator, device, size)
-        while True:
-            start = time.perf_counter()
-            marks["loop_start"] = marks.get("loop_start") or start
-            batch = next(stream, None)
-            if batch is None:
-                return
-            marks["wait"].append(time.perf_counter() - start)
-            yield batch
-
     runs = []
-    SEGAN.infer_G, SEGAN.evaluate, SEGAN.save = counted_infer, timed_evaluate, timed_save
-    loader_mod.device_prefetch = timed_prefetch
-    try:
-        K.launches = K.launches_mma = K.launches_tf32 = 0
-        for extra in (["--epoch", "1", "--g_pretrained_ckpt", str(work / "g_start.ckpt")],
-                      ["--epoch", "2", "--resume"]):
-            marks.clear()
-            marks.update(forwards=0, eval=0.0, save=0.0, wait=[])
-            out = io.StringIO()
-            start = time.perf_counter()
-            try:
-                with contextlib.redirect_stdout(out):
-                    seg = train_cli.main(argv + extra)
-            finally:  # the run's own lines, without its train.opts dump
-                print("\n".join(line for line in out.getvalue().splitlines()
-                                if line.startswith(RUN_LINES)), flush=True)
-            torch.cuda.synchronize()
-            runs.append(dict(marks, wall=time.perf_counter() - start, out=out.getvalue(),
-                             step=seg.step))
-        launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
-    finally:
-        SEGAN.infer_G, SEGAN.evaluate, SEGAN.save = infer, evaluate, save_ckpt
-        loader_mod.device_prefetch = prefetch
-    del seg
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    for extra in (["--epoch", "1", "--g_pretrained_ckpt", str(work / "g_start.ckpt")],
+                  ["--epoch", "2", "--resume"]):
+        run = _timed_run(argv + extra)
+        del run["steps"], run["dloader"]
+        runs.append(run)
+    launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
 
     # the loop: resumed at step 3, iterations on from 4, finite losses
     assert "[*] Resumed from step 3" in runs[1]["out"], runs[1]["out"][-2000:]
@@ -1476,14 +1440,14 @@ def phase_train_run(work: Path, rates):
           f"validation wavs enhanced")
 
     for i, run in enumerate(runs, 1):
-        loop = run["loop_end"] - run["loop_start"]
         print(f"train run {i}: {run['wall']:.2f} s in main(), of which the batch loop "
-              f"{loop:.3f} s (3 steps of 300, a log point each: losses read, weight norms, "
-              f"20 sample wavs), evaluate {run['eval']:.3f} s, checkpoint saves "
+              f"{run['loop']:.3f} s (3 steps of 300, a log point each: losses read, weight "
+              f"norms, 20 sample wavs), evaluate {run['eval']:.3f} s, checkpoint saves "
               f"{run['save']:.3f} s on the calling thread; data wait per step "
               + ", ".join(f"{1e3 * w:.2f}" for w in run["wait"]) + " ms; last losses "
               + ", ".join(f"{v:.4f}" for v in run["losses"]), flush=True)
-    loop = runs[1]["loop_end"] - runs[1]["loop_start"]
+    loop = runs[1]["loop"]
+    rates["run slices/s"], rates["run wait ms"] = 900 / loop, 1e3 * np.mean(runs[1]["wait"])
     print(f"training loop (run 2, warm): {900 / loop:.2f} slices/s over its 3 steps; the "
           f"bare fp32 step (5c) {rates['float32']:.2f}, the bench entry "
           f"{rates['bench float32']:.2f} slices/s", flush=True)
@@ -3177,6 +3141,332 @@ def _graph_loops(work: Path):
     assert len(mfus) == 11 - 2 and all(m > 0 for m in mfus), mfus
 
 
+# ---- phase 11: the data options on the card --------------------------------------------
+DATA_OPTS = ["--random_scale", "0.5", "1", "2", "--preemph_norm", "--shuffle_buffer", "256",
+             "--loader_dtype", "bfloat16", "--compute_dtype", "bfloat16"]
+
+
+def _write_noises(root: Path, n_files: int, seconds: float, seed: int) -> str:
+    """int16 16 kHz noise wavs, longer than a slice: white, a 50 Hz hum with hiss, and
+    white noise under a 3 Hz envelope. Returns the directory."""
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True)
+    n = int(seconds * SR)
+    t = np.arange(n) / SR
+    kinds = [0.2 * rng.randn(n), 0.3 * np.sin(2 * np.pi * 50 * t) + 0.05 * rng.randn(n),
+             0.3 * rng.randn(n) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))]
+    for i in range(n_files):
+        wavfile.write(str(root / f"noise{i}.wav"), SR,
+                      np.clip(kinds[i % 3] * 32767, -32768, 32767).astype(np.int16))
+    return str(root)
+
+
+def _timed_run(argv, check_batch=None, engine=None, echo=()):
+    """`train.main(argv)` on the card, timed by wrapping the engine's methods (phases 6
+    and 11): the data wait per step (the time in the prefetch stream's next()), the batch
+    loop's seconds (the first batch asked for to the first evaluate or checkpoint save,
+    after a sync), the seconds in evaluate and in the saves, G forwards (infer_G), each
+    train_step's arguments and the training loader that train() was given;
+    `check_batch(batch)` sees every device batch. Prints the run's own lines (RUN_LINES
+    and `echo`), without its train.opts dump. Returns a dict."""
+    import torch
+    from segan_pytorch_tpu_torch import train as train_cli
+    from segan_pytorch_tpu_torch.data import loader as loader_mod
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+
+    cls = engine or SEGAN
+    marks = dict(wait=[], forwards=0, steps=[], eval=0.0, save=0.0)
+    prefetch = loader_mod.device_prefetch
+    wrapped = {(SEGAN, "infer_G"), (SEGAN, "evaluate"), (SEGAN, "save"),
+               (cls, "train_step"), (cls, "train")}
+    saved = {(c, name): c.__dict__.get(name) for c, name in wrapped}
+    infer, evaluate, save, step, train = (getattr(c, name) for c, name in (
+        (SEGAN, "infer_G"), (SEGAN, "evaluate"), (SEGAN, "save"), (cls, "train_step"),
+        (cls, "train")))
+
+    def timed_prefetch(iterator, device, size=2):
+        stream = prefetch(iterator, device, size)
+        while True:
+            start = time.perf_counter()
+            marks.setdefault("loop_start", start)
+            batch = next(stream, None)
+            if batch is None:
+                return
+            marks["wait"].append(time.perf_counter() - start)
+            if check_batch is not None:
+                check_batch(batch)
+            yield batch
+
+    def counted_infer(self, *a, **k):
+        marks["forwards"] += 1
+        return infer(self, *a, **k)
+
+    def timed(fn, key):
+        def run(self, *a, **k):
+            if "loop_end" not in marks:
+                torch.cuda.synchronize()
+                marks["loop_end"] = time.perf_counter()
+            start = time.perf_counter()
+            try:
+                return fn(self, *a, **k)
+            finally:
+                marks[key] += time.perf_counter() - start
+        return run
+
+    def recorded_step(self, *a, **k):
+        marks["steps"].append(a)
+        return step(self, *a, **k)
+
+    def recorded_train(self, cfg, dloader, *a, **k):
+        marks["dloader"] = dloader
+        return train(self, cfg, dloader, *a, **k)
+
+    out = io.StringIO()
+    loader_mod.device_prefetch = timed_prefetch
+    SEGAN.infer_G, SEGAN.evaluate, SEGAN.save = (counted_infer, timed(evaluate, "eval"),
+                                                 timed(save, "save"))
+    cls.train_step, cls.train = recorded_step, recorded_train
+    start = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            seg = train_cli.main(argv)
+    finally:
+        loader_mod.device_prefetch = prefetch
+        for (c, name), fn in saved.items():
+            if fn is None:
+                delattr(c, name)
+            else:
+                setattr(c, name, fn)
+        print("\n".join(line for line in out.getvalue().splitlines()
+                        if line.startswith(RUN_LINES + tuple(echo))), flush=True)
+    torch.cuda.synchronize()
+    marks.update(wall=time.perf_counter() - start, out=out.getvalue(), step=seg.step,
+                 loop=marks["loop_end"] - marks["loop_start"])
+    del seg
+    return marks
+
+
+def _host_build(dloader, epochs, additive=False):
+    """The host's cost of each batch, as the loop's next() pays it with no card work
+    beside it: `epochs` epochs of `dloader` drawn back to back, each batch timed from
+    the loader's next() to its device fields made contiguous and pinned (as
+    `device_prefetch` does; with `additive`, WSEGAN's additive mask from the names first).
+    Returns (seconds, rows that are not padding) of each batch."""
+    from segan_pytorch_tpu_torch.data.loader import DEVICE_KEYS, _host_tensor
+    from segan_pytorch_tpu_torch.models.wsegan import additive_mask
+
+    times = []
+    for _ in range(epochs):
+        it = iter(dloader)
+        while True:
+            start = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                break
+            if additive:
+                batch["additive_mask"] = additive_mask(batch["uttname"])
+            for k in DEVICE_KEYS:
+                if k in batch:
+                    _host_tensor(batch[k]).pin_memory()
+            times.append((time.perf_counter() - start, int(batch["mask"].sum())))
+    return times
+
+
+def _h5_run(work: Path, train_dirs, base):
+    """11b: the port's tools/make_h5.py writes train.h5 and valid.h5, then `train.main
+    --h5` for one epoch with validation. Returns the kernel's launches in the run."""
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools import make_h5
+
+    valid_dirs = _write_corpus(work / "h5_valid", 2, 4.0, SEED + 213)
+    h5 = work / "h5"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for split, dirs in (("train", train_dirs), ("valid", valid_dirs)):
+            make_h5.main(["--clean_dir", dirs[0], "--noisy_dir", dirs[1], "--out_dir",
+                          str(h5), "--split", split])
+    made = time.perf_counter() - t0
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    run = _timed_run(base + ["--save_path", str(work / "h5_ck"), "--h5", "--h5_data_root",
+                             str(h5), "--clean_valset", valid_dirs[0], "--noisy_valset",
+                             valid_dirs[1], "--epoch", "1", "--save_freq", "50"])
+    launches = K.launches
+    logged = LOG_RE.findall(run["out"])
+    assert logged and np.isfinite([[float(v) for v in m[4:]] for m in logged]).all(), logged
+    assert "Time to process eval with 12 samples" in run["out"], run["out"][-2000:]
+    assert launches == 5 * (run["step"] + run["forwards"]), (launches, run["step"])
+    print(f"data options: --h5 ran {run['step']} steps and a validation pass on train.h5 / "
+          f"valid.h5 (written in {made:.2f} s); {launches} launches", flush=True)
+    return launches
+
+
+def _graph_on_cast_batches(work: Path, base):
+    """11a': (a)'s options with --steps_per_call 3 against single steps, both under
+    cudnn.deterministic: the epoch's three bf16 batches go through one graphed call
+    (the eager warm-up, the capture and a replay), each up-cast exactly on the card
+    before the graph's fp32 static buffers take it. The same parameters, buffers and
+    optimizer state as the single-step run, and the same logged losses."""
+    import torch
+    from segan_pytorch_tpu_torch import train as train_cli
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+
+    multi = SEGAN.train_step_multi
+    calls = []
+
+    def recorded(self, *stacked, **k):
+        calls.append((stacked[0].dtype, len(k["l1_w_s"])))
+        return multi(self, *stacked, **k)
+
+    states, losses = {}, {}
+    torch.backends.cudnn.deterministic = True
+    SEGAN.train_step_multi = recorded
+    try:
+        for S in (1, 3):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                seg = train_cli.main(base + DATA_OPTS + [
+                    "--save_path", str(work / f"graph_s{S}"), "--cache_dir",
+                    str(work / "cache"), "--epoch", "1", "--save_freq", "1",
+                    "--steps_per_call", str(S)])
+            assert seg.step == 3, seg.step
+            states[S] = _engine_state(seg)
+            losses[S] = LOG_RE.findall(out.getvalue())[-1][4:]
+            del seg
+    finally:
+        torch.backends.cudnn.deterministic = False
+        SEGAN.train_step_multi = multi
+    assert calls == [(torch.bfloat16, 3)], calls
+    errs = {k: float((states[3][k].double() - v.double()).abs().max())
+            / max(float(v.double().abs().max()), 1e-30) for k, v in states[1].items()}
+    equal = sum(torch.equal(states[3][k], v) for k, v in states[1].items())
+    worst_k = max(errs, key=errs.get)
+    print(f"data options (a'): --steps_per_call 3 on (a)'s bf16 batches (one graphed call "
+          f"of 3 sub-steps) against 3 single steps, cudnn.deterministic: {equal} of "
+          f"{len(errs)} state tensors equal bit for bit, worst {worst_k} {errs[worst_k]:.3g} "
+          f"(bound {GRAPH_TOL}); last logged losses {', '.join(losses[3])} against "
+          f"{', '.join(losses[1])}", flush=True)
+    assert losses[3] == losses[1] and errs[worst_k] <= GRAPH_TOL, (losses, worst_k,
+                                                                   errs[worst_k])
+
+
+def phase_data_options(work: Path, rates) -> dict:
+    """11: train.main's data options on the card at full width. (a) SEGAN+ at batch 300
+    with DATA_OPTS (random scaling, pre-emphasis before normalisation, a streaming
+    shuffle of 256, bf16 batches into a bf16 step) for one epoch of 912 slices: every
+    device batch bf16 and equal to the host batch's bytes, n // 300 steps, finite losses,
+    the sample rows written, 5 launches per step and G forward; (a') the same with
+    --steps_per_call 3 against single steps; (b) the H5 run, where h5py is installed;
+    (c) WSEGAN with the script's flags at batch 150 on 12 of the files
+    (456 slices at stride 0.5: four steps, the last ragged) with --noises_dir and
+    --snr_levels 0 5 10: every row additive, the additive L1 term nonzero, 25 launches a
+    step. Prints slices/s and data wait per step beside phase 6's, and the host's cost of
+    a batch of (a) and of (c) over 12 batches drawn with no card work beside them.
+    Returns the launches by run."""
+    import importlib.util
+    import torch
+    from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
+    from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    t_phase = time.perf_counter()
+    train_dirs = _write_corpus(work / "train", 24, 20.0, SEED + 211)
+    noises = _write_noises(work / "noises", 3, 2.0, SEED + 212)
+    base = ["--clean_trainset", train_dirs[0], "--noisy_trainset", train_dirs[1],
+            "--no_bias", "--batch_size", "300", "--seed", str(SEED), "--device", "cuda"]
+    checked = []
+
+    def bf16_batch(batch):
+        for k in ("clean", "noisy"):
+            dev, host = batch[k], batch["host"][k]
+            assert dev.is_cuda and dev.dtype == torch.bfloat16 and dev.element_size() == 2
+            assert torch.equal(dev.cpu().view(torch.int16), host.view(torch.int16)), k
+        assert batch["mask"].dtype == torch.float32 and bool((batch["mask"] == 1).all())
+        checked.append(tuple(batch["clean"].shape))
+
+    # (a) every option of the loader and the dataset at once
+    save = work / "opts"
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    a = _timed_run(base + DATA_OPTS + ["--save_path", str(save), "--cache_dir",
+                                       str(work / "cache"), "--epoch", "1", "--save_freq",
+                                       "1"], bf16_batch)
+    launches_a = K.launches
+    n = len(json.loads((work / "cache" / "train_idx2slice.json").read_text()))
+    steps = n // 300
+    logged = LOG_RE.findall(a["out"])
+    assert a["step"] == steps == 3 and checked == [(300, 16384)] * steps, (n, a["step"],
+                                                                            checked)
+    assert [(int(m[1]), int(m[2])) for m in logged] == [(i, steps) for i in (1, 2, 3)], logged
+    assert np.isfinite([[float(v) for v in m[4:]] for m in logged]).all(), logged
+    assert "[data] train: batches gathered in Python" in a["out"], a["out"][-2000:]
+    assert all(st[0].dtype == torch.bfloat16 for st in a["steps"]), a["steps"][0][0].dtype
+    assert launches_a == 5 * (a["step"] + a["forwards"]), (launches_a, a["forwards"])
+    for m in range(20):  # the training samples, from the bf16 host rows made fp32
+        _, y = read_wav_raw(str(save / f"sample_1-{m}.wav"))
+        assert y.shape == (16384,) and np.isfinite(y).all(), m
+    print(f"data options (a): {' '.join(DATA_OPTS)} at batch 300: {a['step']} steps of "
+          f"{n} slices (n // 300, the tail of {n % 300} dropped), every device batch bf16 "
+          f"(2 bytes a sample) and equal to its host batch; fused_conv1d_prelu launches "
+          f"{launches_a} for {a['step']} steps and {a['forwards']} G forwards", flush=True)
+    host_a = _host_build(a.pop("dloader"), 4)
+    _graph_on_cast_batches(work, base)
+
+    # (b) the H5 dataset, where h5py is there
+    if importlib.util.find_spec("h5py") is None:
+        launches_b = 0
+        print("data options (b): h5py is not installed on this machine, so the --h5 run "
+              "does not take place here; the CPU tests hold SEH5Dataset and "
+              "tools/make_h5.py against the JAX package", flush=True)
+    else:
+        launches_b = _h5_run(work, train_dirs, base + ["--cache_dir", str(work / "hcache")])
+
+    # (c) augmentation under WSEGAN: noisy made from clean with noise on the host
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    c = _timed_run(["--clean_trainset", train_dirs[0], "--noisy_trainset", train_dirs[1],
+                    "--seed", str(SEED), "--device", "cuda", "--save_path",
+                    str(work / "aug"), "--cache_dir", str(work / "acache"), "--epoch", "1",
+                    "--save_freq", "1", "--max_samples", "12"] + WSEGAN_ARGS
+                   + ["--data_stride", "0.5", "--noises_dir", noises, "--snr_levels", "0",
+                      "5", "10"], engine=WSEGAN)
+    launches_c = K.launches
+    logged = WS_LOG_RE.findall(c["out"])
+    assert c["step"] == 4 and [int(m[0]) for m in logged] == [1, 2, 3, 4], (c["step"], logged)
+    losses = np.array([[float(v) for v in m[3:]] for m in logged])
+    assert np.isfinite(losses).all() and (losses[:, 3] > 0).all(), losses
+    assert all(bool((st[3] == 1).all()) for st in c["steps"]), [st[3] for st in c["steps"]]
+    assert "[augment] additive noise from" in c["out"], c["out"][-2000:]
+    assert launches_c == WS_PER_STEP * c["step"], launches_c
+    print(f"data options (c): WSEGAN with --noises_dir (3 noise files, SNR 0 5 10 dB) at "
+          f"batch 150: {c['step']} steps, every row additive, den_loss "
+          + ", ".join(f"{v:.4f}" for v in losses[:, 3]) + f"; fused_conv1d_prelu launches "
+          f"{launches_c}", flush=True)
+    host_c = _host_build(c.pop("dloader"), 3, additive=True)
+
+    for label, run, host, b, k in (("(a) SEGAN+ bf16, the options above", a, host_a, 300, 3),
+                                   ("(c) WSEGAN fp32 + augmentation", c, host_c, 150, 4)):
+        full = [t for t, rows in host if rows == b]
+        per_slice = sum(t for t, _ in host) / sum(rows for _, rows in host)
+        print(f"data options {label}: {b * k / run['loop']:.2f} slices/s over its {k} "
+              f"steps (batch loop {run['loop']:.3f} s); data wait per step "
+              + ", ".join(f"{1e3 * w:.2f}" for w in run["wait"])
+              + f" ms (mean {1e3 * np.mean(run['wait']):.2f}: the first next() builds two "
+              f"batches, the last builds none; a window this short is indicative only); "
+              f"the host's build of a batch, {len(host)} drawn back to back with no card "
+              f"work: " + ", ".join(f"{1e3 * t:.2f}" for t, _ in host) + f" ms (full "
+              f"batches of {b}: mean {1e3 * np.mean(full):.2f}, min {1e3 * min(full):.2f}, "
+              f"max {1e3 * max(full):.2f}; {1e3 * per_slice:.3f} ms a slice)", flush=True)
+    print(f"data options beside phase 6 (SEGAN+ fp32, native gather, warm run): "
+          f"{rates['run slices/s']:.2f} slices/s, data wait {rates['run wait ms']:.2f} ms "
+          f"per step", flush=True)
+    print("data options: resuming a JAX run directory (--resume on the JAX trainer's npz "
+          "checkpoints) is held by the CPU tests alone (tests/test_torch_resume_jax.py): "
+          "JAX does not run on this machine", flush=True)
+    print(f"data options: phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(total=launches_a + launches_b + launches_c, segan=launches_a, h5=launches_b,
+                wsegan=launches_c)
+
+
 def main():
     import torch
 
@@ -3210,6 +3500,8 @@ def main():
         reload_launches = phase_reload(Path(work), smi, ckpts, checked)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         graph = phase_graph(Path(work), smi)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        data_opts = phase_data_options(Path(work), train_rates)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -3223,6 +3515,10 @@ def main():
              reload_launches=reload_launches[0], reload_launches_mma=reload_launches[1],
              reload_launches_tf32=reload_launches[2],
              graph_launches_per_replay=graph,
+             data_options_launches=data_opts["total"],
+             data_options_launches_segan=data_opts["segan"],
+             data_options_launches_h5=data_opts["h5"],
+             data_options_launches_wsegan=data_opts["wsegan"],
              **{f"{p}wsegan_step_{k}": v for p, dt in (("", "bfloat16"), ("fp32_", "float32"))
                 for k, v in ws_times[dt].items()},
              **per_layer),

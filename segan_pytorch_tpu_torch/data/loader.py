@@ -5,8 +5,12 @@ The loader gives every batch the same shape: the final ragged batch is padded by
 repeating its last row and carries a ``mask`` with 0 on those rows, which the masked
 BatchNorm and losses leave out. The shuffle is a ``random.Random(seed)`` over the slice
 indices, so a seed gives the JAX loader's batches bit for bit. With ``num_workers`` > 1
-worker threads build batches ahead and they are emitted in order. Left for later: the
-sharded multi-host loading, the streaming shuffle buffer and the cast at collate time.
+worker threads build batches ahead and they are emitted in order.
+
+``shuffle_buffer`` > 0 walks the slices through a bounded shuffle buffer instead
+(``--shuffle_buffer``) and drops the ragged tail; ``emit_dtype`` (``--loader_dtype``)
+casts clean and noisy at collate time, with torch, so that a bfloat16 batch crosses to
+the card at 2 bytes a sample. Left for later: the sharded multi-host loading.
 """
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import collections
 import queue
 import random as _random
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
@@ -24,10 +28,38 @@ from .se_dataset import collate_batch
 DEVICE_KEYS = ("clean", "noisy", "mask", "additive_mask")
 
 
+def loader_dtype(name: str) -> torch.dtype:
+    """The floating torch dtype that ``--loader_dtype`` names ('bfloat16', 'float16',
+    'float32', ...); any other name raises, as ``np.dtype`` does in the JAX loader."""
+    dtype = getattr(torch, name, None) if isinstance(name, str) else None
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise TypeError(f"--loader_dtype {name!r} is not a floating torch dtype")
+    return dtype
+
+
+def host_float32(v) -> np.ndarray:
+    """A host batch's clean or noisy as a float32 numpy array, whatever dtype the loader
+    emitted it in (a torch tensor after an ``emit_dtype`` cast; the up-cast is exact)."""
+    if torch.is_tensor(v):
+        return v.float().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _host_tensor(v) -> torch.Tensor:
+    """A batch field as a contiguous CPU tensor: a cast field (already a tensor) in its
+    own dtype, a numpy one in fp32."""
+    if torch.is_tensor(v):
+        return v.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32))
+
+
 def device_prefetch(iterator, device, size: int = 2):
     """Yield each batch with clean, noisy, mask and WSEGAN's additive_mask (those it has)
-    as fp32 tensors on `device`, copied `size` - 1 batches ahead of use; the rest of the
-    batch (names, slice indices) and the host batch, under 'host', pass through.
+    as tensors on `device`, copied `size` - 1 batches ahead of use; the rest of the
+    batch (names, slice indices) and the host batch, under 'host', pass through. Clean
+    and noisy keep the dtype the loader emitted them in (bfloat16 under
+    ``--loader_dtype bfloat16``: 2 bytes a sample cross to the card, and the step
+    casts on the device); numpy fields go as fp32.
 
     On a CUDA device the host arrays are put in pinned memory and copied with
     non_blocking=True, so the host enqueues the next batch's copy behind the running
@@ -38,8 +70,7 @@ def device_prefetch(iterator, device, size: int = 2):
     cuda = device.type == "cuda"
 
     def to_device(batch):
-        pinned = {k: torch.from_numpy(np.ascontiguousarray(batch[k], np.float32))
-                  for k in DEVICE_KEYS if k in batch}
+        pinned = {k: _host_tensor(batch[k]) for k in DEVICE_KEYS if k in batch}
         if cuda:
             pinned = {k: v.pin_memory() for k, v in pinned.items()}
         out = {k: v for k, v in batch.items() if k not in DEVICE_KEYS}
@@ -69,15 +100,36 @@ class DataLoader:
         num_workers: int = 1,
         seed: int = 0,
         prefetch: int = 4,
+        shuffle_buffer: int = 0,
+        shuffle_buffer_mode: str = "sharded",
+        emit_dtype: Optional[str] = None,
     ):
+        """shuffle_buffer > 0: a streaming shuffle through a bounded buffer of that many
+        slices in place of the shuffled index list, the JAX loader's at one shard: each
+        epoch draws a new ``random.Random`` from the loader's, the buffer fills in index
+        order and each batch row is a random pick from it (FIFO without ``shuffle``),
+        the ragged tail is dropped and every mask is all ones. Its modes 'sharded' and
+        'global' differ only across processes, so with one they walk the same indices.
+
+        emit_dtype: cast clean and noisy to this torch dtype (``loader_dtype``) at
+        collate time; they are then CPU tensors, not numpy arrays (numpy has no
+        bfloat16), and the mask stays fp32."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.rng = _random.Random(seed)
         self.prefetch = prefetch
+        self.shuffle_buffer = int(shuffle_buffer)
+        if shuffle_buffer_mode not in ("sharded", "global"):
+            raise ValueError(f"shuffle_buffer_mode must be 'sharded' or "
+                             f"'global', got {shuffle_buffer_mode!r}")
+        self.shuffle_buffer_mode = shuffle_buffer_mode
+        self.emit_dtype = loader_dtype(emit_dtype) if emit_dtype else None
 
     def __len__(self):
+        if self.shuffle_buffer > 0:
+            return len(self.dataset) // self.batch_size
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
@@ -100,6 +152,15 @@ class DataLoader:
         mask = np.zeros((self.batch_size,), np.float32)
         mask[:n_valid] = 1.0
         batch["mask"] = mask
+        return self._cast(batch)
+
+    def _cast(self, batch: dict) -> dict:
+        """clean and noisy in ``emit_dtype`` (round to nearest even), as CPU tensors."""
+        if self.emit_dtype is not None:
+            for k in ("clean", "noisy"):
+                if k in batch:
+                    batch[k] = torch.from_numpy(
+                        np.ascontiguousarray(batch[k], np.float32)).to(self.emit_dtype)
         return batch
 
     def _gather(self, indices):
@@ -111,7 +172,45 @@ class DataLoader:
             return batch
         return collate_batch([self.dataset[i] for i in indices])
 
+    def _buffered_indices(self):
+        """The rows of each batch of the streaming shuffle (the JAX loader's walk at one
+        shard): a new stream each epoch, swap-pop picks from a buffer of
+        ``shuffle_buffer`` slices, or FIFO without ``shuffle``; ``len(self)`` batches."""
+        rnd = _random.Random(self.rng.random())  # a new stream each epoch
+        n_batches = len(self)
+        buf: list = []
+        out: list = []
+        emitted = 0
+
+        def pop_random():
+            j = rnd.randrange(len(buf))
+            buf[j], buf[-1] = buf[-1], buf[j]
+            return buf.pop()
+
+        for i in range(len(self.dataset)):
+            buf.append(i)
+            if len(buf) >= max(self.shuffle_buffer, 1):
+                out.append(pop_random() if self.shuffle else buf.pop(0))
+                if len(out) == self.batch_size:
+                    yield out
+                    out = []
+                    emitted += 1
+                    if emitted == n_batches:
+                        return
+        while buf and emitted < n_batches:
+            out.append(pop_random() if self.shuffle else buf.pop(0))
+            if len(out) == self.batch_size:
+                yield out
+                out = []
+                emitted += 1
+
     def __iter__(self) -> Iterator[dict]:
+        if self.shuffle_buffer > 0:
+            for rows in self._buffered_indices():
+                batch = self._gather(rows)
+                batch["mask"] = np.ones((self.batch_size,), np.float32)
+                yield self._cast(batch)
+            return
         batches = list(self._batch_indices())
         if self.num_workers <= 1:
             for b in batches:

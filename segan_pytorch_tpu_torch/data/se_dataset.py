@@ -1,12 +1,15 @@
-"""The paired clean/noisy slice dataset: ``collate_batch`` and ``SEDataset`` of
-``segan_pytorch_tpu/data/se_dataset.py``, copied so that the same corpus and cache give
-the same slices (``tests/test_torch_data.py`` holds every batch against the JAX one).
+"""The paired clean/noisy slice datasets: ``collate_batch``, ``SEDataset`` and
+``SEH5Dataset`` of ``segan_pytorch_tpu/data/se_dataset.py``, copied so that the same
+corpus, cache and draws give the same slices (``tests/test_torch_data.py`` and
+``tests/test_torch_data_options.py`` hold every batch against the JAX one).
 
 ``SEDataset`` slices every pair of wavs at a fractional stride and keeps the slice index
 in ``{cache_dir}/{split}_idx2slice.json``; an index that is there is read, not rebuilt.
 A batch is gathered by the C++ engine (``data/native.py``) when it can be, else item by
-item in Python: both give the same bytes. Left for later: the H5 dataset, the random-chunk
-datasets and the on-the-fly noise augmentation (``--noises_dir``).
+item in Python: both give the same bytes. With a ``transform`` (``data/augment.py``
+``Additive``, ``--noises_dir``) the noisy slice is made anew from the clean one at every
+read. ``SEH5Dataset`` reads the pre-cut slices of ``{split}.h5`` (``tools/make_h5.py``
+writes them). Left for later: the random-chunk datasets.
 """
 from __future__ import annotations
 
@@ -67,8 +70,22 @@ class SEDataset:
         slice_workers: int = 2,
         preemph_norm: bool = False,
         random_scale: Sequence[float] = (1,),
+        transform=None,
         io_threads: int = 0,
     ):
+        """transform: an augmenter called as transform(clean slice) -> noisy slice on
+        the normalized clean signal, before pre-emphasis (``data/augment.py``
+        ``Additive``); with one the noisy slice is made from the clean one at every read
+        and both are pre-emphasized after, and the item's name gets an '_additive'
+        suffix, which switches on WSEGAN's additive L1 term (upstream's
+        model.py:657-665). It cannot go with preemph_norm, which pre-emphasizes before
+        normalizing."""
+        if transform is not None and preemph_norm:
+            raise ValueError(
+                "transform (additive augmentation) operates on the normalized "
+                "pre-pre-emphasis signal; preemph_norm inverts that order and is "
+                "not supported together")
+        self.transform = transform
         self.clean_names = sorted(glob.glob(os.path.join(clean_dir, "*.wav")))
         self.noisy_names = sorted(glob.glob(os.path.join(noisy_dir, "*.wav")))
         if verbose:
@@ -139,15 +156,26 @@ class SEDataset:
         else:
             wav = np.asarray(normalize_wave_minmax(wav))
             wav = pre_emphasize_np(wav, self.preemph)
-        wav = wav.astype(np.float32)
-        # small cache so that a file is not re-read for every slice (loader workers
-        # share this dict: tolerate concurrent evictions)
+        return self._remember(path, wav.astype(np.float32))
+
+    def read_wav_file_norm(self, path: str) -> np.ndarray:
+        """The normalized signal without pre-emphasis: what the transform works on."""
+        key = path + "#norm"
+        if key in self._wav_cache:
+            return self._wav_cache[key]
+        rate, wav = read_wav_raw(path)
+        return self._remember(
+            key, np.asarray(normalize_wave_minmax(np.asarray(wav))).astype(np.float32))
+
+    def _remember(self, key: str, wav: np.ndarray) -> np.ndarray:
+        """Keep `wav` in a small cache so that a file is not re-read for every slice
+        (loader workers share this dict: tolerate concurrent evictions)."""
         if len(self._wav_cache) > 64:
             try:
                 self._wav_cache.pop(next(iter(self._wav_cache)))
             except (KeyError, StopIteration, RuntimeError):
                 pass
-        self._wav_cache[path] = wav
+        self._wav_cache[key] = wav
         return wav
 
     def _say_path(self, how: str):
@@ -159,10 +187,10 @@ class SEDataset:
     def gather_batch(self, indices) -> Optional[dict]:
         """The C++ path: decode, normalize, pre-emphasize and slice a whole batch in a
         thread pool. Returns None when it does not apply (pre-emphasis first, .met
-        sidecars, random scaling) or the library is unavailable: callers then take the
-        Python path."""
-        if self.preemph_norm or self.random_scale != [1]:
-            self._say_path("in Python (preemph_norm or random_scale)")
+        sidecars, random scaling, a transform) or the library is unavailable: callers
+        then take the Python path."""
+        if self.preemph_norm or self.random_scale != [1] or self.transform is not None:
+            self._say_path("in Python (preemph_norm, random_scale or a transform)")
             return None
         if getattr(self, "_has_met", None) is None:
             self._has_met = any(
@@ -213,10 +241,19 @@ class SEDataset:
         c_path = self.clean_names[w_i]
         n_path = self.noisy_names[w_i]
         bname = os.path.splitext(os.path.basename(n_path))[0]
-        c_sig = self.read_wav_file(c_path)
-        n_sig = self.read_wav_file(n_path)
-        c_slice = c_sig[cb:ce]
-        n_slice = n_sig[nb:ne]
+        if self.transform is not None:
+            # noisy is made anew from the normalized clean slice at a drawn SNR, then
+            # both sides are pre-emphasized
+            c_raw = self.read_wav_file_norm(c_path)[cb:ce]
+            n_raw = self.transform(c_raw)
+            c_slice = pre_emphasize_np(c_raw, self.preemph)
+            n_slice = pre_emphasize_np(np.asarray(n_raw, np.float32), self.preemph)
+            bname = bname + "_additive"
+        else:
+            c_sig = self.read_wav_file(c_path)
+            n_sig = self.read_wav_file(n_path)
+            c_slice = c_sig[cb:ce]
+            n_slice = n_sig[nb:ne]
         L = min(c_slice.shape[0], n_slice.shape[0])
         c_slice, n_slice = c_slice[:L], n_slice[:L]
         if c_slice.shape[0] < self.slice_size:
@@ -244,3 +281,53 @@ class SEDataset:
 
     def __len__(self):
         return len(self.idx2slice)
+
+
+class SEH5Dataset:
+    """Pre-cut slice pairs of ``{data_root}/{split}.h5``: clean under 'data', noisy under
+    'label', each (n, slice) or (n, slice, 1) (upstream's se_dataset.py:527-568). Items
+    are named 'N/A'; ``random_scale`` scales both sides as ``SEDataset`` does.
+    ``preemph`` and ``preemph_norm`` are taken for the signature's sake: the file holds
+    pre-emphasized slices. Needs ``h5py``."""
+
+    def __init__(
+        self,
+        data_root: str,
+        split: str,
+        preemph: float,
+        verbose: bool = False,
+        preemph_norm: bool = False,
+        random_scale: Sequence[float] = (1,),
+    ):
+        try:
+            import h5py
+        except ImportError as e:
+            raise ImportError("the H5 dataset (--h5) needs the h5py package, which is "
+                              "not installed") from e
+
+        h5_file = os.path.join(data_root, split + ".h5")
+        if not os.path.exists(h5_file):
+            raise FileNotFoundError(h5_file)
+        self.f = h5py.File(h5_file, "r")
+        ks = list(self.f.keys())
+        assert "data" in ks, ks
+        assert "label" in ks, ks
+        if verbose:
+            print(f"Found H5 file {h5_file} with {self.f['data'].shape[0]} samples")
+        self.random_scale = list(random_scale)
+
+    def __getitem__(self, index: int) -> dict:
+        c = np.asarray(self.f["data"][index], np.float32)
+        n = np.asarray(self.f["label"][index], np.float32)
+        if c.ndim > 1:
+            c = np.squeeze(c, axis=-1)
+        if n.ndim > 1:
+            n = np.squeeze(n, axis=-1)
+        rscale = _random.choice(self.random_scale)
+        if rscale != 1:
+            c, n = rscale * c, rscale * n
+        return {"uttname": "N/A", "clean": c, "noisy": n, "slice_idx": 0,
+                "pesq": None, "ssnr": None}
+
+    def __len__(self):
+        return self.f["data"].shape[0]

@@ -51,7 +51,8 @@ from ..ops import conv as conv_ops
 from ..ops.conv import at_least_fp32
 from ..ops.signal import de_emphasize_np
 from ..parallel.inference import chunk_grid, overlap_add
-from ..utils.checkpoint import Saver, load_discriminator, load_generator
+from ..utils.checkpoint import (Saver, discriminator_bridge, generator_state_from_jax,
+                                load_discriminator, load_generator, load_payload)
 from .discriminator import Discriminator, build_discriminator, d_input
 from .generator import Generator, build_generator
 from .multistep import StepGraph, set_capturable
@@ -551,7 +552,7 @@ class SEGAN:
         ``torch.profiler`` into ``save_path/profile``, prints the device memory and,
         from batch 3, ends each log line with the step's MFU when the card's peak is
         known (``utils/profiling.py``); it forces S to 1, as in JAX."""
-        from ..data.loader import device_prefetch
+        from ..data.loader import device_prefetch, host_float32
         from ..utils.logging import StepTimer, TrainLogger
         from ..utils.profiling import device_memory_stats, device_trace, mfu
 
@@ -635,8 +636,8 @@ class SEGAN:
                 bidx += n_sub
                 iteration += n_sub - 1  # and one more at the bottom of the loop
                 if noisy_samples is None:  # from the host copy: no device sync
-                    noisy_samples = batch["host"]["noisy"][:20, :, None].copy()
-                    clean_samples = batch["host"]["clean"][:20, :, None].copy()
+                    noisy_samples = host_float32(batch["host"]["noisy"][:20])[..., None]
+                    clean_samples = host_float32(batch["host"]["clean"][:20])[..., None]
                     if z is not None:
                         z_sample = z[:20].clone()
                 if profiling:
@@ -739,8 +740,10 @@ class SEGAN:
                          trained_steps=self.step)
 
     def resume(self, save_path: Optional[str] = None) -> int:
-        """Resume from the latest EOE checkpoints of `save_path`: G and D, both
-        optimizers' state and the step count. Returns the step (0 with nothing there)."""
+        """Resume from the latest EOE checkpoints of `save_path`, written by the port's
+        trainer or the JAX one: G and D, both optimizers' state and the step count (of a
+        JAX run, its meta 'step', where the JAX engine resumes). Returns the step (0 with
+        nothing there)."""
         save_path = save_path or self.cfg.save_path
         self.init_train()
         self.release_multi_step()  # the optimizers' state is replaced, not copied into
@@ -751,16 +754,12 @@ class SEGAN:
         g_payload, g_meta = loaded
         # load_state_dict copies in place, which bumps each weight's version: the
         # kernel's padded weights are rebuilt from the loaded ones
-        self.G.load_state_dict(g_payload["state_dict"], strict=True)
-        if "optimizer" in g_payload:
-            self.g_opt.load_state_dict(g_payload["optimizer"])
+        load_payload(self.G, self.g_opt, g_payload, generator_state_from_jax)
         self._G_compute = None
-        d_loaded = Saver(save_path, max_ckpts=3, prefix="EOE_D-").load_weights()
+        d_loaded = (Saver(save_path, max_ckpts=3, prefix="EOE_D-").load_weights()
+                    if self.D is not None else None)
         if d_loaded is not None:
-            d_payload, _ = d_loaded
-            self.D.load_state_dict(d_payload["state_dict"], strict=True)
-            if "optimizer" in d_payload:
-                self.d_opt.load_state_dict(d_payload["optimizer"])
+            load_payload(self.D, self.d_opt, d_loaded[0], discriminator_bridge(self.D))
         self.step = int(g_meta["step"])
         print(f"[*] Resumed from step {self.step}")
         return self.step
@@ -818,6 +817,7 @@ class SEGAN:
         workers import ``metrics`` alone, and the calling script's own body again, so a
         script that trains must keep its work under ``if __name__ == "__main__"``.
         Per-utterance lists by metric; with do_noisy also those of the noisy input."""
+        from ..data.loader import host_float32
         from ..metrics import composite_helper
 
         METRIC_KEYS = ("pesq", "ssnr", "csig", "cbak", "covl")
@@ -827,8 +827,8 @@ class SEGAN:
             self.pool = multiprocessing.get_context("spawn").Pool(cfg.eval_workers)
         all_ret = []
         for bidx, batch in enumerate(dloader, start=1):
-            clean = np.asarray(batch["clean"], np.float32)  # (B, T)
-            noisy = np.asarray(batch["noisy"], np.float32)
+            clean = host_float32(batch["clean"])  # (B, T)
+            noisy = host_float32(batch["noisy"])
             # only the valid rows are scored: the ragged final batch is padded with
             # copies of its last row, with mask 0
             bmask = np.asarray(batch.get("mask", np.ones(clean.shape[0])))
@@ -906,15 +906,9 @@ def unported_options(cfg) -> List[str]:
     """The options of ``cfg`` set to something the port does not run yet, as CLI flags;
     the trainer raises on any of them rather than ignore it."""
     checks = [
-        ("--h5", cfg.h5),
-        ("--noises_dir", getattr(cfg, "noises_dir", None)),
-        ("--shuffle_buffer", getattr(cfg, "shuffle_buffer", 0)),
-        ("--loader_dtype", getattr(cfg, "loader_dtype", None)),
         ("--dp", (cfg.dp or 1) > 1),
         ("--mp", (getattr(cfg, "mp", 1) or 1) > 1),
         ("--coordinator", getattr(cfg, "coordinator", None)),
         ("--num_processes", (getattr(cfg, "num_processes", None) or 1) > 1),
-        ("--random_scale", list(cfg.random_scale) != [1]),
-        ("--preemph_norm", cfg.preemph_norm),
     ]
     return [flag for flag, value in checks if value]

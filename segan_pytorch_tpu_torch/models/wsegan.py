@@ -273,6 +273,7 @@ class WSEGAN(SEGAN):
         S batches (``train_step_multi``), but never across an epoch's end nor past the
         last iteration: those run single steps; the log and samples take the last batch
         of a group. ``--profile`` is not read here, as in JAX."""
+        from ..data.loader import host_float32
         from ..utils.logging import StepTimer
 
         num_batches = len(dloader)
@@ -299,8 +300,8 @@ class WSEGAN(SEGAN):
                 timer.stop()
                 timer.start()
                 if samples is None:  # from the host copy: no device sync
-                    samples = (batch["host"]["clean"][:20, :, None].copy(),
-                               batch["host"]["noisy"][:20, :, None].copy(),
+                    samples = (host_float32(batch["host"]["clean"][:20])[..., None],
+                               host_float32(batch["host"]["noisy"][:20])[..., None],
                                z[:20].clone() if z is not None else None)
 
                 def crossed(every: int) -> bool:
@@ -501,10 +502,12 @@ class AEWSEGAN(WSEGAN):
         """Spectral distortion in dB, the mean |P(Genh) - P(clean)| of the dB power
         spectra over the first `max_samples` batches (all rows, as the JAX one takes
         them); z as ``evaluate``'s, fixed per step."""
+        from ..data.loader import host_float32
+
         sds = []
         for bidx, batch in enumerate(dloader, start=1):
-            noisy = np.asarray(batch["noisy"], np.float32)[..., None]
-            clean = torch.as_tensor(np.asarray(batch["clean"], np.float32)).to(self.device)
+            noisy = host_float32(batch["noisy"])[..., None]
+            clean = torch.as_tensor(host_float32(batch["clean"])).to(self.device)
             Genh = self.infer_G(noisy, self._eval_z(noisy.shape, bidx))
             gp = power_spectrum_db(Genh[..., 0], cfg.n_fft)
             cp = power_spectrum_db(clean, cfg.n_fft)

@@ -678,6 +678,9 @@ def make_ws_handler(state):
             out = streamer.flush()
             pcm_out = np.clip(out * 32767.0, -32768, 32767).astype("<i2")
             n_out += pcm_out.size
+            # counted before "done", so that a client reading /healthz after it sees it
+            with state["mlock"]:
+                state["requests"] += 1
             try:
                 if pcm_out.size:
                     ws.send(pcm_out.tobytes())
@@ -686,8 +689,6 @@ def make_ws_handler(state):
                 ws.close()
             except (ConnectionClosed, OSError):
                 pass
-            with state["mlock"]:
-                state["requests"] += 1
             if state["verbose"]:
                 print(f"[serve] ws stream: {n_out} samples in "
                       f"{time.perf_counter() - t0:.3f}s (window {window}, overlap "

@@ -26,10 +26,15 @@ and raises without one; ``--device cpu`` (or ``--no-cuda``) asks for the CPU.
 ``--steps_per_call S`` runs S steps per call, on the card as S replays of one CUDA graph
 of the step (``models/multistep.py``); ``--profile`` traces a few steps of the first
 epoch into ``save_path/profile`` and logs the step's MFU (SEGAN+ only, as in JAX).
-Options the port does not run yet (H5 data, noise augmentation, the streaming shuffle,
-a cast in the loader, more than one device or process, random scaling, pre-emphasis
-before normalisation) raise ``NotImplementedError`` when set; the TPU lowering knobs are
-recorded in ``train.opts`` and have no effect.
+The data options run as in JAX: ``--random_scale`` and ``--preemph_norm`` in the
+dataset, ``--shuffle_buffer`` and ``--loader_dtype`` in the loader (a bfloat16 batch
+crosses to the card at 2 bytes a sample), ``--h5`` reads ``{h5_data_root}/train.h5``
+(and ``valid.h5`` with a validation set), and ``--noises_dir`` makes each noisy slice
+anew from its clean one with noise at one of ``--snr_levels`` dB (``data/augment.py``).
+``--resume`` also continues a run directory that the JAX trainer wrote, its optimizer
+state included. More than one device or process (``--dp``, ``--mp``, ``--coordinator``,
+``--num_processes``) raises ``NotImplementedError``; the TPU lowering knobs are recorded
+in ``train.opts`` and have no effect.
 """
 import argparse
 import random
@@ -144,16 +149,20 @@ def build_parser():
                         help='Native wav-gather thread-pool size '
                              '(0 = hardware concurrency).')
     parser.add_argument('--shuffle_buffer', type=int, default=0,
-                        help='Streaming shuffle buffer (Def: 0; more is not ported yet).')
+                        help='Streaming shuffle through a buffer of this many slices '
+                             '(Def: 0, the shuffled index list); drops the ragged tail.')
     parser.add_argument('--shuffle_buffer_mode', type=str, default='sharded',
                         choices=['sharded', 'global'],
-                        help='Mode of the streaming shuffle (not ported yet).')
+                        help='Mode of the streaming shuffle; the two differ only across '
+                             'processes.')
     parser.add_argument('--loader_dtype', type=str, default=None,
-                        help='Cast at collate time (not ported yet).')
+                        help='Cast clean/noisy at collate time (e.g. bfloat16: half '
+                             'the bytes to the card).')
     parser.add_argument('--noises_dir', type=str, default=None,
-                        help='Additive-noise augmentation (not ported yet).')
+                        help='Dir of noise wavs: make each noisy slice from its clean '
+                             'one with additive noise (P.56-scaled SNR).')
     parser.add_argument('--snr_levels', type=int, nargs='+', default=[0, 5, 10],
-                        help='SNR targets (dB) of --noises_dir (not ported yet).')
+                        help='SNR targets (dB) of --noises_dir.')
     parser.add_argument('--resume', action='store_true', default=False,
                         help='Resume from the latest EOE checkpoints in save_path.')
     parser.add_argument('--eoe_save_every', type=int, default=1,
@@ -177,7 +186,7 @@ def main(argv=None):
     import torch
 
     from .data.loader import DataLoader
-    from .data.se_dataset import SEDataset
+    from .data.se_dataset import SEDataset, SEH5Dataset
     from .models.segan import SEGAN, default_device, unported_options
     from .models.wsegan import AEWSEGAN, WSEGAN
     from .utils.config import SEGANConfig, dump_train_opts
@@ -216,19 +225,43 @@ def main(argv=None):
     if cfg.d_pretrained_ckpt is not None:
         segan.d_load_pretrained(cfg.d_pretrained_ckpt)
 
-    dset = SEDataset(cfg.clean_trainset, cfg.noisy_trainset, cfg.preemph,
-                     cache_dir=cfg.cache_dir, split='train',
-                     stride=cfg.data_stride, slice_size=cfg.slice_size,
-                     max_samples=cfg.max_samples, verbose=True,
-                     slice_workers=cfg.slice_workers, io_threads=cfg.io_threads)
+    if cfg.h5:
+        if cfg.h5_data_root is None:
+            raise ValueError('Please specify an H5 data root')
+        dset = SEH5Dataset(cfg.h5_data_root, split='train', preemph=cfg.preemph,
+                           verbose=True, random_scale=cfg.random_scale)
+    else:
+        transform = None
+        if cfg.noises_dir:
+            from .data.augment import Additive
+            transform = Additive(cfg.noises_dir, cfg.snr_levels,
+                                 rng=np.random.RandomState(cfg.seed))
+            print(f'[augment] additive noise from {cfg.noises_dir} at SNR '
+                  f'{cfg.snr_levels} dB ({len(transform.noises)} noise files)')
+        dset = SEDataset(cfg.clean_trainset, cfg.noisy_trainset, cfg.preemph,
+                         cache_dir=cfg.cache_dir, split='train',
+                         stride=cfg.data_stride, slice_size=cfg.slice_size,
+                         max_samples=cfg.max_samples, verbose=True,
+                         slice_workers=cfg.slice_workers,
+                         preemph_norm=cfg.preemph_norm, random_scale=cfg.random_scale,
+                         transform=transform, io_threads=cfg.io_threads)
     dloader = DataLoader(dset, batch_size=cfg.batch_size, shuffle=True,
-                         num_workers=cfg.num_workers, seed=cfg.seed)
+                         num_workers=cfg.num_workers, seed=cfg.seed,
+                         shuffle_buffer=cfg.shuffle_buffer,
+                         shuffle_buffer_mode=cfg.shuffle_buffer_mode,
+                         emit_dtype=cfg.loader_dtype)
     if cfg.clean_valset is not None:
-        va_dset = SEDataset(cfg.clean_valset, cfg.noisy_valset, cfg.preemph,
-                            cache_dir=cfg.cache_dir, split='valid',
-                            stride=cfg.data_stride, slice_size=cfg.slice_size,
-                            max_samples=cfg.max_samples, verbose=True,
-                            slice_workers=cfg.slice_workers, io_threads=cfg.io_threads)
+        # no random scaling and no cast for validation, as in JAX
+        if cfg.h5:
+            va_dset = SEH5Dataset(cfg.h5_data_root, split='valid', preemph=cfg.preemph,
+                                  verbose=True)
+        else:
+            va_dset = SEDataset(cfg.clean_valset, cfg.noisy_valset, cfg.preemph,
+                                cache_dir=cfg.cache_dir, split='valid',
+                                stride=cfg.data_stride, slice_size=cfg.slice_size,
+                                max_samples=cfg.max_samples, verbose=True,
+                                slice_workers=cfg.slice_workers,
+                                preemph_norm=cfg.preemph_norm, io_threads=cfg.io_threads)
         va_dloader = DataLoader(va_dset, batch_size=300, shuffle=False,
                                 num_workers=cfg.num_workers, seed=cfg.seed)
     else:

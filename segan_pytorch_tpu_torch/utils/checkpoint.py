@@ -6,11 +6,13 @@ reference-format ``.ckpt`` (``torch.save({'step', 'state_dict'})``, which upstre
 and the JAX ``export_torch_generator`` / ``export_torch_discriminator`` write) loads
 with ``strict=True`` once legacy key names are migrated. A checkpoint that the JAX
 trainer wrote (an npz pytree) is converted with ``generator_state_from_jax`` /
-``discriminator_state_from_jax``.
+``discriminator_state_from_jax``, and its optax state with ``optimizer_state_from_jax``.
 
 ``Saver`` keeps the reference's rotating JSON index and file names; its payloads are
 reference-format torch files with the optimizer state beside the weights, so the JAX
-``load_torch_generator`` and ``purge_ckpts.py`` read what the port's trainer writes.
+``load_torch_generator`` and ``purge_ckpts.py`` read what the port's trainer writes. It
+reads the JAX trainer's payloads too, and ``load_payload`` loads either kind into a
+model and its optimizer, so ``--resume`` continues a run directory of either trainer.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import json
 import os
 import threading
 import zipfile
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,15 +46,27 @@ def _is_npz(path: str) -> bool:
         return False
 
 
+def _read_npz(path: str) -> Tuple[Dict[str, np.ndarray], dict]:
+    """Every leaf of an npz pytree, flattened to 'a/b/c' keys, and its JSON meta ({}
+    without one)."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files if k != "__meta__"}
+        meta = (json.loads(bytes(data["__meta__"].tobytes()).decode())
+                if "__meta__" in data.files else {})
+    return flat, meta
+
+
+def _subtree(flat: Mapping[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+
+
 def _read_npz_state(path: str) -> Dict[str, np.ndarray]:
     """The model variables of an npz pytree, flattened to 'a/b/c' keys: those under
     'state_dict/' when the JAX trainer's Saver wrote it (which stores the optimizer
     state beside them, under 'optimizer/'), else every leaf."""
-    with np.load(path, allow_pickle=False) as data:
-        flat = {k: data[k] for k in data.files if k != "__meta__"}
-    prefix = "state_dict/"
-    if any(k.startswith(prefix) for k in flat):
-        return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    flat, _ = _read_npz(path)
+    if any(k.startswith("state_dict/") for k in flat):
+        return _subtree(flat, "state_dict/")
     return flat
 
 
@@ -129,6 +143,13 @@ def read_discriminator_state(path: str, pool_slen: int,
         return discriminator_state_from_jax(_read_npz_state(path), pool_slen, last_fmaps)
     st = torch.load(path, map_location="cpu", weights_only=True)
     return dict(st.get("state_dict", st))
+
+
+def discriminator_bridge(D: torch.nn.Module) -> Callable[[Mapping[str, np.ndarray]],
+                                                          Dict[str, torch.Tensor]]:
+    """``discriminator_state_from_jax`` with D's own flatten shape."""
+    last_fmaps = D.enc_blocks[-1].act.weight.shape[0]
+    return lambda flat: discriminator_state_from_jax(flat, D.pool_slen, last_fmaps)
 
 
 def load_discriminator(D: torch.nn.Module, path: str) -> None:
@@ -270,6 +291,85 @@ def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
     return out
 
 
+# the optax slots of each torch optimizer's per-parameter state: rmsprop(eps_in_sqrt=
+# False)'s nu is RMSprop's square_avg; Adam's mu and nu are exp_avg and exp_avg_sq
+OPTAX_SLOTS = {torch.optim.RMSprop: {"square_avg": "nu"},
+               torch.optim.Adam: {"exp_avg": "mu", "exp_avg_sq": "nu"}}
+
+
+def optimizer_state_from_jax(opt_flat: Mapping[str, np.ndarray],
+                             optimizer: torch.optim.Optimizer, model: torch.nn.Module,
+                             state_flat: Mapping[str, np.ndarray],
+                             state_from_jax: Callable, step: int) -> dict:
+    """A state_dict for `optimizer` (over `model`'s parameters) from the JAX trainer's
+    optax state: its flax state dict flattened to 'a/b/c' keys ('0/nu/enc_blocks_0/conv/
+    weight', '0/count'; empty nodes drop out of the npz). Each slot's leaves hold one
+    array per parameter in the JAX layout, so they go through the model's bridge
+    (`state_from_jax`) as the parameters do, with the 'spectral' leaves of `state_flat`
+    beside them so that a spectrally normalised weight's slot lands on 'weight_orig'.
+    Adam's count becomes every parameter's step; RMSprop, whose optax state has no
+    count and whose update reads none, takes `step`. Raises when the slots are not the
+    optimizer's or a parameter has none."""
+    kind = next((k for k in OPTAX_SLOTS if isinstance(optimizer, k)), None)
+    if kind is None:
+        raise TypeError(f"no optax counterpart for {type(optimizer).__name__}")
+    slots: Dict[str, Dict[str, np.ndarray]] = {}
+    count = None
+    for key, v in opt_flat.items():
+        parts = key.split("/")
+        i = next((j for j, p in enumerate(parts) if p in ("mu", "nu", "count")), None)
+        if i is None:
+            raise KeyError(f"unexpected optimizer leaf {key}")
+        if parts[i] == "count":
+            count = int(np.asarray(v))
+        else:
+            slots.setdefault(parts[i], {})["/".join(parts[i + 1:])] = v
+    want = OPTAX_SLOTS[kind]
+    if set(slots) != set(want.values()):
+        raise ValueError(f"the JAX optimizer state has slots {sorted(slots)}, "
+                         f"{kind.__name__} needs {sorted(want.values())}")
+    spectral = {k: v for k, v in state_flat.items() if k.startswith("spectral/")}
+    names = {id(p): n for n, p in model.named_parameters()}
+    mapped = {}
+    for slot, leaves in slots.items():
+        out = state_from_jax({**{f"params/{k}": v for k, v in leaves.items()}, **spectral})
+        mapped[slot] = {n: out[n] for n in names.values() if n in out}
+        missing = set(names.values()) - set(mapped[slot])
+        if missing:
+            raise KeyError(f"no '{slot}' state for {sorted(missing)}")
+    payload = optimizer.state_dict()
+    payload["state"] = {}
+    i = 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            st = {"step": torch.tensor(float(step if count is None else count))}
+            st.update({k: mapped[slot][name] for k, slot in want.items()})
+            payload["state"][i] = st
+            i += 1
+    return payload
+
+
+def load_payload(model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer],
+                 payload: dict, state_from_jax: Callable) -> None:
+    """Load a ``Saver`` payload into `model` (strictly) and `optimizer` (when the payload
+    has its state): the port's own as it is, the JAX trainer's through `state_from_jax`
+    (``generator_state_from_jax``, ``discriminator_bridge(D)``) and
+    ``optimizer_state_from_jax``. ``load_state_dict`` puts the step counts on the card
+    when the optimizer is capturable."""
+    if payload.get("format") != "jax":
+        model.load_state_dict(payload["state_dict"], strict=True)
+        if optimizer is not None and "optimizer" in payload:
+            optimizer.load_state_dict(payload["optimizer"])
+        return
+    state = payload["state_dict"]
+    model.load_state_dict(state_from_jax(state), strict=True)
+    if optimizer is not None and payload.get("optimizer"):
+        optimizer.load_state_dict(optimizer_state_from_jax(
+            payload["optimizer"], optimizer, model, state, state_from_jax,
+            payload["step"]))
+
+
 class Saver:
     """Rotating-index checkpoint writer with the reference's semantics: the index
     ``{prefix}checkpoints`` holds {'latest': [...], 'current': name}; payload files are
@@ -363,16 +463,22 @@ class Saver:
         return ckpts["current"]
 
     def load_weights(self):
-        """(payload, {'step'}) of the current checkpoint, or None without one."""
+        """(payload, {'step'}) of the current checkpoint, or None without one. A payload
+        that the JAX trainer wrote (an npz) comes as {'format': 'jax', 'step', 'state_dict',
+        'optimizer'}, its variables and optax state flattened to 'a/b/c' numpy leaves
+        in the JAX layout, for ``load_payload``; its step is the meta 'step'."""
         curr = self.read_latest_checkpoint()
         if curr is False:
             return None
         path = os.path.join(self.save_path, "weights_" + curr)
         if _is_npz(path):
-            raise NotImplementedError(
-                f"{path} was written by the JAX trainer, whose optimizer state the port "
-                "does not read: load its weights with --g_pretrained_ckpt / "
-                "--d_pretrained_ckpt instead")
+            flat, meta = _read_npz(path)
+            step = int(meta.get("step", 0))
+            payload = {"format": "jax", "step": step,
+                       "state_dict": _subtree(flat, "state_dict/"),
+                       "optimizer": _subtree(flat, "optimizer/")}
+            print("[*] Loaded weights (written by the JAX trainer)")
+            return payload, {"step": step}
         payload = torch.load(path, map_location="cpu", weights_only=True)
         print("[*] Loaded weights")
         return payload, {"step": int(payload.get("step", 0))}

@@ -394,11 +394,8 @@ def test_no_silent_cpu(corpus, tmp_path, monkeypatch):
 
 
 UNPORTED = {
-    "--h5": [], "--noises_dir": ["noise"],
-    "--shuffle_buffer": ["64"],
-    "--loader_dtype": ["bfloat16"], "--dp": ["2"], "--mp": ["2"],
+    "--dp": ["2"], "--mp": ["2"],
     "--coordinator": ["localhost:1234"], "--num_processes": ["2"],
-    "--random_scale": ["0.5", "1"], "--preemph_norm": [],
 }
 
 

@@ -5,7 +5,8 @@ counterparts of ``tests/test_train.py``'s loop tests of the JAX package (``TestW
 S sub-steps per call equal S single steps bit for bit on the CPU, so a run with S > 1 must
 log the same lines (without the times), write the same checkpoints with the same payloads
 and resume into the same run as with S = 1; groups never cross an epoch's end, and the
-ragged tail runs single steps.
+ragged tail runs single steps. Batches that the loader cast to bf16 or fp16 take the same
+path, up-cast exactly per sub-step.
 """
 import contextlib
 import io
@@ -35,9 +36,11 @@ TIMES = re.compile(r"btime: [\d.]+ s, mbtime: [\d.]+ s")
 
 class FakeLoader:
     """`n` batches of 2 rows an epoch, the same each epoch, the last with one row masked;
-    utterance names make the second row of each 'additive'."""
+    utterance names make the second row of each 'additive'. With `dtype`, clean and
+    noisy come as CPU tensors of that dtype, as the loader emits them under
+    ``--loader_dtype``; with `rounded_to`, as fp32 arrays of the values rounded to it."""
 
-    def __init__(self, n, B=2, T=1024):
+    def __init__(self, n, B=2, T=1024, dtype=None, rounded_to=None):
         rng = np.random.RandomState(n)
         self.items = []
         for i in range(n):
@@ -45,8 +48,15 @@ class FakeLoader:
             mask = np.ones(B, np.float32)
             if i == n - 1:
                 mask[-1] = 0.0
-            self.items.append({"clean": c, "noisy": c + (rng.randn(B, T) * 0.02).astype(
-                np.float32), "mask": mask, "uttname": ["a", "a_additive"]})
+            item = {"clean": c, "noisy": c + (rng.randn(B, T) * 0.02).astype(np.float32),
+                    "mask": mask, "uttname": ["a", "a_additive"]}
+            for k in ("clean", "noisy"):
+                if dtype is not None:
+                    item[k] = torch.from_numpy(item[k]).to(getattr(torch, dtype))
+                elif rounded_to is not None:
+                    item[k] = torch.from_numpy(item[k]).to(getattr(torch, rounded_to)) \
+                        .float().numpy()
+            self.items.append(item)
 
     def __len__(self):
         return len(self.items)
@@ -55,7 +65,8 @@ class FakeLoader:
         return iter([dict(b) for b in self.items])
 
 
-def _run(kind, tmp, S, epoch, n_batches, log_freq, resume_from=None, **kw):
+def _run(kind, tmp, S, epoch, n_batches, log_freq, resume_from=None, loader_kw=None,
+         **kw):
     cls, flags = ENGINES[kind]
     cfg = SEGANConfig(**TOY, **flags, save_path=str(tmp), epoch=epoch, steps_per_call=S,
                       **kw)
@@ -72,7 +83,8 @@ def _run(kind, tmp, S, epoch, n_batches, log_freq, resume_from=None, **kw):
     seg.train_step_multi = counted
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        seg.train(cfg, FakeLoader(n_batches), l1_init=100.0, l1_dec_step=0.5,
+        seg.train(cfg, FakeLoader(n_batches, **(loader_kw or {})), l1_init=100.0,
+                  l1_dec_step=0.5,
                   l1_dec_epoch=1, log_freq=log_freq)
     lines = [TIMES.sub("", ln) for ln in out.getvalue().splitlines()
              if ln.startswith(("(Iter", "Iter"))]
@@ -117,6 +129,26 @@ def test_loop_with_steps_per_call_is_the_single_step_loop(kind, S, tmp_path):
         assert _same(a[k], b[k]), k
     if kind == "segan":  # the L1 weight decayed once per sub-step: 100 - 10 x 0.5
         assert "l1_w: 95.00" in lines[-1]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("kind", list(ENGINES))
+def test_steps_per_call_takes_cast_batches(kind, dtype, tmp_path):
+    """Batches cast by the loader (``--loader_dtype``), four an epoch: S = 2 logs and
+    saves what S = 1 does on the same cast batches, and both what single steps on fp32
+    batches of the rounded values do: each sub-step's batch is up-cast exactly."""
+    ref, lines_ref, _ = _run(kind, tmp_path / "fp32", 1, 1, 4, 2,
+                             loader_kw=dict(rounded_to=dtype))
+    one, lines1, calls1 = _run(kind, tmp_path / "one", 1, 1, 4, 2, loader_kw=dict(dtype=dtype))
+    many, lines, calls = _run(kind, tmp_path / "many", 2, 1, 4, 2, loader_kw=dict(dtype=dtype))
+    assert calls1 == [] and calls == [2, 2]
+    assert lines == lines1 == lines_ref and len(lines) == 2
+    assert many.step == one.step == ref.step == 4
+    want = _payloads(tmp_path / "fp32")
+    for got in (_payloads(tmp_path / "one"), _payloads(tmp_path / "many")):
+        assert got.keys() == want.keys() and len(want) >= 2
+        for k in want:
+            assert _same(got[k], want[k]), k
 
 
 @pytest.mark.parametrize("kind", ["segan", "wsegan"])
