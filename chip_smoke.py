@@ -192,6 +192,25 @@ and when the port's package is not beside it):
      data wait per step of (a) and (c) beside phase 6's warm loop, the host's build of a
      batch of each over 12 batches drawn with no card work, and a line saying that
      resuming a JAX run directory is held by the CPU tests alone.
+  12. A7a, a bnorm G and D's SincConv front end at full width (phase_a7a), every check
+     fatal: (a) SEGAN+ with --gnorm_type bnorm (--no_bias) at batch 300 in fp32 and bf16,
+     3 warm-up and 5 timed steps (slices/s, the G forward / D update / G update split,
+     peak memory, MFU from step_flops()) with 0 launches of fused_conv1d_prelu (a bnorm G
+     takes the plain conv), one fp32 step at B = 4 vs float64 on the CPU (losses and Genh
+     <= 1e-3, G's running statistics <= 1e-4), --steps_per_call 4 vs 4 eager steps under
+     cudnn.deterministic (every state tensor <= 1e-6), and the trained G's checkpoint
+     through the clean CLI (--device cuda), generate() card vs a CPU copy <= 1e-3; (b)
+     SEGAN+ with --sinc_conv --dpool_slen 64: the same timing with 5 launches a step on
+     the tensor cores, one step vs float64, and the front end alone at batch 300 (forward,
+     and forward + backward to its parameters, fp32 and bf16); (c) WSEGAN with its script's flags and the
+     sinc D at batch 150: the kernel at the sinc D's four block shapes (64 -> 128 at
+     T_out 4096 ... 512 -> 1024 at 64, bias) vs its plain version in fp32 and bf16, on the
+     route it picks and on the FMA route forced, timed beside the plain version and
+     cuDNN; 3 timed steps of 5 + 4 x 4 launches; one step at B = 3 vs float64 within 7a's
+     bounds (u and v after Adam's step within max(1e-5, 4 x the CPU fp32 step's));
+     (d) LayerNorm, ResBlock1D, ResARModule, SincConv, CombFilter, PostProcessingCombNet,
+     Conv1DResBlock (strided and transposed) and pos_code, card vs CPU at batch 8 and
+     64-512 channels over 4096-16384 samples, fp32 <= 1e-4, bf16 <= 2e-2.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
@@ -200,8 +219,10 @@ phase 9's, its times the bf16 encoder sum at 64
 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
 its weight pad from 7b, under graph_launches_per_replay the launches a replay of each
-phase-10 case's graphed step makes, and data_options_launches (_segan, _h5, _wsegan) those
-of phase 11's runs;
+phase-10 case's graphed step makes, data_options_launches (_segan, _h5, _wsegan) those
+of phase 11's runs, a7a_*_launches_per_step phase 12's (bnorm G 0, sinc D SEGAN+ 5,
+sinc D WSEGAN 21), and under sinc_d_* (fp32_sinc_d_*) the sums of 12c's four sinc D
+shapes at batch 150;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -1157,14 +1178,68 @@ def phase_train_parity():
     assert card[3] <= 1e-3, card[3]
 
 
+def _time_steps(seg, args, n_steps, warm=3):
+    """`warm` steps, then `n_steps` timed by CUDA events, each phase of the step too, with
+    the kernel's counters set to 0 just before the timed steps and read just after. Returns
+    slices/s, the median step and phase split in ms, peak memory in GiB, the counters
+    (all, tensor cores, 3xTF32) and the last losses."""
+    import statistics
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    marks = {"G forward": [], "D update": [], "G update": []}
+
+    def timed(fn, name):
+        def run(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks[name].append((start, end))
+            return out
+        return run
+
+    for attr, name in (("_g_forward", "G forward"), ("_d_update", "D update"),
+                       ("_g_update", "G update")):
+        setattr(seg, attr, timed(getattr(seg, attr), name))
+    for _ in range(warm):
+        metrics, _, _ = seg.train_step(*args)
+    float(next(iter(metrics.values())))
+    for v in marks.values():
+        v.clear()
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses = [], []
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    for _ in range(n_steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics, _, _ = seg.train_step(*args)
+        end.record()
+        steps.append((start, end))
+        losses.append(torch.stack(list(metrics.values())))
+    torch.cuda.synchronize()
+    counts = (K.launches, K.launches_mma, K.launches_tf32)
+    losses = torch.stack(losses).cpu()
+    assert torch.isfinite(losses).all(), losses
+    total = steps[0][0].elapsed_time(steps[-1][1])
+    for attr in ("_g_forward", "_d_update", "_g_update"):
+        delattr(seg, attr)
+    return dict(rate=args[0].shape[0] * n_steps / total * 1e3,
+                ms=statistics.median(s.elapsed_time(e) for s, e in steps),
+                split={k: statistics.median(s.elapsed_time(e) for s, e in v)
+                       for k, v in marks.items()},
+                peak=torch.cuda.max_memory_allocated() / 2**30, counts=counts,
+                losses=dict(zip(metrics, losses[-1].tolist())))
+
+
 def phase_train_b300():
     """5c: the step at full width and batch 300 in fp32 and bf16, timed by CUDA events;
     then the bench entry point. Returns the kernel's launches per step and the slices/s
     of the timed steps and of the bench entry, by dtype."""
-    import statistics
     import torch
     from segan_pytorch_tpu_torch.models.segan import SEGAN
-    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
 
     B, n_steps = 300, 10
@@ -1175,59 +1250,20 @@ def phase_train_b300():
         G, D = _train_models(cfg, SEED + 11)
         seg = SEGAN(cfg, generator=G, discriminator=D, device="cuda")
         clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 12))
-        mask = torch.ones((B,), device="cuda")
-        marks = {"G forward": [], "D update": [], "G update": []}
-
-        def timed(fn, name):
-            def run(*args, **kwargs):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn(*args, **kwargs)
-                end.record()
-                marks[name].append((start, end))
-                return out
-            return run
-
-        seg._g_forward = timed(seg._g_forward, "G forward")
-        seg._d_update = timed(seg._d_update, "D update")
-        seg._g_update = timed(seg._g_update, "G update")
-        for _ in range(3):
-            metrics, _, _ = seg.train_step(clean, noisy, mask, 100.0)
-        float(metrics["d_real"])
-        for v in marks.values():
-            v.clear()
-        torch.cuda.reset_peak_memory_stats()
-        steps, losses = [], []
-        K.launches = K.launches_mma = K.launches_tf32 = 0
-        for _ in range(n_steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics, _, _ = seg.train_step(clean, noisy, mask, 100.0)
-            end.record()
-            steps.append((start, end))
-            losses.append(torch.stack(list(metrics.values())))
-        torch.cuda.synchronize()
-        launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
-        losses = torch.stack(losses).cpu()
-        assert torch.isfinite(losses).all(), losses
+        r = _time_steps(seg, (clean, noisy, torch.ones((B,), device="cuda"), 100.0),
+                        n_steps)
+        launches, mma, tf32 = r["counts"]
         assert launches == mma == 5 * n_steps, (launches, mma)
         assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
         per_step.add(launches // n_steps)
-        ms = [s.elapsed_time(e) for s, e in steps]
-        total = steps[0][0].elapsed_time(steps[-1][1])
-        split = {k: statistics.median(s.elapsed_time(e) for s, e in v)
-                 for k, v in marks.items()}
-        rates[dtype] = B * n_steps / total * 1e3
-        print(f"train step B={B} {dtype}: {B * n_steps / total * 1e3:.2f} slices/s "
-              f"({total:.2f} ms for {n_steps} steps, median {statistics.median(ms):.3f} "
-              f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
-              + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"fused_conv1d_prelu launches {launches} ({mma} on the tensor cores, {tf32} "
-              f"3xTF32); last losses " + ", ".join(
-                  f"{k} {float(v):.4f}" for k, v in zip(metrics, losses[-1])), flush=True)
-        del seg, G, D, clean, noisy, metrics
+        rates[dtype] = r["rate"]
+        print(f"train step B={B} {dtype}: {r['rate']:.2f} slices/s (median {r['ms']:.3f} "
+              f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                                     r["split"].items())
+              + f"; peak device memory {r['peak']:.2f} GiB; fused_conv1d_prelu launches "
+              f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32); last losses "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["losses"].items()), flush=True)
+        del seg, G, D, clean, noisy
         torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
         out = subprocess.run(
@@ -1601,7 +1637,6 @@ def phase_wsegan_b150():
     of each w / sigma, timed alone; then the bench entry with --engine wsegan and
     aewsegan. Returns the kernel's launches per step and by dtype the pad's ms a step
     (phase 3 holds and times the kernel at the step's shapes)."""
-    import statistics
     import torch
     from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -1617,51 +1652,11 @@ def phase_wsegan_b150():
         seg = WSEGAN(cfg, generator=G, discriminator=D, device="cuda")
         clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 35))
         mask = torch.ones((B,), device="cuda")
-        amask = torch.zeros((B,), device="cuda")
-        marks = {"G forward": [], "D update": [], "G update": []}
-
-        def timed(fn, name):
-            def run(*args, **kwargs):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = fn(*args, **kwargs)
-                end.record()
-                marks[name].append((start, end))
-                return out
-            return run
-
-        seg._g_forward = timed(seg._g_forward, "G forward")
-        seg._d_update = timed(seg._d_update, "D update")
-        seg._g_update = timed(seg._g_update, "G update")
-        for _ in range(3):
-            metrics, _, _ = seg.train_step(clean, noisy, mask, amask, 100.0)
-        float(metrics["d_loss"])
-        for v in marks.values():
-            v.clear()
-        torch.cuda.reset_peak_memory_stats()
-        steps, losses = [], []
-        K.launches = K.launches_mma = K.launches_tf32 = 0
-        for _ in range(n_steps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            metrics, _, _ = seg.train_step(clean, noisy, mask, amask, 100.0)
-            end.record()
-            steps.append((start, end))
-            losses.append(torch.stack(list(metrics.values())))
-        torch.cuda.synchronize()
-        launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
-        losses = torch.stack(losses).cpu()
-        assert torch.isfinite(losses).all(), losses
+        r = _time_steps(seg, (clean, noisy, mask, torch.zeros_like(mask), 100.0), n_steps)
+        launches, mma, tf32 = r["counts"]
         assert launches == mma == WS_PER_STEP * n_steps, (launches, mma)
         assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
         per_step.add(launches // n_steps)
-        ms = [s.elapsed_time(e) for s, e in steps]
-        total = steps[0][0].elapsed_time(steps[-1][1])
-        split = {k: statistics.median(s.elapsed_time(e) for s, e in v)
-                 for k, v in marks.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**30
         # the kernel's padded (fp32: split) copy of each w / sigma, made anew on every
         # call: G's five once a step, D's five in each of its four passes
         cdt = seg.compute_dtype
@@ -1672,16 +1667,16 @@ def phase_wsegan_b150():
                            "D": lambda: [K._mma_weights(w) for w in dw]})
         pad_step = pad["G"] + 4 * pad["D"]
         times[dtype] = dict(pad_ms=pad_step)
-        print(f"WSEGAN step B={B} {dtype}: {B * n_steps / total * 1e3:.2f} slices/s "
-              f"({total:.2f} ms for {n_steps} steps, median {statistics.median(ms):.3f} ms/step); median split "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
-              + f"; peak device memory {peak:.2f} GiB; fused_conv1d_prelu launches {launches}"
-              f" ({mma} on the tensor cores, {tf32} 3xTF32); the weights' pad"
+        print(f"WSEGAN step B={B} {dtype}: {r['rate']:.2f} slices/s (median {r['ms']:.3f} "
+              f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                                     r["split"].items())
+              + f"; peak device memory {r['peak']:.2f} GiB; fused_conv1d_prelu launches "
+              f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32); the weights' pad"
               f"{' and split' if dtype == 'float32' else ''} {pad_step:.3f} ms a step "
-              f"(G {pad['G']:.3f}, D {pad['D']:.3f} a pass), "
-              f"{pad_step / statistics.median(ms):.2%} of it; last losses " + ", ".join(
-                  f"{k} {float(v):.4f}" for k, v in zip(metrics, losses[-1])), flush=True)
-        del seg, G, D, clean, noisy, metrics, gw, dw
+              f"(G {pad['G']:.3f}, D {pad['D']:.3f} a pass), {pad_step / r['ms']:.2%} of "
+              "it; last losses " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                             r["losses"].items()), flush=True)
+        del seg, G, D, clean, noisy, gw, dw
         torch.cuda.empty_cache()
     for engine in ("wsegan", "aewsegan"):
         out = subprocess.run(
@@ -3467,6 +3462,455 @@ def phase_data_options(work: Path, rates) -> dict:
                 wsegan=launches_c)
 
 
+# ---- phase 12 (A7a): a bnorm G, D's SincConv front end and the other blocks -------------
+SINC_FLAGS = dict(sinc_conv=True, dpool_slen=64)  # four D blocks leave 64 of 16384 samples
+SINC_WS_PER_STEP = 5 + 4 * 4  # G's five blocks once, the sinc D's four in each of 4 passes
+# the kernels line's names of `_hold_d_shapes`' timed arms
+SUM_KEYS = (("ms", "kernel"), ("fma_ms", "fma"), ("plain_ms", "plain"),
+            ("library_ms", "cuDNN"))
+STATS_TOL = 1e-4  # G's running statistics after one fp32 step, card vs float64
+
+
+def _report_steps(label, r, flops, batch, smi):
+    """One line of `_time_steps`' readings, with the MFU of the step's `flops`
+    (``step_flops()``, the same in either dtype)."""
+    from segan_pytorch_tpu_torch.utils.profiling import mfu
+
+    step_mfu = mfu(flops, r["ms"] / 1e3)
+    print(f"{label}: {r['rate']:.2f} slices/s, median {r['ms']:.3f} ms/step; split "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in r["split"].items())
+          + f"; peak device memory {r['peak']:.2f} GiB; step_flops {flops / 1e9:.3f} GFLOP"
+          f" ({flops / batch / 1e9:.3f} a slice), MFU "
+          + (f"{step_mfu:.2%}" if step_mfu is not None else "not known for this card")
+          + f"; fused_conv1d_prelu launches (all, tensor cores, 3xTF32) {r['counts']}; "
+          "last losses " + ", ".join(f"{k} {v:.4f}" for k, v in r["losses"].items())
+          + f" ({smi})", flush=True)
+
+
+def _vs_float64(cls, cfg, seed, passes, extra=(), cpu=False, B=4):
+    """One full-width fp32 step at batch B (the last row masked) on the card against the step
+    in float64 on the CPU, and again with D's learning rate 0 for the losses that go
+    through D' (g_adv, WSEGAN's g_loss): (relative error of each loss and of Genh,
+    {run: {buffer: relative L2 error}} of G's and D's buffers after the step, for the
+    card's step, the CPU's fp32 one and the card's with D's learning rate 0, the card
+    step's launches (all, 3xTF32), seconds of the card's step and of the float64 one).
+    The CPU's fp32 step only runs with `cpu`."""
+    import copy
+    import dataclasses
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    G, D = (_wsegan_models if cls.name == "WSEGAN" else _train_models)(cfg, seed)
+    clean, noisy = _train_batch(B, cfg.slice_size, seed + 1)
+    mask = torch.ones(B)
+    mask[-1] = 0.0
+    z = torch.randn((B, 16, cfg.z_dim), generator=torch.Generator().manual_seed(seed + 2))
+    draws = dict(z=z, phase=D.sample_phase(torch.Generator().manual_seed(seed + 3),
+                                           passes=passes))
+    if cls.name == "WSEGAN":
+        draws["perm"] = torch.roll(torch.arange(B), 1)
+
+    def step(device, dtype=torch.float32, c=cfg):
+        seg = cls(c, generator=copy.deepcopy(G), discriminator=copy.deepcopy(D),
+                  device=device)
+        seg.compute_dtype = dtype
+        with torch.backends.mkldnn.flags(enabled=False):
+            m, genh, _ = seg.train_step(clean, noisy, mask, *extra, 100.0, **draws)
+        bufs = {f"{side}.{n}": b.cpu().double() for side in ("G", "D")
+                for n, b in getattr(seg, side).named_buffers()
+                if not n.endswith("num_batches_tracked")}
+        return {k: float(v) for k, v in m.items()}, genh.cpu().double(), bufs
+
+    before = (K.launches, K.launches_tf32)
+    t0 = time.perf_counter()
+    card = step("cuda")
+    torch.cuda.synchronize()
+    secs = [time.perf_counter() - t0]
+    launched = (K.launches - before[0], K.launches_tf32 - before[1])
+    t0 = time.perf_counter()
+    ref = step("cpu", torch.float64)
+    secs.append(time.perf_counter() - t0)
+    frozen = dataclasses.replace(cfg, d_lr=0.0)
+    card0, ref0 = step("cuda", c=frozen), step("cpu", torch.float64, frozen)
+    through_d = ("g_adv", "g_loss")
+    losses = {k: abs(card[0][k] - ref[0][k]) / abs(ref[0][k]) for k in ref[0]
+              if k not in through_d}
+    losses.update({k: abs(card0[0][k] - ref0[0][k]) / abs(ref0[0][k])
+                   for k in ref0[0] if k in through_d}, Genh=rel_err(card[1], ref[1]))
+    runs = {"card": (card, ref), "card d_lr 0": (card0, ref0)}
+    if cpu:
+        runs["CPU"] = (step("cpu"), ref)
+    bufs = {name: {k: float((v - r[2][k]).norm() / r[2][k].norm()) for k, v in a[2].items()}
+            for name, (a, r) in runs.items()}
+    return losses, bufs, launched, secs
+
+
+def _hold_d_shapes(B, smi):
+    """The per-layer kernel at the four blocks of WSEGAN's D behind the sinc front end
+    (Cin -> Cout 64 -> 128 ... 512 -> 1024, T_out 4096 ... 64, bias) at batch B, against
+    its plain version in NaN-filled outputs: fp32 (TF32 off, <= FP32_TOL) and bf16
+    (<= BF16_TOL), on the route the wrapper picks, read from its counters (all four are
+    tensor-core shapes), and on the FMA route forced; then timed in turns with the plain
+    version and cuDNN's F.conv1d alone. Returns the four rows' sums by dtype."""
+    import torch
+    import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 240)
+    Kw, S = 31, 4
+    sums = {"fp32_": {}, "": {}}
+    print(f"{'sinc D block':>14} {'x shape':>19} {'Cout':>5} | {'fp32':>8} {'fp32 fma':>8} "
+          f"{'bf16':>8} {'bf16 fma':>8} | {'tf32 ms':>8} {'fma ms':>8} {'plain':>8} "
+          f"{'cuDNN':>8} {'bound':>7} | {'mma ms':>8} {'fma ms':>8} {'plain':>8} "
+          f"{'cuDNN':>8} {'bound':>7}")
+    for i, (cin, cout) in enumerate(((64, 128), (128, 256), (256, 512), (512, 1024))):
+        t_out = 4096 >> (2 * i)
+        t_in = S * t_out + Kw - 2  # the block's reflect pad (14, 15)
+        x = torch.randn((B, cin, t_in), generator=g).cuda()
+        w = (torch.randn((cout, cin, Kw), generator=g) / (cin * Kw) ** 0.5).cuda()
+        bias = (torch.randn((cout,), generator=g) * 0.1).cuda()
+        a = (torch.rand((cout,), generator=g) * 0.3).cuda()
+        shape = (B, cout, t_out)
+        flops = 2.0 * B * t_out * cout * cin * Kw
+        elems = B * cin * t_in + cout * cin * Kw + 2 * cout + 2 * B * cout * t_out
+        row = {}
+        for p, dt, tol, peak in (("fp32_", torch.float32, FP32_TOL, None),
+                                 ("", torch.bfloat16, BF16_TOL, BF16_PEAK)):
+            h = [v.to(dt) for v in (x, w, bias, a)]
+            before = (K.launches_mma, K.launches_tf32)
+            y, pre = K._launch(*h, S, t_out, out=nan_outputs(shape, shape, dtype=dt))
+            y_ref, pre_ref = K.conv1d_prelu_plain(*h, S)
+            torch.cuda.synchronize()
+            want = (before[0] + 1, before[1] + (1 if dt == torch.float32 else 0))
+            assert (K.launches_mma, K.launches_tf32) == want, (
+                f"sinc D block {i + 1} {dt}: not on the tensor cores")
+            err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
+            e_abs = worst([float((y - y_ref).abs().max()),
+                           float((pre - pre_ref).abs().max())])
+            yf, pref = K._launch(*h, S, t_out, force_fma=True,
+                                 out=nan_outputs(shape, shape, dtype=dt))
+            torch.cuda.synchronize()
+            err_f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
+            assert max(err, err_f) <= tol, (i, dt, err, err_f)
+            del y, pre, yf, pref, y_ref, pre_ref
+            t = ms_in_turns({"kernel": lambda: K.fused_conv1d_prelu(*h, S),
+                             "fma": lambda: K._launch(*h, S, t_out, force_fma=True),
+                             "plain": lambda: K.conv1d_prelu_plain(*h, S),
+                             "cuDNN": lambda: F.conv1d(h[0], h[1], h[2], stride=S)},
+                            reps=6)
+            bound = (min(bound_ms(flops, 4 * elems, FP32_PEAK),
+                         bound_ms(3 * flops, 4 * elems, TF32_PEAK))
+                     if peak is None else bound_ms(flops, 2 * elems, peak))
+            row[p] = (err, err_f, t, bound)
+            for k, v in [(k, t[arm]) for k, arm in SUM_KEYS] + [("bound_ms", bound)]:
+                sums[p][k] = sums[p].get(k, 0.0) + v
+            sums[p]["max_abs_err"] = worst([sums[p].get("max_abs_err", 0.0), e_abs])
+            del h
+        (e32, f32, t32, b32), (e16, f16, t16, b16) = row["fp32_"], row[""]
+        print(f"{'block ' + str(i + 1):>14} {str((B, cin, t_in)):>19} {cout:>5} | "
+              f"{e32:8.1e} {f32:8.1e} {e16:8.1e} {f16:8.1e} | {t32['kernel']:8.4f} "
+              f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} {b32:7.4f} | "
+              f"{t16['kernel']:8.4f} {t16['fma']:8.4f} {t16['plain']:8.4f} "
+              f"{t16['cuDNN']:8.4f} {b16:7.4f}", flush=True)
+        del x, w, bias, a
+    print(f"sinc D blocks B={B}, sums over the four (one D pass): " + "; ".join(
+        f"{p[:-1] or 'bf16'} " + ", ".join(f"{k} {v:.4g}" for k, v in c.items())
+        for p, c in sums.items()) + f" ({smi})", flush=True)
+    return sums
+
+
+def _time_sinc_front_end(smi):
+    """The SincConv front end of a default D (32 filters of 251 taps over both channels)
+    at batch 300: its conv alone as the port runs it (one conv of the 600 single-channel
+    rows, fp32) beside the same conv in bf16 and as a grouped conv over the two channels,
+    each with its error against float64 on 8 rows; then the front end forward alone and
+    forward with the backward to its parameters (one pass of a D update), with fp32 and
+    bf16 parameters and x. Times in turns."""
+    import torch
+    import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.models.modules import SincConv
+    from segan_pytorch_tpu_torch.ops import conv as conv_ops
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+
+    sinc = SincConv(32, 251, 16e3, padding="SAME").cuda()
+    x = (torch.randn((300, 2, 16384), generator=torch.Generator().manual_seed(SEED + 280))
+         * 0.1).cuda()
+    flops = 2.0 * 300 * 2 * 32 * 16384 * 251
+    with torch.no_grad(), conv_ops.full_precision(torch.float32):
+        bank = sinc.bank()
+        rows = conv_ops.reflect_pad_1d(x.reshape(600, 1, 16384), 125, 125)
+        rows16, bank16, pair = rows.bfloat16(), bank.bfloat16(), rows.reshape(300, 2, -1)
+        ref = F.conv1d(rows[:8].double(), bank.double())
+        convs = {"rows fp32": lambda: F.conv1d(rows, bank),
+                 "rows bf16": lambda: F.conv1d(rows16, bank16),
+                 "grouped fp32": lambda: F.conv1d(pair, bank.repeat(2, 1, 1), groups=2)}
+        errs = {k: rel_err(f().reshape(600, 32, -1)[:8], ref) for k, f in convs.items()}
+        t_conv = ms_in_turns(convs, reps=5)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xx = x.to(dt)
+
+        def fwd(backward):
+            params = {n: p.to(dt) for n, p in sinc.named_parameters()}
+            with conv_ops.full_precision(torch.float32):
+                y = torch.func.functional_call(sinc, params, (xx,))
+                if backward:
+                    y.float().square().mean().backward()
+
+        with torch.no_grad():
+            fwd_only = ms_in_turns({"forward": lambda: fwd(False)}, reps=5)["forward"]
+        both = ms_in_turns({"both": lambda: fwd(True)}, reps=5)["both"]
+        out[str(dt).split(".")[-1]] = (fwd_only, both)
+    print("SincConv front end, B=300, 32 filters x 251 taps over 2 channels (158 GFLOP a "
+          "forward): its conv " + ", ".join(
+              f"{k} {t_conv[k]:.3f} ms ({flops / t_conv[k] * 1e-9:.1f} TFLOP/s, vs float64 "
+              f"{errs[k]:.1e})" for k in convs) + "; the front end " + "; ".join(
+              f"{k} forward {f:.3f} ms, forward + backward {b:.3f} ms"
+              for k, (f, b) in out.items()) + f" ({smi})", flush=True)
+    out["conv"] = t_conv
+    return out
+
+
+def _blocks_card_vs_cpu(smi):
+    """(d): the seven blocks and SincConv at widths a model uses, batch 8, on the card in
+    fp32 (<= FP32_TOL) and on bf16 copies (parameters cast, BatchNorm's statistics fp32;
+    <= BF16_TOL) against the same block on the CPU in fp32, on the same input and
+    parameter values (for the bf16 copy both rounded to bf16: SincConv's band edges
+    rounded to bf16 move its filters by ~2e-2 by themselves); BatchNorm blocks in train
+    mode (batch statistics, running statistics moved)."""
+    import copy
+    import torch
+    from segan_pytorch_tpu_torch.models import modules as M
+
+    g = torch.Generator().manual_seed(SEED + 250)
+    cases = [
+        ("LayerNorm", M.LayerNorm(), (8, 64, 16384), False),
+        ("ResBlock1D bnorm d=2", M.ResBlock1D(64, 128, 3, dilation=2, norm_type="bnorm",
+                                              generator=g), (8, 64, 16384), True),
+        ("ResARModule bnorm d=4", M.ResARModule(128, 256, 128, 3, 4, norm_type="bnorm",
+                                                generator=g), (8, 128, 4096), True),
+        ("SincConv 32 x 251 SAME", M.SincConv(32, 251, 16e3, padding="SAME"),
+         (8, 2, 16384), False),
+        ("CombFilter L=8", M.CombFilter(64, 64, 8, generator=g), (8, 64, 16384), False),
+        ("PostProcessingCombNet", M.PostProcessingCombNet(64, 256, generator=g),
+         (8, 64, 16384), False),
+        ("Conv1DResBlock stride 4", M.Conv1DResBlock(64, 128, 3, generator=g),
+         (8, 64, 16384), False),
+        ("Conv1DResBlock transposed", M.Conv1DResBlock(128, 64, 5, transpose=True,
+                                                       generator=g), (8, 128, 4096), False),
+    ]
+    out = []
+    for label, blk, shape, train in cases:
+        with torch.no_grad():
+            for n, p in blk.named_parameters():
+                if n.endswith(("act.weight", "acts.0.weight", "acts.1.weight")):
+                    p.uniform_(0.0, 0.3, generator=g)
+                elif n.endswith("skip_alpha"):
+                    p.fill_(0.5)
+        x = torch.randn(shape, generator=g) * 0.5
+        blk.train(train)
+        cpu, card32, card16 = blk, copy.deepcopy(blk).cuda(), copy.deepcopy(blk).cuda()
+        for p in card16.parameters():
+            p.data = p.data.bfloat16()
+        x16 = x.bfloat16()
+        cpu16 = copy.deepcopy(blk)  # the bf16 copy's parameter values, in fp32
+        for p in cpu16.parameters():
+            p.data = p.data.bfloat16().float()
+        with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
+            want, want16 = cpu(x), cpu16(x16.float())
+            got32, got16 = card32(x.cuda()), card16(x16.cuda())
+        if isinstance(want, tuple):  # ResARModule: (x + skip, res)
+            e32 = worst(rel_err(a.cpu(), b) for a, b in zip(got32, want))
+            e16 = worst(rel_err(a.cpu(), b) for a, b in zip(got16, want16))
+        else:
+            e32, e16 = rel_err(got32.cpu(), want), rel_err(got16.cpu(), want16)
+        out.append((label, shape, e32, e16))
+        assert e32 <= FP32_TOL and e16 <= BF16_TOL, (label, e32, e16)
+    g16 = M.pos_code(torch.arange(8).cuda(), torch.zeros(8, 512, 4096, device="cuda"))
+    want = M.pos_code(torch.arange(8), torch.zeros(8, 512, 4096))
+    e = rel_err(g16.cpu(), want)
+    assert e <= FP32_TOL, e
+    out.append(("pos_code", (8, 512, 4096), e, float("nan")))
+    print("blocks, card vs CPU (fp32 rel err, bf16 rel err): " + "; ".join(
+        f"{label} {shape} {e32:.1e} {e16:.1e}" for label, shape, e32, e16 in out)
+          + f" ({smi})", flush=True)
+
+
+def phase_a7a(work: Path, smi: str) -> dict:
+    """12 (A7a): a bnorm G and D's SincConv front end at full width, every check fatal.
+    (a) SEGAN+ with --gnorm_type bnorm (--no_bias) at batch 300, fp32 and bf16: 3 warm-up
+    and 5 timed steps (slices/s, phase split, peak memory, MFU), 0 launches of the kernel
+    (a bnorm G takes the plain conv, as in JAX); one fp32 step at B = 4 vs float64 on the
+    CPU (losses and Genh <= SLICE_TOL, G's running statistics <= STATS_TOL); --steps_per_call
+    4 vs 4 eager steps under cudnn.deterministic (every state tensor, G's running
+    statistics included, <= GRAPH_TOL); the trained G's checkpoint through `clean`
+    (--device cuda) and generate() card vs a CPU copy (<= SLICE_TOL). (b) SEGAN+ with
+    --sinc_conv --dpool_slen 64: the same timing, 5 launches a step on the tensor cores,
+    one step vs float64, the front end timed alone. (c) WSEGAN with its script's flags and --sinc_conv --dpool_slen
+    64 at batch 150: the kernel held at the sinc D's four new shapes and timed; 3 timed
+    steps of 5 + 4 x 4 launches; one step at B = 3 (one row masked, one 'additive') vs
+    float64 within phase 7a's bounds. (d) the
+    blocks card vs CPU. Returns the launch counts and the D shapes' sums."""
+    import copy
+    import torch
+    from segan_pytorch_tpu_torch import clean
+    from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.ops.signal import normalize_wave_minmax, pre_emphasize_np
+    from segan_pytorch_tpu_torch.utils.checkpoint import save_generator
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig, dump_train_opts
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) and (b): SEGAN+ at batch 300
+    for case, flags, per_step in (("bnorm G", dict(gnorm_type="bnorm"), 0),
+                                  ("sinc D", SINC_FLAGS, 5)):
+        for dtype in ("float32", "bfloat16"):
+            cfg = SEGANConfig(no_bias=True, compute_dtype=dtype, batch_size=300, **flags)
+            G, D = _train_models(cfg, SEED + 200)
+            seg = SEGAN(cfg, generator=G, discriminator=D, device="cuda")
+            clean_b, noisy_b = (v.cuda() for v in _train_batch(300, cfg.slice_size,
+                                                               SEED + 201))
+            r = _time_steps(seg, (clean_b, noisy_b, torch.ones(300, device="cuda"), 100.0),
+                            5)
+            flops = flops if dtype == "bfloat16" else seg.step_flops()
+            _report_steps(f"A7a SEGAN+ {case} B=300 {dtype}", r, flops, 300, smi)
+            tf32 = 5 * per_step if dtype == "float32" else 0
+            assert r["counts"] == (5 * per_step, 5 * per_step, tf32), r["counts"]
+            out[f"{case} {dtype}"] = r
+            if case == "bnorm G" and dtype == "float32":
+                trained = copy.deepcopy(seg.G).cpu()
+            del seg, G, D, clean_b, noisy_b
+            torch.cuda.empty_cache()
+        cfg = SEGANConfig(no_bias=True, **flags)
+        losses, bufs, launched, secs = _vs_float64(SEGAN, cfg, SEED + 210, 3)
+        g_stats = {k: v for k, v in bufs["card"].items() if k.startswith("G.")}
+        print(f"A7a SEGAN+ {case}, one fp32 step B=4 vs float64 on the CPU (card {secs[0]:.1f}"
+              f" s, float64 {secs[1]:.1f} s): losses (g_adv with d_lr = 0) and Genh "
+              + ", ".join(f"{k} {v:.1e}" for k, v in losses.items())
+              + (f"; G's running statistics, worst {max(g_stats.values()):.1e}"
+                 if g_stats else "") + f"; launches (all, 3xTF32) {launched} "
+              f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+        assert worst(losses.values()) <= SLICE_TOL, losses
+        assert launched == (per_step, per_step), launched
+        if case == "bnorm G":
+            assert len(g_stats) == 20 and worst(g_stats.values()) <= STATS_TOL, g_stats
+    out["sinc front end"] = _time_sinc_front_end(smi)
+    # (a) the graphed step against eager steps, G's running statistics included
+    cfg = SEGANConfig(no_bias=True, gnorm_type="bnorm", batch_size=300)
+    cleans, noisies = zip(*(_train_batch(300, cfg.slice_size, SEED + 220 + i)
+                            for i in range(4)))
+    masks = torch.ones((4, 300))
+    masks[2, -1] = 0.0
+    stacked = [torch.stack(cleans).cuda(), torch.stack(noisies).cuda(), masks.cuda()]
+    l1s = [100.0 - 0.1 * i for i in range(4)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        A, E = _graph_engines("segan", cfg, SEED + 221, 2)
+        before = _engine_state(E)
+        K.launches = 0
+        ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
+        first_call = K.launches
+        eager = []
+        for i in range(4):
+            m, g_e, _ = E.train_step(*[s[i] for s in stacked], l1s[i])
+            eager.append({k: float(v) for k, v in m.items()})
+        loss_err, state_err, worst_t = _graph_errs(_losses(ms), eager, _engine_state(A),
+                                                   _engine_state(E), before)
+        genh_err = rel_err(genh, g_e)
+        stats_moved = float((A.G.enc_blocks[2].norm.running_var
+                             - before["G.enc_blocks.2.norm.running_var"]).abs().max())
+        A.release_multi_step()
+        del A, E
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    print(f"A7a bnorm G B=300 fp32, cudnn.deterministic: 4 graphed sub-steps vs 4 "
+          f"train_step calls: losses {loss_err:.3g}, Genh {genh_err:.3g}, changes "
+          + ", ".join(f"{k} {v:.3g}" for k, v in state_err.items())
+          + f" (worst tensor {worst_t[1]} {worst_t[0]:.3g}); G's running variance moved "
+          f"{stats_moved:.3g}; kernel launches in the call {first_call} "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+    assert first_call == 0 and stats_moved > 0, (first_call, stats_moved)
+    assert max(loss_err, genh_err, *state_err.values()) <= GRAPH_TOL, (
+        loss_err, genh_err, state_err)
+    # (a) the trained bnorm G through clean, then generate() card vs a CPU copy
+    cfg = SEGANConfig(no_bias=True, gnorm_type="bnorm", save_path=str(work))
+    ckpt = work / "bnorm_g.ckpt"
+    save_generator(trained, str(ckpt))
+    opts = dump_train_opts(cfg, str(work))
+    wav_dir, out_dir = work / "bnorm_noisy", work / "bnorm_out"
+    wav_dir.mkdir()
+    out_dir.mkdir()
+    lengths = _write_wavs(wav_dir)[:4]
+    for p in sorted(wav_dir.glob("*.wav"))[4:]:
+        p.unlink()
+    clean.main(clean.build_parser().parse_args([
+        "--g_pretrained_ckpt", str(ckpt), "--cfg_file", opts, "--test_files",
+        str(wav_dir), "--synthesis_path", str(out_dir), "--seed", str(SEED),
+        "--device", "cuda"]))
+    for i, n in enumerate(lengths):
+        _, y = read_wav_raw(str(out_dir / f"utt{i}.wav"))
+        assert y.shape == (n,) and np.isfinite(y).all(), (i, y.shape)
+    card = SEGAN(cfg, generator=copy.deepcopy(trained), device="cuda")
+    host = SEGAN(cfg, generator=copy.deepcopy(trained), device="cpu")
+    _, pcm = read_wav_raw(str(wav_dir / "utt3.wav"))
+    wav = pre_emphasize_np(normalize_wave_minmax(pcm), cfg.preemph)
+    zrow = np.random.RandomState(SEED + 230).randn(1, 16, cfg.z_dim).astype(np.float32)
+    y_card, _ = card.generate(wav, z=zrow)
+    with torch.backends.mkldnn.flags(enabled=False):
+        y_host, _ = host.generate(wav, z=zrow)
+    e_gen = rel_err(torch.from_numpy(y_card), torch.from_numpy(y_host))
+    print(f"A7a bnorm G: clean (--device cuda) enhanced {len(lengths)} wavs; generate() "
+          f"card vs a CPU copy in eval mode {e_gen:.1e} (bound {SLICE_TOL}) "
+          f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
+    assert e_gen <= SLICE_TOL and not card.G.training, e_gen
+    del card, host
+    # (c) WSEGAN with the sinc D at its script's batch
+    sums = _hold_d_shapes(150, smi)
+    for dtype in ("float32", "bfloat16"):
+        cfg = SEGANConfig(**WSEGAN_FLAGS, **SINC_FLAGS, compute_dtype=dtype, batch_size=150)
+        G, D = _wsegan_models(cfg, SEED + 260)
+        seg = WSEGAN(cfg, generator=G, discriminator=D, device="cuda")
+        clean_b, noisy_b = (v.cuda() for v in _train_batch(150, cfg.slice_size, SEED + 261))
+        ones = torch.ones(150, device="cuda")
+        r = _time_steps(seg, (clean_b, noisy_b, ones, torch.zeros_like(ones), 100.0), 3,
+                        warm=2)
+        flops = flops if dtype == "bfloat16" else seg.step_flops()
+        _report_steps(f"A7a WSEGAN sinc D B=150 {dtype}", r, flops, 150, smi)
+        n = 3 * SINC_WS_PER_STEP
+        assert r["counts"] == (n, n, n if dtype == "float32" else 0), r["counts"]
+        out[f"wsegan sinc D {dtype}"] = r
+        del seg, G, D, clean_b, noisy_b
+        torch.cuda.empty_cache()
+    cfg = SEGANConfig(**WSEGAN_FLAGS, **SINC_FLAGS)
+    losses, bufs, launched, secs = _vs_float64(WSEGAN, cfg, SEED + 270, 4,
+                                               (torch.tensor([0.0, 1.0, 0.0]),),
+                                               cpu=True, B=3)
+    # u and v after the step: with d_lr = 0 they follow W alone; after Adam's first step,
+    # which moves each weight by lr sign(g), also the signs of gradients near 0, which
+    # the CPU's fp32 step flips as the card's does: held as 7a holds D's gradients
+    uv = {name: worst(b.values()) for name, b in bufs.items()}
+    print(f"A7a WSEGAN sinc D, one fp32 step B=3 vs float64 on the CPU (card {secs[0]:.1f} s,"
+          f" float64 {secs[1]:.1f} s): losses (g_adv and g_loss with d_lr = 0) and Genh "
+          + ", ".join(f"{k} {v:.1e}" for k, v in losses.items()) + "; u and v, worst: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in uv.items())
+          + f"; launches (all, 3xTF32) {launched} ({time.perf_counter() - t_phase:.1f} s "
+          "into the phase)", flush=True)
+    assert worst(losses.values()) <= WS_TOL and uv["card d_lr 0"] <= WS_TOL, (losses, uv)
+    assert uv["card"] <= max(WS_TOL, 4 * uv["CPU"]), uv
+    assert launched == (SINC_WS_PER_STEP, SINC_WS_PER_STEP), launched
+    # (d) the blocks
+    _blocks_card_vs_cpu(smi)
+    print(f"A7a: phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(bnorm_launches_per_step=0, sinc_segan_launches_per_step=5,
+                sinc_wsegan_launches_per_step=SINC_WS_PER_STEP, sinc_d=sums)
+
+
 def main():
     import torch
 
@@ -3502,6 +3946,8 @@ def main():
         graph = phase_graph(Path(work), smi)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         data_opts = phase_data_options(Path(work), train_rates)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        a7a = phase_a7a(Path(work), smi)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -3521,6 +3967,11 @@ def main():
              data_options_launches_wsegan=data_opts["wsegan"],
              **{f"{p}wsegan_step_{k}": v for p, dt in (("", "bfloat16"), ("fp32_", "float32"))
                 for k, v in ws_times[dt].items()},
+             a7a_bnorm_launches_per_step=a7a["bnorm_launches_per_step"],
+             a7a_sinc_segan_launches_per_step=a7a["sinc_segan_launches_per_step"],
+             a7a_sinc_wsegan_launches_per_step=a7a["sinc_wsegan_launches_per_step"],
+             **{f"{p}sinc_d_{k}": v for p, c in a7a["sinc_d"].items()
+                for k, v in c.items()},
              **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],

@@ -12,6 +12,12 @@ Parameter names are upstream's: 'enc_blocks.<i>.{conv,norm,act}', the 'none' hea
 upstream does (the JAX D flattens (B, T, C) to T*C; ``utils/checkpoint.py`` permutes
 fc.0 between them).
 
+With ``sinc_conv`` both channels first go through one ``SincConv`` of fmaps[0] // 2
+filters (K = 251, a 'SAME' reflect pad), named 'sinc_conv', and the blocks take fmaps[1:]
+zipped with the poolings: a default D then has four blocks, and at 16384 samples its
+'none' head needs ``pool_slen`` 64. The phase-shift rolls come before the blocks, not
+the filter bank, as in the JAX D.
+
 With ``norm_type='snorm'`` (WSEGAN's D) the blocks have no BatchNorm and their convs are
 spectrally normalised, and so are the heads' layers as upstream has them: in 'none'
 fc.0, fc.2 and the PReLU fc.3 (not fc.1 nor fc.4), in 'conv' pool_conv and fc, in
@@ -25,7 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.roll import phase_shift_roll
-from .modules import Conv1d, GConv1DBlock, Linear, PReLU
+from .modules import Conv1d, GConv1DBlock, Linear, PReLU, SincConv
 
 
 class Discriminator(nn.Module):
@@ -47,18 +53,21 @@ class Discriminator(nn.Module):
         if pool_slen is None:
             raise ValueError("Please specify D network pool seq len (pool_slen) in the end "
                              "of the conv stack: [inp_len // (total_pooling_factor)]")
-        if sinc_conv:
-            raise NotImplementedError("the SincConv front end of D is not ported yet "
-                                      "(ROADMAP.md, queue A item 7)")
         if phase_shift is not None and not (isinstance(phase_shift, int) and phase_shift > 1):
             raise ValueError(f"phase_shift must be an int > 1, got {phase_shift!r}")
         if pool_type not in ("none", "conv", "gmax", "gavg", "mlp"):
             raise TypeError(f"Unrecognized pool type: {pool_type}")
         fmaps = list(fmaps)
         self.pool_type, self.pool_slen, self.phase_shift = pool_type, pool_slen, phase_shift
+        self.sinc_conv = None
+        ninp, blocks = ninputs, fmaps
+        if sinc_conv:
+            # one bank of fmaps[0] // 2 filters for both channels; the blocks take the
+            # rest of fmaps, zipped with the poolings from the first
+            self.sinc_conv = SincConv(fmaps[0] // 2, 251, 16e3, padding="SAME")
+            ninp, blocks = fmaps[0], fmaps[1:]
         self.enc_blocks = nn.ModuleList()
-        ninp = ninputs
-        for fmap, pool in zip(fmaps, poolings):
+        for fmap, pool in zip(blocks, poolings):
             self.enc_blocks.append(GConv1DBlock(ninp, fmap, kwidth, stride=pool,
                                                 use_bias=use_bias, norm_type=norm_type,
                                                 generator=generator))
@@ -105,7 +114,7 @@ class Discriminator(nn.Module):
         if phase is not None and not (torch.is_tensor(phase) and phase.device == x.device):
             phase = torch.as_tensor(phase).tolist()
         int_act: Dict[str, torch.Tensor] = {}
-        h = x
+        h = x if self.sinc_conv is None else self.sinc_conv(x)
         for ii, blk in enumerate(self.enc_blocks):
             if phase is not None:
                 shift, right = phase[ii]

@@ -3,6 +3,13 @@
 Strided conv encoder -> z concatenated at the bottleneck -> transposed-conv decoder
 with skips and a Tanh output. Public shapes are the JAX package's: x (B, T, 1), z (B,
 T / prod(poolings), z_dim), output (B, T, 1). Inside, every tensor is (B, C, T).
+
+Every encoder layer of a norm-free or snorm G runs the hand-written conv + bias + PReLU
+kernel on a CUDA device (``models/modules.py`` ``GConv1DBlock``). A bnorm G
+(``gnorm_type='bnorm'``) has a BatchNorm between each conv and its activation, so its
+encoder takes the plain conv, as the JAX block does, and launches no kernel; its
+decoder blocks normalise after the deconv (and the odd-K trim). G's norms take every
+row, with no mask, in training as in the JAX package.
 """
 from __future__ import annotations
 

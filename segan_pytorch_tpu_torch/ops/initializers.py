@@ -50,6 +50,14 @@ def torch_default_convT_weight(shape: Sequence[int],
     return _uniform(shape, 1.0 / math.sqrt(cout * k), generator)
 
 
+def torch_default_conv_weight(shape: Sequence[int],
+                              generator: Optional[torch.Generator] = None):
+    """torch Conv1d default (kaiming-uniform, a = sqrt(5)) on a (Cout, Cin, K) weight,
+    or torch Linear's on an (out, in) one: U(±1/sqrt(fan_in)), fan_in = Cin*K or in."""
+    fan_in = math.prod(shape[1:])
+    return _uniform(shape, 1.0 / math.sqrt(fan_in), generator)
+
+
 def torch_default_bias(shape: Sequence[int], fan_in: int,
                        generator: Optional[torch.Generator] = None):
     """torch Conv/Linear default bias: U(±1/sqrt(fan_in))."""

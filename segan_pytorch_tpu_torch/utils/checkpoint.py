@@ -18,12 +18,15 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import zipfile
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..models import modules as M
 
 
 def _migrate_key(k: str) -> str:
@@ -208,15 +211,13 @@ def generator_state_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.
     conv (K, Cin, Cout) -> (Cout, Cin, K); deconv (K, Cin, Cout) -> (Cin, Cout, K);
     alpha skips (C,) -> (1, C, 1); PReLU slopes and biases unchanged. A spectrally
     normalised (snorm) layer's weight becomes 'weight_orig', and its 'spectral' u and v
-    'weight_u' and 'weight_v' (a conv's v reordered, ``_snorm_v_from_jax``). A
-    'batch_stats' collection belongs to a bnorm generator, which is not ported."""
+    'weight_u' and 'weight_v' (a conv's v reordered, ``_snorm_v_from_jax``). A bnorm
+    generator's BatchNorm leaves keep their names ('norm.weight' and 'norm.bias' from
+    'params', 'norm.running_mean' and 'norm.running_var' from 'batch_stats'), and every
+    norm gets ``num_batches_tracked`` 0, as the JAX export writes it."""
     leaves, normed = _collections(flat)
     out: Dict[str, torch.Tensor] = {}
     for coll, parts, v in leaves:
-        if coll == "batch_stats":
-            raise NotImplementedError(
-                f"{'/'.join(parts)}: a bnorm generator is not ported yet (ROADMAP.md, "
-                "queue A item 7)")
         blk, rest = parts[0], parts[1:]
         if blk.startswith(("enc_blocks_", "dec_blocks_")):
             group, idx = blk.rsplit("_", 1)
@@ -229,6 +230,8 @@ def generator_state_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.
                 if f"{blk}/{sub}" in normed:
                     leaf = "weight_orig"
             out[f"{group}.{idx}.{sub}.{leaf}"] = _tensor(v)
+            if sub == "norm" and leaf == "weight":
+                out[f"{group}.{idx}.norm.num_batches_tracked"] = torch.tensor(0)
         elif blk.startswith("alpha_") and rest == ["skip_k"]:
             out[f"{blk}.skip_k"] = _tensor(np.reshape(v, (1, -1, 1)))
         elif blk.startswith("alpha_") and rest[0] == "skip_k" and coll == "params":
@@ -237,6 +240,48 @@ def generator_state_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.
             out[f"{blk}.skip_k.{rest[1]}"] = _tensor(v)
         else:
             raise KeyError(f"unexpected generator variable {coll}/{'/'.join(parts)}")
+    return out
+
+
+def module_state_from_jax(module: torch.nn.Module,
+                          flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The state_dict of any port module (the blocks of ``models/modules.py``) from its
+    JAX counterpart's variables, flattened to 'a/b/c' leaves ('params/', 'batch_stats/'
+    and 'spectral/' collections; a leaf without one is a param). Each port name has one
+    JAX path: a list index joins its parent with '_' ('filts.0.filt.weight' ->
+    'filts_0/filt/weight'), and 'weight_orig' is the JAX param 'weight'. Layouts follow
+    the owning layer: a Conv1d's weight (K, Cin, Cout) -> (Cout, Cin, K) and its
+    spectral v reordered (``_snorm_v_from_jax``), a ConvTranspose1d's -> (Cin, Cout, K),
+    a Linear's (in, out) -> (out, in); every other leaf as it is, in the port's shape.
+    BatchNorm's ``num_batches_tracked`` is 0. Raises KeyError on a missing leaf."""
+    leaves, _ = _collections(flat)
+    jax = {(coll, "/".join(parts)): v for coll, parts, v in leaves}
+    owners = dict(module.named_modules())
+    out: Dict[str, torch.Tensor] = {}
+    for name, ref in module.state_dict().items():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = owners[owner_name]
+        if leaf == "num_batches_tracked":
+            out[name] = torch.tensor(0)
+            continue
+        path = re.sub(r"\.(\d+)", r"_\1", owner_name).replace(".", "/")
+        path = f"{path}/" if path else ""
+        if leaf in ("weight_u", "weight_v"):
+            v = jax[("spectral", path + leaf)]
+            if leaf == "weight_v" and isinstance(owner, M.Conv1d):
+                v = _snorm_v_from_jax(v, jax[("params", path + "weight")])
+        elif leaf in ("running_mean", "running_var"):
+            v = jax[("batch_stats", path + leaf)]
+        else:
+            v = jax[("params", path + ("weight" if leaf == "weight_orig" else leaf))]
+            if leaf in ("weight", "weight_orig"):
+                if isinstance(owner, M.Conv1d):
+                    v = np.transpose(v, (2, 1, 0))
+                elif isinstance(owner, M.ConvTranspose1d):
+                    v = np.transpose(v, (1, 2, 0))
+                elif isinstance(owner, M.Linear):
+                    v = np.transpose(v)
+        out[name] = _tensor(np.reshape(v, tuple(ref.shape)))
     return out
 
 
@@ -257,7 +302,8 @@ def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
 
     conv (K, Cin, Cout) -> (Cout, Cin, K); Linear (in, out) -> (out, in), fc_0's input
     reordered from the JAX flatten (T, C) to upstream's (C, T) with C = ``last_fmaps``,
-    T = ``pool_slen``; PReLU slopes, biases and BatchNorm leaves unchanged. Every
+    T = ``pool_slen``; PReLU slopes, biases, BatchNorm leaves and the SincConv front
+    end's 'sinc_conv/filt_b1' and 'filt_band' unchanged. Every
     BatchNorm gets ``num_batches_tracked`` 0, as the JAX export writes it. A spectrally
     normalised layer's weight becomes 'weight_orig' and its u and v 'weight_u' and
     'weight_v', v reordered as its weight's columns are (a conv's (K, Cin) -> (Cin, K),
@@ -266,7 +312,8 @@ def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
     out: Dict[str, torch.Tensor] = {}
     for coll, parts, v in leaves:
         module, leaf = "/".join(parts[:-1]), parts[-1]
-        if not parts[0].startswith(("enc_blocks_", "fc", "mlp_", "pool_conv")):
+        if not parts[0].startswith(("enc_blocks_", "fc", "mlp_", "pool_conv",
+                                    "sinc_conv")):
             raise KeyError(f"unexpected discriminator variable {coll}/{'/'.join(parts)}")
         name = _d_module_name(module)
         if coll == "spectral":

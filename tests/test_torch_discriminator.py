@@ -311,9 +311,13 @@ def test_prelu_takes_features_and_time_layouts():
     assert act(torch.randn(2, 3, 5)).shape == (2, 3, 5)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_discriminator(SEGANConfig(**TOY, sinc_conv=True))
+def test_sinc_d_builds_and_unknown_options_raise():
+    # the SincConv front end (held against JAX in test_torch_sinc_d.py): a default D
+    # with it has four blocks, from 64 channels of filter outputs
+    sinc = build_discriminator(SEGANConfig(sinc_conv=True, dpool_slen=64))
+    assert isinstance(sinc.sinc_conv, tmod.SincConv) and sinc.sinc_conv.N_filt == 32
+    assert [blk.conv.weight.shape[:2] for blk in sinc.enc_blocks] == [
+        (128, 64), (256, 128), (512, 256), (1024, 512)]
     # spectral norm is ported (test_torch_wsegan_models.py holds it against JAX)
     assert build_discriminator(SEGANConfig(**TOY, dnorm_type="snorm")).enc_blocks[0].norm \
         is None

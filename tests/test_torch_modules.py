@@ -111,15 +111,19 @@ def test_constant_skip_is_frozen_and_alpha_learns():
 
 
 @pytest.mark.parametrize("norm", ["bnorm", "snorm"])
-def test_unported_norms_raise(norm):
-    """bnorm is ported for GConv1DBlock (the Discriminator's blocks, held against JAX in
-    test_torch_discriminator.py), not yet for GDeconv1DBlock (a bnorm G, queue A item 7);
-    snorm is ported for both blocks (held against JAX in test_torch_wsegan_models.py)."""
+def test_both_blocks_build_with_each_norm(norm):
+    """bnorm gives GConv1DBlock and GDeconv1DBlock a BatchNorm1d 'norm' (held against JAX
+    in test_torch_discriminator.py and test_torch_bnorm_g.py); snorm normalises both
+    blocks' weights (held against JAX in test_torch_wsegan_models.py)."""
     if norm == "bnorm":
         blk = tmod.GConv1DBlock(4, 8, 31, stride=4, norm_type=norm)
         assert isinstance(blk.norm, tmod.BatchNorm1d)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmod.GDeconv1DBlock(8, 4, 31, stride=4, norm_type=norm)
+        dec = tmod.GDeconv1DBlock(8, 4, 31, stride=4, norm_type=norm, act="Tanh")
+        assert isinstance(dec.norm, tmod.BatchNorm1d) and dec.norm.weight.shape == (4,)
+        assert {n for n, _ in dec.named_buffers()} == {
+            "norm.running_mean", "norm.running_var", "norm.num_batches_tracked"}
+        with pytest.raises(TypeError):
+            tmod.GDeconv1DBlock(8, 4, 31, stride=4, norm_type="lnorm")
     else:
         blk = tmod.GConv1DBlock(4, 8, 31, stride=4, norm_type=norm)
         assert blk.norm is None and blk.conv.snorm

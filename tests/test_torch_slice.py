@@ -13,6 +13,7 @@ import jax
 import torch
 from scipy.io import wavfile
 
+from segan_pytorch_tpu.models.generator import build_generator as jax_build_g
 from segan_pytorch_tpu.models.segan import SEGAN as JaxSEGAN
 from segan_pytorch_tpu.utils.checkpoint import (export_torch_generator, flatten_tree,
                                                 unflatten_tree)
@@ -148,10 +149,29 @@ def test_clean_cli_writes_the_enhanced_wavs(engines, tmp_path):
         np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5)
 
 
-def test_engine_refuses_unported_families(tmp_path):
-    """A bnorm generator is not ported (queue A item 7): the engine refuses its config
-    before it reads a checkpoint. WSEGAN and AEWSEGAN are ported
-    (test_torch_wsegan_engine.py)."""
-    opts = dump_train_opts(SEGANConfig(**TOY, gnorm_type="bnorm"), str(tmp_path / "bn"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_enhancement_engine(opts, "unused.ckpt", device="cpu")
+def test_engine_builds_a_bnorm_generator_from_its_opts_and_ckpt(tmp_path):
+    """A bnorm generator's train.opts and its JAX-exported .ckpt (running statistics
+    included) make an engine with G loaded strictly, whose eval forward equals the JAX
+    G's. (WSEGAN's and AEWSEGAN's engines: test_torch_wsegan_engine.py.)"""
+    from test_torch_discriminator import randomize
+
+    cfg = dict(TOY, gnorm_type="bnorm")
+    G = jax_build_g(JaxConfig(**cfg))
+    flat = randomize(dict(G.init({"params": jax.random.PRNGKey(0), "z":
+                                  jax.random.PRNGKey(1)}, np.zeros((1, 1024, 1),
+                                                                   np.float32),
+                                 train=True)), seed=3)
+    tree = unflatten_tree(flat)
+    ckpt = str(tmp_path / "g.ckpt")
+    export_torch_generator(tree, ckpt)
+    opts = dump_train_opts(SEGANConfig(**cfg), str(tmp_path / "bn"))
+    _, seg = build_enhancement_engine(opts, ckpt, device="cpu")
+    assert type(seg) is SEGAN and not seg.G.training
+    assert all(blk.norm is not None for blk in list(seg.G.enc_blocks) + list(
+        seg.G.dec_blocks))
+    rng = np.random.RandomState(4)
+    x = (rng.randn(2, 1024, 1) * 0.3).astype(np.float32)
+    z = rng.randn(2, 16, 32).astype(np.float32)
+    y_j = np.asarray(G.apply(tree, x, z=z, train=False))
+    y = seg.infer_G(x, z).numpy()
+    np.testing.assert_allclose(y, y_j, rtol=G_TOL, atol=G_TOL * np.abs(y_j).max())

@@ -103,10 +103,20 @@ def test_v_permutations_matter():
     assert _rel(y.numpy(), y_j) > 100 * MODEL_TOL
 
 
-def test_a_bnorm_generator_still_raises():
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        generator_state_from_jax({"batch_stats/dec_blocks_0/norm/running_mean":
-                                  np.zeros(4, np.float32)})
+def test_batch_stats_land_in_the_running_statistics():
+    """A bnorm G's 'batch_stats' leaves become the norms' running statistics, beside
+    num_batches_tracked 0 (held against JAX in test_torch_bnorm_g.py)."""
+    mean = np.arange(4, dtype=np.float32)
+    sd = generator_state_from_jax({
+        "batch_stats/dec_blocks_0/norm/running_mean": mean,
+        "batch_stats/dec_blocks_0/norm/running_var": mean + 1,
+        "params/dec_blocks_0/norm/weight": np.ones(4, np.float32),
+        "params/dec_blocks_0/norm/bias": np.zeros(4, np.float32)})
+    assert set(sd) == {f"dec_blocks.0.norm.{k}" for k in (
+        "running_mean", "running_var", "weight", "bias", "num_batches_tracked")}
+    np.testing.assert_array_equal(sd["dec_blocks.0.norm.running_mean"].numpy(), mean)
+    np.testing.assert_array_equal(sd["dec_blocks.0.norm.running_var"].numpy(), mean + 1)
+    assert int(sd["dec_blocks.0.norm.num_batches_tracked"]) == 0
 
 
 # -- the power spectrum ----------------------------------------------------------------
