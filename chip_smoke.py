@@ -211,6 +211,23 @@ and when the port's package is not beside it):
      (d) LayerNorm, ResBlock1D, ResARModule, SincConv, CombFilter, PostProcessingCombNet,
      Conv1DResBlock (strided and transposed) and pos_code, card vs CPU at batch 8 and
      64-512 channels over 4096-16384 samples, fp32 <= 1e-4, bf16 <= 2e-2.
+  13. A7b and A7c (phase_a7bc), every check fatal: (a) Generator1D at the SEGAN v1
+     paper's widths (11 encoder layers 16 ... 1024 at stride 2, K = 31, z_dim 1024, skips
+     merged by concat; 73.1M parameters) on 64 chunks of 16384 samples, fp32 and its bf16
+     copy: one forward each with the kernel's counters set to 0 just before and read just
+     after (11 launches, all on the FMA route: the tensor-core route takes stride 4 only),
+     the forward and a forward + backward of an L1 loss timed in turns (chunks/s), FLOPs
+     (the encoder's from its shapes, the rest by FlopCounterMode); at B = 2 the fp32
+     forward and gradients on the card and on the CPU vs float64 on the CPU (output <=
+     1e-3, each gradient's relative L2 error <= max(1e-3, 4 x the CPU fp32 one's)); the
+     bf16 copy vs the fp32 model of its rounded parameters (<= 2e-2); (b) the kernel at
+     that encoder's 11 stride-2 shapes at B = 64 vs its plain version in NaN-filled
+     outputs (fp32 <= 1e-4, bf16 <= 2e-2, the FMA route read from the counters), timed in
+     turns with the plain version and cuDNN's F.conv1d, beside bounds; (c) every option of
+     the CPU tests at toy width, card vs CPU (fp32 <= 1e-4; rnn_core on cuDNN's LSTM), and
+     rnn_core's bf16 copy vs fp32 (<= 2e-2); (d) STOI of 3 s, F0Evaluator on a spawned pool
+     of two (terminated), and one epoch of both random-chunk datasets over a synthetic
+     corpus with .lf0 targets, each timed.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
@@ -222,7 +239,8 @@ its weight pad from 7b, under graph_launches_per_replay the launches a replay of
 phase-10 case's graphed step makes, data_options_launches (_segan, _h5, _wsegan) those
 of phase 11's runs, a7a_*_launches_per_step phase 12's (bnorm G 0, sinc D SEGAN+ 5,
 sinc D WSEGAN 21), and under sinc_d_* (fp32_sinc_d_*) the sums of 12c's four sinc D
-shapes at batch 150;
+shapes at batch 150, a7b_g1d_launches_per_forward phase 13's (11), and under g1d_enc_*
+(fp32_g1d_enc_*) the sums of 13b's eleven stride-2 shapes at batch 64;
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -3545,61 +3563,66 @@ def _vs_float64(cls, cfg, seed, passes, extra=(), cpu=False, B=4):
     return losses, bufs, launched, secs
 
 
-def _hold_d_shapes(B, smi):
-    """The per-layer kernel at the four blocks of WSEGAN's D behind the sinc front end
-    (Cin -> Cout 64 -> 128 ... 512 -> 1024, T_out 4096 ... 64, bias) at batch B, against
-    its plain version in NaN-filled outputs: fp32 (TF32 off, <= FP32_TOL) and bf16
-    (<= BF16_TOL), on the route the wrapper picks, read from its counters (all four are
-    tensor-core shapes), and on the FMA route forced; then timed in turns with the plain
-    version and cuDNN's F.conv1d alone. Returns the four rows' sums by dtype."""
+def _hold_shapes(label, shapes, B, S, bias, mma, smi, seed):
+    """The per-layer kernel at `shapes` [(Cin, Cout, T_in, T_out)] of stride S at batch B
+    (with a bias or none), against its plain version in NaN-filled outputs: fp32 (TF32
+    off, <= FP32_TOL) and bf16 (<= BF16_TOL), on the route the wrapper picks, read from its
+    counters (the tensor cores where `mma`, else the FMA kernel), and for a tensor-core
+    shape also on the FMA route forced; then timed in turns with the plain version and
+    cuDNN's F.conv1d alone. Prints a row a shape and returns the rows' sums by dtype."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
 
     torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator().manual_seed(SEED + 240)
-    Kw, S = 31, 4
+    g = torch.Generator().manual_seed(seed)
+    Kw = 31
     sums = {"fp32_": {}, "": {}}
-    print(f"{'sinc D block':>14} {'x shape':>19} {'Cout':>5} | {'fp32':>8} {'fp32 fma':>8} "
-          f"{'bf16':>8} {'bf16 fma':>8} | {'tf32 ms':>8} {'fma ms':>8} {'plain':>8} "
-          f"{'cuDNN':>8} {'bound':>7} | {'mma ms':>8} {'fma ms':>8} {'plain':>8} "
+    print(f"{label:>14} {'x shape':>19} {'Cout':>5} | {'fp32':>8} {'fp32 fma':>8} "
+          f"{'bf16':>8} {'bf16 fma':>8} | {'fp32 ms':>8} {'fma ms':>8} {'plain':>8} "
+          f"{'cuDNN':>8} {'bound':>7} | {'bf16 ms':>8} {'fma ms':>8} {'plain':>8} "
           f"{'cuDNN':>8} {'bound':>7}")
-    for i, (cin, cout) in enumerate(((64, 128), (128, 256), (256, 512), (512, 1024))):
-        t_out = 4096 >> (2 * i)
-        t_in = S * t_out + Kw - 2  # the block's reflect pad (14, 15)
+    for i, (cin, cout, t_in, t_out) in enumerate(shapes):
         x = torch.randn((B, cin, t_in), generator=g).cuda()
         w = (torch.randn((cout, cin, Kw), generator=g) / (cin * Kw) ** 0.5).cuda()
-        bias = (torch.randn((cout,), generator=g) * 0.1).cuda()
+        b = (torch.randn((cout,), generator=g) * 0.1).cuda() if bias else None
         a = (torch.rand((cout,), generator=g) * 0.3).cuda()
         shape = (B, cout, t_out)
         flops = 2.0 * B * t_out * cout * cin * Kw
-        elems = B * cin * t_in + cout * cin * Kw + 2 * cout + 2 * B * cout * t_out
+        elems = (B * cin * t_in + cout * cin * Kw + (2 if bias else 1) * cout
+                 + 2 * B * cout * t_out)
         row = {}
         for p, dt, tol, peak in (("fp32_", torch.float32, FP32_TOL, None),
                                  ("", torch.bfloat16, BF16_TOL, BF16_PEAK)):
-            h = [v.to(dt) for v in (x, w, bias, a)]
-            before = (K.launches_mma, K.launches_tf32)
+            h = [v.to(dt) if v is not None else None for v in (x, w, b, a)]
+            before = (K.launches, K.launches_mma, K.launches_tf32)
             y, pre = K._launch(*h, S, t_out, out=nan_outputs(shape, shape, dtype=dt))
             y_ref, pre_ref = K.conv1d_prelu_plain(*h, S)
             torch.cuda.synchronize()
-            want = (before[0] + 1, before[1] + (1 if dt == torch.float32 else 0))
-            assert (K.launches_mma, K.launches_tf32) == want, (
-                f"sinc D block {i + 1} {dt}: not on the tensor cores")
+            n_mma = 1 if mma else 0
+            want = (before[0] + 1, before[1] + n_mma,
+                    before[2] + (n_mma if dt == torch.float32 else 0))
+            assert (K.launches, K.launches_mma, K.launches_tf32) == want, (
+                f"{label} {i + 1} {dt}: not on the {'tensor cores' if mma else 'FMA kernel'}")
             err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
             e_abs = worst([float((y - y_ref).abs().max()),
                            float((pre - pre_ref).abs().max())])
-            yf, pref = K._launch(*h, S, t_out, force_fma=True,
-                                 out=nan_outputs(shape, shape, dtype=dt))
-            torch.cuda.synchronize()
-            err_f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
-            assert max(err, err_f) <= tol, (i, dt, err, err_f)
-            del y, pre, yf, pref, y_ref, pre_ref
-            t = ms_in_turns({"kernel": lambda: K.fused_conv1d_prelu(*h, S),
-                             "fma": lambda: K._launch(*h, S, t_out, force_fma=True),
-                             "plain": lambda: K.conv1d_prelu_plain(*h, S),
-                             "cuDNN": lambda: F.conv1d(h[0], h[1], h[2], stride=S)},
-                            reps=6)
+            err_f = err
+            arms = {"kernel": lambda: K.fused_conv1d_prelu(*h, S)}
+            if mma:
+                yf, pref = K._launch(*h, S, t_out, force_fma=True,
+                                     out=nan_outputs(shape, shape, dtype=dt))
+                torch.cuda.synchronize()
+                err_f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
+                del yf, pref
+                arms["fma"] = lambda: K._launch(*h, S, t_out, force_fma=True)
+            assert max(err, err_f) <= tol, (label, i, dt, err, err_f)
+            del y, pre, y_ref, pre_ref
+            arms.update(plain=lambda: K.conv1d_prelu_plain(*h, S),
+                        cuDNN=lambda: F.conv1d(h[0], h[1], h[2], stride=S))
+            t = ms_in_turns(arms, reps=6)
+            t.setdefault("fma", t["kernel"])  # an FMA shape: the kernel is that route
             bound = (min(bound_ms(flops, 4 * elems, FP32_PEAK),
                          bound_ms(3 * flops, 4 * elems, TF32_PEAK))
                      if peak is None else bound_ms(flops, 2 * elems, peak))
@@ -3609,16 +3632,26 @@ def _hold_d_shapes(B, smi):
             sums[p]["max_abs_err"] = worst([sums[p].get("max_abs_err", 0.0), e_abs])
             del h
         (e32, f32, t32, b32), (e16, f16, t16, b16) = row["fp32_"], row[""]
-        print(f"{'block ' + str(i + 1):>14} {str((B, cin, t_in)):>19} {cout:>5} | "
+        print(f"{label + ' ' + str(i + 1):>14} {str((B, cin, t_in)):>19} {cout:>5} | "
               f"{e32:8.1e} {f32:8.1e} {e16:8.1e} {f16:8.1e} | {t32['kernel']:8.4f} "
               f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} {b32:7.4f} | "
               f"{t16['kernel']:8.4f} {t16['fma']:8.4f} {t16['plain']:8.4f} "
               f"{t16['cuDNN']:8.4f} {b16:7.4f}", flush=True)
-        del x, w, bias, a
-    print(f"sinc D blocks B={B}, sums over the four (one D pass): " + "; ".join(
+        del x, w, b, a
+    print(f"{label}s B={B}, sums over the {len(shapes)}: " + "; ".join(
         f"{p[:-1] or 'bf16'} " + ", ".join(f"{k} {v:.4g}" for k, v in c.items())
         for p, c in sums.items()) + f" ({smi})", flush=True)
     return sums
+
+
+def _hold_d_shapes(B, smi):
+    """The kernel at the four blocks of WSEGAN's D behind the sinc front end (Cin -> Cout
+    64 -> 128 ... 512 -> 1024, T_out 4096 ... 64, bias; the block's reflect pad (14, 15)),
+    all tensor-core shapes, as ``_hold_shapes`` holds and times them (one D pass)."""
+    shapes = [(cin, cout, 4 * (4096 >> (2 * i)) + 29, 4096 >> (2 * i))
+              for i, (cin, cout) in enumerate(((64, 128), (128, 256), (256, 512),
+                                               (512, 1024)))]
+    return _hold_shapes("sinc D block", shapes, B, 4, True, True, smi, SEED + 240)
 
 
 def _time_sinc_front_end(smi):
@@ -3911,6 +3944,274 @@ def phase_a7a(work: Path, smi: str) -> dict:
                 sinc_wsegan_launches_per_step=SINC_WS_PER_STEP, sinc_d=sums)
 
 
+# the SEGAN v1 paper's generator (Pascual et al. 2017, arXiv:1703.09452, section 4):
+# 11 encoder layers of K = 31 at stride 2, 16384 samples -> 8 x 1024, z (B, 8, 1024)
+G1D_V1 = dict(ninputs=1, enc_fmaps=[16, 32, 32, 64, 64, 128, 128, 256, 256, 512, 1024],
+              kwidth=31, pooling=2, z_dim=1024, skip_merge="concat")
+G1D_LAUNCHES = 11  # one per encoder layer, all on the FMA route (stride 2)
+G1D_TOY = dict(ninputs=1, enc_fmaps=[8, 16, 32], kwidth=31, z_dim=16)
+# the CPU tests' options (tests/test_torch_generator1d.py), as (pooling, options)
+G1D_OPTIONS = ([(p, kw) for p in (4, 2) for kw in (
+    {}, {"no_z": True}, {"rnn_core": True}, {"num_spks": 4}, {"linterp": True},
+    {"use_pos_code": True}, {"post_proc": True}, {"out_gate": True},
+    {"big_out_filter": True}, {"lnorm": True, "dropout": 0.2}, {"skip_blacklist": (0,)},
+    {"skip_merge": "concat"}, {"aal": True}, {"aal_out": True}, {"convblock": True},
+    {"snorm": True}, {"freeze_enc": True})]
+    + [(2, {"z_all": True}), (4, {"pad_type": "reflect"}), (2, {"pad_type": "reflect"}),
+       (4, {"skip_type": "conv"}), (4, {"skip_type": "constant"}), (2, {"post_skip": True}),
+       (4, {"no_tanh": True}),
+       (4, {"dec_fmaps": [16, 8, 8, 1], "up_poolings": [4, 4, 1, 4]}),
+       (2, {"activations": "LeakyReLU", "dec_activations": ["ReLU", "PReLU", "Tanh"]})])
+
+
+def _g1d(seed, **kw):
+    """A Generator1D on the CPU, its conv weights N(0, 1 / fan-in) (a transposed conv's
+    fan-in Cin K / stride) so that activations stay O(1) down 22 layers, PReLU slopes
+    U(0, 0.3)."""
+    import torch
+    from segan_pytorch_tpu_torch.models.generator1d import Generator1D
+
+    g = torch.Generator().manual_seed(seed)
+    G = Generator1D(**kw, generator=g)
+    with torch.no_grad():
+        for name, p in G.named_parameters():
+            if name.endswith("act.weight"):
+                p.uniform_(0.0, 0.3, generator=g)
+            elif p.dim() == 3 and ".deconv." in name:
+                p.normal_(0.0, (p.shape[0] * p.shape[2] / G.up_poolings[0]) ** -0.5,
+                          generator=g)
+            elif p.dim() == 3:
+                p.normal_(0.0, (p.shape[1] * p.shape[2]) ** -0.5, generator=g)
+    return G
+
+
+def _bf16_copy(model):
+    """The bf16 copy that ``SEGAN._g()`` makes: the parameters cast, the buffers as they
+    are; and the fp32 model with the copy's rounded parameter values."""
+    import copy
+    import torch
+
+    c16, rounded = copy.deepcopy(model), copy.deepcopy(model)
+    for p in c16.parameters():
+        p.data = p.data.bfloat16()
+    for p in rounded.parameters():
+        p.data = p.data.bfloat16().float()
+    return c16, rounded
+
+
+def _g1d_vs_float64(G, x, z, target):
+    """The fp32 forward and the gradients of an L1 loss on the card and on the CPU, and
+    the same in float64 on the CPU: (card's output error, {parameter: card's relative L2
+    gradient error}, the same for the CPU's fp32), all against float64."""
+    import copy
+    import torch
+    from segan_pytorch_tpu_torch.ops import conv as conv_ops
+
+    def run(device, dtype):
+        m = copy.deepcopy(G).to(device, dtype)
+        args = [v.to(device, dtype) for v in (x, z, target)]
+        with conv_ops.full_precision(dtype), torch.backends.mkldnn.flags(enabled=False):
+            y = m(*args[:2])
+            (y - args[2]).abs().mean().backward()
+        return y.detach().cpu().double(), {n: p.grad.cpu().double()
+                                           for n, p in m.named_parameters()}
+
+    (y_c, g_c), (y_h, g_h), (y_r, g_r) = (run("cuda", torch.float32),
+                                          run("cpu", torch.float32),
+                                          run("cpu", torch.float64))
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    return (rel_err(y_c, y_r), {n: l2(g_c[n], g_r[n]) for n in g_r},
+            {n: l2(g_h[n], g_r[n]) for n in g_r})
+
+
+def _g1d_options_card_vs_cpu(smi):
+    """(c): every option of the CPU tests at toy width, the same parameters on the card
+    and on the CPU, fp32 (<= FP32_TOL); eval mode, but snorm in train mode (one power
+    iteration from the same u, v: stored random ones make sigma tiny). Then rnn_core's
+    bf16 copy on the card (cuDNN's LSTM in bf16) against the fp32 model of its rounded
+    parameters."""
+    import copy
+    import torch
+
+    x = torch.randn((2, 1024, 1), generator=torch.Generator().manual_seed(SEED + 310))
+    spk = torch.tensor([1, 3])
+    errs = {}
+    for i, (pool, kw) in enumerate(G1D_OPTIONS):
+        G = _g1d(SEED + 320 + i, pooling=pool, **G1D_TOY, **kw).train(bool(kw.get("snorm")))
+        shape = (2, 2, 16) if kw.get("rnn_core") else (2, 1024 // pool ** 3, 16)
+        z = torch.randn(shape, generator=torch.Generator().manual_seed(SEED + 321 + i))
+        s = spk if kw.get("num_spks") else None
+        card = copy.deepcopy(G).cuda()
+        with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
+            want = G(x, z, spkid=s)
+            got = card(x.cuda(), z.cuda(), spkid=s.cuda() if s is not None else None)
+        errs[f"p{pool} {','.join(f'{k}={v}' for k, v in kw.items()) or 'default'}"] = \
+            rel_err(got.cpu(), want)
+    bad = {k: v for k, v in errs.items() if not v <= FP32_TOL}
+    G = _g1d(SEED + 350, pooling=2, rnn_core=True, **G1D_TOY).eval().cuda()
+    g16, rounded = _bf16_copy(G)
+    z = torch.randn((2, 2, 16), generator=torch.Generator().manual_seed(SEED + 351)).cuda()
+    xc = x.cuda().bfloat16()
+    with torch.no_grad():
+        e16 = rel_err(g16(xc, z), rounded(xc.float(), z.bfloat16().float()))
+    print(f"A7b options at toy width, card vs CPU (fp32, {len(errs)} cases): worst "
+          f"{worst(errs.values()):.1e} ({max(errs, key=errs.get)}); rnn_core bf16 copy "
+          f"(cuDNN LSTM in bf16) vs fp32 of its rounded parameters {e16:.1e} ({smi})",
+          flush=True)
+    assert not bad and e16 <= BF16_TOL, (bad, e16)
+
+
+def _a7c_on_the_card_machine(work: Path):
+    """(d): the host copies where there is no jax: STOI of 3 s, F0Evaluator on a spawned
+    pool of two (ended here), one epoch of both random-chunk datasets over a synthetic
+    corpus with .lf0 targets written by write_aco_file. Returns their seconds."""
+    from scipy.io import wavfile
+    from segan_pytorch_tpu_torch.data.aco import write_aco_file
+    from segan_pytorch_tpu_torch.data.se_dataset import (RandomChunkSEDataset,
+                                                         RandomChunkSEF0Dataset)
+    from segan_pytorch_tpu_torch.metrics.f0 import F0Evaluator
+    from segan_pytorch_tpu_torch.metrics.stoi import stoi
+
+    rng = np.random.RandomState(SEED + 360)
+
+    def speech(n):
+        t = np.arange(n) / SR
+        phase = 2 * np.pi * np.cumsum(120 + 40 * np.sin(2 * np.pi * 0.7 * t)) / SR
+        x = sum(a * np.sin(k * phase) for k, a in ((1, 0.4), (2, 0.2), (3, 0.1)))
+        return x * (0.6 + 0.4 * np.sin(2 * np.pi * 2 * t)) + 0.01 * rng.randn(n)
+
+    secs = {}
+    t0 = time.perf_counter()
+    ref = speech(3 * SR)
+    d = stoi(ref, ref + 0.1 * rng.randn(ref.size))
+    secs["stoi"] = time.perf_counter() - t0
+    assert 0 < d < 1, d
+    t0 = time.perf_counter()
+    ev = F0Evaluator(num_proc=2)
+    wavs = np.stack([speech(SR), speech(SR)]).astype(np.float32)
+    try:
+        kld, mae, acc = ev(wavs, wavs[::-1].copy())
+    finally:
+        if ev.pool is not None:
+            ev.pool.terminate()
+            ev.pool.join()
+    secs["F0Evaluator"] = time.perf_counter() - t0
+    assert np.isfinite(mae).all() and ((0 <= acc) & (acc <= 1)).all(), (mae, acc)
+    for sub in ("clean", "noisy", "lf0"):
+        (work / "a7c" / sub).mkdir(parents=True)
+    for i in range(8):
+        n = int(SR * (0.5 + i * 0.25))
+        x = speech(n)
+        for sub, y in (("clean", x), ("noisy", x + 0.05 * rng.randn(n))):
+            wavfile.write(str(work / "a7c" / sub / f"u{i}.wav"), SR,
+                          (np.clip(y, -1, 1) * 30000).astype(np.int16))
+        lf0 = np.log(100 + 50 * rng.rand(n // 80)).astype(np.float32)
+        lf0[::5] = -1e10
+        write_aco_file(str(work / "a7c" / "lf0" / f"u{i}.lf0"), lf0)
+    for name, ds in (("RandomChunkSEDataset", RandomChunkSEDataset(
+            str(work / "a7c" / "clean"), str(work / "a7c" / "noisy"), 0.95)),
+                     ("RandomChunkSEF0Dataset", RandomChunkSEF0Dataset(
+            str(work / "a7c" / "clean"), str(work / "a7c" / "lf0"), 0.95))):
+        t0 = time.perf_counter()
+        items = [ds[i] for i in range(len(ds))]
+        secs[name] = time.perf_counter() - t0
+        assert len(items) == 8 and all(
+            it["clean"].shape == (16384,) and np.isfinite(it["clean"]).all() for it in items)
+    print("A7c on the card machine: STOI of 3 s " + f"{d:.4f}; " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in secs.items())
+          + " (F0Evaluator: a spawned pool of two, its first call, then terminated; the "
+          "datasets: one epoch of 8 utterances)", flush=True)
+    return secs
+
+
+def phase_a7bc(work: Path, smi: str) -> dict:
+    """13 (A7b, A7c): Generator1D and the host copies, every check fatal. (a) the SEGAN v1
+    paper's Generator1D (G1D_V1) at 64 chunks of 16384 samples, fp32 and its bf16 copy:
+    one forward each with the kernel's counters set to 0 just before and read just after
+    (11 launches, all FMA), the forward and a forward + backward of an L1 loss timed in
+    turns, FLOPs (the encoder's from its shapes, the rest by FlopCounterMode); at B = 2
+    the fp32 forward and gradients card and CPU vs float64 on the CPU (output <=
+    SLICE_TOL, each gradient's relative L2 error <= max(1e-3, 4 x the CPU fp32's)); the
+    bf16 copy vs the fp32 model of its rounded parameters (<= BF16_TOL). (b) the kernel at
+    that encoder's 11 stride-2 shapes at B = 64 (``_hold_shapes``). (c) the options at
+    toy width, card vs CPU. (d) the A7c copies. Returns the launch count and (b)'s sums."""
+    import copy
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from segan_pytorch_tpu_torch.ops import conv as conv_ops
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    B, T = 64, 16384
+    G = _g1d(SEED + 300, **G1D_V1).eval()
+    n_params = sum(p.numel() for p in G.parameters())
+    gen = torch.Generator().manual_seed(SEED + 301)
+    x = torch.randn((B, T, 1), generator=gen) * 0.5
+    z = torch.randn((B, T >> 11, 1024), generator=gen)
+    target = torch.randn((B, T, 1), generator=gen) * 0.1
+    card = copy.deepcopy(G).cuda()
+    c16, rounded = _bf16_copy(card)
+    xc, zc, tc = x.cuda(), z.cuda(), target.cuda()
+    x16, z16 = xc.bfloat16(), zc.bfloat16()
+    launched = {}
+    with torch.no_grad():
+        for name, model, args in (("fp32", card, (xc, zc)), ("bf16", c16, (x16, z16))):
+            K.launches = K.launches_mma = K.launches_tf32 = 0
+            y = model(*args)
+            torch.cuda.synchronize()
+            launched[name] = (K.launches, K.launches_mma)
+            assert y.shape == (B, T, 1) and torch.isfinite(y).all(), name
+        e16 = rel_err(c16(x16, z16), rounded(x16.float(), z16.float()))
+        with FlopCounterMode(display=False) as fc:
+            card(xc, zc)
+    assert all(v == (G1D_LAUNCHES, 0) for v in launched.values()), launched
+    enc_shapes = [(cin, cout, (T >> i) + 30, T >> (i + 1)) for i, (cin, cout) in
+                  enumerate(zip([1] + G1D_V1["enc_fmaps"][:-1], G1D_V1["enc_fmaps"]))]
+    enc_flops = sum(2.0 * B * t_out * cout * cin * 31 for cin, cout, _, t_out in enc_shapes)
+    flops = enc_flops + fc.get_total_flops()
+
+    def fwd_bwd(model, xx, zz):
+        model.zero_grad(set_to_none=True)
+        with conv_ops.full_precision(xx.dtype):
+            (model(xx, zz).float() - tc).abs().mean().backward()
+
+    with torch.no_grad():
+        t_fwd = ms_in_turns({"fp32": lambda: card(xc, zc), "bf16": lambda: c16(x16, z16)},
+                            reps=5, warmup=2)
+    t_fb = ms_in_turns({"fp32": lambda: fwd_bwd(card, xc, zc),
+                        "bf16": lambda: fwd_bwd(c16, x16, z16)}, reps=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del card, c16, rounded, xc, zc, tc, x16, z16
+    torch.cuda.empty_cache()
+    e_out, g_card, g_cpu = _g1d_vs_float64(G, x[:2], z[:2], target[:2])
+    bad = {n: (g_card[n], g_cpu[n]) for n in g_card
+           if not g_card[n] <= max(1e-3, 4 * g_cpu[n])}
+    print(f"A7b Generator1D, the v1 paper's widths ({n_params / 1e6:.2f}M parameters), "
+          f"B={B} x {T}: forward fp32 {t_fwd['fp32']:.3f} ms ({B / t_fwd['fp32'] * 1e3:.1f}"
+          f" chunks/s), bf16 {t_fwd['bf16']:.3f} ms ({B / t_fwd['bf16'] * 1e3:.1f} chunks/s)"
+          f"; forward + backward of an L1 loss fp32 {t_fb['fp32']:.3f} ms, bf16 "
+          f"{t_fb['bf16']:.3f} ms; {flops / 1e9:.2f} GFLOP a forward ({enc_flops / B / 1e9:.3f}"
+          f" encoder, {(flops - enc_flops) / B / 1e9:.3f} the rest a slice); launches a "
+          f"forward (all, tensor cores) {launched}; peak {peak:.2f} GiB; bf16 copy vs fp32 "
+          f"of its rounded parameters {e16:.1e}; B=2 vs float64: output {e_out:.1e}, "
+          f"gradients worst {worst(g_card.values()):.1e} (the CPU's fp32 "
+          f"{worst(g_cpu.values()):.1e}) ({time.perf_counter() - t_phase:.1f} s into the "
+          f"phase; {smi})", flush=True)
+    assert e_out <= SLICE_TOL and not bad and e16 <= BF16_TOL, (e_out, bad, e16)
+    del G
+    sums = _hold_shapes("G1D enc", enc_shapes, B, 2, False, False, smi, SEED + 330)
+    _g1d_options_card_vs_cpu(smi)
+    host = _a7c_on_the_card_machine(work)
+    print(f"A7b/A7c: phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(launches_per_forward=G1D_LAUNCHES, enc=sums,
+                ms={k: (t_fwd[k], t_fb[k]) for k in t_fwd}, host=host)
+
+
 def main():
     import torch
 
@@ -3948,6 +4249,8 @@ def main():
         data_opts = phase_data_options(Path(work), train_rates)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         a7a = phase_a7a(Path(work), smi)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        a7bc = phase_a7bc(Path(work), smi)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -3972,6 +4275,8 @@ def main():
              a7a_sinc_wsegan_launches_per_step=a7a["sinc_wsegan_launches_per_step"],
              **{f"{p}sinc_d_{k}": v for p, c in a7a["sinc_d"].items()
                 for k, v in c.items()},
+             a7b_g1d_launches_per_forward=a7bc["launches_per_forward"],
+             **{f"{p}g1d_enc_{k}": v for p, c in a7bc["enc"].items() for k, v in c.items()},
              **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],

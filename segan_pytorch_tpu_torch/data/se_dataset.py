@@ -9,7 +9,9 @@ A batch is gathered by the C++ engine (``data/native.py``) when it can be, else 
 item in Python: both give the same bytes. With a ``transform`` (``data/augment.py``
 ``Additive``, ``--noises_dir``) the noisy slice is made anew from the clean one at every
 read. ``SEH5Dataset`` reads the pre-cut slices of ``{split}.h5`` (``tools/make_h5.py``
-writes them). Left for later: the random-chunk datasets.
+writes them). ``RandomChunkSEDataset`` draws one random slice of each pair per read,
+and ``RandomChunkSEF0Dataset`` one of each clean wav with its F0 frames
+(``tests/test_torch_aux_data.py`` holds both against the JAX ones).
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..ops.signal import normalize_wave_minmax, pre_emphasize_np, slice_signal_indices
+from ..ops.signal import (abs_normalize_wave_minmax, normalize_wave_minmax,
+                          pre_emphasize_np, slice_signal_indices)
+from .aco import interpolation, read_aco_file
 from .wav_io import read_wav_16k, read_wav_raw, wav_num_samples_16k
 
 
@@ -331,3 +335,142 @@ class SEH5Dataset:
 
     def __len__(self):
         return self.f["data"].shape[0]
+
+
+class RandomChunkSEDataset:
+    """One random slice per utterance per read (upstream's se_dataset.py:373-448): the
+    pair read at 16 kHz in [-1, 1], pre-emphasized, cut at a start drawn from the
+    module-level ``random`` (so a seeded ``random.seed`` gives the JAX package's slices),
+    and a pair shorter than the slice zero-padded at its end. With ``utt2spk`` (a file of
+    'utterance<TAB>speaker' lines) and ``spk2idx`` each item has 'spkid'.
+    ``split`` and ``max_samples`` are taken for the signature's sake."""
+
+    def __init__(
+        self,
+        clean_dir: str,
+        noisy_dir: str,
+        preemph: float,
+        split: str = "train",
+        slice_size: int = 2**14,
+        max_samples: Optional[int] = None,
+        utt2spk: Optional[str] = None,
+        spk2idx: Optional[dict] = None,
+    ):
+        self.preemph = preemph
+        self.slice_size = slice_size
+        self.utt2spk = utt2spk
+        self.spk2idx = spk2idx
+        if self.utt2spk is not None and self.spk2idx is None:
+            raise ValueError("Please specify spk2idx too with utt2spk!")
+        if utt2spk is not None:
+            self._read_utt2spk()
+        self.samples = {}
+        self.clean_names = sorted(glob.glob(os.path.join(clean_dir, "*.wav")))
+        for c_i, cname in enumerate(self.clean_names):
+            bname = os.path.basename(cname)
+            self.samples[c_i] = {
+                "clean": cname,
+                "noisy": os.path.join(noisy_dir, bname),
+            }
+
+    def _read_utt2spk(self):
+        utt2spk = {}
+        with open(self.utt2spk, "r") as f:
+            for line in f:
+                parts = line.rstrip().split("\t")
+                uttname = os.path.splitext(os.path.basename(parts[0]))[0]
+                utt2spk[uttname] = parts[1]
+        self.utt2spk = utt2spk
+
+    def read_wav_file(self, path: str) -> np.ndarray:
+        wav, _ = read_wav_16k(path, 16000)
+        return pre_emphasize_np(wav, self.preemph)
+
+    def __getitem__(self, index: int) -> dict:
+        sample = self.samples[index]
+        bname = os.path.splitext(os.path.basename(sample["clean"]))[0]
+        cwav = self.read_wav_file(sample["clean"])
+        nwav = self.read_wav_file(sample["noisy"])
+        min_L = min(cwav.shape[0], nwav.shape[0])
+        slice_size = min(self.slice_size, min_L)
+        beg = _random.randint(0, min_L - slice_size)
+        cslice = cwav[beg : beg + self.slice_size]
+        nslice = nwav[beg : beg + self.slice_size]
+        if min_L < self.slice_size:
+            cslice = np.concatenate(
+                (cslice, np.zeros(self.slice_size - cslice.shape[0], np.float32))
+            )
+            nslice = np.concatenate(
+                (nslice, np.zeros(self.slice_size - nslice.shape[0], np.float32))
+            )
+        out = {
+            "uttname": bname,
+            "clean": cslice.astype(np.float32),
+            "noisy": nslice.astype(np.float32),
+            "slice_idx": 0,
+            "pesq": None,
+            "ssnr": None,
+        }
+        if isinstance(self.utt2spk, dict):
+            out["spkid"] = self.spk2idx[self.utt2spk[bname]]
+        return out
+
+    def __len__(self):
+        return len(self.samples)
+
+
+class RandomChunkSEF0Dataset:
+    """Random slices of the clean wavs paired with their F0 targets (upstream's
+    se_dataset.py:450-525): '{noisy_dir}/{name}.lf0' (``data/aco.py`` format) with its
+    unvoiced frames interpolated (log 60 where none is voiced) and an end-of-sequence
+    zero frame, cut to the slice's 80-sample frames plus one. The wav is pre-emphasized,
+    then scaled by its largest magnitude as int32 (``abs_normalize_wave_minmax``); the
+    start is drawn from the module-level ``random``."""
+
+    def __init__(self, clean_dir: str, noisy_dir: str, preemph: float = 0,
+                 split: str = "train", slice_size: int = 2**14,
+                 max_samples: Optional[int] = None):
+        self.preemph = preemph
+        self.slice_size = slice_size
+        self.samples = {}
+        self.clean_names = sorted(glob.glob(os.path.join(clean_dir, "*.wav")))
+        for c_i, cname in enumerate(self.clean_names):
+            bname = os.path.splitext(os.path.basename(cname))[0]
+            self.samples[c_i] = {
+                "clean": cname,
+                "noisy": os.path.join(noisy_dir, bname) + ".lf0",
+            }
+
+    def read_wav_file(self, path: str) -> np.ndarray:
+        rate, wav = read_wav_raw(path)
+        wav = pre_emphasize_np(np.asarray(wav, np.float32), self.preemph)
+        return np.asarray(abs_normalize_wave_minmax(wav), np.float32)
+
+    def __getitem__(self, index: int) -> dict:
+        sample = self.samples[index]
+        bname = os.path.splitext(os.path.basename(sample["clean"]))[0]
+        cwav = self.read_wav_file(sample["clean"])
+        lf0 = read_aco_file(sample["noisy"])
+        ilf0, uv = interpolation(lf0, -10000000000)
+        ilf0 = np.where(ilf0 < -1000, np.log(60), ilf0)
+        ilf0 = np.concatenate((ilf0, np.zeros((1,), np.float32)))  # the EOS frame
+        uv = np.concatenate((uv, np.zeros((1,), np.float32)))
+        min_L = cwav.shape[0]
+        slice_size = min(self.slice_size, min_L)
+        beg = _random.randint(0, min_L - slice_size)
+        cslice = cwav[beg : beg + self.slice_size]
+        lf0slice = np.zeros(((self.slice_size // 80) + 1,), np.float32)
+        uvslice = np.zeros(((self.slice_size // 80) + 1,), np.float32)
+        ilf0_s = ilf0[beg // 80 : beg // 80 + (self.slice_size // 80) + 1]
+        uv_s = uv[beg // 80 : beg // 80 + (self.slice_size // 80) + 1]
+        lf0slice[: ilf0_s.shape[0]] = ilf0_s
+        uvslice[: uv_s.shape[0]] = uv_s
+        if min_L < self.slice_size:
+            cslice = np.concatenate(
+                (cslice, np.zeros((self.slice_size - cslice.shape[0],), np.float32)))
+        return {"uttname": bname, "clean": cslice.astype(np.float32),
+                "lf0": lf0slice, "uv": uvslice, "slice_idx": 0,
+                "pesq": None, "ssnr": None}
+
+    def __len__(self):
+        return len(self.samples)

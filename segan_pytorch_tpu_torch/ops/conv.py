@@ -99,10 +99,11 @@ def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
-           stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    """VALID 1-D convolution: x (B, Cin, T), weight (Cout, Cin, K) -> (B, Cout, T')."""
+           stride: int = 1, dilation: int = 1, groups: int = 1) -> torch.Tensor:
+    """VALID 1-D convolution: x (B, Cin, T), weight (Cout, Cin / groups, K) -> (B, Cout,
+    T')."""
     with full_precision(x.dtype):
-        return F.conv1d(x, weight, bias, stride=stride, dilation=dilation)
+        return F.conv1d(x, weight, bias, stride=stride, dilation=dilation, groups=groups)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

@@ -12,6 +12,12 @@ def normalize_wave_minmax(x: np.ndarray) -> np.ndarray:
     return (2.0 / 65535.0) * (np.asarray(x).astype(np.float32) - 32767.0) + 1.0
 
 
+def abs_normalize_wave_minmax(x: np.ndarray) -> np.ndarray:
+    """x as int32 over its largest magnitude (the F0 dataset's normalisation)."""
+    x = np.asarray(x).astype(np.int32)
+    return x / np.max(np.abs(x))
+
+
 def pre_emphasize_np(x: np.ndarray, coef: float = 0.95) -> np.ndarray:
     """y[0] = x[0]; y[t] = x[t] - coef*x[t-1]."""
     if coef <= 0:

@@ -275,13 +275,89 @@ def module_state_from_jax(module: torch.nn.Module,
         else:
             v = jax[("params", path + ("weight" if leaf == "weight_orig" else leaf))]
             if leaf in ("weight", "weight_orig"):
-                if isinstance(owner, M.Conv1d):
-                    v = np.transpose(v, (2, 1, 0))
-                elif isinstance(owner, M.ConvTranspose1d):
-                    v = np.transpose(v, (1, 2, 0))
-                elif isinstance(owner, M.Linear):
-                    v = np.transpose(v)
+                v = _weight_from_jax(v, next((k for t, k in _LAYOUTS if isinstance(owner, t)),
+                                             None))
         out[name] = _tensor(np.reshape(v, tuple(ref.shape)))
+    return out
+
+
+# the JAX -> torch weight layout of each kind of layer
+_LAYOUTS = ((M.Conv1d, "conv"), (M.ConvTranspose1d, "deconv"), (M.Linear, "linear"))
+
+
+def _weight_from_jax(v: np.ndarray, kind: Optional[str]) -> np.ndarray:
+    """A JAX weight in the port's layout: a conv's (K, Cin, Cout) -> (Cout, Cin, K), a
+    transposed conv's -> (Cin, Cout, K), a Linear's (in, out) -> (out, in); any other
+    (a PReLU slope) as it is."""
+    if kind == "conv":
+        return np.transpose(v, (2, 1, 0))
+    if kind == "deconv":
+        return np.transpose(v, (1, 2, 0))
+    return np.transpose(v) if kind == "linear" else v
+
+
+_G1D_LISTS = re.compile(r"^(gen_enc|gen_dec|convs|acts|filts)_(\d+)$")
+_LSTM_GATES = ("i", "f", "g", "o")  # flax's OptimizedLSTMCell and torch's nn.LSTM alike
+
+
+def _g1d_lstm_from_jax(cells: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The bidirectional LSTM 'rnn_core' from flax's two ``OptimizedLSTMCell``s: per
+    direction (cell_fwd -> '_l0', cell_bwd -> '_l0_reverse') the input kernels 'i<gate>'
+    (C, H, no bias) stacked into weight_ih (4H, C), the hidden kernels 'h<gate>' (H, H)
+    into weight_hh (4H, H), their biases into bias_ih, and bias_hh zero."""
+    out = {}
+    for cell, suffix in (("cell_fwd", "_l0"), ("cell_bwd", "_l0_reverse")):
+        def stack(kind, leaf):
+            return np.concatenate([cells[f"{cell}/{kind}{g}/{leaf}"] for g in _LSTM_GATES],
+                                  axis=-1)
+
+        bias = stack("h", "bias")
+        out[f"rnn_core.weight_ih{suffix}"] = _tensor(stack("i", "kernel").T)
+        out[f"rnn_core.weight_hh{suffix}"] = _tensor(stack("h", "kernel").T)
+        out[f"rnn_core.bias_ih{suffix}"] = _tensor(bias)
+        out[f"rnn_core.bias_hh{suffix}"] = _tensor(np.zeros_like(bias))
+    return out
+
+
+def generator1d_state_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Turn the JAX ``Generator1D``'s variables, flattened to 'a/b/c' numpy leaves
+    ('params/' and 'spectral/' collections; a leaf without one is a param), into the
+    state_dict of the port's ``models/generator1d.py`` ``Generator1D``.
+
+    A list index joins its parent with a dot ('gen_enc_0/conv/convs_1/weight' ->
+    'gen_enc.0.conv.convs.1.weight', 'comb_net/filts_2' -> 'comb_net.filts.2'); the alpha
+    skips 'alpha_<i>' keep their names. Layouts as ``module_state_from_jax`` gives them:
+    conv weights (K, Cin, Cout) -> (Cout, Cin, K) ('deconv' -> (Cin, Cout, K)), the
+    comb net's Linear 'W' (in, out) -> (out, in), an alpha skip's scale (C,) -> (1, C, 1);
+    a snorm layer's weight becomes 'weight_orig' and its 'spectral' u and v 'weight_u' and
+    'weight_v' (a conv's v reordered, ``_snorm_v_from_jax``); the LSTM as
+    ``_g1d_lstm_from_jax``. Raises KeyError on a leaf no port module has."""
+    leaves, normed = _collections(flat)
+    out: Dict[str, torch.Tensor] = {}
+    lstm = {}
+    for coll, parts, v in leaves:
+        module, leaf = "/".join(parts[:-1]), parts[-1]
+        if parts[0] == "rnn_core" and coll == "params":
+            lstm["/".join(parts[1:])] = v
+            continue
+        if not parts[0].startswith(("gen_enc_", "gen_dec_", "alpha_", "comb_net",
+                                    "out_gate", "out_filter")):
+            raise KeyError(f"unexpected Generator1D variable {coll}/{'/'.join(parts)}")
+        name = ".".join(_G1D_LISTS.sub(r"\1.\2", p) for p in parts[:-1])
+        if coll == "spectral":
+            if leaf == "weight_v" and not module.endswith("deconv"):
+                v = _snorm_v_from_jax(v, _jax_weight(flat, module))
+        elif parts[0].startswith("alpha_") and parts[1:] == ["skip_k"]:
+            v = np.reshape(v, (1, -1, 1))
+        elif leaf == "weight":
+            kind = ("deconv" if module.endswith("deconv") else
+                    "conv" if v.ndim == 3 else "linear" if v.ndim == 2 else None)
+            v = _weight_from_jax(v, kind)
+            if module in normed:
+                leaf = "weight_orig"
+        out[f"{name}.{leaf}" if name else leaf] = _tensor(v)
+    if lstm:
+        out.update(_g1d_lstm_from_jax(lstm))
     return out
 
 

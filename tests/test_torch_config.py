@@ -55,6 +55,8 @@ def test_signal_helpers_equal():
     pcm = np.random.RandomState(0).randint(-32768, 32767, 5000).astype(np.int16)
     x = tsig.normalize_wave_minmax(pcm)
     np.testing.assert_array_equal(x, jsig.normalize_wave_minmax(pcm))
+    np.testing.assert_array_equal(tsig.abs_normalize_wave_minmax(pcm),
+                                  jsig.abs_normalize_wave_minmax(pcm))
     for coef in (0.95, 0.0):
         np.testing.assert_array_equal(tsig.pre_emphasize_np(x, coef),
                                       jsig.pre_emphasize_np(x, coef))
@@ -151,6 +153,21 @@ def test_port_sources_import_no_jax():
                  if pat.search(p.read_text())]
     offenders += [p for p in ("chip_smoke.py",) if pat.search((ROOT / p).read_text())]
     assert not offenders, offenders
+
+
+@pytest.mark.parametrize("module", ["data.aco", "data.vc_dataset", "data.se_dataset",
+                                    "metrics.f0", "metrics.stoi"])
+def test_host_copies_import_neither_jax_nor_torch(module):
+    """The host-side copies of the datasets and metrics import numpy and scipy, not jax,
+    the JAX package or torch: the evaluation pool's spawned workers import the metrics
+    and ``data/aco.py`` alone."""
+    code = (f"import sys, importlib; importlib.import_module('segan_pytorch_tpu_torch."
+            f"{module}'); print(sorted({{m.split('.')[0] for m in sys.modules}} & "
+            f"{{'jax', 'flax', 'torch', 'segan_pytorch_tpu'}}))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", (proc.stdout,
+                                                                  proc.stderr[-2000:])
 
 
 def test_port_runs_with_jax_unimportable(tmp_path):
