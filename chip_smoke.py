@@ -228,6 +228,17 @@ and when the port's package is not beside it):
      rnn_core's bf16 copy vs fp32 (<= 2e-2); (d) STOI of 3 s, F0Evaluator on a spawned pool
      of two (terminated), and one epoch of both random-chunk datasets over a synthetic
      corpus with .lf0 targets, each timed.
+  14. multi-GPU training (phase_dp), every check fatal, on the one card: (a) NCCL at a
+     world size of 1, joined by initialize_distributed as the CLI joins: a full-width
+     SEGAN+ step through the grouped code equals the ungrouped one bit for bit under
+     cudnn.deterministic; (b) two processes sharing the card over gloo on CUDA tensors,
+     SEGAN+ at global batch 64 (50 valid rows, the mask's zeros on rank 1), fp32 and
+     bf16, each rank's step against the one-process step (5b's bounds; in bf16 the
+     gradients against the one-process fp32 step within 4 x the one-process bf16 step's
+     distance from it; 5 launches per rank); (c) four processes, dp 2 x mp 2, WSEGAN at global batch 16 with D's head
+     split, against one process (7a's bounds; 25 launches per rank); (d) enhance_sharded
+     over two G replicas on cuda:0 against generate within 1e-5. Per-rank times are of
+     processes sharing one card, not speed figures; NCCL cannot run two ranks on one card.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
@@ -240,7 +251,9 @@ phase-10 case's graphed step makes, data_options_launches (_segan, _h5, _wsegan)
 of phase 11's runs, a7a_*_launches_per_step phase 12's (bnorm G 0, sinc D SEGAN+ 5,
 sinc D WSEGAN 21), and under sinc_d_* (fp32_sinc_d_*) the sums of 12c's four sinc D
 shapes at batch 150, a7b_g1d_launches_per_forward phase 13's (11), and under g1d_enc_*
-(fp32_g1d_enc_*) the sums of 13b's eleven stride-2 shapes at batch 64;
+(fp32_g1d_enc_*) the sums of 13b's eleven stride-2 shapes at batch 64,
+p14_segan_launches_per_rank_step and p14_wsegan_launches_per_rank_step phase 14's (5 and
+25), p14_enhance_sharded_launches 14d's (10);
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -4212,6 +4225,355 @@ def phase_a7bc(work: Path, smi: str) -> dict:
                 ms={k: (t_fwd[k], t_fb[k]) for k in t_fwd}, host=host)
 
 
+# -- phase 14: multi-GPU training (A8) on the one card -----------------------------------
+P14_SEED = SEED + 1400
+P14_B, P14_VALID = 64, 50  # 14b: the global batch and its valid rows (zeros on rank 1)
+P14_WS_B = 16              # 14c: the global batch of the dp 2 x mp 2 WSEGAN step
+P14_A_B, P14_A_VALID = 8, 6  # 14a
+P14_TIMEOUT_S = 240        # a group not done by then is killed and the phase fails
+P14_ENHANCE_TOL = 1e-5
+
+
+def _p14_engine(kind, dtype, B, dp=1, mp=1):
+    """A full-width engine on the card: SEGAN+ ('segan', --no_bias) or WSEGAN ('wsegan',
+    the script's flags), D's learning rate 0 (D' = D, so the losses and G's gradients
+    that go through D' compare without Adam's or RMSprop's sign steps), seeded weights."""
+    import torch
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    flags = WSEGAN_FLAGS if kind == "wsegan" else dict(no_bias=True)
+    cfg = SEGANConfig(batch_size=B, d_lr=0.0, dp=dp, mp=mp,
+                      compute_dtype="bfloat16" if dtype == torch.bfloat16 else "float32",
+                      **flags)
+    G, D = (_wsegan_models if kind == "wsegan" else _train_models)(cfg, P14_SEED)
+    cls = WSEGAN if kind == "wsegan" else SEGAN
+    seg = cls(cfg, generator=G, discriminator=D, device="cuda")
+    seg.init_train()
+    return seg
+
+
+def _p14_step(seg, kind, B, valid):
+    """One step of `seg` on this process's rows of a seeded global batch of B (rows from
+    `valid` on masked out; WSEGAN: every third row 'additive') with seeded global draws.
+    Returns (losses, Genh rows, {name: gradient}, {name: buffer}, launches, seconds)."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    clean, noisy = _train_batch(B, 16384, P14_SEED + 1)
+    mask = (torch.arange(B) < valid).float()
+    gen = torch.Generator().manual_seed(P14_SEED + 2)
+    draws = dict(z=torch.randn((B, 16, 1024), generator=gen),
+                 phase=seg.D.sample_phase(gen, passes=seg.n_d_passes()))
+    args = [clean, noisy, mask]
+    if kind == "wsegan":
+        draws["perm"] = torch.randperm(B, generator=gen)
+        args.append((torch.arange(B) % 3 == 0).float())
+    rows = seg.grid.rows(B // seg._dp()) if seg.grid is not None else slice(None)
+    torch.cuda.synchronize()
+    K.launches = 0
+    t0 = time.perf_counter()
+    m, genh, _ = seg.train_step(*(a[rows] for a in args), 100.0, **draws)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    grads = {f"{side}.{n}": p.grad.detach().float().cpu() for side in ("G", "D")
+             for n, p in getattr(seg, side).named_parameters()}
+    bufs = {f"{side}.{n}": b.detach().cpu() for side in ("G", "D")
+            for n, b in getattr(seg, side).named_buffers()
+            if not n.endswith("num_batches_tracked")}
+    return ({k: float(v) for k, v in m.items()}, genh.cpu(), grads, bufs, K.launches, secs)
+
+
+def _p14_errors(got, ref, seg):
+    """Errors of one process's step against the one-process step: each loss, Genh (this
+    process's rows), each gradient and buffer (D's split head against its part of the
+    whole), relative in L2; the gradients of G and of D all together too."""
+    from segan_pytorch_tpu_torch.parallel.sharding import _tp_spec
+
+    rows = seg.grid.rows(got[1].shape[0]) if seg.grid is not None else slice(None)
+
+    def part(name, full):
+        side, n = name.split(".", 1)
+        dim = _tp_spec(n, full.shape) if side == "D" and seg._model is not None else None
+        if dim is None or seg._model.size == 1:
+            return full
+        p = seg._model.part(full.shape[dim])
+        return full.narrow(dim, p.start, p.stop - p.start)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+    # D's conv biases that feed a BatchNorm have a true gradient of 0: held apart
+    apart = BIAS_BEFORE_BN if seg.cfg.dnorm_type == "bnorm" else ()
+    out = {"losses": {k: abs(v - ref[0][k]) / abs(ref[0][k]) for k, v in got[0].items()},
+           "Genh": rel(got[1], ref[1][rows])}
+    for i, kind in ((2, "grads"), (3, "bufs")):
+        out[kind] = {k: rel(v, part(k, ref[i][k])) for k, v in got[i].items()}
+    for side in ("G", "D"):
+        keys = [k for k in got[2] if k.startswith(side + ".") and
+                not (side == "D" and k.split(".", 1)[1] in apart)]
+        num = sum(float((got[2][k].double() - part(k, ref[2][k]).double()).norm()) ** 2
+                  for k in keys)
+        den = sum(float(part(k, ref[2][k]).double().norm()) ** 2 for k in keys)
+        out[f"{side} all"] = (num / max(den, 1e-300)) ** 0.5
+    out["apart"] = [f"D.{k}" for k in apart]
+    out["checksum"] = sum(float(v.double().sum()) for v in got[2].values())
+    return out
+
+
+def _p14_rank(rank, nprocs, mp, kind, dtypes, B, valid, work):
+    """One process of a group sharing the card over gloo: for each dtype the engine at
+    dp x mp, one step on its rows, its errors against the one-process step written by
+    the parent (``{work}/{kind}_ref.pt``); results to ``{work}/{kind}_rank{rank}.json``."""
+    import torch
+    from segan_pytorch_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed(f"file://{work}/{kind}_rendezvous", nprocs, rank, "cuda",
+                                backend="gloo", timeout_s=P14_TIMEOUT_S / 2)
+    refs = torch.load(f"{work}/{kind}_ref.pt", weights_only=False)
+    out = {}
+    for name in dtypes:
+        seg = _p14_engine(kind, getattr(torch, name), B, nprocs // mp, mp)
+        got = _p14_step(seg, kind, B, valid)
+        err = _p14_errors(got, refs[name], seg)
+        if name == "bfloat16":  # also against the one-process fp32 step
+            err["vs fp32"] = _p14_errors(got, refs["float32"], seg)
+        out[name] = dict(err, launches=got[4], seconds=got[5], backend=torch.distributed
+                         .get_backend(), device=str(seg.device), grid=list(
+                             (seg.grid.dp, seg.grid.mp, seg.grid.dp_index, seg.grid.mp_index)))
+        del seg, got
+        torch.cuda.empty_cache()
+    mesh.shutdown_distributed()
+    Path(f"{work}/{kind}_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _p14_spread(kind, name, B, valid):
+    """The one-process step again, a second engine of the same state, with the kernel's
+    split-K planned for half the SMs: it sums in another order, as the ranks' smaller
+    batches make it do, and cuDNN's default algorithms fix no order either. How far this
+    lands from the first step is the step's own sensitivity to the order of its sums (a
+    last-bit change of a pre-activation at a PReLU kink flips its slope), the reference
+    error of the ranks' bounds, as 5b and 7a take the CPU's."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    sm_count = K._sm_count
+    K._sm_count = lambda index: max(1, sm_count(index) // 2)
+    try:
+        return _p14_step(_p14_engine(kind, getattr(torch, name), B), kind, B, valid)
+    finally:
+        K._sm_count = sm_count
+
+
+def _p14_group(work: Path, nprocs, mp, kind, dtypes, B, valid):
+    """The one-process step of each dtype (the reference, saved for the group), then a
+    group of `nprocs` processes on the card (``_p14_rank``), joined with a deadline.
+    Returns (the reference's losses and launches by dtype, each rank's results)."""
+    import torch
+    import torch.multiprocessing as tmp
+
+    refs, summary = {}, {}
+    for name in dtypes:
+        seg = _p14_engine(kind, getattr(torch, name), B)
+        ref = _p14_step(seg, kind, B, valid)
+        refs[name] = ref[:4]
+        summary[name] = dict(losses=ref[0], launches=ref[4], seconds=ref[5])
+        if name == "bfloat16":  # the one-process bf16 step's own distance from fp32
+            summary[name]["vs fp32"] = _p14_errors(ref, refs["float32"], seg)
+        else:
+            summary[name]["spread"] = _p14_errors(_p14_spread(kind, name, B, valid), ref,
+                                                  seg)
+        del seg
+    torch.save(refs, work / f"{kind}_ref.pt")
+    del refs
+    torch.cuda.empty_cache()
+    ctx = tmp.start_processes(_p14_rank, args=(nprocs, mp, kind, dtypes, B, valid,
+                                                str(work)),
+                              nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.time() + P14_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise TimeoutError(f"14: the {kind} group of {nprocs} did not finish in "
+                                   f"{P14_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return summary, [json.loads((work / f"{kind}_rank{r}.json").read_text())
+                     for r in range(nprocs)]
+
+
+def _p14_world_of_one(work: Path, smi):
+    """14a: NCCL at a world size of 1, joined by the CLI's own initialisation
+    (``initialize_distributed`` with a coordinator): one full-width SEGAN+ fp32 step
+    through the grouped code (global counts, the BatchNorms' and the losses' all-reduces,
+    the summed gradients) against the same step of an engine without a group, under
+    cudnn.deterministic: losses, Genh, every gradient and buffer bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from segan_pytorch_tpu_torch.parallel import mesh
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _p14_step(_p14_engine("segan", torch.float32, P14_A_B), "segan", P14_A_B,
+                          P14_A_VALID)
+        dev = mesh.initialize_distributed(f"file://{work}/nccl_rendezvous", 1, 0, "cuda")
+        try:
+            backend = dist.get_backend()
+            seg = _p14_engine("segan", torch.float32, P14_A_B)
+            assert seg.grid is not None and (seg.grid.dp, seg.grid.mp) == (1, 1)
+            grouped = _p14_step(seg, "segan", P14_A_B, P14_A_VALID)
+        finally:
+            mesh.shutdown_distributed()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    same = (plain[0] == grouped[0] and torch.equal(plain[1], grouped[1])
+            and all(torch.equal(plain[i][k], grouped[i][k]) for i in (2, 3)
+                    for k in plain[i]))
+    print(f"14a NCCL ({backend}) at a world size of 1 on {dev}: the grouped SEGAN+ step "
+          f"at B={P14_A_B} ({P14_A_VALID} valid) vs the ungrouped one under "
+          f"cudnn.deterministic: bit for bit {same} over {len(plain[2])} gradients and "
+          f"{len(plain[3])} buffers; launches {plain[4]} / {grouped[4]} ({smi})", flush=True)
+    assert backend == "nccl" and same, (backend, plain[0], grouped[0])
+    assert plain[4] == grouped[4] == 5, (plain[4], grouped[4])
+
+
+def _p14_show(label, summary, ranks, smi):
+    for name, ref in summary.items():
+        if "spread" in ref:
+            spread = ref["spread"]
+            print(f"{label} {name}, the one-process step against itself summed in another"
+                  f" order (_p14_spread): losses worst "
+                  f"{worst(spread['losses'].values()):.1e}, Genh {spread['Genh']:.1e}, "
+                  f"gradients G all {spread['G all']:.1e}, D all {spread['D all']:.1e}",
+                  flush=True)
+        if "vs fp32" in ref:
+            own = ref["vs fp32"]
+            print(f"{label} {name}, one process vs its fp32 step: gradients G all "
+                  f"{own['G all']:.1e}, D all {own['D all']:.1e}; the ranks' vs that fp32 "
+                  "step: " + ", ".join(f"G all {r[name]['vs fp32']['G all']:.1e}, D all "
+                                       f"{r[name]['vs fp32']['D all']:.1e}" for r in ranks),
+                  flush=True)
+        for r, res in enumerate(ranks):
+            e = res[name]
+            top = sorted(e["grads"], key=lambda k: -e["grads"][k])[:2]
+            print(f"{label} {name} rank {r} (grid dp, mp, d, m = {e['grid']}, {e['backend']}"
+                  f" on {e['device']}): losses " + ", ".join(
+                      f"{k} {v:.1e}" for k, v in e["losses"].items())
+                  + f"; Genh {e['Genh']:.1e}; gradients G all {e['G all']:.1e}, D all "
+                  f"{e['D all']:.1e}, worst " + ", ".join(f"{k} {e['grads'][k]:.1e}"
+                                                         for k in top)
+                  + f"; launches {e['launches']} (one process: {ref['launches']}); the step "
+                  f"{e['seconds']:.3f} s with the processes sharing one card (one process "
+                  f"alone: {ref['seconds']:.3f} s; not a speed figure) ({smi})", flush=True)
+
+
+def phase_dp(work: Path, smi: str) -> dict:
+    """14 (A8, multi-GPU training) on the one card, every check fatal. (a) NCCL at a
+    world size of 1 (``_p14_world_of_one``). (b) two processes sharing the card over
+    gloo on CUDA tensors, SEGAN+ at full width, global batch 64 (50 valid rows, the
+    mask's zeros on rank 1), fp32 and bf16: each rank's step against the one-process
+    step of the same global batch and draws, D's learning rate 0: fp32 losses and Genh
+    <= SLICE_TOL, D's gradients all together within max(SLICE_TOL, 4 x) and each within
+    max(10 x SLICE_TOL, 4 x) the one-process step's own spread under another order of
+    its sums (``_p14_spread``; 5b's form, the conv biases that feed a BatchNorm held
+    apart), G's all together <= KINK_TOL, the
+    running statistics <= SLICE_TOL; bf16 losses and Genh <= BF16_TOL, and, as 5b holds
+    gradients to a reference's own error, each rank's gradients against the one-process
+    fp32 step within 4 x the one-process bf16 step's distance from it (D's and G's all
+    together, floors SLICE_TOL and KINK_TOL, each of D's, floor 10 x SLICE_TOL); both
+    ranks' gradients equal (their checksums); 5 launches per rank. (c) four processes, dp 2 x
+    mp 2, WSEGAN with its script's flags (spectral norm, the misaligned pair) at full
+    width, global batch 16, fp32, D's head split: losses, Genh, u and v <= WS_TOL; D's
+    gradients all together within max(WS_TOL, 4 x), each within max(10 x WS_TOL, 4 x),
+    and G's all together within max(WS_G_TOL, 4 x) the one-process step's own spread
+    (``_p14_spread``: 7a's form); 25 launches per rank. (d) ``enhance_sharded`` over two G replicas on
+    cuda:0 against ``generate`` (fp32, 5 s: 5 chunks padded to 8) within
+    P14_ENHANCE_TOL, 10 launches. Returns the launch counts."""
+    import torch
+    from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.parallel.inference import enhance_sharded
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    t_phase = time.perf_counter()
+    _p14_world_of_one(work, smi)
+    t_a = time.perf_counter() - t_phase
+
+    summary, ranks = _p14_group(work, 2, 1, "segan", ("float32", "bfloat16"), P14_B,
+                                P14_VALID)
+    _p14_show("14b SEGAN+ dp 2", summary, ranks, smi)
+    for name in ("float32", "bfloat16"):
+        errs = [r[name] for r in ranks]
+        assert all(e["launches"] == 5 for e in errs), [e["launches"] for e in errs]
+        assert errs[0]["checksum"] == errs[1]["checksum"], name
+        for e in errs:
+            if name == "float32":
+                # 5b's form: D's gradients against a reference within max(floor, 4 x the
+                # reference's own error), here the one-process step's run-to-run spread
+                own = summary[name]["spread"]
+                assert worst(list(e["losses"].values()) + [e["Genh"]]) <= SLICE_TOL, e
+                assert e["D all"] <= max(SLICE_TOL, 4 * own["D all"]), (e, own["D all"])
+                assert e["G all"] <= KINK_TOL, e
+                bad = {k: (v, own["grads"][k]) for k, v in e["grads"].items()
+                       if k.startswith("D.") and k not in e["apart"]
+                       and not v <= max(10 * SLICE_TOL, 4 * own["grads"][k])}
+                # the running statistics, from the global batch's count and sums
+                bad.update({k: v for k, v in e["bufs"].items() if not v <= SLICE_TOL})
+                assert not bad, bad
+            else:
+                # two bf16 steps of the ill-conditioned D differ as much as each differs
+                # from fp32 (rounded gradients through sums that cancel): the ranks' bf16
+                # gradients are held against the one-process fp32 step, as 5b holds the
+                # card's, within 4 x the one-process bf16 step's own distance from it
+                own, e32 = summary[name]["vs fp32"], e["vs fp32"]
+                assert worst(list(e["losses"].values()) + [e["Genh"]]) <= BF16_TOL, e
+                for side, floor in (("D all", SLICE_TOL), ("G all", KINK_TOL)):
+                    assert e32[side] <= max(floor, 4 * own[side]), (side, e32, own)
+                bad = {k: (v, own["grads"][k]) for k, v in e32["grads"].items()
+                       if k.startswith("D.") and k not in e32["apart"]
+                       and not v <= max(10 * SLICE_TOL, 4 * own["grads"][k])}
+                assert not bad, bad
+    t_b = time.perf_counter() - t_phase - t_a
+
+    summary, ranks = _p14_group(work, 4, 2, "wsegan", ("float32",), P14_WS_B, P14_WS_B - 2)
+    _p14_show("14c WSEGAN dp 2 x mp 2", summary, ranks, smi)
+    own = summary["float32"]["spread"]
+    for e in (r["float32"] for r in ranks):
+        assert e["launches"] == WS_PER_STEP, e["launches"]
+        assert worst(list(e["losses"].values()) + [e["Genh"]]) <= WS_TOL, e
+        assert e["D all"] <= max(WS_TOL, 4 * own["D all"]), (e["D all"], own["D all"])
+        assert e["G all"] <= max(WS_G_TOL, 4 * own["G all"]), (e["G all"], own["G all"])
+        bad = {k: (v, own["grads"][k]) for k, v in e["grads"].items() if k.startswith("D.")
+               and not v <= max(10 * WS_TOL, 4 * own["grads"][k])}
+        bad.update({k: v for k, v in e["bufs"].items() if not v <= WS_TOL})
+        assert not bad, bad
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+
+    G, _ = _train_models(SEGANConfig(no_bias=True), P14_SEED + 3)
+    seg = SEGAN(SEGANConfig(no_bias=True), generator=G, device="cuda")
+    rng = np.random.RandomState(P14_SEED + 4)
+    wav = (rng.randn(5 * SR) * 0.1).astype(np.float32)
+    z = rng.randn(1, 16, 1024).astype(np.float32)
+    want, _ = seg.generate(wav, z=z)
+    K.launches = 0
+    got = enhance_sharded(seg, wav, devices=["cuda:0", "cuda:0"], z=z)
+    torch.cuda.synchronize()
+    d_launches = K.launches
+    err = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+    print(f"14d enhance_sharded over two G replicas on cuda:0, fp32, 5 s (5 chunks, 8 rows)"
+          f" vs generate: {err:.1e}, launches {d_launches} ({smi})", flush=True)
+    assert got.shape == want.shape and err <= P14_ENHANCE_TOL and d_launches == 10, (
+        err, d_launches)
+    print(f"14: phase 14 took {time.perf_counter() - t_phase:.1f} s (a {t_a:.1f}, b "
+          f"{t_b:.1f}, c {t_c:.1f}); NCCL ran at a world size of 1 only: it refuses two "
+          "processes on one card", flush=True)
+    return dict(segan=5, wsegan=WS_PER_STEP, enhance=d_launches)
+
+
 def main():
     import torch
 
@@ -4251,6 +4613,8 @@ def main():
         a7a = phase_a7a(Path(work), smi)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         a7bc = phase_a7bc(Path(work), smi)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        p14 = phase_dp(Path(work), smi)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -4277,6 +4641,9 @@ def main():
                 for k, v in c.items()},
              a7b_g1d_launches_per_forward=a7bc["launches_per_forward"],
              **{f"{p}g1d_enc_{k}": v for p, c in a7bc["enc"].items() for k, v in c.items()},
+             p14_segan_launches_per_rank_step=p14["segan"],
+             p14_wsegan_launches_per_rank_step=p14["wsegan"],
+             p14_enhance_sharded_launches=p14["enhance"],
              **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],

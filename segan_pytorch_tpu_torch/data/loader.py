@@ -10,7 +10,11 @@ worker threads build batches ahead and they are emitted in order.
 ``shuffle_buffer`` > 0 walks the slices through a bounded shuffle buffer instead
 (``--shuffle_buffer``) and drops the ragged tail; ``emit_dtype`` (``--loader_dtype``)
 casts clean and noisy at collate time, with torch, so that a bfloat16 batch crosses to
-the card at 2 bytes a sample. Left for later: the sharded multi-host loading.
+the card at 2 bytes a sample. ``shard_id`` / ``num_shards`` load one data shard of a
+multi-GPU run: ``batch_size`` stays the global batch, every shard walks the same seeded
+shuffle and gathers only its ``batch_size // num_shards`` rows of each padded global
+batch (and its part of the global mask), so the shards put together are the one-process
+loader's batch bit for bit.
 """
 from __future__ import annotations
 
@@ -103,13 +107,24 @@ class DataLoader:
         shuffle_buffer: int = 0,
         shuffle_buffer_mode: str = "sharded",
         emit_dtype: Optional[str] = None,
+        shard_id: int = 0,
+        num_shards: int = 1,
     ):
-        """shuffle_buffer > 0: a streaming shuffle through a bounded buffer of that many
-        slices in place of the shuffled index list, the JAX loader's at one shard: each
-        epoch draws a new ``random.Random`` from the loader's, the buffer fills in index
-        order and each batch row is a random pick from it (FIFO without ``shuffle``),
-        the ragged tail is dropped and every mask is all ones. Its modes 'sharded' and
-        'global' differ only across processes, so with one they walk the same indices.
+        """shard_id / num_shards: this loader's data shard of a multi-GPU run (the JAX
+        loader's, ``:71-169``): ``batch_size`` is the global batch, which must divide by
+        ``num_shards``; the loader emits rows [shard_id * Bs, (shard_id + 1) * Bs) of
+        each padded global batch, Bs = batch_size // num_shards, with that part of the
+        global mask (the padding rows of a ragged batch sit on the last shards), and
+        ``len`` counts its batches.
+
+        shuffle_buffer > 0: a streaming shuffle through a bounded buffer of that many
+        slices in place of the shuffled index list, as the JAX loader's: each epoch
+        draws a new ``random.Random`` from the loader's, the buffer fills in index order
+        and each batch row is a random pick from it (FIFO without ``shuffle``), the
+        ragged tail is dropped and every mask is all ones. 'sharded' walks this shard's
+        strided indices (shard_id::num_shards) through its own buffer, in local
+        batches; 'global' replays the one walk over every index in global batches and
+        keeps this shard's rows, so its shards put together are one loader's batch.
 
         emit_dtype: cast clean and noisy to this torch dtype (``loader_dtype``) at
         collate time; they are then CPU tensors, not numpy arrays (numpy has no
@@ -126,11 +141,22 @@ class DataLoader:
                              f"'global', got {shuffle_buffer_mode!r}")
         self.shuffle_buffer_mode = shuffle_buffer_mode
         self.emit_dtype = loader_dtype(emit_dtype) if emit_dtype else None
+        if num_shards > 1 and batch_size % num_shards:
+            raise ValueError(f"global batch_size {batch_size} must divide by num_shards "
+                             f"{num_shards}")
+        if not 0 <= shard_id < num_shards:
+            raise ValueError(f"shard_id {shard_id} out of range [0, {num_shards})")
+        self.shard_id, self.num_shards = shard_id, num_shards
+        self.local_batch = batch_size // num_shards
+        self.rows = slice(shard_id * self.local_batch, (shard_id + 1) * self.local_batch)
 
     def __len__(self):
+        n = len(self.dataset)
         if self.shuffle_buffer > 0:
-            return len(self.dataset) // self.batch_size
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+            if self.shuffle_buffer_mode == "global":
+                return n // self.batch_size
+            return (n // self.num_shards) // self.local_batch
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
         idx = list(range(len(self.dataset)))
@@ -141,6 +167,15 @@ class DataLoader:
 
     def _make_batch(self, indices):
         n_valid = len(indices)
+        mask = np.zeros((self.batch_size,), np.float32)
+        mask[:n_valid] = 1.0
+        if self.num_shards > 1:
+            # this shard's rows of the padded global batch: the shards put together
+            # are the one-process loader's batch
+            rows = (list(indices) + [indices[-1]] * (self.batch_size - n_valid))[self.rows]
+            batch = self._gather(rows)
+            batch["mask"] = mask[self.rows]
+            return self._cast(batch)
         batch = self._gather(indices)
         pad = self.batch_size - n_valid
         if pad > 0:
@@ -149,8 +184,6 @@ class DataLoader:
                     batch[k] = np.concatenate([v] + [v[-1:]] * pad, axis=0)
                 elif isinstance(v, list):
                     batch[k] = v + [v[-1]] * pad
-        mask = np.zeros((self.batch_size,), np.float32)
-        mask[:n_valid] = 1.0
         batch["mask"] = mask
         return self._cast(batch)
 
@@ -173,10 +206,16 @@ class DataLoader:
         return collate_batch([self.dataset[i] for i in indices])
 
     def _buffered_indices(self):
-        """The rows of each batch of the streaming shuffle (the JAX loader's walk at one
-        shard): a new stream each epoch, swap-pop picks from a buffer of
-        ``shuffle_buffer`` slices, or FIFO without ``shuffle``; ``len(self)`` batches."""
+        """The rows of each batch of the streaming shuffle (the JAX loader's walk): a new
+        stream each epoch, swap-pop picks from a buffer of ``shuffle_buffer`` slices, or
+        FIFO without ``shuffle``; ``len(self)`` batches. 'sharded': this shard's strided
+        indices in local batches; 'global': every index in global batches."""
         rnd = _random.Random(self.rng.random())  # a new stream each epoch
+        if self.shuffle_buffer_mode == "global":
+            seq, emit_size = range(len(self.dataset)), self.batch_size
+        else:
+            seq = range(self.shard_id, len(self.dataset), self.num_shards)
+            emit_size = self.local_batch
         n_batches = len(self)
         buf: list = []
         out: list = []
@@ -187,11 +226,11 @@ class DataLoader:
             buf[j], buf[-1] = buf[-1], buf[j]
             return buf.pop()
 
-        for i in range(len(self.dataset)):
+        for i in seq:
             buf.append(i)
             if len(buf) >= max(self.shuffle_buffer, 1):
                 out.append(pop_random() if self.shuffle else buf.pop(0))
-                if len(out) == self.batch_size:
+                if len(out) == emit_size:
                     yield out
                     out = []
                     emitted += 1
@@ -199,7 +238,7 @@ class DataLoader:
                         return
         while buf and emitted < n_batches:
             out.append(pop_random() if self.shuffle else buf.pop(0))
-            if len(out) == self.batch_size:
+            if len(out) == emit_size:
                 yield out
                 out = []
                 emitted += 1
@@ -207,8 +246,10 @@ class DataLoader:
     def __iter__(self) -> Iterator[dict]:
         if self.shuffle_buffer > 0:
             for rows in self._buffered_indices():
+                if self.shuffle_buffer_mode == "global":
+                    rows = rows[self.rows]
                 batch = self._gather(rows)
-                batch["mask"] = np.ones((self.batch_size,), np.float32)
+                batch["mask"] = np.ones((self.local_batch,), np.float32)
                 yield self._cast(batch)
             return
         batches = list(self._batch_indices())

@@ -29,6 +29,7 @@ from torch import nn
 from ..ops import conv as conv_ops
 from ..ops import initializers as init
 from ..ops.kernels.conv1d_prelu import conv1d_prelu
+from ..parallel import sharding
 
 
 def _check_norm(norm_type: Optional[str]):
@@ -65,21 +66,43 @@ def spectral_weight(module: nn.Module, matrix: Callable) -> torch.Tensor:
     fp32 (or wider) whatever the weight's dtype, and are written back into the buffers:
     once per forward, the JAX ``snorm_impl='per_apply'`` default. sigma takes W with its
     gradient and u, v without; the buffers stay fp32 under a bf16 copy of the weight.
-    Eval mode uses u and v as they are."""
+    Eval mode uses u and v as they are.
+
+    A layer split over the model axis (its ``tp``: (axis, 0) holds rows of W, (axis, 1)
+    columns; ``parallel/sharding.py``) iterates on the whole W: W v and W^T u are summed
+    or gathered over the axis, so u and v stay whole and equal on every rank, and sigma
+    is the sum of every rank's part (its gradient reaches every part)."""
     w = module.weight_orig
     u, v = module.weight_u, module.weight_v
+    axis, dim = getattr(module, "tp", None) or (None, None)
     if module.training:
         with torch.no_grad():
             m = conv_ops.at_least_fp32(matrix(w.detach()))
-            v_new = _l2normalize(m.t() @ u.to(m.dtype))
-            u_new = _l2normalize(m @ v_new)
+            if axis is None:
+                v_new = _l2normalize(m.t() @ u.to(m.dtype))
+                u_new = _l2normalize(m @ v_new)
+            elif dim == 0:  # this rank's rows
+                rows = axis.part(u.shape[0])
+                v_new = _l2normalize(sharding.all_reduce(m.t() @ u[rows].to(m.dtype), axis))
+                u_new = _l2normalize(sharding.gather_cat(m @ v_new, axis))
+            else:  # this rank's columns
+                cols = axis.part(v.shape[0])
+                v_new = _l2normalize(sharding.gather_cat(m.t() @ u.to(m.dtype), axis))
+                u_new = _l2normalize(sharding.all_reduce(m @ v_new[cols], axis))
             u.copy_(u_new)
             v.copy_(v_new)
         # this forward's graph keeps the new tensors, not the buffers, which the next
         # forward updates in place
         u, v = u_new, v_new
     m = conv_ops.at_least_fp32(matrix(w))
-    sigma = u.to(m.dtype) @ m @ v.to(m.dtype)
+    if axis is None:
+        sigma = u.to(m.dtype) @ m @ v.to(m.dtype)
+    elif dim == 0:
+        sigma = sharding.all_reduce(u[axis.part(u.shape[0])].to(m.dtype) @ m @ v.to(m.dtype),
+                                    axis)
+    else:
+        sigma = sharding.all_reduce(u.to(m.dtype) @ m @ v[axis.part(v.shape[0])].to(m.dtype),
+                                    axis)
     return w / sigma.to(w.dtype)
 
 
@@ -117,11 +140,20 @@ class BatchNorm1d(nn.Module):
     the smaller batch would. The running statistics move by ``momentum`` towards the
     batch mean and the unbiased batch variance; eval mode normalises with them.
 
+    With ``axis`` (the data axis, ``parallel/sharding.py`` ``Axis``, set by the engine of
+    a multi-GPU run) the statistics are those of the global batch, as under the JAX data
+    mesh (``segan_pytorch_tpu/models/modules.py:107``): the masked count and sum, then
+    the masked sum of squared deviations, are summed over the axis by autograd's
+    all-reduce, whose backward takes the gradient to every rank's rows; the running
+    variance's unbiased factor takes the global count.
+
     The variance is the two-pass mean of squared deviations. The JAX package's default
     (``bn_impl`` 'onepass', E[x^2] - E[x]^2) is a TPU lowering knob; the two agree to
     rounding at activation scale (``tests/test_torch_discriminator.py`` holds both).
     The JAX ``stats_groups`` (the fused real/fake D pass of the ``fuse_d`` knob, off by
     default) is not ported."""
+
+    axis = None  # the data axis of a multi-GPU run
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -132,18 +164,30 @@ class BatchNorm1d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
+    def _stats(self, xf, mask):
+        """(mean, biased variance, count) of the training batch: of the global batch
+        with an axis."""
+        if mask is None and self.axis is None:
+            mean = xf.mean(dim=(0, 2))
+            var = (xf - mean.view(1, -1, 1)).square().mean(dim=(0, 2))
+            return mean, var, float(xf.shape[0] * xf.shape[2])
+        w = (mask.to(xf.dtype) if mask is not None
+             else xf.new_ones(xf.shape[0])).view(-1, 1, 1)
+        total, count = (xf * w).sum(dim=(0, 2)), w.sum() * xf.shape[2]
+        if self.axis is not None:
+            packed = sharding.all_reduce(torch.cat([total, count.view(1)]), self.axis)
+            total, count = packed[:-1], packed[-1]
+        n = torch.clamp_min(count, 1.0)
+        mean = total / n
+        sq = ((xf - mean.view(1, -1, 1)).square() * w).sum(dim=(0, 2))
+        if self.axis is not None:
+            sq = sharding.all_reduce(sq, self.axis)
+        return mean, sq / n, n
+
     def forward(self, x, mask: Optional[torch.Tensor] = None):
         xf = conv_ops.at_least_fp32(x)
         if self.training:
-            if mask is None:
-                n = float(x.shape[0] * x.shape[2])
-                mean = xf.mean(dim=(0, 2))
-                var = (xf - mean.view(1, -1, 1)).square().mean(dim=(0, 2))
-            else:
-                w = mask.float().view(-1, 1, 1)
-                n = torch.clamp_min(w.sum() * x.shape[2], 1.0)
-                mean = (xf * w).sum(dim=(0, 2)) / n
-                var = ((xf - mean.view(1, -1, 1)).square() * w).sum(dim=(0, 2)) / n
+            mean, var, n = self._stats(xf, mask)
             with torch.no_grad():
                 m = self.momentum
                 unbiased = var * (n / (n - 1).clamp_min(1) if torch.is_tensor(n)
@@ -227,7 +271,11 @@ class Conv1d(_Weighted):
 class Linear(_Weighted):
     """torch nn.Linear: weight (out, in) xavier-uniform (SEGAN's init) unless ``w_init``
     says otherwise, bias torch's default U(±1/sqrt(in)); snorm views the weight as it
-    is."""
+    is. ``tp`` (axis, dim), set on D's head by ``parallel/sharding.py`` ``shard_head``,
+    makes it column-parallel (dim 0: its rows of the weight) or row-parallel (dim 1: its
+    columns, the partial outputs summed over the model axis)."""
+
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
                  snorm: bool = False, w_init: Callable = init.xavier_uniform,
@@ -240,7 +288,15 @@ class Linear(_Weighted):
         self.bias = nn.Parameter(b) if use_bias else None
 
     def forward(self, x):
-        return conv_ops.linear(x, self.get_weight(), self.bias)
+        tp = getattr(self, "tp", None)
+        if tp is None:
+            return conv_ops.linear(x, self.get_weight(), self.bias)
+        axis, dim = tp
+        if dim == 0:  # column-parallel: this rank's output features of the whole input
+            return conv_ops.linear(sharding.to_model(x, axis), self.get_weight(), self.bias)
+        # row-parallel: this rank's input features; the bias once, after the sum
+        y = sharding.from_model(conv_ops.linear(x, self.get_weight(), None), axis)
+        return y + self.bias if self.bias is not None else y
 
 
 class ConvTranspose1d(_Weighted):

@@ -36,6 +36,7 @@ continues the L1 schedule and the iteration count exactly.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import multiprocessing
 import os
@@ -46,15 +47,20 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import conv as conv_ops
 from ..ops.conv import at_least_fp32
 from ..ops.signal import de_emphasize_np
+from ..parallel import sharding
 from ..parallel.inference import chunk_grid, overlap_add
+from ..parallel.mesh import (Grid, distributed_barrier, host_group, make_grid,
+                             process_count, process_index)
 from ..utils.checkpoint import (Saver, discriminator_bridge, generator_state_from_jax,
                                 load_discriminator, load_generator, load_payload)
 from .discriminator import Discriminator, build_discriminator, d_input
 from .generator import Generator, build_generator
+from .modules import BatchNorm1d
 from .multistep import StepGraph, set_capturable
 
 
@@ -67,34 +73,41 @@ def compute_dtype_of(cfg) -> torch.dtype:
     raise ValueError(f"Unsupported compute_dtype {name!r}: use 'float32' or 'bfloat16'")
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean over the batch rows with mask 1 (the plain mean on a full batch), in fp32
-    (or wider) whatever x's dtype."""
+    (or wider) whatever x's dtype. `count`: the rows that the mean is over, when they are
+    not only these (a multi-GPU step's global count: each rank then holds its rows' part
+    of the global mean, and the parts sum to it)."""
     per = at_least_fp32(x).reshape(x.shape[0], -1).mean(dim=1)
-    return (per * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    if count is None:
+        count = torch.clamp_min(mask.sum(), 1.0)
+    return (per * mask).sum() / count
 
 
-def masked_mse(logits: torch.Tensor, label: float, mask: torch.Tensor) -> torch.Tensor:
+def masked_mse(logits: torch.Tensor, label: float, mask: torch.Tensor,
+               count: Optional[torch.Tensor] = None) -> torch.Tensor:
     return masked_mean((at_least_fp32(logits).reshape(logits.shape[0], -1) - label) ** 2,
-                       mask)
+                       mask, count)
 
 
-def masked_bce_logits(logits: torch.Tensor, label: float,
-                      mask: torch.Tensor) -> torch.Tensor:
+def masked_bce_logits(logits: torch.Tensor, label: float, mask: torch.Tensor,
+                      count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """binary_cross_entropy_with_logits: max(x, 0) - x y + log(1 + exp(-|x|))."""
     x = at_least_fp32(logits).reshape(logits.shape[0], -1)
     per = torch.clamp_min(x, 0) - x * label + torch.log1p(torch.exp(-x.abs()))
-    return masked_mean(per, mask)
+    return masked_mean(per, mask, count)
 
 
 def reg_loss_fn(kind: str) -> Callable:
-    """(a, b, mask) -> the masked mean of |a - b| ('l1_loss') or (a - b)^2 ('mse_loss')."""
+    """(a, b, mask, count=None) -> the masked mean of |a - b| ('l1_loss') or (a - b)^2
+    ('mse_loss')."""
     if kind == "l1_loss":
-        return lambda a, b, mask: masked_mean((at_least_fp32(a) - at_least_fp32(b)).abs(),
-                                              mask)
+        return lambda a, b, mask, count=None: masked_mean(
+            (at_least_fp32(a) - at_least_fp32(b)).abs(), mask, count)
     if kind == "mse_loss":
-        return lambda a, b, mask: masked_mean((at_least_fp32(a) - at_least_fp32(b)) ** 2,
-                                              mask)
+        return lambda a, b, mask, count=None: masked_mean(
+            (at_least_fp32(a) - at_least_fp32(b)) ** 2, mask, count)
     raise ValueError(f"Unrecognized reg loss {kind}")
 
 
@@ -152,11 +165,26 @@ class SEGAN:
         self.z_rng = torch.Generator().manual_seed(seed)
         self._infer_rng = torch.Generator().manual_seed(seed + 1)
         self.step = 0  # train steps taken (after resume(): the checkpoint's)
+        # the grid of a multi-GPU run (init_train): its data and model axes
+        self.grid: Optional[Grid] = None
+        self._data = self._model = None
+        self._n = None  # a grouped step's global count of valid rows
         self._multi: Optional[StepGraph] = None  # the step's CUDA graph, when prepared
         self._step_flops: Optional[int] = None
         self.pool = None  # the evaluation worker pool, kept across epochs
         self.writer = None
         self._preempted = False
+
+    def _chief(self) -> bool:
+        """Whether this process writes the run's files: process 0 of a group."""
+        return process_index() == 0
+
+    def _whole_head(self):
+        """D's head whole inside the block on every rank of the model axis (a
+        collective), split again after (``parallel/sharding.py`` ``whole_head``)."""
+        if self._model is None or self.D is None:
+            return contextlib.nullcontext()
+        return sharding.whole_head(self.D, self.d_opt, self._model)
 
     def g_load_pretrained(self, ckpt_path: str):
         """Load G strictly from a reference-format torch .ckpt or a JAX npz checkpoint."""
@@ -166,12 +194,14 @@ class SEGAN:
     def d_load_pretrained(self, ckpt_path: str):
         """Load D (built first if need be) strictly, as G is loaded."""
         self.init_train()
-        load_discriminator(self.D, ckpt_path)
+        with self._whole_head():
+            load_discriminator(self.D, ckpt_path)
 
     def get_n_params(self) -> int:
         """Parameters of G and D."""
         self.init_train()
-        return sum(p.numel() for m in (self.G, self.D) for p in m.parameters())
+        with self._whole_head():
+            return sum(p.numel() for m in (self.G, self.D) for p in m.parameters())
 
     def _g(self) -> Generator:
         """G in the compute dtype (a cast copy for bf16; params stay fp32 in self.G). The
@@ -279,11 +309,17 @@ class SEGAN:
 
     # -- training -------------------------------------------------------------
     def init_train(self):
-        """Build, once, what training adds: D (from seed + 2, unless one was given), the
-        optimizers of G and D (``cfg.opt``, ``cfg.g_lr``, ``cfg.d_lr``), the reg loss,
-        and the streams of z (on the device, seed + 3) and phase draws (CPU, seed + 4)."""
+        """Build, once, what training adds (``_build_train``), then place it on the grid
+        of a multi-GPU run (``_setup_parallel``)."""
         if self.g_opt is not None:
             return
+        self._build_train()
+        self._setup_parallel()
+
+    def _build_train(self):
+        """D (from seed + 2, unless one was given), the optimizers of G and D
+        (``cfg.opt``, ``cfg.g_lr``, ``cfg.d_lr``), the reg loss, and the streams of z
+        (on the device, seed + 3) and phase draws (CPU, seed + 4)."""
         cfg = self.cfg
         if self.D is None:
             self.D = build_discriminator(
@@ -292,6 +328,58 @@ class SEGAN:
         self.d_opt = build_optimizer(cfg.opt, cfg.d_lr, self.D.parameters())
         self._reg_fn = reg_loss_fn(cfg.reg_loss)
         self._seed_step_streams(self.seed)
+
+    def _setup_parallel(self):
+        """The grid of a multi-GPU run (the JAX ``_setup_parallel``, ``:618-629``), when
+        ``cfg.dp`` or ``cfg.mp`` is above 1 or a process group was joined: every process
+        of the group drives its card, dp x mp of them (dp, when ``cfg.dp`` is 1, the
+        process count over mp). The batch must divide by dp. The BatchNorms of G and D
+        take the data axis (global statistics), and D's head is split over the model
+        axis with its optimizer moments (``parallel/sharding.py``)."""
+        cfg = self.cfg
+        dp = cfg.dp if cfg.dp and cfg.dp > 1 else None
+        mp = getattr(cfg, "mp", 1) or 1
+        if dp is None and mp == 1 and not dist.is_initialized():
+            return
+        grid = make_grid(dp, mp)
+        if cfg.batch_size % grid.dp != 0:
+            raise ValueError(f"batch_size ({cfg.batch_size}) must be divisible by the "
+                             f"data-parallel factor --dp ({grid.dp})")
+        self.grid = grid
+        self._data = sharding.Axis(grid.dp_group, grid.dp, grid.dp_index)
+        self._model = sharding.Axis(grid.mp_group, grid.mp, grid.mp_index)
+        for model in (self.G, self.D):
+            for m in (model.modules() if model is not None else ()):
+                if isinstance(m, BatchNorm1d):
+                    m.axis = self._data
+        if self.D is not None:
+            sharding.shard_head(self.D, self.d_opt, self._model)
+
+    def _local(self, t: Optional[torch.Tensor], B: int) -> Optional[torch.Tensor]:
+        """This rank's rows of a draw for the global batch (all of them without a grid);
+        B is the rows of the local batch."""
+        if t is None or self.grid is None:
+            return t
+        return t[self.grid.rows(B)]
+
+    def _count(self, mask: torch.Tensor) -> Optional[torch.Tensor]:
+        """The valid rows of the global batch under a grid (the losses' count), else
+        None."""
+        if self.grid is None:
+            return None
+        return torch.clamp_min(sharding.sum_values([mask.sum()], self._data)[0], 1.0)
+
+    def _reduce_grads(self, module: torch.nn.Module):
+        """Sum `module`'s gradients over the data axis, before its optimizer steps."""
+        if self.grid is not None:
+            sharding.reduce_gradients(module.parameters(), self._data)
+
+    def _sum_metrics(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A step's losses of the global batch: each rank's parts summed over the data
+        axis, in one all-reduce."""
+        if self.grid is None:
+            return metrics
+        return dict(zip(metrics, sharding.sum_values(metrics.values(), self._data)))
 
     def _seed_step_streams(self, base: int):
         """The step's z stream (on the device, base + 3) and phase stream (CPU, base + 4)."""
@@ -314,9 +402,10 @@ class SEGAN:
         """Phase 2: D's real and fake passes, the summed LSGAN loss, one D step."""
         d_real, _ = self._run(self.D, d_input(clean_c, noisy_c), mask=mask, phase=phase[0])
         d_fake, _ = self._run(self.D, d_input(fake, noisy_c), mask=mask, phase=phase[1])
-        d_real_loss = masked_mse(d_real, 1.0, mask)
-        d_fake_loss = masked_mse(d_fake, 0.0, mask)
+        d_real_loss = masked_mse(d_real, 1.0, mask, self._n)
+        d_fake_loss = masked_mse(d_fake, 0.0, mask, self._n)
         (d_real_loss + d_fake_loss).backward()
+        self._reduce_grads(self.D)
         self.d_opt.step()
         return d_real_loss.detach(), d_fake_loss.detach()
 
@@ -325,10 +414,11 @@ class SEGAN:
         Genh only (D's gradients stay those of phase 2), then through G; one G step."""
         genh = Genh.detach().requires_grad_()
         d_fake_, _ = self._run(self.D, d_input(genh, noisy_c), mask=mask, phase=phase)
-        g_adv = masked_mse(d_fake_, 1.0, mask)
-        g_l1 = l1_weight * self._reg_fn(genh, clean, mask)
+        g_adv = masked_mse(d_fake_, 1.0, mask, self._n)
+        g_l1 = l1_weight * self._reg_fn(genh, clean, mask, self._n)
         (d_genh,) = torch.autograd.grad(g_adv + g_l1, genh)
         Genh.backward(d_genh)
+        self._reduce_grads(self.G)
         self.g_opt.step()
         self._G_compute = None  # the bf16 inference copy of G is stale now
         return g_adv.detach(), g_l1.detach()
@@ -352,14 +442,20 @@ class SEGAN:
     def _draw(self, B: int, T: int, z=None, phase=None) -> Dict[str, Optional[torch.Tensor]]:
         """A step's draws, each the given one or the next from the engine's streams: z
         (B, T', z_dim) on the device, and the phase shifts of D's passes (n_d_passes(),
-        n_layers, 2) on the host (None for a D without phase shift)."""
+        n_layers, 2) on the host (None for a D without phase shift). Under a grid every
+        rank draws for the global batch (B x dp rows; a given z is the global one) from
+        the same streams and keeps its rows."""
         if z is None and not self.G.no_z:
-            z = self.G.sample_z((B, T, 1), self._z_train)
+            z = self.G.sample_z((B * self._dp(), T, 1), self._z_train)
         if phase is None:
             phase = self.D.sample_phase(self._phase_train, passes=self.n_d_passes())
-        return {"z": (torch.as_tensor(z).to(self.device, torch.float32)
-                      if z is not None else None),
+        z = self._local(torch.as_tensor(z), B) if z is not None else None
+        return {"z": (z.to(self.device, torch.float32) if z is not None else None),
                 "phase": torch.as_tensor(phase) if phase is not None else None}
+
+    def _dp(self) -> int:
+        """The data-parallel degree: the global batch over this rank's."""
+        return self.grid.dp if self.grid is not None else 1
 
     def _l1(self, l1_weight) -> torch.Tensor:
         """The L1 weight as a 0-d fp32 tensor on the device: the fill takes the value as
@@ -374,6 +470,7 @@ class SEGAN:
         cdt = self.compute_dtype
         clean, noisy, mask, z = x["clean"], x["noisy"], x["mask"], draws["z"]
         phase = draws["phase"] if draws["phase"] is not None else [None] * 3
+        self._n = self._count(mask)
         self.g_opt.zero_grad(set_to_none=True)
         self.d_opt.zero_grad(set_to_none=True)
         self.G.train()
@@ -392,7 +489,7 @@ class SEGAN:
             self.G.eval()
             self.D.eval()
         metrics = {"d_real": d_real, "d_fake": d_fake, "g_adv": g_adv, "g_l1": g_l1}
-        return metrics, Genh.detach().float()
+        return self._sum_metrics(metrics), Genh.detach().float()
 
     def train_step(self, clean, noisy, mask=None, l1_weight: float = 100.0, z=None,
                    phase=None) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
@@ -404,7 +501,13 @@ class SEGAN:
         pass: real, fake, fake') come from the engine's streams when None. Returns
         (metrics, Genh, z): metrics 'd_real', 'd_fake', 'g_adv', 'g_l1' as 0-d fp32
         tensors on the device (reading one waits for the step), Genh (B, T, 1) fp32 and
-        the z used. Afterwards every parameter's ``.grad`` holds this step's gradient."""
+        the z used. Afterwards every parameter's ``.grad`` holds this step's gradient.
+
+        Under a grid (``_setup_parallel``) clean, noisy and mask are this rank's rows of
+        the global batch, z is given for the global batch, and the step is the one step
+        of the global batch: global BatchNorm statistics and loss means, gradients summed
+        over the data axis; the metrics are the global batch's, Genh and z this rank's
+        rows."""
         self.init_train()
         x = self._inputs(clean, noisy, mask)
         draws = self._draw(*x["clean"].shape[:2], z=z, phase=phase)
@@ -465,10 +568,10 @@ class SEGAN:
         B, T = xs[0]["clean"].shape[:2]
         draws = [self._draw(B, T, **{k: (v[i] if v is not None else None)
                                      for k, v in draws_s.items()}) for i in range(S)]
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.grid is None:
             self.prepare_multi_step(S)
             metrics_s, Genh = self._multi.run(xs, l1_w_s, draws)
-        elif self.device.type == "cpu":
+        elif self.device.type in ("cuda", "cpu"):  # under a grid: eager steps
             rows = [self._body(x, self._l1(l1), d) for x, l1, d in zip(xs, l1_w_s, draws)]
             metrics_s = {k: torch.stack([m[k] for m, _ in rows]) for k in rows[0][0]}
             Genh = rows[-1][1]
@@ -493,7 +596,8 @@ class SEGAN:
         return (clean, noisy, mask) + extras
 
     def step_flops(self) -> int:
-        """The FLOPs of one train step of this engine at its batch (``cfg.batch_size``):
+        """The FLOPs of one train step of this engine at its batch (``cfg.batch_size``,
+        under a grid this process's part of it):
         every convolution, transposed convolution and matmul, forward and backward, the
         hand-written kernel's included, as ``torch.utils.flop_counter`` counts them on
         the plain route. It runs the step's body on a copy of the engine made of fake CPU
@@ -510,7 +614,8 @@ class SEGAN:
             self.init_train()
             mode = FakeTensorMode()
             fake = _fake_engine(self, mode)
-            B, T = int(self.cfg.batch_size), int(self.cfg.slice_size)
+            # under a grid, this process's rows: the step's FLOPs on its card
+            B, T = int(self.cfg.batch_size) // self._dp(), int(self.cfg.slice_size)
             with mode:
                 x = fake._inputs(*(torch.zeros((B, T, 1) if k in ("clean", "noisy")
                                                else (B,)) for k in self.batch_keys))
@@ -556,11 +661,9 @@ class SEGAN:
         from ..utils.logging import StepTimer, TrainLogger
         from ..utils.profiling import device_memory_stats, device_trace, mfu
 
-        unported = unported_options(cfg)
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-        self.writer = TrainLogger(os.path.join(cfg.save_path, "train"))
         self.init_train()
+        is_chief = self._chief()
+        self.writer = TrainLogger(os.path.join(cfg.save_path, "train"), enabled=is_chief)
         # payloads are written on a background thread, after a synchronous copy to the
         # host
         eoe_g_saver = Saver(cfg.save_path, max_ckpts=3, prefix="EOE_G-", async_write=True)
@@ -601,7 +704,7 @@ class SEGAN:
         best_val_obj = 0
         self._seed_step_streams(self.seed + start_step)
         restore_sig = self._install_preempt_handler()
-        S = max(1, int(getattr(cfg, "steps_per_call", 1)))
+        S = self._steps_per_call(cfg)
         if S > 1 and profiling:
             print("[!] --profile needs per-step dispatch; steps_per_call -> 1")
             S = 1
@@ -674,7 +777,7 @@ class SEGAN:
                     self.writer.histogram("noisy", noisy, iteration)
                     self.writer.weight_norms(self.G, "Gtotal", iteration)
                     self.writer.weight_norms(self.D, "Dtotal", iteration)
-                    if not cfg.no_train_gen:
+                    if not cfg.no_train_gen and is_chief:
                         self.gen_train_samples(clean_samples, noisy_samples, z_sample,
                                                iteration=iteration)
                 iteration += 1
@@ -730,23 +833,49 @@ class SEGAN:
         self.close_pool()
         self.writer.close()
 
+    def _steps_per_call(self, cfg) -> int:
+        """``cfg.steps_per_call``, or 1 under a grid, where a step runs collectives (the
+        JAX loops' rule for more than one process)."""
+        S = max(1, int(getattr(cfg, "steps_per_call", 1)))
+        if S > 1 and self.grid is not None:
+            print("[!] steps_per_call > 1 is single-process only; using 1")
+            S = 1
+        return S
+
     def save(self, g_saver: Saver, d_saver: Saver, step: int, best_val: bool = False):
         """G and D with their optimizers' state, named after `step` (the loop's
-        iteration); each payload records the train steps taken."""
-        g_saver.save("Generator", step, self.G, self.g_opt, best_val=best_val,
-                     trained_steps=self.step)
-        if self.D is not None:
-            d_saver.save("Discriminator", step, self.D, self.d_opt, best_val=best_val,
+        iteration); each payload records the train steps taken. Every process calls it:
+        D's split head is put together first (the JAX ``state_for_ckpt``), so a payload
+        is the whole torch state dict, and the chief alone writes."""
+        with self._whole_head():
+            if not self._chief():
+                return
+            g_saver.save("Generator", step, self.G, self.g_opt, best_val=best_val,
                          trained_steps=self.step)
+            if self.D is not None:
+                d_saver.save("Discriminator", step, self.D, self.d_opt,
+                             best_val=best_val, trained_steps=self.step)
 
     def resume(self, save_path: Optional[str] = None) -> int:
         """Resume from the latest EOE checkpoints of `save_path`, written by the port's
         trainer or the JAX one: G and D, both optimizers' state and the step count (of a
         JAX run, its meta 'step', where the JAX engine resumes). Returns the step (0 with
-        nothing there)."""
+        nothing there).
+
+        In a group every process reads the chief's files (a shared file system): they
+        wait for each other first, D's split head is loaded whole and split again, and a
+        checksum of G's parameters must agree across processes, else RuntimeError."""
         save_path = save_path or self.cfg.save_path
         self.init_train()
         self.release_multi_step()  # the optimizers' state is replaced, not copied into
+        distributed_barrier("resume")
+        with self._whole_head():
+            step = self._load_eoe(save_path)
+        if process_count() > 1:
+            self._verify_resume_consistency()
+        return step
+
+    def _load_eoe(self, save_path: str) -> int:
         loaded = Saver(save_path, max_ckpts=3, prefix="EOE_G-").load_weights()
         if loaded is None:
             print("[!] Nothing to resume from")
@@ -763,6 +892,20 @@ class SEGAN:
         self.step = int(g_meta["step"])
         print(f"[*] Resumed from step {self.step}")
         return self.step
+
+    def _verify_resume_consistency(self):
+        """The JAX ``_verify_multihost_resume_consistency`` (``:1056-1075``): the chief
+        writes checkpoints, so a save_path that is not one shared file system leaves the
+        other processes on other weights; fail loudly instead."""
+        local = sum(float(p.detach().double().abs().sum()) for p in self.G.parameters())
+        sums = [None] * process_count()
+        dist.all_gather_object(sums, local, group=host_group())
+        if not np.allclose(sums, sums[0], rtol=1e-6, atol=1e-6):
+            raise RuntimeError(
+                "multi-host resume inconsistency: parameter checksums differ across "
+                f"processes ({sums}). save_path must be a shared filesystem visible to "
+                "every host (chief writes, all read); copy the checkpoint directory to "
+                "every host or mount shared storage.")
 
     def gen_train_samples(self, clean_samples, noisy_samples, z_sample, iteration=None):
         """Write G's output on the sample rows, and once the rows themselves, as wavs
@@ -816,7 +959,13 @@ class SEGAN:
         spawned, never forked (the parent holds a CUDA context and loader threads); its
         workers import ``metrics`` alone, and the calling script's own body again, so a
         script that trains must keep its work under ``if __name__ == "__main__"``.
-        Per-utterance lists by metric; with do_noisy also those of the noisy input."""
+        Per-utterance lists by metric; with do_noisy also those of the noisy input.
+
+        In a group every process runs G on the whole batches but scores only the rows r
+        with r % processes == its index; the scores are then exchanged over the host
+        group (the JAX ``_allgather_eval_results``, ``:1140-1240``) and put back in row
+        order, so every process returns the lists that one process would, and takes the
+        same early-stop decision."""
         from ..data.loader import host_float32
         from ..metrics import composite_helper
 
@@ -825,7 +974,9 @@ class SEGAN:
         noisy_evals = {k: [] for k in METRIC_KEYS}
         if self.pool is None:
             self.pool = multiprocessing.get_context("spawn").Pool(cfg.eval_workers)
-        all_ret = []
+        nproc, pidx = process_count(), process_index()
+        all_ret = []  # (position in one process's lists, result) of the rows scored here
+        position = 0
         for bidx, batch in enumerate(dloader, start=1):
             clean = host_float32(batch["clean"])  # (B, T)
             noisy = host_float32(batch["noisy"])
@@ -839,16 +990,22 @@ class SEGAN:
             clean_de = de_emphasize_np(clean, self.preemph)
             genh_de = de_emphasize_np(Genh, self.preemph)
             beg_t = timeit.default_timer()
-            if do_noisy:
-                noisy_de = de_emphasize_np(noisy, self.preemph)
-                args = [(clean_de[i], genh_de[i], noisy_de[i]) for i in range(n_valid)]
-            else:
-                args = [(clean_de[i], genh_de[i], None) for i in range(n_valid)]
-            all_ret.extend(self.pool.map(composite_helper, args))
+            rows = [i for i in range(n_valid) if i % nproc == pidx]
+            noisy_de = de_emphasize_np(noisy, self.preemph) if do_noisy else None
+            args = [(clean_de[i], genh_de[i], noisy_de[i] if do_noisy else None)
+                    for i in rows]
+            all_ret.extend(zip((position + i for i in rows),
+                               self.pool.map(composite_helper, args)))
+            position += n_valid
             end_t = timeit.default_timer()
-            print(f"Time to process eval with {n_valid} samples : {end_t - beg_t} s")
+            print(f"Time to process eval with {len(rows)} samples : {end_t - beg_t} s")
             if bidx >= max_samples:
                 break
+        if nproc > 1:
+            parts = [None] * nproc
+            dist.all_gather_object(parts, all_ret, group=host_group())
+            all_ret = [r for part in parts for r in part]
+        all_ret = [r for _, r in sorted(all_ret, key=lambda item: item[0])]
 
         def fill(ret_dict, in_dict):
             for k, v in in_dict.items():
@@ -899,16 +1056,12 @@ def _fake_engine(engine: "SEGAN", mode) -> "SEGAN":
     fake.g_opt = _NoStep()
     fake.d_opt = _NoStep() if engine.d_opt is not None else None
     fake._G_compute = fake._multi = fake.pool = fake.writer = None
+    fake.grid = fake._data = fake._model = fake._n = None  # this rank's work, no collective
+    for model in (fake.G, fake.D):
+        for m in (model.modules() if model is not None else ()):
+            if isinstance(m, BatchNorm1d):
+                m.axis = None
+            if getattr(m, "tp", None) is not None:
+                m.tp = None
     return fake
 
-
-def unported_options(cfg) -> List[str]:
-    """The options of ``cfg`` set to something the port does not run yet, as CLI flags;
-    the trainer raises on any of them rather than ignore it."""
-    checks = [
-        ("--dp", (cfg.dp or 1) > 1),
-        ("--mp", (getattr(cfg, "mp", 1) or 1) > 1),
-        ("--coordinator", getattr(cfg, "coordinator", None)),
-        ("--num_processes", (getattr(cfg, "num_processes", None) or 1) > 1),
-    ]
-    return [flag for flag, value in checks if value]

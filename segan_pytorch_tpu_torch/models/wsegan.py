@@ -35,10 +35,10 @@ from ..ops import conv as conv_ops
 from ..ops.conv import at_least_fp32
 from ..ops.signal import de_emphasize_np, div_n_len, make_div_n_np
 from ..ops.stft import power_spectrum_db
+from ..parallel import sharding
 from ..utils.checkpoint import Saver
 from .discriminator import d_input
-from .segan import (SEGAN, build_optimizer, masked_bce_logits, masked_mean, masked_mse,
-                    unported_options)
+from .segan import SEGAN, build_optimizer, masked_bce_logits, masked_mean, masked_mse
 
 INTERF_FREQS = (250.0, 1000.0, 4000.0)
 INTERF_AMPS = (0.01, 0.05, 0.1, 1.0)
@@ -100,13 +100,11 @@ class WSEGAN(SEGAN):
         self.n_fft = cfg.n_fft
         self._cost = masked_bce_logits if cfg.vanilla_gan else masked_mse
 
-    def init_train(self):
+    def _build_train(self):
         """SEGAN's, with D (when the engine builds it) Xavier-initialised from seed + 6;
         the optimizers are ``cfg.opt`` with Adam's betas (0, 0.9), as upstream's."""
-        if self.g_opt is not None:
-            return
         built = self.D is None
-        super().init_train()
+        super()._build_train()
         if built:
             apply_wsegan_weights_init(self.D, torch.Generator().manual_seed(self.seed + 6))
 
@@ -116,7 +114,12 @@ class WSEGAN(SEGAN):
                  (d_input(fake, noisy_c), 0.0, "d_fake")]
         d_weight = 1.0 / 2
         if self.misalign_pair:
-            pairs.append((d_input(clean_c, clean_c[perm]), 0.0, "d_fake_shuf"))
+            # perm is of the global batch: under a grid a row's partner may sit on
+            # another rank
+            partner = (clean_c[perm] if self.grid is None else
+                       sharding.gather_cat(clean_c, self._data)[
+                           perm[self.grid.rows(clean_c.shape[0])]])
+            pairs.append((d_input(clean_c, partner), 0.0, "d_fake_shuf"))
             d_weight = 1.0 / 3
         if self.interf_pair:
             pairs.append((d_input(clean_c + squares.to(clean_c.dtype), noisy_c), 0.0,
@@ -132,10 +135,11 @@ class WSEGAN(SEGAN):
         total = 0.0
         for (x, label, name), ph in zip(pairs, phase):
             y, _ = self._run(self.D, x, mask=mask, phase=ph)
-            losses[name] = self._cost(y, label, mask)
+            losses[name] = self._cost(y, label, mask, self._n)
             total = total + losses[name]
         d_loss = d_weight * total
         d_loss.backward()
+        self._reduce_grads(self.D)
         self.d_opt.step()
         return d_loss.detach(), {k: v.detach() for k, v in losses.items()}
 
@@ -147,18 +151,20 @@ class WSEGAN(SEGAN):
         differentiated with respect to Genh, then through G; one G step."""
         genh = Genh.detach().requires_grad_()
         d_fake_, _ = self._run(self.D, d_input(genh, noisy_c), mask=mask, phase=phase)
-        g_adv = self._cost(d_fake_, 1.0, mask)
+        g_adv = self._cost(d_fake_, 1.0, mask, self._n)
         genh32 = at_least_fp32(genh)
         clean_pow = power_spectrum_db(clean[..., 0], self.n_fft)
         genh_pow = power_spectrum_db(genh32[..., 0], self.n_fft)
-        pow_loss = self.pow_weight * masked_mean((genh_pow - clean_pow).abs(), mask)
+        pow_loss = self.pow_weight * masked_mean((genh_pow - clean_pow).abs(), mask,
+                                                 self._n)
         am = amask.view(-1, 1, 1)
-        den_loss = l1_weight * masked_mean((genh32 * am - clean * am).abs(), mask)
+        den_loss = l1_weight * masked_mean((genh32 * am - clean * am).abs(), mask, self._n)
         # 0 unless the weight is positive, decided on the device as in JAX
         den_loss = torch.where(l1_weight > 0, den_loss, torch.zeros_like(den_loss))
         g_cost = g_adv + pow_loss + den_loss
         (d_genh,) = torch.autograd.grad(g_cost, genh)
         Genh.backward(d_genh)
+        self._reduce_grads(self.G)
         self.g_opt.step()
         self._G_compute = None
         return {k: v.detach() for k, v in (("g_loss", g_cost), ("g_adv", g_adv),
@@ -183,15 +189,18 @@ class WSEGAN(SEGAN):
         """A step's draws, each the given one or the next from the engine's streams: z
         (on the device), the phase shifts of every D pass, then the misalignment
         permutation (B,) and the square waves (B, T, 1), each on the host and only with
-        its pair."""
+        its pair. Under a grid each is drawn (or given) for the global batch; the
+        permutation stays whole (it indexes the global batch) and the rest keep this
+        rank's rows."""
         draws = super()._draw(B, T, z=z, phase=phase)
+        Bg = B * self._dp()
         if perm is None and self.misalign_pair:
-            perm = torch.randperm(B, generator=self._phase_train)
+            perm = torch.randperm(Bg, generator=self._phase_train)
         if squares is None and self.interf_pair:
-            squares = square_wave_batch(B, T, self._phase_train)
+            squares = square_wave_batch(Bg, T, self._phase_train)
         draws["perm"] = (torch.as_tensor(perm, dtype=torch.long)
                          if perm is not None else None)
-        draws["squares"] = (torch.as_tensor(squares, dtype=torch.float32)
+        draws["squares"] = (self._local(torch.as_tensor(squares, dtype=torch.float32), B)
                             if squares is not None else None)
         return draws
 
@@ -205,6 +214,7 @@ class WSEGAN(SEGAN):
             phase = [None] * self.n_d_passes()
         perm, squares = (draws[k].to(clean.device) if draws[k] is not None else None
                          for k in ("perm", "squares"))
+        self._n = self._count(mask)
         self.g_opt.zero_grad(set_to_none=True)
         self.d_opt.zero_grad(set_to_none=True)
         self.G.train()
@@ -220,7 +230,8 @@ class WSEGAN(SEGAN):
         finally:
             self.G.eval()
             self.D.eval()
-        return {"d_loss": d_loss, **g_metrics, **d_losses}, Genh.detach().float()
+        metrics = {"d_loss": d_loss, **g_metrics, **d_losses}
+        return self._sum_metrics(metrics), Genh.detach().float()
 
     def train_step(self, clean, noisy, mask=None, additive_mask=None,
                    l1_weight: float = 100.0, z=None, phase=None, perm=None, squares=None
@@ -272,7 +283,9 @@ class WSEGAN(SEGAN):
         last); SIGTERM saves and stops. With ``cfg.steps_per_call`` S > 1 each call takes
         S batches (``train_step_multi``), but never across an epoch's end nor past the
         last iteration: those run single steps; the log and samples take the last batch
-        of a group. ``--profile`` is not read here, as in JAX."""
+        of a group. ``--profile`` is not read here, as in JAX. In a group S is 1, the
+        chief alone writes samples and checkpoints, and every process saves together
+        (``save`` puts D's split head together first)."""
         from ..data.loader import host_float32
         from ..utils.logging import StepTimer
 
@@ -284,7 +297,7 @@ class WSEGAN(SEGAN):
         samples = None
         timer = StepTimer()
         restore_sig = self._install_preempt_handler()
-        S = max(1, int(getattr(cfg, "steps_per_call", 1)))
+        S = self._steps_per_call(cfg)
         if S > 1:
             self.prepare_multi_step(S)
         timer.start()
@@ -310,7 +323,7 @@ class WSEGAN(SEGAN):
                 if crossed(self._log_freq):
                     log_fn(iteration, total_iters, num_batches, metrics, Genh, batch,
                            timer, va_dloader)
-                    if not cfg.no_train_gen:
+                    if not cfg.no_train_gen and self._chief():
                         self.gen_train_samples(samples[0], samples[1], samples[2],
                                                iteration=iteration)
                 if crossed(num_batches):
@@ -338,11 +351,9 @@ class WSEGAN(SEGAN):
         ``va_dloader`` are taken for the signature's sake and unused, as in JAX."""
         from ..utils.logging import TrainLogger
 
-        unported = unported_options(cfg)
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-        self.writer = TrainLogger(os.path.join(cfg.save_path, "train"))
         self.init_train()
+        self.writer = TrainLogger(os.path.join(cfg.save_path, "train"),
+                                  enabled=self._chief())
         self._log_freq = log_freq
         savers = (Saver(cfg.save_path, max_ckpts=3, prefix="EOE_G-", async_write=True),
                   Saver(cfg.save_path, max_ckpts=3, prefix="EOE_D-", async_write=True))
@@ -446,11 +457,9 @@ class AEWSEGAN(WSEGAN):
         else:
             self.use_l1 = cfg.reg_loss == "l1_loss"
 
-    def init_train(self):
+    def _build_train(self):
         """G's optimizer, Adam (0.5, 0.9) (upstream's model.py:790) or RMSprop, and the
         engine's z stream."""
-        if self.g_opt is not None:
-            return
         cfg = self.cfg
         betas = (0.5, 0.9)
         self.g_opt = build_optimizer(cfg.opt, cfg.g_lr, self.G.parameters(), betas=betas)
@@ -463,29 +472,33 @@ class AEWSEGAN(WSEGAN):
     _inputs = SEGAN._inputs
 
     def _draw(self, B: int, T: int, z=None):
-        """The step's one draw: z (on the device), the given one or the engine's next."""
+        """The step's one draw: z (on the device), the given one or the engine's next;
+        under a grid of the global batch, this rank's rows kept."""
         if z is None and not self.G.no_z:
-            z = self.G.sample_z((B, T, 1), self._z_train)
-        return {"z": torch.as_tensor(z).to(self.device, torch.float32)
-                if z is not None else None}
+            z = self.G.sample_z((B * self._dp(), T, 1), self._z_train)
+        z = self._local(torch.as_tensor(z), B) if z is not None else None
+        return {"z": z.to(self.device, torch.float32) if z is not None else None}
 
     def _body(self, x, l1_weight, draws):
         """The G step on device tensors alone. Returns ({'loss'}, Genh)."""
         cdt = self.compute_dtype
         clean, noisy, mask, z = x["clean"], x["noisy"], x["mask"], draws["z"]
+        self._n = self._count(mask)
         self.g_opt.zero_grad(set_to_none=True)
         self.G.train()
         try:
             with conv_ops.full_precision(cdt):
                 Genh = self._g_forward(noisy.to(cdt), z.to(cdt) if z is not None else None)
                 diff = at_least_fp32(Genh) - clean
-                loss = masked_mean(diff.abs() if self.use_l1 else diff.square(), mask)
+                loss = masked_mean(diff.abs() if self.use_l1 else diff.square(), mask,
+                                   self._n)
                 loss.backward()
+                self._reduce_grads(self.G)
                 self.g_opt.step()
         finally:
             self.G.eval()
         self._G_compute = None
-        return {"loss": loss.detach()}, Genh.detach().float()
+        return self._sum_metrics({"loss": loss.detach()}), Genh.detach().float()
 
     def train_step(self, clean, noisy, mask=None, l1_weight: float = 100.0, z=None):
         """One G step on the masked mean |Genh - clean| (or its square). Returns
@@ -524,11 +537,9 @@ class AEWSEGAN(WSEGAN):
         EOE saves of G."""
         from ..utils.logging import TrainLogger
 
-        unported = unported_options(cfg)
-        if unported:
-            raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-        self.writer = TrainLogger(os.path.join(cfg.save_path, "train"))
         self.init_train()
+        self.writer = TrainLogger(os.path.join(cfg.save_path, "train"),
+                                  enabled=self._chief())
         self._log_freq = log_freq
         eoe_saver = Saver(cfg.save_path, max_ckpts=3, prefix="EOE_G-", async_write=True)
         best_saver = Saver(cfg.save_path, max_ckpts=3, prefix=f"{self.name}-G-",
@@ -558,8 +569,9 @@ class AEWSEGAN(WSEGAN):
                 sd = self.evaluate_sd(cfg, va)
                 self.writer.scalar("Genh_SD", sd, iteration)
                 if sd < best[0]:
-                    best_saver.save("Generator", iteration, self.G, best_val=True,
-                                    trained_steps=self.step)
+                    if self._chief():
+                        best_saver.save("Generator", iteration, self.G, best_val=True,
+                                        trained_steps=self.step)
                     best[0] = sd
 
         self._run_loop(cfg, dloader, step, log, (eoe_saver, None), va_dloader)
@@ -568,6 +580,7 @@ class AEWSEGAN(WSEGAN):
 
     def save(self, g_saver: Saver, d_saver: Optional[Saver], step: int,
              best_val: bool = False):
-        """G with its optimizer's state, named after `step`."""
-        g_saver.save("Generator", step, self.G, self.g_opt, best_val=best_val,
-                     trained_steps=self.step)
+        """G with its optimizer's state, named after `step`; by the chief alone."""
+        if self._chief():
+            g_saver.save("Generator", step, self.G, self.g_opt, best_val=best_val,
+                         trained_steps=self.step)

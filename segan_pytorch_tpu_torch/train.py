@@ -32,12 +32,22 @@ crosses to the card at 2 bytes a sample), ``--h5`` reads ``{h5_data_root}/train.
 (and ``valid.h5`` with a validation set), and ``--noises_dir`` makes each noisy slice
 anew from its clean one with noise at one of ``--snr_levels`` dB (``data/augment.py``).
 ``--resume`` also continues a run directory that the JAX trainer wrote, its optimizer
-state included. More than one device or process (``--dp``, ``--mp``, ``--coordinator``,
-``--num_processes``) raises ``NotImplementedError``; the TPU lowering knobs are recorded
-in ``train.opts`` and have no effect.
+state included. The TPU lowering knobs are recorded in ``train.opts`` and have no effect.
+
+Several cards: one process drives each card. ``--dp N`` (and ``--mp M``) alone spawns
+N x M processes on this host, one per card, which join one group through a file in a
+temporary directory; the kernels are built before they start. On several hosts, or to
+launch the processes yourself, give each ``--coordinator host:port`` (process 0's, or
+an init URL such as ``file:///shared/path``), ``--num_processes`` and its
+``--process_id``; without ``--dp`` the data-parallel degree is the process count over
+``--mp``. ``--batch_size`` is the global batch: each process loads its data shard's
+rows (``data/loader.py``), and the step is the global batch's (``models/segan.py``
+``_setup_parallel``). Only process 0 writes train.opts, logs, samples and checkpoints;
+``--steps_per_call`` falls to 1, as in JAX.
 """
 import argparse
 import random
+import sys
 
 import numpy as np
 
@@ -126,9 +136,9 @@ def build_parser():
     parser.add_argument('--sinc_conv', action='store_true', default=False)
     # extensions of the JAX package
     parser.add_argument('--dp', type=int, default=1,
-                        help='Data-parallel shards (Def: 1; more is not ported yet).')
+                        help='Data-parallel shards, one process and card each (Def: 1).')
     parser.add_argument('--mp', type=int, default=1,
-                        help='Tensor-parallel degree (Def: 1; more is not ported yet).')
+                        help='Tensor-parallel degree of the D head (Def: 1).')
     parser.add_argument('--compute_dtype', type=str, default='float32',
                         help='float32 | bfloat16 network compute dtype.')
     parser.add_argument('--use_pallas', action='store_true', default=False,
@@ -168,11 +178,12 @@ def build_parser():
     parser.add_argument('--eoe_save_every', type=int, default=1,
                         help='Save EOE checkpoints every N epochs (Def: 1).')
     parser.add_argument('--coordinator', type=str, default=None,
-                        help='Multi-host coordinator (not ported yet).')
+                        help='Multi-host coordinator: host:port of process 0, or an init '
+                             'URL (tcp://..., file:///...).')
     parser.add_argument('--num_processes', type=int, default=None,
-                        help='Total number of training processes (not ported yet).')
+                        help='Total number of training processes (Def: None).')
     parser.add_argument('--process_id', type=int, default=None,
-                        help='This process index (not ported yet).')
+                        help='This process index in [0, num_processes) (Def: None).')
     # the port's own
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
                         help='cuda (the default) needs a card; cpu runs the plain '
@@ -180,27 +191,49 @@ def build_parser():
     return parser
 
 
+def _worker(coordinator, num_processes, process_id, argv):
+    """One process of a local multi-GPU run (``spawn_local``)."""
+    main(list(argv) + ['--coordinator', coordinator, '--num_processes',
+                       str(num_processes), '--process_id', str(process_id)])
+
+
 def main(argv=None):
     """Parse `argv` (default: the command line), dump train.opts into --save_path and
-    train. Returns the engine."""
+    train. Returns the engine (None where it spawned the processes of a local
+    multi-GPU run)."""
     import torch
 
-    from .data.loader import DataLoader
-    from .data.se_dataset import SEDataset, SEH5Dataset
-    from .models.segan import SEGAN, default_device, unported_options
-    from .models.wsegan import AEWSEGAN, WSEGAN
+    from .parallel.mesh import (distributed_barrier, initialize_distributed,
+                                process_count, process_index, require_device,
+                                shutdown_distributed, spawn_local)
     from .utils.config import SEGANConfig, dump_train_opts
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     opts = vars(build_parser().parse_args(argv))
-    device_name = 'cpu' if opts['no_cuda'] else opts['device']
+    device = require_device('cpu' if opts['no_cuda'] else opts['device'])
     del opts['device']  # not a config field: train.opts holds what train.py's holds
     cfg = SEGANConfig.from_dict(opts)
     cfg.bias = not cfg.no_bias  # derived flag (ref train.py:248)
-    unported = unported_options(cfg)
-    if unported:
-        raise NotImplementedError(f"not ported yet: {', '.join(unported)}")
-    device = default_device() if device_name == 'cuda' else torch.device('cpu')
-    dump_train_opts(cfg)
+    nprocs = max(cfg.dp, 1) * max(cfg.mp, 1)
+    if cfg.num_processes is None and nprocs > 1:
+        # --dp / --mp alone: one process per card of this host
+        spawn_local(_worker, nprocs, device, (argv,))
+        return None
+    device = initialize_distributed(cfg.coordinator, cfg.num_processes, cfg.process_id,
+                                    device)
+
+    from .data.loader import DataLoader
+    from .data.se_dataset import SEDataset, SEH5Dataset
+    from .models.segan import SEGAN
+    from .models.wsegan import AEWSEGAN, WSEGAN
+
+    if process_count() > 1 and cfg.dp <= 1:
+        cfg.dp = process_count() // max(cfg.mp, 1)
+        print(f'[multi-host] {process_count()} processes: defaulting --dp to '
+              f'{cfg.dp} (the processes over --mp)')
+    chief = process_index() == 0
+    if chief:
+        dump_train_opts(cfg)
     print('Parsed arguments: ', cfg.to_json())
 
     random.seed(cfg.seed)
@@ -216,7 +249,8 @@ def main(argv=None):
         # the engine resolved a default into a copy of the config (AEWSEGAN's
         # deconv_impl): train.opts records what the engine runs with
         cfg = segan.cfg
-        dump_train_opts(cfg)
+        if chief:
+            dump_train_opts(cfg)
     print('Total model parameters: ', segan.get_n_params())
     if cfg.resume:
         segan.resume(cfg.save_path)
@@ -225,6 +259,8 @@ def main(argv=None):
     if cfg.d_pretrained_ckpt is not None:
         segan.d_load_pretrained(cfg.d_pretrained_ckpt)
 
+    if not chief:  # the chief writes the slice caches; the others then read them
+        distributed_barrier('datasets', timeout_s=1800)
     if cfg.h5:
         if cfg.h5_data_root is None:
             raise ValueError('Please specify an H5 data root')
@@ -245,11 +281,14 @@ def main(argv=None):
                          slice_workers=cfg.slice_workers,
                          preemph_norm=cfg.preemph_norm, random_scale=cfg.random_scale,
                          transform=transform, io_threads=cfg.io_threads)
+    # every data shard walks the one seeded shuffle and loads its rows of each batch
     dloader = DataLoader(dset, batch_size=cfg.batch_size, shuffle=True,
                          num_workers=cfg.num_workers, seed=cfg.seed,
                          shuffle_buffer=cfg.shuffle_buffer,
                          shuffle_buffer_mode=cfg.shuffle_buffer_mode,
-                         emit_dtype=cfg.loader_dtype)
+                         emit_dtype=cfg.loader_dtype,
+                         shard_id=process_index() // max(cfg.mp, 1),
+                         num_shards=max(cfg.dp, 1))
     if cfg.clean_valset is not None:
         # no random scaling and no cast for validation, as in JAX
         if cfg.h5:
@@ -266,8 +305,11 @@ def main(argv=None):
                                 num_workers=cfg.num_workers, seed=cfg.seed)
     else:
         va_dloader = None
+    if chief:
+        distributed_barrier('datasets', timeout_s=1800)
     segan.train(cfg, dloader, cfg.l1_weight, cfg.l1_dec_step, cfg.l1_dec_epoch,
                 cfg.save_freq, va_dloader=va_dloader)
+    shutdown_distributed()
     return segan
 
 

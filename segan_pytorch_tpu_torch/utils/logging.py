@@ -44,8 +44,14 @@ class StepTimer:
 
 
 class TrainLogger:
-    def __init__(self, logdir: str):
+    def __init__(self, logdir: str, enabled: bool = True):
+        """enabled=False makes every method a no-op that touches no file: the processes
+        of a multi-GPU run other than the chief log nothing (the JAX ``TrainLogger``)."""
         self.logdir = logdir
+        self.enabled = enabled
+        self.tb = self.jsonl = None
+        if not enabled:
+            return
         os.makedirs(logdir, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
@@ -56,6 +62,8 @@ class TrainLogger:
         self.jsonl = open(os.path.join(logdir, "scalars.jsonl"), "a")
 
     def scalar(self, tag: str, value: float, step: int):
+        if not self.enabled:
+            return
         if self.tb is not None:
             self.tb.add_scalar(tag, float(value), step)
         self.jsonl.write(json.dumps({"t": time.time(), "tag": tag,
@@ -73,6 +81,8 @@ class TrainLogger:
         """Per-layer and total weight norms. Every norm is computed on the device
         (``torch._foreach_norm``) and the scalars come to the host in one transfer: the
         parameters never leave the device."""
+        if not self.enabled:
+            return
         named = [(n, p) for n, p in module.named_parameters() if n.endswith("weight")]
         if not named:
             return
@@ -85,4 +95,5 @@ class TrainLogger:
     def close(self):
         if self.tb is not None:
             self.tb.close()
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()

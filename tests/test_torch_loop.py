@@ -6,10 +6,10 @@ With the train step stubbed in both packages (it records what it is given and re
 fixed losses) the two loops must feed the same batches and L1 weights, log the same
 iterations, write the same checkpoint names and indices, and stop early at the same
 epoch. Then: evaluate() scores like the JAX one, checkpoints cross between the packages,
-resume restores the run bit for bit, and the CLI checkpoints on SIGTERM, refuses to
-run on the CPU unasked and raises on every option it does not run yet
-(``tests/test_torch_train_cli.py`` drives it through training, resume, ``clean`` and
-``purge_ckpts.py``)."""
+resume restores the run bit for bit, and the CLI checkpoints on SIGTERM and refuses to
+run on the CPU unasked (``tests/test_torch_train_cli.py`` drives it through training,
+resume, ``clean`` and ``purge_ckpts.py``; ``tests/test_torch_dp_cli.py`` through its
+multi-process flags)."""
 import json
 import os
 import re
@@ -33,7 +33,7 @@ from segan_pytorch_tpu.utils.config import SEGANConfig as JaxConfig
 from segan_pytorch_tpu_torch import train as ttrain
 from segan_pytorch_tpu_torch.data.loader import DataLoader
 from segan_pytorch_tpu_torch.data.se_dataset import SEDataset
-from segan_pytorch_tpu_torch.models.segan import SEGAN, unported_options
+from segan_pytorch_tpu_torch.models.segan import SEGAN
 from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
 from segan_pytorch_tpu_torch.utils.checkpoint import Saver, save_generator
 from segan_pytorch_tpu_torch.utils.config import SEGANConfig
@@ -392,17 +392,3 @@ def test_no_silent_cpu(corpus, tmp_path, monkeypatch):
         ttrain.main(argv)
     assert not (tmp_path / "ck").exists()
 
-
-UNPORTED = {
-    "--dp": ["2"], "--mp": ["2"],
-    "--coordinator": ["localhost:1234"], "--num_processes": ["2"],
-}
-
-
-@pytest.mark.parametrize("flag", list(UNPORTED))
-def test_unported_flags_raise(flag, tmp_path):
-    argv = ["--save_path", str(tmp_path / "ck"), "--device", "cpu", flag] + UNPORTED[flag]
-    with pytest.raises(NotImplementedError, match=re.escape(flag)):
-        ttrain.main(argv)
-    assert not (tmp_path / "ck").exists()
-    assert unported_options(SEGANConfig()) == []
