@@ -170,7 +170,7 @@ and when the port's package is not beside it):
      forward. 10c: a call that only replays makes no host sync
      (`set_sync_debug_mode("error")`) and moves no launch counter, and a replay runs the
      kernel 5 / 25 / 5 times (profiler device events). Then `step_flops()` timed,
-     `bench --steps_per_call 4` and 1 at batch 300 (bf16, fp32) and at 16 in turns, each
+     `bench --steps_per_call 4` and 1 at batch 300 (bf16, fp32) and at 16, once each, each
      line with its MFU; 10d: `train.main` at batch 64 for two epochs of six batches with
      `--steps_per_call 4` (iterations 4-6 and 10-12 logged, checkpoint indices equal to
      the single-step run's) and `--profile` at batch 32 (the trace, the two [profile]
@@ -239,6 +239,27 @@ and when the port's package is not beside it):
      split, against one process (7a's bounds; 25 launches per rank); (d) enhance_sharded
      over two G replicas on cuda:0 against generate within 1e-5. Per-rank times are of
      processes sharing one card, not speed figures; NCCL cannot run two ranks on one card.
+  15. the user tools at full SEGAN+ width (phase_tools), every check fatal: (a) the
+     port's tools/make_demo_corpus.py writes 150 + 4 pairs of 3 s, and
+     eval_noisy_performance scores the test split (the logfile's layout, finite means);
+     (b) weight_converter turns a full-width G and D (.ckpt) into npz trees and back:
+     strict loads, every tensor equal, and the G forward (B = 4) and D's equal the
+     originals' bit for bit on the card under cudnn.deterministic; (c) tools/ab_parity.py
+     in fp32 on the card on the test split (5 launches a file); (d) tools/serving_bench.py
+     with its own server process (--reps 8, --concurrency 4, stream windows of 4096);
+     (e) tools/serving_soak.py for 24 s, a reload every 7 s, a sample every 2 s: no
+     error, monotonic counters, fd drift <= SOAK_FD_DRIFT, thread drift <= 3 a reload +
+     SOAK_THREAD_SLACK, and the card's memory.used within its first sample + (unretired
+     generations + 1) x phase 9a's generation + SOAK_MARGIN_MIB; (f)
+     tools/train_throughput_bench.py at batch 300 for 4 epochs of 2 batches, the first
+     skipped, beside phases 5c's and 6's rates; (g) one HTTPS /enhance (a certificate
+     from openssl) and one WebSocket stream through the repo's tools/ws_client.py
+     against the port's server in this process, vs generate() <= 1e-5 and vs the offline
+     stream path within one PCM16 LSB, 5 launches per recorded G forward (where openssl
+     or websockets is missing a line says so and that part is left out); (h) the kernel
+     against its plain version at every layer shape the tools reach (their own server
+     processes' passes of 1-8 rows of 16384 and stream windows of 4096 at 1-2 rows, the
+     trainer's batch 300, and the in-process calls) that phases 3, 8 and 9 did not hold.
 The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
@@ -253,7 +274,9 @@ sinc D WSEGAN 21), and under sinc_d_* (fp32_sinc_d_*) the sums of 12c's four sin
 shapes at batch 150, a7b_g1d_launches_per_forward phase 13's (11), and under g1d_enc_*
 (fp32_g1d_enc_*) the sums of 13b's eleven stride-2 shapes at batch 64,
 p14_segan_launches_per_rank_step and p14_wsegan_launches_per_rank_step phase 14's (5 and
-25), p14_enhance_sharded_launches 14d's (10);
+25), p14_enhance_sharded_launches 14d's (10), tools_launches phase 15's in-process parts
+(tools_convert_launches 15b's, tools_ab_parity_launches 15c's, tools_tls_ws_launches
+15g's);
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -1927,6 +1950,22 @@ def _in_threads(jobs):
         raise errors[0]
 
 
+def _served_g(cfg, g):
+    """A SEGAN+ G drawn from `g`, PReLU slopes U(0, 0.3), the output layer's weights x
+    0.05 and its bias 0, so that the de-emphasized output stays inside PCM16's range."""
+    import torch
+    from segan_pytorch_tpu_torch.models.generator import build_generator
+
+    G = build_generator(cfg, g)
+    with torch.no_grad():
+        for name, p in G.named_parameters():
+            if name.endswith("act.weight"):
+                p.uniform_(0.0, 0.3, generator=g)
+        G.dec_blocks[-1].deconv.weight.mul_(0.05)
+        G.dec_blocks[-1].deconv.bias.zero_()
+    return G
+
+
 def _serving_checkpoints(work: Path):
     """Full-width G checkpoints: SEGAN+ (--no_bias, slopes U(0, 0.3), the output layer's
     weights x 0.05 and bias 0, so that the de-emphasized output stays inside PCM16's
@@ -1946,14 +1985,7 @@ def _serving_checkpoints(work: Path):
     gen_b = torch.Generator().manual_seed(SEED + 51)
     gen = torch.Generator().manual_seed(SEED + 50)
     for ckpt, g in (("segan.ckpt", gen), ("segan_b.ckpt", gen_b)):
-        G = build_generator(cfg, g)
-        with torch.no_grad():
-            for name, p in G.named_parameters():
-                if name.endswith("act.weight"):
-                    p.uniform_(0.0, 0.3, generator=g)
-            G.dec_blocks[-1].deconv.weight.mul_(0.05)
-            G.dec_blocks[-1].deconv.bias.zero_()
-        save_generator(G, str(work / ckpt))
+        save_generator(_served_g(cfg, g), str(work / ckpt))
     for name in ("float32", "bfloat16"):
         out[name] = (work / "segan.ckpt", dump_train_opts(
             SEGANConfig(no_bias=True, compute_dtype=name), str(work / name)))
@@ -1972,6 +2004,50 @@ def _serving_checkpoints(work: Path):
     save_generator(G.eval().cpu(), str(work / "wsegan.ckpt"))
     out["wsegan"] = (work / "wsegan.ckpt", dump_train_opts(ws_cfg, str(work / "wsegan")))
     return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _seed_z(G, seed, length=16384):
+    """A served request's z for `seed`: ``seed=<int>`` draws from a torch generator."""
+    import torch
+
+    return G.sample_z((1, length, 1), torch.Generator().manual_seed(seed))
+
+
+def _prep(body, preemph):
+    """A WAV body as the server takes it: normalized, then pre-emphasized."""
+    from segan_pytorch_tpu_torch.ops.signal import normalize_wave_minmax, pre_emphasize_np
+    from scipy.io import wavfile
+
+    return pre_emphasize_np(normalize_wave_minmax(wavfile.read(io.BytesIO(body))[1]),
+                            preemph)
+
+
+def _rel_beyond(got, want, step=0.0):
+    """max |got - want| beyond `step` (PCM16's rounding: 1) over max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(max(np.abs(got - want).max() - step, 0.0) / np.abs(want).max())
+
+
+def _offline_pcm(eng, pcm, window, overlap, seed):
+    """A stream's PCM16 by the offline chunk_grid + overlap_add path on the engine's
+    device, with the stream's z."""
+    from segan_pytorch_tpu_torch.ops.signal import (de_emphasize_np, normalize_wave_minmax,
+                                                    pre_emphasize_np)
+    from segan_pytorch_tpu_torch.parallel.inference import chunk_grid, overlap_add
+
+    pe = pre_emphasize_np(normalize_wave_minmax(pcm), eng.preemph)
+    grid, hop, n = chunk_grid(pe, window, overlap)
+    out = eng.infer_G(grid, _seed_z(eng.G, seed, window).expand(n, -1, -1)).cpu().numpy()
+    y = de_emphasize_np(overlap_add(out, hop, len(pcm)), eng.preemph)
+    return np.clip(y * 32767.0, -32768, 32767).astype("<i2")
 
 
 class _InProcess:
@@ -2161,33 +2237,11 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
     import signal as signal_mod
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
-    from segan_pytorch_tpu_torch.ops.signal import (de_emphasize_np, normalize_wave_minmax,
-                                                    pre_emphasize_np)
-    from segan_pytorch_tpu_torch.parallel.inference import chunk_grid, overlap_add
+    from segan_pytorch_tpu_torch.parallel.inference import chunk_grid
     from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
     from scipy.io import wavfile
 
     S = 16384
-
-    def seed_z(G, seed, length=S):
-        return G.sample_z((1, length, 1), torch.Generator().manual_seed(seed))
-
-    def prep(body, preemph):
-        return pre_emphasize_np(normalize_wave_minmax(wavfile.read(io.BytesIO(body))[1]),
-                                preemph)
-
-    def rel(got, want, step=0.0):
-        """max |got - want| beyond `step` (PCM16's rounding: 1) over max |want|."""
-        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-        return float(max(np.abs(got - want).max() - step, 0.0) / np.abs(want).max())
-
-    def offline_pcm(eng, pcm, window, overlap, seed):
-        """The offline chunk_grid + overlap_add path on the card with the stream's z."""
-        pe = pre_emphasize_np(normalize_wave_minmax(pcm), eng.preemph)
-        grid, hop, n = chunk_grid(pe, window, overlap)
-        out = eng.infer_G(grid, seed_z(eng.G, seed, window).expand(n, -1, -1)).cpu().numpy()
-        y = de_emphasize_np(overlap_add(out, hop, len(pcm)), eng.preemph)
-        return np.clip(y * 32767.0, -32768, 32767).astype("<i2")
 
     totals = np.zeros(3, np.int64)  # the kernel's launches in the served G forwards
     served = set()  # (B, samples, bias) of every G forward that served
@@ -2260,8 +2314,8 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
         # the answers against the engine's own generate() and the offline stream path
         # on the card, with the same z (the reference's launches come after the count)
         _, ref = build_enhancement_engine(opts_file, str(ckpt), SEED, device="cuda")
-        e = rel(wavfile.read(io.BytesIO(last))[1],
-                ref.generate(prep(one, ref.preemph), z=seed_z(ref.G, 19))[0])
+        e = _rel_beyond(wavfile.read(io.BytesIO(last))[1],
+                ref.generate(_prep(one, ref.preemph), z=_seed_z(ref.G, 19))[0])
         print(f"serve {name}: one-chunk /enhance (1 s of audio), 20 sequential requests: "
               f"p50 {1e3 * np.percentile(walls, 50):.3f} ms, p95 "
               f"{1e3 * np.percentile(walls, 95):.3f} ms wall, the G pass {one_pass:.3f} ms "
@@ -2269,13 +2323,13 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
         readings, controls = [e], []
         for i in range(8):
             got_i = wavfile.read(io.BytesIO(answers[i]))[1]
-            pw = prep(bodies[i], ref.preemph)
-            readings.append(rel(got_i, ref.generate(pw, z=seed_z(ref.G, 100 + i),
+            pw = _prep(bodies[i], ref.preemph)
+            readings.append(_rel_beyond(got_i, ref.generate(pw, z=_seed_z(ref.G, 100 + i),
                                                     overlap=overlaps[i])[0]))
-            controls.append(rel(got_i, ref.generate(pw, z=seed_z(ref.G, 101 + i),
+            controls.append(_rel_beyond(got_i, ref.generate(pw, z=_seed_z(ref.G, 101 + i),
                                                     overlap=overlaps[i])[0]))
             if lengths[i] > S:  # the other join (hard cut vs cross-fade)
-                controls.append(rel(got_i, ref.generate(pw, z=seed_z(ref.G, 100 + i),
+                controls.append(_rel_beyond(got_i, ref.generate(pw, z=_seed_z(ref.G, 100 + i),
                                                         overlap=0.25 - overlaps[i])[0]))
         print(f"serve {name}: 8 concurrent /enhance requests of 1-6 chunks in {int(d_pass)} "
               f"G passes (rows, ms: " + ", ".join(f"{r}, {ms:.3f}" for _, r, _, ms in coalesced)
@@ -2284,20 +2338,20 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
               f"{min(controls):.3e} ({smi})", flush=True)
         assert max(readings) <= SERVE_TOL[name] < min(controls), (readings, controls)
         for window, (out, ms) in one_stream.items():
-            want = offline_pcm(ref, pcm, window, 0.25, 7)
-            e = rel(out, want, step=1)
-            ctrl = rel(out, offline_pcm(ref, pcm, window, 0.25, 8), step=1)
+            want = _offline_pcm(ref, pcm, window, 0.25, 7)
+            e = _rel_beyond(out, want, step=1)
+            ctrl = _rel_beyond(out, _offline_pcm(ref, pcm, window, 0.25, 8), step=1)
             print(f"serve {name}: /enhance_stream window {window}: {len(ms)} windows, "
                   f"{np.median(ms):.3f} ms per window's G pass (median); vs the offline "
                   f"path rel err {e:.3e} beyond 1 LSB (bound {STREAM_TOL[name]:g}; max |out| "
                   f"{int(np.abs(want).max())} LSB; control, another seed's z, {ctrl:.3e}) "
                   f"({smi})", flush=True)
             assert out.shape == pcm.shape and e <= STREAM_TOL[name] < ctrl, (window, e, ctrl)
-        e_st = worst(rel(st_out[i], offline_pcm(ref, streams[i], S, 0.25, 200 + i), step=1)
-                     for i in range(4))
-        e_req = worst(rel(wavfile.read(io.BytesIO(req_out[i]))[1],
-                          ref.generate(prep(bodies[i], ref.preemph),
-                                       z=seed_z(ref.G, 300 + i))[0]) for i in range(4))
+        e_st = worst(_rel_beyond(st_out[i], _offline_pcm(ref, streams[i], S, 0.25, 200 + i),
+                                 step=1) for i in range(4))
+        e_req = worst(_rel_beyond(wavfile.read(io.BytesIO(req_out[i]))[1],
+                          ref.generate(_prep(bodies[i], ref.preemph),
+                                       z=_seed_z(ref.G, 300 + i))[0]) for i in range(4))
         print(f"serve {name}: 4 concurrent streams ({int(wins)} windows in {int(wpass)} "
               f"passes) with 4 /enhance requests: streams vs offline rel err {e_st:.3e}, "
               f"requests vs generate() {e_req:.3e}", flush=True)
@@ -2325,9 +2379,10 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
     calls |= srv.calls
     _, ref = build_enhancement_engine(opts_file, str(ckpt), SEED, device="cuda")
     pads = [n + 1024 - n % 1024 for n in lengths]
-    want = ref.generate_batch([prep(b, ref.preemph) for b in bodies],
-                              z=[seed_z(ref.G, 400 + i, L) for i, L in enumerate(pads)])
-    e = worst(rel(wavfile.read(io.BytesIO(a))[1], w) for a, (w, _) in zip(answers, want))
+    want = ref.generate_batch([_prep(b, ref.preemph) for b in bodies],
+                              z=[_seed_z(ref.G, 400 + i, L) for i, L in enumerate(pads)])
+    e = worst(_rel_beyond(wavfile.read(io.BytesIO(a))[1], w)
+              for a, (w, _) in zip(answers, want))
     print(f"serve WSEGAN float32: 4 concurrent /enhance requests in G forwards of (rows, "
           f"samples) {passes}: vs generate_batch rel err {e:.3e} (bound "
           f"{SERVE_TOL['float32']:g}); kernel launches {tuple(int(v) for v in got)}",
@@ -2358,11 +2413,7 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
                           for d in sums) + f" ms ({smi})", flush=True)
 
     # the command line in a subprocess: /healthz, one /enhance, SIGTERM, exit 0 in time
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = _free_port()
     ckpt, opts_file = ckpts["float32"]
     drain = 10.0
     log = open(work / "serve.log", "w+")
@@ -2411,7 +2462,8 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
     """9: POST /admin/reload at full width on the card (see the module docstring), on
     `_serving_checkpoints`; `checked` are the layer shapes phase 8a held. Returns the
     kernel's launches over the phase's recorded G forwards (all, tensor cores,
-    3xTF32)."""
+    3xTF32), a fp32 generation's device bytes (9a's mean) and the layer shapes held in
+    8a and 9d."""
     import gc
     import importlib.util
     import threading
@@ -2732,8 +2784,8 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
     print(f"reload: TLS, mutual TLS and the WebSocket listener are host code (the ssl module"
           f" and the websockets package, here {ws}); the CPU tests "
           f"tests/test_torch_serve_reload.py and tests/test_torch_serve_ws.py hold them, "
-          f"and this phase does not check them", flush=True)
-    return tuple(int(v) for v in totals)
+          f"and this phase does not check them (phase 15g does)", flush=True)
+    return tuple(int(v) for v in totals), float(np.mean(gens)), checked | new
 
 
 # ---- phase 10: the step on a CUDA graph, and the profile -------------------------------
@@ -3100,7 +3152,7 @@ def phase_graph(work: Path, smi: str):
     rates = {}
     runs = [(300, "bfloat16", 4), (300, "bfloat16", 1), (300, "float32", 1),
             (300, "float32", 4)] + [(16, dt, s) for dt in ("bfloat16", "float32")
-                                   for s in (1, 4, 4, 1)]
+                                   for s in (1, 4)]
     for B, dtype, s in runs:
         n = 2 if s > 1 else 8
         if B == 16:
@@ -4574,6 +4626,339 @@ def phase_dp(work: Path, smi: str) -> dict:
     return dict(segan=5, wsegan=WS_PER_STEP, enhance=d_launches)
 
 
+# ---- phase 15: the user tools on the card ----------------------------------------------
+TOOLS_TRAIN_FILES = 150  # of 3 s: 4 slices of 16384 each at stride 0.5, two batches of 300
+TOOLS_TEST_FILES = 4
+# the soak's bounds. The card's memory.used may exceed its first sample (no reload yet) by
+# a generation (the fp32 G's weights and the kernel's split copies: phase 9a measures it)
+# for each replaced generation not yet retired (serve.RETIRE_SECONDS, 150 s in service,
+# is longer than the soak) and one being built, plus SOAK_MARGIN_MIB for the caching
+# allocator's rounding and cuDNN's workspaces. A replaced generation keeps its
+# MicroBatcher's and WindowBatcher's threads and its retire thread until retirement.
+SOAK_MARGIN_MIB = 512
+SOAK_FD_DRIFT = 8
+SOAK_THREADS_PER_RELOAD = 3
+SOAK_THREAD_SLACK = 8  # the handler threads of requests in flight
+
+
+def _tool_run(work: Path, name: str, argv, timeout):
+    """`argv` (a command line) in a subprocess from the checkout, in a session of its own
+    (a tool's server is its child: on a timeout the whole group is killed), its output in
+    work/<name>.log. Returns (output text, seconds); fails on a non-zero exit."""
+    import signal as signal_mod
+
+    argv = [str(a) for a in argv]
+    log = work / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(argv, cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal_mod.SIGKILL)
+            proc.wait(timeout=30)
+            raise AssertionError(f"{name} ran over {timeout} s:\n" + log.read_text()[-3000:])
+    text = log.read_text()
+    assert rc == 0, f"{name} exited {rc}:\n{text[-3000:]}"
+    return text, time.perf_counter() - t0
+
+
+def _last_json(text: str) -> dict:
+    return json.loads([ln for ln in text.splitlines() if ln.startswith("{")][-1])
+
+
+def _tools_checkpoints(work: Path):
+    """A full-width SEGAN+ G (--no_bias, `_served_g`) and D (its PReLU slopes U(0, 0.3),
+    BatchNorm's running statistics moved from their initial values), saved as
+    reference-format .ckpt files, with train.opts. Returns (cfg, G, D, G.ckpt, D.ckpt,
+    train.opts)."""
+    import torch
+    from segan_pytorch_tpu_torch.models.discriminator import build_discriminator
+    from segan_pytorch_tpu_torch.utils.checkpoint import save_discriminator, save_generator
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig, dump_train_opts
+
+    cfg = SEGANConfig(no_bias=True, save_path=str(work))
+    g = torch.Generator().manual_seed(SEED + 170)
+    G, D = _served_g(cfg, g), build_discriminator(cfg, g)
+    with torch.no_grad():
+        for name, p in D.named_parameters():
+            if name.endswith("act.weight") or name in ("fc.1.weight", "fc.3.weight"):
+                p.uniform_(0.0, 0.3, generator=g)
+        for name, b in D.named_buffers():
+            if name.endswith("running_mean"):
+                b.normal_(0.0, 0.1, generator=g)
+            elif name.endswith("running_var"):
+                b.uniform_(0.5, 1.5, generator=g)
+    save_generator(G, str(work / "g.ckpt"))
+    save_discriminator(D, str(work / "d.ckpt"))
+    opts = dump_train_opts(cfg, str(work / "opts"))
+    return cfg, G, D, work / "g.ckpt", work / "d.ckpt", opts
+
+
+def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: float) -> dict:
+    """15: the user tools at full SEGAN+ width on the card (see the module docstring).
+    `rates` are phase 5c's and 6's slices/s, `checked` the layer shapes phases 3, 8 and 9
+    held, `gen_bytes` 9a's generation. Returns the kernel's launches in the phase's
+    in-process parts, by part."""
+    import importlib.util
+    import shutil
+    import ssl
+    import urllib.request
+    import torch
+    from scipy.io import wavfile
+    from segan_pytorch_tpu_torch import eval_noisy_performance, weight_converter
+    from segan_pytorch_tpu_torch.models.discriminator import build_discriminator
+    from segan_pytorch_tpu_torch.models.generator import build_generator
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+    from segan_pytorch_tpu_torch.tools import ab_parity, make_demo_corpus
+    from segan_pytorch_tpu_torch.utils.checkpoint import load_discriminator, load_generator
+    from segan_pytorch_tpu_torch.utils.engine import build_enhancement_engine
+
+    t_phase = time.perf_counter()
+    launches = {}
+    calls = set()  # (B, Cin, T_in, Cout, K, stride, bias, dtype) of the in-process parts
+    unrecord = _record_launches(calls)
+    try:
+        # 15a: the demo corpus, and the noisy test split scored
+        corpus = work / "corpus"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_demo_corpus.main(["--out", str(corpus), "--n_train", str(TOOLS_TRAIN_FILES),
+                                   "--n_test", str(TOOLS_TEST_FILES), "--seed", str(SEED)])
+            t_corpus = time.perf_counter() - t0
+            means = eval_noisy_performance.main([
+                "--test_wavs", str(corpus / "noisy_testset"), "--clean_wavs",
+                str(corpus / "clean_testset"), "--logfile", str(work / "noisy.log")])
+        lines = (work / "noisy.log").read_text().splitlines()
+        assert lines[0] == "FILE CSIG CBAK COVL PESQ SSNR", lines[:1]
+        assert len(lines) == 1 + TOOLS_TEST_FILES, lines
+        assert all(np.isfinite(v) for v in means.values()), means
+        print(f"tools 15a: make_demo_corpus wrote {TOOLS_TRAIN_FILES} + {TOOLS_TEST_FILES} "
+              f"pairs of 3 s in {t_corpus:.2f} s; eval_noisy_performance on the test split "
+              f"in {time.perf_counter() - t0 - t_corpus:.2f} s: means "
+              + ", ".join(f"{k.upper()} {v:.4f}" for k, v in means.items()), flush=True)
+
+        # 15b: the converter round trip of a full-width G and D, bit for bit
+        cfg, G, D, g_ckpt, d_ckpt, opts = _tools_checkpoints(work)
+        t0 = time.perf_counter()
+        shape = ["--dpool_slen", str(cfg.dpool_slen), "--last_fmaps", str(cfg.denc_fmaps[-1])]
+        with contextlib.redirect_stdout(io.StringIO()):
+            for which, src in (("G", g_ckpt), ("D", d_ckpt)):
+                extra = ["--which", which] + (shape if which == "D" else [])
+                weight_converter.main([str(src), "--out", f"{src}.npz", *extra])
+                weight_converter.main([f"{src}.npz", "--to_torch", "--out", f"{src}.back",
+                                       *extra])
+        t_conv = time.perf_counter() - t0
+        G2, D2 = build_generator(cfg), build_discriminator(cfg)
+        load_generator(G2, f"{g_ckpt}.back")  # strictly
+        load_discriminator(D2, f"{d_ckpt}.back")
+        for a, b in ((G, G2), (D, D2)):
+            sa, sb = a.state_dict(), b.state_dict()
+            assert list(sa) == list(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+        g = torch.Generator().manual_seed(SEED + 171)
+        x = (0.3 * torch.randn((4, cfg.slice_size, 1), generator=g)).cuda()
+        z = G.sample_z((4, cfg.slice_size, 1), g).cuda()
+        pair = (0.3 * torch.randn((4, 2, cfg.slice_size), generator=g)).cuda()
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # cuDNN's deconvs in a fixed order
+        try:
+            before = K.launches
+            with torch.no_grad():
+                y1, y2 = (m.cuda().eval()(x, z) for m in (G, G2))
+                d1, d2 = (m.cuda().eval()(pair) for m in (D, D2))
+            torch.cuda.synchronize()
+            launches["convert"] = K.launches - before
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        d1, d2 = (d[0] if isinstance(d, tuple) else d for d in (d1, d2))
+        assert launches["convert"] == 10, launches
+        assert torch.equal(y1, y2) and torch.equal(d1, d2)
+        print(f"tools 15b: weight_converter round trip (.ckpt -> npz -> .ckpt) of a "
+              f"full-width G and D in {t_conv:.2f} s: strict loads, every tensor equal, "
+              f"and on the card G's forward at B=4 ({launches['convert'] // 2} launches) and "
+              f"D's equal the originals' bit for bit under cudnn.deterministic", flush=True)
+        del G, G2, D, D2, y1, y2, d1, d2, x, z, pair
+
+        # 15c: ab_parity on the test split, fp32 on the card
+        before = (K.launches, K.launches_mma, K.launches_tf32)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = ab_parity.main([
+                "--g_ckpt", str(g_ckpt), "--cfg_file", opts, "--clean_test",
+                str(corpus / "clean_testset"), "--noisy_test", str(corpus / "noisy_testset"),
+                "--out", str(work / "parity.json"), "--seed", str(SEED)])
+        t_ab = time.perf_counter() - t0
+        # one G forward of 3 chunks per 3-s utterance, 5 launches each on the tensor cores
+        got = (K.launches - before[0], K.launches_mma - before[1],
+               K.launches_tf32 - before[2])
+        want = 5 * TOOLS_TEST_FILES
+        assert got == (want, want, want), got
+        launches["ab_parity"] = got[0]
+        assert report["n_files"] == TOOLS_TEST_FILES and list(report["means"]) == [
+            "noisy", "enh"], report["means"]
+        assert all(np.isfinite(v) for row in report["rows"] for side in ("noisy", "enh")
+                   for v in row[side].values())
+        print(f"tools 15c: ab_parity (fp32, on the card) on {report['n_files']} files in "
+              f"{t_ab:.2f} s, {got[0]} launches; means " + "; ".join(
+                  f"{side} " + ", ".join(f"{k} {v:.3f}" for k, v in m.items())
+                  for side, m in report["means"].items()) + " (random weights: no quality "
+              "figure)", flush=True)
+    finally:
+        unrecord()
+
+    # 15d: serving_bench against its own server process
+    text, took = _tool_run(work, "serving_bench", [
+        sys.executable, "-m", "segan_pytorch_tpu_torch.tools.serving_bench", "--g_ckpt",
+        g_ckpt, "--cfg_file", opts, "--port", _free_port(), "--device", "cuda", "--dur",
+        "2.0", "--reps", "8", "--concurrency", "4", "--window", "4096", "--stream_windows",
+        "8", "--stream_concurrency", "2", "--startup_timeout", "120", "--log",
+        work / "bench_server.log"], timeout=180)
+    bench = _last_json(text)
+    assert bench["metric"] == "serving_latency" and bench["enhance_p50_ms"] > 0, bench
+    assert 1 <= bench["concurrent_device_passes"] <= 4, bench
+    print(f"tools 15d: serving_bench (fp32, full width) in {took:.1f} s: {json.dumps(bench)} "
+          f"({smi})", flush=True)
+
+    # 15e: the soak, reloads every 7 s, samples every 2 s
+    text, took = _tool_run(work, "serving_soak", [
+        sys.executable, "-m", "segan_pytorch_tpu_torch.tools.serving_soak", "--g_ckpt",
+        g_ckpt, "--cfg_file", opts, "--port", _free_port(), "--device", "cuda",
+        "--minutes", "0.4", "--sample_s", "2", "--reload_s", "7", "--startup_timeout",
+        "120", "--log", work / "soak_server.log", "--out", work / "soak.json"], timeout=180)
+    soak = json.loads((work / "soak.json").read_text())
+    v, counts, samples = soak["verdicts"], soak["counts"], soak["samples"]
+    reloads = counts["reloads"]
+    mem = np.array([s["card_memory_used_mib"] for s in samples], float)
+    unretired = np.array([s["generations_unretired"] for s in samples])
+    base = mem[unretired == 0][0]
+    gen_mib = gen_bytes / 2 ** 20
+    bound = base + (unretired + 1) * gen_mib + SOAK_MARGIN_MIB
+    per_reload = (float(np.polyfit(unretired, mem, 1)[0]) if len(set(unretired)) > 1
+                  else float("nan"))
+    print(f"tools 15e: serving_soak of {soak['duration_min'] * 60:.0f} s in {took:.1f} s: "
+          f"counts {counts}; verdicts {json.dumps(v)}; the card's memory.used (MiB, "
+          f"generations not yet retired) "
+          + ", ".join(f"{int(m)} ({u})" for m, u in zip(mem, unretired))
+          + f"; least squares {per_reload:.1f} MiB per unretired generation (phase 9a's "
+          f"generation {gen_mib:.1f} MiB); bound base + (unretired + 1) x generation + "
+          f"{SOAK_MARGIN_MIB} MiB ({smi})", flush=True)
+    assert sum(v["errors"].values()) == 0 and v["metrics_monotonic"], v
+    assert reloads >= 2 and counts["enhance_ok"] > 0 and counts["stream_ok"] > 0, counts
+    assert counts["auth401"] > 0, counts
+    assert v["fd_drift"] <= SOAK_FD_DRIFT, v
+    assert v["thread_drift"] <= SOAK_THREADS_PER_RELOAD * reloads + SOAK_THREAD_SLACK, v
+    assert (mem <= bound).all(), list(zip(mem, bound))
+
+    # 15f: train_throughput_bench at batch 300 on the demo corpus
+    text, took = _tool_run(work, "train_throughput_bench", [
+        sys.executable, "-m", "segan_pytorch_tpu_torch.tools.train_throughput_bench",
+        "--corpus", corpus, "--batch_size", "300", "--epoch", "4", "--skip_epochs", "1",
+        "--device", "cuda", "--save_path", work / "ttb"], timeout=300)
+    ttb = _last_json(text)
+    assert ttb["value"] > 0 and ttb["num_batches_per_epoch"] == 2, ttb
+    print(f"tools 15f: train_throughput_bench (bf16, --steps_per_call 4, loader bf16) in "
+          f"{took:.1f} s: {ttb['value']:.2f} slices/s over {ttb['steady_state_steps']} steps "
+          f"(epochs 3-4, from epoch 2's last log line) beside phase 6's warm loop "
+          f"{rates.get('run slices/s', float('nan')):.2f} (fp32, 3 steps) and 5c's bare bf16 "
+          f"step {rates.get('bfloat16', float('nan')):.2f}; {json.dumps(ttb)} ({smi})",
+          flush=True)
+
+    # 15g: TLS /enhance and a WebSocket stream (root tools/ws_client.py) on the card
+    have_tls = shutil.which("openssl") is not None
+    have_ws = importlib.util.find_spec("websockets") is not None
+    if not have_tls:
+        print("tools 15g: the openssl command line is not installed on this machine: no "
+              "certificate to serve TLS with, so the HTTPS request is left out", flush=True)
+    if not have_ws:
+        print("tools 15g: the websockets package is not installed on this machine: the "
+              "WebSocket stream is left out", flush=True)
+    launches["tls_ws"] = 0
+    if have_tls or have_ws:
+        extra = ["--warm_seconds", "0.5"]
+        if have_tls:
+            cert, key = work / "cert.pem", work / "key.pem"
+            subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+                            "-keyout", str(key), "-out", str(cert), "-days", "1", "-subj",
+                            "/CN=localhost"], check=True, capture_output=True, timeout=60)
+            extra += ["--tls_cert", str(cert), "--tls_key", str(key)]
+        if have_ws:
+            ws_port = _free_port()
+            extra += ["--ws_port", str(ws_port)]
+        srv = _Served(g_ckpt, opts, *extra)
+        try:
+            srv.passes.clear()
+            before = (K.launches, K.launches_mma, K.launches_tf32)
+            if have_tls:
+                ctx = ssl.create_default_context()
+                ctx.check_hostname, ctx.verify_mode = False, ssl.CERT_NONE
+                body = _wav_body(40000, SEED + 180)
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"https://{srv.host}/enhance?seed=31", data=body), context=ctx,
+                        timeout=120) as r:
+                    assert r.status == 200, r.status
+                    answer = wavfile.read(io.BytesIO(r.read()))[1]
+            if have_ws:
+                pcm = _pcm(48000, SEED + 181)
+                wavfile.write(str(work / "ws_in.wav"), SR, pcm)
+                text, _ = _tool_run(work, "ws_client", [
+                    sys.executable, ROOT / "tools" / "ws_client.py", "--url",
+                    f"{'wss' if have_tls else 'ws'}://127.0.0.1:{ws_port}/enhance_stream",
+                    "--in", work / "ws_in.wav", "--out", work / "ws_out.wav", "--seed", "32",
+                    "--window", "16384", "--overlap", "0.25",
+                    *(["--insecure"] if have_tls else [])], timeout=120)
+                info = _last_json(text)
+                streamed = wavfile.read(str(work / "ws_out.wav"))[1]
+            passes = [(r, n) for _, r, n, _ in srv.passes]
+            launches["tls_ws"] = int(_expect_launches(K, before, passes, False, True)[0])
+        finally:
+            srv.stop()
+        calls |= srv.calls
+        _, ref = build_enhancement_engine(opts, str(g_ckpt), SEED, device="cuda")
+        if have_tls:
+            pw = _prep(body, ref.preemph)
+            e = _rel_beyond(answer, ref.generate(pw, z=_seed_z(ref.G, 31))[0])
+            ctrl = _rel_beyond(answer, ref.generate(pw, z=_seed_z(ref.G, 32))[0])
+            print(f"tools 15g: HTTPS /enhance (2.5 s, a self-signed certificate from openssl)"
+                  f" vs generate() with its z rel err {e:.3e} (bound "
+                  f"{SERVE_TOL['float32']:g}; control, another seed's z, {ctrl:.3e})",
+                  flush=True)
+            assert answer.shape == (40000,) and e <= SERVE_TOL["float32"] < ctrl, (e, ctrl)
+        if have_ws:
+            import websockets
+
+            want = _offline_pcm(ref, pcm, 16384, 0.25, 32)
+            e = _rel_beyond(streamed, want, step=1)
+            ctrl = _rel_beyond(streamed, _offline_pcm(ref, pcm, 16384, 0.25, 33), step=1)
+            print(f"tools 15g: WebSocket stream ({'wss' if have_tls else 'ws'}, websockets "
+                  f"{websockets.__version__}) through tools/ws_client.py, 3 s in "
+                  f"{info['wall_seconds']} s: vs the offline path rel err {e:.3e} beyond 1 "
+                  f"LSB (bound {STREAM_TOL['float32']:g}; control {ctrl:.3e}); {passes} G "
+                  f"forwards (rows, samples), {launches['tls_ws']} launches", flush=True)
+            assert streamed.shape == pcm.shape and info["samples_out"] == pcm.size
+            assert e <= STREAM_TOL["float32"] < ctrl, (e, ctrl)
+        del ref
+
+    # 15h: the kernel at every layer shape the tools reached that phases 3, 8 and 9 did
+    # not hold: the tools' own server processes run G forwards of 1-8 rows of 16384
+    # (warm-ups of 1, 2, 4 and 8 rows, coalesced requests of up to 4 x 2 chunks) and
+    # stream windows of 4096 at 1-2 rows; their trainer the batch-300 step
+    tools = ({l for b in range(1, 9) for l in _g_layers(b, 16384, False)}
+             | {l for b in (1, 2) for l in _g_layers(b, 4096, False)}
+             | set(_g_layers(300, 16384, False)))
+    held3 = {l for b in (1, 8, 64, 300) for l in _g_layers(b, 16384, False)}
+    ran = {c[:7] for c in calls}
+    new = (tools | ran) - checked - held3
+    print(f"tools 15h: the tools reach {len(tools | ran)} layer shapes ({len(ran)} recorded "
+          f"in this process); {len(new)} were not held by phases 3, 8 and 9, in fp32 and "
+          f"bf16:", flush=True)
+    if new:
+        _hold_kernel(new, SEED + 190)
+    print(f"tools: phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -4604,7 +4989,7 @@ def main():
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         ckpts = _serving_checkpoints(Path(work))
         serve_launches, checked = phase_serve(Path(work), smi, ckpts)
-        reload_launches = phase_reload(Path(work), smi, ckpts, checked)
+        reload_launches, gen_bytes, checked = phase_reload(Path(work), smi, ckpts, checked)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         graph = phase_graph(Path(work), smi)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
@@ -4615,6 +5000,8 @@ def main():
         a7bc = phase_a7bc(Path(work), smi)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
         p14 = phase_dp(Path(work), smi)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        tools = phase_tools(Path(work), smi, train_rates, checked, gen_bytes)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -4644,6 +5031,8 @@ def main():
              p14_segan_launches_per_rank_step=p14["segan"],
              p14_wsegan_launches_per_rank_step=p14["wsegan"],
              p14_enhance_sharded_launches=p14["enhance"],
+             tools_launches=sum(tools.values()),
+             **{f"tools_{k}_launches": v for k, v in tools.items()},
              **per_layer),
         dict(launches=tool_launches["fused_enc23_fwd"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],

@@ -7,6 +7,11 @@ and the JAX ``export_torch_generator`` / ``export_torch_discriminator`` write) l
 with ``strict=True`` once legacy key names are migrated. A checkpoint that the JAX
 trainer wrote (an npz pytree) is converted with ``generator_state_from_jax`` /
 ``discriminator_state_from_jax``, and its optax state with ``optimizer_state_from_jax``.
+The other way, ``read_torch_state`` with ``generator_tree_from_torch`` /
+``discriminator_tree_from_torch`` turns a torch checkpoint into the JAX variables tree
+(the JAX ``load_torch_generator`` / ``load_torch_discriminator``), which ``save_pytree``
+writes in the JAX npz format; ``export_torch`` writes a bridged state in the key order
+of the JAX export (both used by ``weight_converter``).
 
 ``Saver`` keeps the reference's rotating JSON index and file names; its payloads are
 reference-format torch files with the optimizer state beside the weights, so the JAX
@@ -412,6 +417,243 @@ def discriminator_state_from_jax(flat: Mapping[str, np.ndarray], pool_slen: int,
         if name.endswith(".norm") and leaf == "weight":
             out[f"{name}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+# -- the JAX package's npz pytrees, and torch checkpoints turned into them ---------------
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict of arrays flattened to {'a/b/c': leaf}, in the dicts' order."""
+    if not isinstance(tree, dict):
+        return {prefix[:-1]: np.asarray(tree)}
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        out.update(flatten_tree(v, f"{prefix}{k}/"))
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """The inverse of ``flatten_tree``."""
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def save_pytree(path: str, tree, meta: Optional[dict] = None) -> None:
+    """``np.savez`` of the flattened tree, the meta as JSON bytes under '__meta__' (numpy
+    appends '.npz' to a path without it)."""
+    flat = flatten_tree(tree)
+    if meta is not None:
+        flat["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
+
+
+def load_pytree(path: str) -> Tuple[dict, Optional[dict]]:
+    """(tree, meta) of a ``save_pytree`` file; meta None without one."""
+    flat, meta = _read_npz(path)
+    return unflatten_tree(flat), meta or None
+
+
+def read_torch_state(path: str) -> Dict[str, np.ndarray]:
+    """A torch checkpoint's state_dict as numpy arrays, in the names the JAX converters
+    read: legacy 'gen_enc'/'gen_dec' migrated (``_migrate_key``), and spectral norm's
+    'weight_orig' called 'weight' (its 'weight_u'/'weight_v' stay); leaves that are not
+    tensors are dropped."""
+    st = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in st:
+        st = st["state_dict"]
+    out = {}
+    for k, v in st.items():
+        k = _migrate_key(k)
+        if k.endswith(".weight_orig"):
+            k = k[: -len("_orig")]
+        if torch.is_tensor(v):
+            out[k] = v.detach().cpu().numpy()
+    return out
+
+
+def _snorm_v_to_jax(v: np.ndarray, kind: str, w_shape) -> np.ndarray:
+    """The inverse of ``_snorm_v_from_jax``: a Conv1d's v from torch's columns (Cin, K)
+    to the JAX (K, Cin); the other layers' columns agree."""
+    v = np.asarray(v, np.float32).reshape(-1)
+    if kind == "conv":
+        _, cin, kw = w_shape
+        return v.reshape(cin, kw).T.reshape(-1)
+    return v
+
+
+def _put(root: dict, path, arr) -> None:
+    node = root
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = np.asarray(arr, np.float32)
+
+
+def _tree(params: dict, batch_stats: dict, spectral: dict) -> dict:
+    out = {"params": params}
+    if batch_stats:
+        out["batch_stats"] = batch_stats
+    if spectral:
+        out["spectral"] = spectral
+    return out
+
+
+def generator_tree_from_torch(st: Mapping[str, np.ndarray]) -> dict:
+    """A G state from ``read_torch_state`` as the JAX Generator's variables {'params'[,
+    'batch_stats'][, 'spectral']}: the JAX ``load_torch_generator``. conv (Cout, Cin, K)
+    -> (K, Cin, Cout), deconv (Cin, Cout, K) -> (K, Cin, Cout), alpha skips (1, C, 1) ->
+    (C,); a BatchNorm's running statistics go to 'batch_stats' and its
+    ``num_batches_tracked`` is dropped; u and v go to 'spectral', a conv's v reordered."""
+    params: dict = {}
+    batch_stats: dict = {}
+    spectral: dict = {}
+    for k, v in st.items():
+        parts = k.split(".")
+        if parts[0] in ("enc_blocks", "dec_blocks"):
+            blk, sub, leaf = f"{parts[0]}_{parts[1]}", parts[2], parts[3]
+            if sub == "conv" and leaf == "weight":
+                _put(params, [blk, "conv", "weight"], np.transpose(v, (2, 1, 0)))
+            elif sub == "deconv" and leaf == "weight":
+                _put(params, [blk, "deconv", "weight"], np.transpose(v, (2, 0, 1)))
+            elif sub in ("conv", "deconv") and leaf == "bias":
+                _put(params, [blk, sub, "bias"], v)
+            elif sub in ("conv", "deconv") and leaf == "weight_u":
+                _put(spectral, [blk, sub, "weight_u"], v)
+            elif sub in ("conv", "deconv") and leaf == "weight_v":
+                w_shape = st[f"{parts[0]}.{parts[1]}.{sub}.weight"].shape
+                _put(spectral, [blk, sub, "weight_v"], _snorm_v_to_jax(v, sub, w_shape))
+            elif sub == "act":
+                _put(params, [blk, "act", "weight"], v)
+            elif sub == "norm" and leaf in ("running_mean", "running_var"):
+                _put(batch_stats, [blk, "norm", leaf], v)
+            elif sub == "norm" and leaf in ("weight", "bias"):
+                _put(params, [blk, "norm", leaf], v)
+        elif parts[0].startswith("alpha_"):
+            if parts[1:] == ["skip_k"]:
+                _put(params, [parts[0], "skip_k"], np.reshape(v, (-1,)))
+            elif parts[1] == "skip_k":  # a conv skip
+                _put(params, [parts[0], "skip_k", parts[2]],
+                     np.transpose(v, (2, 1, 0)) if parts[2] == "weight" else v)
+    return _tree(params, batch_stats, spectral)
+
+
+def discriminator_tree_from_torch(st: Mapping[str, np.ndarray], pool_slen: int,
+                                  last_fmaps: int) -> dict:
+    """A D state from ``read_torch_state`` as the JAX Discriminator's variables: the
+    JAX ``load_torch_discriminator``, which this also follows for the heads (fc.0's
+    input reordered from upstream's flatten (C, T) to the JAX (T, C), with C =
+    `last_fmaps`, T = `pool_slen`). One difference: a sinc D's filter bank,
+    'sinc_conv.filt_b1' and 'filt_band', goes to 'params/sinc_conv' as it is, where the
+    JAX converter drops it."""
+    params: dict = {}
+    batch_stats: dict = {}
+    spectral: dict = {}
+    for k, v in st.items():
+        parts = k.split(".")
+        if parts[0] == "enc_blocks":
+            blk, sub, leaf = f"enc_blocks_{parts[1]}", parts[2], parts[3]
+            if sub == "conv" and leaf == "weight":
+                _put(params, [blk, "conv", "weight"], np.transpose(v, (2, 1, 0)))
+            elif sub == "conv" and leaf == "bias":
+                _put(params, [blk, "conv", "bias"], v)
+            elif sub == "conv" and leaf == "weight_u":
+                _put(spectral, [blk, "conv", "weight_u"], v)
+            elif sub == "conv" and leaf == "weight_v":
+                w_shape = st[f"enc_blocks.{parts[1]}.conv.weight"].shape
+                _put(spectral, [blk, "conv", "weight_v"], _snorm_v_to_jax(v, "conv", w_shape))
+            elif sub == "act":
+                _put(params, [blk, "act", "weight"], v)
+            elif sub == "norm" and leaf in ("weight", "bias"):
+                _put(params, [blk, "norm", leaf], v)
+            elif sub == "norm" and leaf in ("running_mean", "running_var"):
+                _put(batch_stats, [blk, "norm", leaf], v)
+        elif parts[0] == "sinc_conv":
+            _put(params, ["sinc_conv", parts[1]], v)
+        elif parts[0] == "fc" and len(parts) == 3:  # the 'none' head: Linear, PReLU, ...
+            idx, leaf, name = int(parts[1]), parts[2], f"fc_{parts[1]}"
+            if leaf == "weight_u":
+                _put(spectral, [name, "weight_u"], v)
+            elif leaf == "weight_v":
+                vv = np.asarray(v, np.float32).reshape(-1)
+                if idx == 0:  # fc.0's columns (C, T) -> (T, C)
+                    vv = vv.reshape(last_fmaps, pool_slen).T.reshape(-1)
+                _put(spectral, [name, "weight_v"], vv)
+            elif idx in (1, 3):  # PReLU
+                _put(params, [name, "weight"], v)
+            elif leaf == "weight":
+                w = np.asarray(v)
+                if idx == 0:  # (256, C*T) -> (256, T*C)
+                    w = np.transpose(w.reshape(w.shape[0], last_fmaps, pool_slen),
+                                     (0, 2, 1)).reshape(w.shape[0], -1)
+                _put(params, [name, "weight"], w.T)
+            else:
+                _put(params, [name, "bias"], v)
+        elif parts[0] == "fc":  # one Linear (the conv, gmax and gavg heads)
+            if parts[1] == "weight":
+                _put(params, ["fc", "weight"], np.asarray(v).T)
+            elif parts[1] in ("weight_u", "weight_v"):
+                _put(spectral, ["fc", parts[1]], v)
+            else:
+                _put(params, ["fc", "bias"], v)
+        elif parts[0] == "mlp":  # Conv1d, PReLU, Conv1d
+            idx, leaf, name = int(parts[1]), parts[2], f"mlp_{parts[1]}"
+            if leaf == "weight_u":
+                _put(spectral, [name, "weight_u"], v)
+            elif leaf == "weight_v":
+                w_shape = st[f"mlp.{idx}.weight"].shape
+                _put(spectral, [name, "weight_v"],
+                     _snorm_v_to_jax(v, "conv" if len(w_shape) == 3 else "linear", w_shape))
+            elif idx == 1:
+                _put(params, [name, "weight"], v)
+            elif leaf == "weight":
+                _put(params, [name, "weight"], np.transpose(v, (2, 1, 0)))
+            else:
+                _put(params, [name, "bias"], v)
+        elif parts[0] == "pool_conv":
+            if parts[1] == "weight":
+                _put(params, ["pool_conv", "weight"], np.transpose(v, (2, 1, 0)))
+            elif parts[1] == "weight_u":
+                _put(spectral, ["pool_conv", "weight_u"], v)
+            elif parts[1] == "weight_v":
+                _put(spectral, ["pool_conv", "weight_v"],
+                     _snorm_v_to_jax(v, "conv", st["pool_conv.weight"].shape))
+            else:
+                _put(params, ["pool_conv", "bias"], v)
+    return _tree(params, batch_stats, spectral)
+
+
+# the order in which the JAX export writes a block's leaves, and a model's groups
+_LEAF_ORDER = {"weight": 0, "weight_orig": 0, "weight_u": 1, "weight_v": 2, "bias": 3,
+               "running_mean": 4, "running_var": 5, "num_batches_tracked": 6}
+_GROUP_ORDER = ("sinc_conv", "enc_blocks", "dec_blocks", "alpha", "pool_conv", "fc.i",
+                "fc", "mlp")
+
+
+def _export_key(k: str):
+    """Sort key of a state_dict name in the JAX export's order: the groups of
+    `_GROUP_ORDER` (a sinc D's bank first, as the port's D holds it; 'fc.i' the layers
+    of the 'none' head, 'fc' the one Linear of the others), blocks by index, in a block
+    its conv, PReLU, then norm, each leaf by `_LEAF_ORDER`."""
+    parts = k.split(".")
+    stem, _, num = parts[0].rpartition("_")
+    if not num.isdigit():  # no '_<i>' suffix: the index is the second part, if any
+        stem, num = parts[0], parts[1] if parts[1].isdigit() else "0"
+    if stem == "fc" and len(parts) == 3:
+        stem = "fc.i"
+    sub = {"act": 1, "norm": 2}.get(parts[2], 0) if len(parts) == 4 else 0
+    return _GROUP_ORDER.index(stem), int(num), sub, _LEAF_ORDER.get(parts[-1], 0)
+
+
+def export_torch(state: Dict[str, torch.Tensor], path: str, step: int = 0) -> None:
+    """``torch.save({'step', 'state_dict'})`` of a state from ``generator_state_from_jax``
+    or ``discriminator_state_from_jax``, its keys in the order the JAX
+    ``export_torch_generator`` / ``export_torch_discriminator`` write them (upstream's
+    partial load drops the last keys of a D: fc.4's)."""
+    ordered = {k: state[k] for k in sorted(state, key=_export_key)}
+    torch.save({"step": int(step), "state_dict": ordered}, path)
 
 
 # the optax slots of each torch optimizer's per-parameter state: rmsprop(eps_in_sqrt=
