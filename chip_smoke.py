@@ -17,7 +17,7 @@ and when the port's package is not beside it):
      error <= 1e-4) and bf16 (<= 2e-2), each on the route the wrapper picks, read from its
      counters (main-path shapes: the tensor cores, fp32 by 3xTF32; the ragged and stride-1
      shapes: FMA), and on the FMA route forced; in fp32 enc5 at 64, 150 and 300 chunks
-     also vs a float64 conv (<= 1e-4). Times in turns (CUDA events, median of 20 after 3
+     also vs a float64 conv (<= 1e-4). Times in turns (CUDA events, median of 10 after 2
      warm-ups): both routes, plain and cuDNN's F.conv1d alone, in each dtype; TFLOP/s,
      share of peak, bounds, encoder sums per batch, and the WSEGAN step's 25 calls (G's
      five rows once, D's five in each of its four passes). At 64 and 300 chunks the
@@ -72,10 +72,10 @@ and when the port's package is not beside it):
      flip a sign: printed; G's backward from a fixed gradient of Genh, card vs float64,
      each tensor <= 1e-3; with D's learning rate 0, g_adv <= 1e-3 and G's step gradients
      <= 5e-2 all together;
-     5c. the step at full width, batch 300, fp32 and bf16: 3 warm-up steps, then 10 timed
+     5c. the step at full width, batch 300, fp32 and bf16: 2 warm-up steps, then 5 timed
      by CUDA events with the kernel's counters set to 0 just before and read just after
      (5 launches per step, all on the tensor cores); losses finite; slices/s, the median
-     split into G forward / D update / G update, peak device memory; then
+     split into G forward / D update / G update, peak device memory; then the main of
      `python -m segan_pytorch_tpu_torch.bench --steps 5 --warmup 2` in bf16 and fp32.
   6. the training run at full SEGAN+ width (`python -m segan_pytorch_tpu_torch.train`'s
      main in-process, batch 300, fp32, --no_bias, a log point per step): a synthetic
@@ -99,11 +99,11 @@ and when the port's package is not beside it):
      u and v <= 1e-5; G's gradients with D's learning rate 0 <= 3e-5; 25 3xTF32
      launches; a control, the card's step with every cuDNN conv and matmul in one TF32
      pass, must break each of these bounds;
-     7b. the step at batch 150, fp32 and bf16: 10 timed steps with 25 launches each, all
+     7b. the step at batch 150, fp32 and bf16: 5 timed steps with 25 launches each, all
      on the tensor cores (fp32 3xTF32); slices/s, the split G forward / D update / G
      update, peak memory, and the time of the kernel's pad (fp32: and split) of the 25
-     w / sigma of a step, timed alone (the kernel itself is timed in phase 3); then `python -m segan_pytorch_tpu_torch.bench
-     --engine wsegan` and `--engine aewsegan` at batch 150;
+     w / sigma of a step, timed alone (the kernel itself is timed in phase 3); then the
+     bench entry's main with `--engine wsegan` and `--engine aewsegan` at batch 150;
      7c. `train.main` with the script's flags on 4 x 4 s synthetic pairs (two batches of
      150 an epoch): one epoch, then --resume to epoch 2 ("Resumed from step 2", iterations
      3-4, EOE G and D named after the steps taken, 25 launches a step); the clean CLI on
@@ -170,8 +170,9 @@ and when the port's package is not beside it):
      forward. 10c: a call that only replays makes no host sync
      (`set_sync_debug_mode("error")`) and moves no launch counter, and a replay runs the
      kernel 5 / 25 / 5 times (profiler device events). Then `step_flops()` timed,
-     `bench --steps_per_call 4` and 1 at batch 300 (bf16, fp32) and at 16, once each, each
-     line with its MFU; 10d: `train.main` at batch 64 for two epochs of six batches with
+     `bench --steps_per_call 4` and 1 at batch 300 (bf16, fp32; at 1 5c's runs) and at 16,
+     once each, each line with its MFU; 10d: `train.main` at batch 64 for two epochs of
+     six batches with
      `--steps_per_call 4` (iterations 4-6 and 10-12 logged, checkpoint indices equal to
      the single-step run's) and `--profile` at batch 32 (the trace, the two [profile]
      lines, the MFU in the log).
@@ -194,7 +195,7 @@ and when the port's package is not beside it):
      resuming a JAX run directory is held by the CPU tests alone.
   12. A7a, a bnorm G and D's SincConv front end at full width (phase_a7a), every check
      fatal: (a) SEGAN+ with --gnorm_type bnorm (--no_bias) at batch 300 in fp32 and bf16,
-     3 warm-up and 5 timed steps (slices/s, the G forward / D update / G update split,
+     1 warm-up and 2 timed steps (slices/s, the G forward / D update / G update split,
      peak memory, MFU from step_flops()) with 0 launches of fused_conv1d_prelu (a bnorm G
      takes the plain conv), one fp32 step at B = 4 vs float64 on the CPU (losses and Genh
      <= 1e-3, G's running statistics <= 1e-4), --steps_per_call 4 vs 4 eager steps under
@@ -206,7 +207,7 @@ and when the port's package is not beside it):
      sinc D at batch 150: the kernel at the sinc D's four block shapes (64 -> 128 at
      T_out 4096 ... 512 -> 1024 at 64, bias) vs its plain version in fp32 and bf16, on the
      route it picks and on the FMA route forced, timed beside the plain version and
-     cuDNN; 3 timed steps of 5 + 4 x 4 launches; one step at B = 3 vs float64 within 7a's
+     cuDNN; 2 timed steps of 5 + 4 x 4 launches; one step at B = 3 vs float64 within 7a's
      bounds (u and v after Adam's step within max(1e-5, 4 x the CPU fp32 step's));
      (d) LayerNorm, ResBlock1D, ResARModule, SincConv, CombFilter, PostProcessingCombNet,
      Conv1DResBlock (strided and transposed) and pos_code, card vs CPU at batch 8 and
@@ -231,12 +232,27 @@ and when the port's package is not beside it):
   14. multi-GPU training (phase_dp), every check fatal, on the one card: (a) NCCL at a
      world size of 1, joined by initialize_distributed as the CLI joins: a full-width
      SEGAN+ step through the grouped code equals the ungrouped one bit for bit under
-     cudnn.deterministic; (b) two processes sharing the card over gloo on CUDA tensors,
-     SEGAN+ at global batch 64 (50 valid rows, the mask's zeros on rank 1), fp32 and
-     bf16, each rank's step against the one-process step (5b's bounds; in bf16 the
-     gradients against the one-process fp32 step within 4 x the one-process bf16 step's
-     distance from it; 5 launches per rank); (c) four processes, dp 2 x mp 2, WSEGAN at global batch 16 with D's head
-     split, against one process (7a's bounds; 25 launches per rank); (d) enhance_sharded
+     cudnn.deterministic; then, in a spawned process of its own and its own NCCL group
+     of one, the grouped step as a CUDA graph that holds its NCCL collectives (SEGAN+ at
+     global batch 300 in fp32 and bf16, WSEGAN fp32 at 150 with its script's flags):
+     phase 10's check (_graph_vs_eager) read as equality, one `train_step_multi` call of 4
+     sub-steps against 4 eager grouped `train_step` calls under cudnn.deterministic
+     (losses, Genh, every parameter, buffer and optimizer tensor bit for bit), the
+     all-reduces that the capture recorded equal to an eager grouped step's (counted at
+     torch.distributed.all_reduce), a call that only replays makes no host sync and moves
+     no counter, and a replay runs the kernel 5 / 25 times and the collective kernels it
+     prints (profiler device events); the grouped SEGAN+ step's slices/s graphed and
+     eager at batch 300 and 16; (b) two processes sharing the card over gloo on CUDA
+     tensors, SEGAN+ at global batch 64 (50 valid rows, the mask's zeros on rank 1), fp32
+     on cuDNN's default algorithms and bf16 on its deterministic ones, each rank's step
+     against the one-process step (5b's bounds; in bf16 the gradients against the
+     one-process fp32 step, deterministic too, within 4 x the one-process bf16 step's
+     distance from it; 5 launches per rank); (c) four processes, dp 2 x mp 2, WSEGAN at
+     global batch 16 with D's head split, on cuDNN's default algorithms, against one
+     process (7a's bounds; 25 launches per rank); each check prints D's three tensors
+     nearest their bounds; (b) and (c) run
+     together, and in each every rank's grouped call of two sub-steps on its gloo group
+     raises, naming the backend, with no launch; (d) enhance_sharded
      over two G replicas on cuda:0 against generate within 1e-5. Per-rank times are of
      processes sharing one card, not speed figures; NCCL cannot run two ranks on one card.
   15. the user tools at full SEGAN+ width (phase_tools), every check fatal: (a) the
@@ -247,11 +263,11 @@ and when the port's package is not beside it):
      originals' bit for bit on the card under cudnn.deterministic; (c) tools/ab_parity.py
      in fp32 on the card on the test split (5 launches a file); (d) tools/serving_bench.py
      with its own server process (--reps 8, --concurrency 4, stream windows of 4096);
-     (e) tools/serving_soak.py for 24 s, a reload every 7 s, a sample every 2 s: no
+     (e) tools/serving_soak.py for 12 s, a reload every 4 s, a sample every 2 s: no
      error, monotonic counters, fd drift <= SOAK_FD_DRIFT, thread drift <= 3 a reload +
      SOAK_THREAD_SLACK, and the card's memory.used within its first sample + (unretired
      generations + 1) x phase 9a's generation + SOAK_MARGIN_MIB; (f)
-     tools/train_throughput_bench.py at batch 300 for 4 epochs of 2 batches, the first
+     tools/train_throughput_bench.py at batch 300 for 3 epochs of 2 batches, the first
      skipped, beside phases 5c's and 6's rates; (g) one HTTPS /enhance (a certificate
      from openssl) and one WebSocket stream through the repo's tools/ws_client.py
      against the port's server in this process, vs generate() <= 1e-5 and vs the offline
@@ -260,7 +276,9 @@ and when the port's package is not beside it):
      against its plain version at every layer shape the tools reach (their own server
      processes' passes of 1-8 rows of 16384 and stream windows of 4096 at 1-2 rows, the
      trainer's batch 300, and the in-process calls) that phases 3, 8 and 9 did not hold.
-The line before the last is the JSON kernel report (launches of fused_conv1d_prelu from
+Each phase prints its seconds as it ends ("[time] phase ..."), and one line the
+seconds of all and the total. The line before the last is the JSON kernel report
+(launches of fused_conv1d_prelu from
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
 (_mma, _tf32) from phase 8's served G forwards and reload_launches (_mma, _tf32) from
@@ -268,7 +286,8 @@ phase 9's, its times the bf16 encoder sum at 64
 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
 its weight pad from 7b, under graph_launches_per_replay the launches a replay of each
-phase-10 case's graphed step makes, data_options_launches (_segan, _h5, _wsegan) those
+phase-10 case's graphed step makes and of each 14a case's graphed grouped step ('grouped
+...'), data_options_launches (_segan, _h5, _wsegan) those
 of phase 11's runs, a7a_*_launches_per_step phase 12's (bnorm G 0, sinc D SEGAN+ 5,
 sinc D WSEGAN 21), and under sinc_d_* (fp32_sinc_d_*) the sums of 12c's four sinc D
 shapes at batch 150, a7b_g1d_launches_per_forward phase 13's (11), and under g1d_enc_*
@@ -503,7 +522,7 @@ def phase_kernel():
         del y_ref, pre_ref
         arms32["plain"] = lambda: K.conv1d_prelu_plain(x, w, bias, a, s)
         arms32["cuDNN"] = lambda: F.conv1d(x, w, bias, stride=s)
-        t32 = ms_in_turns(arms32)
+        t32 = ms_in_turns(arms32, reps=10, warmup=2)
         # bf16: the route that _route picks, then the FMA kernel forced
         hb = [v.bfloat16() if v is not None else None for v in (x, w, bias, a)]
         del x, w
@@ -536,7 +555,7 @@ def phase_kernel():
         del yb_ref, preb_ref
         arms["plain"] = lambda: K.conv1d_prelu_plain(*hb, s)
         arms["cuDNN"] = lambda: F.conv1d(hb[0], hb[1], hb[2], stride=s)
-        t16 = ms_in_turns(arms)
+        t16 = ms_in_turns(arms, reps=10, warmup=2)
         flops = 2.0 * b * t_out * cout * cin * kw
         nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
                       + 2 * b * cout * t_out)  # in bf16: x, w, b, a read, y, pre written
@@ -718,7 +737,7 @@ def phase_enc23():
                 arms["fma"] = lambda: EF._launch(*args, force_fma=True)
             arms["cuDNN x2"] = lambda: (F.conv1d(h1p, args[1], args[2], stride=EF.S),
                                         F.conv1d(p2p, args[4], args[5], stride=EF.S))
-            ms = bench.ms_in_turns(arms)
+            ms = bench.ms_in_turns(arms, reps=10, warmup=2)
             del h1p, p2p
             flops, nbytes = enc23_work(b, t1, c1, c2, c3, has_bias, args[0].element_size())
             # fp32: the smaller of the FMA pipes' bound and the 3xTF32 tensor cores'
@@ -754,7 +773,8 @@ def phase_enc23():
     # where the tile rule switches: both tiles in turns around B * 8 = SMs
     for b in (16, 32, 48, 64):
         args = bench.make_inputs(b, dtype=torch.float32, device="cuda")
-        ms = bench.ms_in_turns({t: lambda t=t: EF._launch(*args, tile=t) for t in (16, 32)})
+        ms = bench.ms_in_turns({t: lambda t=t: EF._launch(*args, tile=t) for t in (16, 32)},
+                               reps=10, warmup=2)
         print(f"fp32 tiles at B={b}: 16 {ms[16]:.4f} ms, 32 {ms[32]:.4f} ms; the rule takes "
               f"{EF._tf32_tile(b, 4096, sms)}", flush=True)
     return max_abs, at300
@@ -1296,7 +1316,9 @@ def phase_train_b300():
     from segan_pytorch_tpu_torch.models.segan import SEGAN
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
 
-    B, n_steps = 300, 10
+    from segan_pytorch_tpu_torch import bench
+
+    B, n_steps = 300, 5
     per_step = set()
     rates = {}
     for dtype in ("float32", "bfloat16"):
@@ -1305,7 +1327,7 @@ def phase_train_b300():
         seg = SEGAN(cfg, generator=G, discriminator=D, device="cuda")
         clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 12))
         r = _time_steps(seg, (clean, noisy, torch.ones((B,), device="cuda"), 100.0),
-                        n_steps)
+                        n_steps, warm=2)
         launches, mma, tf32 = r["counts"]
         assert launches == mma == 5 * n_steps, (launches, mma)
         assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
@@ -1320,16 +1342,16 @@ def phase_train_b300():
         del seg, G, D, clean, noisy
         torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
-        out = subprocess.run(
-            [sys.executable, "-m", "segan_pytorch_tpu_torch.bench", "--steps", "5",
-             "--warmup", "2", "--compute_dtype", dtype, "--steps_per_call", "1"],
-            cwd=str(ROOT), capture_output=True, text=True, timeout=300)
-        assert out.returncode == 0, out.stderr[-3000:]
-        res = json.loads(out.stdout.strip().splitlines()[-1])
+        # the entry's main in this process, whose cuDNN plans the steps above warmed
+        # (tests/test_torch_profiling.py runs it as a process of its own on the CPU)
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = bench.main(["--steps", "5", "--warmup", "2", "--compute_dtype", dtype,
+                              "--steps_per_call", "1"])
         print(f"bench ({dtype}): {json.dumps(res)}", flush=True)
         assert (res["metric"], res["batch"], res["compute_dtype"]) == (
             "train_slices_per_sec_per_chip", B, dtype) and res["value"] > 0, res
         rates[f"bench {dtype}"] = res["value"]
+        rates[f"bench {dtype} run"] = res
     assert len(per_step) == 1, per_step
     return per_step.pop(), rates
 
@@ -1697,7 +1719,9 @@ def phase_wsegan_b150():
     from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
 
-    B, n_steps = 150, 10
+    from segan_pytorch_tpu_torch import bench
+
+    B, n_steps = 150, 5
     per_step = set()
     times = {}
     for dtype in ("float32", "bfloat16"):
@@ -1706,7 +1730,8 @@ def phase_wsegan_b150():
         seg = WSEGAN(cfg, generator=G, discriminator=D, device="cuda")
         clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 35))
         mask = torch.ones((B,), device="cuda")
-        r = _time_steps(seg, (clean, noisy, mask, torch.zeros_like(mask), 100.0), n_steps)
+        r = _time_steps(seg, (clean, noisy, mask, torch.zeros_like(mask), 100.0), n_steps,
+                        warm=2)
         launches, mma, tf32 = r["counts"]
         assert launches == mma == WS_PER_STEP * n_steps, (launches, mma)
         assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
@@ -1732,14 +1757,10 @@ def phase_wsegan_b150():
                                              r["losses"].items()), flush=True)
         del seg, G, D, clean, noisy, gw, dw
         torch.cuda.empty_cache()
-    for engine in ("wsegan", "aewsegan"):
-        out = subprocess.run(
-            [sys.executable, "-m", "segan_pytorch_tpu_torch.bench", "--engine", engine,
-             "--batch_size", str(B), "--steps", "5", "--warmup", "2",
-             "--steps_per_call", "1"],
-            cwd=str(ROOT), capture_output=True, text=True, timeout=300)
-        assert out.returncode == 0, out.stderr[-3000:]
-        res = json.loads(out.stdout.strip().splitlines()[-1])
+    for engine in ("wsegan", "aewsegan"):  # the entry's main in this process
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = bench.main(["--engine", engine, "--batch_size", str(B), "--steps", "5",
+                              "--warmup", "2", "--steps_per_call", "1"])
         print(f"bench --engine {engine} (bfloat16): {json.dumps(res)}", flush=True)
         assert (res["metric"], res["batch"], res["engine"]) == (
             "train_slices_per_sec_per_chip", B, engine) and res["value"] > 0, res
@@ -2235,6 +2256,7 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
     (all, tensor cores, 3xTF32) and the layer shapes that 8a held against the plain
     version."""
     import signal as signal_mod
+    import threading
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.parallel.inference import chunk_grid
@@ -2442,9 +2464,12 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
         rc = proc.wait(timeout=drain + 30)
         took = time.perf_counter() - t1
         text = (work / "serve.log").read_text()
+        done = [ln for ln in text.splitlines() if "shutdown complete" in ln]
         print(f"python -m segan_pytorch_tpu_torch.serve --device cuda: /healthz after "
               f"{up:.1f} s, one /enhance of 2.5 s in {1e3 * wall:.1f} ms, SIGTERM -> exit "
-              f"{rc} in {took:.2f} s (drain {drain:g} s)", flush=True)
+              f"{rc} in {took:.2f} s (drain {drain:g} s; the server: {done[-1:]}; this "
+              f"process's threads meanwhile: "
+              f"{sorted(t.name for t in threading.enumerate())})", flush=True)
         assert rc == 0 and took <= drain and "shutdown complete" in text, text[-3000:]
     finally:
         if proc.poll() is None:
@@ -2547,7 +2572,8 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
         try:
             one = _wav_body(16000, SEED + 130)
             status, info, _ = srv.reload({"g_ckpt": str(ckpt_b)}, auth=False)
-            assert status == 401 and srv.state["reloads"] == 0, (status, info)
+            assert status == 401 and info == {"error": "unauthorized"} and (
+                srv.state["reloads"] == 0), (status, info)
             passes.clear()
             before = (K.launches, K.launches_mma, K.launches_tf32)
             # cuDNN's default algorithm for the fp32 transposed convs sums in no fixed
@@ -2893,6 +2919,178 @@ def _losses(metrics_s):
     return [dict(zip(rows, vals)) for vals in zip(*rows.values())]
 
 
+def _profiled_replay(call, want):
+    """The device kernels of `call` (a graphed call that only replays) under
+    torch.profiler, synchronised before and after so that the window holds this call
+    alone. CUPTI may drop records of a graph's kernel nodes (one session counted 3 of a
+    SEGAN+ replay's 5, phase 10) but never invents one: while fewer than `want` of the
+    kernel's launches show, the call is profiled again, three sessions at most. Returns
+    (the device kernels' names of the last session, the kernel's count in each)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts.append(sum(1 for n in names if KERNEL_RE.search(n)))
+        if counts[-1] >= want:
+            break
+    return names, counts
+
+
+def _graph_inputs(kind, B, T, S):
+    """S seeded batches of B rows for a graphed call, stacked on the card (the third
+    ragged; WSEGAN's every second row 'additive'), and their L1 weights."""
+    import torch
+
+    cleans, noisies = zip(*(_train_batch(B, T, SEED + 171 + i) for i in range(S)))
+    masks = torch.ones((S, B))
+    masks[2, -1] = 0.0  # a ragged batch among them
+    stacked = [torch.stack(cleans).cuda(), torch.stack(noisies).cuda(), masks.cuda()]
+    if kind == "wsegan":
+        stacked.append((torch.arange(B) % 2).float().expand(S, B).contiguous().cuda())
+    l1s = [100.0 - 0.1 * i for i in range(S)] if kind == "segan" else [100.0] * S
+    return stacked, l1s
+
+
+class _CollectiveCount:
+    """Counts torch.distributed.all_reduce calls while it is open (the port's
+    ``parallel/sharding.py`` issues every collective of the step through it), apart by
+    whether the current stream was capturing a CUDA graph."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        self.captured = self.eager = 0
+        self._dist, self._orig = dist, dist.all_reduce
+
+        def counted(*args, **kwargs):
+            if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+                self.captured += 1
+            else:
+                self.eager += 1
+            return self._orig(*args, **kwargs)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce = self._orig
+        return False
+
+    def take(self):
+        """(captured, eager) since the last take."""
+        out = (self.captured, self.eager)
+        self.captured = self.eager = 0
+        return out
+
+
+def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
+                    between=None):
+    """One case of phases 10 and 14a, under cudnn.deterministic (the caller's): engines of
+    one state (``_graph_engines``) A (graphed) and E (eager, its Adam capturable as A's),
+    and `n_engines` - 2 more for the caller. One ``train_step_multi`` call of S sub-steps
+    on A against S ``train_step`` calls on E: losses, Genh and every parameter, buffer
+    and optimizer change, within GRAPH_TOL (`exact`: bit for bit, every tensor held);
+    2 x GRAPH_PER_STEP kernel launches in the first call (warm-up sub-step and capture),
+    all on the tensor cores, fp32 by 3xTF32. Then on A a call that only replays, under
+    sync debug mode "error", with no counter moved, and one profiled
+    (``_profiled_replay``): the kernel GRAPH_PER_STEP times; `between(A, E, stacked)`, if
+    given, runs before that call (A and E still in step). In a process group (the
+    engines' grid) the all-reduces that the capture recorded equal those of the warm-up
+    sub-step and of each eager step, and are more than none. Prints one line, then
+    checks; returns what the caller reads further."""
+    import torch
+    from segan_pytorch_tpu_torch.models import multistep
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    t0 = time.perf_counter()
+    stacked, l1s = _graph_inputs(kind, cfg.batch_size, cfg.slice_size, S)
+    engines = _graph_engines(kind, cfg, seed, n_engines)
+    A, E = engines[:2]
+    grouped = A.grid is not None
+    adam = kind != "segan"
+    if adam:
+        for opt in E._optimizers():
+            multistep.set_capturable(opt, True)
+    before = _engine_state(E)
+    with _CollectiveCount() as coll:
+        K.launches = K.launches_mma = K.launches_tf32 = 0
+        ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
+        first_call, routes = K.launches, (K.launches_mma, K.launches_tf32)
+        captured, warm = coll.take()
+        eager, peak = [], 0
+        for i in range(S):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            m, g, _ = E.train_step(*[t[i] for t in stacked], l1s[i])
+            eager.append({k: float(v) for k, v in m.items()})
+            peak = max(peak, torch.cuda.max_memory_allocated() - held)
+        per_step = coll.take()[1]
+    got, after = _engine_state(A), _engine_state(E)
+    loss_err, state_err, worst = _graph_errs(_losses(ms), eager, got, after, before,
+                                             batchnorm=kind == "segan" and not exact)
+    genh_err = rel_err(genh, g)
+    n_equal = sum(torch.equal(got[k], after[k]) for k in after)
+    same_genh = torch.equal(genh, g)
+    if between is not None:
+        between(A, E, stacked)
+    # a call that only replays: nothing on the host waits, nothing runs eagerly
+    one = [t[:1] for t in stacked]
+    K.launches = K.launches_mma = K.launches_tf32 = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        A.train_step_multi(*one, l1_w_s=l1s[:1])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    device, counts = _profiled_replay(lambda: A.train_step_multi(*one, l1_w_s=l1s[:1]),
+                                      GRAPH_PER_STEP[kind])
+    replay_counter = K.launches
+    collectives = {}
+    for n in device:
+        if "nccl" in n.lower():
+            collectives[n] = collectives.get(n, 0) + 1
+    print(f"{label} B={cfg.batch_size}, cudnn.deterministic: {S} graphed sub-steps vs {S} "
+          f"{'grouped ' if grouped else ''}train_step calls"
+          f"{' (capturable Adam)' if adam else ''}: losses {loss_err:.3g}, Genh "
+          f"{genh_err:.3g}, changes " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                 state_err.items())
+          + f" (worst tensor {worst[1]} {worst[0]:.3g}); {n_equal} of {len(after)} state "
+          f"tensors equal bit for bit; kernel launches in the first call {first_call} "
+          f"(warm-up step and capture); a replay: fused_conv1d_prelu {counts[-1]} times "
+          f"(profiler device events; sessions {counts}), counter {replay_counter}, no host "
+          f"sync"
+          + (f"; all-reduces recorded by the capture {captured}, issued by the warm-up "
+             f"sub-step {warm}, by each eager step {per_step / S:g}; collective kernels a "
+             f"replay ran: {sum(collectives.values())} {collectives}" if grouped else "")
+          + f"; graph pool {A._multi.pool_bytes / 2**30:.2f} GiB, eager step peak "
+          f"{peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    if exact:
+        assert loss_err == 0 and same_genh and n_equal == len(after), (
+            loss_err, same_genh, state_err, worst)
+    else:
+        assert max(loss_err, genh_err, *state_err.values()) <= GRAPH_TOL, (
+            loss_err, genh_err, state_err)
+    assert first_call == 2 * GRAPH_PER_STEP[kind], first_call
+    assert routes == (first_call, first_call if cfg.compute_dtype == "float32" else 0), routes
+    assert counts[-1] == GRAPH_PER_STEP[kind] >= max(counts) and replay_counter == 0, (
+        counts, replay_counter)
+    if grouped:
+        assert captured == warm == per_step / S > 0, (captured, warm, per_step)
+    else:
+        assert captured == warm == per_step == 0, (captured, warm, per_step)
+    return dict(engines=engines, stacked=stacked, l1s=l1s, eager=eager, before=before,
+                after=after, launches=counts[-1], counts=counts, all_reduces=captured)
+
+
 def _g_check(eng, x, z):
     """An eager G forward through the kernel (evaluate's path) against a CPU copy of G on
     the same weights (plain ops): the relative error, which must be within phase 4's."""
@@ -2939,16 +3137,17 @@ def _cache_trap():
     return tuple(errs)
 
 
-def phase_graph(work: Path, smi: str):
+def phase_graph(work: Path, smi: str, train_rates: dict):
     """10: the train step as a CUDA graph (train_step_multi) and --profile on the card.
-    Returns the kernel's launches per replay of each case's step (profiler events)."""
+    The bench entry's rates at batch 300 and one step per call are 5c's runs
+    (`train_rates`). Returns the kernel's launches per replay of each case's step
+    (profiler events)."""
     import gc
     import torch
     from segan_pytorch_tpu_torch import bench
     from segan_pytorch_tpu_torch.models import multistep
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     S = 4
@@ -2957,19 +3156,44 @@ def phase_graph(work: Path, smi: str):
         t0 = time.perf_counter()
         cfg = SEGANConfig(batch_size=B, compute_dtype=dtype, no_train_gen=True, **flags)
         T = cfg.slice_size
-        cleans, noisies = zip(*(_train_batch(B, T, SEED + 171 + i) for i in range(S)))
-        masks = torch.ones((S, B))
-        masks[2, -1] = 0.0  # a ragged batch among them
-        stacked = [torch.stack(cleans).cuda(), torch.stack(noisies).cuda(), masks.cuda()]
-        if kind == "wsegan":
-            stacked.append((torch.arange(B) % 2).float().expand(S, B).contiguous().cuda())
-        l1s = [100.0 - 0.1 * i for i in range(S)] if kind == "segan" else [100.0] * S
+        stacked, l1s = _graph_inputs(kind, B, T, S)
         bn = kind == "segan"
         adam = kind != "segan"
 
         def eager_steps(eng, xs, ls):
             return [{k: float(v) for k, v in eng.train_step(
                 *[s[i] for s in xs], ls[i])[0].items()} for i in range(len(ls))]
+
+        def stale_check(A, E, stacked):
+            """10b: no stale padded weight: an eager G forward after each graphed call,
+            and an eager step (a ragged tail) between two graphed calls, all against the
+            eager engine."""
+            rng = np.random.RandomState(SEED + 175)
+            xg = (rng.randn(4, T, 1) * 0.3).astype(np.float32)
+            zg = rng.randn(4, T // 1024, 1024).astype(np.float32)
+            g_errs = [_g_check(A, xg, zg)]
+            two = [s[:2] for s in stacked]
+            A.train_step_multi(*two, l1_w_s=[99.0, 98.9])
+            eager_steps(E, two, [99.0, 98.9])
+            g_errs.append(_g_check(A, xg, zg))
+            tail = [s[2] for s in stacked]
+            ma, _, _ = A.train_step(*tail, 98.8)
+            me, _, _ = E.train_step(*tail, 98.8)
+            before_b = _engine_state(E)
+            other = [s[[3, 0]] for s in stacked]
+            ms3, _, _, _ = A.train_step_multi(*other, l1_w_s=[98.7, 98.6])
+            eager3 = eager_steps(E, other, [98.7, 98.6])
+            tail_err = max(abs(float(ma[k]) - float(me[k])) / max(abs(float(me[k])), 1e-12)
+                           for k in me)
+            l3, s3, _ = _graph_errs(_losses(ms3), eager3, _engine_state(A),
+                                    _engine_state(E), before_b)
+            print(f"graph {label}: eager G forward after graphed calls vs a CPU copy of G "
+                  f"(plain ops): " + ", ".join(f"{v:.3g}" for v in g_errs)
+                  + f" (bound {SLICE_TOL}); an eager step between graphed calls: losses "
+                  f"{tail_err:.3g}; the next graphed call: losses {l3:.3g}, changes "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in s3.items()), flush=True)
+            assert all(e <= SLICE_TOL for e in g_errs), g_errs
+            assert max(tail_err, l3, *s3.values()) <= GRAPH_TOL, (tail_err, l3, s3)
 
         if label == "SEGAN+ fp32":
             # cuDNN's default algorithms: the graph against eager steps, beside two eager
@@ -2991,74 +3215,15 @@ def phase_graph(work: Path, smi: str):
             torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = True
         try:
-            A, E, C = _graph_engines(kind, cfg, SEED + 170, 3)
-            if adam:
-                for opt in E._optimizers():
-                    multistep.set_capturable(opt, True)
-            before = _engine_state(E)
-            # 10a: one graphed call of S sub-steps against S eager steps from one state;
-            # the kernel's counters count the warm-up step's launches and the capture's
-            K.launches = K.launches_mma = K.launches_tf32 = 0
-            ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
-            first_call = K.launches
-            routes = (K.launches_mma, K.launches_tf32)
-            eager, peak = [], 0
-            for i in range(S):
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                held = torch.cuda.memory_allocated()
-                m, g, _ = E.train_step(*[s[i] for s in stacked], l1s[i])
-                eager.append({k: float(v) for k, v in m.items()})
-                peak = max(peak, torch.cuda.max_memory_allocated() - held)
-            loss_err, state_err, worst = _graph_errs(_losses(ms), eager, _engine_state(A),
-                                                     _engine_state(E), before, bn)
-            genh_err = rel_err(genh, g)
-            e4 = _engine_state(E)
-            pool = A._multi.pool_bytes
-            print(f"graph {label} B={B}, cudnn.deterministic: {S} graphed sub-steps vs {S} "
-                  f"train_step calls{' (capturable Adam)' if adam else ''}: losses "
-                  f"{loss_err:.3g}, Genh {genh_err:.3g}, changes " + ", ".join(
-                      f"{k} {v:.3g}" for k, v in state_err.items()) + f" (worst tensor "
-                  f"{worst[1]} {worst[0]:.3g}); kernel launches in the first call "
-                  f"{first_call} (warm-up step and capture); graph pool "
-                  f"{pool / 2**30:.2f} GiB, eager step peak {peak / 2**30:.2f} GiB ({smi})",
-                  flush=True)
-            assert first_call == 2 * GRAPH_PER_STEP[kind], first_call
-            # every layer of these steps on the tensor cores, fp32 by 3xTF32
-            assert routes == (first_call, first_call if dtype == "float32" else 0), routes
-            assert max(loss_err, genh_err, *state_err.values()) <= GRAPH_TOL, (
-                loss_err, genh_err, state_err)
-            if label == "SEGAN+ fp32":
-                # 10b: no stale padded weight: an eager G forward after each graphed
-                # call, and an eager step (a ragged tail) between two graphed calls, all
-                # against the eager engine
-                rng = np.random.RandomState(SEED + 175)
-                xg = (rng.randn(4, T, 1) * 0.3).astype(np.float32)
-                zg = rng.randn(4, T // 1024, 1024).astype(np.float32)
-                g_errs = [_g_check(A, xg, zg)]
-                two = [s[:2] for s in stacked]
-                A.train_step_multi(*two, l1_w_s=[99.0, 98.9])
-                eager_steps(E, two, [99.0, 98.9])
-                g_errs.append(_g_check(A, xg, zg))
-                tail = [s[2] for s in stacked]
-                ma, _, _ = A.train_step(*tail, 98.8)
-                me, _, _ = E.train_step(*tail, 98.8)
-                before_b = _engine_state(E)
-                other = [s[[3, 0]] for s in stacked]
-                ms3, _, _, _ = A.train_step_multi(*other, l1_w_s=[98.7, 98.6])
-                eager3 = eager_steps(E, other, [98.7, 98.6])
-                tail_err = max(abs(float(ma[k]) - float(me[k]))
-                               / max(abs(float(me[k])), 1e-12) for k in me)
-                l3, s3, _ = _graph_errs(_losses(ms3), eager3, _engine_state(A),
-                                        _engine_state(E), before_b)
-                print(f"graph {label}: eager G forward after graphed calls vs a CPU copy "
-                      f"of G (plain ops): " + ", ".join(f"{v:.3g}" for v in g_errs)
-                      + f" (bound {SLICE_TOL}); an eager step between graphed calls: "
-                      f"losses {tail_err:.3g}; the next graphed call: losses {l3:.3g}, "
-                      "changes " + ", ".join(f"{k} {v:.3g}" for k, v in s3.items()),
-                      flush=True)
-                assert all(e <= SLICE_TOL for e in g_errs), g_errs
-                assert max(tail_err, l3, *s3.values()) <= GRAPH_TOL, (tail_err, l3, s3)
+            # 10a, 10b (between) and 10c: the graph against eager steps, no stale
+            # padded weight, a call that only replays
+            case = _graph_vs_eager(f"graph {label}", kind, cfg, S, SEED + 170, smi,
+                                   n_engines=3, between=stale_check if label ==
+                                   "SEGAN+ fp32" else None)
+            A, E, C = case["engines"]
+            eager, before, e4 = case["eager"], case["before"], case["after"]
+            replay_launches[label] = case["launches"]
+            del case
             if adam:  # the same steps with Adam's host-side bias correction
                 (P,) = _graph_engines(kind, cfg, SEED + 170, 1)
                 plain = eager_steps(P, stacked, l1s)
@@ -3067,23 +3232,6 @@ def phase_graph(work: Path, smi: str):
                       f"capturable one: losses {pa[0]:.3g}, changes " + ", ".join(
                           f"{k} {v:.3g}" for k, v in pa[1].items()), flush=True)
                 del P
-            # 10c: a call that only replays: no host sync, no counter moves, and the
-            # kernel runs the step's count of times per replay (the profiler's device
-            # events)
-            one = [s[:1] for s in stacked]
-            K.launches = K.launches_mma = K.launches_tf32 = 0
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                A.train_step_multi(*one, l1_w_s=l1s[:1])
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                A.train_step_multi(*one, l1_w_s=l1s[:1])
-                torch.cuda.synchronize()
-            n_kernel = sum(1 for e in prof.events() if KERNEL_RE.search(e.name))
-            replay_launches[label] = n_kernel
-            assert K.launches == 0, K.launches
             A.release_multi_step()
             del A
             gc.collect()
@@ -3095,12 +3243,10 @@ def phase_graph(work: Path, smi: str):
             C.release_multi_step()
         finally:
             torch.backends.cudnn.deterministic = False
-        print(f"graph {label}: a replay runs fused_conv1d_prelu {n_kernel} times (profiler "
-              f"device events), with no host sync and no counter moved; the control "
-              f"(sub-steps 2 and 3 swapped): losses {c_loss:.3g}, changes " + ", ".join(
-                  f"{k} {v:.3g}" for k, v in c_state.items())
+        print(f"graph {label}: the control (sub-steps 2 and 3 swapped): losses "
+              f"{c_loss:.3g}, changes " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                                   c_state.items())
               + f"; {time.perf_counter() - t0:.1f} s", flush=True)
-        assert n_kernel == GRAPH_PER_STEP[kind], n_kernel
         assert min(c_loss, *c_state.values()) > GRAPH_TOL, (c_loss, c_state)
         del C, E
         gc.collect()
@@ -3149,12 +3295,12 @@ def phase_graph(work: Path, smi: str):
     del seg
     print(f"graph: step_flops() of SEGAN+ at batch 300: {flops} ({flops / 300 / 1e9:.3f} "
           f"GFLOP a slice), counted in {flops_s:.2f} s", flush=True)
-    rates = {}
-    runs = [(300, "bfloat16", 4), (300, "bfloat16", 1), (300, "float32", 1),
-            (300, "float32", 4)] + [(16, dt, s) for dt in ("bfloat16", "float32")
-                                   for s in (1, 4)]
+    rates = {(300, dt, 1): [train_rates[f"bench {dt} run"]] for dt in ("bfloat16",
+                                                                        "float32")}
+    runs = [(300, "bfloat16", 4), (300, "float32", 4)] + [
+        (16, dt, s) for dt in ("bfloat16", "float32") for s in (1, 4)]
     for B, dtype, s in runs:
-        n = 2 if s > 1 else 8
+        n = 1 if s > 1 else 4
         if B == 16:
             n *= 5
         res = bench.main(["--batch_size", str(B), "--compute_dtype", dtype,
@@ -3874,11 +4020,11 @@ def phase_a7a(work: Path, smi: str) -> dict:
             clean_b, noisy_b = (v.cuda() for v in _train_batch(300, cfg.slice_size,
                                                                SEED + 201))
             r = _time_steps(seg, (clean_b, noisy_b, torch.ones(300, device="cuda"), 100.0),
-                            5)
+                            2, warm=1)
             flops = flops if dtype == "bfloat16" else seg.step_flops()
             _report_steps(f"A7a SEGAN+ {case} B=300 {dtype}", r, flops, 300, smi)
-            tf32 = 5 * per_step if dtype == "float32" else 0
-            assert r["counts"] == (5 * per_step, 5 * per_step, tf32), r["counts"]
+            tf32 = 2 * per_step if dtype == "float32" else 0
+            assert r["counts"] == (2 * per_step, 2 * per_step, tf32), r["counts"]
             out[f"{case} {dtype}"] = r
             if case == "bnorm G" and dtype == "float32":
                 trained = copy.deepcopy(seg.G).cpu()
@@ -3976,11 +4122,11 @@ def phase_a7a(work: Path, smi: str) -> dict:
         seg = WSEGAN(cfg, generator=G, discriminator=D, device="cuda")
         clean_b, noisy_b = (v.cuda() for v in _train_batch(150, cfg.slice_size, SEED + 261))
         ones = torch.ones(150, device="cuda")
-        r = _time_steps(seg, (clean_b, noisy_b, ones, torch.zeros_like(ones), 100.0), 3,
-                        warm=2)
+        r = _time_steps(seg, (clean_b, noisy_b, ones, torch.zeros_like(ones), 100.0), 2,
+                        warm=1)
         flops = flops if dtype == "bfloat16" else seg.step_flops()
         _report_steps(f"A7a WSEGAN sinc D B=150 {dtype}", r, flops, 150, smi)
-        n = 3 * SINC_WS_PER_STEP
+        n = 2 * SINC_WS_PER_STEP
         assert r["counts"] == (n, n, n if dtype == "float32" else 0), r["counts"]
         out[f"wsegan sinc D {dtype}"] = r
         del seg, G, D, clean_b, noisy_b
@@ -4282,8 +4428,18 @@ P14_SEED = SEED + 1400
 P14_B, P14_VALID = 64, 50  # 14b: the global batch and its valid rows (zeros on rank 1)
 P14_WS_B = 16              # 14c: the global batch of the dp 2 x mp 2 WSEGAN step
 P14_A_B, P14_A_VALID = 8, 6  # 14a
+P14_DETERMINISTIC = ("bfloat16",)  # 14b's dtypes on cuDNN's deterministic algorithms
 P14_TIMEOUT_S = 240        # a group not done by then is killed and the phase fails
 P14_ENHANCE_TOL = 1e-5
+# 14a's graphed grouped step: (label, engine, global batch, dtype, flags), S sub-steps a
+# call, and the batches at which the grouped step is timed graphed and eager
+P14_GRAPH_CASES = [
+    ("SEGAN+ fp32", "segan", 300, "float32", dict(no_bias=True)),
+    ("SEGAN+ bf16", "segan", 300, "bfloat16", dict(no_bias=True)),
+    ("WSEGAN fp32", "wsegan", 150, "float32", WSEGAN_FLAGS),
+]
+P14_GRAPH_S = 4
+P14_RATE_CALLS = {300: 1, 16: 3}  # timed graphed calls of S sub-steps (S x as many eager)
 
 
 def _p14_engine(kind, dtype, B, dp=1, mp=1):
@@ -4386,11 +4542,15 @@ def _p14_rank(rank, nprocs, mp, kind, dtypes, B, valid, work):
     refs = torch.load(f"{work}/{kind}_ref.pt", weights_only=False)
     out = {}
     for name in dtypes:
+        # cuDNN's algorithms as the parent's references (_p14_group)
+        torch.backends.cudnn.deterministic = name in P14_DETERMINISTIC
         seg = _p14_engine(kind, getattr(torch, name), B, nprocs // mp, mp)
         got = _p14_step(seg, kind, B, valid)
         err = _p14_errors(got, refs[name], seg)
+        if name == dtypes[0]:
+            err["gloo_s2"] = _p14_gloo_refused(seg)
         if name == "bfloat16":  # also against the one-process fp32 step
-            err["vs fp32"] = _p14_errors(got, refs["float32"], seg)
+            err["vs fp32"] = _p14_errors(got, refs["float32 deterministic"], seg)
         out[name] = dict(err, launches=got[4], seconds=got[5], backend=torch.distributed
                          .get_backend(), device=str(seg.device), grid=list(
                              (seg.grid.dp, seg.grid.mp, seg.grid.dp_index, seg.grid.mp_index)))
@@ -4398,6 +4558,26 @@ def _p14_rank(rank, nprocs, mp, kind, dtypes, B, valid, work):
         torch.cuda.empty_cache()
     mesh.shutdown_distributed()
     Path(f"{work}/{kind}_rank{rank}.json").write_text(json.dumps(out))
+
+
+def _p14_gloo_refused(seg):
+    """A grouped call of two sub-steps on a gloo group over CUDA tensors: gloo's
+    all-reduce waits on the host, so the step's graph cannot hold it, and the call must
+    raise, naming the backend, before it launches anything. Returns (the message, the
+    kernel's launches in the call)."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    B = seg.cfg.batch_size // seg._dp()
+    stacked = [torch.zeros((2, B, 16384, 1)), torch.zeros((2, B, 16384, 1)),
+               torch.ones((2, B))] + ([torch.zeros((2, B))] if len(seg.batch_keys) == 4
+                                      else [])
+    K.launches = 0
+    try:
+        seg.train_step_multi(*stacked, l1_w_s=[100.0, 100.0])
+    except RuntimeError as e:
+        return str(e), K.launches
+    return None, K.launches
 
 
 def _p14_spread(kind, name, B, valid):
@@ -4420,23 +4600,37 @@ def _p14_spread(kind, name, B, valid):
 
 def _p14_group(work: Path, nprocs, mp, kind, dtypes, B, valid):
     """The one-process step of each dtype (the reference, saved for the group), then a
-    group of `nprocs` processes on the card (``_p14_rank``), joined with a deadline.
-    Returns (the reference's losses and launches by dtype, each rank's results)."""
+    group of `nprocs` processes on the card (``_p14_rank``), started and not waited for.
+    Returns (the reference's losses and launches by dtype, a join() that waits for the
+    group with a deadline and returns each rank's results)."""
     import torch
     import torch.multiprocessing as tmp
 
     refs, summary = {}, {}
-    for name in dtypes:
-        seg = _p14_engine(kind, getattr(torch, name), B)
-        ref = _p14_step(seg, kind, B, valid)
-        refs[name] = ref[:4]
-        summary[name] = dict(losses=ref[0], launches=ref[4], seconds=ref[5])
-        if name == "bfloat16":  # the one-process bf16 step's own distance from fp32
-            summary[name]["vs fp32"] = _p14_errors(ref, refs["float32"], seg)
-        else:
-            summary[name]["spread"] = _p14_errors(_p14_spread(kind, name, B, valid), ref,
-                                                  seg)
-        del seg
+    # fp32 on cuDNN's default algorithms, as users train. Those sum in no fixed order, so
+    # two runs of a bf16 step differ by up to ~4x its distance from fp32 in a scalar such
+    # as D.fc.4.bias: the bf16 steps and the fp32 step they are held against take the
+    # deterministic algorithms (P14_DETERMINISTIC), so each run reads what the last read
+    prev = torch.backends.cudnn.deterministic
+    try:
+        for name in dtypes:
+            torch.backends.cudnn.deterministic = name in P14_DETERMINISTIC
+            seg = _p14_engine(kind, getattr(torch, name), B)
+            ref = _p14_step(seg, kind, B, valid)
+            refs[name] = ref[:4]
+            summary[name] = dict(losses=ref[0], launches=ref[4], seconds=ref[5])
+            if name == "bfloat16":  # the one-process bf16 step's own distance from fp32
+                torch.backends.cudnn.deterministic = True
+                ref32 = _p14_step(_p14_engine(kind, torch.float32, B), kind, B, valid)
+                refs["float32 deterministic"] = ref32[:4]
+                summary[name]["vs fp32"] = _p14_errors(ref, ref32, seg)
+                del ref32
+            else:
+                summary[name]["spread"] = _p14_errors(_p14_spread(kind, name, B, valid),
+                                                      ref, seg)
+            del seg
+    finally:
+        torch.backends.cudnn.deterministic = prev
     torch.save(refs, work / f"{kind}_ref.pt")
     del refs
     torch.cuda.empty_cache()
@@ -4444,17 +4638,21 @@ def _p14_group(work: Path, nprocs, mp, kind, dtypes, B, valid):
                                                 str(work)),
                               nprocs=nprocs, join=False, start_method="spawn")
     deadline = time.time() + P14_TIMEOUT_S
-    try:
-        while not ctx.join(timeout=5):
-            if time.time() > deadline:
-                raise TimeoutError(f"14: the {kind} group of {nprocs} did not finish in "
-                                   f"{P14_TIMEOUT_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-    return summary, [json.loads((work / f"{kind}_rank{r}.json").read_text())
-                     for r in range(nprocs)]
+
+    def join():
+        try:
+            while not ctx.join(timeout=5):
+                if time.time() > deadline:
+                    raise TimeoutError(f"14: the {kind} group of {nprocs} did not finish "
+                                       f"in {P14_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return [json.loads((work / f"{kind}_rank{r}.json").read_text())
+                for r in range(nprocs)]
+
+    return summary, join
 
 
 def _p14_world_of_one(work: Path, smi):
@@ -4462,9 +4660,12 @@ def _p14_world_of_one(work: Path, smi):
     (``initialize_distributed`` with a coordinator): one full-width SEGAN+ fp32 step
     through the grouped code (global counts, the BatchNorms' and the losses' all-reduces,
     the summed gradients) against the same step of an engine without a group, under
-    cudnn.deterministic: losses, Genh, every gradient and buffer bit for bit."""
+    cudnn.deterministic: losses, Genh, every gradient and buffer bit for bit. Then the
+    graphed grouped step (``_p14_graphed``) in a spawned process of its own; returns its
+    launches per replay by case."""
     import torch
     import torch.distributed as dist
+    import torch.multiprocessing as tmp
     from segan_pytorch_tpu_torch.parallel import mesh
 
     prev = torch.backends.cudnn.deterministic
@@ -4478,6 +4679,7 @@ def _p14_world_of_one(work: Path, smi):
             seg = _p14_engine("segan", torch.float32, P14_A_B)
             assert seg.grid is not None and (seg.grid.dp, seg.grid.mp) == (1, 1)
             grouped = _p14_step(seg, "segan", P14_A_B, P14_A_VALID)
+            del seg
         finally:
             mesh.shutdown_distributed()
     finally:
@@ -4491,6 +4693,135 @@ def _p14_world_of_one(work: Path, smi):
           f"{len(plain[3])} buffers; launches {plain[4]} / {grouped[4]} ({smi})", flush=True)
     assert backend == "nccl" and same, (backend, plain[0], grouped[0])
     assert plain[4] == grouped[4] == 5, (plain[4], grouped[4])
+    # the graphed grouped step in a process of its own, so that this one holds no
+    # captured collectives and no communicator after 14a
+    torch.cuda.empty_cache()
+    ctx = tmp.start_processes(_p14_graphed_proc, args=(str(work), smi), nprocs=1,
+                              join=False, start_method="spawn")
+    deadline = time.time() + P14_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise TimeoutError(f"14a: the graphed process did not finish in "
+                                   f"{P14_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return json.loads((work / "p14_graphed.json").read_text())
+
+
+def _p14_rates(A, E, dtype, T):
+    """The grouped SEGAN+ step's slices/s on the engines A (graphed) and E (eager) at
+    each batch of P14_RATE_CALLS, with cuDNN's default algorithms: a first graphed call
+    (warm-up step, capture) and an eager step untimed, then the timed calls of S
+    sub-steps and as many eager steps. Returns {(batch, dtype): (graphed, eager)}."""
+    import torch
+
+    S, out = P14_GRAPH_S, {}
+    for B, n in P14_RATE_CALLS.items():
+        stacked, l1s = _graph_inputs("segan", B, T, S)
+        A.train_step_multi(*stacked, l1_w_s=l1s)
+        E.train_step(*[t[0] for t in stacked], l1s[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            A.train_step_multi(*stacked, l1_w_s=l1s)
+        torch.cuda.synchronize()
+        graphed = B * S * n / (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            for i in range(S):
+                E.train_step(*[t[i] for t in stacked], l1s[i])
+        torch.cuda.synchronize()
+        out[(B, dtype)] = (graphed, B * S * n / (time.perf_counter() - t0))
+        A.release_multi_step()
+    return out
+
+
+def _p14_graphed(smi):
+    """14a, in an NCCL group of one: the grouped step as a CUDA graph. For each case,
+    under cudnn.deterministic, phase 10's check (``_graph_vs_eager``) read as equality:
+    one ``train_step_multi`` call of S sub-steps against S eager grouped ``train_step``
+    calls of a twin engine from the same state, losses, Genh and every parameter,
+    buffer and optimizer tensor bit for bit; the all-reduces that the capture recorded
+    against those of an eager grouped step; a call that only replays, with no host sync
+    and the kernel's counter unmoved; from the profiler's device events the kernel's
+    launches per replay (5 SEGAN+, 25 WSEGAN) and the collective kernels the replay
+    ran. Then, with cuDNN's default algorithms, the grouped SEGAN+ step's slices/s
+    graphed and eager at batch 300 and 16. Returns the kernel's launches per replay by
+    case."""
+    import gc
+    import torch
+    from segan_pytorch_tpu_torch.utils.config import SEGANConfig
+
+    S = P14_GRAPH_S
+    replay_launches, rates = {}, {}
+    for label, kind, B, dtype, flags in P14_GRAPH_CASES:
+        cfg = SEGANConfig(batch_size=B, compute_dtype=dtype, no_train_gen=True, **flags)
+        torch.backends.cudnn.deterministic = True
+        try:
+            case = _graph_vs_eager(f"14a graphed grouped {label} (NCCL, world size 1)",
+                                   kind, cfg, S, SEED + 1410, smi, exact=True)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        A, E = case["engines"]
+        assert A.grid is not None and E.grid is not None
+        replay_launches[f"grouped {label}"] = case["launches"]
+        del case
+        A.release_multi_step()
+        if kind == "segan":  # the grouped step's speed, graphed and eager
+            rates.update(_p14_rates(A, E, dtype, cfg.slice_size))
+        del A, E
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("14a the grouped SEGAN+ step (NCCL, world size 1), slices/s graphed "
+          f"(--steps_per_call {S}) vs eager: " + "; ".join(
+              f"B={B} {dt} {g:.2f} vs {e:.2f} ({100 * (g / e - 1):+.1f} %) over "
+              f"{S * P14_RATE_CALLS[B]} steps"
+              for (B, dt), (g, e) in sorted(rates.items())) + f" ({smi})", flush=True)
+    assert all(g > 0 and e > 0 for g, e in rates.values()), rates
+    return replay_launches
+
+
+def _p14_graphed_proc(_rank, work, smi):
+    """``_p14_graphed`` in a process of its own, in an NCCL group of one joined as the
+    CLI joins: its graphs and communicators end with it. Its result goes to
+    work/p14_graphed.json."""
+    from segan_pytorch_tpu_torch.parallel import mesh
+
+    mesh.initialize_distributed(f"file://{work}/nccl_graph_rendezvous", 1, 0, "cuda")
+    try:
+        out = _p14_graphed(smi)
+    finally:
+        mesh.shutdown_distributed()
+    (Path(work) / "p14_graphed.json").write_text(json.dumps(out))
+
+
+def _p14_gloo_show(label, ranks, name):
+    """Every rank's grouped call of two sub-steps on the gloo group refused, naming the
+    backend, with nothing launched."""
+    refusals = [r[name]["gloo_s2"] for r in ranks]
+    print(f"{label} --steps_per_call 2 on the gloo group over CUDA tensors: every rank "
+          f"refused ({refusals[0][0]!r}), kernel launches {[n for _, n in refusals]}",
+          flush=True)
+    assert all(msg is not None and "gloo" in msg and n == 0 for msg, n in refusals), \
+        refusals
+
+
+def _p14_tightest(grads, own, floor, apart=()):
+    """D's tensors of `grads` (name: error) with their bounds, each max(floor, 4 x its
+    error in `own`), the nearest to its bound first: [(name, error, bound)]."""
+    rows = [(k, v, max(floor, 4 * own[k])) for k, v in grads.items()
+            if k.startswith("D.") and k not in apart]
+    return sorted(rows, key=lambda r: -r[1] / r[2])
+
+
+def _p14_tight_show(label, rows, deterministic):
+    print(f"{label}: D's tensors nearest their bounds: " + ", ".join(
+        f"{k} {v:.3g} (bound {b:.3g})" for k, v, b in rows[:3])
+        + f" (cuDNN's {'deterministic' if deterministic else 'default'} algorithms)",
+        flush=True)
 
 
 def _p14_show(label, summary, ranks, smi):
@@ -4527,7 +4858,8 @@ def phase_dp(work: Path, smi: str) -> dict:
     """14 (A8, multi-GPU training) on the one card, every check fatal. (a) NCCL at a
     world size of 1 (``_p14_world_of_one``). (b) two processes sharing the card over
     gloo on CUDA tensors, SEGAN+ at full width, global batch 64 (50 valid rows, the
-    mask's zeros on rank 1), fp32 and bf16: each rank's step against the one-process
+    mask's zeros on rank 1), fp32 and bf16 (cuDNN's algorithms: default in fp32,
+    deterministic in bf16, P14_DETERMINISTIC): each rank's step against the one-process
     step of the same global batch and draws, D's learning rate 0: fp32 losses and Genh
     <= SLICE_TOL, D's gradients all together within max(SLICE_TOL, 4 x) and each within
     max(10 x SLICE_TOL, 4 x) the one-process step's own spread under another order of
@@ -4552,12 +4884,25 @@ def phase_dp(work: Path, smi: str) -> dict:
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
 
     t_phase = time.perf_counter()
-    _p14_world_of_one(work, smi)
+    graphed = _p14_world_of_one(work, smi)
     t_a = time.perf_counter() - t_phase
 
-    summary, ranks = _p14_group(work, 2, 1, "segan", ("float32", "bfloat16"), P14_B,
-                                P14_VALID)
+    # the two groups run together (their steps' times are no speed figure): 14c's
+    # one-process references are computed while 14b's processes run
+    summary, join_b = _p14_group(work, 2, 1, "segan", ("float32", "bfloat16"), P14_B,
+                                 P14_VALID)
+    try:
+        summary_c, join_c = _p14_group(work, 4, 2, "wsegan", ("float32",), P14_WS_B,
+                                       P14_WS_B - 2)
+    except BaseException:
+        join_b()
+        raise
+    try:
+        ranks = join_b()
+    finally:
+        ranks_c = join_c()
     _p14_show("14b SEGAN+ dp 2", summary, ranks, smi)
+    _p14_gloo_show("14b", ranks, "float32")
     for name in ("float32", "bfloat16"):
         errs = [r[name] for r in ranks]
         assert all(e["launches"] == 5 for e in errs), [e["launches"] for e in errs]
@@ -4570,9 +4915,10 @@ def phase_dp(work: Path, smi: str) -> dict:
                 assert worst(list(e["losses"].values()) + [e["Genh"]]) <= SLICE_TOL, e
                 assert e["D all"] <= max(SLICE_TOL, 4 * own["D all"]), (e, own["D all"])
                 assert e["G all"] <= KINK_TOL, e
-                bad = {k: (v, own["grads"][k]) for k, v in e["grads"].items()
-                       if k.startswith("D.") and k not in e["apart"]
-                       and not v <= max(10 * SLICE_TOL, 4 * own["grads"][k])}
+                rows = _p14_tightest(e["grads"], own["grads"], 10 * SLICE_TOL, e["apart"])
+                _p14_tight_show(f"14b SEGAN+ dp 2 {name}", rows,
+                                name in P14_DETERMINISTIC)
+                bad = {k: (v, own["grads"][k]) for k, v, b in rows if not v <= b}
                 # the running statistics, from the global batch's count and sums
                 bad.update({k: v for k, v in e["bufs"].items() if not v <= SLICE_TOL})
                 assert not bad, bad
@@ -4585,25 +4931,28 @@ def phase_dp(work: Path, smi: str) -> dict:
                 assert worst(list(e["losses"].values()) + [e["Genh"]]) <= BF16_TOL, e
                 for side, floor in (("D all", SLICE_TOL), ("G all", KINK_TOL)):
                     assert e32[side] <= max(floor, 4 * own[side]), (side, e32, own)
-                bad = {k: (v, own["grads"][k]) for k, v in e32["grads"].items()
-                       if k.startswith("D.") and k not in e32["apart"]
-                       and not v <= max(10 * SLICE_TOL, 4 * own["grads"][k])}
+                rows = _p14_tightest(e32["grads"], own["grads"], 10 * SLICE_TOL,
+                                     e32["apart"])
+                _p14_tight_show(f"14b SEGAN+ dp 2 {name} (vs the fp32 step)", rows,
+                                name in P14_DETERMINISTIC)
+                bad = {k: (v, own["grads"][k]) for k, v, b in rows if not v <= b}
                 assert not bad, bad
     t_b = time.perf_counter() - t_phase - t_a
 
-    summary, ranks = _p14_group(work, 4, 2, "wsegan", ("float32",), P14_WS_B, P14_WS_B - 2)
+    summary, ranks = summary_c, ranks_c
     _p14_show("14c WSEGAN dp 2 x mp 2", summary, ranks, smi)
+    _p14_gloo_show("14c", ranks, "float32")
     own = summary["float32"]["spread"]
     for e in (r["float32"] for r in ranks):
         assert e["launches"] == WS_PER_STEP, e["launches"]
         assert worst(list(e["losses"].values()) + [e["Genh"]]) <= WS_TOL, e
         assert e["D all"] <= max(WS_TOL, 4 * own["D all"]), (e["D all"], own["D all"])
         assert e["G all"] <= max(WS_G_TOL, 4 * own["G all"]), (e["G all"], own["G all"])
-        bad = {k: (v, own["grads"][k]) for k, v in e["grads"].items() if k.startswith("D.")
-               and not v <= max(10 * WS_TOL, 4 * own["grads"][k])}
+        rows = _p14_tightest(e["grads"], own["grads"], 10 * WS_TOL)
+        _p14_tight_show("14c WSEGAN dp 2 x mp 2 float32", rows, False)
+        bad = {k: (v, own["grads"][k]) for k, v, b in rows if not v <= b}
         bad.update({k: v for k, v in e["bufs"].items() if not v <= WS_TOL})
         assert not bad, bad
-    t_c = time.perf_counter() - t_phase - t_a - t_b
 
     G, _ = _train_models(SEGANConfig(no_bias=True), P14_SEED + 3)
     seg = SEGAN(SEGANConfig(no_bias=True), generator=G, device="cuda")
@@ -4620,10 +4969,10 @@ def phase_dp(work: Path, smi: str) -> dict:
           f" vs generate: {err:.1e}, launches {d_launches} ({smi})", flush=True)
     assert got.shape == want.shape and err <= P14_ENHANCE_TOL and d_launches == 10, (
         err, d_launches)
-    print(f"14: phase 14 took {time.perf_counter() - t_phase:.1f} s (a {t_a:.1f}, b "
-          f"{t_b:.1f}, c {t_c:.1f}); NCCL ran at a world size of 1 only: it refuses two "
+    print(f"14: phase 14 took {time.perf_counter() - t_phase:.1f} s (a {t_a:.1f}, b and c "
+          f"together {t_b:.1f}); NCCL ran at a world size of 1 only: it refuses two "
           "processes on one card", flush=True)
-    return dict(segan=5, wsegan=WS_PER_STEP, enhance=d_launches)
+    return dict(segan=5, wsegan=WS_PER_STEP, enhance=d_launches, graph=graphed)
 
 
 # ---- phase 15: the user tools on the card ----------------------------------------------
@@ -4639,6 +4988,38 @@ SOAK_MARGIN_MIB = 512
 SOAK_FD_DRIFT = 8
 SOAK_THREADS_PER_RELOAD = 3
 SOAK_THREAD_SLACK = 8  # the handler threads of requests in flight
+
+
+class _LogTail:
+    """The records of a logger and its children at DEBUG while open, with their seconds
+    from the opening, for a failure's message."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger, self.records = logging.getLogger(name), []
+        tail = self
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                tail.records.append(f"{record.created - tail.t0:8.3f} {record.name} "
+                                    f"{record.levelname} {record.getMessage()}")
+
+        self.handler = Keep()
+
+    def __enter__(self):
+        self.t0, self.level = time.time(), self.logger.level
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel("DEBUG")
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+        return False
+
+    def text(self, last=60):
+        return "\n".join(self.records[-last:]) or "(nothing logged)"
 
 
 def _tool_run(work: Path, name: str, argv, timeout):
@@ -4821,11 +5202,11 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
     print(f"tools 15d: serving_bench (fp32, full width) in {took:.1f} s: {json.dumps(bench)} "
           f"({smi})", flush=True)
 
-    # 15e: the soak, reloads every 7 s, samples every 2 s
+    # 15e: the soak, reloads every 4 s, samples every 2 s
     text, took = _tool_run(work, "serving_soak", [
         sys.executable, "-m", "segan_pytorch_tpu_torch.tools.serving_soak", "--g_ckpt",
         g_ckpt, "--cfg_file", opts, "--port", _free_port(), "--device", "cuda",
-        "--minutes", "0.4", "--sample_s", "2", "--reload_s", "7", "--startup_timeout",
+        "--minutes", "0.2", "--sample_s", "2", "--reload_s", "4", "--startup_timeout",
         "120", "--log", work / "soak_server.log", "--out", work / "soak.json"], timeout=180)
     soak = json.loads((work / "soak.json").read_text())
     v, counts, samples = soak["verdicts"], soak["counts"], soak["samples"]
@@ -4854,13 +5235,13 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
     # 15f: train_throughput_bench at batch 300 on the demo corpus
     text, took = _tool_run(work, "train_throughput_bench", [
         sys.executable, "-m", "segan_pytorch_tpu_torch.tools.train_throughput_bench",
-        "--corpus", corpus, "--batch_size", "300", "--epoch", "4", "--skip_epochs", "1",
+        "--corpus", corpus, "--batch_size", "300", "--epoch", "3", "--skip_epochs", "1",
         "--device", "cuda", "--save_path", work / "ttb"], timeout=300)
     ttb = _last_json(text)
     assert ttb["value"] > 0 and ttb["num_batches_per_epoch"] == 2, ttb
     print(f"tools 15f: train_throughput_bench (bf16, --steps_per_call 4, loader bf16) in "
           f"{took:.1f} s: {ttb['value']:.2f} slices/s over {ttb['steady_state_steps']} steps "
-          f"(epochs 3-4, from epoch 2's last log line) beside phase 6's warm loop "
+          f"(epochs 2-3, from epoch 1's last log line) beside phase 6's warm loop "
           f"{rates.get('run slices/s', float('nan')):.2f} (fp32, 3 steps) and 5c's bare bf16 "
           f"step {rates.get('bfloat16', float('nan')):.2f}; {json.dumps(ttb)} ({smi})",
           flush=True)
@@ -4902,12 +5283,19 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
             if have_ws:
                 pcm = _pcm(48000, SEED + 181)
                 wavfile.write(str(work / "ws_in.wav"), SR, pcm)
-                text, _ = _tool_run(work, "ws_client", [
-                    sys.executable, ROOT / "tools" / "ws_client.py", "--url",
-                    f"{'wss' if have_tls else 'ws'}://127.0.0.1:{ws_port}/enhance_stream",
-                    "--in", work / "ws_in.wav", "--out", work / "ws_out.wav", "--seed", "32",
-                    "--window", "16384", "--overlap", "0.25",
-                    *(["--insecure"] if have_tls else [])], timeout=120)
+                with _LogTail("websockets") as ws_log:  # the server's side, on a failure
+                    try:
+                        text, _ = _tool_run(work, "ws_client", [
+                            sys.executable, ROOT / "tools" / "ws_client.py", "--url",
+                            f"{'wss' if have_tls else 'ws'}://127.0.0.1:{ws_port}"
+                            "/enhance_stream", "--in", work / "ws_in.wav", "--out",
+                            work / "ws_out.wav", "--seed", "32", "--window", "16384",
+                            "--overlap", "0.25", *(["--insecure"] if have_tls else [])],
+                            timeout=120)
+                    except AssertionError as e:
+                        raise AssertionError(f"{e}\nthe server's websockets log (seconds "
+                                             "from the client's start):\n"
+                                             + ws_log.text()) from None
                 info = _last_json(text)
                 streamed = wavfile.read(str(work / "ws_out.wav"))[1]
             passes = [(r, n) for _, r, n, _ in srv.passes]
@@ -4959,7 +5347,26 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
     return launches
 
 
+def _phase(label, fn, *args, workdir=False):
+    """fn(*args) (with a new work directory under build/ first when `workdir`), its
+    seconds printed and kept for the total."""
+    t0 = time.perf_counter()
+    if workdir:
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+            out = fn(Path(work), *args)
+    else:
+        out = fn(*args)
+    PHASE_SECONDS[label] = time.perf_counter() - t0
+    print(f"[time] phase {label}: {PHASE_SECONDS[label]:.1f} s", flush=True)
+    return out
+
+
+PHASE_SECONDS = {}
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -4968,40 +5375,38 @@ def main():
         return 1
     import segan_pytorch_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    smi = phase_device()
-    phase_build()
-    per_layer = phase_kernel()
-    enc23_abs, enc23_ms = phase_enc23()
-    tool, tool_launches = phase_tool()
-    phase_tf32()
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        launches, launches_mma, launches_tf32 = phase_slice(Path(work))
-    phase_train_kernel()
-    phase_train_parity()
-    train_per_step, train_rates = phase_train_b300()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        train_run = phase_train_run(Path(work), train_rates)
-    phase_wsegan_parity()
-    ws_per_step, ws_times = phase_wsegan_b150()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        ws_run = phase_wsegan_run(Path(work))
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        ckpts = _serving_checkpoints(Path(work))
-        serve_launches, checked = phase_serve(Path(work), smi, ckpts)
-        reload_launches, gen_bytes, checked = phase_reload(Path(work), smi, ckpts, checked)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        graph = phase_graph(Path(work), smi)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        data_opts = phase_data_options(Path(work), train_rates)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        a7a = phase_a7a(Path(work), smi)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        a7bc = phase_a7bc(Path(work), smi)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        p14 = phase_dp(Path(work), smi)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
-        tools = phase_tools(Path(work), smi, train_rates, checked, gen_bytes)
+    smi = _phase("1", phase_device)
+    _phase("2", phase_build)
+    per_layer = _phase("3", phase_kernel)
+    enc23_abs, enc23_ms = _phase("3b", phase_enc23)
+    tool, tool_launches = _phase("3c", phase_tool)
+    _phase("3d", phase_tf32)
+    launches, launches_mma, launches_tf32 = _phase("4", phase_slice, workdir=True)
+    _phase("5a", phase_train_kernel)
+    _phase("5b", phase_train_parity)
+    train_per_step, train_rates = _phase("5c", phase_train_b300)
+    train_run = _phase("6", phase_train_run, train_rates, workdir=True)
+    _phase("7a", phase_wsegan_parity)
+    ws_per_step, ws_times = _phase("7b", phase_wsegan_b150)
+    ws_run = _phase("7c", phase_wsegan_run, workdir=True)
+
+    def serve_and_reload(work):
+        ckpts = _serving_checkpoints(work)
+        serve, checked = _phase("8", phase_serve, work, smi, ckpts)
+        reload, gen_bytes, checked = _phase("9", phase_reload, work, smi, ckpts, checked)
+        return serve, reload, gen_bytes, checked
+
+    serve_launches, reload_launches, gen_bytes, checked = _phase(
+        "8-9", serve_and_reload, workdir=True)
+    graph = _phase("10", phase_graph, smi, train_rates, workdir=True)
+    data_opts = _phase("11", phase_data_options, train_rates, workdir=True)
+    a7a = _phase("12", phase_a7a, smi, workdir=True)
+    a7bc = _phase("13", phase_a7bc, smi, workdir=True)
+    p14 = _phase("14", phase_dp, smi, workdir=True)
+    tools = _phase("15", phase_tools, smi, train_rates, checked, gen_bytes, workdir=True)
+    print("[time] " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()
+                                if k not in ("8", "9"))
+          + f"; total {time.perf_counter() - t_start:.1f} s ({smi})", flush=True)
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
@@ -5014,7 +5419,7 @@ def main():
              serve_launches_tf32=serve_launches[2],
              reload_launches=reload_launches[0], reload_launches_mma=reload_launches[1],
              reload_launches_tf32=reload_launches[2],
-             graph_launches_per_replay=graph,
+             graph_launches_per_replay=dict(graph, **p14["graph"]),
              data_options_launches=data_opts["total"],
              data_options_launches_segan=data_opts["segan"],
              data_options_launches_h5=data_opts["h5"],

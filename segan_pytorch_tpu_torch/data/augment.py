@@ -1,7 +1,8 @@
 """On-the-fly additive-noise augmentation with ITU P.56 active-speech-level scaling:
-``Additive`` of ``segan_pytorch_tpu/data/augment.py``, copied so that the same noises,
-clean slice and ``RandomState`` give the same noisy slice bit for bit
-(``tests/test_torch_augment.py`` holds it against the original).
+``Additive`` and ``ComposeAdditive`` of ``segan_pytorch_tpu/data/augment.py``, copied so
+that the same noises, clean slice and ``RandomState`` give the same noisy slice bit for
+bit (``tests/test_torch_augment.py`` and ``tests/test_torch_signal.py`` hold them
+against the originals).
 
 The noise segment is scaled so that the SNR against the clean signal's *active speech
 level* (P.56 method B, not its raw energy) hits a target drawn from ``snr_levels``; a
@@ -23,6 +24,17 @@ import numpy as np
 from scipy.signal import lfilter
 
 from .wav_io import read_wav_16k
+
+
+class ComposeAdditive:
+    """A transform that keeps its input beside the additive one's output: x -> (x,
+    additive(x))."""
+
+    def __init__(self, additive):
+        self.additive = additive
+
+    def __call__(self, x):
+        return x, self.additive(x)
 
 
 class Additive:

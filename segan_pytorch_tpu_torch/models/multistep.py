@@ -27,6 +27,13 @@ once into a ``torch.cuda.CUDAGraph`` and replayed once per sub-step:
   graph's gradient, so it holds the last sub-step's as after ``train_step``.
 - The graph keeps the step's activations in a private pool for as long as it lives
   (``pool_bytes``); ``release`` frees it.
+- Under a multi-GPU grid (``parallel/``) the body's collectives are recorded with it: the
+  losses' count and sums, BatchNorm's global statistics forward and backward, the
+  gradients' all-reduces and D's split head. Every rank captures them in the same order,
+  and the warm-up sub-step, which reaches every group of the step, makes their NCCL
+  communicators before capture. Only NCCL can be recorded (``prepare_multi_step``
+  refuses another backend), and the capture's error mode is thread-local, so NCCL's
+  watchdog thread may query its events meanwhile.
 A capture or a replay that fails raises; nothing falls back to eager steps.
 """
 from __future__ import annotations

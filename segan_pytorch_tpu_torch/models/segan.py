@@ -54,8 +54,8 @@ from ..ops.conv import at_least_fp32
 from ..ops.signal import de_emphasize_np
 from ..parallel import sharding
 from ..parallel.inference import chunk_grid, overlap_add
-from ..parallel.mesh import (Grid, distributed_barrier, host_group, make_grid,
-                             process_count, process_index)
+from ..parallel.mesh import (Grid, distributed_barrier, host_group, launcher_count,
+                             make_grid, process_count, process_index)
 from ..utils.checkpoint import (Saver, discriminator_bridge, generator_state_from_jax,
                                 load_discriminator, load_generator, load_payload)
 from .discriminator import Discriminator, build_discriminator, d_input
@@ -181,9 +181,13 @@ class SEGAN:
 
     def _whole_head(self):
         """D's head whole inside the block on every rank of the model axis (a
-        collective), split again after (``parallel/sharding.py`` ``whole_head``)."""
+        collective), split again after (``parallel/sharding.py`` ``whole_head``). A
+        split head comes back in new tensors, so the step's graph, which recorded the
+        old ones, is released first."""
         if self._model is None or self.D is None:
             return contextlib.nullcontext()
+        if self._model.size > 1:
+            self.release_multi_step()
         return sharding.whole_head(self.D, self.d_opt, self._model)
 
     def g_load_pretrained(self, ckpt_path: str):
@@ -529,8 +533,21 @@ class SEGAN:
         """Get ready for ``train_step_multi`` (the JAX ``prepare_multi_step``): on a CUDA
         device the optimizers keep their step counts on the card, and the step's graph
         (``models/multistep.py`` ``StepGraph``) is captured at the first call's second
-        sub-step; on the CPU nothing changes. ``release_multi_step`` undoes it."""
+        sub-step; on the CPU nothing changes. ``release_multi_step`` undoes it.
+
+        Under a grid on the card the graph holds the step's collectives, which only
+        NCCL can record: a grid over another backend (gloo, whose all-reduce waits on
+        the host) raises RuntimeError."""
         self.init_train()
+        if self.device.type == "cuda" and self.grid is not None:
+            backends = {dist.get_backend(g) for g in (self.grid.dp_group, self.grid.mp_group)
+                        if g is not None}
+            if backends != {"nccl"}:
+                raise RuntimeError(
+                    f"steps_per_call {steps_per_call} on {self.device} replays the step as "
+                    "one CUDA graph with its collectives, and the process group's "
+                    f"{'/'.join(sorted(backends))} backend cannot be captured: join the "
+                    "group over NCCL, or use steps_per_call 1")
         if self.device.type == "cuda" and self._multi is None:
             for opt in self._optimizers():
                 set_capturable(opt, True)
@@ -554,24 +571,27 @@ class SEGAN:
         given, in the order S ``train_step`` calls draw them.
 
         On a CUDA device each sub-step is a replay of the step's CUDA graph, with no host
-        sync; on the CPU the same body runs S times. Returns (metrics_s, metrics, Genh,
-        z): each metric of every sub-step as an (S,) tensor, the last sub-step's metrics,
-        its Genh (B, T, 1) fp32 and its z. Afterwards ``step`` is S further on and every
-        parameter's ``.grad`` holds the last sub-step's gradient."""
+        sync; under a grid the graph holds the step's NCCL collectives, which every rank
+        records in the same order. On the CPU the same body runs S times. Returns
+        (metrics_s, metrics, Genh, z): each metric of every sub-step as an (S,) tensor,
+        the last sub-step's metrics, its Genh (B, T, 1) fp32 and its z. Afterwards
+        ``step`` is S further on and every parameter's ``.grad`` holds the last
+        sub-step's gradient."""
         if len(stacked) != len(self.batch_keys):
             raise TypeError(f"{type(self).__name__}.train_step_multi takes "
                             f"{', '.join(self.batch_keys)}; got {len(stacked)} arrays")
         self.init_train()
         S = len(l1_w_s)
+        if self.device.type == "cuda":
+            self.prepare_multi_step(S)
         xs = [self._inputs(*(v[i] if v is not None else None for v in stacked))
               for i in range(S)]
         B, T = xs[0]["clean"].shape[:2]
         draws = [self._draw(B, T, **{k: (v[i] if v is not None else None)
                                      for k, v in draws_s.items()}) for i in range(S)]
-        if self.device.type == "cuda" and self.grid is None:
-            self.prepare_multi_step(S)
+        if self.device.type == "cuda":
             metrics_s, Genh = self._multi.run(xs, l1_w_s, draws)
-        elif self.device.type in ("cuda", "cpu"):  # under a grid: eager steps
+        elif self.device.type == "cpu":
             rows = [self._body(x, self._l1(l1), d) for x, l1, d in zip(xs, l1_w_s, draws)]
             metrics_s = {k: torch.stack([m[k] for m, _ in rows]) for k in rows[0][0]}
             Genh = rows[-1][1]
@@ -652,11 +672,13 @@ class SEGAN:
         card one CUDA graph of the step, replayed S times, freed when the loop ends).
         Groups never span an epoch: the ragged tail runs single steps, so the EOE
         evaluation and checkpoints fall at the same steps; the L1 weight decays per
-        sub-step as with single steps. ``cfg.profile`` waits for every step (its times
-        are then the device's), traces batches 2-7 of the first epoch with
-        ``torch.profiler`` into ``save_path/profile``, prints the device memory and,
-        from batch 3, ends each log line with the step's MFU when the card's peak is
-        known (``utils/profiling.py``); it forces S to 1, as in JAX."""
+        sub-step as with single steps. In a group every rank takes its S batches from its
+        data shard and replays the step's graph with its collectives; S falls to 1 only
+        for processes launched apart (``_steps_per_call``). ``cfg.profile`` waits for
+        every step (its times are then the device's), traces batches 2-7 of the first
+        epoch with ``torch.profiler`` into ``save_path/profile``, prints the device
+        memory and, from batch 3, ends each log line with the step's MFU when the card's
+        peak is known (``utils/profiling.py``); it forces S to 1, as in JAX."""
         from ..data.loader import device_prefetch, host_float32
         from ..utils.logging import StepTimer, TrainLogger
         from ..utils.profiling import device_memory_stats, device_trace, mfu
@@ -709,6 +731,8 @@ class SEGAN:
             print("[!] --profile needs per-step dispatch; steps_per_call -> 1")
             S = 1
         if S > 1:
+            # before the first step: every step of the run, single or grouped, keeps one
+            # optimizer mode, and a backend that cannot be captured refuses before a batch
             self.prepare_multi_step(S)
         for epoch in range(start_epoch, cfg.epoch + 1):
             timer.start()
@@ -834,10 +858,14 @@ class SEGAN:
         self.writer.close()
 
     def _steps_per_call(self, cfg) -> int:
-        """``cfg.steps_per_call``, or 1 under a grid, where a step runs collectives (the
-        JAX loops' rule for more than one process)."""
+        """``cfg.steps_per_call``, or 1 in a group of processes launched apart: the JAX
+        loops' rule, S = 1 when ``jax.process_count() > 1``. A JAX process drives every
+        chip of its host, and its counterpart is the group that ``train --dp N [--mp
+        M]`` spawns on one host, not one rank (``parallel/mesh.py`` ``launcher_count``):
+        that group keeps S, as does a group of one; ``--num_processes`` P > 1 does not.
+        The count is the group's, so every rank takes the same S."""
         S = max(1, int(getattr(cfg, "steps_per_call", 1)))
-        if S > 1 and self.grid is not None:
+        if S > 1 and launcher_count() > 1:
             print("[!] steps_per_call > 1 is single-process only; using 1")
             S = 1
         return S

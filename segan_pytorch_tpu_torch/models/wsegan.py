@@ -283,9 +283,10 @@ class WSEGAN(SEGAN):
         last); SIGTERM saves and stops. With ``cfg.steps_per_call`` S > 1 each call takes
         S batches (``train_step_multi``), but never across an epoch's end nor past the
         last iteration: those run single steps; the log and samples take the last batch
-        of a group. ``--profile`` is not read here, as in JAX. In a group S is 1, the
-        chief alone writes samples and checkpoints, and every process saves together
-        (``save`` puts D's split head together first)."""
+        of a group. ``--profile`` is not read here, as in JAX. In a group each rank takes
+        its S batches from its data shard (S is 1 only for processes launched apart:
+        ``_steps_per_call``), the chief alone writes samples and checkpoints, and every
+        process saves together (``save`` puts D's split head together first)."""
         from ..data.loader import host_float32
         from ..utils.logging import StepTimer
 
@@ -299,6 +300,8 @@ class WSEGAN(SEGAN):
         restore_sig = self._install_preempt_handler()
         S = self._steps_per_call(cfg)
         if S > 1:
+            # before the first step: every step of the run, single or grouped, keeps one
+            # optimizer mode, and a backend that cannot be captured refuses before a batch
             self.prepare_multi_step(S)
         timer.start()
         try:

@@ -92,6 +92,7 @@ def initialize_distributed(coordinator: Optional[str] = None,
 
 
 def _run_rank(process_id: int, fn, coordinator: str, nprocs: int, args: tuple):
+    _STATE["spawned"] = True  # one launcher: see launcher_count
     fn(coordinator, nprocs, process_id, *args)
 
 
@@ -133,6 +134,15 @@ def host_group():
     if "host" not in _STATE:
         _STATE["host"] = dist.new_group(backend="gloo", timeout=_timeout())
     return _STATE["host"]
+
+
+def launcher_count() -> int:
+    """The processes of the group that were started apart: the counterpart of
+    ``jax.process_count()``. One JAX process drives every chip of its host, and so does
+    the group that ``spawn_local`` starts on one host (``train --dp N [--mp M]`` alone):
+    it counts 1. So does a group of one. A group joined with ``--num_processes`` P, one
+    launch per process, counts P. Every process of a group reads the same count."""
+    return 1 if _STATE.get("spawned") else process_count()
 
 
 def process_index() -> int:

@@ -67,6 +67,9 @@ import torch
 # ~1 hour of 16 kHz float64 audio as a WAV body: far above any sane request, far below
 # what could wedge the host's allocator
 MAX_BODY_BYTES = 512 * 1024 * 1024
+# the largest sized body that a 401 reads before it answers and closes (a larger one is
+# left unread: the client may see a reset instead of the answer)
+UNAUTHORIZED_DRAIN_BYTES = 8 * 1024 * 1024
 # seconds that a generation replaced by /admin/reload keeps its batchers open for the
 # requests that took it before the swap (their enhance timeout is 120 s)
 RETIRE_SECONDS = 150
@@ -339,7 +342,16 @@ def make_handler(state):
 
         def do_POST(self):
             if not _authorized(self.headers.get("Authorization", ""), auth_token):
-                self.close_connection = True  # body unread: no keep-alive
+                # no keep-alive. A sized body (up to the drain's bound) is read first: a
+                # close with unread data resets the connection, which can drop the answer
+                # under the client's read
+                self.close_connection = True
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                except ValueError:
+                    n = 0
+                if 0 < n <= UNAUTHORIZED_DRAIN_BYTES:
+                    self._drain_input_bounded(max_bytes=n)
                 return self._json(401, {"error": "unauthorized"},
                                   extra_headers=[("WWW-Authenticate", "Bearer"),
                                                  ("Connection", "close")])
@@ -760,12 +772,17 @@ def parse_args(argv=None):
 def tls_context(opts):
     """The listeners' server-side SSL context (None without --tls_cert); under
     --tls_client_ca a client without a certificate signed by that CA fails the
-    handshake."""
+    handshake. It issues no TLS 1.3 session tickets: with them, about one mutual-TLS
+    WebSocket connection in 40 lost the client's upgrade request (the listener's reader
+    thread blocked with nothing to read, and the listener closed at its open timeout),
+    and none did without them. The ticket is a write after the handshake, and the sync
+    ``websockets`` reads and writes one SSL object from two threads."""
     if not opts.tls_cert:
         return None
     import ssl
 
     ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.num_tickets = 0
     ctx.load_cert_chain(opts.tls_cert, opts.tls_key)
     if opts.tls_client_ca:
         ctx.verify_mode = ssl.CERT_REQUIRED
@@ -839,6 +856,7 @@ def main(argv=None):
 
     def _graceful_stop(signum, _frame):
         state["draining"] = True
+        state["signalled_at"] = time.perf_counter()
         print(f"[serve] signal {signum}: draining (up to {opts.drain_seconds:.0f}s for "
               f"requests in flight)", flush=True)
         # shutdown() waits for serve_forever to return, and this handler runs on the
@@ -870,8 +888,12 @@ def main(argv=None):
     while inflight.count() > 0 and time.time() < deadline:
         time.sleep(0.05)
     n = inflight.count()
+    t_close = time.perf_counter()
     close(srv, state)
-    print(f"[serve] shutdown complete"
+    t_end = time.perf_counter()
+    since = t_end - state.get("signalled_at", t_close)
+    print(f"[serve] shutdown complete {since:.2f} s after the signal (closing "
+          f"{t_end - t_close:.2f} s)"
           f"{f' ({n} request(s) abandoned at the drain deadline)' if n else ''}", flush=True)
 
 

@@ -42,8 +42,11 @@ an init URL such as ``file:///shared/path``), ``--num_processes`` and its
 ``--process_id``; without ``--dp`` the data-parallel degree is the process count over
 ``--mp``. ``--batch_size`` is the global batch: each process loads its data shard's
 rows (``data/loader.py``), and the step is the global batch's (``models/segan.py``
-``_setup_parallel``). Only process 0 writes train.opts, logs, samples and checkpoints;
-``--steps_per_call`` falls to 1, as in JAX.
+``_setup_parallel``). Only process 0 writes train.opts, logs, samples and checkpoints.
+``--steps_per_call S`` keeps S in the group that ``--dp`` / ``--mp`` spawns (each rank
+replays one CUDA graph of its step, the step's NCCL collectives inside) and in a group of
+one; it falls to 1 for ``--num_processes`` P > 1, as JAX drops it for more than one JAX
+process, which drives every chip of its host.
 """
 import argparse
 import random

@@ -1,6 +1,7 @@
 """The process side of the multi-process CPU tests of the port (``tests/test_torch_dp.py``,
-``tests/test_torch_parallel.py``): ``run_group`` spawns a gloo group whose processes
-import torch and the port alone (never jax), and ``train_steps`` is what each process of
+``tests/test_torch_parallel.py``, ``tests/test_torch_dp_multistep.py``): ``run_group``
+spawns a gloo group whose processes import torch and the port alone (never jax), and
+``train_steps`` (single steps) or ``multi_steps`` (grouped calls) is what each process of
 a group runs. Not a test module: pytest collects nothing here."""
 from __future__ import annotations
 
@@ -128,6 +129,36 @@ def run_steps(seg, spec: dict) -> dict:
     return out
 
 
+def run_multi(seg, spec: dict) -> dict:
+    """`spec`'s grouped calls on `seg` (``train_step_multi``): each of 'calls' holds
+    'stacked', the global (S, B, ...) arrays of ``batch_keys``, of which this process
+    takes its rows, 'l1', the S L1 weights, and optionally 'draws', the global stacked
+    draws by name. Returns each call's metrics (a list of S floats by name) and its last
+    sub-step's Genh rows."""
+    out = {"metrics": [], "genh": []}
+    for call in spec["calls"]:
+        B = call["stacked"][0].shape[1] // seg._dp()
+        rows = seg.grid.rows(B) if seg.grid is not None else slice(None)
+        local = [torch.from_numpy(np.ascontiguousarray(a[:, rows])) for a in call["stacked"]]
+        draws = {k: torch.as_tensor(v) for k, v in call.get("draws", {}).items()}
+        metrics_s, _, genh, _ = seg.train_step_multi(*local, l1_w_s=call["l1"], **draws)
+        out["metrics"].append({k: v.tolist() for k, v in metrics_s.items()})
+        out["genh"].append(genh.numpy())
+    return out
+
+
+def multi_steps(spec: dict) -> dict:
+    """One process of a test group running grouped calls: the engine of `spec`
+    (``build_engine``), its calls (``run_multi``), the whole state after them and the
+    steps taken."""
+    seg = build_engine(spec)
+    out = {"grid": (seg.grid.dp_index, seg.grid.mp_index) if seg.grid else None}
+    out.update(run_multi(seg, spec))
+    out.update(whole_state(seg))
+    out["step"] = seg.step
+    return out
+
+
 def whole_state(seg) -> dict:
     """G's and D's state dicts and D's optimizer state, D's head put together (D's
     empty without a D)."""
@@ -189,6 +220,25 @@ def checksums(seg) -> list:
         except RuntimeError as e:
             verdicts.append(str(e))
     return verdicts
+
+
+def graph_on_gloo(spec: dict) -> dict:
+    """A grouped call of two sub-steps by an engine of a gloo group that stands on a
+    CUDA device (its device set by hand: here there is no card): the step's graph
+    cannot hold gloo's collectives, so the call must raise before it moves anything.
+    Returns the message and whether the engine's streams and step count stayed."""
+    seg = build_engine(spec)
+    seg.device = torch.device("cuda")
+    phase_state = seg._phase_train.get_state()
+    B = spec["cfg"]["batch_size"] // seg._dp()
+    stacked = [torch.zeros((2, B, spec["cfg"]["slice_size"], 1))] * 2 + [torch.ones((2, B))]
+    try:
+        seg.train_step_multi(*stacked, l1_w_s=[100.0, 100.0])
+        message = None
+    except RuntimeError as e:
+        message = str(e)
+    return {"message": message, "untouched": seg.step == 0 and seg._multi is None
+            and torch.equal(seg._phase_train.get_state(), phase_state)}
 
 
 def fail_on_rank_1(spec: dict) -> dict:
