@@ -6,23 +6,32 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build both hand-written kernel sources from segan_pytorch_tpu_torch/csrc/, one nvcc
-     each, and the host libraries of native/ (the wav gather and the P.862 scorer), one
+  2. build the three hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
+     (conv1d_prelu.cu, conv1d_wgmma.cu, encoder_fused.cu), one nvcc each, and the host
+     libraries of native/ (the wav gather and the P.862 scorer), one
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
      into NaN-filled outputs, at the five SEGAN+ encoder shapes for 1, 8, 64 and 300
      16384-sample chunks, at every shape of WSEGAN's step at its batch, 150, with biases
      (G's enc1, D's enc1 with Cin = 2, and enc2-5, which G and D share) and at edge shapes
-     (bias, T_in = 4 (T_out - 1) + 31, ragged, stride 1), in fp32 (TF32 off, relative
-     error <= 1e-4) and bf16 (<= 2e-2), each on the route the wrapper picks, read from its
-     counters (main-path shapes: the tensor cores, fp32 by 3xTF32; the ragged and stride-1
-     shapes: FMA), and on the FMA route forced; in fp32 enc5 at 64, 150 and 300 chunks
-     also vs a float64 conv (<= 1e-4). Times in turns (CUDA events, median of 10 after 2
-     warm-ups): both routes, plain and cuDNN's F.conv1d alone, in each dtype; TFLOP/s,
-     share of peak, bounds, encoder sums per batch, and the WSEGAN step's 25 calls (G's
-     five rows once, D's five in each of its four passes). At 64 and 300 chunks the
-     tensor cores must take at most half the FMA route's time in bf16 and no more than it
-     in fp32;
+     (bias, T_in = 4 (T_out - 1) + 31 in a pitched buffer, ragged, stride 1, and enc3 of
+     64 chunks in contiguous odd rows), x through G's pitched pad (rows of a multiple of 8
+     samples) at every main-path shape, in fp32 (TF32 off, relative error <= 1e-4) and
+     bf16 (<= 2e-2), each on the route _route picks, read from the counters (bf16 wgmma
+     where the rule gives it, mma.sync elsewhere on the tensor cores and always in odd
+     rows, enc1's small passes and the ragged and stride-1 shapes on FMAs; fp32 3xTF32 but
+     enc1's FMA rows), then on the other routes forced (bf16 mma.sync and FMA; fp32 the
+     other of 3xTF32 and FMA); in fp32 enc5 at 64, 150 and 300 chunks also vs a float64
+     conv (<= 1e-4). Times in turns (CUDA events, median of 10 after 2 warm-ups, one call
+     per pair): every route, plain and cuDNN's F.conv1d alone, in each dtype, and in bf16
+     the device time of the chosen route's kernels and of mma.sync's (10 launches back to
+     back through their C entry points, weights and plan made once) and, where the routes
+     differ, a wrapper call's cost 5 calls back to back (median and interquartile range); TFLOP/s, share of peak, bounds, encoder sums per batch,
+     and the WSEGAN step's 25 calls (G's five rows once, D's five in each of its four
+     passes). At 64 and 300 chunks the chosen bf16 routes must take at most 0.6x mma.sync's
+     device time, mma.sync at most half the FMA route's time, and fp32 no more than the
+     FMA route; at no bf16 shape where the rule picks another route than mma.sync may a
+     call back to back be slower than mma.sync's by more than their spread;
   3b. the chained kernel (fused_enc23_fwd: fp32 on the tensor cores by 3xTF32 where C2
      and C3 are multiples of 8, else on FMAs; bf16 on mma.sync) vs enc23_plain, into
      NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256)
@@ -47,19 +56,22 @@ and when the port's package is not beside it):
      saved as a reference-format .ckpt + train.opts, then the port's clean.py CLI
      (--device cuda) on 8 synthetic wavs with --batch_utts 1 and 4 in fp32 and 4 in bf16.
      Checks: outputs finite and of their inputs' lengths, the kernel launched 5 times per
-     G forward, all on the tensor cores (fp32 counted apart), batched == sequential, and
-     the card's generate() == a CPU copy's (plain ops) within 1e-3 relative. Prints audio
-     seconds enhanced per wall second, the device memory that the first fp32 forward
-     keeps (the split weights), and G chunks/s at batch 64, fp32 and bf16, each on both
-     routes of the per-layer kernel, in turns.
+     G forward, each call on the route _route picks for its shape and G's pitched rows
+     (the counters against the logged calls; bf16 on wgmma at some), batched ==
+     sequential, and the card's generate() == a CPU copy's (plain ops) within 1e-3
+     relative. Prints audio seconds enhanced per wall second, the device memory that the
+     first fp32 forward keeps (the split weights), and G chunks/s at batch 64, fp32 and
+     bf16 (4 wgmma launches a forward), on the rule's routes, in bf16 with mma.sync in
+     place of wgmma, and on the FMA route, in turns.
   5. the train path (models/segan.py SEGAN.train_step), every check fatal:
      5a. Conv1dPReLU's backward (dx, dw, db, da) on the card vs autograd of
      conv1d_prelu_plain on the card at the five encoder shapes at B = 8 and enc2 at
-     B = 300, fp32 (TF32 off, <= 1e-4) and bf16 (<= 2e-2), slopes U(0, 0.3), the upstream
+     B = 300, x a view in G's pitched rows, each forward on the route _route picks, fp32 (TF32 off, <= 1e-4) and bf16 (<= 2e-2), slopes U(0, 0.3), the upstream
      gradient gy zeroed where pre lies within the limit of 0 (there the PReLU's branch
      depends on the last bit); then per dtype one RMSprop and one Adam step (the port's
      build_optimizer) on w in place, after which the kernel must equal the plain version
-     with the new w (its padded weights cached by w's version must not be stale);
+     with the new w (its padded, and in bf16 its permuted, weights cached by w's version
+     must not be stale);
      5b. a full-width SEGAN+ G + D (--no_bias, slopes U(0, 0.3)), one fp32 step at B = 4
      (one row masked) on the card and on a CPU copy (oneDNN off), same init, batch, z and
      phase draws, both held against the step in float64 on the CPU: the card's losses
@@ -74,7 +86,8 @@ and when the port's package is not beside it):
      <= 5e-2 all together;
      5c. the step at full width, batch 300, fp32 and bf16: 2 warm-up steps, then 5 timed
      by CUDA events with the kernel's counters set to 0 just before and read just after
-     (5 launches per step, all on the tensor cores); losses finite; slices/s, the median
+     (5 launches per step, each on the route _route picks: bf16 enc2-5 on wgmma); losses
+     finite; slices/s, the median
      split into G forward / D update / G update, peak device memory; then the main of
      `python -m segan_pytorch_tpu_torch.bench --steps 5 --warmup 2` in bf16 and fp32.
   6. the training run at full SEGAN+ width (`python -m segan_pytorch_tpu_torch.train`'s
@@ -84,8 +97,9 @@ and when the port's package is not beside it):
      losses at each log point, "Resumed from step 3" and iterations 4-6 in the second run,
      the EOE and best-val indices and payloads (the EOE payload with the optimizer state
      and 6 steps), fused_conv1d_prelu launched 5 x (train steps + G forwards of the
-     training samples and of evaluate) times over both runs, all 3xTF32 on the tensor
-     cores (read from its counters, set to 0 just before the first run), the kernel on the
+     training samples and of evaluate) times over both runs, each on the route _route
+     picks (3xTF32, enc1's small passes on FMAs; read from its counters, set to 0 just
+     before the first run, against the logged calls), the kernel on the
      encoder weights that resume() loads equal to the plain version (<= 1e-4, and away from
      a fresh G's), and the port's clean CLI on the validation wavs with the last EOE G.
      Prints the PESQ backend, each run's batch-loop, evaluate and checkpoint-save seconds
@@ -96,13 +110,14 @@ and when the port's package is not beside it):
      and on a CPU copy, both held against the step in float64 on the CPU: the losses
      (g_adv and g_loss, which go through D', with D's learning rate 0) and Genh <= 1e-5;
      D's gradients within max(1e-5, 4 x the CPU's) all together and max(1e-4, 4 x) each;
-     u and v <= 1e-5; G's gradients with D's learning rate 0 <= 3e-5; 25 3xTF32
-     launches; a control, the card's step with every cuDNN conv and matmul in one TF32
+     u and v <= 1e-5; G's gradients with D's learning rate 0 <= 3e-5; 25 launches, 3xTF32
+     but G's enc1 (4 rows of 4096: the FMA kernel); a control, the card's step with every cuDNN conv and matmul in one TF32
      pass, must break each of these bounds;
-     7b. the step at batch 150, fp32 and bf16: 5 timed steps with 25 launches each, all
-     on the tensor cores (fp32 3xTF32); slices/s, the split G forward / D update / G
-     update, peak memory, and the time of the kernel's pad (fp32: and split) of the 25
-     w / sigma of a step, timed alone (the kernel itself is timed in phase 3); then the
+     7b. the step at batch 150, fp32 and bf16: 5 timed steps with 25 launches each, each
+     on the route _route picks (fp32 3xTF32 but G's enc1 on FMAs; bf16 enc2-5 of G and D
+     on wgmma); slices/s, the split G forward / D update / G update, peak memory, and the
+     time of the kernel's copy of the 25 w / sigma of a step for their routes (padded;
+     fp32 split; for wgmma padded and permuted), timed alone (the kernel itself is timed in phase 3); then the
      bench entry's main with `--engine wsegan` and `--engine aewsegan` at batch 150;
      7c. `train.main` with the script's flags on 4 x 4 s synthetic pairs (two batches of
      150 an epoch): one epoch, then --resume to epoch 2 ("Resumed from step 2", iterations
@@ -160,7 +175,8 @@ and when the port's package is not beside it):
      capturable Adam): each sub-step's losses, Genh and the changes to the parameters,
      buffers and optimizer state within 1e-6 (they read 0), a control with sub-steps 2
      and 3 swapped outside it; the first call's kernel launches (the eager warm-up step's
-     and the capture's), the graph pool beside the eager step's peak; for SEGAN+ fp32 the
+     and the capture's), each on the route _route picks (bf16 on wgmma at enc2-5, as
+     a replay's device kernels show too), the graph pool beside the eager step's peak; for SEGAN+ fp32 the
      same under cuDNN's default algorithms beside two eager engines' own difference
      (printed). 10b (SEGAN+ fp32): an eager G forward through the kernel after each of two
      graphed calls against a CPU copy of G (<= 1e-3), an eager step between two graphed
@@ -296,6 +312,9 @@ p14_segan_launches_per_rank_step and p14_wsegan_launches_per_rank_step phase 14'
 25), p14_enhance_sharded_launches 14d's (10), tools_launches phase 15's in-process parts
 (tools_convert_launches 15b's, tools_ab_parity_launches 15c's, tools_tls_ws_launches
 15g's);
+launches of fused_conv1d_prelu_wgmma (the per-layer kernel's bf16 wgmma route) from
+phase 4 (train_launches 5c's bf16 steps'), its times the sums of G's layers on it at 64
+chunks from phase 3 (ms a wrapper call, device_ms 10 launches back to back);
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -328,6 +347,9 @@ KERNELS = [  # the fixed fields of the kernels line, in its order
     dict(name="fused_enc23_fwd", route="cuda",
          source="segan_pytorch_tpu_torch/csrc/encoder_fused.cu",
          replaces="segan_pytorch_tpu/ops/pallas/encoder_fused.py:112"),
+    dict(name="fused_conv1d_prelu_wgmma", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/conv1d_wgmma.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
 ]
 
 
@@ -372,7 +394,7 @@ def phase_device():
 def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
-    names = ("conv1d_prelu", "encoder_fused")
+    names = ("conv1d_prelu", "conv1d_wgmma", "encoder_fused")
     hosts = ("segan_io", "pesq862")  # the C++ wav gather and P.862 scorer of native/
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:  # one compiler per source
@@ -421,43 +443,150 @@ WS_ROWS = {"B=150 G enc1 bias": 1, D_ENC1: 4,
            **{f"B=150 enc{i} bias": 5 for i in range(2, 6)}}
 
 
+@contextlib.contextmanager
+def _logged_launches():
+    """Wraps the kernel's `_launch` while inside: every call that leaves the route to
+    the wrapper appends (dtype, B, Cin, T_in, Cout, K, stride, pitched rows) to the list
+    it yields, the counting left to the wrapper."""
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    log, launch = [], K._launch
+
+    def logged(x, w, b, a, stride, t_out, **kw):
+        if kw.get("force") is None:
+            log.append((x.dtype, *x.shape, w.shape[0], w.shape[2], stride, _pitched(K, x)))
+        return launch(x, w, b, a, stride, t_out, **kw)
+
+    K._launch = logged
+    try:
+        yield log
+    finally:
+        K._launch = launch
+
+
+def _want_counts(K, log):
+    """The four counters' moves (``_counters``) that _route's picks for the logged calls
+    give."""
+    import torch
+
+    routes = [(dt, K._route(dt, B, cin, cout, k, s, (t_in - k) // s + 1, p))
+              for dt, B, cin, t_in, cout, k, s, p in log]
+    return (len(routes), sum(r != "fma" for _, r in routes),
+            sum(r == "mma" and dt == torch.float32 for dt, r in routes),
+            sum(r == "wgmma" for _, r in routes))
+
+
+def _pitched(K, x) -> bool:
+    """Whether the wrapper sees x in rows TMA reads (``_launch``'s test)."""
+    return K._pitch(x) % 8 == 0 and x.data_ptr() % 16 == 0
+
+
+def _took(K, before) -> str:
+    """The route of the one call since `before` (``_counters``), read from the counters."""
+    moved = [n - b for n, b in zip(_counters(K), before)]
+    assert moved[0] == 1, moved
+    return "wgmma" if moved[3] else ("mma" if moved[1] else "fma")
+
+
+def _case_x(b, cin, t_in, g, layout):
+    """x of a kernel case in fp32 and in bf16 (the same values, rounded): "pad" through
+    G's pitched pad of a random h (T_in = 4 T_out + 29), "pitched" random rows in a
+    buffer of rows rounded up to 8 samples, "contiguous" random odd rows."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.conv import reflect_pad_pitched
+
+    if layout == "pad":
+        h = torch.randn((b, cin, t_in - 29), generator=g).cuda()
+        return reflect_pad_pitched(h, 14, 15), reflect_pad_pitched(h.bfloat16(), 14, 15)
+    width = -(-t_in // 8) * 8 if layout == "pitched" else t_in
+    buf = torch.randn((b, cin, width), generator=g).cuda()
+    return buf[..., :t_in], buf.bfloat16()[..., :t_in]
+
+
+def _in_turns(arms, reps=10, warmup=2, calls=1):
+    """{arm: (median ms, interquartile range ms)} per call of `arms` timed in turns,
+    `calls` calls back to back per pair of CUDA events (``tools/conv1d_routes.py``): with
+    one, a time includes the host's where the host is the slower; with more, it is a
+    call's cost when calls follow each other, the longer of the host's time and the
+    device's."""
+    from segan_pytorch_tpu_torch.tools.conv1d_routes import median_iqr, times_in_turns
+
+    return {n: median_iqr(v) for n, v in times_in_turns(arms, reps, warmup, calls).items()}
+
+
+def _entry_arm(K, route, x, w, b, a, stride, t_out, out):
+    """A closure that launches `route`'s kernel on bf16 x through its C entry point
+    alone, the wrapper's weights, plan and split-K workspace made once: calls back to
+    back then cost the device's time wherever a kernel takes longer than the ctypes call
+    (~15 us of host), with no wrapper in between (nor a profiler, whose CUPTI session
+    slows the launches of the phases after it)."""
+    import torch
+
+    B, cin, t_in = x.shape
+    cout, _, k = w.shape
+    sms = K._sm_count(x.device.index)
+    stream = torch.cuda.current_stream().cuda_stream
+    launch, splits_of, launch_mma, _ = K._entries()
+    if route == "fma":
+        plan = (splits_of(B, cin, cout, t_out, k, sms),)
+        fn, wp = (lambda *args: launch(1, *args)), w
+    elif route == "mma":
+        plan, fn, wp = K._mma_plan(B, cin, cout, t_out, sms), launch_mma, K._padded_weights(w)
+    else:
+        plan = K._wgmma_plan(B, cin, cout, t_out, sms)
+        fn, wp = K._wgmma_entry(), K._permuted_weights(w)
+    part = (torch.empty((plan[-1], B, cout, t_out), dtype=torch.float32, device=x.device)
+            if plan[-1] > 1 else None)
+    args = (x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(), a.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), None if part is None else part.data_ptr(),
+            *plan, B, cin, t_in, K._pitch(x), cout, t_out)
+    args += (k, stride, stream) if route == "fma" else (stream,)
+
+    def run():
+        assert fn(*args) == 0, route
+        return part
+
+    return run
+
+
 def phase_kernel():
     """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks, at
     those of WSEGAN's step at batch 150 and at edge shapes; each route's choice read from
     its counters. Returns the bf16 and fp32 results at B = 64, WSEGAN's first D layer and
-    the WSEGAN step's 25 calls, for the kernels line."""
+    the WSEGAN step's 25 calls, for the kernels line, and the wgmma kernel's at B = 64."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
-    from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(SEED)
     T, Kw, S = 16384, 31, 4
     chans = [1, 64, 128, 256, 512, 1024]
-    # (label, B, Cin, T_in, Cout, K, stride, bias, kind, bf16 route); kind "enc" for the
-    # SEGAN+ encoder (--no_bias), "ws" for WSEGAN's step (WS_ROWS), "edge" for the rest
+    # (label, B, Cin, T_in, Cout, K, stride, bias, kind, x layout); kind "enc" for the
+    # SEGAN+ encoder (--no_bias), "ws" for WSEGAN's step (WS_ROWS), "edge" for the rest;
+    # the route of each dtype is the one _route picks for the shape and layout
     cases = []
     for B in (1, 8, 64, 300):
         t = T
         for i in range(5):
             t //= S
             cases.append((f"B={B} enc{i + 1}", B, chans[i], S * t + Kw - 2, chans[i + 1], Kw,
-                          S, False, "enc", "mma"))
+                          S, False, "enc", "pad"))
     t = T
     for i in range(5):
         t //= S
         label = "B=150 G enc1 bias" if i == 0 else f"B=150 enc{i + 1} bias"
         cases.append((label, 150, chans[i], S * t + Kw - 2, chans[i + 1], Kw, S, True, "ws",
-                      "mma"))
+                      "pad"))
     cases += [
-        (D_ENC1, 150, 2, S * 4096 + Kw - 2, 64, Kw, S, True, "ws", "mma"),
-        ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, "edge", "mma"),
-        ("T_in=91 bias", 3, 512, 91, 1024, Kw, S, True, "edge", "mma"),  # reads x[91]: 0
-        ("T_in=1051 bias", 2, 128, 1051, 256, Kw, S, True, "edge", "mma"),
-        ("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, "edge", "fma"),
-        ("stride 1", 2, 48, 300, 40, Kw, 1, True, "edge", "fma"),
+        (D_ENC1, 150, 2, S * 4096 + Kw - 2, 64, Kw, S, True, "ws", "pad"),
+        ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, "edge", "pad"),
+        ("T_in=91 bias", 3, 512, 91, 1024, Kw, S, True, "edge", "pitched"),  # reads x[91]: 0
+        ("T_in=1051 bias", 32, 128, 1051, 256, Kw, S, True, "edge", "pitched"),  # wgmma
+        ("B=64 enc3 odd rows", 64, 128, 1053, 256, Kw, S, False, "edge", "contiguous"),
+        ("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, "edge", "contiguous"),
+        ("stride 1", 2, 48, 300, 40, Kw, 1, True, "edge", "contiguous"),
     ]
     assert {c[0] for c in cases if c[8] == "ws"} == set(WS_ROWS)
     sums = {}  # (B, column) -> ms summed over the five encoder layers
@@ -465,33 +594,45 @@ def phase_kernel():
     # max |kernel - plain|
     ws = {"fp32_": {}, "": {}}
     d_enc1 = {}  # the D enc1 row's numbers, for the kernels line
-    max_abs = {}  # B -> max |mma - plain| over the bf16 encoder layers
+    max_abs = {}  # B -> max |kernel - plain| over the bf16 encoder layers
     max_abs32 = 0.0  # max |tensor cores - plain| over the fp32 encoder layers at B = 64
-    print(f"{'layer':>16} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
-          f"{'fp32 fma':>8} {'bf16':>8} {'bf16 fma':>8} | {'tf32 ms':>8} {'fma ms':>8} "
-          f"{'plain':>8} {'cuDNN':>8} | {'mma ms':>8} {'fma ms':>8} {'plain':>8} "
-          f"{'cuDNN':>8} | {'TFLOP/s':>7} {'peak':>6} | fp32 TFLOP/s | bound ms fp32, bf16")
-    for label, b, cin, t_in, cout, kw, s, has_bias, kind, route in cases:
+    wg64 = {}  # the wgmma kernel at B = 64: its layers' sums, for the kernels line
+    spreads = []  # (label, chosen ms, mma.sync ms, spread) where bf16 picks another route
+    print(f"{'layer':>18} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
+          f"{'fp32 fma':>8} {'bf16':>8} {'bf16 mma':>8} {'bf16 fma':>8} | {'tf32 ms':>8} "
+          f"{'fma ms':>8} {'plain':>8} {'cuDNN':>8} | bf16 route {'ms':>8} {'mma ms':>8} "
+          f"{'fma ms':>8} {'plain':>8} {'cuDNN':>8} (iqr) | {'TFLOP/s':>7} {'peak':>6} | "
+          f"fp32 TFLOP/s | bound ms fp32, bf16")
+    for label, b, cin, t_in, cout, kw, s, has_bias, kind, layout in cases:
         main = kind == "enc"
-        x = torch.randn((b, cin, t_in), generator=g).cuda()
+        x, xb = _case_x(b, cin, t_in, g, layout)
+        # x's rows as the wrapper sees them (one row of one channel reads as contiguous,
+        # contiguous rows of a multiple of 8 samples as pitched)
+        pitched = _pitched(K, xb)
+        if layout == "contiguous":
+            assert not pitched or t_in % 8 == 0, label
+        else:
+            assert pitched or (b, cin) == (1, 1), label
         w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
         bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
         a = (torch.rand((cout,), generator=g) * 0.3).cuda()
         t_out = K._check(x, w, bias, a, s)
         shape = (b, cout, t_out)
         assert t_out == (t_in - kw) // s + 1, (label, t_out)
-        if (t_in - kw) % s == 0 and route == "mma":
+        tc_shape = K._tensor_core_shape(torch.float32, cout, kw, s, t_out)
+        if (t_in - kw) % s == 0 and tc_shape:
             assert s * (t_out - 1) + K.KP - 1 == t_in, label  # the zero tap reads x[T_in]
         # fp32: the route that _route picks (3xTF32 on the tensor cores at the main-path
-        # shapes), read from the counters, then the FMA kernel forced
-        before = (K.launches_mma, K.launches_tf32)
+        # shapes but enc1's FMA rows), read from the counters, then the FMA kernel forced
+        route = K._route(torch.float32, b, cin, cout, kw, s, t_out, pitched)
+        before = _counters(K)
         y, pre = K._launch(x, w, bias, a, s, t_out,
                            out=nan_outputs(shape, shape, dtype=x.dtype))
         y_ref, pre_ref = K.conv1d_prelu_plain(x, w, bias, a, s)
         torch.cuda.synchronize()
-        took = ("mma" if (K.launches_mma, K.launches_tf32) == (before[0] + 1, before[1] + 1)
-                else "fma")
+        took = _took(K, before)
         assert took == route, f"{label}: fp32 took the {took} route, not {route}"
+        assert K.launches_tf32 - before[2] == (took == "mma"), label
         e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
         assert e32 <= FP32_TOL, f"{label}: fp32 {took} vs plain rel err {e32:.3e} > {FP32_TOL}"
         e32_abs = worst([float((y - y_ref).abs().max()), float((pre - pre_ref).abs().max())])
@@ -510,121 +651,174 @@ def phase_kernel():
             max_abs32 = worst([max_abs32, e32_abs])
         del y, pre
         e32f = float("nan")
-        arms32 = {took: lambda: K.fused_conv1d_prelu(x, w, bias, a, s)}
-        if route == "mma":
-            yf, pref = K._launch(x, w, bias, a, s, t_out, force_fma=True,
-                                 out=nan_outputs(shape, shape, dtype=x.dtype))
+        arms32 = {"tc": lambda: K._launch(x, w, bias, a, s, t_out, force="mma")}
+        if tc_shape:
+            yf, pref = K._launch(x, w, bias, a, s, t_out, force="mma" if took == "fma"
+                                 else "fma", out=nan_outputs(shape, shape, dtype=x.dtype))
             torch.cuda.synchronize()
             e32f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
-            assert e32f <= FP32_TOL, f"{label}: fp32 fma vs plain rel err {e32f:.3e}"
+            assert e32f <= FP32_TOL, f"{label}: fp32 forced vs plain rel err {e32f:.3e}"
             del yf, pref
-            arms32["fma"] = lambda: K._launch(x, w, bias, a, s, t_out, force_fma=True)
+        else:
+            arms32 = {}
+        arms32["fma"] = lambda: K._launch(x, w, bias, a, s, t_out, force="fma")
         del y_ref, pre_ref
         arms32["plain"] = lambda: K.conv1d_prelu_plain(x, w, bias, a, s)
         arms32["cuDNN"] = lambda: F.conv1d(x, w, bias, stride=s)
-        t32 = ms_in_turns(arms32, reps=10, warmup=2)
-        # bf16: the route that _route picks, then the FMA kernel forced
-        hb = [v.bfloat16() if v is not None else None for v in (x, w, bias, a)]
+        t32 = {n: v[0] for n, v in _in_turns(arms32).items()}
+        t32["pick"] = t32["tc" if took == "mma" else "fma"]
+        # bf16: the route that _route picks, read from the counters, then mma.sync and the
+        # FMA kernel forced; all of them, plain and cuDNN timed in turns
+        hb = [xb] + [v.bfloat16() if v is not None else None for v in (w, bias, a)]
         del x, w
-        before = K.launches_mma
+        route16 = K._route(torch.bfloat16, b, cin, cout, kw, s, t_out, pitched)
+        before = _counters(K)
         yb, preb = K._launch(*hb, s, t_out,
                              out=nan_outputs(shape, shape, dtype=torch.bfloat16))
         yb_ref, preb_ref = K.conv1d_prelu_plain(*hb, s)
         torch.cuda.synchronize()
-        took = "mma" if K.launches_mma == before + 1 else "fma"
-        assert took == route, f"{label}: bf16 took the {took} route, not {route}"
+        took16 = _took(K, before)
+        assert took16 == route16, f"{label}: bf16 took the {took16} route, not {route16}"
         assert yb.dtype == torch.bfloat16
         e16 = worst([rel_err(yb, yb_ref), rel_err(preb, preb_ref)])
-        assert e16 <= BF16_TOL, f"{label}: bf16 {took} vs plain rel err {e16:.3e} > {BF16_TOL}"
+        assert e16 <= BF16_TOL, f"{label}: bf16 {took16} vs plain rel err {e16:.3e} > {BF16_TOL}"
         e16_abs = worst([float((yb - yb_ref).abs().max()), float((preb - preb_ref).abs().max())])
         if main:
             max_abs[b] = worst([max_abs.get(b, 0.0), e16_abs])
         del yb, preb
-        e16f = float("nan")
-        arms = {"mma": lambda: K.fused_conv1d_prelu(*hb, s)}
-        if route == "mma":
-            yf, pref = K._launch(*hb, s, t_out, force_fma=True,
+        e16f = {}
+        for r in ("mma", "fma") if tc_shape else ():
+            if r == took16:
+                continue
+            yf, pref = K._launch(*hb, s, t_out, force=r,
                                  out=nan_outputs(shape, shape, dtype=torch.bfloat16))
             torch.cuda.synchronize()
-            e16f = worst([rel_err(yf, yb_ref), rel_err(pref, preb_ref)])
-            assert e16f <= BF16_TOL, f"{label}: bf16 fma vs plain rel err {e16f:.3e}"
+            e16f[r] = worst([rel_err(yf, yb_ref), rel_err(pref, preb_ref)])
+            assert e16f[r] <= BF16_TOL, f"{label}: bf16 {r} vs plain rel err {e16f[r]:.3e}"
             del yf, pref
-            arms["fma"] = lambda: K._launch(*hb, s, t_out, force_fma=True)
-        else:
-            arms = {"fma": arms["mma"]}
         del yb_ref, preb_ref
+        arms = {"pick": lambda: K.fused_conv1d_prelu(*hb, s)}
+        for r in ("mma", "fma") if tc_shape else ("fma",):
+            arms[r] = lambda r=r: K._launch(*hb, s, t_out, force=r)
         arms["plain"] = lambda: K.conv1d_prelu_plain(*hb, s)
         arms["cuDNN"] = lambda: F.conv1d(hb[0], hb[1], hb[2], stride=s)
-        t16 = ms_in_turns(arms, reps=10, warmup=2)
+        t16i = _in_turns(arms)
+        t16 = {n: v[0] for n, v in t16i.items()}
+        t16.setdefault("mma", float("nan"))
+        # the chosen route and mma.sync: their kernels' device time (10 launches back to
+        # back through the entry points), and a wrapper call's cost back to back (5 calls
+        # per pair of events: the host's time where it is the longer, as in a G forward at
+        # few chunks; the rule's measure)
+        pair = {r: arms[r] for r in ("pick", "mma") if r in arms}
+        outs = nan_outputs(shape, shape, dtype=torch.bfloat16)
+        d16 = {n: v[0] for n, v in _in_turns(
+            {n: _entry_arm(K, took16 if n == "pick" else n, *hb, s, t_out, outs)
+             for n in pair},
+            calls=10).items()}
+        d16.setdefault("mma", float("nan"))
+        if tc_shape and took16 != "mma":  # the chosen route against mma.sync, same call
+            b2b = _in_turns(pair, calls=5)
+            spreads.append((label, b2b["pick"][0], b2b["mma"][0],
+                            max(b2b["pick"][1], b2b["mma"][1])))
         flops = 2.0 * b * t_out * cout * cin * kw
         nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
                       + 2 * b * cout * t_out)  # in bf16: x, w, b, a read, y, pre written
-        kernel_ms = t16.get("mma", t16["fma"])
+        kernel_ms = t16["pick"]
         if cin == 1:  # bound by memory: bytes/s and the share of the memory rate
             rate = nbytes / kernel_ms * 1e3
             rate = f"{rate * 1e-12:.3f} TB/s {rate / HBM_RATE:6.1%}"
         else:  # bound by operations: TFLOP/s and the share of the bf16 peak
             rate = flops / kernel_ms * 1e3
             rate = f"{rate * 1e-12:7.1f} {rate / BF16_PEAK:6.1%}"
-        tc32 = t32.get("mma", t32["fma"])
-        rate32 = f"{flops / tc32 * 1e-9:7.1f}"  # useful fp32 TFLOP/s
+        rate32 = f"{flops / t32['pick'] * 1e-9:7.1f}"  # useful fp32 TFLOP/s
         # fp32: the smaller of the FMA pipes' bound and the 3xTF32 tensor cores' (three
         # TF32 products per fp32 product); bytes of fp32 x, w, b, a, y and pre
         b32 = min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
                   bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
         b16 = bound_ms(flops, nbytes, BF16_PEAK)
         if label == D_ENC1:
-            d_enc1 = dict(d_enc1_ms=t16["mma"], d_enc1_plain_ms=t16["plain"],
+            d_enc1 = dict(d_enc1_ms=t16["pick"], d_enc1_plain_ms=t16["plain"],
                           d_enc1_bound_ms=b16, d_enc1_library_ms=t16["cuDNN"],
-                          d_enc1_max_abs_err=e16_abs, fp32_d_enc1_ms=t32["mma"],
+                          d_enc1_max_abs_err=e16_abs, fp32_d_enc1_ms=t32["pick"],
                           fp32_d_enc1_plain_ms=t32["plain"], fp32_d_enc1_bound_ms=b32,
                           fp32_d_enc1_library_ms=t32["cuDNN"],
                           fp32_d_enc1_max_abs_err=e32_abs)
         if main:
-            for col, v in [("fp32 tc", t32["mma"]), ("fp32 fma", t32["fma"]),
+            for col, v in [("fp32 tc", t32["pick"]), ("fp32 fma", t32["fma"]),
                            ("fp32 plain", t32["plain"]), ("fp32 cuDNN", t32["cuDNN"]),
-                           ("fp32 bound", b32), ("bf16 mma", t16["mma"]),
-                           ("bf16 fma", t16["fma"]), ("bf16 plain", t16["plain"]),
-                           ("bf16 cuDNN", t16["cuDNN"]), ("bf16 bound", b16)]:
+                           ("fp32 bound", b32), ("bf16 pick", t16["pick"]),
+                           ("bf16 mma", t16["mma"]), ("bf16 fma", t16["fma"]),
+                           ("bf16 plain", t16["plain"]), ("bf16 cuDNN", t16["cuDNN"]),
+                           ("bf16 bound", b16), ("bf16 pick device", d16["pick"]),
+                           ("bf16 mma device", d16["mma"])]:
                 sums[b, col] = sums.get((b, col), 0.0) + v
+            if b == 64 and took16 == "wgmma":
+                for col, v in (("ms", t16["pick"]), ("plain_ms", t16["plain"]),
+                               ("library_ms", t16["cuDNN"]), ("bound_ms", b16),
+                               ("device_ms", d16["pick"])):
+                    wg64[col] = wg64.get(col, 0.0) + v
+                wg64["max_abs_err"] = worst([wg64.get("max_abs_err", 0.0), e16_abs])
         if kind == "ws":
             for p, t, bnd, e_abs in (("fp32_", t32, b32, e32_abs), ("", t16, b16, e16_abs)):
-                for col, v in (("kernel_ms", t["mma"]), ("plain_ms", t["plain"]),
+                for col, v in (("kernel_ms", t["pick"]), ("plain_ms", t["plain"]),
                                ("library_ms", t["cuDNN"]), ("bound_ms", bnd)):
                     ws[p][col] = ws[p].get(col, 0.0) + WS_ROWS[label] * v
                 ws[p]["max_abs_err"] = worst([ws[p].get("max_abs_err", 0.0), e_abs])
-        print(f"{label:>16} {str((b, cin, t_in)):>19} {cout:>5} {t_out:>5} | {e32:8.1e} "
-              f"{e32f:8.1e} {e16:8.1e} {e16f:8.1e} | {t32.get('mma', float('nan')):8.4f} "
-              f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} | "
-              f"{t16.get('mma', float('nan')):8.4f} {t16['fma']:8.4f} {t16['plain']:8.4f} "
-              f"{t16['cuDNN']:8.4f} | {rate} | {rate32} | {b32:.4f} {b16:.4f}", flush=True)
+        print(f"{label:>18} {str((b, cin, t_in)):>19} {cout:>5} {t_out:>5} | {e32:8.1e} "
+              f"{e32f:8.1e} {e16:8.1e} {e16f.get('mma', float('nan')):8.1e} "
+              f"{e16f.get('fma', float('nan')):8.1e} | {t32.get('tc', float('nan')):8.4f} "
+              f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} | {took16:>5} "
+              + " ".join(f"{t16i[c][0]:8.4f} ({t16i[c][1]:.4f})" if c in t16i
+                         else f"{'nan':>8} {'':8}"
+                         for c in ("pick", "mma", "fma", "plain", "cuDNN"))
+              + f"; device {d16['pick']:.4f} vs mma.sync {d16['mma']:.4f}"
+              + f" | {rate} | {rate32} | {b32:.4f} {b16:.4f}", flush=True)
         del hb
     for b in (1, 8, 64, 300):
         print(f"encoder sum B={b}: " + ", ".join(
             f"{col} {sums[b, col]:.4f}" for col in ("fp32 tc", "fp32 fma", "fp32 plain",
-                                                    "fp32 cuDNN", "fp32 bound", "bf16 mma",
-                                                    "bf16 fma", "bf16 plain", "bf16 cuDNN",
-                                                    "bf16 bound"))
+                                                    "fp32 cuDNN", "fp32 bound", "bf16 pick",
+                                                    "bf16 mma", "bf16 fma", "bf16 plain",
+                                                    "bf16 cuDNN", "bf16 bound",
+                                                    "bf16 pick device", "bf16 mma device"))
               + f" ms; fp32 tc / fma {sums[b, 'fp32 tc'] / sums[b, 'fp32 fma']:.3f}, "
               f"tc / cuDNN {sums[b, 'fp32 tc'] / sums[b, 'fp32 cuDNN']:.3f}; "
-              f"bf16 mma / fma {sums[b, 'bf16 mma'] / sums[b, 'bf16 fma']:.3f}, "
-              f"mma / cuDNN {sums[b, 'bf16 mma'] / sums[b, 'bf16 cuDNN']:.3f}")
-        if b >= 64:  # the tensor cores must at least halve the FMA route's time in bf16,
-            # and in fp32 (3xTF32) be no slower than it
+              f"bf16 route / mma.sync {sums[b, 'bf16 pick'] / sums[b, 'bf16 mma']:.3f} "
+              f"(device {sums[b, 'bf16 pick device'] / sums[b, 'bf16 mma device']:.3f}), "
+              f"mma.sync / fma {sums[b, 'bf16 mma'] / sums[b, 'bf16 fma']:.3f}, "
+              f"route / cuDNN {sums[b, 'bf16 pick'] / sums[b, 'bf16 cuDNN']:.3f}")
+        if b >= 64:  # bf16: the chosen routes at most 0.6x mma.sync forced on the device,
+            # mma.sync at least halving the FMA route's time; fp32 (3xTF32) no slower than
+            # the FMA route
+            assert sums[b, "bf16 pick device"] <= 0.6 * sums[b, "bf16 mma device"], (b, sums)
             assert sums[b, "bf16 mma"] <= 0.5 * sums[b, "bf16 fma"], (b, sums)
             assert sums[b, "fp32 tc"] <= sums[b, "fp32 fma"], (b, sums)
+    print("bf16 shapes where _route picks another route than mma.sync, ms a call of the "
+          "chosen route vs mma.sync forced, 5 calls back to back (same-call spread, the "
+          "larger interquartile range of the two): "
+          + "; ".join(f"{l} {c:.4f} vs {m:.4f} ({sp:.4f})" for l, c, m, sp in spreads),
+          flush=True)
+    slower = [(l, c, m, sp) for l, c, m, sp in spreads if c > m + sp]
+    assert not slower, f"the chosen route slower than mma.sync beyond the spread: {slower}"
     print("WSEGAN step B=150, the kernel's 25 calls (G's enc1-5 once, D's enc1-5 in each of "
           "four passes), ms and max abs err: " + "; ".join(
               f"{p[:-1] or 'bf16'} " + ", ".join(f"{col} {v:.4g}" for col, v in c.items())
               for p, c in ws.items()), flush=True)
     return dict(d_enc1, **{f"{p}wsegan_step_{col}": v for p, c in ws.items()
                            for col, v in c.items()},
-                max_abs_err=max_abs[64], ms=sums[64, "bf16 mma"],
+                max_abs_err=max_abs[64], ms=sums[64, "bf16 pick"],
+                mma_sync_ms=sums[64, "bf16 mma"],
                 plain_ms=sums[64, "bf16 plain"], bound_ms=sums[64, "bf16 bound"],
                 bound_by="operations", library_ms=sums[64, "bf16 cuDNN"],
                 fp32_max_abs_err=max_abs32, fp32_ms=sums[64, "fp32 tc"],
                 fp32_fma_ms=sums[64, "fp32 fma"], fp32_plain_ms=sums[64, "fp32 plain"],
-                fp32_bound_ms=sums[64, "fp32 bound"], fp32_library_ms=sums[64, "fp32 cuDNN"])
+                fp32_bound_ms=sums[64, "fp32 bound"], fp32_library_ms=sums[64, "fp32 cuDNN"],
+                ms_b300=sums[300, "bf16 pick"], mma_sync_ms_b300=sums[300, "bf16 mma"],
+                device_ms=sums[64, "bf16 pick device"],
+                mma_sync_device_ms=sums[64, "bf16 mma device"],
+                device_ms_b300=sums[300, "bf16 pick device"],
+                mma_sync_device_ms_b300=sums[300, "bf16 mma device"]), dict(
+                    wg64, bound_by="operations")
 
 
 def phase_enc23():
@@ -927,28 +1121,30 @@ def phase_slice(work: Path):
     cfg_bf16 = SEGANConfig(no_bias=True, compute_dtype="bfloat16", save_path=str(work))
     opts_bf16 = dump_train_opts(cfg_bf16, str(work / "bf16"))
     outs = {}
-    K.launches = K.launches_mma = K.launches_tf32 = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
     n_forwards = 0
-    for b in (1, 4):
-        outs[b], wall = run_clean(opts_file, b, work / f"synth_b{b}")
-        n_forwards += -(-len(lengths) // b)
-        print(f"clean.py --batch_utts {b}: {audio_s / wall:.2f} s of audio per wall second "
-              f"({audio_s:.2f} s in {wall:.3f} s, model load included)")
-    fp32_launches = K.launches
-    assert fp32_launches >= 5 * n_forwards and fp32_launches % 5 == 0, (
-        f"{fp32_launches} launches for {n_forwards} fp32 G forwards")
-    assert K.launches_tf32 == K.launches_mma == fp32_launches, (
-        f"{fp32_launches} fp32 launches, {K.launches_tf32} on the tensor cores")
-    y_bf, wall = run_clean(opts_bf16, 4, work / "synth_bf16")
-    n_bf16 = -(-len(lengths) // 4)
-    launches, launches_mma, launches_tf32 = K.launches, K.launches_mma, K.launches_tf32
+    with _logged_launches() as log:
+        for b in (1, 4):
+            outs[b], wall = run_clean(opts_file, b, work / f"synth_b{b}")
+            n_forwards += -(-len(lengths) // b)
+            print(f"clean.py --batch_utts {b}: {audio_s / wall:.2f} s of audio per wall "
+                  f"second ({audio_s:.2f} s in {wall:.3f} s, model load included)")
+        fp32 = _counters(K)
+        assert fp32 == _want_counts(K, log) and fp32[3] == 0, (fp32, _want_counts(K, log))
+        assert fp32[0] >= 5 * n_forwards and fp32[0] % 5 == 0, (
+            f"{fp32[0]} launches for {n_forwards} fp32 G forwards")
+        del log[:]
+        y_bf, wall = run_clean(opts_bf16, 4, work / "synth_bf16")
+        n_bf16 = -(-len(lengths) // 4)
+        bf = tuple(n - f for n, f in zip(_counters(K), fp32))
+        assert bf == _want_counts(K, log), (bf, _want_counts(K, log))
+    launches, launches_mma, launches_tf32, launches_wgmma = _counters(K)
     print(f"clean.py bf16 --batch_utts 4: {audio_s / wall:.2f} s of audio per wall second")
     print(f"kernel launches on the main path: {launches} ({launches_mma} on the tensor "
-          f"cores, {launches_tf32} of them in fp32) for {n_forwards} fp32 and {n_bf16} bf16 "
-          f"G forwards")
-    assert launches_tf32 == fp32_launches, (launches_tf32, fp32_launches)
-    assert launches_mma - launches_tf32 == 5 * n_bf16 == launches - fp32_launches, (
-        launches, launches_mma, launches_tf32)
+          f"cores, {launches_tf32} of them in fp32 by 3xTF32, {launches_wgmma} bf16 on "
+          f"wgmma) for {n_forwards} fp32 and {n_bf16} bf16 G forwards, each on the route "
+          f"_route picks for its shape and G's pitched rows")
+    assert bf[0] == 5 * n_bf16 and bf[2] == 0 and bf[3] > 0, bf  # enc2 on wgmma
     for y1, y4, yb in zip(outs[1], outs[4], y_bf):
         e = float(np.abs(y1 - y4).max() / np.abs(y1).max())
         assert e <= FP32_TOL, f"batched vs sequential rel err {e:.3e}"
@@ -994,7 +1190,8 @@ def phase_slice(work: Path):
 
     before = K.launches_tf32
     y32 = gpu.infer_G(x64, z64)
-    assert K.launches_tf32 - before == 5, f"{K.launches_tf32 - before} fp32 MMA launches"
+    want32 = 5 - _g_routes(K, torch.float32, 64, cfg.slice_size, False).count("fma")
+    assert K.launches_tf32 - before == want32, f"{K.launches_tf32 - before} fp32 MMA launches"
     before = K.launches_mma
     e32_fma = rel_err(fma_route_forward(gpu), y32)
     assert K.launches_mma == before and e32_fma <= SLICE_TOL, e32_fma
@@ -1004,21 +1201,40 @@ def phase_slice(work: Path):
           f"(3xTF32 tensor cores); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s (FMA "
           f"route, same call); tensor cores vs FMA route rel err {e32_fma:.3e}")
     bf = SEGAN(cfg_bf16, generator=gpu.G, device="cuda")
-    before = K.launches_mma
+    before = _counters(K)
     y_bf = bf.infer_G(x64, z64)
-    assert K.launches_mma - before == 5, f"{K.launches_mma - before} MMA launches, not 5"
+    routes = _g_routes(K, torch.bfloat16, 64, cfg.slice_size, False)
+    moved = [n - b for n, b in zip(_counters(K), before)]
+    assert moved == [5, 5 - routes.count("fma"), 0, routes.count("wgmma")] and (
+        routes.count("wgmma") == 4), (moved, routes)
     e_bf = rel_err(y_bf, y32)
     # a sanity bound: bf16 rounds every one of the 10 layers' inputs and outputs
     assert torch.isfinite(y_bf).all() and e_bf <= 0.1, e_bf
     before = K.launches_mma
     e_fma = rel_err(fma_route_forward(bf), y32)
     assert K.launches_mma == before and e_fma <= 0.1, e_fma
-    t = ms_in_turns({"mma": lambda: bf.infer_G(x64, z64),
+
+    def mma_sync_forward(engine):  # the rule's routes, mma.sync in place of wgmma
+        route = K._route
+        K._route = lambda *shape: "mma" if route(*shape) == "wgmma" else route(*shape)
+        try:
+            return engine.infer_G(x64, z64)
+        finally:
+            K._route = route
+
+    before = K.launches_wgmma
+    e_sync = rel_err(mma_sync_forward(bf), y32)
+    assert K.launches_wgmma == before and e_sync <= 0.1, e_sync
+    t = ms_in_turns({"rule": lambda: bf.infer_G(x64, z64),
+                     "mma": lambda: mma_sync_forward(bf),
                      "fma": lambda: fma_route_forward(bf)}, reps=10, warmup=2)
-    print(f"G forward at batch 64 (bf16): {t['mma']:.3f} ms, {64e3 / t['mma']:.1f} chunks/s "
-          f"(tensor cores); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s (FMA route, "
-          f"same call); rel err vs fp32 {e_bf:.3e} (FMA route {e_fma:.3e})")
-    return launches, launches_mma, launches_tf32
+    print(f"G forward at batch 64 (bf16): {t['rule']:.3f} ms, {64e3 / t['rule']:.1f} "
+          f"chunks/s (the rule's routes: " + ", ".join(routes) + f"); {t['mma']:.3f} ms, "
+          f"{64e3 / t['mma']:.1f} chunks/s (mma.sync for wgmma, same call; rule / mma.sync "
+          f"{t['rule'] / t['mma']:.3f}); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s "
+          f"(FMA route, same call); rel err vs fp32 {e_bf:.3e} (mma.sync {e_sync:.3e}, FMA "
+          f"route {e_fma:.3e})")
+    return launches, launches_mma, launches_tf32, launches_wgmma
 
 
 # G's step gradients on the card vs float64 with D' = D: a PReLU kink taken the other way
@@ -1030,10 +1246,12 @@ BIAS_BEFORE_BN = tuple(f"enc_blocks.{i}.conv.bias" for i in range(5))
 
 
 def phase_train_kernel():
-    """5a: Conv1dPReLU's backward vs autograd of the plain version, on the card, and the
-    kernel's cached weights across optimizer steps."""
+    """5a: Conv1dPReLU's backward vs autograd of the plain version, on the card, x in
+    G's pitched rows (each call on the route _route picks, read from the counters), and
+    the kernel's cached weights across optimizer steps."""
     import torch
     from segan_pytorch_tpu_torch.models.segan import build_optimizer
+    from segan_pytorch_tpu_torch.ops.conv import reflect_pad_pitched
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
 
     torch.backends.cudnn.allow_tf32 = False  # the plain version's backward convs: fp32
@@ -1044,18 +1262,20 @@ def phase_train_kernel():
     for b, i in [(8, i) for i in range(5)] + [(300, 1)]:
         t_out = T // S ** (i + 1)
         cin, cout = chans[i], chans[i + 1]
-        x = torch.randn((b, cin, S * t_out + Kw - 2), generator=g)
+        h = torch.randn((b, cin, S * t_out), generator=g)  # G pads it by 14 and 15
         w = torch.randn((cout, cin, Kw), generator=g) / (cin * Kw) ** 0.5
         bias = torch.randn((cout,), generator=g) * 0.1
         a = torch.rand((cout,), generator=g) * 0.3
         gy, gpre = (torch.randn((b, cout, t_out), generator=g) for _ in range(2))
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            leaves = [v.to(dtype).cuda().requires_grad_() for v in (x, w, bias, a)]
+            x = reflect_pad_pitched(h.to(dtype).cuda(), 14, 15)  # a view, as G's blocks pass
+            leaves = [v.requires_grad_() for v in
+                      [x] + [v.to(dtype).cuda() for v in (w, bias, a)]]
             refs = [v.detach().clone().requires_grad_() for v in leaves]
-            before = (K.launches_mma, K.launches_tf32)
+            route = K._route(dtype, b, cin, cout, Kw, S, t_out, True)
+            before = _counters(K)
             y, pre = K.conv1d_prelu(*leaves, S)
-            moved = (K.launches_mma - before[0], K.launches_tf32 - before[1])
-            assert moved == (1, int(dtype == torch.float32)), f"routes moved by {moved}"
+            assert _took(K, before) == route, (b, i, dtype, route)
             y_r, pre_r = K.conv1d_prelu_plain(*refs, S)
             p = pre_r.detach().float().abs()
             near = p <= tol * p.max()
@@ -1070,12 +1290,15 @@ def phase_train_kernel():
             assert worst(errs) <= tol, f"{label} {dtype}: backward vs plain {errs} > {tol}"
             del leaves, refs, y, pre, y_r, pre_r
     # the cached padded (fp32: split) weights after an in-place optimizer step
-    x = torch.randn((8, 128, 1053), generator=g).cuda()
+    # (bf16 in pitched rows at 32 chunks: the wgmma route's permuted copy)
+    h = torch.randn((32, 128, 1024), generator=g).cuda()
     a = (torch.rand((256,), generator=g) * 0.3).cuda()
     w0 = torch.randn((256, 128, Kw), generator=g) / (128 * Kw) ** 0.5
-    shape = (8, 256, 256)
+    shape = (32, 256, 256)
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-        xd, ad = x.to(dtype), a.to(dtype)
+        xd, ad = reflect_pad_pitched(h.to(dtype), 14, 15), a.to(dtype)
+        assert K._route(dtype, 32, 128, 256, Kw, S, 256, True) == (
+            "wgmma" if dtype == torch.bfloat16 else "mma")
         for opt in ("rmsprop", "adam"):
             w = torch.nn.Parameter(w0.to(dtype).cuda())
             o = build_optimizer(opt, 1e-2, [w])
@@ -1097,6 +1320,16 @@ def phase_train_kernel():
     torch.optim.Adam([w], lr=1e-3, fused=True).step()
     print(f"for the record: fused Adam bumps the weight's version counter: "
           f"{w._version > version} (the port never uses fused=True)")
+
+
+def _check_counts(r, n, dtype):
+    """The counters of a `_time_steps` run: n launches, each on the route _route picks
+    for its shape and x's layout (read from the counters against the logged calls), none
+    by 3xTF32 in bf16 and none on wgmma in fp32. Returns the four counts."""
+    c = r["counts"]
+    assert c[0] == n and c == r["want"], (c, r["want"], n)
+    assert (c[2] if dtype == "bfloat16" else c[3]) == 0, c
+    return c
 
 
 def _train_models(cfg, seed):
@@ -1194,12 +1427,14 @@ def phase_train_parity():
         top = sorted(keys, key=lambda k: -e_card[k])[:3]
         return ", ".join(f"{k} ({e_card[k]:.1e}, {e_cpu[k]:.1e})" for k in top)
 
+    # 3xTF32 launches of a G forward at B = 4: the five but enc1's FMA rows
+    tc4 = 5 - _g_routes(K, torch.float32, 4, cfg.slice_size, False).count("fma")
     before = K.launches_tf32
     t0 = time.perf_counter()
     card = step("cuda")
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
-    assert K.launches_tf32 - before == 5, f"{K.launches_tf32 - before} 3xTF32 launches"
+    assert K.launches_tf32 - before == tc4, f"{K.launches_tf32 - before} 3xTF32 launches"
     t0 = time.perf_counter()
     cpu = step("cpu")
     t_cpu = time.perf_counter() - t0
@@ -1217,7 +1452,7 @@ def phase_train_parity():
     d_genh = torch.randn(clean.shape, generator=torch.Generator().manual_seed(SEED + 14)) * 1e-3
     before = K.launches_tf32
     gb = {"card": g_backward("cuda"), "CPU": g_backward("cpu")}
-    assert K.launches_tf32 - before == 5, f"{K.launches_tf32 - before} 3xTF32 launches"
+    assert K.launches_tf32 - before == tc4, f"{K.launches_tf32 - before} 3xTF32 launches"
     gb_ref = g_backward("cpu", torch.float64)
     gb_err = {n: {k: rel(v, gb_ref[k]) for k, v in a.items()} for n, a in gb.items()}
     frozen = dataclasses.replace(cfg, d_lr=0.0)
@@ -1256,7 +1491,8 @@ def _time_steps(seg, args, n_steps, warm=3):
     """`warm` steps, then `n_steps` timed by CUDA events, each phase of the step too, with
     the kernel's counters set to 0 just before the timed steps and read just after. Returns
     slices/s, the median step and phase split in ms, peak memory in GiB, the counters
-    (all, tensor cores, 3xTF32) and the last losses."""
+    (``_counters``), the counts that _route's picks for the logged calls give
+    (``_want_counts``) and the last losses."""
     import statistics
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -1284,17 +1520,18 @@ def _time_steps(seg, args, n_steps, warm=3):
         v.clear()
     torch.cuda.reset_peak_memory_stats()
     steps, losses = [], []
-    K.launches = K.launches_mma = K.launches_tf32 = 0
-    for _ in range(n_steps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics, _, _ = seg.train_step(*args)
-        end.record()
-        steps.append((start, end))
-        losses.append(torch.stack(list(metrics.values())))
-    torch.cuda.synchronize()
-    counts = (K.launches, K.launches_mma, K.launches_tf32)
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    with _logged_launches() as log:
+        for _ in range(n_steps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics, _, _ = seg.train_step(*args)
+            end.record()
+            steps.append((start, end))
+            losses.append(torch.stack(list(metrics.values())))
+        torch.cuda.synchronize()
+    counts, want = _counters(K), _want_counts(K, log)
     losses = torch.stack(losses).cpu()
     assert torch.isfinite(losses).all(), losses
     total = steps[0][0].elapsed_time(steps[-1][1])
@@ -1304,16 +1541,18 @@ def _time_steps(seg, args, n_steps, warm=3):
                 ms=statistics.median(s.elapsed_time(e) for s, e in steps),
                 split={k: statistics.median(s.elapsed_time(e) for s, e in v)
                        for k, v in marks.items()},
-                peak=torch.cuda.max_memory_allocated() / 2**30, counts=counts,
+                peak=torch.cuda.max_memory_allocated() / 2**30, counts=counts, want=want,
                 losses=dict(zip(metrics, losses[-1].tolist())))
 
 
 def phase_train_b300():
     """5c: the step at full width and batch 300 in fp32 and bf16, timed by CUDA events;
-    then the bench entry point. Returns the kernel's launches per step and the slices/s
-    of the timed steps and of the bench entry, by dtype."""
+    then the bench entry point. Returns the kernel's launches per step, the slices/s
+    of the timed steps and of the bench entry, by dtype, and the wgmma launches of the
+    bf16 steps."""
     import torch
     from segan_pytorch_tpu_torch.models.segan import SEGAN
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.utils.config import SEGANConfig
 
     from segan_pytorch_tpu_torch import bench
@@ -1328,17 +1567,20 @@ def phase_train_b300():
         clean, noisy = (v.cuda() for v in _train_batch(B, cfg.slice_size, SEED + 12))
         r = _time_steps(seg, (clean, noisy, torch.ones((B,), device="cuda"), 100.0),
                         n_steps, warm=2)
-        launches, mma, tf32 = r["counts"]
-        assert launches == mma == 5 * n_steps, (launches, mma)
-        assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
+        launches, mma, tf32, wg = _check_counts(r, 5 * n_steps, dtype)
+        if dtype == "bfloat16":  # G's enc2-5 on wgmma
+            assert wg == n_steps * _g_routes(K, torch.bfloat16, B, cfg.slice_size,
+                                             False).count("wgmma") > 0, wg
+            wgmma_launches = wg
         per_step.add(launches // n_steps)
         rates[dtype] = r["rate"]
         print(f"train step B={B} {dtype}: {r['rate']:.2f} slices/s (median {r['ms']:.3f} "
               f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in
                                                      r["split"].items())
               + f"; peak device memory {r['peak']:.2f} GiB; fused_conv1d_prelu launches "
-              f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32); last losses "
-              + ", ".join(f"{k} {v:.4f}" for k, v in r["losses"].items()), flush=True)
+              f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32, {wg} wgmma); last "
+              "losses " + ", ".join(f"{k} {v:.4f}" for k, v in r["losses"].items()),
+              flush=True)
         del seg, G, D, clean, noisy
         torch.cuda.empty_cache()
     for dtype in ("bfloat16", "float32"):
@@ -1353,7 +1595,7 @@ def phase_train_b300():
         rates[f"bench {dtype}"] = res["value"]
         rates[f"bench {dtype} run"] = res
     assert len(per_step) == 1, per_step
-    return per_step.pop(), rates
+    return per_step.pop(), rates, wgmma_launches
 
 
 def _write_corpus(root: Path, n_files: int, seconds: float, seed: int):
@@ -1450,13 +1692,15 @@ def phase_train_run(work: Path, rates):
             "--g_lr", "5e-7", "--device", "cuda"]
 
     runs = []
-    K.launches = K.launches_mma = K.launches_tf32 = 0
-    for extra in (["--epoch", "1", "--g_pretrained_ckpt", str(work / "g_start.ckpt")],
-                  ["--epoch", "2", "--resume"]):
-        run = _timed_run(argv + extra)
-        del run["steps"], run["dloader"]
-        runs.append(run)
-    launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    with _logged_launches() as log:
+        for extra in (["--epoch", "1", "--g_pretrained_ckpt", str(work / "g_start.ckpt")],
+                      ["--epoch", "2", "--resume"]):
+            run = _timed_run(argv + extra)
+            del run["steps"], run["dloader"]
+            runs.append(run)
+    launches, mma, tf32, wg = _counters(K)
+    want = _want_counts(K, log)
 
     # the loop: resumed at step 3, iterations on from 4, finite losses
     assert "[*] Resumed from step 3" in runs[1]["out"], runs[1]["out"][-2000:]
@@ -1474,8 +1718,10 @@ def phase_train_run(work: Path, rates):
     # a G forward per log point (gen_train_samples) and one for evaluate, per run
     assert forwards == 8, forwards
     print(f"fused_conv1d_prelu launches over the two runs: {launches} ({mma} on the tensor "
-          f"cores, {tf32} 3xTF32) for {steps} train steps and {forwards} G forwards")
-    assert launches == mma == tf32 == 5 * (steps + forwards), (launches, mma, tf32)
+          f"cores, {tf32} 3xTF32) for {steps} train steps and {forwards} G forwards, each "
+          f"on the route _route picks (enc1's small passes on FMAs: {launches - mma})")
+    assert launches == 5 * (steps + forwards) and (launches, mma, tf32, wg) == want and (
+        mma == tf32), ((launches, mma, tf32, wg), want)
 
     # the checkpoints: rotating EOE G and D, and the best-val ones, each index pointing at
     # payloads that exist, with the optimizer's state and the steps taken
@@ -1661,7 +1907,9 @@ def phase_wsegan_parity():
     torch.cuda.synchronize()
     t_card = time.perf_counter() - t0
     moved = (K.launches - before[0], K.launches_tf32 - before[1])
-    assert moved == (WS_PER_STEP, WS_PER_STEP), f"launches (all, 3xTF32) {moved}"
+    # 3xTF32 but G's enc1 where its rows take the FMA kernel
+    tc = WS_PER_STEP - _g_routes(K, torch.float32, 4, cfg.slice_size, True).count("fma")
+    assert moved == (WS_PER_STEP, tc), f"launches (all, 3xTF32) {moved}"
     t0 = time.perf_counter()
     cpu = step("cpu")
     t_cpu = time.perf_counter() - t0
@@ -1732,26 +1980,38 @@ def phase_wsegan_b150():
         mask = torch.ones((B,), device="cuda")
         r = _time_steps(seg, (clean, noisy, mask, torch.zeros_like(mask), 100.0), n_steps,
                         warm=2)
-        launches, mma, tf32 = r["counts"]
-        assert launches == mma == WS_PER_STEP * n_steps, (launches, mma)
-        assert tf32 == (launches if dtype == "float32" else 0), (tf32, launches)
+        launches, mma, tf32, wg = _check_counts(r, WS_PER_STEP * n_steps, dtype)
+        assert wg > 0 or dtype == "float32", r["counts"]  # G's and D's enc2-5 on wgmma
         per_step.add(launches // n_steps)
-        # the kernel's padded (fp32: split) copy of each w / sigma, made anew on every
-        # call: G's five once a step, D's five in each of its four passes
+        # the kernel's copy of each w / sigma, made anew on every call, for its route:
+        # padded (fp32: and split) for mma.sync, padded and its taps permuted for wgmma,
+        # none for the FMA kernel; G's five once a step, D's five in each of its passes
         cdt = seg.compute_dtype
+        prep = {"mma": K._mma_weights, "wgmma": K._wgmma_weights}
+
+        def weights(blocks):
+            out = []
+            for i, blk in enumerate(blocks):
+                w = blk.conv.get_weight().to(cdt)
+                r = K._route(cdt, B, w.shape[1], w.shape[0], w.shape[2], 4,
+                             cfg.slice_size // 4 ** (i + 1), True)
+                if r in prep:
+                    out.append((w, prep[r]))
+            return out
+
         with torch.no_grad():
-            gw = [blk.conv.get_weight().to(cdt) for blk in seg.G.enc_blocks]
-            dw = [blk.conv.get_weight().to(cdt) for blk in seg.D.enc_blocks]
-        pad = ms_in_turns({"G": lambda: [K._mma_weights(w) for w in gw],
-                           "D": lambda: [K._mma_weights(w) for w in dw]})
+            gw, dw = weights(seg.G.enc_blocks), weights(seg.D.enc_blocks)
+        pad = ms_in_turns({"G": lambda: [f(w) for w, f in gw],
+                           "D": lambda: [f(w) for w, f in dw]})
         pad_step = pad["G"] + 4 * pad["D"]
         times[dtype] = dict(pad_ms=pad_step)
         print(f"WSEGAN step B={B} {dtype}: {r['rate']:.2f} slices/s (median {r['ms']:.3f} "
               f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in
                                                      r["split"].items())
               + f"; peak device memory {r['peak']:.2f} GiB; fused_conv1d_prelu launches "
-              f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32); the weights' pad"
-              f"{' and split' if dtype == 'float32' else ''} {pad_step:.3f} ms a step "
+              f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32, {wg} wgmma); the "
+              f"weights' pad{' and split' if dtype == 'float32' else ' (and permutation)'} "
+              f"{pad_step:.3f} ms a step "
               f"(G {pad['G']:.3f}, D {pad['D']:.3f} a pass), {pad_step / r['ms']:.2%} of "
               "it; last losses " + ", ".join(f"{k} {v:.4f}" for k, v in
                                              r["losses"].items()), flush=True)
@@ -1803,9 +2063,11 @@ def phase_wsegan_run(work: Path):
         torch.cuda.synchronize()
         return seg, out.getvalue(), time.perf_counter() - start
 
-    K.launches = K.launches_mma = K.launches_tf32 = 0
-    runs = [run(argv + ["--epoch", "1"]), run(argv + ["--epoch", "2", "--resume"])]
-    launches, mma, tf32 = K.launches, K.launches_mma, K.launches_tf32
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    with _logged_launches() as log:
+        runs = [run(argv + ["--epoch", "1"]), run(argv + ["--epoch", "2", "--resume"])]
+    launches, mma, tf32, wg = _counters(K)
+    want = _want_counts(K, log)
     logged = [WS_LOG_RE.findall(out) for _, out, _ in runs]
     bpe = int(logged[0][0][2])
     assert bpe == 2, logged
@@ -1821,7 +2083,8 @@ def phase_wsegan_run(work: Path):
     per_step = g_fwd + 4 * len(seg.D.enc_blocks)
     print(f"fused_conv1d_prelu launches over the two WSEGAN runs: {launches} ({mma} on the "
           f"tensor cores, {tf32} 3xTF32) for 4 train steps")
-    assert launches == mma == tf32 == per_step * 4, (launches, mma, tf32)
+    assert launches == per_step * 4 and (launches, mma, tf32, wg) == want and mma == tf32, (
+        (launches, mma, tf32, wg), want)
     index = json.loads((save / "EOE_G-checkpoints").read_text())
     assert index["latest"] == ["EOE_G-Generator-2.ckpt", "EOE_G-Generator-4.ckpt"], index
     d_index = json.loads((save / "EOE_D-checkpoints").read_text())
@@ -2179,24 +2442,41 @@ class _Served(_InProcess):
         super().stop()
 
 
+def _counters(K):
+    """The per-layer kernel's four counters: all launches, tensor cores, of those fp32
+    (3xTF32), and bf16 on wgmma."""
+    return K.launches, K.launches_mma, K.launches_tf32, K.launches_wgmma
+
+
+def _g_routes(K, dtype, b, t, bias):
+    """The routes _route picks for the five layers of one G forward of b rows of t
+    samples, x in G's pitched rows."""
+    return [K._route(dtype, B, cin, cout, k, s, (t_in - k) // s + 1, True)
+            for B, cin, t_in, cout, k, s, _ in _g_layers(b, t, bias)]
+
+
 def _expect_launches(K, before, passes, bias, fp32):
-    """The kernel's counters since `before` against the G forwards `passes` (rows,
-    samples): five launches each, on the route that _route picks for each layer's
-    shape (read from the counters), fp32 ones by 3xTF32. Returns the three deltas."""
+    """The kernel's counters since `before` (``_counters``) against the G forwards
+    `passes` (rows, samples): five launches each, on the route that _route picks for
+    each layer's shape and G's pitched rows (read from the counters), fp32 ones by
+    3xTF32, bf16 ones on wgmma where the rule says. Returns the four deltas."""
     import torch
 
-    want = sum(len(_g_layers(b, t, bias)) for b, t in passes)
-    want_mma = sum(K._route(torch.float32, cout, k, s, (t_in - k) // s + 1) == "mma"
-                   for b, t in passes for (_, _, t_in, cout, k, s, _) in _g_layers(b, t, bias))
-    got = (K.launches - before[0], K.launches_mma - before[1], K.launches_tf32 - before[2])
-    assert got == (want, want_mma, want_mma if fp32 else 0), (got, want, want_mma, passes)
+    routes = [r for b, t in passes
+              for r in _g_routes(K, torch.float32 if fp32 else torch.bfloat16, b, t, bias)]
+    tc = sum(r != "fma" for r in routes)
+    want = (len(routes), tc, tc if fp32 else 0, routes.count("wgmma"))
+    got = tuple(n - b for n, b in zip(_counters(K), before))
+    assert got == want, (got, want, passes)
     return np.array(got)
 
 
 def _hold_kernel(shapes, seed):
     """The kernel against its plain version at each layer shape (B, Cin, T_in, Cout, K,
-    stride, bias) in fp32 and bf16, on random inputs and NaN-filled outputs, the route
-    read from the counters; timed with the FMA route forced, plain and cuDNN beside
+    stride, bias) in fp32 and bf16, x through G's pitched pad (a stride-4, K = 31 shape;
+    others in contiguous rows), on random inputs and NaN-filled outputs: on the route
+    _route picks, read from the counters, then on the other routes that take the shape
+    forced (mma.sync, FMA); timed in turns with the plain version and cuDNN beside
     bounds, a table row per shape. Returns {shape: {dtype: (err, ms)}}."""
     import torch
     import torch.nn.functional as F
@@ -2205,48 +2485,61 @@ def _hold_kernel(shapes, seed):
 
     g = torch.Generator().manual_seed(seed)
     per_shape = {}
-    print(f"{'served shape':>34} | {'route':>5} {'fp32 err':>8} {'bf16 err':>8} | fp32 ms: "
-          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7} | bf16 ms: "
-          f"{'kernel':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7}")
+    print(f"{'served shape':>34} | {'routes':>11} {'fp32 err':>8} {'bf16 err':>8} | fp32 ms: "
+          f"{'kernel':>7} {'mma':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} {'bound':>7} | "
+          f"bf16 ms: {'kernel':>7} {'mma':>7} {'fma':>7} {'plain':>7} {'cuDNN':>7} "
+          f"{'bound':>7}")
     for shape in sorted(shapes):
         b, cin, t_in, cout, kw, s, has_bias = shape
-        x = torch.randn((b, cin, t_in), generator=g).cuda()
+        layout = "pad" if (kw, s) == (31, 4) and t_in > 29 else "contiguous"
+        xs = dict(zip((torch.float32, torch.bfloat16), _case_x(b, cin, t_in, g, layout)))
         w = (torch.randn((cout, cin, kw), generator=g) / (cin * kw) ** 0.5).cuda()
         bias = (torch.randn((cout,), generator=g) * 0.1).cuda() if has_bias else None
         a = (torch.rand((cout,), generator=g) * 0.3).cuda()
-        t_out = K._check(x, w, bias, a, s)
-        route = K._route(torch.float32, cout, kw, s, t_out)
+        t_out = K._check(xs[torch.float32], w, bias, a, s)
+        tc_shape = K._tensor_core_shape(torch.float32, cout, kw, s, t_out)
         flops = 2.0 * b * t_out * cout * cin * kw
         nbytes = 2 * (b * cin * t_in + cout * cin * kw + (2 if has_bias else 1) * cout
                       + 2 * b * cout * t_out)
-        row = {}
+        row, routes = {}, []
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
-            args = [v.to(dtype) if v is not None else None for v in (x, w, bias, a)]
-            before = (K.launches_mma, K.launches_tf32)
-            y, pre = K._launch(*args, s, t_out,
-                               out=nan_outputs((b, cout, t_out), (b, cout, t_out), dtype=dtype))
-            y_ref, pre_ref = K.conv1d_prelu_plain(*args, s)
-            took = "mma" if K.launches_mma == before[0] + 1 else "fma"
-            assert took == route and K.launches_tf32 - before[1] == (
-                took == "mma" and dtype == torch.float32), (shape, dtype, took)
-            err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
-            assert err <= tol, (shape, dtype, err)
-            t = ms_in_turns({"kernel": lambda: K.fused_conv1d_prelu(*args, s),
-                             "fma": lambda: K._launch(*args, s, t_out, force_fma=True),
-                             "plain": lambda: K.conv1d_prelu_plain(*args, s),
-                             "cuDNN": lambda: F.conv1d(args[0], args[1], args[2], stride=s)},
-                            reps=10, warmup=2)
+            args = [xs[dtype]] + [v.to(dtype) if v is not None else None
+                                  for v in (w, bias, a)]
+            route = K._route(dtype, b, cin, cout, kw, s, t_out, _pitched(K, args[0]))
+            errs = {}
+            for force in [None] + [r for r in (("mma", "fma") if tc_shape else ("fma",))
+                                   if r != route]:
+                before = _counters(K)
+                y, pre = K._launch(*args, s, t_out, force=force,
+                                   out=nan_outputs((b, cout, t_out), (b, cout, t_out),
+                                                   dtype=dtype))
+                y_ref, pre_ref = K.conv1d_prelu_plain(*args, s)
+                took = _took(K, before)
+                assert took == (force or route), (shape, dtype, took, force, route)
+                assert K.launches_tf32 - before[2] == (took == "mma" and dtype == torch.float32)
+                errs[took] = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
+                assert errs[took] <= tol, (shape, dtype, took, errs[took])
+                del y, pre, y_ref, pre_ref
+            arms = {"kernel": lambda: K.fused_conv1d_prelu(*args, s)}
+            for r in ("mma", "fma") if tc_shape else ("fma",):
+                arms[r] = lambda r=r: K._launch(*args, s, t_out, force=r)
+            arms.update(plain=lambda: K.conv1d_prelu_plain(*args, s),
+                        cuDNN=lambda: F.conv1d(args[0], args[1], args[2], stride=s))
+            t = ms_in_turns(arms, reps=10, warmup=2)
+            t.setdefault("mma", float("nan"))
             t["bound"] = (min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
                               bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
                           if dtype == torch.float32 else bound_ms(flops, nbytes, BF16_PEAK))
-            row[dtype] = (err, t)
-            del y, pre, y_ref, pre_ref, args
+            row[dtype] = (errs[route], t)
+            routes.append(route)
+            del args
         per_shape[shape] = row
         (e32, t32), (e16, t16) = row[torch.float32], row[torch.bfloat16]
-        cols = ("kernel", "fma", "plain", "cuDNN", "bound")
-        print(f"{str(shape[:6]) + (' bias' if has_bias else ''):>34} | {route:>5} "
-              f"{e32:8.1e} {e16:8.1e} | " + " ".join(f"{t32[c]:7.4f}" for c in cols)
-              + " | " + " ".join(f"{t16[c]:7.4f}" for c in cols), flush=True)
+        cols = ("kernel", "mma", "fma", "plain", "cuDNN", "bound")
+        print(f"{str(shape[:6]) + (' bias' if has_bias else ''):>34} | "
+              f"{'/'.join(routes):>11} {e32:8.1e} {e16:8.1e} | "
+              + " ".join(f"{t32[c]:7.4f}" for c in cols) + " | "
+              + " ".join(f"{t16[c]:7.4f}" for c in cols), flush=True)
     return per_shape
 
 
@@ -2265,7 +2558,7 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
 
     S = 16384
 
-    totals = np.zeros(3, np.int64)  # the kernel's launches in the served G forwards
+    totals = np.zeros(4, np.int64)  # the kernel's launches in the served G forwards
     served = set()  # (B, samples, bias) of every G forward that served
     calls = set()
     for name in ("float32", "bfloat16"):
@@ -2276,7 +2569,7 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
             info = json.loads(_request(srv.base + "/healthz")[0])
             assert info["model"] == "SEGAN" and info["status"] == "ok", info
             srv.passes.clear()
-            before = (K.launches, K.launches_mma, K.launches_tf32)
+            before = _counters(K)
             # 20 sequential one-chunk requests
             one = _wav_body(16000, SEED + 60)
             walls = []
@@ -2386,7 +2679,7 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
     try:
         assert json.loads(_request(srv.base + "/healthz")[0])["model"] == "WSEGAN"
         srv.passes.clear()
-        before = (K.launches, K.launches_mma, K.launches_tf32)
+        before = _counters(K)
         lengths = [20000, 20000, 33000, 5000]
         bodies = [_wav_body(n, SEED + 100 + i) for i, n in enumerate(lengths)]
         answers = [None] * 4
@@ -2424,12 +2717,12 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
     per_shape = _hold_kernel(known, SEED + 110)
     for p in sorted(layers):
         sums = {d: {c: sum(per_shape[l][d][1][c] for l in layers[p])
-                    for c in ("kernel", "fma", "plain", "cuDNN", "bound")}
+                    for c in ("kernel", "mma", "fma", "plain", "cuDNN", "bound")}
                 for d in (torch.float32, torch.bfloat16)}
-        n_mma = sum(K._route(torch.float32, l[3], l[4], l[5], (l[2] - l[4]) // l[5] + 1)
-                    == "mma" for l in layers[p])
+        routes = {d: _g_routes(K, d, *p) for d in (torch.float32, torch.bfloat16)}
         print(f"served G forward B={p[0]} T={p[1]}{' bias' if p[2] else ''}"
-              f"{' (ran)' if p in served else ''}: 5 launches ({n_mma} tensor cores); "
+              f"{' (ran)' if p in served else ''}: 5 launches (routes fp32 "
+              f"{'/'.join(routes[torch.float32])}, bf16 {'/'.join(routes[torch.bfloat16])}); "
               + "; ".join(f"{'fp32' if d == torch.float32 else 'bf16'} "
                           + ", ".join(f"{c} {v:.4f}" for c, v in sums[d].items())
                           for d in sums) + f" ms ({smi})", flush=True)
@@ -2545,7 +2838,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
         passes.append((int(np.shape(noisy)[0]), int(np.shape(noisy)[1])))
         return infer(self, noisy, z, ret_hid)
 
-    totals = np.zeros(3, np.int64)
+    totals = np.zeros(4, np.int64)
     retire = serve.RETIRE_SECONDS
     serve.RETIRE_SECONDS = RELOAD_RETIRE_SECONDS
     SEGAN.infer_G = recorded_infer
@@ -2575,7 +2868,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
             assert status == 401 and info == {"error": "unauthorized"} and (
                 srv.state["reloads"] == 0), (status, info)
             passes.clear()
-            before = (K.launches, K.launches_mma, K.launches_tf32)
+            before = _counters(K)
             # cuDNN's default algorithm for the fp32 transposed convs sums in no fixed
             # order: the same request twice is compared bit for bit with
             # cudnn.deterministic on (its cost is timed below), and read without it
@@ -2710,11 +3003,14 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
                 assert old() is None, f"reload {i}: the retired engine is still alive"
                 G = srv.state["gen"][1].G
                 live, n_enc = {id(p) for p in G.parameters()}, len(G.enc_blocks)
+                # enc2-5 always on the tensor cores; enc1 only from 2^20 rows in fp32
+                need = {id(b.conv.weight) for b in G.enc_blocks if b.conv.weight.shape[1] > 1}
                 keys = list(K._padded.keys())
                 own = [k for k in keys if id(k) in live]
                 stray = [k for k in keys if id(k) not in live
                          and not any(r() is k for r in pre)]
-                assert len(own) == n_enc and not stray, (i, len(own), len(stray))
+                assert need <= {id(k) for k in own} and len(own) <= n_enc and not stray, (
+                    i, len(own), len(stray))
                 del G, keys, own, stray
             drift = [m - base for m in mems]
             print(f"reload memory: memory_allocated with one generation {base / 2**20:.1f} "
@@ -2735,7 +3031,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
         try:
             bodies = [_wav_body(n, SEED + 140 + i) for i, n in enumerate((16000, 40000))]
             passes.clear()
-            before = (K.launches, K.launches_mma, K.launches_tf32)
+            before = _counters(K)
             status, info, wall16 = srv.reload({"g_ckpt": str(ckpt_b)})
             assert status == 200, info
             got16 = [srv.post(f"/enhance?seed={500 + i}", b)[0]
@@ -2743,7 +3039,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
             totals += _expect_launches(K, before, passes, False, False)
             n16 = len(passes)
             passes.clear()
-            before = (K.launches, K.launches_mma, K.launches_tf32)
+            before = _counters(K)
             status, info, wall_w = srv.reload({"g_ckpt": str(ckpt_w), "cfg_file": str(opts_w)})
             assert status == 200, info
             model = json.loads(_request(srv.base + "/healthz")[0])["model"]
@@ -2835,7 +3131,8 @@ GRAPH_CASES = [
     ("AEWSEGAN fp32", "aewsegan", 150, "float32", dict(aewsegan=True, opt="adam")),
 ]
 GRAPH_PER_STEP = {"segan": 5, "wsegan": WS_PER_STEP, "aewsegan": 5}
-KERNEL_RE = re.compile(r"\bconv1d_(mma|tf32|prelu)_kernel\b")
+KERNEL_RE = re.compile(r"\bconv1d_(mma|tf32|prelu|wgmma)_kernel\b")
+WGMMA_RE = re.compile(r"\bconv1d_wgmma_kernel\b")
 
 
 def _graph_engines(kind, cfg, seed, n):
@@ -2999,7 +3296,8 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
     on A against S ``train_step`` calls on E: losses, Genh and every parameter, buffer
     and optimizer change, within GRAPH_TOL (`exact`: bit for bit, every tensor held);
     2 x GRAPH_PER_STEP kernel launches in the first call (warm-up sub-step and capture),
-    all on the tensor cores, fp32 by 3xTF32. Then on A a call that only replays, under
+    each on the route _route picks (bf16 on wgmma where the rule says, read from the
+    counters and from the replay's device kernels). Then on A a call that only replays, under
     sync debug mode "error", with no counter moved, and one profiled
     (``_profiled_replay``): the kernel GRAPH_PER_STEP times; `between(A, E, stacked)`, if
     given, runs before that call (A and E still in step). In a process group (the
@@ -3021,9 +3319,10 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
             multistep.set_capturable(opt, True)
     before = _engine_state(E)
     with _CollectiveCount() as coll:
-        K.launches = K.launches_mma = K.launches_tf32 = 0
-        ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
-        first_call, routes = K.launches, (K.launches_mma, K.launches_tf32)
+        K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+        with _logged_launches() as log:
+            ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
+        first_call, routes, want = K.launches, _counters(K), _want_counts(K, log)
         captured, warm = coll.take()
         eager, peak = [], 0
         for i in range(S):
@@ -3054,6 +3353,7 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
     device, counts = _profiled_replay(lambda: A.train_step_multi(*one, l1_w_s=l1s[:1]),
                                       GRAPH_PER_STEP[kind])
     replay_counter = K.launches
+    replay_wgmma = sum(1 for n in device if WGMMA_RE.search(n))
     collectives = {}
     for n in device:
         if "nccl" in n.lower():
@@ -3065,9 +3365,9 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
                                                  state_err.items())
           + f" (worst tensor {worst[1]} {worst[0]:.3g}); {n_equal} of {len(after)} state "
           f"tensors equal bit for bit; kernel launches in the first call {first_call} "
-          f"(warm-up step and capture); a replay: fused_conv1d_prelu {counts[-1]} times "
-          f"(profiler device events; sessions {counts}), counter {replay_counter}, no host "
-          f"sync"
+          f"(warm-up step and capture; {routes[3]} on wgmma); a replay: fused_conv1d_prelu "
+          f"{counts[-1]} times, {replay_wgmma} of them wgmma (profiler device events; "
+          f"sessions {counts}), counter {replay_counter}, no host sync"
           + (f"; all-reduces recorded by the capture {captured}, issued by the warm-up "
              f"sub-step {warm}, by each eager step {per_step / S:g}; collective kernels a "
              f"replay ran: {sum(collectives.values())} {collectives}" if grouped else "")
@@ -3080,7 +3380,10 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
         assert max(loss_err, genh_err, *state_err.values()) <= GRAPH_TOL, (
             loss_err, genh_err, state_err)
     assert first_call == 2 * GRAPH_PER_STEP[kind], first_call
-    assert routes == (first_call, first_call if cfg.compute_dtype == "float32" else 0), routes
+    assert routes == want and (routes[2] if cfg.compute_dtype == "bfloat16" else routes[3]) == 0, (
+        routes, want)
+    assert replay_wgmma == routes[3] // 2 and (
+        routes[3] > 0 or cfg.compute_dtype == "float32"), (replay_wgmma, routes)
     assert counts[-1] == GRAPH_PER_STEP[kind] >= max(counts) and replay_counter == 0, (
         counts, replay_counter)
     if grouped:
@@ -3822,12 +4125,12 @@ def _hold_shapes(label, shapes, B, S, bias, mma, smi, seed):
             err_f = err
             arms = {"kernel": lambda: K.fused_conv1d_prelu(*h, S)}
             if mma:
-                yf, pref = K._launch(*h, S, t_out, force_fma=True,
+                yf, pref = K._launch(*h, S, t_out, force="fma",
                                      out=nan_outputs(shape, shape, dtype=dt))
                 torch.cuda.synchronize()
                 err_f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
                 del yf, pref
-                arms["fma"] = lambda: K._launch(*h, S, t_out, force_fma=True)
+                arms["fma"] = lambda: K._launch(*h, S, t_out, force="fma")
             assert max(err, err_f) <= tol, (label, i, dt, err, err_f)
             del y, pre, y_ref, pre_ref
             arms.update(plain=lambda: K.conv1d_prelu_plain(*h, S),
@@ -4023,8 +4326,7 @@ def phase_a7a(work: Path, smi: str) -> dict:
                             2, warm=1)
             flops = flops if dtype == "bfloat16" else seg.step_flops()
             _report_steps(f"A7a SEGAN+ {case} B=300 {dtype}", r, flops, 300, smi)
-            tf32 = 2 * per_step if dtype == "float32" else 0
-            assert r["counts"] == (2 * per_step, 2 * per_step, tf32), r["counts"]
+            _check_counts(r, 2 * per_step, dtype)
             out[f"{case} {dtype}"] = r
             if case == "bnorm G" and dtype == "float32":
                 trained = copy.deepcopy(seg.G).cpu()
@@ -4040,7 +4342,9 @@ def phase_a7a(work: Path, smi: str) -> dict:
                  if g_stats else "") + f"; launches (all, 3xTF32) {launched} "
               f"({time.perf_counter() - t_phase:.1f} s into the phase)", flush=True)
         assert worst(losses.values()) <= SLICE_TOL, losses
-        assert launched == (per_step, per_step), launched
+        # 3xTF32 but G's enc1 where its rows take the FMA kernel
+        g_fma = _g_routes(K, torch.float32, 4, cfg.slice_size, False).count("fma")
+        assert launched == (per_step, per_step - (g_fma if per_step else 0)), launched
         if case == "bnorm G":
             assert len(g_stats) == 20 and worst(g_stats.values()) <= STATS_TOL, g_stats
     out["sinc front end"] = _time_sinc_front_end(smi)
@@ -4126,8 +4430,7 @@ def phase_a7a(work: Path, smi: str) -> dict:
                         warm=1)
         flops = flops if dtype == "bfloat16" else seg.step_flops()
         _report_steps(f"A7a WSEGAN sinc D B=150 {dtype}", r, flops, 150, smi)
-        n = 2 * SINC_WS_PER_STEP
-        assert r["counts"] == (n, n, n if dtype == "float32" else 0), r["counts"]
+        _check_counts(r, 2 * SINC_WS_PER_STEP, dtype)
         out[f"wsegan sinc D {dtype}"] = r
         del seg, G, D, clean_b, noisy_b
         torch.cuda.empty_cache()
@@ -4147,7 +4450,8 @@ def phase_a7a(work: Path, smi: str) -> dict:
           "into the phase)", flush=True)
     assert worst(losses.values()) <= WS_TOL and uv["card d_lr 0"] <= WS_TOL, (losses, uv)
     assert uv["card"] <= max(WS_TOL, 4 * uv["CPU"]), uv
-    assert launched == (SINC_WS_PER_STEP, SINC_WS_PER_STEP), launched
+    g_fma = _g_routes(K, torch.float32, 3, cfg.slice_size, True).count("fma")
+    assert launched == (SINC_WS_PER_STEP, SINC_WS_PER_STEP - g_fma), launched
     # (d) the blocks
     _blocks_card_vs_cpu(smi)
     print(f"A7a: phase 12 took {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -5163,7 +5467,7 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
         del G, G2, D, D2, y1, y2, d1, d2, x, z, pair
 
         # 15c: ab_parity on the test split, fp32 on the card
-        before = (K.launches, K.launches_mma, K.launches_tf32)
+        before = _counters(K)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             report = ab_parity.main([
@@ -5171,11 +5475,14 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
                 str(corpus / "clean_testset"), "--noisy_test", str(corpus / "noisy_testset"),
                 "--out", str(work / "parity.json"), "--seed", str(SEED)])
         t_ab = time.perf_counter() - t0
-        # one G forward of 3 chunks per 3-s utterance, 5 launches each on the tensor cores
+        # one G forward of 3 chunks per 3-s utterance, 5 launches each, 3xTF32 on the
+        # tensor cores but enc1's FMA rows
         got = (K.launches - before[0], K.launches_mma - before[1],
                K.launches_tf32 - before[2])
         want = 5 * TOOLS_TEST_FILES
-        assert got == (want, want, want), got
+        tc = want - TOOLS_TEST_FILES * _g_routes(K, torch.float32, 3, 16384, False).count(
+            "fma")
+        assert got == (want, tc, tc), got
         launches["ab_parity"] = got[0]
         assert report["n_files"] == TOOLS_TEST_FILES and list(report["means"]) == [
             "noisy", "enh"], report["means"]
@@ -5270,7 +5577,7 @@ def phase_tools(work: Path, smi: str, rates: dict, checked: set, gen_bytes: floa
         srv = _Served(g_ckpt, opts, *extra)
         try:
             srv.passes.clear()
-            before = (K.launches, K.launches_mma, K.launches_tf32)
+            before = _counters(K)
             if have_tls:
                 ctx = ssl.create_default_context()
                 ctx.check_hostname, ctx.verify_mode = False, ssl.CERT_NONE
@@ -5377,14 +5684,15 @@ def main():
 
     smi = _phase("1", phase_device)
     _phase("2", phase_build)
-    per_layer = _phase("3", phase_kernel)
+    per_layer, wgmma64 = _phase("3", phase_kernel)
     enc23_abs, enc23_ms = _phase("3b", phase_enc23)
     tool, tool_launches = _phase("3c", phase_tool)
     _phase("3d", phase_tf32)
-    launches, launches_mma, launches_tf32 = _phase("4", phase_slice, workdir=True)
+    launches, launches_mma, launches_tf32, launches_wgmma = _phase("4", phase_slice,
+                                                                   workdir=True)
     _phase("5a", phase_train_kernel)
     _phase("5b", phase_train_parity)
-    train_per_step, train_rates = _phase("5c", phase_train_b300)
+    train_per_step, train_rates, train_wgmma = _phase("5c", phase_train_b300)
     train_run = _phase("6", phase_train_run, train_rates, workdir=True)
     _phase("7a", phase_wsegan_parity)
     ws_per_step, ws_times = _phase("7b", phase_wsegan_b150)
@@ -5416,9 +5724,10 @@ def main():
              train_launches_per_step=train_per_step, train_run_launches=train_run,
              wsegan_train_launches_per_step=ws_per_step, wsegan_run_launches=ws_run,
              serve_launches=serve_launches[0], serve_launches_mma=serve_launches[1],
-             serve_launches_tf32=serve_launches[2],
+             serve_launches_tf32=serve_launches[2], serve_launches_wgmma=serve_launches[3],
              reload_launches=reload_launches[0], reload_launches_mma=reload_launches[1],
              reload_launches_tf32=reload_launches[2],
+             reload_launches_wgmma=reload_launches[3],
              graph_launches_per_replay=dict(graph, **p14["graph"]),
              data_options_launches=data_opts["total"],
              data_options_launches_segan=data_opts["segan"],
@@ -5450,6 +5759,9 @@ def main():
              fp32_bound_ms=min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
                                bound_ms(3 * flops, 2 * nbytes, TF32_PEAK)),
              fp32_library_ms=fp32["cuDNN x2"]),
+        # the bf16 wgmma kernel: phase 4's launches, and 5c's in five bf16 train steps at
+        # batch 300; its layers of G at 64 chunks (phase 3)
+        dict(launches=launches_wgmma, train_launches=train_wgmma, **wgmma64),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

@@ -6,8 +6,10 @@
 //     pre[b, co, t] = bias[co] + sum_{ci, k} w[co, ci, k] * x[b, ci, t*stride + k]
 //     y = max(pre, 0) + slope[co] * min(pre, 0)
 // and writes BOTH y and pre, because the generator's skips carry the pre-activation.
-// x is already reflect-padded, in torch's (B, Cin, T_in) layout; w is (Cout, Cin, K);
-// y and pre are (B, Cout, T_out). Sums are fp32; inputs and outputs are fp32 or bf16.
+// x is already reflect-padded, in torch's (B, Cin, T_in) layout with rows `pitch`
+// elements apart (pitch >= T_in: G pads into rows of a multiple of 8 samples, the layout
+// TMA reads); w is (Cout, Cin, K); y and pre are (B, Cout, T_out). Sums are fp32; inputs
+// and outputs are fp32 or bf16.
 //
 // What bounds it on the H100. On the main path (K=31, stride 4, 16384-sample chunks)
 // enc2..enc5 each cost about 0.52 GFLOP per chunk over a deep contraction
@@ -16,12 +18,14 @@
 // bandwidth (writing y and pre). Deep layers have few output rows per chunk (enc5: 16),
 // which starves a kernel that tiles one chunk at a time.
 //
-// Three kernels; the wrapper (ops/kernels/conv1d_prelu.py, `_route`) picks one by shape
-// and dtype. Stride 4, K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path
-// layer) take the tensor cores:
-//   conv1d_mma_kernel: bf16, on mma.sync m16n8k16;
+// Three kernels; the wrapper (ops/kernels/conv1d_prelu.py, `_route`) picks one of them,
+// or csrc/conv1d_wgmma.cu's, by shape, dtype and x's layout. Stride 4, K <= 32,
+// Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) take the tensor cores:
+//   conv1d_mma_kernel: bf16, on mma.sync m16n8k16, where the wgmma kernel does not
+//     take the call (few rows, or x in rows TMA cannot read);
 //   conv1d_tf32_kernel: fp32, by 3xTF32 on mma.sync m16n8k8;
-//   conv1d_prelu_kernel<T>: every other shape, on fp32 FMAs.
+//   conv1d_prelu_kernel<T>: every other shape, and enc1 (Cin = 1) at few rows, on fp32
+//     FMAs.
 //
 // All are implicit GEMMs: M = B*T_out rows (batch and time flattened, so enc5's 16 rows
 // per chunk still fill the tiles), N = Cout, depth Cin*K. The Pallas kernel folds the
@@ -60,8 +64,9 @@
 // would write 2 bytes a lane; each warp passes its 64 x 32 tile through shared memory
 // instead and writes 16 bytes a lane (enc1, which only writes, is bound by these stores).
 // One synchronous mainloop (no cp.async, TMA or wgmma), 2 blocks per SM: the staging of
-// x is not overlapped with the MMAs of the same block. tests/test_torch_conv1d_mma.py
-// emulates these index maps in float64.
+// x is not overlapped with the MMAs of the same block; csrc/conv1d_wgmma.cu is the design
+// for this card, with these index maps. tests/test_torch_conv1d_mma.py emulates them in
+// float64.
 //
 // conv1d_tf32_kernel (fp32 on the tensor cores). The fp32 limit against the plain
 // version is 1e-4 relative, and one TF32 product (10 mantissa bits) gives about 1e-3, so
@@ -92,17 +97,22 @@
 // Split-K, all three kernels: when the output tiles alone would not fill the card (the deep,
 // short layers, and any layer at serving batch sizes), the depth is cut into `splits`
 // slices, one per grid z-slice (the MMA kernel cuts on whole input channels). Each writes
-// its fp32 partial sums to a workspace the wrapper allocates, and a second kernel adds
-// them in a fixed order (deterministic), then applies the bias and PReLU.
+// its fp32 partial sums to a workspace the wrapper allocates, and a second kernel
+// (csrc/splitk_epilogue.cuh) adds them in a fixed order (deterministic), then applies the
+// bias and PReLU.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "splitk_epilogue.cuh"
 
 namespace {
 
+using conv_epilogue::from_float;
+using conv_epilogue::launch_splitk_epilogue;
+using conv_epilogue::to_float;
 using mma_conv::KP;
 using mma_conv::NT;
 using mma_conv::prelu;
@@ -119,21 +129,12 @@ constexpr int TN = 4;
 static_assert(THREADS % BM == 0 && BK * BM == 4 * THREADS, "A-tile load mapping");
 static_assert(THREADS % BK == 0 && BK * BN == 4 * THREADS, "B-tile load mapping");
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv1d_prelu_kernel(const T* __restrict__ x, const T* __restrict__ w,
                     const T* __restrict__ bias, const T* __restrict__ slope,
                     T* __restrict__ y, T* __restrict__ pre, float* __restrict__ partial,
-                    int B, int Cin, int T_in, int Cout, int T_out, int K, int stride,
+                    int B, int Cin, int pitch, int Cout, int T_out, int K, int stride,
                     int split_depth) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][BN + 1];  // +1: the w-tile store walks depth across a warp
@@ -158,7 +159,7 @@ conv1d_prelu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if (a_valid) {
     const long long b = a_row / T_out;
     const long long t = a_row - b * T_out;
-    x_row = x + b * (long long)Cin * T_in + t * stride;
+    x_row = x + b * (long long)Cin * pitch + t * stride;
   }
   // B tile: this thread loads depth b_k of channels b_n + 16*j (coalesced along depth).
   const int b_k = tid % BK;
@@ -179,7 +180,7 @@ conv1d_prelu_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (a_valid && d < d_end) {
         const int ci = d / K;
         const int k = d - ci * K;
-        v = to_float(x_row[(long long)ci * T_in + k]);
+        v = to_float(x_row[(long long)ci * pitch + k]);
       }
       As[kk][a_m] = v;
     }
@@ -231,44 +232,13 @@ conv1d_prelu_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// Sums the split-K partials (B, Cout, T_out) x splits in order, adds bias, applies PReLU.
-template <typename T>
-__global__ void splitk_epilogue_kernel(const float* __restrict__ partial,
-                                       const T* __restrict__ bias,
-                                       const T* __restrict__ slope, T* __restrict__ y,
-                                       T* __restrict__ pre, long long total, int Cout,
-                                       int T_out, int splits) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    float p = 0.f;
-    for (int z = 0; z < splits; ++z) p += partial[z * total + i];
-    const int co = (int)((i / T_out) % Cout);
-    if (bias != nullptr) p += to_float(bias[co]);
-    pre[i] = from_float<T>(p);
-    y[i] = from_float<T>(fmaxf(p, 0.f) + to_float(slope[co]) * fminf(p, 0.f));
-  }
-}
-
 long long num_tiles(int B, int Cout, int T_out) {
   return (((long long)B * T_out + BM - 1) / BM) * ((Cout + BN - 1) / BN);
 }
 
-// Sums `splits` slices of partial sums (B, Cout, T_out) into y and pre.
-template <typename T>
-void launch_splitk_epilogue(const float* partial, const void* bias, const void* slope,
-                            void* y, void* pre, long long total, int Cout, int T_out,
-                            int splits, cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  splitk_epilogue_kernel<T><<<(unsigned)(blocks < 65536 ? blocks : 65536), threads, 0,
-                              stream>>>(partial, static_cast<const T*>(bias),
-                                        static_cast<const T*>(slope), static_cast<T*>(y),
-                                        static_cast<T*>(pre), total, Cout, T_out, splits);
-}
-
 template <typename T>
 int launch(const void* x, const void* w, const void* bias, const void* slope, void* y,
-           void* pre, float* partial, int splits, int B, int Cin, int T_in, int Cout,
+           void* pre, float* partial, int splits, int B, int Cin, int pitch, int Cout,
            int T_out, int K, int stride, cudaStream_t stream) {
   const long long M = (long long)B * T_out;
   const int stages = (Cin * K + BK - 1) / BK;
@@ -280,7 +250,7 @@ int launch(const void* x, const void* w, const void* bias, const void* slope, vo
   conv1d_prelu_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
       static_cast<const T*>(slope), static_cast<T*>(y), static_cast<T*>(pre),
-      splits > 1 ? partial : nullptr, B, Cin, T_in, Cout, T_out, K, stride, per * BK);
+      splits > 1 ? partial : nullptr, B, Cin, pitch, Cout, T_out, K, stride, per * BK);
   if (splits > 1)
     launch_splitk_epilogue<T>(partial, bias, slope, y, pre, M * Cout, Cout, T_out, splits,
                               stream);
@@ -306,7 +276,7 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
                   const __nv_bfloat16* __restrict__ bias,
                   const __nv_bfloat16* __restrict__ slope, __nv_bfloat16* __restrict__ y,
                   __nv_bfloat16* __restrict__ pre, float* __restrict__ partial, int B,
-                  int Cin, int T_in, int Cout, int T_out, int slice) {
+                  int Cin, int T_in, int pitch, int Cout, int T_out, int slice) {
   constexpr int WN = 8 / WM;
   constexpr int NQ = WM * MMA_MT;     // m16 groups per block
   constexpr int TILE_M = NQ * 16;
@@ -316,7 +286,7 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   // the x chunk [channel][group][sample] in the mainloop, then each warp's output tile
   // [channel][row] in the epilogue
   __shared__ __align__(16) __nv_bfloat16 smem[SMEM];
-  __shared__ long long q_in[NQ];   // group q's window in x: b Cin T_in + 4 t0
+  __shared__ long long q_in[NQ];   // group q's window in x: b Cin pitch + 4 t0
   __shared__ long long q_out[NQ];  // its row 0 in y and pre, channel 0: b Cout T_out + t0
   __shared__ int q_len[NQ];        // samples of its window inside x (0: no such group)
 
@@ -335,7 +305,7 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     const long long b = r / T_out;
     const int t0 = (int)(r - b * T_out);
     const bool live = r < M;
-    q_in[threadIdx.x] = live ? b * Cin * T_in + STRIDE * t0 : 0;
+    q_in[threadIdx.x] = live ? b * Cin * pitch + STRIDE * t0 : 0;
     q_out[threadIdx.x] = live ? b * Cout * T_out + t0 : 0;
     q_len[threadIdx.x] = live ? T_in - STRIDE * t0 : 0;
   }
@@ -353,10 +323,10 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       const int q = p / WG;
       const int j = p - q * WG;
       const bool inside = j < q_len[q];
-      const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * T_in + j;
+      const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * pitch + j;
 #pragma unroll 8
       for (int c = 0; c < cc; ++c)
-        smem[c * NQ * WG + p] = inside ? src[(long long)c * T_in] : __float2bfloat16(0.f);
+        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : __float2bfloat16(0.f);
     }
     __syncthreads();
     if (mt_live > 0 && nt_live > 0)
@@ -426,8 +396,8 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 
 template <int WM>
 int launch_mma(const void* x, const void* w, const void* bias, const void* slope, void* y,
-               void* pre, float* partial, int splits, int B, int Cin, int T_in, int Cout,
-               int T_out, cudaStream_t stream) {
+               void* pre, float* partial, int splits, int B, int Cin, int T_in, int pitch,
+               int Cout, int T_out, cudaStream_t stream) {
   constexpr int TILE_M = WM * MMA_MT * 16;
   constexpr int TILE_N = (8 / WM) * NT * 8;
   const long long M = (long long)B * T_out;
@@ -442,7 +412,7 @@ int launch_mma(const void* x, const void* w, const void* bias, const void* slope
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(slope),
       static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(pre),
-      splits > 1 ? partial : nullptr, B, Cin, T_in, Cout, T_out, slice);
+      splits > 1 ? partial : nullptr, B, Cin, T_in, pitch, Cout, T_out, slice);
   if (splits > 1)
     launch_splitk_epilogue<__nv_bfloat16>(partial, bias, slope, y, pre, M * Cout, Cout,
                                           T_out, splits, stream);
@@ -461,7 +431,7 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
                    const float* __restrict__ w_small, const float* __restrict__ bias,
                    const float* __restrict__ slope, float* __restrict__ y,
                    float* __restrict__ pre, float* __restrict__ partial, int B, int Cin,
-                   int T_in, int Cout, int T_out, int slice) {
+                   int T_in, int pitch, int Cout, int T_out, int slice) {
   constexpr int WN = 8 / WM;
   constexpr int NQ = WM * MMA_MT;       // m16 groups per block
   constexpr int TILE_M = NQ * 16;
@@ -469,7 +439,7 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
   constexpr int CC = STAGED_TF32 / NQ;  // channels staged at a time
   static_assert(WM * WN == THREADS / 32 && CC * NQ == STAGED_TF32, "8 warps, 64 windows");
   __shared__ __align__(16) float smem[STAGED_TF32 * WG];  // [channel][group][sample]
-  __shared__ long long q_in[NQ];   // group q's window in x: b Cin T_in + 4 t0
+  __shared__ long long q_in[NQ];   // group q's window in x: b Cin pitch + 4 t0
   __shared__ long long q_out[NQ];  // its row 0 in y and pre, channel 0: b Cout T_out + t0
   __shared__ int q_len[NQ];        // samples of its window inside x (0: no such group)
 
@@ -488,7 +458,7 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
     const long long b = r / T_out;
     const int t0 = (int)(r - b * T_out);
     const bool live = r < M;
-    q_in[threadIdx.x] = live ? b * Cin * T_in + STRIDE * t0 : 0;
+    q_in[threadIdx.x] = live ? b * Cin * pitch + STRIDE * t0 : 0;
     q_out[threadIdx.x] = live ? b * Cout * T_out + t0 : 0;
     q_len[threadIdx.x] = live ? T_in - STRIDE * t0 : 0;
   }
@@ -504,10 +474,10 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
       const int q = p / WG;
       const int j = p - q * WG;
       const bool inside = j < q_len[q];
-      const float* src = x + q_in[q] + (long long)c0 * T_in + j;
+      const float* src = x + q_in[q] + (long long)c0 * pitch + j;
 #pragma unroll 8
       for (int c = 0; c < cc; ++c)
-        smem[c * NQ * WG + p] = inside ? src[(long long)c * T_in] : 0.f;
+        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : 0.f;
     }
     __syncthreads();
     if (mt_live > 0 && nt_live > 0)
@@ -549,7 +519,7 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
 template <int WM>
 int launch_tf32(const void* x, const void* w_big, const void* w_small, const void* bias,
                 const void* slope, void* y, void* pre, float* partial, int splits, int B,
-                int Cin, int T_in, int Cout, int T_out, cudaStream_t stream) {
+                int Cin, int T_in, int pitch, int Cout, int T_out, cudaStream_t stream) {
   constexpr int TILE_M = WM * MMA_MT * 16;
   constexpr int TILE_N = (8 / WM) * NT * 8;
   const long long M = (long long)B * T_out;
@@ -564,7 +534,7 @@ int launch_tf32(const void* x, const void* w_big, const void* w_small, const voi
       static_cast<const float*>(x), static_cast<const float*>(w_big),
       static_cast<const float*>(w_small), static_cast<const float*>(bias),
       static_cast<const float*>(slope), static_cast<float*>(y), static_cast<float*>(pre),
-      splits > 1 ? partial : nullptr, B, Cin, T_in, Cout, T_out, slice);
+      splits > 1 ? partial : nullptr, B, Cin, T_in, pitch, Cout, T_out, slice);
   if (splits > 1)
     launch_splitk_epilogue<float>(partial, bias, slope, y, pre, M * Cout, Cout, T_out,
                                   splits, stream);
@@ -587,57 +557,59 @@ extern "C" int conv1d_prelu_splits(int B, int Cin, int Cout, int T_out, int K,
   return splits > 1 ? (int)splits : 1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. bias may be null; partial is the split-K workspace
-// (null when splits == 1). Launches on `stream` and returns cudaGetLastError() (0 on
-// success); it does not synchronise and allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16. x is (B, Cin, T_in) with rows `pitch` elements apart
+// (pitch >= T_in; batch rows Cin * pitch apart). bias may be null; partial is the split-K
+// workspace (null when splits == 1). Launches on `stream` and returns cudaGetLastError()
+// (0 on success); it does not synchronise and allocates nothing.
 extern "C" int conv1d_prelu_launch(int dtype, const void* x, const void* w,
                                    const void* bias, const void* slope, void* y,
                                    void* pre, void* partial, int splits, int B, int Cin,
-                                   int T_in, int Cout, int T_out, int K, int stride,
-                                   void* stream) {
+                                   int T_in, int pitch, int Cout, int T_out, int K,
+                                   int stride, void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || K <= 0 || stride <= 0 || T_out <= 0 ||
-      splits <= 0 || (long long)(T_out - 1) * stride + K > T_in)
+      splits <= 0 || pitch < T_in || (long long)(T_out - 1) * stride + K > T_in)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(partial);
   switch (dtype) {
     case 0:
-      return launch<float>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout, T_out,
+      return launch<float>(x, w, bias, slope, y, pre, ws, splits, B, Cin, pitch, Cout, T_out,
                            K, stride, s);
     case 1:
-      return launch<__nv_bfloat16>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in,
+      return launch<__nv_bfloat16>(x, w, bias, slope, y, pre, ws, splits, B, Cin, pitch,
                                    Cout, T_out, K, stride, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The tensor-core route, bfloat16 only: x (B, Cin, T_in), w (Cout, Cin, 32) with the taps
-// past the conv's K zero, stride 4. Needs Cout % 8 == 0 and T_out % 16 == 0; window
-// samples at or past T_in read as 0. warps_m (1, 2 or 4) picks the block tile, 64 warps_m
-// rows x 256 / warps_m channels; splits the split-K slices, cut on whole input channels
-// (the wrapper allocates a float32 workspace of splits * B * Cout * T_out when > 1). bias
-// may be null. Launches on `stream` and returns cudaGetLastError() (0 on success); it
-// does not synchronise and allocates nothing.
+// The tensor-core route, bfloat16 only: x (B, Cin, T_in) with rows `pitch` apart (as
+// conv1d_prelu_launch), w (Cout, Cin, 32) with the taps past the conv's K zero, stride 4.
+// Needs Cout % 8 == 0 and T_out % 16 == 0; window samples at or past T_in read as 0.
+// warps_m (1, 2 or 4) picks the block tile, 64 warps_m rows x 256 / warps_m channels;
+// splits the split-K slices, cut on whole input channels (the wrapper allocates a float32
+// workspace of splits * B * Cout * T_out when > 1). bias may be null. Launches on
+// `stream` and returns cudaGetLastError() (0 on success); it does not synchronise and
+// allocates nothing.
 extern "C" int conv1d_prelu_mma_launch(const void* x, const void* w, const void* bias,
                                        const void* slope, void* y, void* pre,
                                        void* partial, int warps_m, int splits, int B,
-                                       int Cin, int T_in, int Cout, int T_out,
+                                       int Cin, int T_in, int pitch, int Cout, int T_out,
                                        void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % 8 != 0 ||
-      T_out % 16 != 0 || (long long)STRIDE * (T_out - 1) >= T_in)
+      T_out % 16 != 0 || pitch < T_in || (long long)STRIDE * (T_out - 1) >= T_in)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(partial);
   switch (warps_m) {
     case 1:
-      return launch_mma<1>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
+      return launch_mma<1>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
                            T_out, s);
     case 2:
-      return launch_mma<2>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
+      return launch_mma<2>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
                            T_out, s);
     case 4:
-      return launch_mma<4>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, Cout,
+      return launch_mma<4>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
                            T_out, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -651,23 +623,23 @@ extern "C" int conv1d_prelu_tf32_launch(const void* x, const void* w_big,
                                         const void* w_small, const void* bias,
                                         const void* slope, void* y, void* pre,
                                         void* partial, int warps_m, int splits, int B,
-                                        int Cin, int T_in, int Cout, int T_out,
+                                        int Cin, int T_in, int pitch, int Cout, int T_out,
                                         void* stream) {
   if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % 8 != 0 ||
-      T_out % 16 != 0 || (long long)STRIDE * (T_out - 1) >= T_in)
+      T_out % 16 != 0 || pitch < T_in || (long long)STRIDE * (T_out - 1) >= T_in)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(partial);
   switch (warps_m) {
     case 1:
       return launch_tf32<1>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
-                            T_in, Cout, T_out, s);
+                            T_in, pitch, Cout, T_out, s);
     case 2:
       return launch_tf32<2>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
-                            T_in, Cout, T_out, s);
+                            T_in, pitch, Cout, T_out, s);
     case 4:
       return launch_tf32<4>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
-                            T_in, Cout, T_out, s);
+                            T_in, pitch, Cout, T_out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,0 +1,539 @@
+// Fused strided conv1d + bias + PReLU in bf16 on Hopper's warpgroup MMA (sm_90a).
+//
+// Replaces, on the bf16 main path, the TPU kernel `fused_conv1d_prelu` of
+// segan_pytorch_tpu/ops/pallas/conv1d.py (`_pallas_conv_prelu`, `_kernel`), beside the
+// kernels of csrc/conv1d_prelu.cu, which computes the same function:
+//     pre[b, co, t] = bias[co] + sum_{ci, k} w[co, ci, k] * x[b, ci, 4 t + k]
+//     y = max(pre, 0) + slope[co] * min(pre, 0)
+// bf16 in, fp32 sums, y and pre in bf16 (B, Cout, T_out); stride 4, the 31 taps padded to
+// 32 (tap 31 zero); samples at or past T_in read as 0. The wrapper
+// (ops/kernels/conv1d_prelu.py, `_route`) sends a call here by shape and by x's layout.
+//
+// What bounds it on the H100. enc2..enc5 of SEGAN+'s generator each do about 0.54 GFLOP
+// per 16384-sample chunk over a contraction of Cin * 32 = 2048..16384: bound by the tensor
+// cores' operations (989 TFLOP/s), if the operands reach them. conv1d_mma_kernel (the
+// mma.sync route) reached 11-14 % of that at 64 and 300 chunks: it staged x with one
+// 2-byte load per element between two barriers while its MMAs waited, and every warp read
+// its weights from L2 for every input channel.
+//
+// The design (the usual shape of a Hopper GEMM), as an implicit GEMM:
+// M = B * T_out rows (batch and time flattened), N = Cout, depth Cin * 32.
+//   - A block is two consumer warpgroups, each of MT m64 tiles (64 rows) x 128 channels
+//     (MT = 2: a 256 x 128 block tile; MT = 1 for fewer rows), and one producer warp,
+//     whose one thread keeps a ring of STAGES shared-memory stages full: 288 threads and
+//     one block per SM, so that a consumer may hold 224 registers (its 64 MT fp32 sums
+//     and a stage's A fragments) without setmaxnreg.
+//   - A stage holds CC = 4 input channels: their 32 padded taps of the block's 128 output
+//     channels (two TMA boxes of 64 taps x 128 rows, cp.async.bulk.tensor with a 128-byte
+//     swizzle over a 2-D map of w, (Cout, Cin * 32)), and the x window of each m16 group
+//     of rows, WIN = 96 samples of each channel from 4 t0 (one TMA box {96, CC, 1} over a
+//     3-D map of x, (B, Cin, T_in) with rows `pitch` apart). TMA needs 16-byte strides,
+//     hence x in rows whose pitch is a multiple of 8 (G pads into such rows,
+//     ops/conv.py `reflect_pad_pitched`). The map's bound is T_in, so TMA fills samples
+//     at or past T_in, and channels past Cin, with zeros: the last row's zero tap reads
+//     sample T_in when (T_in - 31) % 4 == 0, and 0 x NaN would be NaN.
+//   - full / empty mbarrier pairs: the producer waits for a stage to be empty, announces
+//     its bytes (arrive.expect_tx) and issues its copies; consumers wait for it to be
+//     full, run its MMAs, and each warp releases it.
+//   - Consumers issue wgmma.mma_async m64n128k16 (bf16, fp32 sums in registers): A, x,
+//     from registers, B, w, from the swizzled tile through a descriptor. A is built from
+//     the staged window with the mma.sync kernel's index maps: in step h (0, 1) of a
+//     channel, contraction index 2q + e and 2q + 8 + e (lane quad q, e = 0, 1) takes tap
+//     8q + 4h + e and 8q + 4h + 2 + e, so a row's four A values of a lane are adjacent
+//     samples, one 8-byte shared-memory load (rows g and g + 8 of the warp's m16 group:
+//     two loads per step and m64 tile). B must hold the same taps at the same contraction
+//     index, so the wrapper permutes the padded taps once per weight and version
+//     (`_wgmma_weights`): w_perm[co, ci, 16 h + k] = w_pad[co, ci, tap_h(k)]. A step then
+//     reads 32 contiguous bytes of each weight row, the descriptor's start moved by
+//     32 bytes inside the 128-byte swizzle span.
+//   - A warpgroup loads a whole stage's A fragments, fences, issues the stage's 8 MT
+//     MMAs as one commit group, waits for it and releases the stage: the other
+//     warpgroup's MMAs fill the tensor cores while one loads, and the producer runs
+//     STAGES - 1 stages ahead. (A group per channel with A double-buffered across
+//     channels would overlap the loads, but ptxas serialises MMAs whose register
+//     operands are loaded while earlier ones are in flight: its warning C7513.)
+//   - Epilogue: bias and PReLU in registers; y and pre through shared memory (the ring,
+//     once both consumers are done with it), 16 bytes a lane: T_out % 16 == 0, so an m16
+//     group's 16 time steps of one channel are 32 aligned bytes. Split-K (the deep, short
+//     layers at small batch) writes fp32 partial sums to the wrapper's workspace, and
+//     csrc/splitk_epilogue.cuh adds them in a fixed order.
+// The tensor maps are built by the C entry point on every launch, from the pointers and
+// shapes it is given (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
+// the library needs no -lcuda), and passed as __grid_constant__ parameters: a CUDA graph
+// records them with the launch. tests/test_torch_conv1d_wgmma.py emulates these index
+// maps in float64.
+
+#include <cstdint>
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include "splitk_epilogue.cuh"
+
+namespace {
+
+using conv_epilogue::launch_splitk_epilogue;
+
+constexpr int STRIDE = 4;       // the conv's stride
+constexpr int KP = 32;          // taps, padded by the wrapper
+constexpr int BN = 128;         // output channels per block: the MMA's N
+constexpr int CC = 4;           // input channels per ring stage
+constexpr int STAGES = 4;       // ring stages
+constexpr int WIN = 96;         // staged samples per m16 group and channel (92 read)
+constexpr int W_BOX = 64;       // taps per weight box: 128 bytes, the swizzle's span
+constexpr int W_BOX_BYTES = W_BOX * 2 * BN;          // 16 KB
+constexpr int W_STAGE_BYTES = CC * KP / W_BOX * W_BOX_BYTES;
+constexpr int X_GROUP_BYTES = CC * WIN * 2;          // one m16 group's windows of a stage
+constexpr int CONSUMERS = 2;    // warpgroups that issue MMAs
+constexpr int THREADS = 128 * CONSUMERS + 32;  // and one producer warp
+constexpr int OUT_LD = 16 + 8;  // a channel's 16 rows in the epilogue tile, padded
+static_assert(WIN >= STRIDE * 15 + KP && WIN % 8 == 0, "a group's window, 16-byte rows");
+static_assert(X_GROUP_BYTES % 128 == 0, "TMA destinations 128-byte aligned");
+static_assert(CC * KP % W_BOX == 0, "whole weight boxes per stage");
+
+template <int MT>
+struct Plan {
+  static constexpr int GROUPS = CONSUMERS * MT * 4;  // m16 groups per block
+  static constexpr int TILE_M = GROUPS * 16;
+  static constexpr int STAGE_BYTES = W_STAGE_BYTES + GROUPS * X_GROUP_BYTES;
+  // ring, 2 STAGES barriers, (b, 4 t0) of each group; 1 KB of slack to align the ring
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 + GROUPS * 8;
+  static_assert(STAGE_BYTES % 1024 == 0, "each stage's weight boxes 1024-byte aligned");
+  static_assert(8 * 32 * OUT_LD * 2 <= STAGES * STAGE_BYTES, "epilogue tiles in the ring");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ull;  // 20 s
+constexpr int MAX_DEVICES = 64;
+
+// Waits until the phase of parity `parity` of the barrier has completed. A wait past
+// WAIT_LIMIT_NS traps: a pipeline fault then fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  unsigned long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    unsigned long long now;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+    if (start == 0)
+      start = now;
+    else if (now - start > WAIT_LIMIT_NS)
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// A wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of 128 bytes,
+// groups of 8 rows 1024 bytes apart; `addr` may move by 32-byte steps inside a row.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across the
+// asynchronous MMAs.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, fp32, the m64nNk16 accumulator layout) += a (64 x 16, bf16, registers:
+// each warp 16 rows in mma.sync's m16n8k16 A layout) * B (16 x 128, bf16, K-major in
+// shared memory, `desc`).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ float prelu(float p, float a) {
+  return fmaxf(p, 0.f) + a * fminf(p, 0.f);
+}
+
+// x_map: x (B, Cin, T_in), rows `pitch` apart, boxes {WIN, CC, 1}; w_map: the permuted
+// weights (Cout, Cin * 32), boxes {W_BOX, BN}, 128-byte swizzle. `slice` input channels
+// (a multiple of CC) per split-K slice (blockIdx.z); partial, when not null, takes fp32
+// partial sums. y and pre must be 16-byte aligned; Cout % BN == 0, T_out % 16 == 0.
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1)
+conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    const __nv_bfloat16* __restrict__ bias,
+                    const __nv_bfloat16* __restrict__ slope, __nv_bfloat16* __restrict__ y,
+                    __nv_bfloat16* __restrict__ pre, float* __restrict__ partial, int B,
+                    int Cin, int Cout, int T_out, int slice) {
+  using P = Plan<MT>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  uint8_t* const ring_ptr = smem_raw + (ring - raw);
+  const uint32_t full = ring + STAGES * P::STAGE_BYTES;  // full[s] at full + 8 s
+  const uint32_t empty = full + STAGES * 8;              // empty[s] at empty + 8 s
+  int2* const coord = reinterpret_cast<int2*>(ring_ptr + STAGES * P::STAGE_BYTES +
+                                              2 * STAGES * 8);
+
+  const int M = B * T_out;  // the entry point checks that it fits
+  const int m0 = blockIdx.x * P::TILE_M;
+  const int n0 = blockIdx.y * BN;
+  const int c_begin = blockIdx.z * slice;
+  const int c_end = min(Cin, c_begin + slice);
+  const int iters = (c_end - c_begin + CC - 1) / CC;
+  const int live_groups = min(P::GROUPS, (M - m0) / 16);  // M % 16 == 0
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);                   // the producer's expect_tx
+      mbar_init(empty + 8 * s, CONSUMERS * 4);      // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < P::GROUPS) {  // group q's window: batch row b, first sample 4 t0
+    const int r = m0 + 16 * threadIdx.x;
+    const int b = r / T_out;
+    coord[threadIdx.x] = make_int2(b, STRIDE * (r - b * T_out));
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == CONSUMERS) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == CONSUMERS * 128) {
+      const uint32_t bytes = W_STAGE_BYTES + live_groups * X_GROUP_BYTES;
+      for (int k = 0; k < iters; ++k) {
+        const int s = k % STAGES;
+        mbar_wait(empty + 8 * s, ((k / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, bytes);
+        const int c0 = c_begin + k * CC;
+        const uint32_t st = ring + s * P::STAGE_BYTES;
+#pragma unroll
+        for (int h = 0; h < W_STAGE_BYTES / W_BOX_BYTES; ++h)
+          tma_load_2d(st + h * W_BOX_BYTES, &w_map, c0 * KP + h * W_BOX, n0, full + 8 * s);
+        for (int q = 0; q < live_groups; ++q) {
+          const int2 bt = coord[q];
+          tma_load_3d(st + W_STAGE_BYTES + q * X_GROUP_BYTES, &x_map, bt.y, c0, bt.x,
+                      full + 8 * s);
+        }
+      }
+    }
+  } else {  // a consumer warpgroup: rows 64 (MT wg + i) + 16 warp + 0..15 of the tile
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int q_first = wg * MT * 4;  // this warpgroup's first m16 group
+    const int mt_live = min(MT, max(0, (live_groups - q_first + 3) / 4));
+    float acc[MT][64];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
+
+    if (mt_live == 0) {  // no live row: release each stage as it fills
+      for (int k = 0; k < iters; ++k) {
+        mbar_wait(full + 8 * (k % STAGES), (k / STAGES) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * (k % STAGES));
+      }
+    } else {
+      // A stage's A fragments first (32 MT registers a lane), then its 8 MT MMAs as one
+      // commit group, waited for before the stage is released. Every m64 tile issues its
+      // MMAs (a warpgroup-uniform condition per tile would serialise them); rows past M
+      // are not stored.
+      for (int k = 0; k < iters; ++k) {
+        const int s = k % STAGES;
+        mbar_wait(full + 8 * s, (k / STAGES) & 1);
+        const uint8_t* xs = ring_ptr + s * P::STAGE_BYTES + W_STAGE_BYTES;
+        const uint32_t ws = ring + s * P::STAGE_BYTES;
+        uint32_t af[CC][2][MT][4];
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              // row g of group q at step h: samples 4 g + 8 t + 4 h + 0..3; row g + 8
+              // 32 samples on
+              const __nv_bfloat16* p =
+                  reinterpret_cast<const __nv_bfloat16*>(
+                      xs + (q_first + 4 * i + warp) * X_GROUP_BYTES) +
+                  c * WIN + 4 * g + 8 * t + 4 * h;
+              const uint2 r0 = *reinterpret_cast<const uint2*>(p);
+              const uint2 r8 = *reinterpret_cast<const uint2*>(p + STRIDE * 8);
+              af[c][h][i][0] = r0.x;
+              af[c][h][i][1] = r8.x;
+              af[c][h][i][2] = r0.y;
+              af[c][h][i][3] = r8.y;
+            }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < CC; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            // channel c's taps: box c / 2, bytes 64 (c % 2) + 32 h of each weight row
+            const uint64_t desc = desc_sw128(ws + (c * KP / W_BOX) * W_BOX_BYTES +
+                                             (c * KP % W_BOX) * 2 + 32 * h);
+#pragma unroll
+            for (int i = 0; i < MT; ++i) wgmma_m64n128k16(acc[i], af[c][h][i], desc);
+          }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+    }
+
+    // The accumulator of m64 tile i: warp w, lane (g, t) holds rows 16 w + g (+ 8 for
+    // e >= 2) and channels 8 j + 2 t + (e & 1) in acc[i][4 j + e], j = 0..15.
+    if (partial != nullptr) {  // split-K: fp32 partial sums; the epilogue kernel finishes
+      float* const part = partial + (long long)blockIdx.z * M * Cout;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const int q = q_first + 4 * i + warp;
+        if (q >= live_groups) continue;
+        const int2 bt = coord[q];
+        const long long base = (long long)bt.x * Cout * T_out + bt.y / STRIDE;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            part[base + (long long)(n0 + 8 * j + 2 * t + (e & 1)) * T_out + g + 8 * (e >> 1)] =
+                acc[i][4 * j + e];
+      }
+      return;
+    }
+    // y and pre through shared memory: once both consumers are done with the ring, each
+    // warp puts one m16 group's 128 channels x 16 rows there, then writes 16 bytes a lane
+    asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+    __nv_bfloat16* const tile =
+        reinterpret_cast<__nv_bfloat16*>(ring_ptr) + (threadIdx.x / 32) * BN * OUT_LD;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int q = q_first + 4 * i + warp;
+      if (q >= live_groups) continue;
+      const int2 bt = coord[q];
+      const long long base = (long long)bt.x * Cout * T_out + bt.y / STRIDE;
+#pragma unroll
+      for (int pass = 0; pass < 2; ++pass) {  // pre, then y
+        __nv_bfloat16* const out = pass == 0 ? pre : y;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int cl = 8 * j + 2 * t + (e & 1);
+            const float p =
+                acc[i][4 * j + e] + (bias != nullptr ? __bfloat162float(bias[n0 + cl]) : 0.f);
+            tile[cl * OUT_LD + g + 8 * (e >> 1)] =
+                __float2bfloat16(pass == 0 ? p : prelu(p, __bfloat162float(slope[n0 + cl])));
+          }
+        __syncwarp();
+        // 128 channels x 2 halves of 8 rows: lane l of step u takes unit 32 u + l
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int unit = 32 * u + lane;
+          const int cl = unit >> 1;
+          const int half = unit & 1;
+          *reinterpret_cast<uint4*>(out + base + (long long)(n0 + cl) * T_out + 8 * half) =
+              *reinterpret_cast<const uint4*>(tile + cl * OUT_LD + 8 * half);
+        }
+        __syncwarp();  // the tile is read before the next pass writes it
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime has loaded (null if it has none).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <int MT>
+int launch_wgmma(const void* x, const void* w, const void* bias, const void* slope, void* y,
+                 void* pre, float* partial, int splits, int B, int Cin, int T_in, int pitch,
+                 int Cout, int T_out, cudaStream_t stream) {
+  using P = Plan<MT>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorInitializationError;
+  // input channels per split, whole ring stages, no empty slice
+  const int slice = ((Cin + splits - 1) / splits + CC - 1) / CC * CC;
+  splits = (Cin + slice - 1) / slice;
+  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)T_in, (cuuint64_t)Cin, (cuuint64_t)B};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)Cin * pitch * 2};
+  const cuuint32_t x_box[3] = {WIN, CC, 1};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)Cin * KP, (cuuint64_t)Cout};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)Cin * KP * 2};
+  const cuuint32_t w_box[2] = {W_BOX, BN};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  if (encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), x_dims,
+             x_strides, x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), w_dims,
+             w_strides, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+
+  // the shared-memory size, once per device (the attribute belongs to the device's
+  // context): a first launch under CUDA graph capture is then no different from another
+  static bool sized[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!sized[device]) {
+    err = cudaFuncSetAttribute(conv1d_wgmma_kernel<MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized[device] = true;
+  }
+  const long long M = (long long)B * T_out;
+  const dim3 grid((unsigned)((M + P::TILE_M - 1) / P::TILE_M), (unsigned)(Cout / BN),
+                  (unsigned)splits);
+  conv1d_wgmma_kernel<MT><<<grid, THREADS, P::SMEM, stream>>>(
+      x_map, w_map, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<const __nv_bfloat16*>(slope), static_cast<__nv_bfloat16*>(y),
+      static_cast<__nv_bfloat16*>(pre), splits > 1 ? partial : nullptr, B, Cin, Cout, T_out,
+      slice);
+  if (splits > 1)
+    launch_splitk_epilogue<__nv_bfloat16>(partial, bias, slope, y, pre, M * Cout, Cout,
+                                          T_out, splits, stream);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The wgmma route, bfloat16 only: x (B, Cin, T_in) with rows `pitch` elements apart
+// (batch rows Cin * pitch apart; pitch % 8 == 0 and x 16-byte aligned, as TMA needs),
+// w the padded weights with their taps permuted for the MMA fragments (the wrapper's
+// `_wgmma_weights`), (Cout, Cin, 32), 16-byte aligned; stride 4. Needs Cout % 128 == 0,
+// T_out % 16 == 0 and B * T_out < 2^31; window samples at or past T_in read as 0.
+// m_tiles (1 or 2) picks the block tile, 128 m_tiles rows x 128 channels; splits the
+// split-K slices, cut on whole ring stages of 4 input channels (the wrapper allocates a
+// float32 workspace of splits * B * Cout * T_out when > 1). bias may be null. Launches
+// on `stream` and returns cudaGetLastError() (0 on success), or the error of building
+// the tensor maps; it does not synchronise and allocates nothing.
+extern "C" int conv1d_prelu_wgmma_launch(const void* x, const void* w, const void* bias,
+                                         const void* slope, void* y, void* pre,
+                                         void* partial, int m_tiles, int splits, int B,
+                                         int Cin, int T_in, int pitch, int Cout, int T_out,
+                                         void* stream) {
+  if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % BN != 0 ||
+      T_out % 16 != 0 || pitch < T_in || pitch % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+      (long long)B * T_out >= (1LL << 31) || (long long)STRIDE * (T_out - 1) >= T_in)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ws = static_cast<float*>(partial);
+  switch (m_tiles) {
+    case 1:
+      return launch_wgmma<1>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
+                             T_out, s);
+    case 2:
+      return launch_wgmma<2>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
+                             T_out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -352,12 +352,12 @@ class GConv1DBlock(nn.Module):
     def forward(self, x, ret_linear: bool = False, mask: Optional[torch.Tensor] = None):
         kw = self.kwidth
         pad = (kw // 2 - 1, kw // 2) if self.stride > 1 else (kw // 2, kw // 2)
-        x_p = conv_ops.reflect_pad_1d(x, *pad)
-        if self.norm is None:
+        if self.norm is None:  # the kernel reads x in 16-byte aligned rows
+            x_p = conv_ops.reflect_pad_pitched(x, *pad)
             h, a = conv1d_prelu(x_p, self.conv.get_weight(), self.conv.bias,
                                 self.act.weight, self.stride)
         else:
-            a = self.norm(self.conv(x_p), mask)
+            a = self.norm(self.conv(conv_ops.reflect_pad_1d(x, *pad)), mask)
             h = self.act(a)
         return (h, a) if ret_linear else h
 

@@ -214,7 +214,10 @@ class SEGAN:
         if self.compute_dtype == torch.float32:
             return self.G
         if self._G_compute is None:
-            with _G_COPY_LOCK:
+            # made with inference mode off whoever calls (infer_G does under it): the
+            # kernel caches its padded and permuted weights by weight and version, and an
+            # inference tensor has no version, so each call would make them anew
+            with _G_COPY_LOCK, torch.inference_mode(False):
                 if self._G_compute is None:
                     g = copy.deepcopy(self.G)
                     for p in g.parameters():

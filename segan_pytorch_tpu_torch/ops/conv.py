@@ -22,17 +22,10 @@ import torch
 import torch.nn.functional as F
 
 
-def reflect_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
-    """Reflect-pad the time axis of a (B, C, T) tensor, as ``jnp.pad(mode='reflect')``
-    pads the JAX package's: torch's F.pad where it can (each pad shorter than T); a pad of
-    T or more (G's deep layers on a short window: a stream of 2048 samples reaches enc5
-    with T = 8 and pads it by 14 and 15) reflects again and again, a triangle wave of
-    period 2 (T - 1) over the indices, which F.pad refuses."""
-    if pad_left == 0 and pad_right == 0:
-        return x
+def _reflected(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
+    """x reflected by index: a triangle wave of period 2 (T - 1) over the indices, which
+    reflects again and again where a pad is T or more."""
     T = x.shape[-1]
-    if max(pad_left, pad_right) < T:
-        return F.pad(x, (pad_left, pad_right), mode="reflect")
     idx = torch.arange(-pad_left, T + pad_right, device=x.device)
     period = 2 * (T - 1)
     if period:
@@ -41,6 +34,40 @@ def reflect_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tens
     else:
         idx = torch.zeros_like(idx)
     return x.index_select(-1, idx)
+
+
+def reflect_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
+    """Reflect-pad the time axis of a (B, C, T) tensor, as ``jnp.pad(mode='reflect')``
+    pads the JAX package's: torch's F.pad where it can (each pad shorter than T); a pad of
+    T or more (G's deep layers on a short window: a stream of 2048 samples reaches enc5
+    with T = 8 and pads it by 14 and 15) reflects again and again, a triangle wave of
+    period 2 (T - 1) over the indices, which F.pad refuses."""
+    if pad_left == 0 and pad_right == 0:
+        return x
+    if max(pad_left, pad_right) < x.shape[-1]:
+        return F.pad(x, (pad_left, pad_right), mode="reflect")
+    return _reflected(x, pad_left, pad_right)
+
+
+PITCH = 8  # elements: rows of bf16 samples that start on 16-byte boundaries
+
+
+def reflect_pad_pitched(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
+    """``reflect_pad_1d(x, pad_left, pad_right)`` as a view [..., :T_in] of a buffer whose
+    rows are T_in rounded up to a multiple of PITCH samples, strides (C pitch, pitch, 1):
+    the layout in which TMA reads x (the per-layer kernel's wgmma route,
+    ``ops/kernels/conv1d_prelu.py``). G's padded rows have an odd T_in = 4 T_out + 29, so
+    no contiguous row after the first starts on a 16-byte boundary. The buffer is padded
+    once, further to the right (the same reflection, whose tail no one reads), so it
+    costs the one pad kernel that ``reflect_pad_1d`` runs; every op that reads the view
+    (the plain version, the backward) sees ``reflect_pad_1d``'s values."""
+    t_in = x.shape[-1] + pad_left + pad_right
+    right = pad_right + -t_in % PITCH
+    if max(pad_left, right) < x.shape[-1]:
+        padded = F.pad(x, (pad_left, right), mode="reflect")
+    else:
+        padded = _reflected(x, pad_left, right)
+    return padded[..., :t_in]
 
 
 def zero_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:

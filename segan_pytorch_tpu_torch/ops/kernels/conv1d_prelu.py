@@ -6,17 +6,24 @@ Three pieces, as for every kernel of the port:
 - ``conv1d_prelu_plain``: the same function in plain PyTorch. CPU tensors take it, and
   the tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
-  a CUDA tensor it launches the hand-written kernel (``csrc/conv1d_prelu.cu``) or raises.
-  ``launches`` counts the wrapper's calls that launch the kernel, ``launches_mma`` those
-  of them that took the tensor-core route (both dtypes), ``launches_tf32`` those of them
-  in fp32. A call under CUDA graph capture records the launch into the graph and counts
-  once; the graph's replays run the kernel again and move no counter.
-- Two routes on the card, chosen by shape (``_route``), never as a fallback: stride 4,
-  K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) runs on the tensor
-  cores (``mma.sync``: bf16 as it is, fp32 by a 3xTF32 split), with the weights padded
-  to 32 taps (``_pad_taps``) and in fp32 split into their TF32 parts (``_split_tf32``),
-  once per weight and version (``_padded_weights``; never while a CUDA graph is being
-  captured, which records the pad instead); every other shape runs the FMA kernel.
+  a CUDA tensor it launches a hand-written kernel (``csrc/conv1d_prelu.cu``,
+  ``csrc/conv1d_wgmma.cu``) or raises. ``launches`` counts the wrapper's calls that
+  launch a kernel, ``launches_mma`` those of them on the tensor cores (both dtypes, both
+  instructions), ``launches_tf32`` those of them in fp32 and ``launches_wgmma`` those on
+  ``wgmma`` (bf16). A call under CUDA graph capture records the launch into the graph and
+  counts once; the graph's replays run the kernel again and move no counter.
+- Three routes on the card, chosen by shape and x's layout before launch (``_route``),
+  never as a fallback: "wgmma" (bf16, ``conv1d_wgmma_kernel``: TMA and ``wgmma``),
+  "mma" (``mma.sync``: bf16 as it is, fp32 by a 3xTF32 split) and "fma" (FMAs). The
+  tensor-core routes take the weights padded to 32 taps (``_pad_taps``), in fp32 split
+  into their TF32 parts (``_split_tf32``), on the wgmma route with the taps permuted to
+  the MMA fragments' order (``_wgmma_weights``), each made once per weight and version
+  (``_padded_weights``, ``_permuted_weights``; never while a CUDA graph is being
+  captured, which records the pad instead).
+- x may be a view whose rows lie ``pitch`` elements apart (``x.stride()`` == (Cin pitch,
+  pitch, 1)): G's blocks pad into rows whose pitch is a multiple of 8
+  (``ops/conv.py`` ``reflect_pad_pitched``), the layout TMA reads. Every kernel takes the
+  pitch; nothing copies x.
 - ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
   JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
 
@@ -39,10 +46,12 @@ from ..conv import at_least_fp32, conv1d, conv1d_weight, conv_transpose1d
 from . import build
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
-# all of them, those of the tensor-core route, and of those the fp32 (3xTF32) ones
+# all of them, those on the tensor cores, of those the fp32 (3xTF32) ones and the bf16
+# ones on wgmma
 launches = 0
 launches_mma = 0
 launches_tf32 = 0
+launches_wgmma = 0
 # the counters and the weight cache are shared by every thread that runs G (the server's
 # two batchers do)
 _lock = threading.Lock()
@@ -50,9 +59,24 @@ _lock = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KP = 32  # taps of the tensor-core kernels' weights: K and zero taps
 MMA_MIN_SLICE = 4  # input channels per split-K slice of the MMA route, at least
-# the MMA route's padded weights, by the weight tensor they were made from:
-# weight -> (its version when padded, padded copy)
+# conv1d_wgmma_kernel's constants (csrc/conv1d_wgmma.cu): output channels per block,
+# input channels per ring stage, rows per m64 tile and consumer warpgroups
+WGMMA_BN, WGMMA_CC, WGMMA_ROWS = 128, 4, 64
+WGMMA_MAX_SPLITS = 16
+# _wgmma_plan's cost model, ms = waves (WAVE_MS + CHANNEL_MS m_tiles slice)
+# + (splits > 1) (SPLIT_MS + PARTIAL_MS splits B T_out Cout): (WAVE_MS, CHANNEL_MS,
+# SPLIT_MS, PARTIAL_MS), fitted to the kernel's device times at every plan
+WGMMA_COST = (4.26e-3, 1.91e-4, 2.16e-2, 1.28e-9)
+# the route rule's thresholds, from same-call timings on the card (``_route``): the
+# wgmma route from B T_out rows or B T_out Cout Cin multiply-adds per tap, enc1's
+# mma.sync route from B T_out rows
+WGMMA_MIN_ROWS = 1 << 10
+WGMMA_MIN_WORK = 1 << 28
+ENC1_MMA_MIN_ROWS = {torch.bfloat16: 1 << 17, torch.float32: 1 << 18}
+# the tensor-core routes' weights, by the weight tensor they were made from:
+# weight -> (its version when made, copy): padded (and in fp32 split), and permuted
 _padded = WeakIdKeyDictionary()
+_permuted = WeakIdKeyDictionary()
 
 
 def _pad_taps(w: torch.Tensor) -> torch.Tensor:
@@ -85,6 +109,37 @@ def _mma_weights(w: torch.Tensor):
     return _split_tf32(wp) if w.dtype == torch.float32 else wp
 
 
+def _wgmma_weights(w: torch.Tensor) -> torch.Tensor:
+    """The wgmma route's weights: (Cout, Cin, 32), padded and with the taps in the order
+    the MMA fragments take them, so that each 16-deep step h reads 32 contiguous bytes of
+    a weight row: at contraction index k = 2q + e and 2q + 8 + e (lane quad q, e = 0, 1)
+    step h takes the taps 8q + 4h + e and 8q + 4h + 2 + e, as the mma.sync route's A
+    fragments do. Tap 8 q + 4 h + 2 kk + e goes to column 16 h + 8 kk + 2 q + e: a
+    permutation of the padded taps' (q, h, kk, e) digits, one copy on the device."""
+    cout, cin = w.shape[:2]
+    return (_pad_taps(w.detach()).view(cout, cin, 4, 2, 2, 2).permute(0, 1, 3, 4, 2, 5)
+            .reshape(cout, cin, KP))
+
+
+def _cached(cache, w: torch.Tensor, make):
+    """make(w), kept in `cache` while w lives and its version stays, as
+    ``_padded_weights`` says."""
+    # inference tensors keep no version counter
+    if torch.is_inference(w) or _capturing():
+        return make(w)
+    with _lock:
+        hit = cache.get(w)
+        if hit is None or hit[0] != w._version:
+            hit = cache[w] = (w._version, make(w))
+    return hit[1]
+
+
+def _permuted_weights(w: torch.Tensor) -> torch.Tensor:
+    """``_wgmma_weights(w)``, made once per weight and version, under the rules of
+    ``_padded_weights`` (spectral norm's w / sigma is new every forward and misses)."""
+    return _cached(_permuted, w, _wgmma_weights)
+
+
 def _padded_weights(w: torch.Tensor):
     """``_mma_weights(w)``, made once while w lives and is not changed in place, so that
     a model's forward pads no weight on every call (at a batch of one chunk the host time
@@ -95,30 +150,61 @@ def _padded_weights(w: torch.Tensor):
     wrote (``models/multistep.py``). While a stream is capturing, the pad (and split) is
     recorded into the graph and the cache is neither read nor written: an entry taken
     then would feed every replay the weights of capture time."""
-    # inference tensors keep no version counter
-    if torch.is_inference(w) or _capturing():
-        return _mma_weights(w)
-    with _lock:
-        hit = _padded.get(w)
-        if hit is None or hit[0] != w._version:
-            hit = _padded[w] = (w._version, _mma_weights(w))
-    return hit[1]
+    return _cached(_padded, w, _mma_weights)
 
 
 def _capturing() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
-def _route(dtype: torch.dtype, cout: int, k: int, stride: int, t_out: int) -> str:
-    """Which kernel a CUDA call takes: "mma" (tensor cores; fp32 by 3xTF32) for bf16 or
-    fp32 with stride 4, K <= 32, whole n8 tiles of channels and whole m16 tiles of time
-    steps, so that an m16 tile never spans two batch rows; "fma" for every other shape."""
-    if (dtype in _DTYPE_CODES and stride == 4 and k <= KP and cout % 8 == 0
-            and t_out % 16 == 0):
-        return "mma"
-    return "fma"
+def _tensor_core_shape(dtype: torch.dtype, cout: int, k: int, stride: int,
+                       t_out: int) -> bool:
+    """Whether the tensor-core kernels take the shape: bf16 or fp32 with stride 4, K <= 32,
+    whole n8 tiles of channels and whole m16 tiles of time steps, so that an m16 tile
+    never spans two batch rows."""
+    return (dtype in _DTYPE_CODES and stride == 4 and k <= KP and cout % 8 == 0
+            and t_out % 16 == 0)
 
 
+def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
+           t_out: int, pitched: bool = False) -> str:
+    """Which kernel a CUDA call takes, by shape and x's layout, decided before launch:
+
+    - "fma" (``conv1d_prelu_kernel``) for every shape the tensor cores do not take
+      (``_tensor_core_shape``), and for enc1 (Cin = 1, bound by bytes: it writes y and
+      pre) below ENC1_MMA_MIN_ROWS[dtype] rows (B T_out);
+    - "wgmma" (``conv1d_wgmma_kernel``) in bf16 when x's rows are ``pitched`` (pitch a
+      multiple of 8 and x 16-byte aligned, as TMA reads them), Cin > 1, Cout a multiple
+      of 128, and B T_out at least WGMMA_MIN_ROWS or the work, B T_out Cout Cin, at
+      least WGMMA_MIN_WORK;
+    - "mma" (``mma.sync``; fp32 by 3xTF32) for the rest. A bf16 x in odd rows (a
+      contiguous G pad, T_in = 4 T_out + 29) takes it whatever its shape.
+
+    The figures it rests on: a call's cost with calls back to back, as in a G forward
+    (the longer of the wrapper's host time and the device's; tools/conv1d_routes.py, 10
+    calls per timing, measured on one NVIDIA H100 80GB HBM3 at 700 W). At G's
+    encoder shapes wgmma took 0.26-0.43x of mma.sync's time at 64-300 chunks and
+    0.30-0.74x at 32 (2^28 of work at every layer); below that, 0.46-0.93x where a layer
+    has 1024 rows or more (enc2 from one chunk, enc3 from 4, enc4 from 16) but for enc3
+    at 8 chunks (1.02x), while mma.sync was as fast or faster at the layers with fewer
+    rows (enc4 and enc5 at 1-8 chunks, enc5 at 16: 0.0377-0.0659 ms against
+    0.0399-0.0689) but enc3 at one chunk, within the spread (0.0937 against 0.0859,
+    interquartile ranges 0.03). At enc1 the FMA kernel beat mma.sync up to 16 chunks in
+    bf16 (0.0418 against 0.0545 at 16) and lost from 32 (0.0593 against 0.0527); in fp32
+    it won up to 32 (0.0600 against 0.0723) and lost from 64 (0.1105 against 0.1047).
+    """
+    if not _tensor_core_shape(dtype, cout, k, stride, t_out):
+        return "fma"
+    rows = B * t_out
+    if cin == 1:
+        return "mma" if rows >= ENC1_MMA_MIN_ROWS[dtype] else "fma"
+    if (dtype == torch.bfloat16 and pitched and cout % WGMMA_BN == 0
+            and (rows >= WGMMA_MIN_ROWS or rows * cout * cin >= WGMMA_MIN_WORK)):
+        return "wgmma"
+    return "mma"
+
+
+@functools.lru_cache(maxsize=None)
 def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int]:
     """(warps_m, splits) of the MMA route, both dtypes. The block tile is warps_m x
     (8 / warps_m) warps of 64 rows x 32 channels: 4 x 2 for Cout <= 64 (enc1), 2 x 4 for
@@ -126,6 +212,33 @@ def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[in
     least x per MMA."""
     warps_m = 4 if cout <= 64 else (2 if cout <= 128 and B * t_out > 64 else 1)
     return warps_m, _mma_splits(B, cin, cout, t_out, num_sms, warps_m)
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of the shape, on every call's path
+def _wgmma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int]:
+    """(m_tiles, splits) of the wgmma route: the block tile (128 m_tiles rows x 128
+    channels, one block per SM) and the split-K slices (whole ring stages of WGMMA_CC
+    channels, none empty), the plan of least cost under WGMMA_COST's model: the waves of
+    blocks on `num_sms` SMs, each as long as its slice of channels at its rows, and a
+    split-K epilogue that reads back splits x B x T_out x Cout fp32 partial sums. The
+    model picks plans whose summed device times are within 1.2 % of the fastest ones',
+    over all 2 x 16 plans at the encoder's shapes of 1-300 chunks (tools/conv1d_routes.py
+    --plans, measured on one NVIDIA H100 80GB HBM3 at 700 W)."""
+    wave_ms, channel_ms, split_ms, partial_ms = WGMMA_COST
+    rows, n_tiles = B * t_out, cout // WGMMA_BN
+    best = None
+    for m_tiles in (1, 2):
+        for splits in range(1, WGMMA_MAX_SPLITS + 1):
+            per = -(-(-(-cin // splits)) // WGMMA_CC) * WGMMA_CC  # channels per slice
+            if -(-cin // per) != splits:  # the kernel would cut fewer slices
+                continue
+            blocks = -(-rows // (2 * WGMMA_ROWS * m_tiles)) * n_tiles * splits
+            cost = -(-blocks // num_sms) * (wave_ms + channel_ms * m_tiles * per)
+            if splits > 1:
+                cost += split_ms + partial_ms * splits * rows * cout
+            if best is None or cost < best[0]:
+                best = (cost, m_tiles, splits)
+    return best[1], best[2]
 
 
 def _mma_splits(B: int, cin: int, cout: int, t_out: int, num_sms: int,
@@ -182,19 +295,28 @@ def _check(x, w, b, a, stride) -> int:
 def _entries():
     lib = build.load_library("conv1d_prelu")
     launch = lib.conv1d_prelu_launch
-    launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
     launch.restype = ctypes.c_int
     splits = lib.conv1d_prelu_splits
     splits.argtypes = [ctypes.c_int] * 6
     splits.restype = ctypes.c_int
     launch_mma = lib.conv1d_prelu_mma_launch
-    launch_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     launch_mma.restype = ctypes.c_int
     launch_tf32 = lib.conv1d_prelu_tf32_launch
-    launch_tf32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch_tf32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     launch_tf32.restype = ctypes.c_int
     return launch, splits, launch_mma, launch_tf32
+
+
+@functools.cache
+def _wgmma_entry():
+    """conv1d_prelu_wgmma_launch of csrc/conv1d_wgmma.cu, a library of its own."""
+    fn = build.load_library("conv1d_wgmma").conv1d_prelu_wgmma_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
@@ -202,22 +324,51 @@ def _sm_count(device_index) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _pitch(x: torch.Tensor) -> int:
+    """The distance, in elements, between x's rows of samples: x (B, Cin, T_in) with unit
+    stride in time, rows ``pitch`` >= T_in apart and batch rows Cin pitch apart (a
+    contiguous x: T_in). Raises for any other layout, which no kernel reads: nothing
+    copies x."""
+    B, cin, t_in = x.shape
+    if x.is_contiguous():
+        return t_in
+    pitch = x.stride(1) if cin > 1 else x.stride(0)
+    if ((x.stride(2) != 1 and t_in > 1) or pitch < t_in
+            or (B > 1 and x.stride(0) != cin * pitch)):
+        raise ValueError(f"the CUDA kernels read x (B, Cin, T_in) in rows of one pitch, "
+                         f"(Cin pitch, pitch, 1); got strides {x.stride()}")
+    return pitch
+
+
 def _launch(x, w, b, a, stride: int, t_out: int,
             out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            force_fma: bool = False):
-    """Launch the kernel on checked CUDA tensors, into ``out`` (y, pre) when it is
-    given, else into new tensors. ``force_fma`` takes the FMA kernel whatever the shape,
-    for same-call comparisons of the two routes."""
-    global launches, launches_mma, launches_tf32
+            force: Optional[str] = None):
+    """Launch a kernel on checked CUDA tensors, into ``out`` (y, pre) when it is given,
+    else into new tensors. ``force`` ("fma", "mma" or "wgmma") takes that route in place
+    of ``_route``'s, for same-call comparisons; it raises where the route does not take
+    the shape or layout."""
+    global launches, launches_mma, launches_tf32, launches_wgmma
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
-    if not all(t.is_contiguous() for t in (x, w, a) + ((b,) if b is not None else ())):
-        raise ValueError("the CUDA kernel needs contiguous x, w, b and a")
+    if not all(t.is_contiguous() for t in (w, a) + ((b,) if b is not None else ())):
+        raise ValueError("the CUDA kernel needs contiguous w, b and a")
     B, cin, t_in = x.shape
     cout, _, k = w.shape
-    if max(B, cin * KP, t_in, cout) >= 2 ** 31:
+    pitch = _pitch(x)
+    if max(B, cin * KP, pitch, cout, B * t_out) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
-    route = "fma" if force_fma else _route(x.dtype, cout, k, stride, t_out)
+    pitched = pitch % 8 == 0 and x.data_ptr() % 16 == 0
+    if force is None:
+        route = _route(x.dtype, B, cin, cout, k, stride, t_out, pitched)
+    elif force == "fma" or (force in ("mma", "wgmma")
+                            and _tensor_core_shape(x.dtype, cout, k, stride, t_out)):
+        route = force
+    else:
+        raise ValueError(f"the {force!r} route does not take this shape")
+    if route == "wgmma" and not (x.dtype == torch.bfloat16 and pitched
+                                 and cout % WGMMA_BN == 0):
+        raise ValueError("the wgmma route takes bf16 x in 16-byte aligned rows whose "
+                         "pitch is a multiple of 8, and Cout a multiple of 128")
     shape = (B, cout, t_out)
     if out is None:
         out = (torch.empty(shape, dtype=x.dtype, device=x.device),
@@ -228,15 +379,21 @@ def _launch(x, w, b, a, stride: int, t_out: int,
                          f"shape {shape}")
     y, pre = out
     tf32 = route == "mma" and x.dtype == torch.float32
-    if route == "mma" and not tf32 and (y.data_ptr() % 16 or pre.data_ptr() % 16):
-        raise ValueError("the bf16 MMA route stores 16-byte units: y and pre must be "
+    if route != "fma" and not tf32 and (y.data_ptr() % 16 or pre.data_ptr() % 16):
+        raise ValueError(f"the bf16 {route} route stores 16-byte units: y and pre must be "
                          "16-byte aligned")
-    launch, splits_of, launch_mma, launch_tf32 = _entries()
-    if route == "mma":
-        warps_m, splits = _mma_plan(B, cin, cout, t_out, _sm_count(x.device.index))
-        w = _padded_weights(w)
+    sms = _sm_count(x.device.index)
+    if route == "wgmma":
+        entry = _wgmma_entry()
+        tiles, splits = _wgmma_plan(B, cin, cout, t_out, sms)
+        w = _permuted_weights(w)
     else:
-        splits = splits_of(B, cin, cout, t_out, k, _sm_count(x.device.index))
+        launch, splits_of, launch_mma, launch_tf32 = _entries()
+        if route == "mma":
+            tiles, splits = _mma_plan(B, cin, cout, t_out, sms)
+            w = _padded_weights(w)
+        else:
+            splits = splits_of(B, cin, cout, t_out, k, sms)
     # split-K workspace: fp32 partial sums, one (B, Cout, T_out) slab per depth slice
     partial = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
@@ -246,21 +403,24 @@ def _launch(x, w, b, a, stride: int, t_out: int,
             partial.data_ptr() if partial is not None else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if tf32:
-            err = launch_tf32(*ptrs, warps_m, splits, B, cin, t_in, cout, t_out, stream)
+        if route == "wgmma":
+            err = entry(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
+        elif tf32:
+            err = launch_tf32(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
         elif route == "mma":
-            err = launch_mma(*ptrs, warps_m, splits, B, cin, t_in, cout, t_out, stream)
+            err = launch_mma(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
         else:
-            err = launch(_DTYPE_CODES[x.dtype], *ptrs, splits, B, cin, t_in, cout, t_out,
-                         k, stride, stream)
+            err = launch(_DTYPE_CODES[x.dtype], *ptrs, splits, B, cin, t_in, pitch, cout,
+                         t_out, k, stride, stream)
     if err != 0:
         raise RuntimeError(f"conv1d_prelu kernel launch failed ({route} route): "
                            f"cudaError {err}")
     with _lock:
         launches += 1
-        if route == "mma":
+        if route != "fma":
             launches_mma += 1
             launches_tf32 += tf32
+            launches_wgmma += route == "wgmma"
     return y, pre
 
 

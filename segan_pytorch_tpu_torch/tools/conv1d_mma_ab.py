@@ -72,17 +72,17 @@ _STAGE_FIXED = """    for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {
       const int q = p / WG;
       const int j = p - q * WG;
       const bool inside = j < q_len[q];
-      const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * T_in + j;
+      const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * pitch + j;
 #pragma unroll 8
       for (int c = 0; c < cc; ++c)
-        smem[c * NQ * WG + p] = inside ? src[(long long)c * T_in] : __float2bfloat16(0.f);
+        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : __float2bfloat16(0.f);
     }
 """
 _STAGE_PER_ELEMENT = """    for (int e = threadIdx.x; e < cc * NQ * WG; e += THREADS) {
       const int c = e / (NQ * WG);
       const int q = (e / WG) % NQ;
       const int j = e % WG;
-      smem[e] = j < q_len[q] ? x[q_in[q] + (long long)(c0 + c) * T_in + j]
+      smem[e] = j < q_len[q] ? x[q_in[q] + (long long)(c0 + c) * pitch + j]
                              : __float2bfloat16(0.f);
     }
 """
@@ -221,10 +221,10 @@ TF32_EDITS = {
     "x split at staging": [
         ("cu", "constexpr int CC = STAGED_TF32 / NQ;", "constexpr int CC = STAGED_TF32 / (2 * NQ);"),
         ("cu", "CC * NQ == STAGED_TF32,", "2 * CC * NQ == STAGED_TF32,"),
-        ("cu", """        smem[c * NQ * WG + p] = inside ? src[(long long)c * T_in] : 0.f;
+        ("cu", """        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : 0.f;
 """, """      {
         uint32_t big, small;
-        mma_conv::split_tf32(inside ? src[(long long)c * T_in] : 0.f, big, small);
+        mma_conv::split_tf32(inside ? src[(long long)c * pitch] : 0.f, big, small);
         smem[2 * c * NQ * WG + p] = __uint_as_float(big);
         smem[(2 * c + 1) * NQ * WG + p] = __uint_as_float(small);
       }
@@ -346,10 +346,10 @@ def _build(dtype: str, name: str, src: str, header: Optional[str] = None):
         raise RuntimeError(f"nvcc failed on variant {name!r}:\n{proc.stderr}")
     if dtype == "float32":
         fn = ctypes.CDLL(str(lib)).conv1d_prelu_tf32_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     else:
         fn = ctypes.CDLL(str(lib)).conv1d_prelu_mma_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -381,7 +381,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if "float32" in args.dtype:  # the FMA kernel of the fp32 library as is
         fma_lib = ctypes.CDLL(str(_variant_dir("float32", "as is") / "lib.so"))
         fma_lib.conv1d_prelu_launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                                + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                                                + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fma_lib.conv1d_prelu_splits.argtypes = [ctypes.c_int] * 6
     torch.backends.cudnn.allow_tf32 = False  # cuDNN's fp32 conv as the port runs it
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -420,7 +420,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         ws = (parts[0].data_ptr(), parts[1].data_ptr())
                     err = fn(x.data_ptr(), *ws, None, a.data_ptr(), outs[0].data_ptr(),
                              outs[1].data_ptr(), part.data_ptr() if part is not None else None,
-                             tile[0], tile[1], B, cin, t_in, cout, t_out, stream)
+                             tile[0], tile[1], B, cin, t_in, t_in, cout, t_out, stream)
                     if err != 0:
                         raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -431,7 +431,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     err = lib.conv1d_prelu_launch(
                         0, x.data_ptr(), w.data_ptr(), None, a.data_ptr(), outs[0].data_ptr(),
                         outs[1].data_ptr(), part.data_ptr() if part is not None else None,
-                        fma_splits, B, cin, t_in, cout, t_out, 31, 4, stream)
+                        fma_splits, B, cin, t_in, t_in, cout, t_out, 31, 4, stream)
                     if err != 0:
                         raise RuntimeError(f"launch failed: cudaError {err}")
 

@@ -1,0 +1,240 @@
+"""Same-call timings of the per-layer kernel's routes at the SEGAN+ encoder's shapes: the
+figures its route rule rests on (``ops/kernels/conv1d_prelu.py`` ``_route``,
+``_wgmma_plan``).
+
+    python -m segan_pytorch_tpu_torch.tools.conv1d_routes [--batch 1 6 8 64 128 150 300]
+        [--dtype bfloat16 float32] [--reps 10] [--plans]
+
+At each of the five encoder layers of B 16384-sample chunks, with x padded as G pads it
+(``ops/conv.py`` ``reflect_pad_pitched``), every route that takes the shape ("wgmma" in
+bf16, "mma", "fma") runs forced into NaN-filled outputs and is held against the plain
+version (2e-2 in bf16, 1e-4 in fp32), its launch read from the counters; then the routes,
+the plain version and cuDNN's ``F.conv1d`` (TF32 off) are timed in turns: CUDA events
+around one wrapper call (host time included where the host is the slower) and around 10
+back to back (a call's cost when calls follow each other, as in a G forward: the longer
+of the host's time and the device's), the median and the interquartile range of
+``--reps`` rounds after 2 warm-ups. It prints, per shape, each arm's time, the route the rule picks and the
+fastest one, the bound (useful FLOPs at the dense peak or bytes at 3.35 TB/s, whichever
+is longer) and the picked route's TFLOP/s; per batch the encoder sums of each route and
+of the rule's picks. ``--plans`` also times the wgmma kernel at other block tiles and
+split-K counts, the plan ``_wgmma_plan`` gives among them, each through the kernel's
+entry point, 10 calls back to back per timing (at these costs the device's time). Needs
+a CUDA device and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.conv import reflect_pad_pitched
+from ..ops.kernels import build
+from ..ops.kernels import conv1d_prelu as K
+
+CHANS = [1, 64, 128, 256, 512, 1024]  # SEGAN+ encoder widths
+T = 16384  # samples per chunk
+KW = 31
+PEAK = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}  # fp32: 3xTF32
+HBM_RATE = 3.35e12
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+ROUTES = ("wgmma", "mma", "fma")
+
+
+def times_in_turns(arms: Dict[str, Callable], reps: int, warmup: int = 2, calls: int = 1
+                   ) -> Dict[str, list]:
+    """Device ms per call of each arm (name -> fn): one turn of each per round, a pair of
+    CUDA events around `calls` calls back to back, synchronised after each turn, after
+    `warmup` rounds. With calls = 1 a time includes the host's time to launch when the
+    host is the slower; with more, it is a call's cost when calls follow each other, the
+    longer of the host's time and the device's."""
+    times: Dict[str, list] = {name: [] for name in arms}
+    for i in range(warmup + reps):
+        for name, fn in arms.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                times[name].append(start.elapsed_time(end) / calls)
+    return times
+
+
+def median_iqr(samples) -> tuple:
+    q = statistics.quantiles(samples, n=4)
+    return statistics.median(samples), q[2] - q[0]
+
+
+def route_of(run: Callable) -> str:
+    """The route one wrapper call took, read from the counters."""
+    before = (K.launches, K.launches_mma, K.launches_wgmma)
+    run()
+    moved = (K.launches - before[0], K.launches_mma - before[1],
+             K.launches_wgmma - before[2])
+    if moved[0] != 1:
+        raise RuntimeError(f"{moved[0]} launches, not 1")
+    return "wgmma" if moved[2] else ("mma" if moved[1] else "fma")
+
+
+def rel_err(got, ref) -> float:
+    ref = ref.float()
+    return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def layer_inputs(B: int, layer: int, dtype, g: torch.Generator, bias: bool = False):
+    """x (padded by G's pitched pad), w, b, a and T_out of encoder layer `layer` (0-4) for
+    B chunks, on the card."""
+    t_out = T // 4 ** (layer + 1)
+    cin, cout = CHANS[layer], CHANS[layer + 1]
+    h = torch.randn((B, cin, 4 * t_out), generator=g).to(dtype).cuda()
+    x = reflect_pad_pitched(h, KW // 2 - 1, KW // 2)
+    w = (torch.randn((cout, cin, KW), generator=g) / (cin * KW) ** 0.5).to(dtype).cuda()
+    b = (torch.randn((cout,), generator=g) * 0.1).to(dtype).cuda() if bias else None
+    a = (torch.rand((cout,), generator=g) * 0.3).to(dtype).cuda()
+    return x, w, b, a, t_out
+
+
+def launch_plan(x, w, b, a, t_out, tiles: int, splits: int, out):
+    """The wgmma kernel at a given block tile (m_tiles) and split-K count."""
+    B, cin, t_in = x.shape
+    cout = w.shape[0]
+    wp = K._permuted_weights(w)
+    part = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
+            if splits > 1 else None)
+    err = K._wgmma_entry()(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
+                           a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                           None if part is None else part.data_ptr(), tiles, splits, B,
+                           cin, t_in, K._pitch(x), cout, t_out,
+                           torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"wgmma plan ({tiles}, {splits}): cudaError {err}")
+    return out
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    """Run the timings; returns {(dtype name, B, layer): {arm: (median ms, iqr ms)}}, with
+    "pick" the rule's route and "sum" rows per batch."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=[1, 6, 8, 64, 128, 150, 300])
+    ap.add_argument("--dtype", nargs="+", choices=("bfloat16", "float32"),
+                    default=["bfloat16", "float32"])
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--plans", action="store_true")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("conv1d_routes needs a CUDA device")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source
+        for name, (path, log) in zip(("conv1d_prelu", "conv1d_wgmma"), pool.map(
+                build.build_library, ("conv1d_prelu", "conv1d_wgmma"))):
+            print(f"build: {name} -> {path}")
+            if log:
+                print(log.strip())
+    torch.backends.cudnn.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"routes of fused_conv1d_prelu on {torch.cuda.get_device_name(0)}, {sms} SMs; "
+          f"ms: median (interquartile range) of {args.reps} rounds in turns", flush=True)
+    g = torch.Generator().manual_seed(0)
+    res = {}
+    regret = [0.0, 0.0]  # summed device ms of the rule's plans and of the fastest ones
+    for dtype_name in args.dtype:
+        dtype = getattr(torch, dtype_name)
+        for B in args.batch:
+            sums: Dict[str, float] = {}
+            for layer in range(5):
+                x, w, b, a, t_out = layer_inputs(B, layer, dtype, g)
+                cin, cout = x.shape[1], w.shape[0]
+                shape = (B, cout, t_out)
+                y_ref, pre_ref = K.conv1d_prelu_plain(x, w, b, a, 4)
+                pick = route_of(lambda: K.fused_conv1d_prelu(x, w, b, a, 4))
+                routes = [r for r in ROUTES if r != "wgmma" or (
+                    dtype == torch.bfloat16 and cin > 1 and cout % K.WGMMA_BN == 0)]
+                errs = {}
+                for r in routes:
+                    out = tuple(torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+                                for _ in range(2))
+                    took = route_of(lambda: K._launch(x, w, b, a, 4, t_out, out=out,
+                                                      force=r))
+                    torch.cuda.synchronize()
+                    assert took == r, (r, took)
+                    errs[r] = max(rel_err(out[0], y_ref), rel_err(out[1], pre_ref))
+                    assert errs[r] <= TOL[dtype], f"B={B} enc{layer + 1} {r}: {errs[r]:.3e}"
+                arms = {r: (lambda r=r: K._launch(x, w, b, a, 4, t_out, force=r))
+                        for r in routes}
+                arms["plain"] = lambda: K.conv1d_prelu_plain(x, w, b, a, 4)
+                arms["cuDNN"] = lambda: F.conv1d(x, w, b, stride=4)
+                plans = {}
+                if args.plans and "wgmma" in routes:
+                    plan = K._wgmma_plan(B, cin, cout, t_out, sms)
+                    out = (torch.empty(shape, dtype=dtype, device="cuda"),
+                           torch.empty(shape, dtype=dtype, device="cuda"))
+                    for tiles in (1, 2):
+                        for splits in sorted({1, 2, 3, 4, 6, 8, 12, 16, plan[1]}):
+                            if splits > 1 and -(-cin // splits) < 4:
+                                continue
+                            for o in out:
+                                o.fill_(float("nan"))
+                            launch_plan(x, w, b, a, t_out, tiles, splits, out)
+                            torch.cuda.synchronize()
+                            e = max(rel_err(out[0], y_ref), rel_err(out[1], pre_ref))
+                            assert e <= TOL[dtype], (B, layer, tiles, splits, e)
+                            plans[tiles, splits] = (
+                                lambda t=tiles, s=splits: launch_plan(x, w, b, a, t_out, t,
+                                                                      s, out))
+                    ptimes = {p: median_iqr(v)[0] for p, v in
+                              times_in_turns(plans, args.reps, calls=10).items()}
+                    best = min(ptimes, key=ptimes.get)
+                    print(f"{dtype_name} B={B} enc{layer + 1} wgmma plans (m_tiles, splits), "
+                          f"device ms: " + ", ".join(f"{p[0]},{p[1]} {v:.4f}"
+                                                    for p, v in ptimes.items())
+                          + f"; rule {plan[0]},{plan[1]} {ptimes[plan]:.4f}, best "
+                          f"{best[0]},{best[1]} {ptimes[best]:.4f}", flush=True)
+                    res[dtype_name, B, layer, "plans"] = ptimes
+                    regret[0] += ptimes[plan]
+                    regret[1] += ptimes[best]
+                stats = {n: median_iqr(v) for n, v in
+                         times_in_turns(arms, args.reps).items()}
+                dev = {n: median_iqr(v) for n, v in
+                       times_in_turns(arms, args.reps, calls=10).items()}
+                stats["pick"] = pick
+                res[dtype_name, B, layer] = stats
+                res[dtype_name, B, layer, "device"] = dev
+                flops = 2.0 * B * t_out * cout * cin * KW
+                nbytes = x.element_size() * (B * cin * x.shape[2] + cout * cin * KW + cout
+                                             + 2 * B * cout * t_out)
+                bound = 1e3 * max(flops / PEAK[dtype], nbytes / HBM_RATE)
+                fastest = min(routes, key=lambda r: dev[r][0])
+                for r in routes:
+                    sums[r] = sums.get(r, 0.0) + stats[r][0]
+                    sums[f"{r} device"] = sums.get(f"{r} device", 0.0) + dev[r][0]
+                for col in ("plain", "cuDNN"):
+                    sums[col] = sums.get(col, 0.0) + stats[col][0]
+                sums["pick"] = sums.get("pick", 0.0) + stats[pick][0]
+                sums["pick device"] = sums.get("pick device", 0.0) + dev[pick][0]
+                sums["bound"] = sums.get("bound", 0.0) + bound
+                print(f"{dtype_name} B={B} enc{layer + 1} rows {B * t_out}: " + ", ".join(
+                    f"{n} {v[0]:.4f} ({v[1]:.4f})" for n, v in stats.items()
+                    if n != "pick") + "; device (10 back to back): " + ", ".join(
+                    f"{n} {v[0]:.4f} ({v[1]:.4f})" for n, v in dev.items())
+                    + f"; bound {bound:.4f}; pick {pick}, fastest on the device "
+                    f"{fastest}; pick {flops / dev[pick][0] * 1e-9:.1f} TFLOP/s; "
+                    f"errs " + ", ".join(f"{r} {e:.2e}" for r, e in errs.items()),
+                    flush=True)
+                del x, w, y_ref, pre_ref
+            res[dtype_name, B, "sum"] = sums
+            print(f"{dtype_name} B={B} encoder sum: " + ", ".join(
+                f"{n} {v:.4f}" for n, v in sums.items()) + " ms", flush=True)
+    if regret[1]:
+        print(f"wgmma plans: the rule's picks {regret[0]:.4f} ms summed over the shapes "
+              f"against {regret[1]:.4f} for the fastest plans "
+              f"(+{100 * (regret[0] / regret[1] - 1):.1f} %)", flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

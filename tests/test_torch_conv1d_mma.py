@@ -57,7 +57,7 @@ def _emulate_mma_kernel(x, w, b, a, num_sms=H100_SMS, shift=0):
     B, cin, t_in = x.shape
     cout, _, k = w.shape
     t_out = (t_in - k) // 4 + 1
-    assert K._route(torch.bfloat16, cout, k, 4, t_out) == "mma"
+    assert K._tensor_core_shape(torch.bfloat16, cout, k, 4, t_out)
     wp = K._pad_taps(torch.from_numpy(w)).numpy()
     warps_m, splits = K._mma_plan(B, cin, cout, t_out, num_sms)
     nq, tile_n = MMA_MT * warps_m, 256 // warps_m
@@ -186,10 +186,13 @@ def test_mma_taps_cover_the_padded_taps():
 @pytest.mark.parametrize("B", [1, 8, 64, 300])
 @pytest.mark.parametrize("layer", range(5), ids=[f"enc{i + 1}" for i in range(5)])
 def test_main_path_takes_the_mma_route(B, layer):
+    """x in contiguous rows (an odd T_in): mma.sync, but for enc1's FMA rows."""
     _, cin, t_in, cout = _main_path(B, layer)
     t_out = (t_in - KW) // 4 + 1
     assert t_out == T // 4 ** (layer + 1)
-    assert K._route(torch.bfloat16, cout, KW, 4, t_out) == "mma"
+    enc1_fma = layer == 0 and B * t_out < K.ENC1_MMA_MIN_ROWS[torch.bfloat16]
+    assert K._route(torch.bfloat16, B, cin, cout, KW, 4, t_out) == (
+        "fma" if enc1_fma else "mma")
     warps_m, splits = K._mma_plan(B, cin, cout, t_out, H100_SMS)
     assert warps_m == {64: 4, 128: 2}.get(cout, 1)
     per = -(-cin // splits)
@@ -214,7 +217,7 @@ def test_main_path_takes_the_mma_route(B, layer):
 ], ids=["fp32", "stride 1", "ragged", "Cout%8", "T_out%16", "K=33", "stride 2",
         "fp32 stride 1", "fp32 ragged", "fp32 Cout%8", "fp32 K=33"])
 def test_other_shapes_take_the_fma_route(dtype, cout, k, stride, t_out):
-    assert K._route(dtype, cout, k, stride, t_out) == "fma"
+    assert K._route(dtype, 64, 64, cout, k, stride, t_out, pitched=True) == "fma"
 
 
 def test_pad_taps_is_shared_with_the_chained_kernel():

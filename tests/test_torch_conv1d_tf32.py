@@ -78,7 +78,7 @@ def _emulate_tf32_kernel(x, w, b, a, num_sms=H100_SMS, shift=0):
     B, cin, t_in = x.shape
     cout, _, k = w.shape
     t_out = (t_in - k) // 4 + 1
-    assert K._route(torch.float32, cout, k, 4, t_out) == "mma"
+    assert K._tensor_core_shape(torch.float32, cout, k, 4, t_out)
     w_big, w_small = (v.astype(np.float64) for v in split(
         K._pad_taps(torch.from_numpy(np.asarray(w, np.float32))).numpy()))
     warps_m, splits = K._mma_plan(B, cin, cout, t_out, num_sms)
@@ -306,10 +306,14 @@ def test_emulated_constants_are_the_kernels():
 @pytest.mark.parametrize("B", [1, 8, 64, 300])
 @pytest.mark.parametrize("layer", range(5), ids=[f"enc{i + 1}" for i in range(5)])
 def test_main_path_takes_the_tf32_route(B, layer):
-    """fp32 takes the tensor cores at every main-path shape, with the bf16 route's plan."""
+    """fp32 takes the tensor cores at every main-path shape but enc1's FMA rows, with the
+    bf16 mma.sync route's plan, in pitched rows too (wgmma is bf16's alone)."""
     _, cin, t_in, cout = _main_path(B, layer)
     t_out = (t_in - KW) // 4 + 1
-    assert K._route(torch.float32, cout, KW, 4, t_out) == "mma"
+    enc1_fma = layer == 0 and B * t_out < K.ENC1_MMA_MIN_ROWS[torch.float32]
+    for pitched in (False, True):
+        assert K._route(torch.float32, B, cin, cout, KW, 4, t_out, pitched) == (
+            "fma" if enc1_fma else "mma")
     warps_m, splits = K._mma_plan(B, cin, cout, t_out, H100_SMS)
     assert warps_m == {64: 4, 128: 2}.get(cout, 1)
     per = -(-cin // splits)
@@ -348,8 +352,8 @@ class _FakeLib:
 def test_launch_dispatches_by_dtype_and_counts(monkeypatch, dtype, entry):
     """Without a card: the wrapper's dispatch with the library replaced. fp32 main-path
     shapes call the 3xTF32 entry with both parts of the split weights and count in
-    launches, launches_mma and launches_tf32; bf16 calls its own entry; force_fma the FMA
-    kernel."""
+    launches, launches_mma and launches_tf32; bf16 calls its own entry; force="fma" the
+    FMA kernel."""
     lib = _FakeLib()
     monkeypatch.setattr(K, "_entries", lambda: tuple(
         lib.entry(n) for n in ("fma", "splits", "mma", "tf32")))
@@ -376,7 +380,7 @@ def test_launch_dispatches_by_dtype_and_counts(monkeypatch, dtype, entry):
     else:
         assert args[1] == wp.data_ptr()
     lib.calls.clear()
-    K._launch(x, w, None, a, 4, 16, force_fma=True)
+    K._launch(x, w, None, a, 4, 16, force="fma")
     assert [n for n, _ in lib.calls] == ["splits", "fma"]
     assert K.launches_tf32 == before[2] + is_tf32
 
