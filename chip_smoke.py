@@ -6,8 +6,9 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build the three hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
-     (conv1d_prelu.cu, conv1d_wgmma.cu, encoder_fused.cu), one nvcc each, and the host
+  2. build the four hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
+     (conv1d_prelu.cu, conv1d_wgmma.cu, conv1d_wgmma_tf32.cu, encoder_fused.cu), one
+     nvcc each, and the host
      libraries of native/ (the wav gather and the P.862 scorer), one
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
@@ -17,21 +18,23 @@ and when the port's package is not beside it):
      (bias, T_in = 4 (T_out - 1) + 31 in a pitched buffer, ragged, stride 1, and enc3 of
      64 chunks in contiguous odd rows), x through G's pitched pad (rows of a multiple of 8
      samples) at every main-path shape, in fp32 (TF32 off, relative error <= 1e-4) and
-     bf16 (<= 2e-2), each on the route _route picks, read from the counters (bf16 wgmma
-     where the rule gives it, mma.sync elsewhere on the tensor cores and always in odd
-     rows, enc1's small passes and the ragged and stride-1 shapes on FMAs; fp32 3xTF32 but
-     enc1's FMA rows), then on the other routes forced (bf16 mma.sync and FMA; fp32 the
-     other of 3xTF32 and FMA); in fp32 enc5 at 64, 150 and 300 chunks also vs a float64
-     conv (<= 1e-4). Times in turns (CUDA events, median of 10 after 2 warm-ups, one call
-     per pair): every route, plain and cuDNN's F.conv1d alone, in each dtype, and in bf16
-     the device time of the chosen route's kernels and of mma.sync's (10 launches back to
-     back through their C entry points, weights and plan made once) and, where the routes
-     differ, a wrapper call's cost 5 calls back to back (median and interquartile range); TFLOP/s, share of peak, bounds, encoder sums per batch,
-     and the WSEGAN step's 25 calls (G's five rows once, D's five in each of its four
-     passes). At 64 and 300 chunks the chosen bf16 routes must take at most 0.6x mma.sync's
-     device time, mma.sync at most half the FMA route's time, and fp32 no more than the
-     FMA route; at no bf16 shape where the rule picks another route than mma.sync may a
-     call back to back be slower than mma.sync's by more than their spread;
+     bf16 (<= 2e-2), each on the route _route picks, read from the counters (wgmma where
+     the rule gives it, in fp32 by 3xTF32, mma.sync elsewhere on the tensor cores and
+     always in odd rows, enc1's small passes and the ragged and stride-1 shapes on FMAs),
+     then on the other routes forced (mma.sync and FMA); in fp32 enc5 at 64, 150 and 300
+     chunks also vs a float64 conv (<= 1e-4). Times in turns (CUDA events, median of 10
+     after 2 warm-ups, one call per pair): every route, plain and cuDNN's F.conv1d alone,
+     in each dtype, and the device time of the chosen route's kernels and of mma.sync's
+     (10 launches back to back through their C entry points, weights and plan made once;
+     median of 6 rounds)
+     and, in bf16 where the routes differ, a wrapper call's cost 5 calls back to back
+     (median and interquartile range); TFLOP/s, share of peak, bounds, encoder sums per
+     batch, and the WSEGAN step's 25 calls (G's five rows once, D's five in each of its
+     four passes). At 64 and 300 chunks the chosen routes must take at most 0.6x
+     mma.sync's device time in each dtype, bf16 mma.sync at most half the FMA route's
+     time, and fp32, chosen and mma.sync, no more than the FMA route; at no bf16 shape
+     where the rule picks another route than mma.sync may a call back to back be slower
+     than mma.sync's by more than their spread;
   3b. the chained kernel (fused_enc23_fwd: fp32 on the tensor cores by 3xTF32 where C2
      and C3 are multiples of 8, else on FMAs; bf16 on mma.sync) vs enc23_plain, into
      NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256)
@@ -314,7 +317,9 @@ p14_segan_launches_per_rank_step and p14_wsegan_launches_per_rank_step phase 14'
 15g's);
 launches of fused_conv1d_prelu_wgmma (the per-layer kernel's bf16 wgmma route) from
 phase 4 (train_launches 5c's bf16 steps'), its times the sums of G's layers on it at 64
-chunks from phase 3 (ms a wrapper call, device_ms 10 launches back to back);
+chunks from phase 3 (ms a wrapper call, device_ms 10 launches back to back), and the same
+of fused_conv1d_prelu_wgmma_tf32 (the fp32 wgmma route) in fp32 (train_launches 5c's fp32
+steps');
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
 from phase 3b); the last is
@@ -349,6 +354,9 @@ KERNELS = [  # the fixed fields of the kernels line, in its order
          replaces="segan_pytorch_tpu/ops/pallas/encoder_fused.py:112"),
     dict(name="fused_conv1d_prelu_wgmma", route="cuda",
          source="segan_pytorch_tpu_torch/csrc/conv1d_wgmma.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
+    dict(name="fused_conv1d_prelu_wgmma_tf32", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/conv1d_wgmma_tf32.cu",
          replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
 ]
 
@@ -394,7 +402,7 @@ def phase_device():
 def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
-    names = ("conv1d_prelu", "conv1d_wgmma", "encoder_fused")
+    names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32", "encoder_fused")
     hosts = ("segan_io", "pesq862")  # the C++ wav gather and P.862 scorer of native/
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:  # one compiler per source
@@ -416,6 +424,8 @@ def phase_build():
 BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
 FP32_PEAK = 67e12   # fp32 FLOP/s outside the tensor cores
 TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
+DEVICE_REPS = 6  # rounds of phase 3's device timings (10 launches back to back each)
+HOLD_REPS = 6  # rounds of _hold_kernel's timings in turns (phases 8a, 9d, 15h)
 HBM_RATE = 3.35e12  # device memory bytes/s
 
 
@@ -472,7 +482,7 @@ def _want_counts(K, log):
     routes = [(dt, K._route(dt, B, cin, cout, k, s, (t_in - k) // s + 1, p))
               for dt, B, cin, t_in, cout, k, s, p in log]
     return (len(routes), sum(r != "fma" for _, r in routes),
-            sum(r == "mma" and dt == torch.float32 for dt, r in routes),
+            sum(r != "fma" and dt == torch.float32 for dt, r in routes),
             sum(r == "wgmma" for _, r in routes))
 
 
@@ -515,7 +525,7 @@ def _in_turns(arms, reps=10, warmup=2, calls=1):
 
 
 def _entry_arm(K, route, x, w, b, a, stride, t_out, out):
-    """A closure that launches `route`'s kernel on bf16 x through its C entry point
+    """A closure that launches `route`'s kernel for x's dtype through its C entry point
     alone, the wrapper's weights, plan and split-K workspace made once: calls back to
     back then cost the device's time wherever a kernel takes longer than the ctypes call
     (~15 us of host), with no wrapper in between (nor a profiler, whose CUPTI session
@@ -526,18 +536,23 @@ def _entry_arm(K, route, x, w, b, a, stride, t_out, out):
     cout, _, k = w.shape
     sms = K._sm_count(x.device.index)
     stream = torch.cuda.current_stream().cuda_stream
-    launch, splits_of, launch_mma, _ = K._entries()
+    launch, splits_of, launch_mma, launch_tf32 = K._entries()
+    fp32 = x.dtype == torch.float32
     if route == "fma":
         plan = (splits_of(B, cin, cout, t_out, k, sms),)
-        fn, wp = (lambda *args: launch(1, *args)), w
+        fn, wp = (lambda *args: launch(K._DTYPE_CODES[x.dtype], *args)), (w,)
     elif route == "mma":
-        plan, fn, wp = K._mma_plan(B, cin, cout, t_out, sms), launch_mma, K._padded_weights(w)
-    else:
-        plan = K._wgmma_plan(B, cin, cout, t_out, sms)
-        fn, wp = K._wgmma_entry(), K._permuted_weights(w)
+        plan = K._mma_plan(B, cin, cout, t_out, sms)
+        fn, wp = (launch_tf32, K._padded_weights(w)) if fp32 else (
+            launch_mma, (K._padded_weights(w),))
+    else:  # fp32 takes the split pair of the mma.sync route, bf16 the permuted copy
+        plan = K._wgmma_plan(B, cin, cout, t_out, sms, x.dtype)
+        fn = K._wgmma_entry(x.dtype)
+        wp = K._padded_weights(w) if fp32 else (K._permuted_weights(w),)
     part = (torch.empty((plan[-1], B, cout, t_out), dtype=torch.float32, device=x.device)
             if plan[-1] > 1 else None)
-    args = (x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(), a.data_ptr(),
+    args = (x.data_ptr(), *(v.data_ptr() for v in wp), None if b is None else b.data_ptr(),
+            a.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), None if part is None else part.data_ptr(),
             *plan, B, cin, t_in, K._pitch(x), cout, t_out)
     args += (k, stride, stream) if route == "fma" else (stream,)
@@ -553,7 +568,8 @@ def phase_kernel():
     """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks, at
     those of WSEGAN's step at batch 150 and at edge shapes; each route's choice read from
     its counters. Returns the bf16 and fp32 results at B = 64, WSEGAN's first D layer and
-    the WSEGAN step's 25 calls, for the kernels line, and the wgmma kernel's at B = 64."""
+    the WSEGAN step's 25 calls, for the kernels line, and the wgmma kernels' at B = 64
+    (bf16, fp32)."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -597,12 +613,14 @@ def phase_kernel():
     max_abs = {}  # B -> max |kernel - plain| over the bf16 encoder layers
     max_abs32 = 0.0  # max |tensor cores - plain| over the fp32 encoder layers at B = 64
     wg64 = {}  # the wgmma kernel at B = 64: its layers' sums, for the kernels line
+    wg64_32 = {}  # the same of the fp32 wgmma kernel
     spreads = []  # (label, chosen ms, mma.sync ms, spread) where bf16 picks another route
     print(f"{'layer':>18} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
-          f"{'fp32 fma':>8} {'bf16':>8} {'bf16 mma':>8} {'bf16 fma':>8} | {'tf32 ms':>8} "
-          f"{'fma ms':>8} {'plain':>8} {'cuDNN':>8} | bf16 route {'ms':>8} {'mma ms':>8} "
-          f"{'fma ms':>8} {'plain':>8} {'cuDNN':>8} (iqr) | {'TFLOP/s':>7} {'peak':>6} | "
-          f"fp32 TFLOP/s | bound ms fp32, bf16")
+          f"{'fp32 mma':>8} {'fp32 fma':>8} {'bf16':>8} {'bf16 mma':>8} {'bf16 fma':>8} | "
+          f"fp32 route {'ms':>8} {'mma ms':>8} {'fma ms':>8} {'plain':>8} {'cuDNN':>8} | "
+          f"bf16 route {'ms':>8} {'mma ms':>8} {'fma ms':>8} {'plain':>8} {'cuDNN':>8} (iqr) "
+          f"| bf16 {'TFLOP/s':>7} {'peak':>6} | fp32 device TFLOP/s, 3xTF32 peak | bound ms "
+          f"fp32, bf16")
     for label, b, cin, t_in, cout, kw, s, has_bias, kind, layout in cases:
         main = kind == "enc"
         x, xb = _case_x(b, cin, t_in, g, layout)
@@ -623,7 +641,8 @@ def phase_kernel():
         if (t_in - kw) % s == 0 and tc_shape:
             assert s * (t_out - 1) + K.KP - 1 == t_in, label  # the zero tap reads x[T_in]
         # fp32: the route that _route picks (3xTF32 on the tensor cores at the main-path
-        # shapes but enc1's FMA rows), read from the counters, then the FMA kernel forced
+        # shapes, wgmma where the rule gives it, but enc1's FMA rows), read from the
+        # counters, then the other routes forced
         route = K._route(torch.float32, b, cin, cout, kw, s, t_out, pitched)
         before = _counters(K)
         y, pre = K._launch(x, w, bias, a, s, t_out,
@@ -632,7 +651,7 @@ def phase_kernel():
         torch.cuda.synchronize()
         took = _took(K, before)
         assert took == route, f"{label}: fp32 took the {took} route, not {route}"
-        assert K.launches_tf32 - before[2] == (took == "mma"), label
+        assert K.launches_tf32 - before[2] == (took != "fma"), label
         e32 = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
         assert e32 <= FP32_TOL, f"{label}: fp32 {took} vs plain rel err {e32:.3e} > {FP32_TOL}"
         e32_abs = worst([float((y - y_ref).abs().max()), float((pre - pre_ref).abs().max())])
@@ -650,23 +669,33 @@ def phase_kernel():
         if main and b == 64:
             max_abs32 = worst([max_abs32, e32_abs])
         del y, pre
-        e32f = float("nan")
-        arms32 = {"tc": lambda: K._launch(x, w, bias, a, s, t_out, force="mma")}
-        if tc_shape:
-            yf, pref = K._launch(x, w, bias, a, s, t_out, force="mma" if took == "fma"
-                                 else "fma", out=nan_outputs(shape, shape, dtype=x.dtype))
+        e32f = {}
+        for r in ("mma", "fma") if tc_shape else ():
+            if r == took:
+                continue
+            yf, pref = K._launch(x, w, bias, a, s, t_out, force=r,
+                                 out=nan_outputs(shape, shape, dtype=x.dtype))
             torch.cuda.synchronize()
-            e32f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
-            assert e32f <= FP32_TOL, f"{label}: fp32 forced vs plain rel err {e32f:.3e}"
+            e32f[r] = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
+            assert e32f[r] <= FP32_TOL, f"{label}: fp32 {r} vs plain rel err {e32f[r]:.3e}"
             del yf, pref
-        else:
-            arms32 = {}
-        arms32["fma"] = lambda: K._launch(x, w, bias, a, s, t_out, force="fma")
         del y_ref, pre_ref
+        arms32 = {"pick": lambda: K.fused_conv1d_prelu(x, w, bias, a, s)}
+        for r in ("mma", "fma") if tc_shape else ("fma",):
+            arms32[r] = lambda r=r: K._launch(x, w, bias, a, s, t_out, force=r)
         arms32["plain"] = lambda: K.conv1d_prelu_plain(x, w, bias, a, s)
         arms32["cuDNN"] = lambda: F.conv1d(x, w, bias, stride=s)
         t32 = {n: v[0] for n, v in _in_turns(arms32).items()}
-        t32["pick"] = t32["tc" if took == "mma" else "fma"]
+        t32.setdefault("mma", float("nan"))
+        # the chosen route's kernels and mma.sync's, device time (10 launches back to back
+        # through the entry points, median of DEVICE_REPS)
+        outs = nan_outputs(shape, shape, dtype=x.dtype)
+        d32 = {n: v[0] for n, v in _in_turns(
+            {n: _entry_arm(K, took if n == "pick" else n, x, w, bias, a, s, t_out, outs)
+             for n in ("pick", "mma") if n == "pick" or tc_shape},
+            reps=DEVICE_REPS, calls=10).items()}
+        d32.setdefault("mma", float("nan"))
+        del outs
         # bf16: the route that _route picks, read from the counters, then mma.sync and the
         # FMA kernel forced; all of them, plain and cuDNN timed in turns
         hb = [xb] + [v.bfloat16() if v is not None else None for v in (w, bias, a)]
@@ -714,7 +743,7 @@ def phase_kernel():
         d16 = {n: v[0] for n, v in _in_turns(
             {n: _entry_arm(K, took16 if n == "pick" else n, *hb, s, t_out, outs)
              for n in pair},
-            calls=10).items()}
+            reps=DEVICE_REPS, calls=10).items()}
         d16.setdefault("mma", float("nan"))
         if tc_shape and took16 != "mma":  # the chosen route against mma.sync, same call
             b2b = _in_turns(pair, calls=5)
@@ -730,7 +759,9 @@ def phase_kernel():
         else:  # bound by operations: TFLOP/s and the share of the bf16 peak
             rate = flops / kernel_ms * 1e3
             rate = f"{rate * 1e-12:7.1f} {rate / BF16_PEAK:6.1%}"
-        rate32 = f"{flops / t32['pick'] * 1e-9:7.1f}"  # useful fp32 TFLOP/s
+        # useful fp32 TFLOP/s on the device, and the share of the 3xTF32 peak
+        rate32 = flops / d32["pick"] * 1e3
+        rate32 = f"{rate32 * 1e-12:7.1f} {3 * rate32 / TF32_PEAK:6.1%}"
         # fp32: the smaller of the FMA pipes' bound and the 3xTF32 tensor cores' (three
         # TF32 products per fp32 product); bytes of fp32 x, w, b, a, y and pre
         b32 = min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
@@ -744,30 +775,37 @@ def phase_kernel():
                           fp32_d_enc1_library_ms=t32["cuDNN"],
                           fp32_d_enc1_max_abs_err=e32_abs)
         if main:
-            for col, v in [("fp32 tc", t32["pick"]), ("fp32 fma", t32["fma"]),
-                           ("fp32 plain", t32["plain"]), ("fp32 cuDNN", t32["cuDNN"]),
-                           ("fp32 bound", b32), ("bf16 pick", t16["pick"]),
+            for col, v in [("fp32 pick", t32["pick"]), ("fp32 mma", t32["mma"]),
+                           ("fp32 fma", t32["fma"]), ("fp32 plain", t32["plain"]),
+                           ("fp32 cuDNN", t32["cuDNN"]), ("fp32 bound", b32),
+                           ("fp32 pick device", d32["pick"]),
+                           ("fp32 mma device", d32["mma"]), ("bf16 pick", t16["pick"]),
                            ("bf16 mma", t16["mma"]), ("bf16 fma", t16["fma"]),
                            ("bf16 plain", t16["plain"]), ("bf16 cuDNN", t16["cuDNN"]),
                            ("bf16 bound", b16), ("bf16 pick device", d16["pick"]),
                            ("bf16 mma device", d16["mma"])]:
                 sums[b, col] = sums.get((b, col), 0.0) + v
-            if b == 64 and took16 == "wgmma":
-                for col, v in (("ms", t16["pick"]), ("plain_ms", t16["plain"]),
-                               ("library_ms", t16["cuDNN"]), ("bound_ms", b16),
-                               ("device_ms", d16["pick"])):
-                    wg64[col] = wg64.get(col, 0.0) + v
-                wg64["max_abs_err"] = worst([wg64.get("max_abs_err", 0.0), e16_abs])
+            for wg, tk, t, d, bnd, e_abs in ((wg64, took16, t16, d16, b16, e16_abs),
+                                             (wg64_32, took, t32, d32, b32, e32_abs)):
+                if b == 64 and tk == "wgmma":
+                    for col, v in (("ms", t["pick"]), ("plain_ms", t["plain"]),
+                                   ("library_ms", t["cuDNN"]), ("bound_ms", bnd),
+                                   ("device_ms", d["pick"]),
+                                   ("mma_sync_device_ms", d["mma"])):
+                        wg[col] = wg.get(col, 0.0) + v
+                    wg["max_abs_err"] = worst([wg.get("max_abs_err", 0.0), e_abs])
         if kind == "ws":
             for p, t, bnd, e_abs in (("fp32_", t32, b32, e32_abs), ("", t16, b16, e16_abs)):
                 for col, v in (("kernel_ms", t["pick"]), ("plain_ms", t["plain"]),
                                ("library_ms", t["cuDNN"]), ("bound_ms", bnd)):
                     ws[p][col] = ws[p].get(col, 0.0) + WS_ROWS[label] * v
                 ws[p]["max_abs_err"] = worst([ws[p].get("max_abs_err", 0.0), e_abs])
+        nan = float("nan")
         print(f"{label:>18} {str((b, cin, t_in)):>19} {cout:>5} {t_out:>5} | {e32:8.1e} "
-              f"{e32f:8.1e} {e16:8.1e} {e16f.get('mma', float('nan')):8.1e} "
-              f"{e16f.get('fma', float('nan')):8.1e} | {t32.get('tc', float('nan')):8.4f} "
-              f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} | {took16:>5} "
+              f"{e32f.get('mma', nan):8.1e} {e32f.get('fma', nan):8.1e} {e16:8.1e} "
+              f"{e16f.get('mma', nan):8.1e} {e16f.get('fma', nan):8.1e} | {took:>5} "
+              + " ".join(f"{t32[c]:8.4f}" for c in ("pick", "mma", "fma", "plain", "cuDNN"))
+              + f"; device {d32['pick']:.4f} vs mma.sync {d32['mma']:.4f} | {took16:>5} "
               + " ".join(f"{t16i[c][0]:8.4f} ({t16i[c][1]:.4f})" if c in t16i
                          else f"{'nan':>8} {'':8}"
                          for c in ("pick", "mma", "fma", "plain", "cuDNN"))
@@ -776,23 +814,30 @@ def phase_kernel():
         del hb
     for b in (1, 8, 64, 300):
         print(f"encoder sum B={b}: " + ", ".join(
-            f"{col} {sums[b, col]:.4f}" for col in ("fp32 tc", "fp32 fma", "fp32 plain",
-                                                    "fp32 cuDNN", "fp32 bound", "bf16 pick",
-                                                    "bf16 mma", "bf16 fma", "bf16 plain",
-                                                    "bf16 cuDNN", "bf16 bound",
+            f"{col} {sums[b, col]:.4f}" for col in ("fp32 pick", "fp32 mma", "fp32 fma",
+                                                    "fp32 plain", "fp32 cuDNN", "fp32 bound",
+                                                    "fp32 pick device", "fp32 mma device",
+                                                    "bf16 pick", "bf16 mma", "bf16 fma",
+                                                    "bf16 plain", "bf16 cuDNN", "bf16 bound",
                                                     "bf16 pick device", "bf16 mma device"))
-              + f" ms; fp32 tc / fma {sums[b, 'fp32 tc'] / sums[b, 'fp32 fma']:.3f}, "
-              f"tc / cuDNN {sums[b, 'fp32 tc'] / sums[b, 'fp32 cuDNN']:.3f}; "
+              + f" ms; fp32 route / mma.sync {sums[b, 'fp32 pick'] / sums[b, 'fp32 mma']:.3f} "
+              f"(device {sums[b, 'fp32 pick device'] / sums[b, 'fp32 mma device']:.3f}, "
+              f"{sums[b, 'fp32 bound'] / sums[b, 'fp32 pick device']:.1%} of the bound), "
+              f"route / fma {sums[b, 'fp32 pick'] / sums[b, 'fp32 fma']:.3f}, "
+              f"route / cuDNN {sums[b, 'fp32 pick'] / sums[b, 'fp32 cuDNN']:.3f}; "
               f"bf16 route / mma.sync {sums[b, 'bf16 pick'] / sums[b, 'bf16 mma']:.3f} "
               f"(device {sums[b, 'bf16 pick device'] / sums[b, 'bf16 mma device']:.3f}), "
               f"mma.sync / fma {sums[b, 'bf16 mma'] / sums[b, 'bf16 fma']:.3f}, "
               f"route / cuDNN {sums[b, 'bf16 pick'] / sums[b, 'bf16 cuDNN']:.3f}")
-        if b >= 64:  # bf16: the chosen routes at most 0.6x mma.sync forced on the device,
-            # mma.sync at least halving the FMA route's time; fp32 (3xTF32) no slower than
-            # the FMA route
-            assert sums[b, "bf16 pick device"] <= 0.6 * sums[b, "bf16 mma device"], (b, sums)
+        if b >= 64:  # the chosen routes at most 0.6x mma.sync forced on the device, in
+            # each dtype; bf16 mma.sync at least halving the FMA route's time; fp32 (3xTF32,
+            # chosen and mma.sync) no slower than the FMA route
+            for dt in ("bf16", "fp32"):
+                assert sums[b, f"{dt} pick device"] <= 0.6 * sums[b, f"{dt} mma device"], (
+                    b, dt, sums)
             assert sums[b, "bf16 mma"] <= 0.5 * sums[b, "bf16 fma"], (b, sums)
-            assert sums[b, "fp32 tc"] <= sums[b, "fp32 fma"], (b, sums)
+            assert max(sums[b, "fp32 pick"], sums[b, "fp32 mma"]) <= sums[b, "fp32 fma"], (
+                b, sums)
     print("bf16 shapes where _route picks another route than mma.sync, ms a call of the "
           "chosen route vs mma.sync forced, 5 calls back to back (same-call spread, the "
           "larger interquartile range of the two): "
@@ -810,15 +855,22 @@ def phase_kernel():
                 mma_sync_ms=sums[64, "bf16 mma"],
                 plain_ms=sums[64, "bf16 plain"], bound_ms=sums[64, "bf16 bound"],
                 bound_by="operations", library_ms=sums[64, "bf16 cuDNN"],
-                fp32_max_abs_err=max_abs32, fp32_ms=sums[64, "fp32 tc"],
+                fp32_max_abs_err=max_abs32, fp32_ms=sums[64, "fp32 pick"],
+                fp32_mma_sync_ms=sums[64, "fp32 mma"],
                 fp32_fma_ms=sums[64, "fp32 fma"], fp32_plain_ms=sums[64, "fp32 plain"],
                 fp32_bound_ms=sums[64, "fp32 bound"], fp32_library_ms=sums[64, "fp32 cuDNN"],
+                fp32_device_ms=sums[64, "fp32 pick device"],
+                fp32_mma_sync_device_ms=sums[64, "fp32 mma device"],
+                fp32_ms_b300=sums[300, "fp32 pick"],
+                fp32_mma_sync_ms_b300=sums[300, "fp32 mma"],
+                fp32_device_ms_b300=sums[300, "fp32 pick device"],
+                fp32_mma_sync_device_ms_b300=sums[300, "fp32 mma device"],
                 ms_b300=sums[300, "bf16 pick"], mma_sync_ms_b300=sums[300, "bf16 mma"],
                 device_ms=sums[64, "bf16 pick device"],
                 mma_sync_device_ms=sums[64, "bf16 mma device"],
                 device_ms_b300=sums[300, "bf16 pick device"],
                 mma_sync_device_ms_b300=sums[300, "bf16 mma device"]), dict(
-                    wg64, bound_by="operations")
+                    wg64, bound_by="operations"), dict(wg64_32, bound_by="operations")
 
 
 def phase_enc23():
@@ -1067,7 +1119,8 @@ def _write_wavs(wav_dir: Path):
 
 
 def phase_slice(work: Path):
-    """The port's main path at full SEGAN+ width. Returns the kernel launches it made."""
+    """The port's main path at full SEGAN+ width. Returns the kernel launches it made
+    (all, tensor cores, fp32 on the tensor cores, bf16 on wgmma, fp32 on wgmma)."""
     import torch
     from segan_pytorch_tpu_torch import clean
     from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
@@ -1130,7 +1183,7 @@ def phase_slice(work: Path):
             print(f"clean.py --batch_utts {b}: {audio_s / wall:.2f} s of audio per wall "
                   f"second ({audio_s:.2f} s in {wall:.3f} s, model load included)")
         fp32 = _counters(K)
-        assert fp32 == _want_counts(K, log) and fp32[3] == 0, (fp32, _want_counts(K, log))
+        assert fp32 == _want_counts(K, log) and fp32[3] > 0, (fp32, _want_counts(K, log))
         assert fp32[0] >= 5 * n_forwards and fp32[0] % 5 == 0, (
             f"{fp32[0]} launches for {n_forwards} fp32 G forwards")
         del log[:]
@@ -1141,10 +1194,11 @@ def phase_slice(work: Path):
     launches, launches_mma, launches_tf32, launches_wgmma = _counters(K)
     print(f"clean.py bf16 --batch_utts 4: {audio_s / wall:.2f} s of audio per wall second")
     print(f"kernel launches on the main path: {launches} ({launches_mma} on the tensor "
-          f"cores, {launches_tf32} of them in fp32 by 3xTF32, {launches_wgmma} bf16 on "
-          f"wgmma) for {n_forwards} fp32 and {n_bf16} bf16 G forwards, each on the route "
-          f"_route picks for its shape and G's pitched rows")
+          f"cores, {launches_tf32} of them in fp32 by 3xTF32; on wgmma {fp32[3]} fp32, "
+          f"{bf[3]} bf16) for {n_forwards} fp32 and {n_bf16} bf16 G forwards, each on the "
+          f"route _route picks for its shape and G's pitched rows")
     assert bf[0] == 5 * n_bf16 and bf[2] == 0 and bf[3] > 0, bf  # enc2 on wgmma
+    wgmma_bf16, wgmma_fp32 = bf[3], fp32[3]
     for y1, y4, yb in zip(outs[1], outs[4], y_bf):
         e = float(np.abs(y1 - y4).max() / np.abs(y1).max())
         assert e <= FP32_TOL, f"batched vs sequential rel err {e:.3e}"
@@ -1188,18 +1242,36 @@ def phase_slice(work: Path):
         finally:
             K._route = route
 
-    before = K.launches_tf32
+    def mma_sync_forward(engine):  # the rule's routes, mma.sync in place of wgmma
+        route = K._route
+        K._route = lambda *shape: "mma" if route(*shape) == "wgmma" else route(*shape)
+        try:
+            return engine.infer_G(x64, z64)
+        finally:
+            K._route = route
+
+    before = _counters(K)
     y32 = gpu.infer_G(x64, z64)
-    want32 = 5 - _g_routes(K, torch.float32, 64, cfg.slice_size, False).count("fma")
-    assert K.launches_tf32 - before == want32, f"{K.launches_tf32 - before} fp32 MMA launches"
+    routes32 = _g_routes(K, torch.float32, 64, cfg.slice_size, False)
+    moved = [n - b for n, b in zip(_counters(K), before)]
+    # 3xTF32 but enc1's FMA rows, enc2-5 on the fp32 wgmma route
+    assert moved == [5, 5 - routes32.count("fma"), 5 - routes32.count("fma"), 4] and (
+        routes32.count("wgmma") == 4), (moved, routes32)
     before = K.launches_mma
     e32_fma = rel_err(fma_route_forward(gpu), y32)
     assert K.launches_mma == before and e32_fma <= SLICE_TOL, e32_fma
-    t = ms_in_turns({"tc": lambda: gpu.infer_G(x64, z64),
+    before = K.launches_wgmma
+    e32_sync = rel_err(mma_sync_forward(gpu), y32)
+    assert K.launches_wgmma == before and e32_sync <= SLICE_TOL, e32_sync
+    t = ms_in_turns({"rule": lambda: gpu.infer_G(x64, z64),
+                     "mma": lambda: mma_sync_forward(gpu),
                      "fma": lambda: fma_route_forward(gpu)}, reps=10, warmup=2)
-    print(f"G forward at batch 64 (fp32): {t['tc']:.3f} ms, {64e3 / t['tc']:.1f} chunks/s "
-          f"(3xTF32 tensor cores); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s (FMA "
-          f"route, same call); tensor cores vs FMA route rel err {e32_fma:.3e}")
+    print(f"G forward at batch 64 (fp32): {t['rule']:.3f} ms, {64e3 / t['rule']:.1f} "
+          f"chunks/s (the rule's routes: " + ", ".join(routes32) + f"; 3xTF32 on the tensor "
+          f"cores); {t['mma']:.3f} ms, {64e3 / t['mma']:.1f} chunks/s (mma.sync for wgmma, "
+          f"same call; rule / mma.sync {t['rule'] / t['mma']:.3f}); {t['fma']:.3f} ms, "
+          f"{64e3 / t['fma']:.1f} chunks/s (FMA route, same call); rel err vs the rule's "
+          f"routes: mma.sync {e32_sync:.3e}, FMA route {e32_fma:.3e}")
     bf = SEGAN(cfg_bf16, generator=gpu.G, device="cuda")
     before = _counters(K)
     y_bf = bf.infer_G(x64, z64)
@@ -1213,15 +1285,6 @@ def phase_slice(work: Path):
     before = K.launches_mma
     e_fma = rel_err(fma_route_forward(bf), y32)
     assert K.launches_mma == before and e_fma <= 0.1, e_fma
-
-    def mma_sync_forward(engine):  # the rule's routes, mma.sync in place of wgmma
-        route = K._route
-        K._route = lambda *shape: "mma" if route(*shape) == "wgmma" else route(*shape)
-        try:
-            return engine.infer_G(x64, z64)
-        finally:
-            K._route = route
-
     before = K.launches_wgmma
     e_sync = rel_err(mma_sync_forward(bf), y32)
     assert K.launches_wgmma == before and e_sync <= 0.1, e_sync
@@ -1234,7 +1297,7 @@ def phase_slice(work: Path):
           f"{t['rule'] / t['mma']:.3f}); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s "
           f"(FMA route, same call); rel err vs fp32 {e_bf:.3e} (mma.sync {e_sync:.3e}, FMA "
           f"route {e_fma:.3e})")
-    return launches, launches_mma, launches_tf32, launches_wgmma
+    return launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32
 
 
 # G's step gradients on the card vs float64 with D' = D: a PReLU kink taken the other way
@@ -1289,16 +1352,15 @@ def phase_train_kernel():
                   + f" | {float(near.float().mean()):.2%}", flush=True)
             assert worst(errs) <= tol, f"{label} {dtype}: backward vs plain {errs} > {tol}"
             del leaves, refs, y, pre, y_r, pre_r
-    # the cached padded (fp32: split) weights after an in-place optimizer step
-    # (bf16 in pitched rows at 32 chunks: the wgmma route's permuted copy)
+    # the cached weights after an in-place optimizer step (x in pitched rows at 32
+    # chunks, on the wgmma routes: bf16 the permuted copy, fp32 the split one)
     h = torch.randn((32, 128, 1024), generator=g).cuda()
     a = (torch.rand((256,), generator=g) * 0.3).cuda()
     w0 = torch.randn((256, 128, Kw), generator=g) / (128 * Kw) ** 0.5
     shape = (32, 256, 256)
     for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
         xd, ad = reflect_pad_pitched(h.to(dtype), 14, 15), a.to(dtype)
-        assert K._route(dtype, 32, 128, 256, Kw, S, 256, True) == (
-            "wgmma" if dtype == torch.bfloat16 else "mma")
+        assert K._route(dtype, 32, 128, 256, Kw, S, 256, True) == "wgmma"
         for opt in ("rmsprop", "adam"):
             w = torch.nn.Parameter(w0.to(dtype).cuda())
             o = build_optimizer(opt, 1e-2, [w])
@@ -1325,10 +1387,10 @@ def phase_train_kernel():
 def _check_counts(r, n, dtype):
     """The counters of a `_time_steps` run: n launches, each on the route _route picks
     for its shape and x's layout (read from the counters against the logged calls), none
-    by 3xTF32 in bf16 and none on wgmma in fp32. Returns the four counts."""
+    by 3xTF32 in bf16. Returns the four counts."""
     c = r["counts"]
     assert c[0] == n and c == r["want"], (c, r["want"], n)
-    assert (c[2] if dtype == "bfloat16" else c[3]) == 0, c
+    assert dtype == "float32" or c[2] == 0, c
     return c
 
 
@@ -1549,7 +1611,7 @@ def phase_train_b300():
     """5c: the step at full width and batch 300 in fp32 and bf16, timed by CUDA events;
     then the bench entry point. Returns the kernel's launches per step, the slices/s
     of the timed steps and of the bench entry, by dtype, and the wgmma launches of the
-    bf16 steps."""
+    steps by dtype."""
     import torch
     from segan_pytorch_tpu_torch.models.segan import SEGAN
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -1559,7 +1621,7 @@ def phase_train_b300():
 
     B, n_steps = 300, 5
     per_step = set()
-    rates = {}
+    rates, wgmma_launches = {}, {}
     for dtype in ("float32", "bfloat16"):
         cfg = SEGANConfig(no_bias=True, compute_dtype=dtype, batch_size=B)
         G, D = _train_models(cfg, SEED + 11)
@@ -1568,10 +1630,10 @@ def phase_train_b300():
         r = _time_steps(seg, (clean, noisy, torch.ones((B,), device="cuda"), 100.0),
                         n_steps, warm=2)
         launches, mma, tf32, wg = _check_counts(r, 5 * n_steps, dtype)
-        if dtype == "bfloat16":  # G's enc2-5 on wgmma
-            assert wg == n_steps * _g_routes(K, torch.bfloat16, B, cfg.slice_size,
-                                             False).count("wgmma") > 0, wg
-            wgmma_launches = wg
+        # G's enc2-5 on wgmma, in fp32 by 3xTF32
+        assert wg == n_steps * _g_routes(K, getattr(torch, dtype), B, cfg.slice_size,
+                                         False).count("wgmma") > 0, wg
+        wgmma_launches[dtype] = wg
         per_step.add(launches // n_steps)
         rates[dtype] = r["rate"]
         print(f"train step B={B} {dtype}: {r['rate']:.2f} slices/s (median {r['ms']:.3f} "
@@ -1955,12 +2017,13 @@ def phase_wsegan_parity():
     assert all(r > b for r, b in zip(control_r, bounds)), (control_r, bounds)
 
 
-def phase_wsegan_b150():
+def phase_wsegan_b150(kernel_ms):
     """7b: the WSEGAN step at full width and the script's batch, 150, in fp32 and bf16,
     timed by CUDA events; the weight pad (and fp32 split) that the per-layer kernel makes
-    of each w / sigma, timed alone; then the bench entry with --engine wsegan and
-    aewsegan. Returns the kernel's launches per step and by dtype the pad's ms a step
-    (phase 3 holds and times the kernel at the step's shapes)."""
+    of each w / sigma, timed alone and printed beside `kernel_ms` (by dtype name: the
+    kernel's 25 calls a step, which phase 3 holds and times at the step's shapes); then
+    the bench entry with --engine wsegan and aewsegan. Returns the kernel's launches per
+    step and by dtype the pad's ms a step."""
     import torch
     from segan_pytorch_tpu_torch.models.wsegan import WSEGAN
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -1981,13 +2044,15 @@ def phase_wsegan_b150():
         r = _time_steps(seg, (clean, noisy, mask, torch.zeros_like(mask), 100.0), n_steps,
                         warm=2)
         launches, mma, tf32, wg = _check_counts(r, WS_PER_STEP * n_steps, dtype)
-        assert wg > 0 or dtype == "float32", r["counts"]  # G's and D's enc2-5 on wgmma
+        assert wg > 0, r["counts"]  # G's and D's enc2-5 on wgmma, in fp32 by 3xTF32
         per_step.add(launches // n_steps)
         # the kernel's copy of each w / sigma, made anew on every call, for its route:
-        # padded (fp32: and split) for mma.sync, padded and its taps permuted for wgmma,
-        # none for the FMA kernel; G's five once a step, D's five in each of its passes
+        # padded (fp32: and split, for both tensor-core routes), in bf16 on wgmma padded
+        # and its taps permuted, none for the FMA kernel; G's five once a step, D's five
+        # in each of its passes
         cdt = seg.compute_dtype
-        prep = {"mma": K._mma_weights, "wgmma": K._wgmma_weights}
+        prep = {"mma": K._mma_weights,
+                "wgmma": K._mma_weights if dtype == "float32" else K._wgmma_weights}
 
         def weights(blocks):
             out = []
@@ -2005,16 +2070,17 @@ def phase_wsegan_b150():
                            "D": lambda: [f(w) for w, f in dw]})
         pad_step = pad["G"] + 4 * pad["D"]
         times[dtype] = dict(pad_ms=pad_step)
+        kernel = kernel_ms[dtype]
         print(f"WSEGAN step B={B} {dtype}: {r['rate']:.2f} slices/s (median {r['ms']:.3f} "
               f"ms/step); median split " + ", ".join(f"{k} {v:.3f} ms" for k, v in
                                                      r["split"].items())
               + f"; peak device memory {r['peak']:.2f} GiB; fused_conv1d_prelu launches "
               f"{launches} ({mma} on the tensor cores, {tf32} 3xTF32, {wg} wgmma); the "
               f"weights' pad{' and split' if dtype == 'float32' else ' (and permutation)'} "
-              f"{pad_step:.3f} ms a step "
-              f"(G {pad['G']:.3f}, D {pad['D']:.3f} a pass), {pad_step / r['ms']:.2%} of "
-              "it; last losses " + ", ".join(f"{k} {v:.4f}" for k, v in
-                                             r["losses"].items()), flush=True)
+              f"{pad_step:.3f} ms a step (G {pad['G']:.3f}, D {pad['D']:.3f} a pass), "
+              f"{pad_step / r['ms']:.2%} of it, beside the kernel's 25 calls {kernel:.3f} ms "
+              f"a step (phase 3, ms a wrapper call); last losses " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in r["losses"].items()), flush=True)
         del seg, G, D, clean, noisy, gw, dw
         torch.cuda.empty_cache()
     for engine in ("wsegan", "aewsegan"):  # the entry's main in this process
@@ -2516,7 +2582,7 @@ def _hold_kernel(shapes, seed):
                 y_ref, pre_ref = K.conv1d_prelu_plain(*args, s)
                 took = _took(K, before)
                 assert took == (force or route), (shape, dtype, took, force, route)
-                assert K.launches_tf32 - before[2] == (took == "mma" and dtype == torch.float32)
+                assert K.launches_tf32 - before[2] == (took != "fma" and dtype == torch.float32)
                 errs[took] = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
                 assert errs[took] <= tol, (shape, dtype, took, errs[took])
                 del y, pre, y_ref, pre_ref
@@ -2525,7 +2591,7 @@ def _hold_kernel(shapes, seed):
                 arms[r] = lambda r=r: K._launch(*args, s, t_out, force=r)
             arms.update(plain=lambda: K.conv1d_prelu_plain(*args, s),
                         cuDNN=lambda: F.conv1d(args[0], args[1], args[2], stride=s))
-            t = ms_in_turns(arms, reps=10, warmup=2)
+            t = ms_in_turns(arms, reps=HOLD_REPS, warmup=2)
             t.setdefault("mma", float("nan"))
             t["bound"] = (min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
                               bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
@@ -3131,8 +3197,8 @@ GRAPH_CASES = [
     ("AEWSEGAN fp32", "aewsegan", 150, "float32", dict(aewsegan=True, opt="adam")),
 ]
 GRAPH_PER_STEP = {"segan": 5, "wsegan": WS_PER_STEP, "aewsegan": 5}
-KERNEL_RE = re.compile(r"\bconv1d_(mma|tf32|prelu|wgmma)_kernel\b")
-WGMMA_RE = re.compile(r"\bconv1d_wgmma_kernel\b")
+KERNEL_RE = re.compile(r"\bconv1d_(mma|tf32|prelu|wgmma|wgmma_tf32)_kernel\b")
+WGMMA_RE = re.compile(r"\bconv1d_wgmma(_tf32)?_kernel\b")
 
 
 def _graph_engines(kind, cfg, seed, n):
@@ -3380,10 +3446,9 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
         assert max(loss_err, genh_err, *state_err.values()) <= GRAPH_TOL, (
             loss_err, genh_err, state_err)
     assert first_call == 2 * GRAPH_PER_STEP[kind], first_call
-    assert routes == want and (routes[2] if cfg.compute_dtype == "bfloat16" else routes[3]) == 0, (
+    assert routes == want and (cfg.compute_dtype == "float32" or routes[2] == 0), (
         routes, want)
-    assert replay_wgmma == routes[3] // 2 and (
-        routes[3] > 0 or cfg.compute_dtype == "float32"), (replay_wgmma, routes)
+    assert replay_wgmma == routes[3] // 2 and routes[3] > 0, (replay_wgmma, routes)
     assert counts[-1] == GRAPH_PER_STEP[kind] >= max(counts) and replay_counter == 0, (
         counts, replay_counter)
     if grouped:
@@ -5684,18 +5749,20 @@ def main():
 
     smi = _phase("1", phase_device)
     _phase("2", phase_build)
-    per_layer, wgmma64 = _phase("3", phase_kernel)
+    per_layer, wgmma64, wgmma64_tf32 = _phase("3", phase_kernel)
     enc23_abs, enc23_ms = _phase("3b", phase_enc23)
     tool, tool_launches = _phase("3c", phase_tool)
     _phase("3d", phase_tf32)
-    launches, launches_mma, launches_tf32, launches_wgmma = _phase("4", phase_slice,
-                                                                   workdir=True)
+    launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32 = _phase(
+        "4", phase_slice, workdir=True)
     _phase("5a", phase_train_kernel)
     _phase("5b", phase_train_parity)
     train_per_step, train_rates, train_wgmma = _phase("5c", phase_train_b300)
     train_run = _phase("6", phase_train_run, train_rates, workdir=True)
     _phase("7a", phase_wsegan_parity)
-    ws_per_step, ws_times = _phase("7b", phase_wsegan_b150)
+    ws_per_step, ws_times = _phase("7b", phase_wsegan_b150, {
+        "float32": per_layer["fp32_wsegan_step_kernel_ms"],
+        "bfloat16": per_layer["wsegan_step_kernel_ms"]})
     ws_run = _phase("7c", phase_wsegan_run, workdir=True)
 
     def serve_and_reload(work):
@@ -5721,7 +5788,7 @@ def main():
     bf16, fp32 = (enc23_ms[torch.bfloat16], enc23_ms[torch.float32])
     measured = [
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
-             train_launches_per_step=train_per_step, train_run_launches=train_run,
+             launches_wgmma=wgmma_bf16 + wgmma_fp32, train_launches_per_step=train_per_step, train_run_launches=train_run,
              wsegan_train_launches_per_step=ws_per_step, wsegan_run_launches=ws_run,
              serve_launches=serve_launches[0], serve_launches_mma=serve_launches[1],
              serve_launches_tf32=serve_launches[2], serve_launches_wgmma=serve_launches[3],
@@ -5759,9 +5826,10 @@ def main():
              fp32_bound_ms=min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
                                bound_ms(3 * flops, 2 * nbytes, TF32_PEAK)),
              fp32_library_ms=fp32["cuDNN x2"]),
-        # the bf16 wgmma kernel: phase 4's launches, and 5c's in five bf16 train steps at
-        # batch 300; its layers of G at 64 chunks (phase 3)
-        dict(launches=launches_wgmma, train_launches=train_wgmma, **wgmma64),
+        # the wgmma kernels, bf16 and fp32: phase 4's launches, and 5c's in five train
+        # steps at batch 300; their layers of G at 64 chunks (phase 3)
+        dict(launches=wgmma_bf16, train_launches=train_wgmma["bfloat16"], **wgmma64),
+        dict(launches=wgmma_fp32, train_launches=train_wgmma["float32"], **wgmma64_tf32),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

@@ -60,8 +60,9 @@
 // The tensor maps are built by the C entry point on every launch, from the pointers and
 // shapes it is given (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 // the library needs no -lcuda), and passed as __grid_constant__ parameters: a CUDA graph
-// records them with the launch. tests/test_torch_conv1d_wgmma.py emulates these index
-// maps in float64.
+// records them with the launch. The ring's pieces are csrc/tma_ring.cuh's, shared with
+// csrc/conv1d_wgmma_tf32.cu. tests/test_torch_conv1d_wgmma.py emulates these index maps
+// in float64.
 
 #include <cstdint>
 
@@ -70,10 +71,12 @@
 #include <cuda_bf16.h>
 
 #include "splitk_epilogue.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
 using conv_epilogue::launch_splitk_epilogue;
+using namespace tma_ring;
 
 constexpr int STRIDE = 4;       // the conv's stride
 constexpr int KP = 32;          // taps, padded by the wrapper
@@ -102,94 +105,6 @@ struct Plan {
   static_assert(STAGE_BYTES % 1024 == 0, "each stage's weight boxes 1024-byte aligned");
   static_assert(8 * 32 * OUT_LD * 2 <= STAGES * STAGE_BYTES, "epilogue tiles in the ring");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-constexpr unsigned long long WAIT_LIMIT_NS = 20000000000ull;  // 20 s
-constexpr int MAX_DEVICES = 64;
-
-// Waits until the phase of parity `parity` of the barrier has completed. A wait past
-// WAIT_LIMIT_NS traps: a pipeline fault then fails the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  unsigned long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    unsigned long long now;
-    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
-    if (start == 0)
-      start = now;
-    else if (now - start > WAIT_LIMIT_NS)
-      __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// A wgmma descriptor of a K-major tile with the 128-byte swizzle: rows of 128 bytes,
-// groups of 8 rows 1024 bytes apart; `addr` may move by 32-byte steps inside a row.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across the
-// asynchronous MMAs.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x 128, fp32, the m64nNk16 accumulator layout) += a (64 x 16, bf16, registers:
 // each warp 16 rows in mma.sync's m16n8k16 A layout) * B (16 x 128, bf16, K-major in
@@ -420,74 +335,26 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded (null if it has none).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 template <int MT>
 int launch_wgmma(const void* x, const void* w, const void* bias, const void* slope, void* y,
                  void* pre, float* partial, int splits, int B, int Cin, int T_in, int pitch,
                  int Cout, int T_out, cudaStream_t stream) {
   using P = Plan<MT>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorInitializationError;
   // input channels per split, whole ring stages, no empty slice
   const int slice = ((Cin + splits - 1) / splits + CC - 1) / CC * CC;
   splits = (Cin + slice - 1) / slice;
   if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
 
   CUtensorMap x_map, w_map;
-  const cuuint64_t x_dims[3] = {(cuuint64_t)T_in, (cuuint64_t)Cin, (cuuint64_t)B};
-  const cuuint64_t x_strides[2] = {(cuuint64_t)pitch * 2, (cuuint64_t)Cin * pitch * 2};
-  const cuuint32_t x_box[3] = {WIN, CC, 1};
-  const cuuint64_t w_dims[2] = {(cuuint64_t)Cin * KP, (cuuint64_t)Cout};
-  const cuuint64_t w_strides[1] = {(cuuint64_t)Cin * KP * 2};
-  const cuuint32_t w_box[2] = {W_BOX, BN};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  if (encode(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), x_dims,
-             x_strides, x_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), w_dims,
-             w_strides, w_box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-
-  // the shared-memory size, once per device (the attribute belongs to the device's
-  // context): a first launch under CUDA graph capture is then no different from another
-  static bool sized[MAX_DEVICES] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  cudaError_t err = encode_x_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, Cin,
+                                 T_in, pitch, WIN, CC);
+  if (err == cudaSuccess)
+    err = encode_w_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, Cout, Cin * KP, W_BOX,
+                       BN);
   if (err != cudaSuccess) return (int)err;
-  if (device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!sized[device]) {
-    err = cudaFuncSetAttribute(conv1d_wgmma_kernel<MT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
-    if (err != cudaSuccess) return (int)err;
-    sized[device] = true;
-  }
+  static bool sized[MAX_DEVICES] = {};
+  err = size_smem_once(conv1d_wgmma_kernel<MT>, P::SMEM, sized);
+  if (err != cudaSuccess) return (int)err;
   const long long M = (long long)B * T_out;
   const dim3 grid((unsigned)((M + P::TILE_M - 1) / P::TILE_M), (unsigned)(Cout / BN),
                   (unsigned)splits);

@@ -7,19 +7,22 @@ Three pieces, as for every kernel of the port:
   the tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
   a CUDA tensor it launches a hand-written kernel (``csrc/conv1d_prelu.cu``,
-  ``csrc/conv1d_wgmma.cu``) or raises. ``launches`` counts the wrapper's calls that
-  launch a kernel, ``launches_mma`` those of them on the tensor cores (both dtypes, both
-  instructions), ``launches_tf32`` those of them in fp32 and ``launches_wgmma`` those on
-  ``wgmma`` (bf16). A call under CUDA graph capture records the launch into the graph and
-  counts once; the graph's replays run the kernel again and move no counter.
+  ``csrc/conv1d_wgmma.cu``, ``csrc/conv1d_wgmma_tf32.cu``) or raises. ``launches``
+  counts the wrapper's calls that launch a kernel, ``launches_mma`` those of them on the
+  tensor cores (both dtypes, both instructions), ``launches_tf32`` those of them in fp32
+  (3xTF32, on either instruction) and ``launches_wgmma`` those on ``wgmma`` (both
+  dtypes): an fp32 call on wgmma moves all four. A call under CUDA graph capture records
+  the launch into the graph and counts once; the graph's replays run the kernel again
+  and move no counter.
 - Three routes on the card, chosen by shape and x's layout before launch (``_route``),
-  never as a fallback: "wgmma" (bf16, ``conv1d_wgmma_kernel``: TMA and ``wgmma``),
-  "mma" (``mma.sync``: bf16 as it is, fp32 by a 3xTF32 split) and "fma" (FMAs). The
-  tensor-core routes take the weights padded to 32 taps (``_pad_taps``), in fp32 split
-  into their TF32 parts (``_split_tf32``), on the wgmma route with the taps permuted to
-  the MMA fragments' order (``_wgmma_weights``), each made once per weight and version
-  (``_padded_weights``, ``_permuted_weights``; never while a CUDA graph is being
-  captured, which records the pad instead).
+  never as a fallback: "wgmma" (TMA and ``wgmma``: bf16 ``conv1d_wgmma_kernel``, fp32
+  by a 3xTF32 split ``conv1d_wgmma_tf32_kernel``), "mma" (``mma.sync``: bf16 as it is,
+  fp32 by a 3xTF32 split) and "fma" (FMAs). The tensor-core routes take the weights
+  padded to 32 taps (``_pad_taps``), in fp32 split into their TF32 parts
+  (``_split_tf32``; one copy for both fp32 routes), on the bf16 wgmma route with the
+  taps permuted to the MMA fragments' order (``_wgmma_weights``), each made once per
+  weight and version (``_padded_weights``, ``_permuted_weights``; never while a CUDA
+  graph is being captured, which records the pad instead).
 - x may be a view whose rows lie ``pitch`` elements apart (``x.stride()`` == (Cin pitch,
   pitch, 1)): G's blocks pad into rows whose pitch is a multiple of 8
   (``ops/conv.py`` ``reflect_pad_pitched``), the layout TMA reads. Every kernel takes the
@@ -46,8 +49,8 @@ from ..conv import at_least_fp32, conv1d, conv1d_weight, conv_transpose1d
 from . import build
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
-# all of them, those on the tensor cores, of those the fp32 (3xTF32) ones and the bf16
-# ones on wgmma
+# all of them, those on the tensor cores, of those the fp32 (3xTF32) ones and those on
+# wgmma (both dtypes)
 launches = 0
 launches_mma = 0
 launches_tf32 = 0
@@ -59,19 +62,22 @@ _lock = threading.Lock()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KP = 32  # taps of the tensor-core kernels' weights: K and zero taps
 MMA_MIN_SLICE = 4  # input channels per split-K slice of the MMA route, at least
-# conv1d_wgmma_kernel's constants (csrc/conv1d_wgmma.cu): output channels per block,
-# input channels per ring stage, rows per m64 tile and consumer warpgroups
-WGMMA_BN, WGMMA_CC, WGMMA_ROWS = 128, 4, 64
+# the wgmma kernels' constants (csrc/conv1d_wgmma.cu, csrc/conv1d_wgmma_tf32.cu): output
+# channels per block, input channels per ring stage (bf16, fp32), rows per m64 tile, and
+# the block tiles (m64 tiles per consumer warpgroup) each dtype's kernel takes
+WGMMA_BN, WGMMA_CC, WGMMA_TF32_CC, WGMMA_ROWS = 128, 4, 2, 64
+WGMMA_TILES = {torch.bfloat16: (1, 2), torch.float32: (1,)}
 WGMMA_MAX_SPLITS = 16
 # _wgmma_plan's cost model, ms = waves (WAVE_MS + CHANNEL_MS m_tiles slice)
 # + (splits > 1) (SPLIT_MS + PARTIAL_MS splits B T_out Cout): (WAVE_MS, CHANNEL_MS,
-# SPLIT_MS, PARTIAL_MS), fitted to the kernel's device times at every plan
+# SPLIT_MS, PARTIAL_MS), fitted to each kernel's device times at every plan
 WGMMA_COST = (4.26e-3, 1.91e-4, 2.16e-2, 1.28e-9)
-# the route rule's thresholds, from same-call timings on the card (``_route``): the
-# wgmma route from B T_out rows or B T_out Cout Cin multiply-adds per tap, enc1's
+WGMMA_TF32_COST = (1.80e-5, 9.48e-4, 1.62e-2, 3.61e-9)
+# the route rule's thresholds by dtype, from same-call timings on the card (``_route``):
+# the wgmma route from B T_out rows or B T_out Cout Cin multiply-adds per tap, enc1's
 # mma.sync route from B T_out rows
-WGMMA_MIN_ROWS = 1 << 10
-WGMMA_MIN_WORK = 1 << 28
+WGMMA_MIN_ROWS = {torch.bfloat16: 1 << 10, torch.float32: 1 << 13}
+WGMMA_MIN_WORK = {torch.bfloat16: 1 << 28, torch.float32: 1 << 25}
 ENC1_MMA_MIN_ROWS = {torch.bfloat16: 1 << 17, torch.float32: 1 << 18}
 # the tensor-core routes' weights, by the weight tensor they were made from:
 # weight -> (its version when made, copy): padded (and in fp32 split), and permuted
@@ -102,20 +108,22 @@ def _split_tf32(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _mma_weights(w: torch.Tensor):
-    """The tensor-core route's weights: (Cout, Cin, 32) padded in bf16; in fp32 also
-    split, a (big, small) pair of them (a pair, not one stacked tensor: indexing a
-    tensor on every call costs the wrapper microseconds)."""
+    """The tensor-core routes' weights: (Cout, Cin, 32) padded in bf16 (mma.sync); in
+    fp32 also split, a (big, small) pair of them (a pair, not one stacked tensor:
+    indexing a tensor on every call costs the wrapper microseconds), which both fp32
+    routes take, the taps in their order."""
     wp = _pad_taps(w.detach())
     return _split_tf32(wp) if w.dtype == torch.float32 else wp
 
 
 def _wgmma_weights(w: torch.Tensor) -> torch.Tensor:
-    """The wgmma route's weights: (Cout, Cin, 32), padded and with the taps in the order
-    the MMA fragments take them, so that each 16-deep step h reads 32 contiguous bytes of
-    a weight row: at contraction index k = 2q + e and 2q + 8 + e (lane quad q, e = 0, 1)
-    step h takes the taps 8q + 4h + e and 8q + 4h + 2 + e, as the mma.sync route's A
-    fragments do. Tap 8 q + 4 h + 2 kk + e goes to column 16 h + 8 kk + 2 q + e: a
-    permutation of the padded taps' (q, h, kk, e) digits, one copy on the device."""
+    """The bf16 wgmma route's weights: (Cout, Cin, 32), padded and with the taps in the
+    order the MMA fragments take them, so that each 16-deep step h reads 32 contiguous
+    bytes of a weight row: at contraction index k = 2q + e and 2q + 8 + e (lane quad q,
+    e = 0, 1) step h takes the taps 8q + 4h + e and 8q + 4h + 2 + e, as the mma.sync
+    route's A fragments do. Tap 8 q + 4 h + 2 kk + e goes to column 16 h + 8 kk + 2 q + e:
+    a permutation of the padded taps' (q, h, kk, e) digits, one copy on the device. (The
+    fp32 wgmma route reads the taps in their order, 8 a step: ``_mma_weights``.)"""
     cout, cin = w.shape[:2]
     return (_pad_taps(w.detach()).view(cout, cin, 4, 2, 2, 2).permute(0, 1, 3, 4, 2, 5)
             .reshape(cout, cin, KP))
@@ -135,7 +143,7 @@ def _cached(cache, w: torch.Tensor, make):
 
 
 def _permuted_weights(w: torch.Tensor) -> torch.Tensor:
-    """``_wgmma_weights(w)``, made once per weight and version, under the rules of
+    """``_wgmma_weights(w)`` (bf16), made once per weight and version, under the rules of
     ``_padded_weights`` (spectral norm's w / sigma is new every forward and misses)."""
     return _cached(_permuted, w, _wgmma_weights)
 
@@ -173,12 +181,13 @@ def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
     - "fma" (``conv1d_prelu_kernel``) for every shape the tensor cores do not take
       (``_tensor_core_shape``), and for enc1 (Cin = 1, bound by bytes: it writes y and
       pre) below ENC1_MMA_MIN_ROWS[dtype] rows (B T_out);
-    - "wgmma" (``conv1d_wgmma_kernel``) in bf16 when x's rows are ``pitched`` (pitch a
-      multiple of 8 and x 16-byte aligned, as TMA reads them), Cin > 1, Cout a multiple
-      of 128, and B T_out at least WGMMA_MIN_ROWS or the work, B T_out Cout Cin, at
-      least WGMMA_MIN_WORK;
-    - "mma" (``mma.sync``; fp32 by 3xTF32) for the rest. A bf16 x in odd rows (a
-      contiguous G pad, T_in = 4 T_out + 29) takes it whatever its shape.
+    - "wgmma" (bf16 ``conv1d_wgmma_kernel``, fp32 ``conv1d_wgmma_tf32_kernel``) when
+      x's rows are ``pitched`` (pitch a multiple of 8 and x 16-byte aligned, as TMA reads
+      them), Cin > 1, Cout a multiple of 128, and B T_out at least
+      WGMMA_MIN_ROWS[dtype] or the work, B T_out Cout Cin, at least
+      WGMMA_MIN_WORK[dtype];
+    - "mma" (``mma.sync``; fp32 by 3xTF32) for the rest. An x in odd rows (a contiguous
+      G pad, T_in = 4 T_out + 29) takes it whatever its shape.
 
     The figures it rests on: a call's cost with calls back to back, as in a G forward
     (the longer of the wrapper's host time and the device's; tools/conv1d_routes.py, 10
@@ -192,14 +201,23 @@ def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
     interquartile ranges 0.03). At enc1 the FMA kernel beat mma.sync up to 16 chunks in
     bf16 (0.0418 against 0.0545 at 16) and lost from 32 (0.0593 against 0.0527); in fp32
     it won up to 32 (0.0600 against 0.0723) and lost from 64 (0.1105 against 0.1047).
+
+    In fp32 (both tensor-core routes 3xTF32; the same measure, NVIDIA H100 80GB HBM3 at
+    700.00 W): wgmma took 0.25-0.42x of mma.sync's time at G's encoder shapes of 64-300
+    chunks, 0.29-0.47x at 16-32, 0.41-0.75x at 8 and 0.84-1.04x at 4 (2^25 of work at
+    every layer: enc2-5 summed 0.2840 ms against 0.3020, 0.94x, and 0.94x and 1.00x in
+    two earlier runs); at 1-2 chunks 0.98-1.44x, mma.sync the faster at 7 of those 8
+    layers: a wgmma call costs the host more (three tensor maps a launch). Hence 2^25 of
+    work, or 2^13 rows (enc2: 0.0681 ms against 0.1678 at 8192 rows, 0.0773 against
+    0.0743 at 4096).
     """
     if not _tensor_core_shape(dtype, cout, k, stride, t_out):
         return "fma"
     rows = B * t_out
     if cin == 1:
         return "mma" if rows >= ENC1_MMA_MIN_ROWS[dtype] else "fma"
-    if (dtype == torch.bfloat16 and pitched and cout % WGMMA_BN == 0
-            and (rows >= WGMMA_MIN_ROWS or rows * cout * cin >= WGMMA_MIN_WORK)):
+    if pitched and cout % WGMMA_BN == 0 and (rows >= WGMMA_MIN_ROWS[dtype]
+                                             or rows * cout * cin >= WGMMA_MIN_WORK[dtype]):
         return "wgmma"
     return "mma"
 
@@ -215,21 +233,26 @@ def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[in
 
 
 @functools.lru_cache(maxsize=None)  # a pure function of the shape, on every call's path
-def _wgmma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int]:
+def _wgmma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int,
+                dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """(m_tiles, splits) of the wgmma route: the block tile (128 m_tiles rows x 128
-    channels, one block per SM) and the split-K slices (whole ring stages of WGMMA_CC
-    channels, none empty), the plan of least cost under WGMMA_COST's model: the waves of
-    blocks on `num_sms` SMs, each as long as its slice of channels at its rows, and a
-    split-K epilogue that reads back splits x B x T_out x Cout fp32 partial sums. The
-    model picks plans whose summed device times are within 1.2 % of the fastest ones',
-    over all 2 x 16 plans at the encoder's shapes of 1-300 chunks (tools/conv1d_routes.py
-    --plans, measured on one NVIDIA H100 80GB HBM3 at 700 W)."""
-    wave_ms, channel_ms, split_ms, partial_ms = WGMMA_COST
+    channels, one block per SM; m_tiles of WGMMA_TILES[dtype]) and the split-K slices
+    (whole ring stages of WGMMA_CC channels in bf16, WGMMA_TF32_CC in fp32, none empty),
+    the plan of least cost under the dtype's model (WGMMA_COST, WGMMA_TF32_COST): the
+    waves of blocks on `num_sms` SMs, each as long as its slice of channels at its rows,
+    and a split-K epilogue that reads back splits x B x T_out x Cout fp32 partial sums.
+    The models pick plans whose summed device times are within 1.2 % (bf16, over all
+    2 x 16 plans) and 1.1-1.5 % (fp32, over every split-K count) of the fastest ones' at the
+    encoder's shapes of 1-300 chunks (tools/conv1d_routes.py --plans, measured on one
+    NVIDIA H100 80GB HBM3 at 700 W)."""
+    fp32 = dtype == torch.float32
+    wave_ms, channel_ms, split_ms, partial_ms = WGMMA_TF32_COST if fp32 else WGMMA_COST
+    cc = WGMMA_TF32_CC if fp32 else WGMMA_CC
     rows, n_tiles = B * t_out, cout // WGMMA_BN
     best = None
-    for m_tiles in (1, 2):
+    for m_tiles in WGMMA_TILES[dtype]:
         for splits in range(1, WGMMA_MAX_SPLITS + 1):
-            per = -(-(-(-cin // splits)) // WGMMA_CC) * WGMMA_CC  # channels per slice
+            per = -(-(-(-cin // splits)) // cc) * cc  # channels per slice
             if -(-cin // per) != splits:  # the kernel would cut fewer slices
                 continue
             blocks = -(-rows // (2 * WGMMA_ROWS * m_tiles)) * n_tiles * splits
@@ -311,10 +334,16 @@ def _entries():
 
 
 @functools.cache
-def _wgmma_entry():
-    """conv1d_prelu_wgmma_launch of csrc/conv1d_wgmma.cu, a library of its own."""
-    fn = build.load_library("conv1d_wgmma").conv1d_prelu_wgmma_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _wgmma_entry(dtype: torch.dtype = torch.bfloat16):
+    """The wgmma route's entry point for `dtype`, each source a library of its own:
+    conv1d_prelu_wgmma_launch of csrc/conv1d_wgmma.cu (bf16: one weight pointer) or
+    conv1d_prelu_wgmma_tf32_launch of csrc/conv1d_wgmma_tf32.cu (fp32: the split
+    weights' two), the other arguments alike."""
+    fp32 = dtype == torch.float32
+    lib = build.load_library("conv1d_wgmma_tf32" if fp32 else "conv1d_wgmma")
+    fn = lib.conv1d_prelu_wgmma_tf32_launch if fp32 else lib.conv1d_prelu_wgmma_launch
+    fn.argtypes = [ctypes.c_void_p] * (8 if fp32 else 7) + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -365,10 +394,9 @@ def _launch(x, w, b, a, stride: int, t_out: int,
         route = force
     else:
         raise ValueError(f"the {force!r} route does not take this shape")
-    if route == "wgmma" and not (x.dtype == torch.bfloat16 and pitched
-                                 and cout % WGMMA_BN == 0):
-        raise ValueError("the wgmma route takes bf16 x in 16-byte aligned rows whose "
-                         "pitch is a multiple of 8, and Cout a multiple of 128")
+    if route == "wgmma" and not (pitched and cout % WGMMA_BN == 0):
+        raise ValueError("the wgmma route takes x in 16-byte aligned rows whose pitch is "
+                         "a multiple of 8, and Cout a multiple of 128")
     shape = (B, cout, t_out)
     if out is None:
         out = (torch.empty(shape, dtype=x.dtype, device=x.device),
@@ -378,15 +406,16 @@ def _launch(x, w, b, a, stride: int, t_out: int,
         raise ValueError(f"out must be two contiguous {x.dtype} tensors on {x.device} of "
                          f"shape {shape}")
     y, pre = out
-    tf32 = route == "mma" and x.dtype == torch.float32
-    if route != "fma" and not tf32 and (y.data_ptr() % 16 or pre.data_ptr() % 16):
-        raise ValueError(f"the bf16 {route} route stores 16-byte units: y and pre must be "
+    tf32 = route != "fma" and x.dtype == torch.float32
+    if (route == "wgmma" or (route == "mma" and not tf32)) and (
+            y.data_ptr() % 16 or pre.data_ptr() % 16):
+        raise ValueError(f"the {route} route stores 16-byte units: y and pre must be "
                          "16-byte aligned")
     sms = _sm_count(x.device.index)
     if route == "wgmma":
-        entry = _wgmma_entry()
-        tiles, splits = _wgmma_plan(B, cin, cout, t_out, sms)
-        w = _permuted_weights(w)
+        entry = _wgmma_entry(x.dtype)
+        tiles, splits = _wgmma_plan(B, cin, cout, t_out, sms, x.dtype)
+        w = _padded_weights(w) if tf32 else _permuted_weights(w)
     else:
         launch, splits_of, launch_mma, launch_tf32 = _entries()
         if route == "mma":
@@ -405,7 +434,7 @@ def _launch(x, w, b, a, stride: int, t_out: int,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
             err = entry(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
-        elif tf32:
+        elif tf32 and route == "mma":
             err = launch_tf32(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
         elif route == "mma":
             err = launch_mma(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)

@@ -6,9 +6,10 @@ figures its route rule rests on (``ops/kernels/conv1d_prelu.py`` ``_route``,
         [--dtype bfloat16 float32] [--reps 10] [--plans]
 
 At each of the five encoder layers of B 16384-sample chunks, with x padded as G pads it
-(``ops/conv.py`` ``reflect_pad_pitched``), every route that takes the shape ("wgmma" in
-bf16, "mma", "fma") runs forced into NaN-filled outputs and is held against the plain
-version (2e-2 in bf16, 1e-4 in fp32), its launch read from the counters; then the routes,
+(``ops/conv.py`` ``reflect_pad_pitched``), every route that takes the shape ("wgmma",
+"mma", "fma"; fp32 on the tensor cores by 3xTF32) runs forced into NaN-filled outputs
+and is held against the plain version (2e-2 in bf16, 1e-4 in fp32), its launch read from
+the counters; then the routes,
 the plain version and cuDNN's ``F.conv1d`` (TF32 off) are timed in turns: CUDA events
 around one wrapper call (host time included where the host is the slower) and around 10
 back to back (a call's cost when calls follow each other, as in a G forward: the longer
@@ -16,15 +17,16 @@ of the host's time and the device's), the median and the interquartile range of
 ``--reps`` rounds after 2 warm-ups. It prints, per shape, each arm's time, the route the rule picks and the
 fastest one, the bound (useful FLOPs at the dense peak or bytes at 3.35 TB/s, whichever
 is longer) and the picked route's TFLOP/s; per batch the encoder sums of each route and
-of the rule's picks. ``--plans`` also times the wgmma kernel at other block tiles and
-split-K counts, the plan ``_wgmma_plan`` gives among them, each through the kernel's
-entry point, 10 calls back to back per timing (at these costs the device's time). Needs
-a CUDA device and nvcc.
+of the rule's picks. ``--plans`` also times the dtype's wgmma kernel at its other block
+tiles and split-K counts, the plan ``_wgmma_plan`` gives among them, each through the
+kernel's entry point, 10 calls back to back per timing (at these costs the device's
+time). Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
 import argparse
 import statistics
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Sequence
 
@@ -101,17 +103,18 @@ def layer_inputs(B: int, layer: int, dtype, g: torch.Generator, bias: bool = Fal
 
 
 def launch_plan(x, w, b, a, t_out, tiles: int, splits: int, out):
-    """The wgmma kernel at a given block tile (m_tiles) and split-K count."""
+    """The wgmma kernel of x's dtype at a given block tile (m_tiles) and split-K count."""
     B, cin, t_in = x.shape
     cout = w.shape[0]
-    wp = K._permuted_weights(w)
+    # fp32: the split pair both fp32 routes take; bf16: the permuted copy
+    wp = K._padded_weights(w) if x.dtype == torch.float32 else (K._permuted_weights(w),)
     part = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    err = K._wgmma_entry()(x.data_ptr(), wp.data_ptr(), None if b is None else b.data_ptr(),
-                           a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                           None if part is None else part.data_ptr(), tiles, splits, B,
-                           cin, t_in, K._pitch(x), cout, t_out,
-                           torch.cuda.current_stream().cuda_stream)
+    err = K._wgmma_entry(x.dtype)(
+        x.data_ptr(), *(v.data_ptr() for v in wp), None if b is None else b.data_ptr(),
+        a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        None if part is None else part.data_ptr(), tiles, splits, B, cin, t_in, K._pitch(x),
+        cout, t_out, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"wgmma plan ({tiles}, {splits}): cudaError {err}")
     return out
@@ -129,16 +132,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("conv1d_routes needs a CUDA device")
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source
-        for name, (path, log) in zip(("conv1d_prelu", "conv1d_wgmma"), pool.map(
-                build.build_library, ("conv1d_prelu", "conv1d_wgmma"))):
+    names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32")
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
+        for name, (path, log) in zip(names, pool.map(build.build_library, names)):
             print(f"build: {name} -> {path}")
             if log:
                 print(log.strip())
     torch.backends.cudnn.allow_tf32 = False
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"routes of fused_conv1d_prelu on {torch.cuda.get_device_name(0)}, {sms} SMs; "
-          f"ms: median (interquartile range) of {args.reps} rounds in turns", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"routes of fused_conv1d_prelu on {torch.cuda.get_device_name(0)} ({smi}), {sms} "
+          f"SMs; ms: median (interquartile range) of {args.reps} rounds in turns", flush=True)
     g = torch.Generator().manual_seed(0)
     res = {}
     regret = [0.0, 0.0]  # summed device ms of the rule's plans and of the fastest ones
@@ -153,7 +159,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 y_ref, pre_ref = K.conv1d_prelu_plain(x, w, b, a, 4)
                 pick = route_of(lambda: K.fused_conv1d_prelu(x, w, b, a, 4))
                 routes = [r for r in ROUTES if r != "wgmma" or (
-                    dtype == torch.bfloat16 and cin > 1 and cout % K.WGMMA_BN == 0)]
+                    cin > 1 and cout % K.WGMMA_BN == 0)]
                 errs = {}
                 for r in routes:
                     out = tuple(torch.full(shape, float("nan"), dtype=dtype, device="cuda")
@@ -170,10 +176,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 arms["cuDNN"] = lambda: F.conv1d(x, w, b, stride=4)
                 plans = {}
                 if args.plans and "wgmma" in routes:
-                    plan = K._wgmma_plan(B, cin, cout, t_out, sms)
+                    plan = K._wgmma_plan(B, cin, cout, t_out, sms, dtype)
                     out = (torch.empty(shape, dtype=dtype, device="cuda"),
                            torch.empty(shape, dtype=dtype, device="cuda"))
-                    for tiles in (1, 2):
+                    for tiles in K.WGMMA_TILES[dtype]:
                         for splits in sorted({1, 2, 3, 4, 6, 8, 12, 16, plan[1]}):
                             if splits > 1 and -(-cin // splits) < 4:
                                 continue

@@ -32,6 +32,7 @@ from .encoder_fused_bench import cuda_ms
 
 CLASSES = [  # (class, substrings of a kernel's name), the first match wins
     ("fused conv + PReLU (port kernels)", ("conv1d_mma_kernel", "conv1d_tf32_kernel",
+                                           "conv1d_wgmma_kernel", "conv1d_wgmma_tf32_kernel",
                                            "conv1d_prelu_kernel", "splitk_epilogue_kernel")),
     ("cuDNN convolutions", ("conv", "gemm", "xmma", "dgrad", "cudnn")),
     ("reflect pads", ("reflection_pad", "reflect")),

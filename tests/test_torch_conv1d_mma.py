@@ -391,6 +391,8 @@ def test_tools_need_cuda(monkeypatch, tool):
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::conv1d_mma_kernel<1>(...)", 0),
     ("void (anonymous namespace)::conv1d_tf32_kernel<2>(...)", 0),
+    ("void (anonymous namespace)::conv1d_wgmma_kernel<2>(CUtensorMap_st, ...)", 0),
+    ("void (anonymous namespace)::conv1d_wgmma_tf32_kernel(CUtensorMap_st, ...)", 0),
     ("void (anonymous namespace)::splitk_epilogue_kernel<float>(...)", 0),
     ("void cutlass__5x_cudnn::Kernel<cutlass_tensorop_bf16_s16816dgrad_optimized>", 1),
     ("void cudnn::detail::dgrad_engine<float, 512, 6, 5, 3, 3, 3, false>(...)", 1),

@@ -307,13 +307,17 @@ def test_emulated_constants_are_the_kernels():
 @pytest.mark.parametrize("layer", range(5), ids=[f"enc{i + 1}" for i in range(5)])
 def test_main_path_takes_the_tf32_route(B, layer):
     """fp32 takes the tensor cores at every main-path shape but enc1's FMA rows, with the
-    bf16 mma.sync route's plan, in pitched rows too (wgmma is bf16's alone)."""
+    bf16 mma.sync route's plan, in contiguous odd rows; in pitched rows the same but where
+    the fp32 wgmma rule takes the shape (its own tests: test_torch_conv1d_wgmma_tf32.py)."""
     _, cin, t_in, cout = _main_path(B, layer)
     t_out = (t_in - KW) // 4 + 1
     enc1_fma = layer == 0 and B * t_out < K.ENC1_MMA_MIN_ROWS[torch.float32]
-    for pitched in (False, True):
-        assert K._route(torch.float32, B, cin, cout, KW, 4, t_out, pitched) == (
-            "fma" if enc1_fma else "mma")
+    wgmma = layer > 0 and (B * t_out >= K.WGMMA_MIN_ROWS[torch.float32] or
+                           B * t_out * cout * cin >= K.WGMMA_MIN_WORK[torch.float32])
+    assert K._route(torch.float32, B, cin, cout, KW, 4, t_out, False) == (
+        "fma" if enc1_fma else "mma")
+    assert K._route(torch.float32, B, cin, cout, KW, 4, t_out, True) == (
+        "fma" if enc1_fma else "wgmma" if wgmma else "mma")
     warps_m, splits = K._mma_plan(B, cin, cout, t_out, H100_SMS)
     assert warps_m == {64: 4, 128: 2}.get(cout, 1)
     per = -(-cin // splits)

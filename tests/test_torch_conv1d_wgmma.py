@@ -216,7 +216,7 @@ def test_wgmma_taps_are_the_mma_fragments_order():
     for h in range(2):
         for r in range(16):
             assert list(a_idx[h, r] - 4 * r) == list(taps[h])
-    w = torch.randn(3, 2, 31)
+    w = torch.randn(3, 2, 31).bfloat16()
     perm = K._wgmma_weights(w)
     assert perm.shape == (3, 2, 32) and perm.is_contiguous()
     assert torch.equal(perm, K._pad_taps(w)[..., list(WGMMA_TAPS)])
@@ -255,10 +255,12 @@ def test_emulated_constants_are_the_kernels():
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert [int(consts[n]) for n in ("BN", "CC", "WIN", "STAGES", "CONSUMERS")] == [
         BN, CC, WIN, STAGES, CONSUMERS]
-    assert (K.WGMMA_BN, K.WGMMA_CC) == (BN, CC)
+    assert (K.WGMMA_BN, K.WGMMA_CC, K.WGMMA_TILES[torch.bfloat16]) == (BN, CC, (1, 2))
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src
-    assert "cp.async.bulk.tensor.2d" in src and "cp.async.bulk.tensor.3d" in src
-    assert "CU_TENSOR_MAP_SWIZZLE_128B" in src and "__grid_constant__" in src
+    assert "__grid_constant__" in src and '#include "tma_ring.cuh"' in src
+    ring = (build.CSRC_DIR / "tma_ring.cuh").read_text()  # the ring's shared helpers
+    assert "cp.async.bulk.tensor.2d" in ring and "cp.async.bulk.tensor.3d" in ring
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in ring
 
 
 @pytest.mark.parametrize("T_x", [16384, 4096, 1024, 256, 64, 16, 8, 4, 2, 1, 13, 14, 15])
@@ -315,15 +317,17 @@ def test_g_blocks_pass_pitched_views(monkeypatch):
     assert torch.equal(out, ref)
 
 
-def _cheapest_plan(B, cin, cout, t_out, sms=H100_SMS):
-    """The stated plan rule, by enumeration: every (m_tiles, splits) the kernel cuts,
-    the cheapest under WGMMA_COST's model (waves of blocks x their slice, plus the
-    split-K epilogue's partial sums)."""
-    wave, channel, split, partial = K.WGMMA_COST
+def _cheapest_plan(B, cin, cout, t_out, sms=H100_SMS, dtype=torch.bfloat16):
+    """The stated plan rule, by enumeration: every (m_tiles, splits) the dtype's kernel
+    cuts, the cheapest under its model (WGMMA_COST, WGMMA_TF32_COST: waves of blocks x
+    their slice, plus the split-K epilogue's partial sums)."""
+    fp32 = dtype == torch.float32
+    wave, channel, split, partial = K.WGMMA_TF32_COST if fp32 else K.WGMMA_COST
+    cc = K.WGMMA_TF32_CC if fp32 else CC
     costs = {}
-    for m_tiles in (1, 2):
+    for m_tiles in K.WGMMA_TILES[dtype]:
         for splits in range(1, K.WGMMA_MAX_SPLITS + 1):
-            per = -(-(-(-cin // splits)) // CC) * CC
+            per = -(-(-(-cin // splits)) // cc) * cc
             if -(-cin // per) != splits:
                 continue
             blocks = -(-B * t_out // (128 * m_tiles)) * (cout // BN) * splits
@@ -333,15 +337,15 @@ def _cheapest_plan(B, cin, cout, t_out, sms=H100_SMS):
     return min(costs, key=lambda p: (costs[p], p))
 
 
-def _expected_route(dtype, B, layer):
+def _expected_route(dtype, B, layer, pitched=True):
     """The rule as ``_route``'s docstring states it, at main-path shape (B, layer) with x
-    in G's pitched rows."""
+    in G's pitched rows (or in contiguous odd ones)."""
     _, cin, _, cout, t_out = _main_path(B, layer)
     rows = B * t_out
     if layer == 0:
         return "mma" if rows >= K.ENC1_MMA_MIN_ROWS[dtype] else "fma"
-    if dtype == torch.bfloat16 and (rows >= K.WGMMA_MIN_ROWS
-                                    or rows * cout * cin >= K.WGMMA_MIN_WORK):
+    if pitched and (rows >= K.WGMMA_MIN_ROWS[dtype]
+                    or rows * cout * cin >= K.WGMMA_MIN_WORK[dtype]):
         return "wgmma"
     return "mma"
 
@@ -368,15 +372,21 @@ def test_route_rule_at_every_main_path_shape(B, layer):
 def test_route_rule_pins():
     """The thresholds the rule's docstring states, and what they give: G's bf16 encoder
     from 32 chunks on wgmma from enc2 on, below it where a layer has 1024 rows (enc2 from
-    one chunk, enc3 from 4, enc4 from 16), mma.sync elsewhere; enc1 on the FMA kernel up
-    to 16 chunks in bf16 and 32 in fp32, on mma.sync from 32 and 64."""
-    assert (K.WGMMA_MIN_ROWS, K.WGMMA_MIN_WORK) == (1 << 10, 1 << 28)
+    one chunk, enc3 from 4, enc4 from 16), mma.sync elsewhere; G's fp32 encoder on wgmma
+    from enc2 on from 4 chunks, on mma.sync below; enc1 on the FMA kernel up to 16 chunks
+    in bf16 and 32 in fp32, on mma.sync from 32 and 64."""
+    assert (K.WGMMA_MIN_ROWS, K.WGMMA_MIN_WORK) == (
+        {torch.bfloat16: 1 << 10, torch.float32: 1 << 13},
+        {torch.bfloat16: 1 << 28, torch.float32: 1 << 25})
     assert K.ENC1_MMA_MIN_ROWS == {torch.bfloat16: 1 << 17, torch.float32: 1 << 18}
     want = {1: ["wgmma", "mma", "mma", "mma"], 4: ["wgmma", "wgmma", "mma", "mma"],
             8: ["wgmma", "wgmma", "mma", "mma"], 16: ["wgmma", "wgmma", "wgmma", "mma"],
             32: ["wgmma"] * 4, 64: ["wgmma"] * 4, 300: ["wgmma"] * 4}
     for B, routes in want.items():
         assert [_expected_route(torch.bfloat16, B, l) for l in range(1, 5)] == routes, B
+    for B in (1, 2, 4, 6, 8, 16, 64, 150, 300):
+        assert [_expected_route(torch.float32, B, l) for l in range(1, 5)] == (
+            ["wgmma"] * 4 if B >= 4 else ["mma"] * 4), B
     assert [_expected_route(torch.bfloat16, B, 0) for B in (1, 16, 32, 300)] == [
         "fma", "fma", "mma", "mma"]
     assert [_expected_route(torch.float32, B, 0) for B in (1, 32, 64, 300)] == [
@@ -399,7 +409,8 @@ def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(K, "_entries", lambda: tuple(
         lib.entry(n) for n in ("fma", "splits", "mma", "tf32")))
-    monkeypatch.setattr(K, "_wgmma_entry", lambda: lib.entry("wgmma"))
+    monkeypatch.setattr(K, "_wgmma_entry", lambda dtype=torch.bfloat16: lib.entry(
+        "wgmma_tf32" if dtype == torch.float32 else "wgmma"))
     monkeypatch.setattr(K, "_sm_count", lambda index: H100_SMS)
 
     class _Stream:
