@@ -235,15 +235,22 @@ and when the port's package is not beside it):
      paper's widths (11 encoder layers 16 ... 1024 at stride 2, K = 31, z_dim 1024, skips
      merged by concat; 73.1M parameters) on 64 chunks of 16384 samples, fp32 and its bf16
      copy: one forward each with the kernel's counters set to 0 just before and read just
-     after (11 launches, all on the FMA route: the tensor-core route takes stride 4 only),
-     the forward and a forward + backward of an L1 loss timed in turns (chunks/s), FLOPs
+     after (11 launches; each call's route, read from the counters, the one _route picks at
+     stride 2 for its shape and pitched rows: mma.sync below 128 output channels, wgmma
+     from 128, the tensor cores at every layer but the first, whose route is the stride's
+     enc1 rule), the forward and a forward + backward of an L1 loss timed in turns
+     (chunks/s), FLOPs
      (the encoder's from its shapes, the rest by FlopCounterMode); at B = 2 the fp32
      forward and gradients on the card and on the CPU vs float64 on the CPU (output <=
      1e-3, each gradient's relative L2 error <= max(1e-3, 4 x the CPU fp32 one's)); the
      bf16 copy vs the fp32 model of its rounded parameters (<= 2e-2); (b) the kernel at
-     that encoder's 11 stride-2 shapes at B = 64 vs its plain version in NaN-filled
-     outputs (fp32 <= 1e-4, bf16 <= 2e-2, the FMA route read from the counters), timed in
-     turns with the plain version and cuDNN's F.conv1d, beside bounds; (c) every option of
+     that encoder's 11 stride-2 shapes at B = 64, x in Generator1D's pitched rows, vs its
+     plain version in NaN-filled outputs (fp32 <= 1e-4, bf16 <= 2e-2) on the route _route
+     picks (read from the counters) and on the FMA route forced, timed in turns with the
+     plain version and cuDNN's F.conv1d, and each route's kernel through its entry point
+     (device ms), beside bounds; then every plan of the tensor-core routes at those shapes
+     (each wgmma block tile and split-K count, each mma.sync tile and 1-4 slices) vs the
+     plain version; (c) every option of
      the CPU tests at toy width, card vs CPU (fp32 <= 1e-4; rnn_core on cuDNN's LSTM), and
      rnn_core's bf16 copy vs fp32 (<= 2e-2); (d) STOI of 3 s, F0Evaluator on a spawned pool
      of two (terminated), and one epoch of both random-chunk datasets over a synthetic
@@ -309,16 +316,20 @@ phase-10 case's graphed step makes and of each 14a case's graphed grouped step (
 ...'), data_options_launches (_segan, _h5, _wsegan) those
 of phase 11's runs, a7a_*_launches_per_step phase 12's (bnorm G 0, sinc D SEGAN+ 5,
 sinc D WSEGAN 21), and under sinc_d_* (fp32_sinc_d_*) the sums of 12c's four sinc D
-shapes at batch 150, a7b_g1d_launches_per_forward phase 13's (11), and under g1d_enc_*
-(fp32_g1d_enc_*) the sums of 13b's eleven stride-2 shapes at batch 64,
+shapes at batch 150, a7b_g1d_launches_per_forward phase 13's (11), under
+a7b_g1d_launched its four counters by dtype, and under g1d_enc_* (fp32_g1d_enc_*) the
+sums of 13b's eleven stride-2 shapes at batch 64 (device_ms the picked routes' kernels,
+<route>_device_ms and <route>_launches by route),
 p14_segan_launches_per_rank_step and p14_wsegan_launches_per_rank_step phase 14's (5 and
 25), p14_enhance_sharded_launches 14d's (10), tools_launches phase 15's in-process parts
 (tools_convert_launches 15b's, tools_ab_parity_launches 15c's, tools_tls_ws_launches
 15g's);
 launches of fused_conv1d_prelu_wgmma (the per-layer kernel's bf16 wgmma route) from
 phase 4 (train_launches 5c's bf16 steps'), its times the sums of G's layers on it at 64
-chunks from phase 3 (ms a wrapper call, device_ms 10 launches back to back), and the same
-of fused_conv1d_prelu_wgmma_tf32 (the fp32 wgmma route) in fp32 (train_launches 5c's fp32
+chunks from phase 3 (ms a wrapper call, device_ms 10 launches back to back),
+g1d_launches_per_forward and g1d_device_ms its launches in phase 13's Generator1D forward
+and their layers' device ms at stride 2 (13b), and the same of
+fused_conv1d_prelu_wgmma_tf32 (the fp32 wgmma route) in fp32 (train_launches 5c's fp32
 steps');
 launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
 the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
@@ -524,12 +535,13 @@ def _in_turns(arms, reps=10, warmup=2, calls=1):
     return {n: median_iqr(v) for n, v in times_in_turns(arms, reps, warmup, calls).items()}
 
 
-def _entry_arm(K, route, x, w, b, a, stride, t_out, out):
+def _entry_arm(K, route, x, w, b, a, stride, t_out, out, plan=None):
     """A closure that launches `route`'s kernel for x's dtype through its C entry point
-    alone, the wrapper's weights, plan and split-K workspace made once: calls back to
-    back then cost the device's time wherever a kernel takes longer than the ctypes call
-    (~15 us of host), with no wrapper in between (nor a profiler, whose CUPTI session
-    slows the launches of the phases after it)."""
+    alone, the wrapper's weights, plan (or `plan`, a tensor-core route's (tile, splits))
+    and split-K workspace made once: calls back to back then cost the device's time
+    wherever a kernel takes longer than the ctypes call (~15 us of host), with no wrapper
+    in between (nor a profiler, whose CUPTI session slows the launches of the phases
+    after it)."""
     import torch
 
     B, cin, t_in = x.shape
@@ -542,11 +554,11 @@ def _entry_arm(K, route, x, w, b, a, stride, t_out, out):
         plan = (splits_of(B, cin, cout, t_out, k, sms),)
         fn, wp = (lambda *args: launch(K._DTYPE_CODES[x.dtype], *args)), (w,)
     elif route == "mma":
-        plan = K._mma_plan(B, cin, cout, t_out, sms)
+        plan = plan or K._mma_plan(B, cin, cout, t_out, sms, stride, x.dtype)
         fn, wp = (launch_tf32, K._padded_weights(w)) if fp32 else (
             launch_mma, (K._padded_weights(w),))
     else:  # fp32 takes the split pair of the mma.sync route, bf16 the permuted copy
-        plan = K._wgmma_plan(B, cin, cout, t_out, sms, x.dtype)
+        plan = plan or K._wgmma_plan(B, cin, cout, t_out, sms, x.dtype)
         fn = K._wgmma_entry(x.dtype)
         wp = K._padded_weights(w) if fp32 else (K._permuted_weights(w),)
     part = (torch.empty((plan[-1], B, cout, t_out), dtype=torch.float32, device=x.device)
@@ -555,7 +567,7 @@ def _entry_arm(K, route, x, w, b, a, stride, t_out, out):
             a.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), None if part is None else part.data_ptr(),
             *plan, B, cin, t_in, K._pitch(x), cout, t_out)
-    args += (k, stride, stream) if route == "fma" else (stream,)
+    args += (k, stride, stream) if route == "fma" else (stride, stream)
 
     def run():
         assert fn(*args) == 0, route
@@ -603,6 +615,11 @@ def phase_kernel():
         ("B=64 enc3 odd rows", 64, 128, 1053, 256, Kw, S, False, "edge", "contiguous"),
         ("ragged T_out=243", 3, 5, 1000, 70, Kw, S, True, "edge", "contiguous"),
         ("stride 1", 2, 48, 300, 40, Kw, 1, True, "edge", "contiguous"),
+        # stride 2 (Generator1D): T_out 8 and 24 at odd B, whose last m16 group is half
+        # live, on wgmma alone; Cin 5; each zero tap reads x[T_in], which must read 0
+        ("s2 T_out=8 B=3 bias", 3, 512, 45, 1024, Kw, 2, True, "edge", "pitched"),
+        ("s2 T_out=24 B=5", 5, 40, 77, 128, Kw, 2, False, "edge", "pitched"),
+        ("s2 Cin=5 bias", 2, 5, 61, 256, Kw, 2, True, "edge", "pitched"),
     ]
     assert {c[0] for c in cases if c[8] == "ws"} == set(WS_ROWS)
     sums = {}  # (B, column) -> ms summed over the five encoder layers
@@ -638,8 +655,12 @@ def phase_kernel():
         shape = (b, cout, t_out)
         assert t_out == (t_in - kw) // s + 1, (label, t_out)
         tc_shape = K._tensor_core_shape(torch.float32, cout, kw, s, t_out)
-        if (t_in - kw) % s == 0 and tc_shape:
+        wg_shape = K._wgmma_shape(torch.float32, cin, cout, kw, s, t_out, pitched)
+        if (t_in - kw) % s == 0 and (tc_shape or wg_shape):
             assert s * (t_out - 1) + K.KP - 1 == t_in, label  # the zero tap reads x[T_in]
+        # the other routes that take the shape, each held against plain too
+        others = [r for r, ok in (("wgmma", wg_shape), ("mma", tc_shape),
+                                  ("fma", tc_shape or wg_shape)) if ok]
         # fp32: the route that _route picks (3xTF32 on the tensor cores at the main-path
         # shapes, wgmma where the rule gives it, but enc1's FMA rows), read from the
         # counters, then the other routes forced
@@ -670,7 +691,7 @@ def phase_kernel():
             max_abs32 = worst([max_abs32, e32_abs])
         del y, pre
         e32f = {}
-        for r in ("mma", "fma") if tc_shape else ():
+        for r in others:
             if r == took:
                 continue
             yf, pref = K._launch(x, w, bias, a, s, t_out, force=r,
@@ -716,7 +737,7 @@ def phase_kernel():
             max_abs[b] = worst([max_abs.get(b, 0.0), e16_abs])
         del yb, preb
         e16f = {}
-        for r in ("mma", "fma") if tc_shape else ():
+        for r in others:
             if r == took16:
                 continue
             yf, pref = K._launch(*hb, s, t_out, force=r,
@@ -745,7 +766,9 @@ def phase_kernel():
              for n in pair},
             reps=DEVICE_REPS, calls=10).items()}
         d16.setdefault("mma", float("nan"))
-        if tc_shape and took16 != "mma":  # the chosen route against mma.sync, same call
+        # the stride-4 rule's route against mma.sync, same call (stride 2's rule rests on
+        # tools/conv1d_routes.py --stride 2)
+        if tc_shape and took16 != "mma" and s == 4:
             b2b = _in_turns(pair, calls=5)
             spreads.append((label, b2b["pick"][0], b2b["mma"][0],
                             max(b2b["pick"][1], b2b["mma"][1])))
@@ -4142,15 +4165,20 @@ def _vs_float64(cls, cfg, seed, passes, extra=(), cpu=False, B=4):
     return losses, bufs, launched, secs
 
 
-def _hold_shapes(label, shapes, B, S, bias, mma, smi, seed):
+def _hold_shapes(label, shapes, B, S, bias, smi, seed, pad=None):
     """The per-layer kernel at `shapes` [(Cin, Cout, T_in, T_out)] of stride S at batch B
-    (with a bias or none), against its plain version in NaN-filled outputs: fp32 (TF32
-    off, <= FP32_TOL) and bf16 (<= BF16_TOL), on the route the wrapper picks, read from its
-    counters (the tensor cores where `mma`, else the FMA kernel), and for a tensor-core
-    shape also on the FMA route forced; then timed in turns with the plain version and
-    cuDNN's F.conv1d alone. Prints a row a shape and returns the rows' sums by dtype."""
+    (with a bias or none), x random in contiguous rows or, with `pad` = (left, right), a
+    random h padded into pitched rows as Generator1D's blocks pad it (``ops/conv.py``
+    ``zero_pad_pitched``), against its plain version in NaN-filled outputs: fp32 (TF32
+    off, <= FP32_TOL) and bf16 (<= BF16_TOL), on the route ``_route`` picks for the shape
+    and x's layout, read from the counters, and for a tensor-core route also on the FMA
+    route forced; then timed in turns with the plain version and cuDNN's F.conv1d alone
+    (a wrapper call each), and the route's kernel and the FMA kernel through their entry
+    points, 10 launches back to back (device ms). Prints a row a shape and returns the
+    rows' sums by dtype, with the route's device ms summed by route."""
     import torch
     import torch.nn.functional as F
+    from segan_pytorch_tpu_torch.ops.conv import zero_pad_pitched
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.tools.encoder_fused_bench import ms_in_turns
 
@@ -4159,11 +4187,15 @@ def _hold_shapes(label, shapes, B, S, bias, mma, smi, seed):
     Kw = 31
     sums = {"fp32_": {}, "": {}}
     print(f"{label:>14} {'x shape':>19} {'Cout':>5} | {'fp32':>8} {'fp32 fma':>8} "
-          f"{'bf16':>8} {'bf16 fma':>8} | {'fp32 ms':>8} {'fma ms':>8} {'plain':>8} "
-          f"{'cuDNN':>8} {'bound':>7} | {'bf16 ms':>8} {'fma ms':>8} {'plain':>8} "
-          f"{'cuDNN':>8} {'bound':>7}")
+          f"{'bf16':>8} {'bf16 fma':>8} | fp32 {'route':>5} {'ms':>8} {'fma ms':>8} "
+          f"{'plain':>8} {'cuDNN':>8} {'bound':>7} {'device':>7} {'fma dev':>7} | bf16 "
+          f"{'route':>5} {'ms':>8} {'fma ms':>8} {'plain':>8} {'cuDNN':>8} {'bound':>7} "
+          f"{'device':>7} {'fma dev':>7}")
     for i, (cin, cout, t_in, t_out) in enumerate(shapes):
-        x = torch.randn((B, cin, t_in), generator=g).cuda()
+        if pad is None:
+            x = torch.randn((B, cin, t_in), generator=g).cuda()
+        else:
+            x = torch.randn((B, cin, t_in - sum(pad)), generator=g).cuda()
         w = (torch.randn((cout, cin, Kw), generator=g) / (cin * Kw) ** 0.5).cuda()
         b = (torch.randn((cout,), generator=g) * 0.1).cuda() if bias else None
         a = (torch.rand((cout,), generator=g) * 0.3).cuda()
@@ -4175,52 +4207,114 @@ def _hold_shapes(label, shapes, B, S, bias, mma, smi, seed):
         for p, dt, tol, peak in (("fp32_", torch.float32, FP32_TOL, None),
                                  ("", torch.bfloat16, BF16_TOL, BF16_PEAK)):
             h = [v.to(dt) if v is not None else None for v in (x, w, b, a)]
-            before = (K.launches, K.launches_mma, K.launches_tf32)
+            if pad is not None:  # cast, then pad: the pitched rows of the dtype
+                h[0] = zero_pad_pitched(h[0], *pad)
+            assert h[0].shape[-1] == t_in, (label, i)
+            route = K._route(dt, B, cin, cout, Kw, S, t_out, _pitched(K, h[0]))
+            before = _counters(K)
             y, pre = K._launch(*h, S, t_out, out=nan_outputs(shape, shape, dtype=dt))
             y_ref, pre_ref = K.conv1d_prelu_plain(*h, S)
             torch.cuda.synchronize()
-            n_mma = 1 if mma else 0
-            want = (before[0] + 1, before[1] + n_mma,
-                    before[2] + (n_mma if dt == torch.float32 else 0))
-            assert (K.launches, K.launches_mma, K.launches_tf32) == want, (
-                f"{label} {i + 1} {dt}: not on the {'tensor cores' if mma else 'FMA kernel'}")
+            took = _took(K, before)
+            assert took == route and K.launches_tf32 - before[2] == (
+                route != "fma" and dt == torch.float32), f"{label} {i + 1} {dt}: {took}"
             err = worst([rel_err(y, y_ref), rel_err(pre, pre_ref)])
             e_abs = worst([float((y - y_ref).abs().max()),
                            float((pre - pre_ref).abs().max())])
             err_f = err
             arms = {"kernel": lambda: K.fused_conv1d_prelu(*h, S)}
-            if mma:
+            if route != "fma":
                 yf, pref = K._launch(*h, S, t_out, force="fma",
                                      out=nan_outputs(shape, shape, dtype=dt))
                 torch.cuda.synchronize()
                 err_f = worst([rel_err(yf, y_ref), rel_err(pref, pre_ref)])
                 del yf, pref
                 arms["fma"] = lambda: K._launch(*h, S, t_out, force="fma")
-            assert max(err, err_f) <= tol, (label, i, dt, err, err_f)
+            assert max(err, err_f) <= tol, (label, i, dt, route, err, err_f)
             del y, pre, y_ref, pre_ref
             arms.update(plain=lambda: K.conv1d_prelu_plain(*h, S),
                         cuDNN=lambda: F.conv1d(h[0], h[1], h[2], stride=S))
             t = ms_in_turns(arms, reps=6)
             t.setdefault("fma", t["kernel"])  # an FMA shape: the kernel is that route
+            outs = nan_outputs(shape, shape, dtype=dt)
+            dev = {n: v[0] for n, v in _in_turns(
+                {n: _entry_arm(K, n, *h, S, t_out, outs) for n in {route, "fma"}},
+                reps=DEVICE_REPS, calls=10).items()}
+            del outs
             bound = (min(bound_ms(flops, 4 * elems, FP32_PEAK),
                          bound_ms(3 * flops, 4 * elems, TF32_PEAK))
                      if peak is None else bound_ms(flops, 2 * elems, peak))
-            row[p] = (err, err_f, t, bound)
-            for k, v in [(k, t[arm]) for k, arm in SUM_KEYS] + [("bound_ms", bound)]:
+            row[p] = (err, err_f, route, t, bound, dev[route], dev["fma"])
+            for k, v in [(k, t[arm]) for k, arm in SUM_KEYS] + [
+                    ("bound_ms", bound), ("device_ms", dev[route]),
+                    ("fma_device_ms", dev["fma"]), (f"{route}_device_ms", dev[route])]:
                 sums[p][k] = sums[p].get(k, 0.0) + v
+            sums[p][f"{route}_launches"] = sums[p].get(f"{route}_launches", 0) + 1
             sums[p]["max_abs_err"] = worst([sums[p].get("max_abs_err", 0.0), e_abs])
             del h
-        (e32, f32, t32, b32), (e16, f16, t16, b16) = row["fp32_"], row[""]
+        cols = []
+        for p in ("fp32_", ""):
+            _, _, route, t, bound, d, df = row[p]
+            cols.append(f"{route:>5} {t['kernel']:8.4f} {t['fma']:8.4f} {t['plain']:8.4f} "
+                        f"{t['cuDNN']:8.4f} {bound:7.4f} {d:7.4f} {df:7.4f}")
         print(f"{label + ' ' + str(i + 1):>14} {str((B, cin, t_in)):>19} {cout:>5} | "
-              f"{e32:8.1e} {f32:8.1e} {e16:8.1e} {f16:8.1e} | {t32['kernel']:8.4f} "
-              f"{t32['fma']:8.4f} {t32['plain']:8.4f} {t32['cuDNN']:8.4f} {b32:7.4f} | "
-              f"{t16['kernel']:8.4f} {t16['fma']:8.4f} {t16['plain']:8.4f} "
-              f"{t16['cuDNN']:8.4f} {b16:7.4f}", flush=True)
+              f"{row['fp32_'][0]:8.1e} {row['fp32_'][1]:8.1e} {row[''][0]:8.1e} "
+              f"{row[''][1]:8.1e} | fp32 {cols[0]} | bf16 {cols[1]}", flush=True)
         del x, w, b, a
     print(f"{label}s B={B}, sums over the {len(shapes)}: " + "; ".join(
         f"{p[:-1] or 'bf16'} " + ", ".join(f"{k} {v:.4g}" for k, v in c.items())
         for p, c in sums.items()) + f" ({smi})", flush=True)
     return sums
+
+
+def _hold_plans(label, shapes, B, S, seed, pad, smi):
+    """Every plan of the tensor-core routes at `shapes` [(Cin, Cout, T_in, T_out)] of
+    stride S at batch B, x padded into pitched rows by `pad` as ``_hold_shapes`` pads it,
+    no bias: where a route takes a shape, the wgmma kernel of each dtype at each of its
+    block tiles and 1-16 split-K slices of at least 4 channels, and the mma.sync kernels
+    at warps_m 1, 2, 4 and 8 and 1, 2 or 4 slices, each through its entry point into
+    NaN-filled outputs against the plain version (FP32_TOL, BF16_TOL). Prints each
+    route's plans and worst error by dtype."""
+    import torch
+    from segan_pytorch_tpu_torch.ops.conv import zero_pad_pitched
+    from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
+
+    g = torch.Generator().manual_seed(seed)
+    Kw = 31
+    worst_err = {}  # (route, dtype) -> (plans, worst relative error)
+    for cin, cout, t_in, t_out in shapes:
+        x = torch.randn((B, cin, t_in - sum(pad)), generator=g).cuda()
+        w = (torch.randn((cout, cin, Kw), generator=g) / (cin * Kw) ** 0.5).cuda()
+        a = (torch.rand((cout,), generator=g) * 0.3).cuda()
+        shape = (B, cout, t_out)
+        for dt, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            xd = zero_pad_pitched(x.to(dt), *pad)
+            wd, ad = w.to(dt), a.to(dt)
+            plans = []
+            if K._wgmma_shape(dt, cin, cout, Kw, S, t_out, _pitched(K, xd)):
+                plans += [("wgmma", m, n) for m in K.WGMMA_TILES[dt]
+                          for n in (1, 2, 3, 4, 6, 8, 12, 16) if n == 1 or cin // n >= 4]
+            if K._tensor_core_shape(dt, cout, Kw, S, t_out):
+                plans += [("mma", m, n) for m in (1, 2, 4, 8) for n in (1, 2, 4)
+                          if n <= cin]
+            if not plans:
+                continue
+            y_ref, pre_ref = K.conv1d_prelu_plain(xd, wd, None, ad, S)
+            for route, m, n in plans:
+                out = nan_outputs(shape, shape, dtype=dt)
+                _entry_arm(K, route, xd, wd, None, ad, S, t_out, out, plan=(m, n))()
+                torch.cuda.synchronize()
+                err = worst([rel_err(out[0], y_ref), rel_err(out[1], pre_ref)])
+                assert err <= tol, f"{label} {(cin, cout, t_out)} {dt} {route} {m},{n}: {err}"
+                k = (route, str(dt)[6:])
+                count, e = worst_err.get(k, (0, 0.0))
+                worst_err[k] = (count + 1, worst([e, err]))
+                del out
+            del xd, wd, ad, y_ref, pre_ref
+    print(f"{label}s B={B}, every tensor-core plan vs plain (plans, worst rel err): "
+          + ", ".join(f"{r} {d} {c} {e:.1e}" for (r, d), (c, e) in worst_err.items())
+          + f" ({smi})", flush=True)
+    return worst_err
 
 
 def _hold_d_shapes(B, smi):
@@ -4230,7 +4324,7 @@ def _hold_d_shapes(B, smi):
     shapes = [(cin, cout, 4 * (4096 >> (2 * i)) + 29, 4096 >> (2 * i))
               for i, (cin, cout) in enumerate(((64, 128), (128, 256), (256, 512),
                                                (512, 1024)))]
-    return _hold_shapes("sinc D block", shapes, B, 4, True, True, smi, SEED + 240)
+    return _hold_shapes("sinc D block", shapes, B, 4, True, smi, SEED + 240)
 
 
 def _time_sinc_front_end(smi):
@@ -4528,7 +4622,7 @@ def phase_a7a(work: Path, smi: str) -> dict:
 # 11 encoder layers of K = 31 at stride 2, 16384 samples -> 8 x 1024, z (B, 8, 1024)
 G1D_V1 = dict(ninputs=1, enc_fmaps=[16, 32, 32, 64, 64, 128, 128, 256, 256, 512, 1024],
               kwidth=31, pooling=2, z_dim=1024, skip_merge="concat")
-G1D_LAUNCHES = 11  # one per encoder layer, all on the FMA route (stride 2)
+G1D_LAUNCHES = 11  # one per encoder layer, each on the route _route picks at stride 2
 G1D_TOY = dict(ninputs=1, enc_fmaps=[8, 16, 32], kwidth=31, z_dim=16)
 # the CPU tests' options (tests/test_torch_generator1d.py), as (pooling, options)
 G1D_OPTIONS = ([(p, kw) for p in (4, 2) for kw in (
@@ -4711,13 +4805,16 @@ def phase_a7bc(work: Path, smi: str) -> dict:
     """13 (A7b, A7c): Generator1D and the host copies, every check fatal. (a) the SEGAN v1
     paper's Generator1D (G1D_V1) at 64 chunks of 16384 samples, fp32 and its bf16 copy:
     one forward each with the kernel's counters set to 0 just before and read just after
-    (11 launches, all FMA), the forward and a forward + backward of an L1 loss timed in
+    (11 launches, each on the route _route picks, the tensor cores from the second layer
+    on), the forward and a forward + backward of an L1 loss timed in
     turns, FLOPs (the encoder's from its shapes, the rest by FlopCounterMode); at B = 2
     the fp32 forward and gradients card and CPU vs float64 on the CPU (output <=
     SLICE_TOL, each gradient's relative L2 error <= max(1e-3, 4 x the CPU fp32's)); the
     bf16 copy vs the fp32 model of its rounded parameters (<= BF16_TOL). (b) the kernel at
-    that encoder's 11 stride-2 shapes at B = 64 (``_hold_shapes``). (c) the options at
-    toy width, card vs CPU. (d) the A7c copies. Returns the launch count and (b)'s sums."""
+    that encoder's 11 stride-2 shapes at B = 64 (``_hold_shapes``), then at every plan of
+    its tensor-core routes there (``_hold_plans``). (c) the options at toy width, card vs
+    CPU. (d) the A7c copies. Returns the launch count, the counters by dtype and (b)'s
+    sums."""
     import copy
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -4738,18 +4835,26 @@ def phase_a7bc(work: Path, smi: str) -> dict:
     c16, rounded = _bf16_copy(card)
     xc, zc, tc = x.cuda(), z.cuda(), target.cuda()
     x16, z16 = xc.bfloat16(), zc.bfloat16()
-    launched = {}
+    launched, routes = {}, {}
     with torch.no_grad():
         for name, model, args in (("fp32", card, (xc, zc)), ("bf16", c16, (x16, z16))):
-            K.launches = K.launches_mma = K.launches_tf32 = 0
-            y = model(*args)
-            torch.cuda.synchronize()
-            launched[name] = (K.launches, K.launches_mma)
+            with _logged_launches() as log:
+                K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+                y = model(*args)
+                torch.cuda.synchronize()
+                launched[name] = _counters(K)
             assert y.shape == (B, T, 1) and torch.isfinite(y).all(), name
+            # the counters against _route's picks for the logged calls, x in pitched rows
+            routes[name] = [K._route(dt, b, cin, cout, k, s, (t_in - k) // s + 1, p)
+                            for dt, b, cin, t_in, cout, k, s, p in log]
+            assert len(log) == G1D_LAUNCHES and all(e[-1] for e in log), (name, log)
+            assert launched[name] == _want_counts(K, log), (name, launched[name], routes)
+            # every layer on the tensor cores but the first (Cin 1), whose route is the
+            # stride's enc1 rule
+            assert "fma" not in routes[name][1:], (name, routes[name])
         e16 = rel_err(c16(x16, z16), rounded(x16.float(), z16.float()))
         with FlopCounterMode(display=False) as fc:
             card(xc, zc)
-    assert all(v == (G1D_LAUNCHES, 0) for v in launched.values()), launched
     enc_shapes = [(cin, cout, (T >> i) + 30, T >> (i + 1)) for i, (cin, cout) in
                   enumerate(zip([1] + G1D_V1["enc_fmaps"][:-1], G1D_V1["enc_fmaps"]))]
     enc_flops = sum(2.0 * B * t_out * cout * cin * 31 for cin, cout, _, t_out in enc_shapes)
@@ -4777,18 +4882,20 @@ def phase_a7bc(work: Path, smi: str) -> dict:
           f"; forward + backward of an L1 loss fp32 {t_fb['fp32']:.3f} ms, bf16 "
           f"{t_fb['bf16']:.3f} ms; {flops / 1e9:.2f} GFLOP a forward ({enc_flops / B / 1e9:.3f}"
           f" encoder, {(flops - enc_flops) / B / 1e9:.3f} the rest a slice); launches a "
-          f"forward (all, tensor cores) {launched}; peak {peak:.2f} GiB; bf16 copy vs fp32 "
+          f"forward (all, tensor cores, fp32 of those, wgmma) {launched}, by layer "
+          f"{routes}; peak {peak:.2f} GiB; bf16 copy vs fp32 "
           f"of its rounded parameters {e16:.1e}; B=2 vs float64: output {e_out:.1e}, "
           f"gradients worst {worst(g_card.values()):.1e} (the CPU's fp32 "
           f"{worst(g_cpu.values()):.1e}) ({time.perf_counter() - t_phase:.1f} s into the "
           f"phase; {smi})", flush=True)
     assert e_out <= SLICE_TOL and not bad and e16 <= BF16_TOL, (e_out, bad, e16)
     del G
-    sums = _hold_shapes("G1D enc", enc_shapes, B, 2, False, False, smi, SEED + 330)
+    sums = _hold_shapes("G1D enc", enc_shapes, B, 2, False, smi, SEED + 330, pad=(15, 15))
+    _hold_plans("G1D enc", enc_shapes, B, 2, SEED + 331, (15, 15), smi)
     _g1d_options_card_vs_cpu(smi)
     host = _a7c_on_the_card_machine(work)
     print(f"A7b/A7c: phase 13 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return dict(launches_per_forward=G1D_LAUNCHES, enc=sums,
+    return dict(launches_per_forward=G1D_LAUNCHES, enc=sums, launched=launched,
                 ms={k: (t_fwd[k], t_fb[k]) for k in t_fwd}, host=host)
 
 
@@ -5808,6 +5915,7 @@ def main():
              **{f"{p}sinc_d_{k}": v for p, c in a7a["sinc_d"].items()
                 for k, v in c.items()},
              a7b_g1d_launches_per_forward=a7bc["launches_per_forward"],
+             a7b_g1d_launched=a7bc["launched"],
              **{f"{p}g1d_enc_{k}": v for p, c in a7bc["enc"].items() for k, v in c.items()},
              p14_segan_launches_per_rank_step=p14["segan"],
              p14_wsegan_launches_per_rank_step=p14["wsegan"],
@@ -5828,8 +5936,12 @@ def main():
              fp32_library_ms=fp32["cuDNN x2"]),
         # the wgmma kernels, bf16 and fp32: phase 4's launches, and 5c's in five train
         # steps at batch 300; their layers of G at 64 chunks (phase 3)
-        dict(launches=wgmma_bf16, train_launches=train_wgmma["bfloat16"], **wgmma64),
-        dict(launches=wgmma_fp32, train_launches=train_wgmma["float32"], **wgmma64_tf32),
+        dict(launches=wgmma_bf16, train_launches=train_wgmma["bfloat16"], **wgmma64,
+             g1d_launches_per_forward=a7bc["launched"]["bf16"][3],
+             g1d_device_ms=a7bc["enc"][""].get("wgmma_device_ms", 0.0)),
+        dict(launches=wgmma_fp32, train_launches=train_wgmma["float32"], **wgmma64_tf32,
+             g1d_launches_per_forward=a7bc["launched"]["fp32"][3],
+             g1d_device_ms=a7bc["enc"]["fp32_"].get("wgmma_device_ms", 0.0)),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

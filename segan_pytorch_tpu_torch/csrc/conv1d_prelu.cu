@@ -16,13 +16,16 @@
 // (Cin*K = 1984..15872), so they are bound by arithmetic. enc1 has Cin=1: a depth of 31
 // against 64 outputs is about 15 FLOP per byte moved, so it is bound by memory
 // bandwidth (writing y and pre). Deep layers have few output rows per chunk (enc5: 16),
-// which starves a kernel that tiles one chunk at a time.
+// which starves a kernel that tiles one chunk at a time. Generator1D's encoder (K=31,
+// stride 2, 11 layers, Cout 16..1024) is alike: its first layer bound by bytes, the rest
+// by arithmetic (about 0.13 GFLOP per chunk and layer, the last 0.26).
 //
 // Three kernels; the wrapper (ops/kernels/conv1d_prelu.py, `_route`) picks one of them,
-// or csrc/conv1d_wgmma.cu's, by shape, dtype and x's layout. Stride 4, K <= 32,
-// Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer) take the tensor cores:
+// or csrc/conv1d_wgmma.cu's, by shape, dtype and x's layout. Stride 4 or 2 (a template
+// parameter), K <= 32, Cout % 8 == 0 and T_out % 16 == 0 (every main-path layer, and
+// Generator1D's but its last) take the tensor cores:
 //   conv1d_mma_kernel: bf16, on mma.sync m16n8k16, where the wgmma kernel does not
-//     take the call (few rows, or x in rows TMA cannot read);
+//     take the call (few rows, Cout under 128, or x in rows TMA cannot read);
 //   conv1d_tf32_kernel: fp32, by 3xTF32 on mma.sync m16n8k8;
 //   conv1d_prelu_kernel<T>: every other shape, and enc1 (Cin = 1) at few rows, on fp32
 //     FMAs.
@@ -41,24 +44,27 @@
 //
 // conv1d_mma_kernel (tensor cores; the design of enc23_mma_kernel in encoder_fused.cu).
 // The wrapper pads w to 32 taps, tap 31 zero, so each input channel is two 16-deep MMA
-// steps and the A operand of row t, channel ci and tap k is x[b][ci][4t + k], with no
-// division by 31. Every T_out is a multiple of 16, so an m16 group of rows lies in one
-// chunk b. Staging is per m16 group, whatever the tile: group q (rows from t0) gets a
-// window of WG = 96 samples of each channel, x[b][ci][4 t0 + j] (4*15 + 32 = 92 are read,
-// padded to 16 bytes), so tiles that span chunks (enc4, enc5) take the same path as tiles
-// inside one (at a cost of 96 staged samples per 64 rows, against 64 + 28 for a
-// contiguous window). Samples at or past T_in are staged as 0: the zero tap 31 of the last
-// row reads sample 4 (T_out - 1) + 31, which is T_in when (T_in - 31) % 4 == 0, and a
-// staged slot must be finite even where a zero weight multiplies it (0 x NaN = NaN).
+// steps and the A operand of row t, channel ci and tap k is x[b][ci][S t + k] (stride S,
+// 4 or 2), with no division by 31. Every T_out is a multiple of 16, so an m16 group of
+// rows lies in one chunk b. Staging is per m16 group, whatever the tile: group q (rows
+// from t0) gets a window of W samples of each channel, x[b][ci][S t0 + j]: at stride 4
+// WG = 96 (4*15 + 32 = 92 are read, padded to 16 bytes), at stride 2 WG_S2 = 64 (62
+// read). So tiles that span chunks (enc4, enc5) take the same path as tiles inside one
+// (at a cost of 96 staged samples per 64 rows, against 64 + 28 for a contiguous window).
+// Samples at or past T_in are staged as 0: the zero tap 31 of the last row reads sample
+// S (T_out - 1) + 31, which is T_in when (T_in - 31) % S == 0, and a staged slot must be
+// finite even where a zero weight multiplies it (0 x NaN = NaN).
 // Staging takes STAGED = 128 group windows at a time (CC = 128 / groups channels, 24 KB);
 // each thread stages fixed window positions of every channel of the chunk, so that its
 // loads are independent and its address arithmetic is done once.
 // The mainloop is warp_conv_mma (csrc/mma_bf16.cuh): lane quad t takes taps 8t + 4h +
-// 0..3 at step h, one 8-byte shared-memory load per A row and one 16-byte __ldg of the
-// padded weights per channel (from L2) for both steps. Each warp computes 64 rows x 32
-// channels; the 8 warps of a block are laid out warps_m x (8 / warps_m), chosen by the
-// wrapper: 4 x 2 (256 rows x 64 channels) for Cout <= 64 (enc1), 2 x 4 (128 x 128) for
-// Cout <= 128 (enc2), else 1 x 8 (64 x 256), which stages the least x per MMA.
+// 0..3 at step h, one 8-byte shared-memory load per A row (two 4-byte loads at stride 2,
+// where a row's window starts on odd samples) and one 16-byte __ldg of the padded weights
+// per channel (from L2) for both steps. Each warp computes 64 rows x 32 channels; the 8
+// warps of a block are laid out warps_m x (8 / warps_m), chosen by the wrapper: 4 x 2
+// (256 rows x 64 channels) for Cout <= 64 (enc1), 2 x 4 (128 x 128) for Cout <= 128
+// (enc2), else 1 x 8 (64 x 256), which stages the least x per MMA; at stride 2 8 x 1
+// (512 x 32) for Cout <= 32 (Generator1D's first three layers), so no warp idles.
 // The epilogue adds the bias (none under --no_bias), applies the PReLU and stores y and
 // pre in bf16. A fragment holds 2 channels x 2 time steps, so stores straight from it
 // would write 2 bytes a lane; each warp passes its 64 x 32 tile through shared memory
@@ -116,7 +122,6 @@ using conv_epilogue::to_float;
 using mma_conv::KP;
 using mma_conv::NT;
 using mma_conv::prelu;
-using mma_conv::STRIDE;
 using mma_conv::warp_conv_3xtf32;
 using mma_conv::warp_conv_mma;
 
@@ -257,20 +262,29 @@ int launch(const void* x, const void* w, const void* bias, const void* slope, vo
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel's constants.
+// The tensor-core kernels' constants.
 constexpr int MMA_MT = 4;    // m16 tiles per warp: 64 rows
-constexpr int WG = 96;       // staged samples per m16 group and channel (92 read)
+constexpr int WG = 96;       // staged samples per m16 group and channel at stride 4 (92 read)
+constexpr int WG_S2 = 64;    // the same at stride 2 (62 read)
 constexpr int STAGED = 128;  // group windows staged at a time (channels x groups)
 constexpr int OUT_LD = MMA_MT * 16 + 8;  // a warp's output tile in shared memory: one
                                          // channel's 64 rows, padded (bank-conflict free)
 constexpr int SMEM = STAGED * WG > 8 * 32 * OUT_LD ? STAGED * WG : 8 * 32 * OUT_LD;
-static_assert(WG >= STRIDE * 15 + KP && WG % 8 == 0, "a group's window, in 16-byte units");
+static_assert(WG >= 4 * 15 + KP && WG % 8 == 0, "a group's window, in 16-byte units");
+static_assert(WG_S2 >= 2 * 15 + KP && WG_S2 % 8 == 0 && WG_S2 <= WG, "the same at stride 2");
 static_assert(OUT_LD % 8 == 0, "16-byte rows of the output tile");
 
-// bf16 only. w is (Cout, Cin, KP), the taps padded with zeros; `slice` input channels
-// per split-K slice (blockIdx.z). Block tile: WM x (8 / WM) warps of 64 rows x 32
-// channels. y and pre must be 16-byte aligned.
-template <int WM>
+// An m16 group's staged window at stride S, in samples.
+template <int S>
+struct GroupWindow {
+  static_assert(S == 4 || S == 2, "stride 4 or 2");
+  static constexpr int W = S == 4 ? WG : WG_S2;
+};
+
+// bf16 only, stride S. w is (Cout, Cin, KP), the taps padded with zeros; `slice` input
+// channels per split-K slice (blockIdx.z). Block tile: WM x (8 / WM) warps of 64 rows x
+// 32 channels. y and pre must be 16-byte aligned.
+template <int WM, int S>
 __global__ void __launch_bounds__(THREADS, 2)
 conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                   const __nv_bfloat16* __restrict__ bias,
@@ -282,11 +296,12 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   constexpr int TILE_M = NQ * 16;
   constexpr int TILE_N = WN * NT * 8;
   constexpr int CC = STAGED / NQ;     // channels staged at a time
+  constexpr int W = GroupWindow<S>::W;  // staged samples per group and channel
   static_assert(WM * WN == THREADS / 32 && CC * NQ == STAGED, "8 warps, 128 windows");
   // the x chunk [channel][group][sample] in the mainloop, then each warp's output tile
   // [channel][row] in the epilogue
   __shared__ __align__(16) __nv_bfloat16 smem[SMEM];
-  __shared__ long long q_in[NQ];   // group q's window in x: b Cin pitch + 4 t0
+  __shared__ long long q_in[NQ];   // group q's window in x: b Cin pitch + S t0
   __shared__ long long q_out[NQ];  // its row 0 in y and pre, channel 0: b Cout T_out + t0
   __shared__ int q_len[NQ];        // samples of its window inside x (0: no such group)
 
@@ -305,9 +320,9 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     const long long b = r / T_out;
     const int t0 = (int)(r - b * T_out);
     const bool live = r < M;
-    q_in[threadIdx.x] = live ? b * Cin * pitch + STRIDE * t0 : 0;
+    q_in[threadIdx.x] = live ? b * Cin * pitch + S * t0 : 0;
     q_out[threadIdx.x] = live ? b * Cout * T_out + t0 : 0;
-    q_len[threadIdx.x] = live ? T_in - STRIDE * t0 : 0;
+    q_len[threadIdx.x] = live ? T_in - S * t0 : 0;
   }
   // M % 16 == 0: whole m16 tiles
   const int mt_live = (int)min((long long)MMA_MT, max(0LL, (M - m0) / 16 - wm * MMA_MT));
@@ -319,19 +334,19 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     __syncthreads();  // the group table is written; the previous chunk is no longer read
     // each thread stages fixed window positions p (group q, sample j) of every channel:
     // the address arithmetic is done once, and the channels' loads are independent
-    for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {
-      const int q = p / WG;
-      const int j = p - q * WG;
+    for (int p = threadIdx.x; p < NQ * W; p += THREADS) {
+      const int q = p / W;
+      const int j = p - q * W;
       const bool inside = j < q_len[q];
       const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * pitch + j;
 #pragma unroll 8
       for (int c = 0; c < cc; ++c)
-        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : __float2bfloat16(0.f);
+        smem[c * NQ * W + p] = inside ? src[(long long)c * pitch] : __float2bfloat16(0.f);
     }
     __syncthreads();
     if (mt_live > 0 && nt_live > 0)
-      warp_conv_mma<MMA_MT, WG>(acc, smem + wm * MMA_MT * WG, NQ * WG, 0, mt_live,
-                                w + (long long)c0 * KP, Cin, n0, nt_live, cc);
+      warp_conv_mma<MMA_MT, S, W>(acc, smem + wm * MMA_MT * W, NQ * W, 0, mt_live,
+                                  w + (long long)c0 * KP, Cin, n0, nt_live, cc);
   }
 
   if (partial != nullptr) {  // split-K: fp32 partial sums; the epilogue kernel finishes
@@ -397,7 +412,7 @@ conv1d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 template <int WM>
 int launch_mma(const void* x, const void* w, const void* bias, const void* slope, void* y,
                void* pre, float* partial, int splits, int B, int Cin, int T_in, int pitch,
-               int Cout, int T_out, cudaStream_t stream) {
+               int Cout, int T_out, int stride, cudaStream_t stream) {
   constexpr int TILE_M = WM * MMA_MT * 16;
   constexpr int TILE_N = (8 / WM) * NT * 8;
   const long long M = (long long)B * T_out;
@@ -408,7 +423,11 @@ int launch_mma(const void* x, const void* w, const void* bias, const void* slope
   if (tiles_m >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)tiles_m, (unsigned)((Cout + TILE_N - 1) / TILE_N),
                   (unsigned)splits);
-  conv1d_mma_kernel<WM><<<grid, THREADS, 0, stream>>>(
+  auto kernel = conv1d_mma_kernel<WM, 2>;
+  if constexpr (WM != 8) {  // 8 x 1 warps: a stride-2 tile alone (the wrapper's plans)
+    if (stride == 4) kernel = conv1d_mma_kernel<WM, 4>;
+  }
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const __nv_bfloat16*>(bias), static_cast<const __nv_bfloat16*>(slope),
       static_cast<__nv_bfloat16*>(y), static_cast<__nv_bfloat16*>(pre),
@@ -423,9 +442,9 @@ int launch_mma(const void* x, const void* w, const void* bias, const void* slope
 // 64 x 96 x 4 B = 24 KB of static shared memory (128 windows would be 48 KB).
 constexpr int STAGED_TF32 = 64;
 
-// fp32 only, by 3xTF32. w_big and w_small are the TF32 parts of w, each (Cout, Cin, KP)
-// with the taps padded with zeros; the rest as conv1d_mma_kernel.
-template <int WM>
+// fp32 only, by 3xTF32, stride S. w_big and w_small are the TF32 parts of w, each (Cout,
+// Cin, KP) with the taps padded with zeros; the rest as conv1d_mma_kernel.
+template <int WM, int S>
 __global__ void __launch_bounds__(THREADS, 2)
 conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
                    const float* __restrict__ w_small, const float* __restrict__ bias,
@@ -437,9 +456,10 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
   constexpr int TILE_M = NQ * 16;
   constexpr int TILE_N = WN * NT * 8;
   constexpr int CC = STAGED_TF32 / NQ;  // channels staged at a time
+  constexpr int W = GroupWindow<S>::W;   // staged samples per group and channel
   static_assert(WM * WN == THREADS / 32 && CC * NQ == STAGED_TF32, "8 warps, 64 windows");
   __shared__ __align__(16) float smem[STAGED_TF32 * WG];  // [channel][group][sample]
-  __shared__ long long q_in[NQ];   // group q's window in x: b Cin pitch + 4 t0
+  __shared__ long long q_in[NQ];   // group q's window in x: b Cin pitch + S t0
   __shared__ long long q_out[NQ];  // its row 0 in y and pre, channel 0: b Cout T_out + t0
   __shared__ int q_len[NQ];        // samples of its window inside x (0: no such group)
 
@@ -458,9 +478,9 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
     const long long b = r / T_out;
     const int t0 = (int)(r - b * T_out);
     const bool live = r < M;
-    q_in[threadIdx.x] = live ? b * Cin * pitch + STRIDE * t0 : 0;
+    q_in[threadIdx.x] = live ? b * Cin * pitch + S * t0 : 0;
     q_out[threadIdx.x] = live ? b * Cout * T_out + t0 : 0;
-    q_len[threadIdx.x] = live ? T_in - STRIDE * t0 : 0;
+    q_len[threadIdx.x] = live ? T_in - S * t0 : 0;
   }
   // M % 16 == 0: whole m16 tiles
   const int mt_live = (int)min((long long)MMA_MT, max(0LL, (M - m0) / 16 - wm * MMA_MT));
@@ -470,20 +490,20 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
   for (int c0 = c_begin; c0 < c_end; c0 += CC) {
     const int cc = min(CC, c_end - c0);
     __syncthreads();  // the group table is written; the previous chunk is no longer read
-    for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {
-      const int q = p / WG;
-      const int j = p - q * WG;
+    for (int p = threadIdx.x; p < NQ * W; p += THREADS) {
+      const int q = p / W;
+      const int j = p - q * W;
       const bool inside = j < q_len[q];
       const float* src = x + q_in[q] + (long long)c0 * pitch + j;
 #pragma unroll 8
       for (int c = 0; c < cc; ++c)
-        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : 0.f;
+        smem[c * NQ * W + p] = inside ? src[(long long)c * pitch] : 0.f;
     }
     __syncthreads();
     if (mt_live > 0 && nt_live > 0)
-      warp_conv_3xtf32<MMA_MT, WG>(acc, smem + wm * MMA_MT * WG, NQ * WG, 0, mt_live,
-                                   w_big + (long long)c0 * KP, w_small + (long long)c0 * KP,
-                                   Cin, n0, nt_live, cc);
+      warp_conv_3xtf32<MMA_MT, S, W>(acc, smem + wm * MMA_MT * W, NQ * W, 0, mt_live,
+                                     w_big + (long long)c0 * KP, w_small + (long long)c0 * KP,
+                                     Cin, n0, nt_live, cc);
   }
 
   // Straight from the fragments: for one channel, the 8 lanes of a quad position write 8
@@ -519,7 +539,8 @@ conv1d_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w_big,
 template <int WM>
 int launch_tf32(const void* x, const void* w_big, const void* w_small, const void* bias,
                 const void* slope, void* y, void* pre, float* partial, int splits, int B,
-                int Cin, int T_in, int pitch, int Cout, int T_out, cudaStream_t stream) {
+                int Cin, int T_in, int pitch, int Cout, int T_out, int stride,
+                cudaStream_t stream) {
   constexpr int TILE_M = WM * MMA_MT * 16;
   constexpr int TILE_N = (8 / WM) * NT * 8;
   const long long M = (long long)B * T_out;
@@ -530,7 +551,11 @@ int launch_tf32(const void* x, const void* w_big, const void* w_small, const voi
   if (tiles_m >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)tiles_m, (unsigned)((Cout + TILE_N - 1) / TILE_N),
                   (unsigned)splits);
-  conv1d_tf32_kernel<WM><<<grid, THREADS, 0, stream>>>(
+  auto kernel = conv1d_tf32_kernel<WM, 2>;
+  if constexpr (WM != 8) {  // 8 x 1 warps: a stride-2 tile alone (the wrapper's plans)
+    if (stride == 4) kernel = conv1d_tf32_kernel<WM, 4>;
+  }
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w_big),
       static_cast<const float*>(w_small), static_cast<const float*>(bias),
       static_cast<const float*>(slope), static_cast<float*>(y), static_cast<float*>(pre),
@@ -539,6 +564,17 @@ int launch_tf32(const void* x, const void* w_big, const void* w_small, const voi
     launch_splitk_epilogue<float>(partial, bias, slope, y, pre, M * Cout, Cout, T_out,
                                   splits, stream);
   return (int)cudaGetLastError();
+}
+
+// Whether the tensor-core entry points take the call: stride 4 or 2 (warps_m 8 at 2
+// alone), whole n8 tiles of channels and m16 tiles of time steps, and every row's first
+// sample inside x.
+bool tensor_core_shape(int B, int Cin, int T_in, int pitch, int Cout, int T_out,
+                       int stride, int splits, int warps_m) {
+  return B > 0 && Cin > 0 && Cout > 0 && T_out > 0 && splits > 0 && Cout % 8 == 0 &&
+         T_out % 16 == 0 && pitch >= T_in &&
+         (stride == 2 || (stride == 4 && warps_m != 8)) &&
+         (long long)stride * (T_out - 1) < T_in;
 }
 
 }  // namespace
@@ -584,33 +620,35 @@ extern "C" int conv1d_prelu_launch(int dtype, const void* x, const void* w,
 }
 
 // The tensor-core route, bfloat16 only: x (B, Cin, T_in) with rows `pitch` apart (as
-// conv1d_prelu_launch), w (Cout, Cin, 32) with the taps past the conv's K zero, stride 4.
-// Needs Cout % 8 == 0 and T_out % 16 == 0; window samples at or past T_in read as 0.
-// warps_m (1, 2 or 4) picks the block tile, 64 warps_m rows x 256 / warps_m channels;
-// splits the split-K slices, cut on whole input channels (the wrapper allocates a float32
-// workspace of splits * B * Cout * T_out when > 1). bias may be null. Launches on
-// `stream` and returns cudaGetLastError() (0 on success); it does not synchronise and
+// conv1d_prelu_launch), w (Cout, Cin, 32) with the taps past the conv's K zero, stride 4
+// or 2. Needs Cout % 8 == 0 and T_out % 16 == 0; window samples at or past T_in read as
+// 0. warps_m (1, 2, 4, or at stride 2 also 8) picks the block tile, 64 warps_m rows x
+// 256 / warps_m channels; splits the split-K slices, cut on whole input channels (the wrapper allocates
+// a float32 workspace of splits * B * Cout * T_out when > 1). bias may be null. Launches
+// on `stream` and returns cudaGetLastError() (0 on success); it does not synchronise and
 // allocates nothing.
 extern "C" int conv1d_prelu_mma_launch(const void* x, const void* w, const void* bias,
                                        const void* slope, void* y, void* pre,
                                        void* partial, int warps_m, int splits, int B,
                                        int Cin, int T_in, int pitch, int Cout, int T_out,
-                                       void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % 8 != 0 ||
-      T_out % 16 != 0 || pitch < T_in || (long long)STRIDE * (T_out - 1) >= T_in)
+                                       int stride, void* stream) {
+  if (!tensor_core_shape(B, Cin, T_in, pitch, Cout, T_out, stride, splits, warps_m))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(partial);
   switch (warps_m) {
     case 1:
       return launch_mma<1>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
-                           T_out, s);
+                           T_out, stride, s);
     case 2:
       return launch_mma<2>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
-                           T_out, s);
+                           T_out, stride, s);
     case 4:
       return launch_mma<4>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
-                           T_out, s);
+                           T_out, stride, s);
+    case 8:
+      return launch_mma<8>(x, w, bias, slope, y, pre, ws, splits, B, Cin, T_in, pitch, Cout,
+                           T_out, stride, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -624,22 +662,24 @@ extern "C" int conv1d_prelu_tf32_launch(const void* x, const void* w_big,
                                         const void* slope, void* y, void* pre,
                                         void* partial, int warps_m, int splits, int B,
                                         int Cin, int T_in, int pitch, int Cout, int T_out,
-                                        void* stream) {
-  if (B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 || Cout % 8 != 0 ||
-      T_out % 16 != 0 || pitch < T_in || (long long)STRIDE * (T_out - 1) >= T_in)
+                                        int stride, void* stream) {
+  if (!tensor_core_shape(B, Cin, T_in, pitch, Cout, T_out, stride, splits, warps_m))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(partial);
   switch (warps_m) {
     case 1:
       return launch_tf32<1>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
-                            T_in, pitch, Cout, T_out, s);
+                            T_in, pitch, Cout, T_out, stride, s);
     case 2:
       return launch_tf32<2>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
-                            T_in, pitch, Cout, T_out, s);
+                            T_in, pitch, Cout, T_out, stride, s);
     case 4:
       return launch_tf32<4>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
-                            T_in, pitch, Cout, T_out, s);
+                            T_in, pitch, Cout, T_out, stride, s);
+    case 8:
+      return launch_tf32<8>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin,
+                            T_in, pitch, Cout, T_out, stride, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -5,10 +5,11 @@
 // segan_pytorch_tpu/ops/pallas/conv1d.py (`_pallas_conv_prelu`, `_kernel`), beside the
 // kernels of csrc/conv1d_prelu.cu and csrc/conv1d_wgmma.cu, which compute the same
 // function:
-//     pre[b, co, t] = bias[co] + sum_{ci, k} w[co, ci, k] * x[b, ci, 4 t + k]
+//     pre[b, co, t] = bias[co] + sum_{ci, k} w[co, ci, k] * x[b, ci, S t + k]
 //     y = max(pre, 0) + slope[co] * min(pre, 0)
-// fp32 in and out, (B, Cout, T_out); stride 4, the 31 taps padded to 32 (tap 31 zero);
-// samples at or past T_in read as 0. It computes what conv1d_tf32_kernel (the mma.sync
+// fp32 in and out, (B, Cout, T_out); stride S = 4 or 2 (a template parameter), the 31
+// taps padded to 32 (tap 31 zero); samples at or past T_in read as 0. It computes what
+// conv1d_tf32_kernel (the mma.sync
 // route) computes: every product as small(x) big(w) + big(x) small(w) + big(x) big(w),
 // in that order, each operand's TF32 parts rounded to nearest (csrc/mma_tf32.cuh). The
 // wrapper (ops/kernels/conv1d_prelu.py, `_route`) sends a call here by shape and x's
@@ -30,17 +31,20 @@
 //     w_small, one TMA box of 32 taps (128 bytes, the swizzle's span) x 128 output
 //     channels per part and channel, with the 128-byte swizzle, from one 2-D map of each
 //     part (Cout, Cin * 32), K-major as TF32 wgmma needs for an operand in shared memory;
-//     and the x window of each m16 group, WIN = 96 fp32 samples of each channel from 4 t0
-//     (one box {96, CC, 1} of a 3-D map of x with rows `pitch` apart; TMA fills samples
-//     at or past T_in, and channels past Cin, with zeros).
+//     and the x windows of each m16 group from a 3-D map of x with rows `pitch` apart, as
+//     csrc/conv1d_wgmma.cu stages them: at stride 4 WIN = 96 fp32 samples of each channel
+//     from 4 t0 (one box {96, CC, 1}), at stride 2 one box {WIN_HALF = 48, CC, 1} for each
+//     8-row half from 2 t of its first row, so that T_out % 8 == 0 is enough (TMA fills
+//     samples at or past T_in, and channels past Cin, with zeros).
 //   - The weights are the mma.sync route's, padded to 32 taps and split by the wrapper
 //     once per weight and version (`_padded_weights`: one copy for both fp32 routes, and
 //     none made for this one). The taps stay in their order: 8-deep step s of a channel
 //     takes taps 8 s + 0..7 at contraction index 0..7, so it reads 32 contiguous bytes
 //     of each weight row (the descriptor moves by 32 bytes in the span), and a lane's A
 //     values of row r (indices t and t + 4, the wgmma k8 A layout: {(g, t), (g + 8, t),
-//     (g, t + 4), (g + 8, t + 4)}) are samples 4 r + 8 s + t and 4 r + 8 s + t + 4 of the
-//     window, four 4-byte loads a step, free of bank conflicts.
+//     (g, t + 4), (g + 8, t + 4)}) are samples S r + 8 s + t and S r + 8 s + t + 4 of the
+//     window (row g + 8 in the other half's box at stride 2), four 4-byte loads a step,
+//     free of bank conflicts at either stride.
 //   - x is split into its TF32 parts as its fragments are loaded (cvt.rna, sub, cvt.rna),
 //     as the mma.sync route does (a split at staging measured 4-9 % slower there).
 //   - Fresh-register partial sums. The tensor cores' own fp32 sums do not round to
@@ -76,13 +80,13 @@ using conv_epilogue::launch_splitk_epilogue;
 using mma_conv::KP;      // taps, padded by the wrapper
 using mma_conv::prelu;
 using mma_conv::split_tf32;
-using mma_conv::STRIDE;  // the conv's stride
 using namespace tma_ring;
 
 constexpr int BN = 128;         // output channels per block: the MMA's N
 constexpr int CC = 2;           // input channels per ring stage
 constexpr int STAGES = 3;       // ring stages
-constexpr int WIN = 96;         // staged samples per m16 group and channel (92 read)
+constexpr int WIN = 96;         // stride 4: staged samples per m16 group and channel (92 read)
+constexpr int WIN_HALF = 48;    // stride 2: the same per 8-row half (46 read)
 constexpr int STEPS = 4;        // 8-deep steps per channel
 constexpr int W_BOX_BYTES = KP * 4 * BN;           // one part of one channel: 16 KB
 constexpr int W_STAGE_BYTES = 2 * CC * W_BOX_BYTES;  // w_big's boxes, then w_small's
@@ -92,15 +96,20 @@ constexpr int GROUPS = CONSUMERS * 4;              // m16 groups per block
 constexpr int TILE_M = GROUPS * 16;
 constexpr int THREADS = 128 * CONSUMERS + 32;      // and one producer warp
 constexpr int STAGE_BYTES = W_STAGE_BYTES + GROUPS * X_GROUP_BYTES;
-// ring, 2 STAGES barriers, (b, 4 t0) of each group; 1 KB of slack to align the ring
-constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 + GROUPS * 8;
 constexpr int OUT_LD = 16 + 4;  // a channel's 16 rows in the epilogue tile, padded
 static_assert(STEPS * 8 == KP, "a channel's taps in 8-deep steps");
-static_assert(WIN >= STRIDE * 15 + KP && WIN % 4 == 0, "a group's window, 16-byte rows");
-static_assert(X_GROUP_BYTES % 128 == 0, "TMA destinations 128-byte aligned");
+static_assert(WIN % 4 == 0 && X_GROUP_BYTES % 128 == 0, "16-byte rows, aligned groups");
 static_assert(STAGE_BYTES % 1024 == 0, "each stage's weight boxes 1024-byte aligned");
 static_assert(GROUPS * BN * OUT_LD * 4 <= STAGES * STAGE_BYTES, "epilogue tiles in the ring");
-static_assert(SMEM <= 232448, "a block's shared memory");
+
+// The x windows of stride S (csrc/tma_ring.cuh), and the block's shared memory at S:
+// the ring, 2 STAGES barriers, (b, S t) of each box; 1 KB of slack to align the ring
+template <int S>
+using Boxes = XBoxes<S, CC, WIN, WIN_HALF, 4>;
+template <int S>
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8 +
+                     GROUPS * Boxes<S>::PER_GROUP * 8;
+static_assert(SMEM<2> <= 232448, "a block's shared memory");
 
 // d (64 x 128, fp32, the m64nNk8 accumulator layout) = a (64 x 8, TF32, registers: warp
 // w holds rows 16 w + 0..15, lane (g, t) {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)})
@@ -132,11 +141,12 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-// x_map: x (B, Cin, T_in), rows `pitch` apart, boxes {WIN, CC, 1}; wb_map, ws_map: the
-// padded weights' TF32 parts (Cout, Cin * 32), boxes {KP, BN}, 128-byte swizzle. `slice`
-// input channels (a multiple of CC) per split-K slice (blockIdx.z); partial, when not
-// null, takes fp32 partial sums. y and pre must be 16-byte aligned; Cout % BN == 0,
-// T_out % 16 == 0.
+// x_map: x (B, Cin, T_in), rows `pitch` apart, boxes {Boxes<S>::SAMPLES, CC, 1}; wb_map,
+// ws_map: the padded weights' TF32 parts (Cout, Cin * 32), boxes {KP, BN}, 128-byte
+// swizzle. `slice` input channels (a multiple of CC) per split-K slice (blockIdx.z);
+// partial, when not null, takes fp32 partial sums. y and pre must be 16-byte aligned;
+// Cout % BN == 0, T_out % Boxes<S>::ROWS == 0 (16 at stride 4, 8 at stride 2).
+template <int S>
 __global__ void __launch_bounds__(THREADS, 1)
 conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
                          const __grid_constant__ CUtensorMap wb_map,
@@ -145,6 +155,7 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
                          float* __restrict__ y, float* __restrict__ pre,
                          float* __restrict__ partial, int B, int Cin, int Cout, int T_out,
                          int slice) {
+  using X = Boxes<S>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023u) & ~1023u;
@@ -160,7 +171,8 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
   const int c_begin = blockIdx.z * slice;
   const int c_end = min(Cin, c_begin + slice);
   const int iters = (c_end - c_begin + CC - 1) / CC;
-  const int live_groups = min(GROUPS, (M - m0) / 16);  // M % 16 == 0
+  const int live_boxes = min(GROUPS * X::PER_GROUP, (M - m0) / X::ROWS);  // M % ROWS == 0
+  const int live_groups = (live_boxes + X::PER_GROUP - 1) / X::PER_GROUP;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -170,17 +182,17 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (threadIdx.x < GROUPS) {  // group q's window: batch row b, first sample 4 t0
-    const int r = m0 + 16 * threadIdx.x;
+  if (threadIdx.x < GROUPS * X::PER_GROUP) {  // box j's window: batch row b, first sample S t of its row 0
+    const int r = m0 + X::ROWS * threadIdx.x;
     const int b = r / T_out;
-    coord[threadIdx.x] = make_int2(b, STRIDE * (r - b * T_out));
+    coord[threadIdx.x] = make_int2(b, S * (r - b * T_out));
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == CONSUMERS) {  // the producer warp: one thread issues every copy
     if (threadIdx.x == CONSUMERS * 128) {
-      const uint32_t bytes = W_STAGE_BYTES + live_groups * X_GROUP_BYTES;
+      const uint32_t bytes = W_STAGE_BYTES + live_boxes * X::BYTES;
       for (int k = 0; k < iters; ++k) {
         const int s = k % STAGES;
         mbar_wait(empty + 8 * s, ((k / STAGES) & 1) ^ 1);
@@ -192,9 +204,9 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
           tma_load_2d(st + c * W_BOX_BYTES, &wb_map, (c0 + c) * KP, n0, full + 8 * s);
           tma_load_2d(st + (CC + c) * W_BOX_BYTES, &ws_map, (c0 + c) * KP, n0, full + 8 * s);
         }
-        for (int q = 0; q < live_groups; ++q) {
-          const int2 bt = coord[q];
-          tma_load_3d(st + W_STAGE_BYTES + q * X_GROUP_BYTES, &x_map, bt.y, c0, bt.x,
+        for (int j = 0; j < live_boxes; ++j) {
+          const int2 bt = coord[j];
+          tma_load_3d(st + W_STAGE_BYTES + j * X::BYTES, &x_map, bt.y, c0, bt.x,
                       full + 8 * s);
         }
       }
@@ -219,7 +231,8 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
       // Per channel: its A fragments (both TF32 parts of x, 32 registers a lane), its 12
       // MMAs into the fresh sums as one commit group, waited for, then folded. Every warp
       // of the warpgroup issues the MMAs (they are warpgroup-wide); rows past M are not
-      // stored.
+      // stored (at stride 2 a group's second half past M is not loaded either: its rows
+      // read what the stage held, and no row of theirs is stored).
       for (int k = 0; k < iters; ++k) {
         const int s = k % STAGES;
         mbar_wait(full + 8 * s, (k / STAGES) & 1);
@@ -231,12 +244,13 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
           uint32_t ab[STEPS][4], as[STEPS][4];
 #pragma unroll
           for (int st = 0; st < STEPS; ++st) {
-            // row g at step st: samples 4 g + 8 st + t and t + 4; row g + 8 32 samples on
-            const float* p = xs + c * WIN + 4 * g + 8 * st + t;
+            // row g at step st: samples S g + 8 st + t and t + 4 of its box; row g + 8
+            // ROW8 elements on
+            const float* p = xs + c * X::SAMPLES + S * g + 8 * st + t;
             split_tf32(p[0], ab[st][0], as[st][0]);
-            split_tf32(p[STRIDE * 8], ab[st][1], as[st][1]);
+            split_tf32(p[X::ROW8], ab[st][1], as[st][1]);
             split_tf32(p[4], ab[st][2], as[st][2]);
-            split_tf32(p[STRIDE * 8 + 4], ab[st][3], as[st][3]);
+            split_tf32(p[X::ROW8 + 4], ab[st][3], as[st][3]);
           }
           fence_acc(part);
           wgmma_fence();
@@ -261,18 +275,21 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
     }
 
     // The accumulator: lane (g, t) holds rows 16 warp + g (+ 8 for e >= 2) and channels
-    // 8 j + 2 t + (e & 1) in acc[4 j + e], j = 0..15.
+    // 8 j + 2 t + (e & 1) in acc[4 j + e], j = 0..15. A group's second half is live when
+    // its box is (at stride 4 always with the group).
+    const long long base0 = q < live_groups ? X::half_base(coord, q, 0, Cout, T_out) : 0;
+    const long long base8 = q < live_groups ? X::half_base(coord, q, 1, Cout, T_out) : 0;
+    const bool live8 = q * X::PER_GROUP + X::PER_GROUP - 1 < live_boxes;
     if (partial != nullptr) {  // split-K: fp32 partial sums; the epilogue kernel finishes
       if (q < live_groups) {
         float* const out = partial + (long long)blockIdx.z * M * Cout;
-        const int2 bt = coord[q];
-        const long long base = (long long)bt.x * Cout * T_out + bt.y / STRIDE;
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            out[base + (long long)(n0 + 8 * j + 2 * t + (e & 1)) * T_out + g + 8 * (e >> 1)] =
-                acc[4 * j + e];
+            if (e < 2 || live8)
+              out[(e < 2 ? base0 : base8) + g +
+                  (long long)(n0 + 8 * j + 2 * t + (e & 1)) * T_out] = acc[4 * j + e];
       }
       return;
     }
@@ -281,8 +298,6 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
     float* const tile = reinterpret_cast<float*>(ring_ptr) + (threadIdx.x / 32) * BN * OUT_LD;
     if (q < live_groups) {
-      const int2 bt = coord[q];
-      const long long base = (long long)bt.x * Cout * T_out + bt.y / STRIDE;
 #pragma unroll
       for (int pass = 0; pass < 2; ++pass) {  // pre, then y
         float* const out = pass == 0 ? pre : y;
@@ -295,15 +310,17 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
             tile[cl * OUT_LD + g + 8 * (e >> 1)] = pass == 0 ? p : prelu(p, slope[n0 + cl]);
           }
         __syncwarp();
-        // 128 channels x 4 quarters of 4 rows: lane l of step u takes unit 32 u + l
+        // 128 channels x 4 quarters of 4 rows (two a half): lane l of step u takes unit
+        // 32 u + l
 #pragma unroll
         for (int u = 0; u < 16; ++u) {
           const int unit = 32 * u + lane;
           const int cl = unit >> 2;
           const int quarter = unit & 3;
-          *reinterpret_cast<float4*>(out + base + (long long)(n0 + cl) * T_out +
-                                     4 * quarter) =
-              *reinterpret_cast<const float4*>(tile + cl * OUT_LD + 4 * quarter);
+          if (quarter < 2 || live8)
+            *reinterpret_cast<float4*>(out + (quarter < 2 ? base0 : base8) +
+                                       (long long)(n0 + cl) * T_out + 4 * (quarter & 1)) =
+                *reinterpret_cast<const float4*>(tile + cl * OUT_LD + 4 * quarter);
         }
         __syncwarp();  // the tile is read before the next pass writes it
       }
@@ -311,9 +328,13 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
+template <int S>
 int launch_tf32(const void* x, const void* w_big, const void* w_small, const void* bias,
                 const void* slope, void* y, void* pre, float* partial, int splits, int B,
                 int Cin, int T_in, int pitch, int Cout, int T_out, cudaStream_t stream) {
+  using X = Boxes<S>;
+  if (T_out % X::ROWS != 0 || (long long)S * (T_out - 1) >= T_in)
+    return (int)cudaErrorInvalidValue;
   // input channels per split, whole ring stages, no empty slice
   const int slice = ((Cin + splits - 1) / splits + CC - 1) / CC * CC;
   splits = (Cin + slice - 1) / slice;
@@ -321,7 +342,7 @@ int launch_tf32(const void* x, const void* w_big, const void* w_small, const voi
 
   CUtensorMap x_map, wb_map, ws_map;
   cudaError_t err = encode_x_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, Cin, T_in,
-                                 pitch, WIN, CC);
+                                 pitch, X::SAMPLES, CC);
   if (err == cudaSuccess)
     err = encode_w_map(&wb_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, w_big, Cout, Cin * KP,
                        KP, BN);
@@ -330,12 +351,12 @@ int launch_tf32(const void* x, const void* w_big, const void* w_small, const voi
                        KP, BN);
   if (err != cudaSuccess) return (int)err;
   static bool sized[MAX_DEVICES] = {};
-  err = size_smem_once(conv1d_wgmma_tf32_kernel, SMEM, sized);
+  err = size_smem_once(conv1d_wgmma_tf32_kernel<S>, SMEM<S>, sized);
   if (err != cudaSuccess) return (int)err;
   const long long M = (long long)B * T_out;
   const dim3 grid((unsigned)((M + TILE_M - 1) / TILE_M), (unsigned)(Cout / BN),
                   (unsigned)splits);
-  conv1d_wgmma_tf32_kernel<<<grid, THREADS, SMEM, stream>>>(
+  conv1d_wgmma_tf32_kernel<S><<<grid, THREADS, SMEM<S>, stream>>>(
       x_map, wb_map, ws_map, static_cast<const float*>(bias), static_cast<const float*>(slope),
       static_cast<float*>(y), static_cast<float*>(pre), splits > 1 ? partial : nullptr, B,
       Cin, Cout, T_out, slice);
@@ -351,26 +372,35 @@ int launch_tf32(const void* x, const void* w_big, const void* w_small, const voi
 // (batch rows Cin * pitch apart; pitch % 4 == 0 and x 16-byte aligned, as TMA needs),
 // w_big and w_small the TF32 parts of the weights padded to 32 taps, (Cout, Cin, 32) each
 // (the wrapper's `_padded_weights`, as conv1d_prelu_tf32_launch takes them), 16-byte
-// aligned; y and pre 16-byte aligned; stride 4. Needs Cout % 128 == 0, T_out % 16 == 0
-// and B * T_out < 2^31; window samples at or past T_in read as 0. m_tiles must be 1 (the
-// block tile, 128 rows x 128 channels); splits the split-K slices, cut on whole ring
-// stages of 2 input channels (the wrapper allocates a float32 workspace of splits * B *
-// Cout * T_out when > 1). bias may be null. Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or the error of building the tensor maps; it does
-// not synchronise and allocates nothing.
+// aligned; y and pre 16-byte aligned; stride 4 or 2. Needs Cout % 128 == 0, T_out % 16
+// == 0 at stride 4 and T_out % 8 == 0 at stride 2, and B * T_out < 2^31; window samples
+// at or past T_in read as 0. m_tiles must be 1 (the block tile, 128 rows x 128
+// channels); splits the split-K slices, cut on whole ring stages of 2 input channels (the
+// wrapper allocates a float32 workspace of splits * B * Cout * T_out when > 1). bias may
+// be null. Launches on `stream` and returns cudaGetLastError() (0 on success), or the
+// error of building the tensor maps; it does not synchronise and allocates nothing.
 extern "C" int conv1d_prelu_wgmma_tf32_launch(const void* x, const void* w_big,
                                               const void* w_small, const void* bias,
                                               const void* slope, void* y, void* pre,
                                               void* partial, int m_tiles, int splits, int B,
                                               int Cin, int T_in, int pitch, int Cout,
-                                              int T_out, void* stream) {
+                                              int T_out, int stride, void* stream) {
   const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16; };
   if (m_tiles != 1 || B <= 0 || Cin <= 0 || Cout <= 0 || T_out <= 0 || splits <= 0 ||
-      Cout % BN != 0 || T_out % 16 != 0 || pitch < T_in || pitch % 4 != 0 || misaligned(x) ||
+      Cout % BN != 0 || pitch < T_in || pitch % 4 != 0 || misaligned(x) ||
       misaligned(w_big) || misaligned(w_small) || misaligned(y) || misaligned(pre) ||
-      (long long)B * T_out >= (1LL << 31) || (long long)STRIDE * (T_out - 1) >= T_in)
+      (long long)B * T_out >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  return launch_tf32(x, w_big, w_small, bias, slope, y, pre, static_cast<float*>(partial),
-                     splits, B, Cin, T_in, pitch, Cout, T_out,
-                     static_cast<cudaStream_t>(stream));
+  float* const ws = static_cast<float*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stride) {
+    case 4:
+      return launch_tf32<4>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin, T_in,
+                            pitch, Cout, T_out, s);
+    case 2:
+      return launch_tf32<2>(x, w_big, w_small, bias, slope, y, pre, ws, splits, B, Cin, T_in,
+                            pitch, Cout, T_out, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

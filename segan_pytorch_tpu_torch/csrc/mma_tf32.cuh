@@ -1,5 +1,5 @@
-// The fp32 tensor-core mainloop of csrc/conv1d_prelu.cu: the stride-4 conv with taps
-// padded to 32 (tap 31 zero) of warp_conv_mma (csrc/mma_bf16.cuh), in fp32 by a 3xTF32
+// The fp32 tensor-core mainloop of csrc/conv1d_prelu.cu: the conv of stride 4 or 2 with
+// taps padded to 32 (tap 31 zero) of warp_conv_mma (csrc/mma_bf16.cuh), in fp32 by a 3xTF32
 // split on mma.sync m16n8k8 (TF32 in, fp32 sums). Each fp32 operand v is split into
 // big = tf32(v) and small = tf32(v - big), both rounded to nearest with ties away from
 // zero (cvt.rna), and a product a b is taken as small(a) big(b) + big(a) small(b) +
@@ -55,17 +55,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_big
   mma_tf32(c, a_big, b0_big, b1_big);
 }
 
-// One warp's share of a strided conv with 32 taps, in fp32 by 3xTF32:
+// One warp's share of a conv of stride S with 32 taps, in fp32 by 3xTF32:
 //   acc[i][j] += sum over ci < cin, k < KP of
-//                a[ci * lda + MT_STRIDE * i + 4 (m0 + r) + k] * w[(n * w_cin + ci) * KP + k]
+//                a[ci * lda + MT_STRIDE * i + S (m0 + r) + k] * w[(n * w_cin + ci) * KP + k]
 // for rows r = 0..15 of m16 tile i and channels n = n0 + 8 j + (0..7), as warp_conv_mma.
 // w comes as its TF32 parts w_big + w_small, split once by the wrapper; a is split here,
 // as its fragments are loaded. Half a channel's sums go through `part` (see above). The
 // 8-deep step s (0..3) of channel ci takes, at contraction index t and t + 4, the taps
 // 8t + 2s and 8t + 2s + 1: lane quad t's A values of a row are then two adjacent fp32
-// (one 8-byte load), and its B values of the four steps taps 8t..8t+7 (two 16-byte loads
-// of each part, one per pair of steps).
-template <int MT, int MT_STRIDE = STRIDE * 16>
+// (one 8-byte load: S g + 8t + 4h + 2s is even at either stride), and its B values of the
+// four steps taps 8t..8t+7 (two 16-byte loads of each part, one per pair of steps).
+template <int MT, int S = STRIDE, int MT_STRIDE = S * 16>
 __device__ __forceinline__ void warp_conv_3xtf32(float (&acc)[MT][NT][4], const float* a,
                                                  int lda, int m0, int mt_live,
                                                  const float* __restrict__ w_big,
@@ -74,7 +74,7 @@ __device__ __forceinline__ void warp_conv_3xtf32(float (&acc)[MT][NT][4], const 
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const float* a_lane = a + STRIDE * (m0 + g) + 8 * t;
+  const float* a_lane = a + S * (m0 + g) + 8 * t;
   const long long w_lane = (long long)(n0 + g) * w_cin * KP + 8 * t;
 #pragma unroll 1
   for (int ci = 0; ci < cin; ++ci) {
@@ -98,7 +98,7 @@ __device__ __forceinline__ void warp_conv_3xtf32(float (&acc)[MT][NT][4], const 
         for (int s = 0; s < 2; ++s) {
           const float* p = a_ci + MT_STRIDE * i + 4 * h + 2 * s;
           const float2 r0 = *reinterpret_cast<const float2*>(p);               // row g
-          const float2 r8 = *reinterpret_cast<const float2*>(p + STRIDE * 8);  // row g + 8
+          const float2 r8 = *reinterpret_cast<const float2*>(p + S * 8);  // row g + 8
           uint32_t ab[4], as[4];
           split_tf32(r0.x, ab[0], as[0]);
           split_tf32(r8.x, ab[1], as[1]);

@@ -1,7 +1,8 @@
 // The pieces of a TMA / mbarrier ring feeding wgmma, shared by the per-layer kernels of
 // csrc/conv1d_wgmma.cu (bf16) and csrc/conv1d_wgmma_tf32.cu (fp32 by 3xTF32): barriers
 // with a wait that traps instead of hanging, TMA tile loads, the descriptor of a K-major
-// tile with the 128-byte swizzle, wgmma's fences, and on the host the tensor maps
+// tile with the 128-byte swizzle, the x windows of either stride, wgmma's fences, and on
+// the host the tensor maps
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so that a library
 // needs no -lcuda) and the shared-memory size set once per device.
 #pragma once
@@ -94,6 +95,35 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+
+// The x windows of an m16 group of rows of a per-layer conv of stride S (4 or 2) whose
+// ring stage holds CC input channels of ELEM-byte samples: at stride 4 one TMA box of WIN
+// samples a group (4 * 15 + 32 = 92 read); at stride 2 one of WIN_HALF for each 8-row
+// half (2 * 7 + 32 = 46 read), from the half's own first row, so that a group may span
+// two batch rows and T_out % 8 == 0 is enough. Both fill a group's bytes alike. Box j of
+// a block holds rows ROWS j .. ROWS (j + 1) - 1 of its tile, from (b, S t) of its first
+// row; ROW8 is where row g + 8 starts, in elements, from row g (in the group's one box, or
+// at the same place of its second half's).
+template <int S, int CC, int WIN, int WIN_HALF, int ELEM>
+struct XBoxes {
+  static_assert(S == 4 || S == 2, "stride 4 or 2");
+  static_assert(WIN >= 4 * 15 + 32 && WIN_HALF >= 2 * 7 + 32 && 2 * WIN_HALF == WIN,
+                "a group's window, or two halves in its bytes");
+  static constexpr int PER_GROUP = S == 4 ? 1 : 2;
+  static constexpr int ROWS = 16 / PER_GROUP;
+  static constexpr int SAMPLES = S == 4 ? WIN : WIN_HALF;
+  static constexpr int BYTES = CC * SAMPLES * ELEM;
+  static constexpr int ROW8 = S == 4 ? S * 8 : CC * SAMPLES;
+  static_assert(BYTES % 128 == 0, "TMA destinations 128-byte aligned");
+
+  // Where rows 8 hh .. 8 hh + 7 of m16 group q of the tile lie in y and pre (channel 0),
+  // from the boxes' (b, S t): the group's box at stride 4, the half's own at stride 2.
+  static __device__ __forceinline__ long long half_base(const int2* coord, int q, int hh,
+                                                        int Cout, int T_out) {
+    const int2 bt = coord[q * PER_GROUP + hh * (PER_GROUP - 1)];
+    return (long long)bt.x * Cout * T_out + bt.y / S + (PER_GROUP == 1 ? 8 * hh : 0);
+  }
+};
 
 // Keeps the compiler from moving reads or writes of the accumulators across the
 // asynchronous MMAs.

@@ -12,10 +12,14 @@ An encoder ``GBlock1D`` is [cheby1 FIR] -> pad -> strided conv (or ``Conv1DResBl
 -> [LayerNorm] -> [dropout] -> activation, returning (activated, pre-activation). With
 a PReLU and neither LayerNorm nor dropout, its conv, bias and PReLU run as one
 ``conv1d_prelu`` call (``ops/kernels/conv1d_prelu.py``): the hand-written kernel on a
-CUDA device, its plain version on the CPU; with snorm on w / sigma. At the default stride
-of 2 the kernel takes its FMA route (the tensor-core route is for stride 4). A decoder
-block is a transposed conv, or a linear upsampling then a stride-1 conv (``linterp``),
-with the same tail.
+CUDA device, its plain version on the CPU; with snorm on w / sigma. Such a block pads x
+into rows whose pitch is a multiple of 8 samples (``ops/conv.py`` ``zero_pad_pitched``,
+``reflect_pad_pitched``), the layout the kernel's wgmma route reads by TMA. At the
+default stride of 2 the kernel takes its tensor-core routes by ``_route``'s stride-2
+thresholds (wgmma from 128 output channels, mma.sync below; the FMA kernel at a few
+chunks, where it is as fast), at stride 4 as SEGAN+'s G does, and its FMA route at any
+other stride. A decoder block is a transposed conv, or a linear upsampling then a
+stride-1 conv (``linterp``), with the same tail.
 
 Random draws come from explicit ``torch.Generator``s: the initial weights from the one
 given to the constructor, z and the dropout masks from the one given to ``forward``.
@@ -128,12 +132,16 @@ class GBlock1D(nn.Module):
         self.fused = (enc and not self.convblock and act == "PReLU" and not lnorm
                       and dropout == 0)
 
-    def _pad(self, h: torch.Tensor) -> torch.Tensor:
+    def _pad(self, h: torch.Tensor, pitched: bool = False) -> torch.Tensor:
+        """The conv's pad; `pitched` (the fused branch) pads into rows whose pitch is a
+        multiple of 8 samples, the same values as a view."""
         lpad = self.kwidth // 2
         rpad = self.kwidth - 1 - lpad
         if self.enc and self.pad_type == "reflect":
-            return conv_ops.reflect_pad_1d(h, lpad, rpad)
-        return conv_ops.zero_pad_1d(h, lpad, rpad)
+            pad = conv_ops.reflect_pad_pitched if pitched else conv_ops.reflect_pad_1d
+        else:
+            pad = conv_ops.zero_pad_pitched if pitched else conv_ops.zero_pad_1d
+        return pad(h, lpad, rpad)
 
     def _upsample(self, h: torch.Tensor) -> torch.Tensor:
         T, p = h.shape[-1], self.pooling
@@ -154,8 +162,8 @@ class GBlock1D(nn.Module):
         if self.convblock:
             h = self.conv(h)
         elif self.fused:
-            return conv1d_prelu(self._pad(h), self.conv.get_weight(), self.conv.bias,
-                                self.act.get_weight(), self.pooling)
+            return conv1d_prelu(self._pad(h, pitched=True), self.conv.get_weight(),
+                                self.conv.bias, self.act.get_weight(), self.pooling)
         elif self.enc or self.linterp or self.pooling <= 1:
             h = self.conv(self._pad(self._upsample(h) if self.linterp else h))
         else:

@@ -76,6 +76,16 @@ def zero_pad_1d(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
     return F.pad(x, (pad_left, pad_right))
 
 
+def zero_pad_pitched(x: torch.Tensor, pad_left: int, pad_right: int) -> torch.Tensor:
+    """``zero_pad_1d(x, pad_left, pad_right)`` as a view [..., :T_in] of a buffer whose
+    rows are T_in rounded up to a multiple of PITCH samples, strides (C pitch, pitch, 1),
+    as ``reflect_pad_pitched`` pads: Generator1D's stride-2 blocks pad by (15, 15), so
+    T_in = 2 T_out + 30, which is a multiple of 8 for no T_out of theirs. One F.pad, the
+    buffer's tail zero; every op that reads the view sees ``zero_pad_1d``'s values."""
+    t_in = x.shape[-1] + pad_left + pad_right
+    return F.pad(x, (pad_left, pad_right + -t_in % PITCH))[..., :t_in]
+
+
 class _HeldFlags:
     """Holds process-wide backend flags at fixed values while any thread is inside, and
     gives back the values found when the first thread came in once the last one leaves.

@@ -17,16 +17,18 @@ Three pieces, as for every kernel of the port:
 - Three routes on the card, chosen by shape and x's layout before launch (``_route``),
   never as a fallback: "wgmma" (TMA and ``wgmma``: bf16 ``conv1d_wgmma_kernel``, fp32
   by a 3xTF32 split ``conv1d_wgmma_tf32_kernel``), "mma" (``mma.sync``: bf16 as it is,
-  fp32 by a 3xTF32 split) and "fma" (FMAs). The tensor-core routes take the weights
+  fp32 by a 3xTF32 split) and "fma" (FMAs). The tensor-core routes take stride 4
+  (SEGAN+) and stride 2 (Generator1D), each kernel instantiated for both; the FMA
+  kernel any stride. The tensor-core routes take the weights
   padded to 32 taps (``_pad_taps``), in fp32 split into their TF32 parts
   (``_split_tf32``; one copy for both fp32 routes), on the bf16 wgmma route with the
   taps permuted to the MMA fragments' order (``_wgmma_weights``), each made once per
   weight and version (``_padded_weights``, ``_permuted_weights``; never while a CUDA
   graph is being captured, which records the pad instead).
 - x may be a view whose rows lie ``pitch`` elements apart (``x.stride()`` == (Cin pitch,
-  pitch, 1)): G's blocks pad into rows whose pitch is a multiple of 8
-  (``ops/conv.py`` ``reflect_pad_pitched``), the layout TMA reads. Every kernel takes the
-  pitch; nothing copies x.
+  pitch, 1)): G's and Generator1D's fused blocks pad into rows whose pitch is a multiple
+  of 8 (``ops/conv.py`` ``reflect_pad_pitched``, ``zero_pad_pitched``), the layout TMA
+  reads. Every kernel takes the pitch; nothing copies x.
 - ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
   JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
 
@@ -75,10 +77,21 @@ WGMMA_COST = (4.26e-3, 1.91e-4, 2.16e-2, 1.28e-9)
 WGMMA_TF32_COST = (1.80e-5, 9.48e-4, 1.62e-2, 3.61e-9)
 # the route rule's thresholds by dtype, from same-call timings on the card (``_route``):
 # the wgmma route from B T_out rows or B T_out Cout Cin multiply-adds per tap, enc1's
-# mma.sync route from B T_out rows
+# mma.sync route from B T_out rows; at stride 4 (SEGAN+'s G and D)
 WGMMA_MIN_ROWS = {torch.bfloat16: 1 << 10, torch.float32: 1 << 13}
 WGMMA_MIN_WORK = {torch.bfloat16: 1 << 28, torch.float32: 1 << 25}
 ENC1_MMA_MIN_ROWS = {torch.bfloat16: 1 << 17, torch.float32: 1 << 18}
+# and at stride 2 (Generator1D's encoder), with the tensor cores from S2_TC_MIN_WORK
+# multiply-adds per tap where the mma.sync kernel would take the shape
+S2_WGMMA_MIN_ROWS = {torch.bfloat16: 1 << 11, torch.float32: 1 << 13}
+S2_WGMMA_MIN_WORK = {torch.bfloat16: 1 << 28, torch.float32: 1 << 25}
+S2_ENC1_MMA_MIN_ROWS = {torch.bfloat16: 1 << 18, torch.float32: 1 << 18}
+S2_TC_MIN_WORK = {torch.bfloat16: 1 << 24, torch.float32: 1 << 24}
+# (wgmma rows, wgmma work, enc1 mma.sync rows, tensor-core work) by stride
+THRESHOLDS = {4: (WGMMA_MIN_ROWS, WGMMA_MIN_WORK, ENC1_MMA_MIN_ROWS,
+                  {torch.bfloat16: 0, torch.float32: 0}),
+              2: (S2_WGMMA_MIN_ROWS, S2_WGMMA_MIN_WORK, S2_ENC1_MMA_MIN_ROWS,
+                  S2_TC_MIN_WORK)}
 # the tensor-core routes' weights, by the weight tensor they were made from:
 # weight -> (its version when made, copy): padded (and in fp32 split), and permuted
 _padded = WeakIdKeyDictionary()
@@ -88,7 +101,8 @@ _permuted = WeakIdKeyDictionary()
 def _pad_taps(w: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, K <= 32) weights as (Cout, Cin, 32), the taps past K zero: the
     counterpart of the Pallas kernels' ``_fold_weights``, which pad 31 taps to 32 too. A
-    stride-4 conv with these gives the same rows: a window's extra taps add zero."""
+    conv of either stride with these gives the same rows: a window's extra taps add
+    zero."""
     return F.pad(w, (0, KP - w.shape[-1])).contiguous()
 
 
@@ -165,29 +179,45 @@ def _capturing() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
-def _tensor_core_shape(dtype: torch.dtype, cout: int, k: int, stride: int,
-                       t_out: int) -> bool:
-    """Whether the tensor-core kernels take the shape: bf16 or fp32 with stride 4, K <= 32,
-    whole n8 tiles of channels and whole m16 tiles of time steps, so that an m16 tile
-    never spans two batch rows."""
-    return (dtype in _DTYPE_CODES and stride == 4 and k <= KP and cout % 8 == 0
-            and t_out % 16 == 0)
+def _tensor_core_shape(dtype: torch.dtype, cout: int, k: int, stride: int, t_out: int,
+                       wgmma: bool = False) -> bool:
+    """Whether the tensor-core kernels take the shape: bf16 or fp32 at stride 4 or 2, K <=
+    32, whole n8 tiles of channels and whole m16 tiles of time steps, so that an m16 tile
+    never spans two batch rows. The ``wgmma`` kernels at stride 2 stage a window for each
+    8-row half of an m16 tile, so there whole halves are enough (T_out % 8 == 0:
+    Generator1D's last layer, T_out = 8)."""
+    rows = 8 if wgmma and stride == 2 else 16
+    return (dtype in _DTYPE_CODES and stride in THRESHOLDS and k <= KP and cout % 8 == 0
+            and t_out % rows == 0)
+
+
+def _wgmma_shape(dtype: torch.dtype, cin: int, cout: int, k: int, stride: int, t_out: int,
+                 pitched: bool) -> bool:
+    """Whether the wgmma kernels take the call: x in ``pitched`` rows (pitch a multiple of
+    8 and x 16-byte aligned, as TMA reads them), Cin > 1, Cout a multiple of 128 and
+    ``_tensor_core_shape``'s wgmma shapes."""
+    return (pitched and cin > 1 and cout % WGMMA_BN == 0
+            and _tensor_core_shape(dtype, cout, k, stride, t_out, wgmma=True))
 
 
 def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
            t_out: int, pitched: bool = False) -> str:
-    """Which kernel a CUDA call takes, by shape and x's layout, decided before launch:
+    """Which kernel a CUDA call takes, by shape and x's layout, decided before launch,
+    with the thresholds of its stride (THRESHOLDS: 4 for SEGAN+'s G and D, 2 for
+    Generator1D's encoder):
 
     - "fma" (``conv1d_prelu_kernel``) for every shape the tensor cores do not take
-      (``_tensor_core_shape``), and for enc1 (Cin = 1, bound by bytes: it writes y and
-      pre) below ENC1_MMA_MIN_ROWS[dtype] rows (B T_out);
-    - "wgmma" (bf16 ``conv1d_wgmma_kernel``, fp32 ``conv1d_wgmma_tf32_kernel``) when
-      x's rows are ``pitched`` (pitch a multiple of 8 and x 16-byte aligned, as TMA reads
-      them), Cin > 1, Cout a multiple of 128, and B T_out at least
-      WGMMA_MIN_ROWS[dtype] or the work, B T_out Cout Cin, at least
-      WGMMA_MIN_WORK[dtype];
+      (``_tensor_core_shape``, ``_wgmma_shape``), for enc1 (Cin = 1, bound by bytes: it
+      writes y and pre) below the stride's ENC1_MMA_MIN_ROWS[dtype] rows (B T_out), and
+      at stride 2 below S2_TC_MIN_WORK[dtype] multiply-adds per tap (the work, B T_out
+      Cout Cin) where the mma.sync kernel takes the shape;
+    - "wgmma" (bf16 ``conv1d_wgmma_kernel``, fp32 ``conv1d_wgmma_tf32_kernel``) where
+      ``_wgmma_shape`` holds and B T_out is at least the stride's WGMMA_MIN_ROWS[dtype]
+      or the work at least its WGMMA_MIN_WORK[dtype], and wherever it alone takes the
+      shape (stride 2, T_out % 16 == 8: Generator1D's last layer);
     - "mma" (``mma.sync``; fp32 by 3xTF32) for the rest. An x in odd rows (a contiguous
-      G pad, T_in = 4 T_out + 29) takes it whatever its shape.
+      G pad, T_in = 4 T_out + 29) takes it whatever its shape; so do Generator1D's layers
+      with fewer than 128 output channels.
 
     The figures it rests on: a call's cost with calls back to back, as in a G forward
     (the longer of the wrapper's host time and the device's; tools/conv1d_routes.py, 10
@@ -210,26 +240,58 @@ def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
     layers: a wgmma call costs the host more (three tensor maps a launch). Hence 2^25 of
     work, or 2^13 rows (enc2: 0.0681 ms against 0.1678 at 8192 rows, 0.0773 against
     0.0743 at 4096).
+
+    At stride 2 (Generator1D's 11 layers, x padded by (15, 15) into pitched rows; the
+    same measure, tools/conv1d_routes.py --stride 2 at 1-64 chunks, two runs, NVIDIA H100
+    80GB HBM3 at 700.00 W): at one chunk (2^21 multiply-adds a tap) the FMA kernel was as
+    fast or faster at 16 of the 18 shapes below the last layer (the other two within
+    9 %); at 4 chunks (2^23) it won 4 of 9 layers in each dtype, about even summed; from 8
+    chunks (2^24) the tensor cores won all but one layer in fp32 and 7 of 9 in bf16 (the
+    others 4 % and 14 % slower), hence S2_TC_MIN_WORK. The last layer (T_out 8) on wgmma
+    took 0.065-0.19 ms against the FMA kernel's 0.16-1.02 at 1-64 chunks. enc1 (Cout 16)
+    on mma.sync lost up to 16 chunks (bf16 0.0741 ms against 0.0555 at 16) and won from
+    32 (0.0660 against 0.0749), in fp32 alike (0.0667 against 0.0746 at 32). wgmma against
+    mma.sync in bf16: at 1024 rows mma.sync was faster at three of five shapes, by 10-27 %
+    (64 chunks, the tenth layer: 0.0806 against 0.1000), from 2048 rows wgmma won or tied
+    but at two (by 10-11 %), hence 2^11 rows; in fp32 the stride-4 thresholds fit: wgmma
+    took 0.31-0.39x of mma.sync's time at 64 chunks, 0.45-0.73x at 32, mixed at 16, lost
+    at 8.
     """
-    if not _tensor_core_shape(dtype, cout, k, stride, t_out):
+    mma = _tensor_core_shape(dtype, cout, k, stride, t_out)
+    wgmma = _wgmma_shape(dtype, cin, cout, k, stride, t_out, pitched)
+    if not (mma or wgmma):
         return "fma"
-    rows = B * t_out
+    min_rows, min_work, enc1_rows, tc_work = THRESHOLDS[stride]
+    rows, work = B * t_out, B * t_out * cout * cin
     if cin == 1:
-        return "mma" if rows >= ENC1_MMA_MIN_ROWS[dtype] else "fma"
-    if pitched and cout % WGMMA_BN == 0 and (rows >= WGMMA_MIN_ROWS[dtype]
-                                             or rows * cout * cin >= WGMMA_MIN_WORK[dtype]):
+        return "mma" if rows >= enc1_rows[dtype] else "fma"
+    if mma and work < tc_work[dtype]:
+        return "fma"
+    if wgmma and (not mma or rows >= min_rows[dtype] or work >= min_work[dtype]):
         return "wgmma"
-    return "mma"
+    return "mma" if mma else "fma"
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int]:
-    """(warps_m, splits) of the MMA route, both dtypes. The block tile is warps_m x
-    (8 / warps_m) warps of 64 rows x 32 channels: 4 x 2 for Cout <= 64 (enc1), 2 x 4 for
-    Cout <= 128 and more than 64 rows (enc2), else 1 x 8, the widest, which stages the
-    least x per MMA."""
-    warps_m = 4 if cout <= 64 else (2 if cout <= 128 and B * t_out > 64 else 1)
-    return warps_m, _mma_splits(B, cin, cout, t_out, num_sms, warps_m)
+def _mma_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int, stride: int = 4,
+              dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """(warps_m, splits) of the MMA route. The block tile is warps_m x (8 / warps_m) warps
+    of 64 rows x 32 channels: 4 x 2 for Cout <= 64 (enc1), 2 x 4 for Cout <= 128 and more
+    than 64 rows (enc2), else 1 x 8, the widest, which stages the least x per MMA. At
+    stride 2 (Generator1D's encoder; tools/conv1d_routes.py --stride 2 --plans, NVIDIA
+    H100 80GB HBM3 at 700 W), 8 x 1 for Cin = 1 in either dtype and for Cout <= 32 in
+    fp32, which took 0.79-0.80x of 4 x 2's device time at 64 chunks (in bf16 at Cout 32
+    it took 1.6-1.7x, so 4 x 2 stays there), and the split count rounded down to a power
+    of two: 3, 5 and 9 slices took 1.2-1.5x the time of 2, 4 and 8."""
+    if stride == 2 and (cin == 1 or (cout <= 32 and dtype == torch.float32)):
+        warps_m = 8
+    else:
+        warps_m = 4 if cout <= 64 else (2 if cout <= 128 and B * t_out > 64 else 1)
+    splits = _mma_splits(B, cin, cout, t_out, num_sms, warps_m)
+    if stride == 2:
+        per = -(-cin // (1 << (splits.bit_length() - 1)))
+        splits = -(-cin // per)  # as the kernel cuts them
+    return warps_m, splits
 
 
 @functools.lru_cache(maxsize=None)  # a pure function of the shape, on every call's path
@@ -325,10 +387,10 @@ def _entries():
     splits.argtypes = [ctypes.c_int] * 6
     splits.restype = ctypes.c_int
     launch_mma = lib.conv1d_prelu_mma_launch
-    launch_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    launch_mma.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     launch_mma.restype = ctypes.c_int
     launch_tf32 = lib.conv1d_prelu_tf32_launch
-    launch_tf32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    launch_tf32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     launch_tf32.restype = ctypes.c_int
     return launch, splits, launch_mma, launch_tf32
 
@@ -342,7 +404,7 @@ def _wgmma_entry(dtype: torch.dtype = torch.bfloat16):
     fp32 = dtype == torch.float32
     lib = build.load_library("conv1d_wgmma_tf32" if fp32 else "conv1d_wgmma")
     fn = lib.conv1d_prelu_wgmma_tf32_launch if fp32 else lib.conv1d_prelu_wgmma_launch
-    fn.argtypes = [ctypes.c_void_p] * (8 if fp32 else 7) + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * (8 if fp32 else 7) + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -389,14 +451,14 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     pitched = pitch % 8 == 0 and x.data_ptr() % 16 == 0
     if force is None:
         route = _route(x.dtype, B, cin, cout, k, stride, t_out, pitched)
-    elif force == "fma" or (force in ("mma", "wgmma")
-                            and _tensor_core_shape(x.dtype, cout, k, stride, t_out)):
+    elif force == "fma" or (force in ("mma", "wgmma") and _tensor_core_shape(
+            x.dtype, cout, k, stride, t_out, wgmma=force == "wgmma")):
         route = force
     else:
         raise ValueError(f"the {force!r} route does not take this shape")
-    if route == "wgmma" and not (pitched and cout % WGMMA_BN == 0):
+    if route == "wgmma" and not _wgmma_shape(x.dtype, cin, cout, k, stride, t_out, pitched):
         raise ValueError("the wgmma route takes x in 16-byte aligned rows whose pitch is "
-                         "a multiple of 8, and Cout a multiple of 128")
+                         "a multiple of 8, Cin > 1 and Cout a multiple of 128")
     shape = (B, cout, t_out)
     if out is None:
         out = (torch.empty(shape, dtype=x.dtype, device=x.device),
@@ -419,7 +481,7 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     else:
         launch, splits_of, launch_mma, launch_tf32 = _entries()
         if route == "mma":
-            tiles, splits = _mma_plan(B, cin, cout, t_out, sms)
+            tiles, splits = _mma_plan(B, cin, cout, t_out, sms, stride, x.dtype)
             w = _padded_weights(w)
         else:
             splits = splits_of(B, cin, cout, t_out, k, sms)
@@ -433,11 +495,14 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if route == "wgmma":
-            err = entry(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
+            err = entry(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stride,
+                        stream)
         elif tf32 and route == "mma":
-            err = launch_tf32(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
+            err = launch_tf32(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stride,
+                              stream)
         elif route == "mma":
-            err = launch_mma(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stream)
+            err = launch_mma(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stride,
+                             stream)
         else:
             err = launch(_DTYPE_CODES[x.dtype], *ptrs, splits, B, cin, t_in, pitch, cout,
                          t_out, k, stride, stream)

@@ -68,20 +68,20 @@ from ..ops.kernels import build
 from ..ops.kernels import conv1d_prelu as K
 from .encoder_fused_bench import ms_in_turns
 
-_STAGE_FIXED = """    for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {
-      const int q = p / WG;
-      const int j = p - q * WG;
+_STAGE_FIXED = """    for (int p = threadIdx.x; p < NQ * W; p += THREADS) {
+      const int q = p / W;
+      const int j = p - q * W;
       const bool inside = j < q_len[q];
       const __nv_bfloat16* src = x + q_in[q] + (long long)c0 * pitch + j;
 #pragma unroll 8
       for (int c = 0; c < cc; ++c)
-        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : __float2bfloat16(0.f);
+        smem[c * NQ * W + p] = inside ? src[(long long)c * pitch] : __float2bfloat16(0.f);
     }
 """
-_STAGE_PER_ELEMENT = """    for (int e = threadIdx.x; e < cc * NQ * WG; e += THREADS) {
-      const int c = e / (NQ * WG);
-      const int q = (e / WG) % NQ;
-      const int j = e % WG;
+_STAGE_PER_ELEMENT = """    for (int e = threadIdx.x; e < cc * NQ * W; e += THREADS) {
+      const int c = e / (NQ * W);
+      const int q = (e / W) % NQ;
+      const int j = e % W;
       smem[e] = j < q_len[q] ? x[q_in[q] + (long long)(c0 + c) * pitch + j]
                              : __float2bfloat16(0.f);
     }
@@ -120,8 +120,8 @@ EDITS = {
     "as is": None,
     "no MMAs": ("    if (mt_live > 0 && nt_live > 0)\n      warp_conv_mma",
                 "    if (mt_live > 0 && nt_live > 0 && slice < 0)\n      warp_conv_mma"),
-    "no staging": ("for (int p = threadIdx.x; p < NQ * WG; p += THREADS) {",
-                   "for (int p = threadIdx.x; p < NQ * WG * (slice < 0); p += THREADS) {"),
+    "no staging": ("for (int p = threadIdx.x; p < NQ * W; p += THREADS) {",
+                   "for (int p = threadIdx.x; p < NQ * W * (slice < 0); p += THREADS) {"),
     "no stores": ("      if (i < mt_live && cl < 8 * nt_live) {",
                   "      if (i < mt_live && cl < 8 * nt_live && slice < 0) {"),
     "staging per element": (_STAGE_FIXED, _STAGE_PER_ELEMENT),
@@ -221,22 +221,22 @@ TF32_EDITS = {
     "x split at staging": [
         ("cu", "constexpr int CC = STAGED_TF32 / NQ;", "constexpr int CC = STAGED_TF32 / (2 * NQ);"),
         ("cu", "CC * NQ == STAGED_TF32,", "2 * CC * NQ == STAGED_TF32,"),
-        ("cu", """        smem[c * NQ * WG + p] = inside ? src[(long long)c * pitch] : 0.f;
+        ("cu", """        smem[c * NQ * W + p] = inside ? src[(long long)c * pitch] : 0.f;
 """, """      {
         uint32_t big, small;
         mma_conv::split_tf32(inside ? src[(long long)c * pitch] : 0.f, big, small);
-        smem[2 * c * NQ * WG + p] = __uint_as_float(big);
-        smem[(2 * c + 1) * NQ * WG + p] = __uint_as_float(small);
+        smem[2 * c * NQ * W + p] = __uint_as_float(big);
+        smem[(2 * c + 1) * NQ * W + p] = __uint_as_float(small);
       }
 """),
-        ("cu", "NQ * WG, 0, mt_live,", "2 * NQ * WG, 0, mt_live,"),
+        ("cu", "NQ * W, 0, mt_live,", "2 * NQ * W, 0, mt_live,"),
         ("cuh", """          uint32_t ab[4], as[4];
           split_tf32(r0.x, ab[0], as[0]);
           split_tf32(r8.x, ab[1], as[1]);
           split_tf32(r0.y, ab[2], as[2]);
           split_tf32(r8.y, ab[3], as[3]);
 """, """          const float2 s0 = *reinterpret_cast<const float2*>(p + lda / 2);
-          const float2 s8 = *reinterpret_cast<const float2*>(p + lda / 2 + STRIDE * 8);
+          const float2 s8 = *reinterpret_cast<const float2*>(p + lda / 2 + S * 8);
           const uint32_t ab[4] = {__float_as_uint(r0.x), __float_as_uint(r8.x),
                                   __float_as_uint(r0.y), __float_as_uint(r8.y)};
           const uint32_t as[4] = {__float_as_uint(s0.x), __float_as_uint(s8.x),
@@ -346,10 +346,10 @@ def _build(dtype: str, name: str, src: str, header: Optional[str] = None):
         raise RuntimeError(f"nvcc failed on variant {name!r}:\n{proc.stderr}")
     if dtype == "float32":
         fn = ctypes.CDLL(str(lib)).conv1d_prelu_tf32_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     else:
         fn = ctypes.CDLL(str(lib)).conv1d_prelu_mma_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -420,7 +420,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         ws = (parts[0].data_ptr(), parts[1].data_ptr())
                     err = fn(x.data_ptr(), *ws, None, a.data_ptr(), outs[0].data_ptr(),
                              outs[1].data_ptr(), part.data_ptr() if part is not None else None,
-                             tile[0], tile[1], B, cin, t_in, t_in, cout, t_out, stream)
+                             tile[0], tile[1], B, cin, t_in, t_in, cout, t_out, 4, stream)
                     if err != 0:
                         raise RuntimeError(f"launch failed: cudaError {err}")
 

@@ -1,12 +1,15 @@
-"""Same-call timings of the per-layer kernel's routes at the SEGAN+ encoder's shapes: the
-figures its route rule rests on (``ops/kernels/conv1d_prelu.py`` ``_route``,
-``_wgmma_plan``).
+"""Same-call timings of the per-layer kernel's routes at the SEGAN+ encoder's shapes, or
+at Generator1D's (stride 2): the figures its route rule rests on
+(``ops/kernels/conv1d_prelu.py`` ``_route``, ``_wgmma_plan``).
 
     python -m segan_pytorch_tpu_torch.tools.conv1d_routes [--batch 1 6 8 64 128 150 300]
-        [--dtype bfloat16 float32] [--reps 10] [--plans]
+        [--dtype bfloat16 float32] [--reps 10] [--plans] [--stride 4|2]
 
 At each of the five encoder layers of B 16384-sample chunks, with x padded as G pads it
-(``ops/conv.py`` ``reflect_pad_pitched``), every route that takes the shape ("wgmma",
+(``ops/conv.py`` ``reflect_pad_pitched``), or with ``--stride 2`` at each of the eleven
+of the SEGAN v1 paper's Generator1D (K = 31, stride 2, 1 -> 16 ... 512 -> 1024 channels,
+x padded by (15, 15) as its blocks pad it, ``zero_pad_pitched``), every route that takes
+the shape ("wgmma",
 "mma", "fma"; fp32 on the tensor cores by 3xTF32) runs forced into NaN-filled outputs
 and is held against the plain version (2e-2 in bf16, 1e-4 in fp32), its launch read from
 the counters; then the routes,
@@ -18,7 +21,8 @@ of the host's time and the device's), the median and the interquartile range of
 fastest one, the bound (useful FLOPs at the dense peak or bytes at 3.35 TB/s, whichever
 is longer) and the picked route's TFLOP/s; per batch the encoder sums of each route and
 of the rule's picks. ``--plans`` also times the dtype's wgmma kernel at its other block
-tiles and split-K counts, the plan ``_wgmma_plan`` gives among them, each through the
+tiles and split-K counts, the plan ``_wgmma_plan`` gives among them, and the mma.sync
+kernel at its tiles and split counts (``_mma_plan``'s among them), each through the
 kernel's entry point, 10 calls back to back per timing (at these costs the device's
 time). Needs a CUDA device and nvcc.
 """
@@ -33,11 +37,14 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv import reflect_pad_pitched
+from ..ops.conv import reflect_pad_pitched, zero_pad_pitched
 from ..ops.kernels import build
 from ..ops.kernels import conv1d_prelu as K
 
 CHANS = [1, 64, 128, 256, 512, 1024]  # SEGAN+ encoder widths
+# Generator1D's encoder widths at the v1 paper's configuration (chip_smoke.py G1D_V1)
+G1D_CHANS = [1, 16, 32, 32, 64, 64, 128, 128, 256, 256, 512, 1024]
+WIDTHS = {4: CHANS, 2: G1D_CHANS}  # by stride
 T = 16384  # samples per chunk
 KW = 31
 PEAK = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}  # fp32: 3xTF32
@@ -89,35 +96,62 @@ def rel_err(got, ref) -> float:
     return float((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
-def layer_inputs(B: int, layer: int, dtype, g: torch.Generator, bias: bool = False):
-    """x (padded by G's pitched pad), w, b, a and T_out of encoder layer `layer` (0-4) for
-    B chunks, on the card."""
-    t_out = T // 4 ** (layer + 1)
-    cin, cout = CHANS[layer], CHANS[layer + 1]
-    h = torch.randn((B, cin, 4 * t_out), generator=g).to(dtype).cuda()
-    x = reflect_pad_pitched(h, KW // 2 - 1, KW // 2)
+def layer_inputs(B: int, layer: int, dtype, g: torch.Generator, bias: bool = False,
+                 stride: int = 4):
+    """x (padded by G's pitched pad, or at stride 2 by Generator1D's), w, b, a and T_out
+    of encoder layer `layer` (0-4 of SEGAN+'s G, 0-10 of Generator1D's) for B chunks, on
+    the card."""
+    t_out = T // stride ** (layer + 1)
+    cin, cout = WIDTHS[stride][layer], WIDTHS[stride][layer + 1]
+    h = torch.randn((B, cin, stride * t_out), generator=g).to(dtype).cuda()
+    x = (reflect_pad_pitched(h, KW // 2 - 1, KW // 2) if stride == 4
+         else zero_pad_pitched(h, KW // 2, KW // 2))
     w = (torch.randn((cout, cin, KW), generator=g) / (cin * KW) ** 0.5).to(dtype).cuda()
     b = (torch.randn((cout,), generator=g) * 0.1).to(dtype).cuda() if bias else None
     a = (torch.rand((cout,), generator=g) * 0.3).to(dtype).cuda()
     return x, w, b, a, t_out
 
 
-def launch_plan(x, w, b, a, t_out, tiles: int, splits: int, out):
-    """The wgmma kernel of x's dtype at a given block tile (m_tiles) and split-K count."""
+def routes_of(dtype, cin: int, cout: int, stride: int, t_out: int) -> list:
+    """The routes that take a layer shape with x in pitched rows."""
+    return [r for r in ROUTES if r == "fma"
+            or (r == "mma" and K._tensor_core_shape(dtype, cout, KW, stride, t_out))
+            or (r == "wgmma" and K._wgmma_shape(dtype, cin, cout, KW, stride, t_out, True))]
+
+
+def launch_plan(x, w, b, a, t_out, tiles: int, splits: int, out, stride: int = 4,
+                route: str = "wgmma"):
+    """The tensor-core kernel of `route` and x's dtype at a given block tile (wgmma:
+    m_tiles; mma: warps_m) and split-K count, through its entry point."""
     B, cin, t_in = x.shape
     cout = w.shape[0]
-    # fp32: the split pair both fp32 routes take; bf16: the permuted copy
-    wp = K._padded_weights(w) if x.dtype == torch.float32 else (K._permuted_weights(w),)
+    fp32 = x.dtype == torch.float32
+    if route == "wgmma":  # fp32: the split pair both fp32 routes take; bf16: the permuted copy
+        fn = K._wgmma_entry(x.dtype)
+        wp = K._padded_weights(w) if fp32 else (K._permuted_weights(w),)
+    else:
+        fn = K._entries()[3 if fp32 else 2]
+        wp = K._padded_weights(w) if fp32 else (K._padded_weights(w),)
     part = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
             if splits > 1 else None)
-    err = K._wgmma_entry(x.dtype)(
-        x.data_ptr(), *(v.data_ptr() for v in wp), None if b is None else b.data_ptr(),
-        a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-        None if part is None else part.data_ptr(), tiles, splits, B, cin, t_in, K._pitch(x),
-        cout, t_out, torch.cuda.current_stream().cuda_stream)
+    err = fn(x.data_ptr(), *(v.data_ptr() for v in wp), None if b is None else b.data_ptr(),
+             a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+             None if part is None else part.data_ptr(), tiles, splits, B, cin, t_in,
+             K._pitch(x), cout, t_out, stride, torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"wgmma plan ({tiles}, {splits}): cudaError {err}")
+        raise RuntimeError(f"{route} plan ({tiles}, {splits}): cudaError {err}")
     return out
+
+
+def plan_candidates(route: str, dtype, cin: int, plan) -> list:
+    """The (tile, splits) plans `--plans` times for a route: wgmma's block tiles and 1-16
+    split-K slices of at least 4 channels, mma.sync's tiles of warps_m 1, 2, 4, 8 and 1-8
+    slices of at least MMA_MIN_SLICE channels; the rule's plan among them."""
+    tiles, counts, least = ((K.WGMMA_TILES[dtype], (1, 2, 3, 4, 6, 8, 12, 16), 4)
+                            if route == "wgmma" else ((1, 2, 4, 8), (1, 2, 3, 4, 6, 8),
+                                                      K.MMA_MIN_SLICE))
+    return sorted({(t, n) for t in tiles for n in counts if n == 1 or -(-cin // n) >= least}
+                  | {tuple(plan)})
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -129,7 +163,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     default=["bfloat16", "float32"])
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--stride", type=int, choices=(4, 2), default=4)
     args = ap.parse_args(argv)
+    S = args.stride
     if not torch.cuda.is_available():
         raise RuntimeError("conv1d_routes needs a CUDA device")
     names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32")
@@ -143,66 +179,65 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True).stdout.strip()
-    print(f"routes of fused_conv1d_prelu on {torch.cuda.get_device_name(0)} ({smi}), {sms} "
-          f"SMs; ms: median (interquartile range) of {args.reps} rounds in turns", flush=True)
+    print(f"routes of fused_conv1d_prelu at stride {S} on {torch.cuda.get_device_name(0)} "
+          f"({smi}), {sms} SMs; ms: median (interquartile range) of {args.reps} rounds in "
+          f"turns", flush=True)
     g = torch.Generator().manual_seed(0)
     res = {}
-    regret = [0.0, 0.0]  # summed device ms of the rule's plans and of the fastest ones
+    regret = {}  # route -> summed device ms of the rule's plans and of the fastest ones
     for dtype_name in args.dtype:
         dtype = getattr(torch, dtype_name)
         for B in args.batch:
             sums: Dict[str, float] = {}
-            for layer in range(5):
-                x, w, b, a, t_out = layer_inputs(B, layer, dtype, g)
+            for layer in range(len(WIDTHS[S]) - 1):
+                x, w, b, a, t_out = layer_inputs(B, layer, dtype, g, stride=S)
                 cin, cout = x.shape[1], w.shape[0]
                 shape = (B, cout, t_out)
-                y_ref, pre_ref = K.conv1d_prelu_plain(x, w, b, a, 4)
-                pick = route_of(lambda: K.fused_conv1d_prelu(x, w, b, a, 4))
-                routes = [r for r in ROUTES if r != "wgmma" or (
-                    cin > 1 and cout % K.WGMMA_BN == 0)]
+                y_ref, pre_ref = K.conv1d_prelu_plain(x, w, b, a, S)
+                pick = route_of(lambda: K.fused_conv1d_prelu(x, w, b, a, S))
+                routes = routes_of(dtype, cin, cout, S, t_out)
                 errs = {}
                 for r in routes:
                     out = tuple(torch.full(shape, float("nan"), dtype=dtype, device="cuda")
                                 for _ in range(2))
-                    took = route_of(lambda: K._launch(x, w, b, a, 4, t_out, out=out,
+                    took = route_of(lambda: K._launch(x, w, b, a, S, t_out, out=out,
                                                       force=r))
                     torch.cuda.synchronize()
                     assert took == r, (r, took)
                     errs[r] = max(rel_err(out[0], y_ref), rel_err(out[1], pre_ref))
                     assert errs[r] <= TOL[dtype], f"B={B} enc{layer + 1} {r}: {errs[r]:.3e}"
-                arms = {r: (lambda r=r: K._launch(x, w, b, a, 4, t_out, force=r))
+                arms = {r: (lambda r=r: K._launch(x, w, b, a, S, t_out, force=r))
                         for r in routes}
-                arms["plain"] = lambda: K.conv1d_prelu_plain(x, w, b, a, 4)
-                arms["cuDNN"] = lambda: F.conv1d(x, w, b, stride=4)
-                plans = {}
-                if args.plans and "wgmma" in routes:
-                    plan = K._wgmma_plan(B, cin, cout, t_out, sms, dtype)
+                arms["plain"] = lambda: K.conv1d_prelu_plain(x, w, b, a, S)
+                arms["cuDNN"] = lambda: F.conv1d(x, w, b, stride=S)
+                for route in [r for r in ("wgmma", "mma") if args.plans and r in routes]:
+                    plan = (K._wgmma_plan(B, cin, cout, t_out, sms, dtype) if route == "wgmma"
+                            else K._mma_plan(B, cin, cout, t_out, sms, S, dtype))
                     out = (torch.empty(shape, dtype=dtype, device="cuda"),
                            torch.empty(shape, dtype=dtype, device="cuda"))
-                    for tiles in K.WGMMA_TILES[dtype]:
-                        for splits in sorted({1, 2, 3, 4, 6, 8, 12, 16, plan[1]}):
-                            if splits > 1 and -(-cin // splits) < 4:
-                                continue
-                            for o in out:
-                                o.fill_(float("nan"))
-                            launch_plan(x, w, b, a, t_out, tiles, splits, out)
-                            torch.cuda.synchronize()
-                            e = max(rel_err(out[0], y_ref), rel_err(out[1], pre_ref))
-                            assert e <= TOL[dtype], (B, layer, tiles, splits, e)
-                            plans[tiles, splits] = (
-                                lambda t=tiles, s=splits: launch_plan(x, w, b, a, t_out, t,
-                                                                      s, out))
+                    plans = {}
+                    for tiles, splits in plan_candidates(route, dtype, cin, plan):
+                        for o in out:
+                            o.fill_(float("nan"))
+                        launch_plan(x, w, b, a, t_out, tiles, splits, out, S, route)
+                        torch.cuda.synchronize()
+                        e = max(rel_err(out[0], y_ref), rel_err(out[1], pre_ref))
+                        assert e <= TOL[dtype], (B, layer, route, tiles, splits, e)
+                        plans[tiles, splits] = (
+                            lambda t=tiles, n=splits, r=route: launch_plan(
+                                x, w, b, a, t_out, t, n, out, S, r))
                     ptimes = {p: median_iqr(v)[0] for p, v in
                               times_in_turns(plans, args.reps, calls=10).items()}
                     best = min(ptimes, key=ptimes.get)
-                    print(f"{dtype_name} B={B} enc{layer + 1} wgmma plans (m_tiles, splits), "
+                    print(f"{dtype_name} B={B} enc{layer + 1} {route} plans (tile, splits), "
                           f"device ms: " + ", ".join(f"{p[0]},{p[1]} {v:.4f}"
                                                     for p, v in ptimes.items())
                           + f"; rule {plan[0]},{plan[1]} {ptimes[plan]:.4f}, best "
                           f"{best[0]},{best[1]} {ptimes[best]:.4f}", flush=True)
-                    res[dtype_name, B, layer, "plans"] = ptimes
-                    regret[0] += ptimes[plan]
-                    regret[1] += ptimes[best]
+                    res[dtype_name, B, layer, route, "plans"] = ptimes
+                    regret.setdefault(route, [0.0, 0.0])
+                    regret[route][0] += ptimes[plan]
+                    regret[route][1] += ptimes[best]
                 stats = {n: median_iqr(v) for n, v in
                          times_in_turns(arms, args.reps).items()}
                 dev = {n: median_iqr(v) for n, v in
@@ -235,10 +270,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             res[dtype_name, B, "sum"] = sums
             print(f"{dtype_name} B={B} encoder sum: " + ", ".join(
                 f"{n} {v:.4f}" for n, v in sums.items()) + " ms", flush=True)
-    if regret[1]:
-        print(f"wgmma plans: the rule's picks {regret[0]:.4f} ms summed over the shapes "
-              f"against {regret[1]:.4f} for the fastest plans "
-              f"(+{100 * (regret[0] / regret[1] - 1):.1f} %)", flush=True)
+    for route, (rule, fastest) in regret.items():
+        print(f"{route} plans: the rule's picks {rule:.4f} ms summed over the shapes "
+              f"against {fastest:.4f} for the fastest plans "
+              f"(+{100 * (rule / fastest - 1):.1f} %)", flush=True)
     return res
 
 

@@ -209,13 +209,14 @@ def test_main_path_takes_the_mma_route(B, layer):
     (torch.bfloat16, 68, 31, 4, 256),    # Cout % 8 != 0
     (torch.bfloat16, 64, 31, 4, 250),    # T_out % 16 != 0
     (torch.bfloat16, 64, 33, 4, 256),    # more taps than the padded 32
-    (torch.bfloat16, 64, 31, 2, 256),    # another stride
+    (torch.bfloat16, 64, 31, 2, 250),    # stride 2 off whole 8-row halves of time
+    (torch.bfloat16, 64, 31, 3, 256),    # another stride
     (torch.float32, 40, 31, 1, 270),     # fp32 off the main path as bf16: stride 1,
     (torch.float32, 70, 31, 4, 243),     # ragged,
     (torch.float32, 68, 31, 4, 256),     # Cout % 8 != 0,
     (torch.float32, 64, 33, 4, 256),     # more taps than the padded 32
 ], ids=["fp32", "stride 1", "ragged", "Cout%8", "T_out%16", "K=33", "stride 2",
-        "fp32 stride 1", "fp32 ragged", "fp32 Cout%8", "fp32 K=33"])
+        "stride 3", "fp32 stride 1", "fp32 ragged", "fp32 Cout%8", "fp32 K=33"])
 def test_other_shapes_take_the_fma_route(dtype, cout, k, stride, t_out):
     assert K._route(dtype, 64, 64, cout, k, stride, t_out, pitched=True) == "fma"
 

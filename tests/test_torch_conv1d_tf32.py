@@ -298,7 +298,8 @@ def test_emulated_constants_are_the_kernels():
     consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert (int(consts["WG"]), int(consts["STAGED_TF32"]), int(consts["MMA_MT"])) == (
         WG, STAGED_TF32, MMA_MT)
-    assert "warp_conv_3xtf32<MMA_MT, WG>" in src
+    # the mainloop's group windows: WG samples at stride 4 (WG_S2 at stride 2)
+    assert "warp_conv_3xtf32<MMA_MT, S, W>" in src and "W = S == 4 ? WG : WG_S2" in src
     header = (build.CSRC_DIR / "mma_tf32.cuh").read_text()
     assert "m16n8k8.row.col.f32.tf32.tf32.f32" in header and "cvt.rna.tf32.f32" in header
 
