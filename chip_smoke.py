@@ -6,9 +6,9 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build the four hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
-     (conv1d_prelu.cu, conv1d_wgmma.cu, conv1d_wgmma_tf32.cu, encoder_fused.cu), one
-     nvcc each, and the host
+  2. build the five hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
+     (conv1d_prelu.cu, conv1d_wgmma.cu, conv1d_wgmma_tf32.cu, encoder_fused.cu,
+     encoder_fused_wgmma.cu), one nvcc each (ptxas -v: registers and spills), and the host
      libraries of native/ (the wav gather and the P.862 scorer), one
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
@@ -36,22 +36,32 @@ and when the port's package is not beside it):
      where the rule picks another route than mma.sync may a call back to back be slower
      than mma.sync's by more than their spread;
   3b. the chained kernel (fused_enc23_fwd: fp32 on the tensor cores by 3xTF32 where C2
-     and C3 are multiples of 8, else on FMAs; bf16 on mma.sync) vs enc23_plain, into
-     NaN-filled outputs, at the SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256)
-     for B = 1, 8 and 300, with and without bias, and at two narrow odd shapes, in fp32
-     and bf16 with the same limits, each route and tile read from the counters: fp32 on
-     the route and tile the wrapper picks, then at tiles 16 and 32 and on the FMA kernel
-     forced; at B = 300 also vs the per-layer kernel chain (bf16: bit for bit) and fp32
-     pre3 vs a float64 chain (<= 1e-4). Times in turns at B = 1, 8 and 300 of the A/B
-     tool's three arms, fp32 at both tiles and on the FMA kernel forced, and cuDNN's two
-     convs alone; in fp32 at B >= 8 the tensor cores must take no more time than the FMA
-     kernel. An fp32 call with C3 = 36 must take the FMA kernel and be right; a bf16 one
-     must raise ValueError (whole n8 tiles) and launch nothing. Both fp32 tiles in turns
-     at B = 16, 32, 48 and 64, where the tile rule switches;
+     and C3 are multiples of 8, else on FMAs; bf16 on wgmma at SEGAN+'s widths from one
+     chunk's enc3 rows, else on mma.sync) vs enc23_plain, into NaN-filled outputs, at the
+     SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256) for B = 1, 8, 37, 64 and
+     300 and 8 with bias, at those widths with T1 = 64 (both reflected ends in one tile),
+     1168 (a ragged last tile, T3 % 8 != 0) and 3200 (ragged, T3 % 8 == 0), with and
+     without bias, and at two narrow odd shapes, in fp32 and bf16 with the same limits,
+     each route and tile read from the counters: fp32 on the route and tile the wrapper
+     picks, then at tiles 16 and 32 and on the FMA kernel forced; bf16 on the route
+     _route picks, then on the other one forced where it takes the shape; at B = 300
+     also vs the per-layer kernel chain in pitched rows (bf16, both layers on wgmma: pre2
+     bit for bit, pre3 and post3 within the limit, as enc3's depth is summed in another
+     order) and fp32 pre3 vs a float64 chain (<= 1e-4). Times in turns at B = 1, 8, 64
+     and 300 of the A/B tool's three arms, fp32 at both tiles and on the FMA kernel
+     forced, bf16 on mma.sync forced, and cuDNN's two convs alone; in fp32 at B >= 8 the
+     tensor cores must take no more time than the FMA kernel. bf16 device times at B =
+     1, 64 and 300 (CUDA graphs of 10 calls through the C entry points: the chained
+     kernel on wgmma and on mma.sync, the pitched per-layer pair with its pads, cuDNN's
+     two convs): at 64 and 300 the wgmma kernel must beat mma.sync's. An fp32 call with
+     C3 = 36 must take the FMA kernel and be right; a bf16 one must raise ValueError
+     (whole n8 tiles) and launch nothing. Both fp32 tiles in turns at B = 16 and 32, on
+     either side of where the tile rule switches;
   3c. the A/B tool (python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench) at its
      defaults, batch 300 bf16, then with --dtype float32: both kernels must launch in it,
-     the chained kernel on mma.sync in bf16 and on the 3xTF32 route at tile 32 in fp32,
-     and agree with the plain chain within 2e-2 and 1e-4;
+     the chained kernel on wgmma in bf16 and on the 3xTF32 route at tile 32 in fp32, the
+     per-layer kernel (kernel x2, in pitched rows) on wgmma in both, and agree with the
+     plain chain within 2e-2 and 1e-4;
   3d. the TF32 policy: with cuDNN's TF32 on process-wide, a bare fp32 GDeconv1DBlock and
      Conv1dPReLU's backward convs on the card vs float64 on the CPU (<= 1e-4); the
      deconv's error with the ops' policy bypassed is printed beside it;
@@ -331,9 +341,13 @@ g1d_launches_per_forward and g1d_device_ms its launches in phase 13's Generator1
 and their layers' device ms at stride 2 (13b), and the same of
 fused_conv1d_prelu_wgmma_tf32 (the fp32 wgmma route) in fp32 (train_launches 5c's fp32
 steps');
-launches of fused_enc23_fwd from phase 3c, launches_tf32 those of its fp32 run, its times
-the tool's at batch 300 in bf16 and, under fp32_*, in fp32, library_ms cuDNN's two convs
-from phase 3b); the last is
+launches of fused_enc23_fwd (encoder_fused.cu) from phase 3c, launches_tf32 those of its
+fp32 run, its times the tool's at batch 300 in fp32, library_ms cuDNN's two convs from
+phase 3b, bf16_mma_ms and bf16_mma_device_ms enc23_mma_kernel forced at batch 300 (3b);
+launches of fused_enc23_fwd_wgmma (encoder_fused_wgmma.cu, the bf16 wgmma route) from phase
+3c, its times the tool's at batch 300 in bf16, device_ms and those of the other arms
+(mma_, kernel_x2_, library_) at batch 300, 64 (b64_) and 1 (b1_) from 3b's CUDA graphs;
+the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 import contextlib
@@ -369,6 +383,9 @@ KERNELS = [  # the fixed fields of the kernels line, in its order
     dict(name="fused_conv1d_prelu_wgmma_tf32", route="cuda",
          source="segan_pytorch_tpu_torch/csrc/conv1d_wgmma_tf32.cu",
          replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
+    dict(name="fused_enc23_fwd_wgmma", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/encoder_fused_wgmma.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/encoder_fused.py:112"),
 ]
 
 
@@ -413,7 +430,8 @@ def phase_device():
 def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
-    names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32", "encoder_fused")
+    names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32", "encoder_fused",
+             "encoder_fused_wgmma")
     hosts = ("segan_io", "pesq862")  # the C++ wav gather and P.862 scorer of native/
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:  # one compiler per source
@@ -899,9 +917,12 @@ def phase_kernel():
 def phase_enc23():
     """The chained kernel vs enc23_plain on the card, into NaN-filled outputs, each route
     read from its counters: fp32 on the 3xTF32 tensor cores at both tiles and on the FMA
-    kernel forced, bf16 on mma.sync; at B = 300 also vs the per-layer kernel chain and
-    fp32 pre3 vs a float64 chain. Times in turns. Returns the max abs errors at the SEGAN+
-    widths and the B = 300 times for the kernels line."""
+    kernel forced, bf16 on the route _route picks and on the other one forced (wgmma and
+    mma.sync); at B = 300 also vs the per-layer kernel chain in pitched rows (bf16: pre2
+    bit for bit) and fp32 pre3 vs a float64 chain. Times in turns, and in bf16 at B = 1,
+    64 and 300 the device alone (CUDA graphs of 10 calls through the C entry points).
+    Returns the max abs errors at the SEGAN+ widths, the B = 300 times for the kernels
+    line and the bf16 device times by batch."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.conv import reflect_pad_1d
@@ -916,15 +937,24 @@ def phase_enc23():
     cases = [  # (label, B, T1, C1, C2, C3, bias, SEGAN+ widths)
         ("B=1", 1, 4096, 64, 128, 256, False, True),
         ("B=8", 8, 4096, 64, 128, 256, False, True),
+        ("B=37", 37, 4096, 64, 128, 256, False, True),
+        ("B=64", 64, 4096, 64, 128, 256, False, True),
         ("B=300", 300, 4096, 64, 128, 256, False, True),
         ("B=8 bias", 8, 4096, 64, 128, 256, True, True),
+        ("wide T1=64 bias", 3, 64, 5, 128, 256, True, False),
+        ("wide T1=64", 3, 64, 5, 128, 256, False, False),
+        ("wide T1=1168 bias", 2, 1168, 8, 128, 256, True, False),
+        ("wide T1=1168", 2, 1168, 8, 128, 256, False, False),
+        ("wide T1=3200", 3, 3200, 64, 128, 256, False, False),
         ("narrow T1=64", 3, 64, 5, 24, 40, True, False),
         ("ragged tile T1=592", 2, 592, 5, 24, 40, False, False),
     ]
-    timed = ("B=1", "B=8", "B=300")
+    timed = ("B=1", "B=8", "B=64", "B=300")
+    device_timed = ("B=1", "B=64", "B=300")
     max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    at300 = {}
-    counters = lambda: (EF.launches, EF.launches_tf32, EF.launches_tile16)
+    at300, device = {}, {}
+    counters = lambda: (EF.launches, EF.launches_tf32, EF.launches_tile16,
+                        EF.launches_wgmma)
     start = counters()
 
     def launched(run, want):
@@ -933,11 +963,12 @@ def phase_enc23():
         out = run()
         torch.cuda.synchronize()
         moved = tuple(n - b for n, b in zip(counters(), before))
-        assert moved == want, f"launches (all, tf32, tile 16) moved by {moved}, not {want}"
+        assert moved == want, (f"launches (all, tf32, tile 16, wgmma) moved by {moved}, "
+                               f"not {want}")
         return out
 
-    print(f"{'case':>18} {'dtype':>8} {'tile':>4} | {'rel err':>9} {'tile 16':>9} "
-          f"{'tile 32':>9} {'fma':>9} {'vs x2':>9} {'vs f64':>9}")
+    want_of = {"tf32": lambda t: (1, 1, int(t == 16), 0), "fma": lambda t: (1, 0, 0, 0),
+               "mma": lambda t: (1, 0, 0, 0), "wgmma": lambda t: (1, 0, 0, 1)}
     for label, b, t1, c1, c2, c3, has_bias, full in cases:
         h1 = torch.randn((b, c1, t1), generator=g).cuda()
         w2 = (torch.randn((c2, c1, EF.K), generator=g) / (c1 * EF.K) ** 0.5).cuda()
@@ -951,35 +982,51 @@ def phase_enc23():
             EF._check(*args)
             shapes = [(b, c2, t1 // 4), (b, c3, t1 // 16), (b, c3, t1 // 16)]
             fp32 = dtype == torch.float32
-            tile = EF._tf32_tile(b, t1, sms) if fp32 else 32
-            # the route that _route picks: fp32 on the 3xTF32 kernel at the tile by batch
-            want = (1, 1, int(tile == 16)) if fp32 else (1, 0, 0)
-            got = launched(lambda: EF._launch(*args, out=nan_outputs(*shapes, dtype=dtype)),
-                           want)
+            nan_out = lambda: nan_outputs(*shapes, dtype=dtype)
+            # the route that _route picks: fp32 on the 3xTF32 kernel at the tile by batch,
+            # bf16 on wgmma at the SEGAN+ widths from WGMMA_MIN_ROWS enc3 rows
+            route = EF._route(dtype, c2, c3, b * (t1 // 16), args[0].data_ptr() % 16 == 0)
+            tile = EF._tf32_tile(b, t1, sms) if route == "tf32" else (
+                EF.WGMMA_TILE if route == "wgmma" else 32)
+            got = launched(lambda: EF._launch(*args, out=nan_out()), want_of[route](tile))
             ref = EF.enc23_plain(*args)
             err = worst(rel_err(o, r) for o, r in zip(got, ref))
-            assert err <= tol, f"{label} {dtype}: chained vs plain rel err {err:.3e} > {tol}"
+            assert err <= tol, f"{label} {dtype} {route}: vs plain rel err {err:.3e} > {tol}"
             if full:
                 max_abs[dtype] = worst([max_abs[dtype]] + [float((o - r).abs().max())
                                                            for o, r in zip(got, ref)])
             errs = {}
             if fp32:  # both tiles, then the FMA kernel forced
                 for t in (16, 32):
-                    o = launched(lambda: EF._launch(*args, tile=t, out=nan_outputs(
-                        *shapes, dtype=dtype)), (1, 1, int(t == 16)))
+                    o = launched(lambda: EF._launch(*args, tile=t, out=nan_out()),
+                                 want_of["tf32"](t))
                     errs[f"tile {t}"] = worst(rel_err(v, r) for v, r in zip(o, ref))
-                o = launched(lambda: EF._launch(*args, force_fma=True,
-                                                out=nan_outputs(*shapes, dtype=dtype)),
-                             (1, 0, 0))
+                o = launched(lambda: EF._launch(*args, force="fma", out=nan_out()),
+                             want_of["fma"](0))
                 errs["fma"] = worst(rel_err(v, r) for v, r in zip(o, ref))
-                del o
-                bad = {k: e for k, e in errs.items() if not e <= tol}
-                assert not bad, f"{label} fp32 vs plain rel err over {tol}: {bad}"
+            else:  # the other bf16 route forced, where it takes the call
+                for other in ("mma", "wgmma"):
+                    if other == route or (other == "wgmma" and not EF._wgmma_shape(
+                            dtype, c2, c3, True)):
+                        continue
+                    o = launched(lambda: EF._launch(*args, force=other, out=nan_out()),
+                                 want_of[other](0))
+                    errs[other] = worst(rel_err(v, r) for v, r in zip(o, ref))
+            bad = {k: e for k, e in errs.items() if not e <= tol}
+            assert not bad, f"{label} {dtype} forced routes vs plain rel err over {tol}: {bad}"
             if b == 300:
-                errs["x2"] = worst(rel_err(o, r) for o, r in zip(got, bench.kernel_x2(*args)))
+                x2 = bench.kernel_x2(*args)
+                errs["x2"] = worst(rel_err(o, r) for o, r in zip(got, x2))
                 assert errs["x2"] <= tol, f"{label} {dtype}: chained vs kernel x2 {errs['x2']}"
-                # bf16: the same MMAs in the same order as the per-layer kernel twice
-                assert fp32 or errs["x2"] == 0, f"bf16 chained vs kernel x2 {errs['x2']}"
+                if not fp32:
+                    # pre2: the per-layer wgmma kernel's MMAs in its order; enc3 sums the
+                    # folded depth (tap-major) where the per-layer kernel sums by channel
+                    diffs = [float((o.float() - r.float()).abs().max()) for o, r in zip(got, x2)]
+                    print(f"{label} bf16 {route} vs kernel x2 (pitched, per-layer wgmma): "
+                          f"max abs pre2 {diffs[0]:.3e}, pre3 {diffs[1]:.3e}, post3 "
+                          f"{diffs[2]:.3e}; pre2 bit for bit {torch.equal(got[0], x2[0])}")
+                    assert route != "wgmma" or torch.equal(got[0], x2[0]), diffs
+                del x2
                 if fp32:  # the deepest sum, pre3, against a float64 chain
                     ref64 = EF.enc23_plain(*[v.double() if v is not None else None
                                              for v in args])
@@ -990,20 +1037,22 @@ def phase_enc23():
                           f"(the plain chain {e_plain:.3e})")
                     assert errs["f64"] <= FP32_TOL, f"{label}: pre3 vs float64 {errs['f64']}"
             del got, ref
-            print(f"{label:>18} {str(dtype)[6:]:>8} {tile:>4} | {err:9.2e} " + " ".join(
-                f"{errs.get(k, float('nan')):9.2e}"
-                for k in ("tile 16", "tile 32", "fma", "x2", "f64")), flush=True)
+            print(f"{label:>20} {str(dtype)[6:]:>8} {route:>5} {tile:>2} | rel err {err:.2e}"
+                  + "".join(f", {k} {v:.2e}" for k, v in errs.items()), flush=True)
             if label not in timed:
                 continue
             # in turns: the arms of the A/B tool, fp32 at both tiles and on the FMA kernel
-            # forced, and cuDNN's two convs alone (the library's share of the plain chain)
+            # forced, bf16 on mma.sync forced where it takes wgmma, and cuDNN's two convs
+            # alone (the library's share of the plain chain)
             h1p = reflect_pad_1d(args[0], *EF.PAD)
             p2p = reflect_pad_1d(conv1d_prelu_plain(h1p, *args[1:4], EF.S)[0], *EF.PAD)
             arms = {name: lambda arm=arm: arm(*args) for name, arm in bench.ARMS.items()}
             if fp32:
                 for t in (16, 32):
                     arms[f"tile {t}"] = lambda t=t: EF._launch(*args, tile=t)
-                arms["fma"] = lambda: EF._launch(*args, force_fma=True)
+                arms["fma"] = lambda: EF._launch(*args, force="fma")
+            elif route == "wgmma":
+                arms["mma.sync"] = lambda: EF._launch(*args, force="mma")
             arms["cuDNN x2"] = lambda: (F.conv1d(h1p, args[1], args[2], stride=EF.S),
                                         F.conv1d(p2p, args[4], args[5], stride=EF.S))
             ms = bench.ms_in_turns(arms, reps=10, warmup=2)
@@ -1013,10 +1062,17 @@ def phase_enc23():
             ms["bound"] = (min(bound_ms(flops, nbytes, FP32_PEAK),
                                bound_ms(3 * flops, nbytes, TF32_PEAK)) if fp32
                            else bound_ms(flops, nbytes, BF16_PEAK))
-            print(f"{label:>18} {str(dtype)[6:]:>8} ms: " + ", ".join(
+            print(f"{label:>20} {str(dtype)[6:]:>8} ms: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
             if fp32 and b >= 8:  # the tensor cores no slower than the FMA kernel forced
                 assert ms["fused 2+3"] <= ms["fma"], (label, ms)
+            if not fp32 and label in device_timed:
+                device[b] = bench.graph_ms(bench.device_arms(*args), reps=6)
+                device[b]["bound"] = ms["bound"]
+                print(f"{label:>20} bf16 device ms: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in device[b].items()), flush=True)
+                if b >= 64:  # the wgmma kernel ahead of its predecessor on the device
+                    assert device[b]["fused wgmma"] < device[b]["fused mma.sync"], device[b]
             if b == 300:
                 at300[dtype] = ms
     # fp32 C3 = 36 (not whole n8 tiles) takes the FMA kernel, and is right
@@ -1024,7 +1080,7 @@ def phase_enc23():
            for s in ((2, 5, 128), (24, 5, EF.K), (24,), (24,), (36, 24, EF.K), (36,), (36,))]
     shapes = [(2, 24, 32), (2, 36, 8), (2, 36, 8)]
     got = launched(lambda: EF._launch(*odd, out=nan_outputs(*shapes, dtype=torch.float32)),
-                   (1, 0, 0))
+                   (1, 0, 0, 0))
     err = worst(rel_err(o, r) for o, r in zip(got, EF.enc23_plain(*odd)))
     print(f"fp32 C3 = 36: FMA kernel, rel err {err:.2e}")
     assert err <= FP32_TOL, f"fp32 C3 = 36 vs plain rel err {err:.3e}"
@@ -1037,20 +1093,21 @@ def phase_enc23():
     else:
         raise AssertionError("the bf16 kernel took C3 = 36, which is not whole n8 tiles")
     assert counters() == before, "a refused call launched the kernel"
-    print("chained kernel launches in phase 3b (all, 3xTF32, of those at tile 16): "
+    print("chained kernel launches in phase 3b (all, 3xTF32, of those at tile 16, wgmma): "
           f"{tuple(n - b for n, b in zip(counters(), start))}")
-    # where the tile rule switches: both tiles in turns around B * 8 = SMs
-    for b in (16, 32, 48, 64):
+    # where the tile rule switches: both fp32 tiles in turns on either side of B * 8 = SMs
+    for b in (16, 32):
         args = bench.make_inputs(b, dtype=torch.float32, device="cuda")
         ms = bench.ms_in_turns({t: lambda t=t: EF._launch(*args, tile=t) for t in (16, 32)},
                                reps=10, warmup=2)
         print(f"fp32 tiles at B={b}: 16 {ms[16]:.4f} ms, 32 {ms[32]:.4f} ms; the rule takes "
               f"{EF._tf32_tile(b, 4096, sms)}", flush=True)
-    return max_abs, at300
+    return max_abs, at300, device
 
 
 def phase_tool():
-    """The A/B tool at its defaults (batch 300, bf16), then in fp32 (the 3xTF32 route),
+    """The A/B tool at its defaults (batch 300, bf16: the chained kernel on wgmma, kernel
+    x2 in pitched rows on the per-layer wgmma route), then in fp32 (the 3xTF32 routes),
     the path of the chained kernel. Returns its results by dtype and the launches of both
     kernels in it."""
     import torch
@@ -1058,20 +1115,27 @@ def phase_tool():
     from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
     from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
 
-    K.launches = K.launches_mma = K.launches_tf32 = 0
-    EF.launches = EF.launches_tf32 = EF.launches_tile16 = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    EF.launches = EF.launches_tf32 = EF.launches_tile16 = EF.launches_wgmma = 0
     res = {"bfloat16": bench.main([])}
-    tf32_before = EF.launches_tf32
+    torch.cuda.synchronize()
+    bf16 = {"fused_conv1d_prelu": K.launches, "fused_conv1d_prelu wgmma": K.launches_wgmma,
+            "fused_enc23_fwd": EF.launches, "fused_enc23_fwd wgmma": EF.launches_wgmma}
     res["float32"] = bench.main(["--dtype", "float32"])
     torch.cuda.synchronize()
     counts = {"fused_conv1d_prelu": K.launches, "fused_enc23_fwd": EF.launches,
-              "fused_enc23_fwd tf32": EF.launches_tf32}
-    print(f"kernel launches in the A/B tool: {counts}, {K.launches_mma} of the per-layer "
-          f"kernel's on the tensor cores")
+              "fused_enc23_fwd tf32": EF.launches_tf32,
+              "fused_enc23_fwd wgmma": EF.launches_wgmma}
+    print(f"kernel launches in the A/B tool: {counts}; in its bf16 run {bf16}; "
+          f"{K.launches_mma} of the per-layer kernel's on the tensor cores, "
+          f"{K.launches_wgmma} on wgmma")
     assert all(n > 0 for n in counts.values()), counts
-    assert K.launches_mma == K.launches, "kernel x2 left the tensor cores"
-    assert tf32_before == 0 and EF.launches_tile16 == 0, "bf16 or tile 16 at batch 300"
-    assert (res["bfloat16"]["route"], res["float32"]["route"]) == ("mma", "tf32"), res
+    assert K.launches_wgmma == K.launches, "kernel x2 left wgmma at 300 chunks"
+    assert bf16["fused_enc23_fwd wgmma"] == bf16["fused_enc23_fwd"] == counts[
+        "fused_enc23_fwd wgmma"], "the bf16 chained kernel left wgmma at batch 300"
+    assert counts["fused_enc23_fwd"] == bf16["fused_enc23_fwd"] + counts[
+        "fused_enc23_fwd tf32"] and EF.launches_tile16 == 0, "fp32 off 3xTF32 at tile 32"
+    assert (res["bfloat16"]["route"], res["float32"]["route"]) == ("wgmma", "tf32"), res
     assert all(e <= BF16_TOL for e in res["bfloat16"]["rel"].values()), res["bfloat16"]
     assert all(e <= FP32_TOL for e in res["float32"]["rel"].values()), res["float32"]
     return res, counts
@@ -5857,7 +5921,7 @@ def main():
     smi = _phase("1", phase_device)
     _phase("2", phase_build)
     per_layer, wgmma64, wgmma64_tf32 = _phase("3", phase_kernel)
-    enc23_abs, enc23_ms = _phase("3b", phase_enc23)
+    enc23_abs, enc23_ms, enc23_device = _phase("3b", phase_enc23)
     tool, tool_launches = _phase("3c", phase_tool)
     _phase("3d", phase_tf32)
     launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32 = _phase(
@@ -5923,17 +5987,18 @@ def main():
              tools_launches=sum(tools.values()),
              **{f"tools_{k}_launches": v for k, v in tools.items()},
              **per_layer),
-        dict(launches=tool_launches["fused_enc23_fwd"],
+        # encoder_fused.cu: on the tool's path in fp32 (3xTF32); bf16 mma.sync forced at
+        # batch 300 from phase 3b
+        dict(launches=tool_launches["fused_enc23_fwd"] - tool_launches[
+                 "fused_enc23_fwd wgmma"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],
-             max_abs_err=enc23_abs[torch.bfloat16], ms=tool["bfloat16"]["ms"]["fused 2+3"],
-             plain_ms=tool["bfloat16"]["ms"]["plain chain"],
-             bound_ms=bound_ms(flops, nbytes, BF16_PEAK), bound_by="operations",
-             library_ms=bf16["cuDNN x2"], fp32_max_abs_err=enc23_abs[torch.float32],
-             fp32_ms=tool["float32"]["ms"]["fused 2+3"], fp32_fma_ms=fp32["fma"],
-             fp32_plain_ms=tool["float32"]["ms"]["plain chain"],
-             fp32_bound_ms=min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
-                               bound_ms(3 * flops, 2 * nbytes, TF32_PEAK)),
-             fp32_library_ms=fp32["cuDNN x2"]),
+             max_abs_err=enc23_abs[torch.float32], ms=tool["float32"]["ms"]["fused 2+3"],
+             plain_ms=tool["float32"]["ms"]["plain chain"],
+             bound_ms=min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
+                          bound_ms(3 * flops, 2 * nbytes, TF32_PEAK)),
+             bound_by="operations", library_ms=fp32["cuDNN x2"], fma_ms=fp32["fma"],
+             bf16_mma_ms=bf16["mma.sync"],
+             bf16_mma_device_ms=enc23_device[300]["fused mma.sync"]),
         # the wgmma kernels, bf16 and fp32: phase 4's launches, and 5c's in five train
         # steps at batch 300; their layers of G at 64 chunks (phase 3)
         dict(launches=wgmma_bf16, train_launches=train_wgmma["bfloat16"], **wgmma64,
@@ -5942,6 +6007,17 @@ def main():
         dict(launches=wgmma_fp32, train_launches=train_wgmma["float32"], **wgmma64_tf32,
              g1d_launches_per_forward=a7bc["launched"]["fp32"][3],
              g1d_device_ms=a7bc["enc"]["fp32_"].get("wgmma_device_ms", 0.0)),
+        # encoder_fused_wgmma.cu: the tool's bf16 run at batch 300 (phase 3c); device_ms
+        # from phase 3b's CUDA graphs, beside the pitched per-layer pair's and cuDNN's
+        dict(launches=tool_launches["fused_enc23_fwd wgmma"],
+             max_abs_err=enc23_abs[torch.bfloat16], ms=tool["bfloat16"]["ms"]["fused 2+3"],
+             plain_ms=tool["bfloat16"]["ms"]["plain chain"],
+             bound_ms=bound_ms(flops, nbytes, BF16_PEAK), bound_by="operations",
+             library_ms=bf16["cuDNN x2"], kernel_x2_ms=tool["bfloat16"]["ms"]["kernel x2"],
+             **{f"{pre}{arm}device_ms": enc23_device[b][name]
+                for b, pre in ((300, ""), (64, "b64_"), (1, "b1_"))
+                for name, arm in (("fused wgmma", ""), ("fused mma.sync", "mma_"),
+                                  ("kernel x2", "kernel_x2_"), ("cuDNN x2", "library_"))}),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

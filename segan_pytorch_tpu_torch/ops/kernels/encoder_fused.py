@@ -10,25 +10,31 @@ kernel of the port:
 - ``enc23_plain``: the same function in plain PyTorch. CPU tensors take it, and the
   tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_enc23_fwd``: the wrapper. On a CPU tensor it returns the plain version; on a
-  CUDA tensor it launches the hand-written kernel (``csrc/encoder_fused.cu``) or raises.
+  CUDA tensor it launches a hand-written kernel (``csrc/encoder_fused.cu``,
+  ``csrc/encoder_fused_wgmma.cu``) or raises.
   Forward only, as the Pallas kernel.
 - ``_launch``: the launch itself, which also takes preallocated outputs.
 
-Three kernels on the card, chosen by dtype and shape (``_route``), never as a fallback:
-fp32 with C2 and C3 multiples of 8 (every SEGAN+ shape) runs on the tensor cores by a
-3xTF32 split (``enc23_tf32_kernel``), with a tile of 16 or 32 enc3 rows per block chosen
-by batch (``_tf32_tile``); any other fp32 shape runs FMAs on the CUDA cores; bf16 runs on
-the tensor cores (``mma.sync``) and needs C2 and C3 multiples of 8. The tensor-core
-kernels take the weights padded to 32 taps, in fp32 split into their TF32 parts, made
-once per weight and version (``conv1d_prelu._padded_weights``). ``launches`` counts all
-launches, ``launches_tf32`` those of the 3xTF32 kernel and ``launches_tile16`` those of
-them at the tile of 16.
+Four kernels on the card, chosen by dtype, shape and batch (``_route``), never as a
+fallback: fp32 with C2 and C3 multiples of 8 (every SEGAN+ shape) runs on the tensor cores
+by a 3xTF32 split (``enc23_tf32_kernel``), with a tile of 16 or 32 enc3 rows per block
+chosen by batch (``_tf32_tile``); any other fp32 shape runs FMAs on the CUDA cores; bf16
+at SEGAN+'s widths (C2 128, C3 256) from WGMMA_MIN_ROWS enc3 rows runs on ``wgmma`` fed by
+a TMA ring (``enc23_wgmma_kernel``, ``csrc/encoder_fused_wgmma.cu``, a library of its
+own), other bf16 calls on ``mma.sync`` (``enc23_mma_kernel``), which needs C2 and C3
+multiples of 8. The tensor-core kernels take the weights padded to 32 taps, in fp32 split
+into their TF32 parts (``conv1d_prelu._padded_weights``); the wgmma kernel takes w2 with
+its taps permuted as the per-layer wgmma route's (``conv1d_prelu._permuted_weights``) and
+w3 folded as the Pallas kernel's ``_fold_weights``, transposed (``_folded_weights``);
+each is made once per weight and version. ``launches`` counts all launches,
+``launches_tf32`` those of the 3xTF32 kernel, ``launches_tile16`` those of them at the
+tile of 16 and ``launches_wgmma`` those of the bf16 wgmma kernel.
 
 Layout (torch's, not the JAX package's): h1, enc1's post-activation, (B, C1, T1)
-unpadded, with T1 % 16 == 0 and T1 >= 64; w2 (C2, C1, 31); b2 (C2,) or None; a2 (C2,);
-likewise w3, b3, a3 with C3. Outputs, in h1's dtype: pre2 (B, C2, T1/4), pre3 and post3
-(B, C3, T1/16). The Pallas kernel's ``batch_tile`` is a VMEM tiling knob and has no
-counterpart here.
+unpadded and contiguous, with T1 % 16 == 0 and T1 >= 64; w2 (C2, C1, 31); b2 (C2,) or
+None; a2 (C2,); likewise w3, b3, a3 with C3. Outputs, in h1's dtype: pre2 (B, C2,
+T1/4), pre3 and post3 (B, C3, T1/16). The Pallas kernel's ``batch_tile`` is a VMEM tiling
+knob and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,23 +43,34 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..conv import reflect_pad_1d
 from . import build
-from .conv1d_prelu import KP, _pad_taps, _padded_weights, _sm_count, conv1d_prelu_plain
+from .conv1d_prelu import (KP, _cached, _pad_taps, _padded_weights, _permuted_weights,
+                           _sm_count, conv1d_prelu_plain)
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
-# all of them, those of the fp32 tensor-core (3xTF32) kernel, and of those the ones at
-# the tile of 16 enc3 rows
+# all of them, those of the fp32 tensor-core (3xTF32) kernel, of those the ones at the
+# tile of 16 enc3 rows, and those of the bf16 wgmma kernel
 launches = 0
 launches_tf32 = 0
 launches_tile16 = 0
+launches_wgmma = 0
 
 K = 31  # taps and stride are fixed, as in the Pallas kernel
 S = 4
 PAD = (K // 2 - 1, K // 2)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 wgmma kernel's widths and enc3 rows per block (csrc/encoder_fused_wgmma.cu)
+WGMMA_C2, WGMMA_C3, WGMMA_TILE = 128, 256, 64
+# enc3 rows (B T1 / 16) from which a bf16 call takes it (``_route``): one 16384-sample
+# chunk, the least batch timed
+WGMMA_MIN_ROWS = 256
+# w3 folded for the wgmma kernel, by the weight tensor it was made from: weight -> (its
+# version when made, copy)
+_folded = WeakIdKeyDictionary()
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 
@@ -94,13 +111,47 @@ def _check(h1, w2, b2, a2, w3, b3, a3) -> None:
                         f"{[t.dtype for t in tensors]}")
 
 
-def _route(dtype: torch.dtype, c2: int, c3: int) -> str:
-    """Which kernel a CUDA call takes: "tf32" (the tensor cores by 3xTF32) for fp32 with
-    whole n8 tiles of channels (C2 and C3 multiples of 8), "fma" for any other fp32
-    shape, "mma" for bf16 (which needs whole n8 tiles; ``_launch`` raises otherwise)."""
+def _wgmma_shape(dtype: torch.dtype, c2: int, c3: int, aligned: bool) -> bool:
+    """Whether the bf16 wgmma kernel takes the call: bf16, SEGAN+'s widths (C2 = 128, one
+    MMA tile of phase A; C3 = 256, n128 a consumer warpgroup) and h1 16-byte aligned, as
+    TMA reads it (T1 % 16 == 0 makes its rows so)."""
+    return (dtype == torch.bfloat16 and c2 == WGMMA_C2 and c3 == WGMMA_C3 and aligned)
+
+
+def _route(dtype: torch.dtype, c2: int, c3: int, rows: int = 0,
+           aligned: bool = True) -> str:
+    """Which kernel a CUDA call takes, from its dtype, widths, enc3 rows (B T1 / 16) and
+    whether h1 is 16-byte aligned: "tf32" (the tensor cores by 3xTF32) for fp32 with whole
+    n8 tiles of channels (C2 and C3 multiples of 8), "fma" for any other fp32 shape;
+    "wgmma" for bf16 where ``_wgmma_shape`` holds and the call has WGMMA_MIN_ROWS enc3
+    rows, "mma" for the other bf16 calls (which need whole n8 tiles; ``_launch`` raises
+    otherwise).
+
+    The figures it rests on (``tools/encoder_fused_bench.py --device_batches``: the device
+    alone, CUDA graphs of 10 calls through the C entry points; NVIDIA H100 80GB HBM3 at
+    700.00 W): at SEGAN+'s widths the wgmma kernel took 0.083 ms against enc23_mma_kernel's
+    0.151 at one chunk, 0.091 against 0.203 at 32, 0.171 against 0.417 at 64 and 0.801
+    against 2.111 at 300; a wrapper call in turns 0.21 against 0.24 ms at one chunk. Fewer
+    enc3 rows than a chunk's (T1 < 4096 at B = 1) were not timed: they keep mma.sync."""
     if dtype == torch.bfloat16:
-        return "mma"
+        return ("wgmma" if _wgmma_shape(dtype, c2, c3, aligned) and rows >= WGMMA_MIN_ROWS
+                else "mma")
     return "tf32" if c2 % 8 == 0 and c3 % 8 == 0 else "fma"
+
+
+def _fold_w3(w3: torch.Tensor) -> torch.Tensor:
+    """w3 (C3, C2, 31) as the wgmma kernel's B of enc3, K-major: (C3, 32 C2) with
+    w3f[co, 4 C2 q + C2 s + c] = w3[co, c, 4 q + s], tap 31 zero: the Pallas kernel's
+    ``_fold_weights`` (KP, S Cin, Cout) with its axes (q, s c) flattened and transposed."""
+    c3, c2 = w3.shape[:2]
+    return (_pad_taps(w3.detach()).view(c3, c2, KP // S, S).permute(0, 2, 3, 1)
+            .reshape(c3, KP * c2))
+
+
+def _folded_weights(w3: torch.Tensor) -> torch.Tensor:
+    """``_fold_w3(w3)``, made once per weight and version, under the rules of
+    ``conv1d_prelu._padded_weights``."""
+    return _cached(_folded, w3, _fold_w3)
 
 
 def _tf32_tile(B: int, t1: int, num_sms: int) -> int:
@@ -124,13 +175,23 @@ def _entries():
     return launch, launch_tf32
 
 
+@functools.cache
+def _wgmma_entry():
+    """encoder_fused_wgmma_launch of csrc/encoder_fused_wgmma.cu, a library of its own."""
+    fn = build.load_library("encoder_fused_wgmma").encoder_fused_wgmma_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None,
-            force_fma: bool = False, tile: Optional[int] = None) -> Outputs:
+            force: Optional[str] = None, tile: Optional[int] = None) -> Outputs:
     """Launch the kernel on checked CUDA tensors, into ``out`` (pre2, pre3, post3) when
-    it is given, else into new tensors. For same-call comparisons only: ``force_fma``
-    takes the fp32 FMA kernel whatever the shape, ``tile`` (16 or 32) sets the 3xTF32
+    it is given, else into new tensors. For same-call comparisons only: ``force`` takes
+    that route in place of ``_route``'s ("fma" in fp32, "mma" or "wgmma" in bf16; it
+    raises where the route does not take the call), ``tile`` (16 or 32) sets the 3xTF32
     kernel's tile."""
-    global launches, launches_tf32, launches_tile16
+    global launches, launches_tf32, launches_tile16, launches_wgmma
     if h1.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {h1.dtype}")
     inputs = [t for t in (h1, w2, b2, a2, w3, b3, a3) if t is not None]
@@ -140,16 +201,26 @@ def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None,
     c2, c3 = w2.shape[0], w3.shape[0]
     if max(B, c1 * KP, t1, c2 * KP, c3) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit size arguments")
-    if force_fma and h1.dtype != torch.float32:
-        raise ValueError("force_fma takes the fp32 FMA kernel: h1 must be float32")
-    route = "fma" if force_fma else _route(h1.dtype, c2, c3)
+    aligned = h1.data_ptr() % 16 == 0
+    if force is None:
+        route = _route(h1.dtype, c2, c3, B * (t1 // (S * S)), aligned)
+    elif force in (("fma",) if h1.dtype == torch.float32 else ("mma", "wgmma")):
+        route = force
+    else:
+        raise ValueError(f"force={force!r} names no route of {h1.dtype}: 'fma' in fp32, "
+                         f"'mma' or 'wgmma' in bf16")
+    if route == "wgmma" and not _wgmma_shape(h1.dtype, c2, c3, aligned):
+        raise ValueError(f"the bf16 wgmma kernel takes C2 = {WGMMA_C2}, C3 = {WGMMA_C3} "
+                         f"and h1 16-byte aligned; got C2 = {c2}, C3 = {c3}")
     if route == "mma" and (c2 % 8 or c3 % 8):
         raise ValueError(f"the bf16 kernel runs whole n8 tiles of the tensor cores: C2 = "
                          f"{c2} and C3 = {c3} must be multiples of 8")
     if tile is not None and (route != "tf32" or tile not in (16, 32)):
         raise ValueError(f"tile (16 or 32) is the 3xTF32 kernel's, got {tile} on the "
                          f"{route} route")
-    if route != "fma":
+    if route == "wgmma":
+        w2, w3 = _permuted_weights(w2), _folded_weights(w3)
+    elif route != "fma":
         w2, w3 = _padded_weights(w2), _padded_weights(w3)
     shapes = ((B, c2, t1 // S), (B, c3, t1 // (S * S)), (B, c3, t1 // (S * S)))
     if out is None:
@@ -159,26 +230,34 @@ def _launch(h1, w2, b2, a2, w3, b3, a3, out: Optional[Outputs] = None,
         raise ValueError(f"out must be contiguous {h1.dtype} tensors on {h1.device} of "
                          f"shapes {shapes}")
     pre2, pre3, post3 = out
+    if route == "wgmma" and (pre3.data_ptr() % 16 or post3.data_ptr() % 16):
+        raise ValueError("the wgmma kernel stores 16-byte units: pre3 and post3 must be "
+                         "16-byte aligned")
     ptr = lambda v: v.data_ptr() if v is not None else None
-    launch, launch_tf32 = _entries()
     with torch.cuda.device(h1.device):
         stream = torch.cuda.current_stream(h1.device).cuda_stream
-        if route == "tf32":
+        if route == "wgmma":
+            err = _wgmma_entry()(h1.data_ptr(), w2.data_ptr(), ptr(b2), a2.data_ptr(),
+                                 w3.data_ptr(), ptr(b3), a3.data_ptr(), pre2.data_ptr(),
+                                 pre3.data_ptr(), post3.data_ptr(), B, c1, t1, c2, c3,
+                                 stream)
+        elif route == "tf32":
             if tile is None:
                 tile = _tf32_tile(B, t1, _sm_count(h1.device.index))
-            err = launch_tf32(h1.data_ptr(), w2[0].data_ptr(), w2[1].data_ptr(), ptr(b2),
-                              a2.data_ptr(), w3[0].data_ptr(), w3[1].data_ptr(), ptr(b3),
-                              a3.data_ptr(), pre2.data_ptr(), pre3.data_ptr(),
-                              post3.data_ptr(), tile, B, c1, t1, c2, c3, stream)
+            err = _entries()[1](h1.data_ptr(), w2[0].data_ptr(), w2[1].data_ptr(),
+                                ptr(b2), a2.data_ptr(), w3[0].data_ptr(), w3[1].data_ptr(),
+                                ptr(b3), a3.data_ptr(), pre2.data_ptr(), pre3.data_ptr(),
+                                post3.data_ptr(), tile, B, c1, t1, c2, c3, stream)
         else:
-            err = launch(_DTYPE_CODES[h1.dtype], h1.data_ptr(), w2.data_ptr(), ptr(b2),
-                         a2.data_ptr(), w3.data_ptr(), ptr(b3), a3.data_ptr(),
-                         pre2.data_ptr(), pre3.data_ptr(), post3.data_ptr(), B, c1, t1, c2,
-                         c3, stream)
+            err = _entries()[0](_DTYPE_CODES[h1.dtype], h1.data_ptr(), w2.data_ptr(),
+                                ptr(b2), a2.data_ptr(), w3.data_ptr(), ptr(b3),
+                                a3.data_ptr(), pre2.data_ptr(), pre3.data_ptr(),
+                                post3.data_ptr(), B, c1, t1, c2, c3, stream)
     if err != 0:
         raise RuntimeError(f"encoder_fused kernel launch failed ({route} route): "
                            f"cudaError {err}")
     launches += 1
+    launches_wgmma += route == "wgmma"
     if route == "tf32":
         launches_tf32 += 1
         launches_tile16 += tile == 16

@@ -2,19 +2,26 @@
 ``tools/encoder_fused_bench.py``.
 
     python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench [--batch 300]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--device_batches B [B ...]]
 
 At the SEGAN+ enc2 + enc3 shapes (h1 (B, 64, 4096) -> 128 -> 256 channels, batch 300 by
 default, the training batch) it times three arms, each returning (pre2, pre3, post3):
 
   plain chain : reflect pad -> conv + bias + PReLU twice in plain PyTorch (cuDNN, TF32 off)
-  kernel x2   : reflect pad -> the per-layer kernel (``fused_conv1d_prelu``) twice
+  kernel x2   : the per-layer kernel (``fused_conv1d_prelu``) twice, each input padded
+                as G's blocks pad it, into pitched rows (``reflect_pad_pitched``), so
+                that each layer takes G's route (bf16 ``wgmma`` at 300 chunks)
   fused 2+3   : the chained kernel (``fused_enc23_fwd``), post2 kept on chip
 
 and prints each arm's time (CUDA events, median of 20 after 3 warm-ups), the route and
 tile the chained kernel took (read from its launch counters: in fp32 the 3xTF32 tensor
-cores at every SEGAN+ shape, in bf16 ``mma.sync``) and the max |plain - fused| of each
-output beside its relative error. The data is the JAX tool's:
+cores at every SEGAN+ shape, in bf16 ``wgmma`` from ``WGMMA_MIN_ROWS`` enc3 rows, else
+``mma.sync``) and the max |plain - fused| of each output beside its relative error. With
+``--device_batches`` it times instead, in bf16 at each batch given, the device alone
+(``graph_ms``: 10 calls through the C entry points captured into a CUDA graph and
+replayed) of the chained kernel on each route, the per-layer kernel twice with its pads
+(``device_arms``) and cuDNN's two convs: the figures the bf16 route's batch threshold is
+fitted to. The data is the JAX tool's:
 ``np.random.RandomState(0)`` in the same order and scales. The JAX tool's ``--bt`` (the
 Pallas kernel's VMEM batch tile) has no counterpart. The CLI needs a CUDA device; the
 arm functions take tensors on any device.
@@ -27,8 +34,10 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..ops.conv import reflect_pad_1d
+from ..ops.conv import reflect_pad_pitched
+from ..ops.kernels import conv1d_prelu as K
 from ..ops.kernels import encoder_fused as EF
 from ..ops.kernels.conv1d_prelu import fused_conv1d_prelu
 
@@ -55,9 +64,10 @@ def make_inputs(batch: int, t1: int = T1, dtype: torch.dtype = torch.bfloat16,
 
 
 def kernel_x2(h1, w2, b2, a2, w3, b3, a3):
-    """The per-layer kernel twice, post2 through device memory."""
-    post2, pre2 = fused_conv1d_prelu(reflect_pad_1d(h1, *EF.PAD), w2, b2, a2, EF.S)
-    post3, pre3 = fused_conv1d_prelu(reflect_pad_1d(post2, *EF.PAD), w3, b3, a3, EF.S)
+    """The per-layer kernel twice, post2 through device memory, each input padded into
+    pitched rows as G's blocks pad it."""
+    post2, pre2 = fused_conv1d_prelu(reflect_pad_pitched(h1, *EF.PAD), w2, b2, a2, EF.S)
+    post3, pre3 = fused_conv1d_prelu(reflect_pad_pitched(post2, *EF.PAD), w3, b3, a3, EF.S)
     return pre2, pre3, post3
 
 
@@ -103,17 +113,132 @@ def ms_in_turns(arms: Dict[str, Callable], reps: int = 20, warmup: int = 3
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def graph_ms(arms: Dict[str, Callable], calls: int = 10, reps: int = 10,
+             warmup: int = 2) -> Dict[str, float]:
+    """Device time in ms of one call of each of `arms` (name -> fn): `calls` calls of fn
+    captured into one CUDA graph, whose replays are timed between a pair of CUDA events,
+    in turns, median of `reps` rounds after `warmup`. A replay runs no host code, so this
+    is the device's time wherever the host would be the slower. Each fn must launch on
+    the current stream and make nothing it keeps (weights, plans) while it is captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in arms.values():
+            for _ in range(warmup):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = {}
+    for name, fn in arms.items():
+        graphs[name] = torch.cuda.CUDAGraph()
+        # relaxed: enc23_mma_kernel's launch sets its shared-memory size on every call
+        with torch.cuda.graph(graphs[name], capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+    times: Dict[str, list] = {name: [] for name in arms}
+    for i in range(warmup + reps):
+        for name, g in graphs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            if i >= warmup:
+                times[name].append(start.elapsed_time(end) / calls)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _layer_entry(x, w, b, a, out) -> Callable:
+    """run(x2): the per-layer kernel through its C entry point on x2 (laid out as x) into
+    out (y, pre), on the route and plan that the wrapper picks for x, the weights (and
+    split-K workspace) made once, on the current stream. bf16's tensor-core routes only."""
+    B, cin, t_in = x.shape
+    cout, _, k = w.shape
+    t_out = (t_in - k) // EF.S + 1
+    pitched = K._pitch(x) % 8 == 0 and x.data_ptr() % 16 == 0
+    route = K._route(x.dtype, B, cin, cout, k, EF.S, t_out, pitched)
+    sms = K._sm_count(x.device.index)
+    if x.dtype != torch.bfloat16 or route == "fma":
+        raise ValueError(f"bf16 tensor-core routes only, not {x.dtype} on {route}")
+    if route == "wgmma":
+        fn, plan = K._wgmma_entry(x.dtype), K._wgmma_plan(B, cin, cout, t_out, sms, x.dtype)
+        wk = K._permuted_weights(w)
+    else:
+        fn, plan = K._entries()[2], K._mma_plan(B, cin, cout, t_out, sms, EF.S, x.dtype)
+        wk = K._padded_weights(w)
+    part = (torch.empty((plan[1], B, cout, t_out), dtype=torch.float32, device=x.device)
+            if plan[1] > 1 else None)
+    ptr = lambda v: None if v is None else v.data_ptr()
+
+    def run(x2):
+        err = fn(x2.data_ptr(), wk.data_ptr(), ptr(b), a.data_ptr(), out[0].data_ptr(),
+                 out[1].data_ptr(), ptr(part), *plan, B, cin, t_in, K._pitch(x2), cout,
+                 t_out, EF.S, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"per-layer {route} launch failed: cudaError {err}")
+        return out
+
+    return run
+
+
+def device_arms(h1, w2, b2, a2, w3, b3, a3) -> Dict[str, Callable]:
+    """The bf16 arms whose device time ``graph_ms`` takes, each through C entry points
+    with its weights, plans and outputs made once: the chained kernel on ``wgmma`` (where
+    it takes the widths) and on ``mma.sync``, the per-layer kernel twice as
+    ``kernel_x2`` runs it (both pads into pitched rows included, each layer on the
+    wrapper's route), and cuDNN's two convs alone on inputs padded once."""
+    B, c1, t1 = h1.shape
+    c2, c3 = w2.shape[0], w3.shape[0]
+    ptr = lambda v: None if v is None else v.data_ptr()
+    empty = lambda *shape: torch.empty(shape, dtype=h1.dtype, device=h1.device)
+    outputs = lambda: (empty(B, c2, t1 // 4), empty(B, c3, t1 // 16), empty(B, c3, t1 // 16))
+    arms = {}
+    if EF._wgmma_shape(h1.dtype, c2, c3, h1.data_ptr() % 16 == 0):
+        w2p, w3f, o = K._permuted_weights(w2), EF._folded_weights(w3), outputs()
+
+        def chained_wgmma():
+            err = EF._wgmma_entry()(h1.data_ptr(), w2p.data_ptr(), ptr(b2), a2.data_ptr(),
+                                    w3f.data_ptr(), ptr(b3), a3.data_ptr(), o[0].data_ptr(),
+                                    o[1].data_ptr(), o[2].data_ptr(), B, c1, t1, c2, c3,
+                                    torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+        arms["fused wgmma"] = chained_wgmma
+    w2m, w3m, om = K._padded_weights(w2), K._padded_weights(w3), outputs()
+
+    def chained_mma():
+        err = EF._entries()[0](1, h1.data_ptr(), w2m.data_ptr(), ptr(b2), a2.data_ptr(),
+                               w3m.data_ptr(), ptr(b3), a3.data_ptr(), om[0].data_ptr(),
+                               om[1].data_ptr(), om[2].data_ptr(), B, c1, t1, c2, c3,
+                               torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+    arms["fused mma.sync"] = chained_mma
+    h1p = reflect_pad_pitched(h1, *EF.PAD)
+    post2 = empty(B, c2, t1 // 4)
+    enc2 = _layer_entry(h1p, w2, b2, a2, (post2, empty(B, c2, t1 // 4)))
+    enc3 = _layer_entry(reflect_pad_pitched(post2, *EF.PAD), w3, b3, a3,
+                        (empty(B, c3, t1 // 16), empty(B, c3, t1 // 16)))
+    arms["kernel x2"] = lambda: enc3(reflect_pad_pitched(
+        enc2(reflect_pad_pitched(h1, *EF.PAD))[0], *EF.PAD))
+    p2p = reflect_pad_pitched(post2, *EF.PAD)
+    arms["cuDNN x2"] = lambda: (F.conv1d(h1p, w2, b2, stride=EF.S),
+                                F.conv1d(p2p, w3, b3, stride=EF.S))
+    return arms
+
+
 def route_taken(run: Callable, dtype: torch.dtype) -> Tuple[str, int]:
     """(route, tile) that the chained kernel took in run(), read from its counters:
-    "tf32" (3xTF32), "mma" (bf16) or "fma", and its enc3 rows per block."""
-    before = (EF.launches, EF.launches_tf32, EF.launches_tile16)
+    "tf32" (3xTF32), "wgmma" or "mma" (bf16) or "fma", and its enc3 rows per block."""
+    counters = lambda: (EF.launches, EF.launches_tf32, EF.launches_tile16,
+                        EF.launches_wgmma)
+    before = counters()
     run()
-    launched, tf32, tile16 = (n - b for n, b in zip(
-        (EF.launches, EF.launches_tf32, EF.launches_tile16), before))
+    launched, tf32, tile16, wgmma = (n - b for n, b in zip(counters(), before))
     if launched != 1:
         raise RuntimeError(f"the chained kernel launched {launched} times, not once")
     if tf32:
         return "tf32", 16 if tile16 else 32
+    if wgmma:
+        return "wgmma", EF.WGMMA_TILE
     return ("mma" if dtype == torch.bfloat16 else "fma"), 32
 
 
@@ -124,11 +249,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=300)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--device_batches", type=int, nargs="+", default=None,
+                    help="time the bf16 arms' device alone at these batches instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("encoder_fused_bench needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.device_batches:
+        res = {}
+        for b in args.device_batches:
+            res[b] = graph_ms(device_arms(*make_inputs(b, device="cuda")))
+            print(f"bf16 B={b} device ms on {torch.cuda.get_device_name(0)}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in res[b].items()), flush=True)
+        return {"device_ms": res}
     dtype = getattr(torch, args.dtype)
     inputs = make_inputs(args.batch, dtype=dtype, device="cuda")
     print(f"enc2+enc3, h1 {tuple(inputs[0].shape)} {args.dtype} on "

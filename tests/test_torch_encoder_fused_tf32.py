@@ -284,7 +284,7 @@ def _counters():
 def test_launch_dispatches_by_route_and_counts(fake_lib):
     """fp32 with whole n8 tiles calls the 3xTF32 entry with both parts of both split
     weights and the tile by batch, and counts in launches and launches_tf32 (and
-    launches_tile16 at 16); tile= sets the tile; force_fma and C3 = 36 call the FMA
+    launches_tile16 at 16); tile= sets the tile; force="fma" and C3 = 36 call the FMA
     kernel (dtype 0) with the weights as they are; bf16 its kernel (dtype 1) with the
     padded weights."""
     h1, w2, b2, a2, w3, b3, a3 = args = _torch_inputs(1, 4096, 4, 16, 24)
@@ -300,7 +300,7 @@ def test_launch_dispatches_by_route_and_counts(fake_lib):
     EF._launch(*args, tile=32)
     assert fake_lib.calls[-1][1][12] == 32
     assert _counters() == (before[0] + 2, before[1] + 2, before[2] + 1)
-    EF._launch(*args, force_fma=True)
+    EF._launch(*args, force="fma")
     name, call = fake_lib.calls[-1]
     assert name == "launch" and call[0] == 0 and call[2] == w2.data_ptr()
     assert _counters() == (before[0] + 3, before[1] + 2, before[2] + 1)
@@ -320,9 +320,9 @@ def test_launch_dispatches_by_route_and_counts(fake_lib):
 
 @pytest.mark.parametrize("kwargs,dtype", [
     (dict(tile=8), torch.float32),              # no such tile
-    (dict(tile=16, force_fma=True), torch.float32),  # a tile for the FMA kernel
+    (dict(tile=16, force="fma"), torch.float32),  # a tile for the FMA kernel
     (dict(tile=16), torch.bfloat16),            # the bf16 kernel's tile is fixed
-    (dict(force_fma=True), torch.bfloat16),     # the FMA route is fp32's
+    (dict(force="fma"), torch.bfloat16),        # the FMA route is fp32's
 ])
 def test_launch_rejects_a_private_switch_off_its_route(fake_lib, kwargs, dtype):
     before = _counters()
