@@ -6,9 +6,9 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build the five hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
+  2. build the six hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
      (conv1d_prelu.cu, conv1d_wgmma.cu, conv1d_wgmma_tf32.cu, encoder_fused.cu,
-     encoder_fused_wgmma.cu), one nvcc each (ptxas -v: registers and spills), and the host
+     encoder_fused_wgmma.cu, conv1d_rows.cu), one nvcc each (ptxas -v: registers and spills), and the host
      libraries of native/ (the wav gather and the P.862 scorer), one
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
@@ -16,12 +16,15 @@ and when the port's package is not beside it):
      16384-sample chunks, at every shape of WSEGAN's step at its batch, 150, with biases
      (G's enc1, D's enc1 with Cin = 2, and enc2-5, which G and D share) and at edge shapes
      (bias, T_in = 4 (T_out - 1) + 31 in a pitched buffer, ragged, stride 1, and enc3 of
-     64 chunks in contiguous odd rows), x through G's pitched pad (rows of a multiple of 8
-     samples) at every main-path shape, in fp32 (TF32 off, relative error <= 1e-4) and
-     bf16 (<= 2e-2), each on the route _route picks, read from the counters (wgmma where
-     the rule gives it, in fp32 by 3xTF32, mma.sync elsewhere on the tensor cores and
-     always in odd rows, enc1's small passes and the ragged and stride-1 shapes on FMAs),
-     then on the other routes forced (mma.sync and FMA); in fp32 enc5 at 64, 150 and 300
+     64 chunks in contiguous odd rows) and at serving's few-row shapes (windows of 2048 and
+     4096, a window of 2048's enc4 at 4 rows and of 4096's enc5 at 8, WSEGAN's 33792
+     samples), x through G's pitched pad (rows of a multiple of 8 samples) at every
+     main-path shape, in fp32 (TF32 off, relative error <= 1e-4) and bf16 (<= 2e-2), each
+     on the route _route picks, read from the counters (wgmma where the rule gives it, in
+     fp32 by 3xTF32, in bf16 the rows kernel at one batch row or a ragged T_out up to 256
+     rows, mma.sync elsewhere on the tensor cores and always in odd rows, enc1's small
+     passes and the ragged and stride-1 shapes on FMAs), then on the other routes forced
+     (the rows kernel, mma.sync and FMA, where each takes the shape); in fp32 enc5 at 64, 150 and 300
      chunks also vs a float64 conv (<= 1e-4). Times in turns (CUDA events, median of 10
      after 2 warm-ups, one call per pair): every route, plain and cuDNN's F.conv1d alone,
      in each dtype, and the device time of the chosen route's kernels and of mma.sync's
@@ -30,7 +33,9 @@ and when the port's package is not beside it):
      and, in bf16 where the routes differ, a wrapper call's cost 5 calls back to back
      (median and interquartile range); TFLOP/s, share of peak, bounds, encoder sums per
      batch, and the WSEGAN step's 25 calls (G's five rows once, D's five in each of its
-     four passes). At 64 and 300 chunks the chosen routes must take at most 0.6x
+     four passes). Where bf16 takes the rows kernel, its device time and a call 5 back to
+     back against the route it replaced (the rule without it), the device time less at
+     every such shape. At 64 and 300 chunks the chosen routes must take at most 0.6x
      mma.sync's device time in each dtype, bf16 mma.sync at most half the FMA route's
      time, and fp32, chosen and mma.sync, no more than the FMA route; at no bf16 shape
      where the rule picks another route than mma.sync may a call back to back be slower
@@ -67,10 +72,11 @@ and when the port's package is not beside it):
      deconv's error with the ops' policy bypassed is printed beside it;
   4. the slice: a full-width SEGAN+ generator (seeded init, PReLU slopes U(0, 0.3))
      saved as a reference-format .ckpt + train.opts, then the port's clean.py CLI
-     (--device cuda) on 8 synthetic wavs with --batch_utts 1 and 4 in fp32 and 4 in bf16.
+     (--device cuda) on 8 synthetic wavs with --batch_utts 1 and 4 in fp32 and in bf16.
      Checks: outputs finite and of their inputs' lengths, the kernel launched 5 times per
      G forward, each call on the route _route picks for its shape and G's pitched rows
-     (the counters against the logged calls; bf16 on wgmma at some), batched ==
+     (the counters against the logged calls; bf16 on wgmma at some, the one-chunk passes'
+     enc3-5 on the rows kernel), batched ==
      sequential, and the card's generate() == a CPU copy's (plain ops) within 1e-3
      relative. Prints audio seconds enhanced per wall second, the device memory that the
      first fp32 forward keeps (the split weights), and G chunks/s at batch 64, fp32 and
@@ -318,7 +324,8 @@ seconds of all and the total. The line before the last is the JSON kernel report
 phase 4, train_launches_per_step from 5c, train_run_launches from phase 6,
 wsegan_train_launches_per_step from 7b, wsegan_run_launches from 7c, serve_launches
 (_mma, _tf32) from phase 8's served G forwards and reload_launches (_mma, _tf32) from
-phase 9's, its times the bf16 encoder sum at 64
+phase 9's (and launches_rows phase 4's bf16 runs', serve_ and reload_launches_rows),
+its times the bf16 encoder sum at 64
 chunks and, under fp32_*, the fp32 one, under d_enc1_* WSEGAN's
 first D layer at B = 150, and under wsegan_step_* the step's 25 calls from phase 3 and
 its weight pad from 7b, under graph_launches_per_replay the launches a replay of each
@@ -347,6 +354,11 @@ phase 3b, bf16_mma_ms and bf16_mma_device_ms enc23_mma_kernel forced at batch 30
 launches of fused_enc23_fwd_wgmma (encoder_fused_wgmma.cu, the bf16 wgmma route) from phase
 3c, its times the tool's at batch 300 in bf16, device_ms and those of the other arms
 (mma_, kernel_x2_, library_) at batch 300, 64 (b64_) and 1 (b1_) from 3b's CUDA graphs;
+launches of fused_conv1d_prelu_rows (conv1d_rows.cu, the bf16 rows route) from phase 4's
+bf16 runs (serve_ and reload_launches those of phases 8 and 9), its times one chunk's
+enc3-5 summed from phase 3 (ms a call in turns, device_ms and replaced_device_ms 10
+launches back to back of it and of mma.sync, call_ms and replaced_call_ms 5 calls back
+to back), its max_abs_err the worst over phase 3's rows shapes;
 the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -386,6 +398,9 @@ KERNELS = [  # the fixed fields of the kernels line, in its order
     dict(name="fused_enc23_fwd_wgmma", route="cuda",
          source="segan_pytorch_tpu_torch/csrc/encoder_fused_wgmma.cu",
          replaces="segan_pytorch_tpu/ops/pallas/encoder_fused.py:112"),
+    dict(name="fused_conv1d_prelu_rows", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/conv1d_rows.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
 ]
 
 
@@ -431,7 +446,7 @@ def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
     names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32", "encoder_fused",
-             "encoder_fused_wgmma")
+             "encoder_fused_wgmma", "conv1d_rows")
     hosts = ("segan_io", "pesq862")  # the C++ wav gather and P.862 scorer of native/
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:  # one compiler per source
@@ -454,7 +469,7 @@ BF16_PEAK = 989e12  # dense bf16 tensor-core FLOP/s of an H100 SXM at 700 W
 FP32_PEAK = 67e12   # fp32 FLOP/s outside the tensor cores
 TF32_PEAK = 495e12  # dense TF32 tensor-core FLOP/s
 DEVICE_REPS = 6  # rounds of phase 3's device timings (10 launches back to back each)
-HOLD_REPS = 6  # rounds of _hold_kernel's timings in turns (phases 8a, 9d, 15h)
+HOLD_REPS = 4  # rounds of _hold_kernel's timings in turns (phases 8a, 9d, 15h)
 HBM_RATE = 3.35e12  # device memory bytes/s
 
 
@@ -491,7 +506,7 @@ def _logged_launches():
 
     log, launch = [], K._launch
 
-    def logged(x, w, b, a, stride, t_out, **kw):
+    def logged(x, w, b, a, stride, t_out=None, **kw):
         if kw.get("force") is None:
             log.append((x.dtype, *x.shape, w.shape[0], w.shape[2], stride, _pitched(K, x)))
         return launch(x, w, b, a, stride, t_out, **kw)
@@ -504,7 +519,7 @@ def _logged_launches():
 
 
 def _want_counts(K, log):
-    """The four counters' moves (``_counters``) that _route's picks for the logged calls
+    """The five counters' moves (``_counters``) that _route's picks for the logged calls
     give."""
     import torch
 
@@ -512,7 +527,7 @@ def _want_counts(K, log):
               for dt, B, cin, t_in, cout, k, s, p in log]
     return (len(routes), sum(r != "fma" for _, r in routes),
             sum(r != "fma" and dt == torch.float32 for dt, r in routes),
-            sum(r == "wgmma" for _, r in routes))
+            sum(r == "wgmma" for _, r in routes), sum(r == "rows" for _, r in routes))
 
 
 def _pitched(K, x) -> bool:
@@ -524,7 +539,7 @@ def _took(K, before) -> str:
     """The route of the one call since `before` (``_counters``), read from the counters."""
     moved = [n - b for n, b in zip(_counters(K), before)]
     assert moved[0] == 1, moved
-    return "wgmma" if moved[3] else ("mma" if moved[1] else "fma")
+    return "rows" if moved[4] else "wgmma" if moved[3] else ("mma" if moved[1] else "fma")
 
 
 def _case_x(b, cin, t_in, g, layout):
@@ -555,8 +570,8 @@ def _in_turns(arms, reps=10, warmup=2, calls=1):
 
 def _entry_arm(K, route, x, w, b, a, stride, t_out, out, plan=None):
     """A closure that launches `route`'s kernel for x's dtype through its C entry point
-    alone, the wrapper's weights, plan (or `plan`, a tensor-core route's (tile, splits))
-    and split-K workspace made once: calls back to back then cost the device's time
+    alone, the wrapper's weights, plan (or `plan`, a tensor-core route's (tile, splits);
+    the rows kernel's (n, rows_per_tile, cluster)) and split-K workspace made once: calls back to back then cost the device's time
     wherever a kernel takes longer than the ctypes call (~15 us of host), with no wrapper
     in between (nor a profiler, whose CUPTI session slows the launches of the phases
     after it)."""
@@ -566,6 +581,17 @@ def _entry_arm(K, route, x, w, b, a, stride, t_out, out, plan=None):
     cout, _, k = w.shape
     sms = K._sm_count(x.device.index)
     stream = torch.cuda.current_stream().cuda_stream
+    if route == "rows":  # no workspace: the split-K sums meet in the cluster
+        plan = plan or K._rows_plan(B, cin, cout, t_out, sms)
+        wk = K._rows_weights(w)
+        args = (x.data_ptr(), wk[2], None if b is None else b.data_ptr(), a.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), *plan, B, cin, t_in, K._pitch(x),
+                cout, t_out, stream)
+        fn = K._rows_entries()[1]
+
+        def run_rows():
+            assert wk is not None and fn(*args) == 0, route
+        return run_rows
     launch, splits_of, launch_mma, launch_tf32 = K._entries()
     fp32 = x.dtype == torch.float32
     if route == "fma":
@@ -598,8 +624,8 @@ def phase_kernel():
     """Kernel vs plain on the card, at the encoder shapes of 1, 8, 64 and 300 chunks, at
     those of WSEGAN's step at batch 150 and at edge shapes; each route's choice read from
     its counters. Returns the bf16 and fp32 results at B = 64, WSEGAN's first D layer and
-    the WSEGAN step's 25 calls, for the kernels line, and the wgmma kernels' at B = 64
-    (bf16, fp32)."""
+    the WSEGAN step's 25 calls, for the kernels line, the wgmma kernels' at B = 64
+    (bf16, fp32), and the rows kernel's at one chunk's enc3-5."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -610,8 +636,9 @@ def phase_kernel():
     T, Kw, S = 16384, 31, 4
     chans = [1, 64, 128, 256, 512, 1024]
     # (label, B, Cin, T_in, Cout, K, stride, bias, kind, x layout); kind "enc" for the
-    # SEGAN+ encoder (--no_bias), "ws" for WSEGAN's step (WS_ROWS), "edge" for the rest;
-    # the route of each dtype is the one _route picks for the shape and layout
+    # SEGAN+ encoder (--no_bias), "ws" for WSEGAN's step (WS_ROWS), "rows" for serving's
+    # few-row shapes, "edge" for the rest; the route of each dtype is the one _route picks
+    # for the shape and layout
     cases = []
     for B in (1, 8, 64, 300):
         t = T
@@ -625,6 +652,18 @@ def phase_kernel():
         label = "B=150 G enc1 bias" if i == 0 else f"B=150 enc{i + 1} bias"
         cases.append((label, 150, chans[i], S * t + Kw - 2, chans[i + 1], Kw, S, True, "ws",
                       "pad"))
+    # serving's few-row shapes that the rows kernel takes beside one chunk's enc3-5 above
+    # (one batch row, or a T_out the mma.sync kernel does not take): windows of 2048
+    # (enc2-5) and 4096 (enc2) at one row, a window of 2048's enc4 at 4 rows and of 4096's
+    # enc5 at 8, and WSEGAN's pass of 33792 padded samples (enc4-5, bias)
+    for label, b, i, t_out, bias in (("w2048", 1, 1, 128, False), ("w2048", 1, 2, 32, False),
+                                     ("w2048", 1, 3, 8, False), ("w2048", 1, 4, 2, False),
+                                     ("w4096", 1, 1, 256, False), ("w2048 B=4", 4, 3, 8, False),
+                                     ("w4096 B=8", 8, 4, 4, False),
+                                     ("WSEGAN 33792", 1, 3, 132, True),
+                                     ("WSEGAN 33792", 1, 4, 33, True)):
+        cases.append((f"{label} enc{i + 1}{' bias' if bias else ''}", b, chans[i],
+                      S * t_out + Kw - 2, chans[i + 1], Kw, S, bias, "rows", "pad"))
     cases += [
         (D_ENC1, 150, 2, S * 4096 + Kw - 2, 64, Kw, S, True, "ws", "pad"),
         ("B=8 enc3 bias", 8, 128, 1053, 256, Kw, S, True, "edge", "pad"),
@@ -650,6 +689,9 @@ def phase_kernel():
     wg64 = {}  # the wgmma kernel at B = 64: its layers' sums, for the kernels line
     wg64_32 = {}  # the same of the fp32 wgmma kernel
     spreads = []  # (label, chosen ms, mma.sync ms, spread) where bf16 picks another route
+    # where bf16 takes the rows kernel: (label, its device ms, the replaced route and its
+    # device ms, calls back to back of both, plain, cuDNN, bound, max abs err)
+    rows_cases = []
     print(f"{'layer':>18} {'x shape':>19} {'Cout':>5} {'T_out':>5} | {'fp32':>8} "
           f"{'fp32 mma':>8} {'fp32 fma':>8} {'bf16':>8} {'bf16 mma':>8} {'bf16 fma':>8} | "
           f"fp32 route {'ms':>8} {'mma ms':>8} {'fma ms':>8} {'plain':>8} {'cuDNN':>8} | "
@@ -719,22 +761,24 @@ def phase_kernel():
             assert e32f[r] <= FP32_TOL, f"{label}: fp32 {r} vs plain rel err {e32f[r]:.3e}"
             del yf, pref
         del y_ref, pre_ref
-        arms32 = {"pick": lambda: K.fused_conv1d_prelu(x, w, bias, a, s)}
-        for r in ("mma", "fma") if tc_shape else ("fma",):
-            arms32[r] = lambda r=r: K._launch(x, w, bias, a, s, t_out, force=r)
-        arms32["plain"] = lambda: K.conv1d_prelu_plain(x, w, bias, a, s)
-        arms32["cuDNN"] = lambda: F.conv1d(x, w, bias, stride=s)
-        t32 = {n: v[0] for n, v in _in_turns(arms32).items()}
-        t32.setdefault("mma", float("nan"))
-        # the chosen route's kernels and mma.sync's, device time (10 launches back to back
-        # through the entry points, median of DEVICE_REPS)
-        outs = nan_outputs(shape, shape, dtype=x.dtype)
-        d32 = {n: v[0] for n, v in _in_turns(
-            {n: _entry_arm(K, took if n == "pick" else n, x, w, bias, a, s, t_out, outs)
-             for n in ("pick", "mma") if n == "pick" or tc_shape},
-            reps=DEVICE_REPS, calls=10).items()}
-        d32.setdefault("mma", float("nan"))
-        del outs
+        nan = float("nan")
+        t32 = dict.fromkeys(("pick", "mma", "fma", "plain", "cuDNN"), nan)
+        d32 = dict.fromkeys(("pick", "mma"), nan)
+        if kind != "rows":  # serving's few-row shapes: fp32's routes held, not timed
+            arms32 = {"pick": lambda: K.fused_conv1d_prelu(x, w, bias, a, s)}
+            for r in ("mma", "fma") if tc_shape else ("fma",):
+                arms32[r] = lambda r=r: K._launch(x, w, bias, a, s, t_out, force=r)
+            arms32["plain"] = lambda: K.conv1d_prelu_plain(x, w, bias, a, s)
+            arms32["cuDNN"] = lambda: F.conv1d(x, w, bias, stride=s)
+            t32.update({n: v[0] for n, v in _in_turns(arms32).items()})
+            # the chosen route's kernels and mma.sync's, device time (10 launches back to
+            # back through the entry points, median of DEVICE_REPS)
+            outs = nan_outputs(shape, shape, dtype=x.dtype)
+            d32.update({n: v[0] for n, v in _in_turns(
+                {n: _entry_arm(K, took if n == "pick" else n, x, w, bias, a, s, t_out, outs)
+                 for n in ("pick", "mma") if n == "pick" or tc_shape},
+                reps=DEVICE_REPS, calls=10).items()})
+            del outs
         # bf16: the route that _route picks, read from the counters, then mma.sync and the
         # FMA kernel forced; all of them, plain and cuDNN timed in turns
         hb = [xb] + [v.bfloat16() if v is not None else None for v in (w, bias, a)]
@@ -755,7 +799,10 @@ def phase_kernel():
             max_abs[b] = worst([max_abs.get(b, 0.0), e16_abs])
         del yb, preb
         e16f = {}
-        for r in others:
+        rows_shape = (K._rows_shape(torch.bfloat16, cin, cout, kw, s) and b * t_out
+                      <= K.ROWS_MAX_ROWS and K._rows_fits(b, cin, t_out))
+        for r in (["rows"] if rows_shape else []) + others + (
+                ["fma"] if took16 == "rows" and "fma" not in others else []):
             if r == took16:
                 continue
             yf, pref = K._launch(*hb, s, t_out, force=r,
@@ -778,12 +825,31 @@ def phase_kernel():
         # per pair of events: the host's time where it is the longer, as in a G forward at
         # few chunks; the rule's measure)
         pair = {r: arms[r] for r in ("pick", "mma") if r in arms}
+        # where the rows kernel is chosen, the route it replaced (the rule without it)
+        replaced = (K._route(torch.bfloat16, b, cin, cout, kw, s, t_out, pitched, rows=False)
+                    if took16 == "rows" else None)
         outs = nan_outputs(shape, shape, dtype=torch.bfloat16)
         d16 = {n: v[0] for n, v in _in_turns(
             {n: _entry_arm(K, took16 if n == "pick" else n, *hb, s, t_out, outs)
-             for n in pair},
+             for n in list(pair) + ([replaced] if replaced not in (None, "mma") else [])},
             reps=DEVICE_REPS, calls=10).items()}
         d16.setdefault("mma", float("nan"))
+        if replaced is not None:  # and a call's cost of each, 5 back to back
+            b2b_rows = _in_turns({"pick": arms["pick"], replaced: arms.get(replaced) or (
+                lambda: K._launch(*hb, s, t_out, force=replaced))}, calls=5)
+            rows_cases.append(dict(
+                label=label, device_ms=d16["pick"], replaced=replaced,
+                replaced_device_ms=d16[replaced], ms=t16["pick"],
+                call_ms=b2b_rows["pick"][0], replaced_call_ms=b2b_rows[replaced][0],
+                plain_ms=t16["plain"], library_ms=t16["cuDNN"],
+                bound_ms=bound_ms(2.0 * b * t_out * cout * cin * kw,
+                                  2 * (b * cin * t_in + cout * cin * kw
+                                       + (2 if has_bias else 1) * cout + 2 * b * cout * t_out),
+                                  BF16_PEAK),
+                max_abs_err=e16_abs, err=e16, forced=dict(e16f)))
+            assert d16["pick"] < d16[replaced], (
+                f"{label}: the rows kernel took {d16['pick']:.4f} ms of device time, the "
+                f"{replaced} route it replaced {d16[replaced]:.4f}")
         # the stride-4 rule's route against mma.sync, same call (stride 2's rule rests on
         # tools/conv1d_routes.py --stride 2)
         if tc_shape and took16 != "mma" and s == 4:
@@ -886,6 +952,24 @@ def phase_kernel():
           flush=True)
     slower = [(l, c, m, sp) for l, c, m, sp in spreads if c > m + sp]
     assert not slower, f"the chosen route slower than mma.sync beyond the spread: {slower}"
+    print("bf16 shapes on the rows kernel, device ms (10 launches back to back through the "
+          "entry points) against the route it replaced, then a call 5 back to back of each, "
+          "one call in turns, plain, cuDNN, bound, rel err (forced routes' rel err): " + "; ".join(
+              f"{r['label']} {r['device_ms']:.4f} vs {r['replaced']} "
+              f"{r['replaced_device_ms']:.4f}, calls {r['call_ms']:.4f} vs "
+              f"{r['replaced_call_ms']:.4f}, {r['ms']:.4f}, {r['plain_ms']:.4f}, "
+              f"{r['library_ms']:.4f}, {r['bound_ms']:.4f}, {r['err']:.1e} ("
+              + ", ".join(f"{k} {v:.1e}" for k, v in r["forced"].items()) + ")"
+              for r in rows_cases), flush=True)
+    one_chunk = [r for r in rows_cases if r["label"] in ("B=1 enc3", "B=1 enc4", "B=1 enc5")]
+    assert len(one_chunk) == 3, [r["label"] for r in rows_cases]
+    rows_line = {col: sum(r[col] for r in one_chunk)
+                 for col in ("ms", "device_ms", "replaced_device_ms", "call_ms",
+                             "replaced_call_ms", "plain_ms", "library_ms", "bound_ms")}
+    rows_line.update(max_abs_err=worst(r["max_abs_err"] for r in rows_cases),
+                     bound_by="bytes", shapes=len(rows_cases))
+    print("the rows kernel at one chunk's enc3-5, summed: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in rows_line.items() if isinstance(v, float)), flush=True)
     print("WSEGAN step B=150, the kernel's 25 calls (G's enc1-5 once, D's enc1-5 in each of "
           "four passes), ms and max abs err: " + "; ".join(
               f"{p[:-1] or 'bf16'} " + ", ".join(f"{col} {v:.4g}" for col, v in c.items())
@@ -911,7 +995,7 @@ def phase_kernel():
                 mma_sync_device_ms=sums[64, "bf16 mma device"],
                 device_ms_b300=sums[300, "bf16 pick device"],
                 mma_sync_device_ms_b300=sums[300, "bf16 mma device"]), dict(
-                    wg64, bound_by="operations"), dict(wg64_32, bound_by="operations")
+                    wg64, bound_by="operations"), dict(wg64_32, bound_by="operations"), rows_line
 
 
 def phase_enc23():
@@ -1115,7 +1199,7 @@ def phase_tool():
     from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
     from segan_pytorch_tpu_torch.tools import encoder_fused_bench as bench
 
-    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
     EF.launches = EF.launches_tf32 = EF.launches_tile16 = EF.launches_wgmma = 0
     res = {"bfloat16": bench.main([])}
     torch.cuda.synchronize()
@@ -1207,7 +1291,8 @@ def _write_wavs(wav_dir: Path):
 
 def phase_slice(work: Path):
     """The port's main path at full SEGAN+ width. Returns the kernel launches it made
-    (all, tensor cores, fp32 on the tensor cores, bf16 on wgmma, fp32 on wgmma)."""
+    (all, tensor cores, fp32 on the tensor cores, bf16 on wgmma, fp32 on wgmma, bf16 on
+    the rows kernel)."""
     import torch
     from segan_pytorch_tpu_torch import clean
     from segan_pytorch_tpu_torch.data.wav_io import read_wav_raw
@@ -1261,7 +1346,7 @@ def phase_slice(work: Path):
     cfg_bf16 = SEGANConfig(no_bias=True, compute_dtype="bfloat16", save_path=str(work))
     opts_bf16 = dump_train_opts(cfg_bf16, str(work / "bf16"))
     outs = {}
-    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
     n_forwards = 0
     with _logged_launches() as log:
         for b in (1, 4):
@@ -1275,17 +1360,25 @@ def phase_slice(work: Path):
             f"{fp32[0]} launches for {n_forwards} fp32 G forwards")
         del log[:]
         y_bf, wall = run_clean(opts_bf16, 4, work / "synth_bf16")
-        n_bf16 = -(-len(lengths) // 4)
+        y_bf1, wall1 = run_clean(opts_bf16, 1, work / "synth_bf16_b1")
+        n_bf16 = -(-len(lengths) // 4) + len(lengths)
         bf = tuple(n - f for n, f in zip(_counters(K), fp32))
         assert bf == _want_counts(K, log), (bf, _want_counts(K, log))
-    launches, launches_mma, launches_tf32, launches_wgmma = _counters(K)
-    print(f"clean.py bf16 --batch_utts 4: {audio_s / wall:.2f} s of audio per wall second")
+    launches, launches_mma, launches_tf32, launches_wgmma, launches_rows = _counters(K)
+    print(f"clean.py bf16 --batch_utts 4: {audio_s / wall:.2f} s of audio per wall second; "
+          f"--batch_utts 1: {audio_s / wall1:.2f}")
     print(f"kernel launches on the main path: {launches} ({launches_mma} on the tensor "
           f"cores, {launches_tf32} of them in fp32 by 3xTF32; on wgmma {fp32[3]} fp32, "
-          f"{bf[3]} bf16) for {n_forwards} fp32 and {n_bf16} bf16 G forwards, each on the "
-          f"route _route picks for its shape and G's pitched rows")
-    assert bf[0] == 5 * n_bf16 and bf[2] == 0 and bf[3] > 0, bf  # enc2 on wgmma
-    wgmma_bf16, wgmma_fp32 = bf[3], fp32[3]
+          f"{bf[3]} bf16; on the rows kernel {bf[4]}) for {n_forwards} fp32 and {n_bf16} "
+          f"bf16 G forwards, each on the route _route picks for its shape and G's pitched "
+          f"rows")
+    # bf16: enc2 on wgmma, enc3-5 of the one-chunk passes on the rows kernel
+    assert bf[0] == 5 * n_bf16 and bf[2] == 0 and bf[3] > 0 and bf[4] > 0, bf
+    assert fp32[4] == 0, fp32
+    wgmma_bf16, wgmma_fp32, rows_bf16 = bf[3], fp32[3], bf[4]
+    e_b1 = worst(np.abs(y1 - y4).max() / np.abs(y4).max() for y1, y4 in zip(y_bf1, y_bf))
+    print(f"clean.py bf16 --batch_utts 1 vs 4 (the rows kernel vs mma.sync at one-chunk "
+          f"passes' enc3-5): rel err {e_b1:.3e}")
     for y1, y4, yb in zip(outs[1], outs[4], y_bf):
         e = float(np.abs(y1 - y4).max() / np.abs(y1).max())
         assert e <= FP32_TOL, f"batched vs sequential rel err {e:.3e}"
@@ -1321,28 +1414,30 @@ def phase_slice(work: Path):
         64, cfg.slice_size, 1).astype(np.float32) * 0.3).cuda()
     z64 = gpu.G.sample_z(tuple(x64.shape), torch.Generator().manual_seed(SEED)).cuda()
 
-    def fma_route_forward(engine):
+    def fma_route_forward(engine):  # the records hold routes: none read or kept meanwhile
         route = K._route
-        K._route = lambda *shape: "fma"
+        K._route, records = (lambda *shape: "fma"), K._records
+        K._records = {}
         try:
             return engine.infer_G(x64, z64)
         finally:
-            K._route = route
+            K._route, K._records = route, records
 
     def mma_sync_forward(engine):  # the rule's routes, mma.sync in place of wgmma
         route = K._route
         K._route = lambda *shape: "mma" if route(*shape) == "wgmma" else route(*shape)
+        records, K._records = K._records, {}
         try:
             return engine.infer_G(x64, z64)
         finally:
-            K._route = route
+            K._route, K._records = route, records
 
     before = _counters(K)
     y32 = gpu.infer_G(x64, z64)
     routes32 = _g_routes(K, torch.float32, 64, cfg.slice_size, False)
     moved = [n - b for n, b in zip(_counters(K), before)]
     # 3xTF32 but enc1's FMA rows, enc2-5 on the fp32 wgmma route
-    assert moved == [5, 5 - routes32.count("fma"), 5 - routes32.count("fma"), 4] and (
+    assert moved == [5, 5 - routes32.count("fma"), 5 - routes32.count("fma"), 4, 0] and (
         routes32.count("wgmma") == 4), (moved, routes32)
     before = K.launches_mma
     e32_fma = rel_err(fma_route_forward(gpu), y32)
@@ -1364,7 +1459,7 @@ def phase_slice(work: Path):
     y_bf = bf.infer_G(x64, z64)
     routes = _g_routes(K, torch.bfloat16, 64, cfg.slice_size, False)
     moved = [n - b for n, b in zip(_counters(K), before)]
-    assert moved == [5, 5 - routes.count("fma"), 0, routes.count("wgmma")] and (
+    assert moved == [5, 5 - routes.count("fma"), 0, routes.count("wgmma"), 0] and (
         routes.count("wgmma") == 4), (moved, routes)
     e_bf = rel_err(y_bf, y32)
     # a sanity bound: bf16 rounds every one of the 10 layers' inputs and outputs
@@ -1384,7 +1479,7 @@ def phase_slice(work: Path):
           f"{t['rule'] / t['mma']:.3f}); {t['fma']:.3f} ms, {64e3 / t['fma']:.1f} chunks/s "
           f"(FMA route, same call); rel err vs fp32 {e_bf:.3e} (mma.sync {e_sync:.3e}, FMA "
           f"route {e_fma:.3e})")
-    return launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32
+    return launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32, rows_bf16
 
 
 # G's step gradients on the card vs float64 with D' = D: a PReLU kink taken the other way
@@ -1474,11 +1569,11 @@ def phase_train_kernel():
 def _check_counts(r, n, dtype):
     """The counters of a `_time_steps` run: n launches, each on the route _route picks
     for its shape and x's layout (read from the counters against the logged calls), none
-    by 3xTF32 in bf16. Returns the four counts."""
+    by 3xTF32 in bf16. Returns the first four counts (all, tensor cores, 3xTF32, wgmma)."""
     c = r["counts"]
     assert c[0] == n and c == r["want"], (c, r["want"], n)
     assert dtype == "float32" or c[2] == 0, c
-    return c
+    return c[:4]
 
 
 def _train_models(cfg, seed):
@@ -1669,7 +1764,7 @@ def _time_steps(seg, args, n_steps, warm=3):
         v.clear()
     torch.cuda.reset_peak_memory_stats()
     steps, losses = [], []
-    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
     with _logged_launches() as log:
         for _ in range(n_steps):
             start = torch.cuda.Event(enable_timing=True)
@@ -1841,14 +1936,14 @@ def phase_train_run(work: Path, rates):
             "--g_lr", "5e-7", "--device", "cuda"]
 
     runs = []
-    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
     with _logged_launches() as log:
         for extra in (["--epoch", "1", "--g_pretrained_ckpt", str(work / "g_start.ckpt")],
                       ["--epoch", "2", "--resume"]):
             run = _timed_run(argv + extra)
             del run["steps"], run["dloader"]
             runs.append(run)
-    launches, mma, tf32, wg = _counters(K)
+    launches, mma, tf32, wg, rows = _counters(K)
     want = _want_counts(K, log)
 
     # the loop: resumed at step 3, iterations on from 4, finite losses
@@ -1869,8 +1964,8 @@ def phase_train_run(work: Path, rates):
     print(f"fused_conv1d_prelu launches over the two runs: {launches} ({mma} on the tensor "
           f"cores, {tf32} 3xTF32) for {steps} train steps and {forwards} G forwards, each "
           f"on the route _route picks (enc1's small passes on FMAs: {launches - mma})")
-    assert launches == 5 * (steps + forwards) and (launches, mma, tf32, wg) == want and (
-        mma == tf32), ((launches, mma, tf32, wg), want)
+    assert launches == 5 * (steps + forwards) and (launches, mma, tf32, wg, rows) == want and (
+        mma == tf32), ((launches, mma, tf32, wg, rows), want)
 
     # the checkpoints: rotating EOE G and D, and the best-val ones, each index pointing at
     # payloads that exist, with the optimizer's state and the steps taken
@@ -2216,10 +2311,10 @@ def phase_wsegan_run(work: Path):
         torch.cuda.synchronize()
         return seg, out.getvalue(), time.perf_counter() - start
 
-    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+    K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
     with _logged_launches() as log:
         runs = [run(argv + ["--epoch", "1"]), run(argv + ["--epoch", "2", "--resume"])]
-    launches, mma, tf32, wg = _counters(K)
+    launches, mma, tf32, wg, rows = _counters(K)
     want = _want_counts(K, log)
     logged = [WS_LOG_RE.findall(out) for _, out, _ in runs]
     bpe = int(logged[0][0][2])
@@ -2236,8 +2331,8 @@ def phase_wsegan_run(work: Path):
     per_step = g_fwd + 4 * len(seg.D.enc_blocks)
     print(f"fused_conv1d_prelu launches over the two WSEGAN runs: {launches} ({mma} on the "
           f"tensor cores, {tf32} 3xTF32) for 4 train steps")
-    assert launches == per_step * 4 and (launches, mma, tf32, wg) == want and mma == tf32, (
-        (launches, mma, tf32, wg), want)
+    assert launches == per_step * 4 and (launches, mma, tf32, wg, rows) == want and (
+        mma == tf32), ((launches, mma, tf32, wg, rows), want)
     index = json.loads((save / "EOE_G-checkpoints").read_text())
     assert index["latest"] == ["EOE_G-Generator-2.ckpt", "EOE_G-Generator-4.ckpt"], index
     d_index = json.loads((save / "EOE_D-checkpoints").read_text())
@@ -2552,7 +2647,7 @@ def _record_launches(calls: set):
 
     launch = K._launch
 
-    def recorded_launch(x, w, b, a, stride, t_out, **kw):
+    def recorded_launch(x, w, b, a, stride, t_out=None, **kw):
         calls.add((*x.shape, w.shape[0], w.shape[2], stride, b is not None, x.dtype))
         return launch(x, w, b, a, stride, t_out, **kw)
 
@@ -2596,9 +2691,9 @@ class _Served(_InProcess):
 
 
 def _counters(K):
-    """The per-layer kernel's four counters: all launches, tensor cores, of those fp32
-    (3xTF32), and bf16 on wgmma."""
-    return K.launches, K.launches_mma, K.launches_tf32, K.launches_wgmma
+    """The per-layer kernel's five counters: all launches, tensor cores, of those fp32
+    (3xTF32), on wgmma, and on the rows kernel (bf16)."""
+    return K.launches, K.launches_mma, K.launches_tf32, K.launches_wgmma, K.launches_rows
 
 
 def _g_routes(K, dtype, b, t, bias):
@@ -2612,13 +2707,14 @@ def _expect_launches(K, before, passes, bias, fp32):
     """The kernel's counters since `before` (``_counters``) against the G forwards
     `passes` (rows, samples): five launches each, on the route that _route picks for
     each layer's shape and G's pitched rows (read from the counters), fp32 ones by
-    3xTF32, bf16 ones on wgmma where the rule says. Returns the four deltas."""
+    3xTF32, bf16 ones on wgmma or the rows kernel where the rule says. Returns the five
+    deltas."""
     import torch
 
     routes = [r for b, t in passes
               for r in _g_routes(K, torch.float32 if fp32 else torch.bfloat16, b, t, bias)]
     tc = sum(r != "fma" for r in routes)
-    want = (len(routes), tc, tc if fp32 else 0, routes.count("wgmma"))
+    want = (len(routes), tc, tc if fp32 else 0, routes.count("wgmma"), routes.count("rows"))
     got = tuple(n - b for n, b in zip(_counters(K), before))
     assert got == want, (got, want, passes)
     return np.array(got)
@@ -2629,8 +2725,9 @@ def _hold_kernel(shapes, seed):
     stride, bias) in fp32 and bf16, x through G's pitched pad (a stride-4, K = 31 shape;
     others in contiguous rows), on random inputs and NaN-filled outputs: on the route
     _route picks, read from the counters, then on the other routes that take the shape
-    forced (mma.sync, FMA); timed in turns with the plain version and cuDNN beside
-    bounds, a table row per shape. Returns {shape: {dtype: (err, ms)}}."""
+    forced (the rows kernel in bf16 up to its rows, mma.sync, FMA); timed in turns with the
+    plain version and cuDNN beside bounds, a table row per shape. Returns {shape: {dtype:
+    (err, ms)}}."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
@@ -2660,8 +2757,10 @@ def _hold_kernel(shapes, seed):
                                   for v in (w, bias, a)]
             route = K._route(dtype, b, cin, cout, kw, s, t_out, _pitched(K, args[0]))
             errs = {}
-            for force in [None] + [r for r in (("mma", "fma") if tc_shape else ("fma",))
-                                   if r != route]:
+            rows_shape = (K._rows_shape(dtype, cin, cout, kw, s) and b * t_out
+                          <= K.ROWS_MAX_ROWS and K._rows_fits(b, cin, t_out))
+            for force in [None] + [r for r in (("rows",) if rows_shape else ()) + (
+                    ("mma", "fma") if tc_shape else ("fma",)) if r != route]:
                 before = _counters(K)
                 y, pre = K._launch(*args, s, t_out, force=force,
                                    out=nan_outputs((b, cout, t_out), (b, cout, t_out),
@@ -2711,7 +2810,7 @@ def phase_serve(work: Path, smi: str, ckpts: dict):
 
     S = 16384
 
-    totals = np.zeros(4, np.int64)  # the kernel's launches in the served G forwards
+    totals = np.zeros(5, np.int64)  # the kernel's launches in the served G forwards
     served = set()  # (B, samples, bias) of every G forward that served
     calls = set()
     for name in ("float32", "bfloat16"):
@@ -2991,7 +3090,7 @@ def phase_reload(work: Path, smi: str, ckpts: dict, checked: set):
         passes.append((int(np.shape(noisy)[0]), int(np.shape(noisy)[1])))
         return infer(self, noisy, z, ret_hid)
 
-    totals = np.zeros(4, np.int64)
+    totals = np.zeros(5, np.int64)
     retire = serve.RETIRE_SECONDS
     serve.RETIRE_SECONDS = RELOAD_RETIRE_SECONDS
     SEGAN.infer_G = recorded_infer
@@ -3472,7 +3571,7 @@ def _graph_vs_eager(label, kind, cfg, S, seed, smi, n_engines=2, exact=False,
             multistep.set_capturable(opt, True)
     before = _engine_state(E)
     with _CollectiveCount() as coll:
-        K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+        K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
         with _logged_launches() as log:
             ms, _, genh, _ = A.train_step_multi(*stacked, l1_w_s=l1s)
         first_call, routes, want = K.launches, _counters(K), _want_counts(K, log)
@@ -4903,7 +5002,7 @@ def phase_a7bc(work: Path, smi: str) -> dict:
     with torch.no_grad():
         for name, model, args in (("fp32", card, (xc, zc)), ("bf16", c16, (x16, z16))):
             with _logged_launches() as log:
-                K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = 0
+                K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
                 y = model(*args)
                 torch.cuda.synchronize()
                 launched[name] = _counters(K)
@@ -5130,12 +5229,13 @@ def _p14_spread(kind, name, B, valid):
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
 
-    sm_count = K._sm_count
+    sm_count, records = K._sm_count, K._records
     K._sm_count = lambda index: max(1, sm_count(index) // 2)
+    K._records = {}  # the wrapper's records hold the plans: none read or kept meanwhile
     try:
         return _p14_step(_p14_engine(kind, getattr(torch, name), B), kind, B, valid)
     finally:
-        K._sm_count = sm_count
+        K._sm_count, K._records = sm_count, records
 
 
 def _p14_group(work: Path, nprocs, mp, kind, dtypes, B, valid):
@@ -5920,11 +6020,11 @@ def main():
 
     smi = _phase("1", phase_device)
     _phase("2", phase_build)
-    per_layer, wgmma64, wgmma64_tf32 = _phase("3", phase_kernel)
+    per_layer, wgmma64, wgmma64_tf32, rows3 = _phase("3", phase_kernel)
     enc23_abs, enc23_ms, enc23_device = _phase("3b", phase_enc23)
     tool, tool_launches = _phase("3c", phase_tool)
     _phase("3d", phase_tf32)
-    launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32 = _phase(
+    launches, launches_mma, launches_tf32, wgmma_bf16, wgmma_fp32, rows_bf16 = _phase(
         "4", phase_slice, workdir=True)
     _phase("5a", phase_train_kernel)
     _phase("5b", phase_train_parity)
@@ -5965,7 +6065,8 @@ def main():
              serve_launches_tf32=serve_launches[2], serve_launches_wgmma=serve_launches[3],
              reload_launches=reload_launches[0], reload_launches_mma=reload_launches[1],
              reload_launches_tf32=reload_launches[2],
-             reload_launches_wgmma=reload_launches[3],
+             reload_launches_wgmma=reload_launches[3], launches_rows=rows_bf16,
+             serve_launches_rows=serve_launches[4], reload_launches_rows=reload_launches[4],
              graph_launches_per_replay=dict(graph, **p14["graph"]),
              data_options_launches=data_opts["total"],
              data_options_launches_segan=data_opts["segan"],
@@ -6018,6 +6119,10 @@ def main():
                 for b, pre in ((300, ""), (64, "b64_"), (1, "b1_"))
                 for name, arm in (("fused wgmma", ""), ("fused mma.sync", "mma_"),
                                   ("kernel x2", "kernel_x2_"), ("cuDNN x2", "library_"))}),
+        # conv1d_rows.cu: phase 4's bf16 launches (one-chunk passes' enc3-5), the served
+        # passes' (phases 8 and 9); its times one chunk's enc3-5 summed (phase 3)
+        dict(launches=rows_bf16, serve_launches=serve_launches[4],
+             reload_launches=reload_launches[4], **rows3),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

@@ -7,30 +7,38 @@ Three pieces, as for every kernel of the port:
   the tests and ``chip_smoke.py`` hold the CUDA kernel against it.
 - ``fused_conv1d_prelu``: the wrapper. On a CPU tensor it returns the plain version; on
   a CUDA tensor it launches a hand-written kernel (``csrc/conv1d_prelu.cu``,
-  ``csrc/conv1d_wgmma.cu``, ``csrc/conv1d_wgmma_tf32.cu``) or raises. ``launches``
-  counts the wrapper's calls that launch a kernel, ``launches_mma`` those of them on the
-  tensor cores (both dtypes, both instructions), ``launches_tf32`` those of them in fp32
-  (3xTF32, on either instruction) and ``launches_wgmma`` those on ``wgmma`` (both
-  dtypes): an fp32 call on wgmma moves all four. A call under CUDA graph capture records
-  the launch into the graph and counts once; the graph's replays run the kernel again
-  and move no counter.
-- Three routes on the card, chosen by shape and x's layout before launch (``_route``),
-  never as a fallback: "wgmma" (TMA and ``wgmma``: bf16 ``conv1d_wgmma_kernel``, fp32
-  by a 3xTF32 split ``conv1d_wgmma_tf32_kernel``), "mma" (``mma.sync``: bf16 as it is,
-  fp32 by a 3xTF32 split) and "fma" (FMAs). The tensor-core routes take stride 4
-  (SEGAN+) and stride 2 (Generator1D), each kernel instantiated for both; the FMA
-  kernel any stride. The tensor-core routes take the weights
+  ``csrc/conv1d_wgmma.cu``, ``csrc/conv1d_wgmma_tf32.cu``, ``csrc/conv1d_rows.cu``) or
+  raises. ``launches`` counts the wrapper's calls that launch a kernel, ``launches_mma``
+  those of them on the tensor cores (both dtypes, every instruction), ``launches_tf32``
+  those of them in fp32 (3xTF32, on either instruction), ``launches_wgmma`` those on the
+  wgmma route (both dtypes: an fp32 call there moves all four) and ``launches_rows``
+  those on the rows route (bf16; they move ``launches_mma`` too). A call under CUDA graph
+  capture records the launch into the graph and counts once; the graph's replays run the
+  kernel again and move no counter.
+- Four routes on the card, chosen by shape and x's layout before launch (``_route``),
+  never as a fallback: "rows" (bf16 calls of few rows: ``conv1d_rows_kernel``, swap-AB
+  ``mma.sync`` with the weights streamed once by TMA and split-K reduced in a
+  thread-block cluster), "wgmma" (TMA and ``wgmma``: bf16 ``conv1d_wgmma_kernel``, fp32 by a 3xTF32
+  split ``conv1d_wgmma_tf32_kernel``), "mma" (``mma.sync``: bf16 as it is, fp32 by a
+  3xTF32 split) and "fma" (FMAs). The tensor-core routes take stride 4 (SEGAN+) and
+  stride 2 (Generator1D), each kernel instantiated for both, but rows (stride 4); the
+  FMA kernel any stride. The tensor-core routes take the weights
   padded to 32 taps (``_pad_taps``), in fp32 split into their TF32 parts
   (``_split_tf32``; one copy for both fp32 routes), on the bf16 wgmma route with the
-  taps permuted to the MMA fragments' order (``_wgmma_weights``), each made once per
-  weight and version (``_padded_weights``, ``_permuted_weights``; never while a CUDA
-  graph is being captured, which records the pad instead).
+  taps permuted to the MMA fragments' order (``_wgmma_weights``), on the rows route in
+  m64-tile order with their TMA tensor map (``_rows_copy``), each made once per weight
+  and version (``_padded_weights``, ``_permuted_weights``, ``_rows_weights``; never while
+  a CUDA graph is being captured, which records the pad instead).
+- A call's checks, route, plan and entry point are made once per call signature
+  (``_launch``'s records): a call that has been made before pays a key, the weight
+  copy's lookup, its outputs and one ctypes call.
 - x may be a view whose rows lie ``pitch`` elements apart (``x.stride()`` == (Cin pitch,
   pitch, 1)): G's and Generator1D's fused blocks pad into rows whose pitch is a multiple
   of 8 (``ops/conv.py`` ``reflect_pad_pitched``, ``zero_pad_pitched``), the layout TMA
   reads. Every kernel takes the pitch; nothing copies x.
 - ``conv1d_prelu``: the differentiable op (``Conv1dPReLU``). Its backward mirrors the
   JAX custom VJP ``_bwd`` in plain torch ops, as the JAX backward is not a kernel either.
+  Where autograd records nothing it calls ``fused_conv1d_prelu`` directly.
 
 Layout (torch's, not the JAX package's): x (B, Cin, T_in), already padded; w (Cout,
 Cin, K); b (Cout,) or None; a (Cout,). Both outputs, y = PReLU(pre) and pre =
@@ -51,14 +59,15 @@ from ..conv import at_least_fp32, conv1d, conv1d_weight, conv_transpose1d
 from . import build
 
 # kernel launches since the counter was last set to 0 (the wrapper alone adds to them):
-# all of them, those on the tensor cores, of those the fp32 (3xTF32) ones and those on
-# wgmma (both dtypes)
+# all of them, those on the tensor cores, of those the fp32 (3xTF32) ones, those on
+# wgmma (both dtypes) and those on the rows kernel (bf16)
 launches = 0
 launches_mma = 0
 launches_tf32 = 0
 launches_wgmma = 0
-# the counters and the weight cache are shared by every thread that runs G (the server's
-# two batchers do)
+launches_rows = 0
+# the counters, the weight caches and the records are shared by every thread that runs G
+# (the server's two batchers do)
 _lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -92,10 +101,28 @@ THRESHOLDS = {4: (WGMMA_MIN_ROWS, WGMMA_MIN_WORK, ENC1_MMA_MIN_ROWS,
                   {torch.bfloat16: 0, torch.float32: 0}),
               2: (S2_WGMMA_MIN_ROWS, S2_WGMMA_MIN_WORK, S2_ENC1_MMA_MIN_ROWS,
                   S2_TC_MIN_WORK)}
+# the rows kernel's constants (csrc/conv1d_rows.cu): output channels per block, ring
+# stages (a channel pair's 8 KB tile each), the weight copy's channel padding, the MMA
+# widths it is built for, the cluster sizes, the shared memory a block may use and a
+# batch row's staged samples past 4 a row
+ROWS_BM, ROWS_STAGES, ROWS_CHANNEL_ALIGN = 64, 8, 8
+ROWS_N = (8, 16, 32, 64, 128, 256)
+ROWS_CLUSTERS = (1, 2, 4, 8)
+ROWS_MAX_SMEM, ROWS_SEG_SLACK = 232448, 40
+# the rows plan's targets: at most this many rows a tile (the MMA width n <= 64) and about
+# this many blocks (tools/conv1d_routes.py --plans)
+ROWS_TILE_ROWS, ROWS_BLOCKS = 64, 128
+# the rows route below this many rows (B T_out), in bf16 at stride 4 (``_route``)
+ROWS_MAX_ROWS = 256
 # the tensor-core routes' weights, by the weight tensor they were made from:
-# weight -> (its version when made, copy): padded (and in fp32 split), and permuted
+# weight -> (its version when made, copy): padded (and in fp32 split), permuted, and in
+# the rows kernel's m64-tile order with its tensor map
 _padded = WeakIdKeyDictionary()
 _permuted = WeakIdKeyDictionary()
+_rows = WeakIdKeyDictionary()
+# _launch's records, by call signature (``_signature``), at most MAX_RECORDS
+_records = {}
+MAX_RECORDS = 4096
 
 
 def _pad_taps(w: torch.Tensor) -> torch.Tensor:
@@ -143,11 +170,12 @@ def _wgmma_weights(w: torch.Tensor) -> torch.Tensor:
             .reshape(cout, cin, KP))
 
 
-def _cached(cache, w: torch.Tensor, make):
+def _cached(cache, w: torch.Tensor, make, capturing: Optional[bool] = None):
     """make(w), kept in `cache` while w lives and its version stays, as
-    ``_padded_weights`` says."""
+    ``_padded_weights`` says (`capturing`: ``_capturing()``, when the caller has read
+    it)."""
     # inference tensors keep no version counter
-    if torch.is_inference(w) or _capturing():
+    if torch.is_inference(w) or (_capturing() if capturing is None else capturing):
         return make(w)
     with _lock:
         hit = cache.get(w)
@@ -156,13 +184,13 @@ def _cached(cache, w: torch.Tensor, make):
     return hit[1]
 
 
-def _permuted_weights(w: torch.Tensor) -> torch.Tensor:
+def _permuted_weights(w: torch.Tensor, capturing: Optional[bool] = None) -> torch.Tensor:
     """``_wgmma_weights(w)`` (bf16), made once per weight and version, under the rules of
     ``_padded_weights`` (spectral norm's w / sigma is new every forward and misses)."""
-    return _cached(_permuted, w, _wgmma_weights)
+    return _cached(_permuted, w, _wgmma_weights, capturing)
 
 
-def _padded_weights(w: torch.Tensor):
+def _padded_weights(w: torch.Tensor, capturing: Optional[bool] = None):
     """``_mma_weights(w)``, made once while w lives and is not changed in place, so that
     a model's forward pads no weight on every call (at a batch of one chunk the host time
     of the pad is as long as the kernel). A change in place is seen by w's version
@@ -172,11 +200,46 @@ def _padded_weights(w: torch.Tensor):
     wrote (``models/multistep.py``). While a stream is capturing, the pad (and split) is
     recorded into the graph and the cache is neither read nor written: an entry taken
     then would feed every replay the weights of capture time."""
-    return _cached(_padded, w, _mma_weights)
+    return _cached(_padded, w, _mma_weights, capturing)
+
+
+def _rows_tiles(w: torch.Tensor) -> torch.Tensor:
+    """The rows route's weights: (Cout, Cin, K) padded to 32 taps and to a multiple of 8
+    input channels (ROWS_CHANNEL_ALIGN), in m64-tile order, (Cout / 64, Cin8 / 2, 64, 64):
+    tile (m, p) holds output channels 64 m .. 64 m + 63 (rows) by the taps of input
+    channels 2 p and 2 p + 1 (columns), 8 KB in a row, so that each TMA box of a block's
+    weight stream is one contiguous read."""
+    cout, cin = w.shape[:2]
+    cin8 = -(-cin // ROWS_CHANNEL_ALIGN) * ROWS_CHANNEL_ALIGN
+    wp = F.pad(_pad_taps(w.detach()), (0, 0, 0, cin8 - cin))
+    return (wp.view(cout // ROWS_BM, ROWS_BM, cin8 // 2, 2 * KP).permute(0, 2, 1, 3)
+            .contiguous())
+
+
+def _rows_copy(w: torch.Tensor):
+    """The rows kernel's weights (``_rows_tiles``), the tensor map its C entry reads them
+    by (128 bytes, encoded here, once per copy) and the map's address."""
+    wp = _rows_tiles(w)
+    cout, cin = w.shape[:2]
+    buf = ctypes.create_string_buffer(128)
+    err = _rows_entries()[0](ctypes.addressof(buf), wp.data_ptr(), cout, cin)
+    if err != 0:
+        raise RuntimeError(f"conv1d_rows: encoding the weights' tensor map failed "
+                           f"(cudaError {err})")
+    return wp, buf, ctypes.addressof(buf)
+
+
+def _rows_weights(w: torch.Tensor, capturing: Optional[bool] = None):
+    """``_rows_copy(w)`` (bf16), made once per weight and version, under the rules of
+    ``_padded_weights``: a call encodes no tensor map."""
+    return _cached(_rows, w, _rows_copy, capturing)
 
 
 def _capturing() -> bool:
-    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+    """Whether the current stream is capturing a CUDA graph (never before CUDA is
+    initialised; cheaper than asking ``torch.cuda.is_available()``, which reads the
+    environment, on every call)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
 
 def _tensor_core_shape(dtype: torch.dtype, cout: int, k: int, stride: int, t_out: int,
@@ -200,8 +263,65 @@ def _wgmma_shape(dtype: torch.dtype, cin: int, cout: int, k: int, stride: int, t
             and _tensor_core_shape(dtype, cout, k, stride, t_out, wgmma=True))
 
 
+def _rows_shape(dtype: torch.dtype, cin: int, cout: int, k: int, stride: int) -> bool:
+    """Whether the rows kernel takes the shape: bf16 at stride 4, K <= 32, Cin > 1 and
+    whole m64 tiles of output channels; any T_out, x in rows of any pitch."""
+    return (dtype == torch.bfloat16 and stride == 4 and k <= KP and cin > 1
+            and cout % ROWS_BM == 0)
+
+
+def _rows_smem(n: int, rows_per_tile: int, cluster: int, B: int, cin: int,
+               t_out: int) -> int:
+    """The dynamic shared memory of a rows block (``Layout`` and ``raw_samples`` of
+    csrc/conv1d_rows.cu): the weight ring, the partial sums the block finishes (64 x
+    (n + 4) fp32: a slot for each block of the cluster), x's windows of the block's input
+    channels (at most 4 samples a row and 40 a batch row the tile touches, rounded up to
+    8), each row's offsets, the bias and slope, the batch rows' places, the barriers, and
+    1 KB of slack."""
+    per = -(-(-(-cin // cluster)) // 2) * 2
+    nseg = min(B, (rows_per_tile + t_out - 2) // t_out + 1)
+    lr = -(-(4 * rows_per_tile + ROWS_SEG_SLACK * nseg) // 8) * 8
+    raw = ROWS_STAGES * ROWS_BM * 2 * KP * 2 + ROWS_BM * (n + 4) * 4
+    outbase = -(-(raw + per * lr * 2 + 4 * n) // 8) * 8
+    return 1024 + outbase + 8 * n + 2 * ROWS_BM * 4 + 20 * n + (2 * ROWS_STAGES + 1) * 8
+
+
+def _rows_width(rows: int, tiles: int) -> Tuple[int, int]:
+    """(n, rows_per_tile) of `rows` cut into `tiles` row tiles: the narrowest MMA width
+    that holds a tile."""
+    per = -(-rows // tiles)
+    return next(v for v in ROWS_N if v >= per), per
+
+
+def _rows_fits(B: int, cin: int, t_out: int) -> bool:
+    """Whether a rows block's shared memory fits, in the fewest row tiles of at most
+    ROWS_TILE_ROWS at the largest cluster (the least x a block stages)."""
+    n, per = _rows_width(B * t_out, -(-B * t_out // ROWS_TILE_ROWS))
+    return _rows_smem(n, per, ROWS_CLUSTERS[-1], B, cin, t_out) <= ROWS_MAX_SMEM
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of the shape
+def _rows_plan(B: int, cin: int, cout: int, t_out: int, num_sms: int) -> Tuple[int, int, int]:
+    """(n, rows_per_tile, cluster) of the rows route, where ``_rows_fits``: the rows cut
+    into tiles of at most ROWS_TILE_ROWS, and the cluster (split-K slices of the input
+    channels, one a block, at least a ring stage each) the largest with Cout / 64 x tiles x
+    cluster <= ROWS_BLOCKS (of one wave: two blocks fit an SM of `num_sms`); then, while
+    fewer blocks than that, the tiles halved (down to 8 rows) at the cluster of 8."""
+    rows, m_tiles = B * t_out, cout // ROWS_BM
+    tiles = -(-rows // ROWS_TILE_ROWS)
+    widest = max(c for c in ROWS_CLUSTERS if c <= max(1, cin // 2))
+    target = min(ROWS_BLOCKS, 2 * num_sms)
+    while m_tiles * tiles * widest < target and -(-rows // (2 * tiles)) >= 8:
+        tiles *= 2
+    n, per = _rows_width(rows, tiles)
+    blocks = m_tiles * -(-rows // per)
+    fits = [c for c in ROWS_CLUSTERS if _rows_smem(n, per, c, B, cin, t_out) <= ROWS_MAX_SMEM]
+    wave = [c for c in fits if c <= widest and blocks * c <= target]
+    return n, per, max(wave) if wave else min(fits)
+
+
 def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
-           t_out: int, pitched: bool = False) -> str:
+           t_out: int, pitched: bool = False, rows: bool = True) -> str:
     """Which kernel a CUDA call takes, by shape and x's layout, decided before launch,
     with the thresholds of its stride (THRESHOLDS: 4 for SEGAN+'s G and D, 2 for
     Generator1D's encoder):
@@ -215,9 +335,29 @@ def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
       ``_wgmma_shape`` holds and B T_out is at least the stride's WGMMA_MIN_ROWS[dtype]
       or the work at least its WGMMA_MIN_WORK[dtype], and wherever it alone takes the
       shape (stride 2, T_out % 16 == 8: Generator1D's last layer);
+    - "rows" (``conv1d_rows_kernel``) where ``_rows_shape`` holds (bf16, stride 4, Cin >
+      1), B T_out is at most ROWS_MAX_ROWS and the call has one batch row or a T_out that
+      the mma.sync kernel does not take (T_out % 16 != 0), whatever x's layout: serving's
+      few-row calls (one chunk's enc3-5, a window's enc2-5 or enc4-5, WSEGAN's padded
+      lengths);
     - "mma" (``mma.sync``; fp32 by 3xTF32) for the rest. An x in odd rows (a contiguous
       G pad, T_in = 4 T_out + 29) takes it whatever its shape; so do Generator1D's layers
       with fewer than 128 output channels.
+
+    ``rows=False`` gives the route the rule gives without the rows kernel (the one it
+    replaced, for same-call comparisons).
+
+    The rows route rests on device times (NVIDIA H100 80GB HBM3 at 700.00 W):
+    chip_smoke.py phase 3 (10 launches back to back through the entry points) took at one
+    chunk's enc3, enc4 and enc5 0.0120, 0.0118 and 0.0144 ms against mma.sync's 0.0149,
+    0.0156 and 0.0188, at a window of 2048's enc2-3 0.0092 and 0.0081 against 0.0137 and
+    0.0116, and at ragged T_out 0.0091-0.0391 against the FMA kernel's 0.0434-0.1647 (a
+    call 5 back to back 0.035-0.055 ms against 0.049-0.173);
+    tools/conv1d_routes.py --plans (CUDA graphs of 10 calls: the device alone) at one chunk
+    0.0112 / 0.0108 / 0.0130 against mma.sync's 0.0139 / 0.0148 / 0.0165, while with
+    several batch rows at T_out % 16 == 0 mma.sync drew level or ahead (enc5: B = 3 0.0294
+    at the rows kernel's best plan against 0.0263, B = 8 0.0382 against 0.0369), hence one
+    batch row or a ragged T_out.
 
     The figures it rests on: a call's cost with calls back to back, as in a G forward
     (the longer of the wrapper's host time and the device's; tools/conv1d_routes.py, 10
@@ -257,6 +397,9 @@ def _route(dtype: torch.dtype, B: int, cin: int, cout: int, k: int, stride: int,
     took 0.31-0.39x of mma.sync's time at 64 chunks, 0.45-0.73x at 32, mixed at 16, lost
     at 8.
     """
+    if (rows and _rows_shape(dtype, cin, cout, k, stride) and B * t_out <= ROWS_MAX_ROWS
+            and (B == 1 or t_out % 16) and _rows_fits(B, cin, t_out)):
+        return "rows"
     mma = _tensor_core_shape(dtype, cout, k, stride, t_out)
     wgmma = _wgmma_shape(dtype, cin, cout, k, stride, t_out, pitched)
     if not (mma or wgmma):
@@ -411,6 +554,20 @@ def _wgmma_entry(dtype: torch.dtype = torch.bfloat16):
 
 
 @functools.cache
+def _rows_entries():
+    """The rows route's library (csrc/conv1d_rows.cu): conv1d_rows_encode, which encodes
+    a weight copy's tensor map, and conv1d_rows_launch."""
+    lib = build.load_library("conv1d_rows")
+    encode = lib.conv1d_rows_encode
+    encode.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    encode.restype = ctypes.c_int
+    launch = lib.conv1d_rows_launch
+    launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return encode, launch
+
+
+@functools.cache
 def _sm_count(device_index) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -431,14 +588,46 @@ def _pitch(x: torch.Tensor) -> int:
     return pitch
 
 
-def _launch(x, w, b, a, stride: int, t_out: int,
-            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-            force: Optional[str] = None):
-    """Launch a kernel on checked CUDA tensors, into ``out`` (y, pre) when it is given,
-    else into new tensors. ``force`` ("fma", "mma" or "wgmma") takes that route in place
-    of ``_route``'s, for same-call comparisons; it raises where the route does not take
-    the shape or layout."""
-    global launches, launches_mma, launches_tf32, launches_wgmma
+class _Call:
+    """What every call of one signature launches (``_launch``'s record): T_out, the
+    route, the counters it moves, the entry point with its leading and trailing fixed
+    arguments (the plan among them), the outputs' shape, the split-K workspace's shape
+    (or None; ``slot`` False where the entry takes no workspace argument), whether
+    outputs given must be 16-byte aligned, and x's device index."""
+
+    __slots__ = ("t_out", "route", "counts", "fn", "head", "ints", "shape", "partial",
+                 "slot", "aligned", "index")
+
+
+def _signature(x, w, b, a, stride, force):
+    """A call's key in ``_records``: every property of its inputs that ``_check`` and
+    ``_plan_call`` read (shapes, strides, dtypes, devices, x's 16-byte alignment, the
+    stride and its type), and the forced route."""
+    return (x.shape, x.stride(), x.dtype, x.device, x.data_ptr() % 16 == 0, w.shape,
+            w.stride(), w.dtype, w.device,
+            None if b is None else (b.shape, b.stride(), b.dtype, b.device),
+            a.shape, a.stride(), a.dtype, a.device, type(stride), stride, force)
+
+
+def _check_out(rec: _Call, x, out):
+    """``out`` (y, pre) must be two contiguous tensors of the call's shape, dtype and
+    device, 16-byte aligned where the route stores 16-byte units."""
+    if any(o.shape != rec.shape or o.dtype != x.dtype or o.device != x.device
+           or not o.is_contiguous() for o in out):
+        raise ValueError(f"out must be two contiguous {x.dtype} tensors on {x.device} of "
+                         f"shape {rec.shape}")
+    if rec.aligned and (out[0].data_ptr() % 16 or out[1].data_ptr() % 16):
+        raise ValueError(f"the {rec.route} route stores 16-byte units: y and pre must be "
+                         "16-byte aligned")
+
+
+def _plan_call(x, w, b, a, stride, force, out=None) -> _Call:
+    """The record of a call: every check the call must pass (``_check``'s, the dtype,
+    the layouts, the 32-bit sizes, the route's shape, and ``out``'s when given, before
+    anything is built), the route (``_route``'s, or `force`: "fma", "mma", "wgmma" or
+    "rows", which raises where that route does not take the shape or layout), its plan
+    and its entry point."""
+    t_out = _check(x, w, b, a, stride)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16, got {x.dtype}")
     if not all(t.is_contiguous() for t in (w, a) + ((b,) if b is not None else ())):
@@ -452,69 +641,128 @@ def _launch(x, w, b, a, stride: int, t_out: int,
     if force is None:
         route = _route(x.dtype, B, cin, cout, k, stride, t_out, pitched)
     elif force == "fma" or (force in ("mma", "wgmma") and _tensor_core_shape(
-            x.dtype, cout, k, stride, t_out, wgmma=force == "wgmma")):
+            x.dtype, cout, k, stride, t_out, wgmma=force == "wgmma")) or (
+            force == "rows" and _rows_shape(x.dtype, cin, cout, k, stride)
+            and _rows_fits(B, cin, t_out)):
         route = force
     else:
         raise ValueError(f"the {force!r} route does not take this shape")
     if route == "wgmma" and not _wgmma_shape(x.dtype, cin, cout, k, stride, t_out, pitched):
         raise ValueError("the wgmma route takes x in 16-byte aligned rows whose pitch is "
                          "a multiple of 8, Cin > 1 and Cout a multiple of 128")
-    shape = (B, cout, t_out)
-    if out is None:
-        out = (torch.empty(shape, dtype=x.dtype, device=x.device),
-               torch.empty(shape, dtype=x.dtype, device=x.device))
-    elif any(o.shape != shape or o.dtype != x.dtype or o.device != x.device
-             or not o.is_contiguous() for o in out):
-        raise ValueError(f"out must be two contiguous {x.dtype} tensors on {x.device} of "
-                         f"shape {shape}")
-    y, pre = out
+    rec = _Call()
+    rec.t_out, rec.route, rec.index = t_out, route, x.device.index
     tf32 = route != "fma" and x.dtype == torch.float32
-    if (route == "wgmma" or (route == "mma" and not tf32)) and (
-            y.data_ptr() % 16 or pre.data_ptr() % 16):
-        raise ValueError(f"the {route} route stores 16-byte units: y and pre must be "
-                         "16-byte aligned")
+    rec.counts = (route != "fma", tf32, route == "wgmma", route == "rows")
+    rec.shape = (B, cout, t_out)
+    rec.aligned = route in ("wgmma", "mma") and not (route == "mma" and tf32)
+    if out is not None:
+        _check_out(rec, x, out)
+    rec.head, rec.slot, splits = (), True, 1
     sms = _sm_count(x.device.index)
-    if route == "wgmma":
-        entry = _wgmma_entry(x.dtype)
+    sizes = (B, cin, t_in, pitch, cout, t_out)
+    if route == "rows":
+        rec.fn = _rows_entries()[1]
+        rec.ints = (*_rows_plan(B, cin, cout, t_out, sms), *sizes)
+        rec.slot = False
+    elif route == "wgmma":
+        rec.fn = _wgmma_entry(x.dtype)
         tiles, splits = _wgmma_plan(B, cin, cout, t_out, sms, x.dtype)
-        w = _padded_weights(w) if tf32 else _permuted_weights(w)
+        rec.ints = (tiles, splits, *sizes, stride)
     else:
         launch, splits_of, launch_mma, launch_tf32 = _entries()
         if route == "mma":
+            rec.fn = launch_tf32 if tf32 else launch_mma
             tiles, splits = _mma_plan(B, cin, cout, t_out, sms, stride, x.dtype)
-            w = _padded_weights(w)
+            rec.ints = (tiles, splits, *sizes, stride)
         else:
+            rec.fn, rec.head = launch, (_DTYPE_CODES[x.dtype],)
             splits = splits_of(B, cin, cout, t_out, k, sms)
+            rec.ints = (splits, *sizes, k, stride)
     # split-K workspace: fp32 partial sums, one (B, Cout, T_out) slab per depth slice
-    partial = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    w_ptrs = (w[0].data_ptr(), w[1].data_ptr()) if tf32 else (w.data_ptr(),)
-    ptrs = (x.data_ptr(), *w_ptrs, b.data_ptr() if b is not None else None,
-            a.data_ptr(), y.data_ptr(), pre.data_ptr(),
-            partial.data_ptr() if partial is not None else None)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if route == "wgmma":
-            err = entry(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stride,
-                        stream)
-        elif tf32 and route == "mma":
-            err = launch_tf32(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stride,
-                              stream)
-        elif route == "mma":
-            err = launch_mma(*ptrs, tiles, splits, B, cin, t_in, pitch, cout, t_out, stride,
-                             stream)
-        else:
-            err = launch(_DTYPE_CODES[x.dtype], *ptrs, splits, B, cin, t_in, pitch, cout,
-                         t_out, k, stride, stream)
+    rec.partial = (splits, B, cout, t_out) if splits > 1 else None
+    return rec
+
+
+def _current_device() -> int:
+    return torch._C._cuda_getDevice()
+
+
+def _current_stream(index: int) -> int:
+    """The handle of device `index`'s current stream (torch.cuda.current_stream(index)
+    .cuda_stream, without making a Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launch(x, w, b, a, stride: int, t_out: Optional[int] = None,
+            out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+            force: Optional[str] = None):
+    """Launch a kernel on CUDA tensors, into ``out`` (y, pre) when it is given, else into
+    new tensors. ``force`` ("fma", "mma", "wgmma" or "rows") takes that route in place of
+    ``_route``'s, for same-call comparisons; it raises where the route does not take the
+    shape or layout. `t_out`, when given, must be the call's.
+
+    A call signature's checks, route, plan and entry point are made once, into a record
+    (``_Call``, kept in ``_records`` by ``_signature``); a call whose signature has one
+    pays its key, the weight copy's lookup, the outputs and one ctypes call. Every input
+    that a check refuses raises as it did before its record was made: the key holds every
+    property the checks read. While a stream is capturing a CUDA graph, records (like the
+    weight copies) are neither read nor written."""
+    global launches, launches_mma, launches_tf32, launches_wgmma, launches_rows
+    capturing = _capturing()
+    key = _signature(x, w, b, a, stride, force)
+    rec = None if capturing else _records.get(key)
+    if rec is None:
+        rec = _plan_call(x, w, b, a, stride, force, out)
+        if not capturing:
+            with _lock:
+                if len(_records) >= MAX_RECORDS:
+                    _records.clear()
+                _records[key] = rec
+    elif out is not None:
+        _check_out(rec, x, out)
+    if t_out is not None and t_out != rec.t_out:
+        raise ValueError(f"T_out is {rec.t_out} for this call, not {t_out}")
+    if out is None:
+        y = torch.empty(rec.shape, dtype=x.dtype, device=x.device)
+        pre = torch.empty(rec.shape, dtype=x.dtype, device=x.device)
+    else:
+        y, pre = out
+    route = rec.route
+    if route == "fma":
+        wk, wptrs = w, (w.data_ptr(),)
+    elif route == "rows":
+        wk = _rows_weights(w, capturing)
+        wptrs = (wk[2],)
+    elif route == "wgmma" and x.dtype == torch.bfloat16:
+        wk = _permuted_weights(w, capturing)
+        wptrs = (wk.data_ptr(),)
+    else:
+        wk = _padded_weights(w, capturing)
+        wptrs = ((wk[0].data_ptr(), wk[1].data_ptr()) if x.dtype == torch.float32
+                 else (wk.data_ptr(),))
+    partial = (torch.empty(rec.partial, dtype=torch.float32, device=x.device)
+               if rec.partial is not None else None)
+    args = (*rec.head, x.data_ptr(), *wptrs, b.data_ptr() if b is not None else None,
+            a.data_ptr(), y.data_ptr(), pre.data_ptr())
+    if rec.slot:
+        args += (partial.data_ptr() if partial is not None else None,)
+    if rec.index == _current_device():
+        err = rec.fn(*args, *rec.ints, _current_stream(rec.index))
+    else:
+        with torch.cuda.device(rec.index):
+            err = rec.fn(*args, *rec.ints, _current_stream(rec.index))
+    del wk
     if err != 0:
         raise RuntimeError(f"conv1d_prelu kernel launch failed ({route} route): "
                            f"cudaError {err}")
+    tc, tf32, wg, rows = rec.counts
     with _lock:
         launches += 1
-        if route != "fma":
-            launches_mma += 1
-            launches_tf32 += tf32
-            launches_wgmma += route == "wgmma"
+        launches_mma += tc
+        launches_tf32 += tf32
+        launches_wgmma += wg
+        launches_rows += rows
     return y, pre
 
 
@@ -524,12 +772,12 @@ def fused_conv1d_prelu(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tenso
     """(y, pre) = (PReLU(conv(x, w) + b, a), conv(x, w) + b).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or raise."""
-    t_out = _check(x, w, b, a, stride)
+    if x.is_cuda:
+        return _launch(x, w, b, a, stride)
+    _check(x, w, b, a, stride)
     if x.device.type == "cpu":
         return conv1d_prelu_plain(x, w, b, a, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_conv1d_prelu runs on cpu or cuda, not {x.device}")
-    return _launch(x, w, b, a, stride, t_out)
+    raise ValueError(f"fused_conv1d_prelu runs on cpu or cuda, not {x.device}")
 
 
 class Conv1dPReLU(torch.autograd.Function):
@@ -566,5 +814,12 @@ class Conv1dPReLU(torch.autograd.Function):
 
 def conv1d_prelu(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  a: torch.Tensor, stride: int = 4) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Differentiable fused conv + bias + PReLU; see the module docstring."""
+    """Differentiable fused conv + bias + PReLU; see the module docstring. Where autograd
+    records nothing (grad mode off, as under ``torch.inference_mode()``, or no input that
+    requires grad) it calls ``fused_conv1d_prelu`` itself: the same outputs, without the
+    ``autograd.Function``'s cost on every call."""
+    if not torch.is_grad_enabled() or not (
+            x.requires_grad or w.requires_grad or a.requires_grad
+            or (b is not None and b.requires_grad)):
+        return fused_conv1d_prelu(x, w, b, a, stride)
     return Conv1dPReLU.apply(x, w, b, a, stride)

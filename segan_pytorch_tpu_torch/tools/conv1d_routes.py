@@ -9,8 +9,8 @@ At each of the five encoder layers of B 16384-sample chunks, with x padded as G 
 (``ops/conv.py`` ``reflect_pad_pitched``), or with ``--stride 2`` at each of the eleven
 of the SEGAN v1 paper's Generator1D (K = 31, stride 2, 1 -> 16 ... 512 -> 1024 channels,
 x padded by (15, 15) as its blocks pad it, ``zero_pad_pitched``), every route that takes
-the shape ("wgmma",
-"mma", "fma"; fp32 on the tensor cores by 3xTF32) runs forced into NaN-filled outputs
+the shape ("rows",
+"wgmma", "mma", "fma"; fp32 on the tensor cores by 3xTF32) runs forced into NaN-filled outputs
 and is held against the plain version (2e-2 in bf16, 1e-4 in fp32), its launch read from
 the counters; then the routes,
 the plain version and cuDNN's ``F.conv1d`` (TF32 off) are timed in turns: CUDA events
@@ -20,11 +20,13 @@ of the host's time and the device's), the median and the interquartile range of
 ``--reps`` rounds after 2 warm-ups. It prints, per shape, each arm's time, the route the rule picks and the
 fastest one, the bound (useful FLOPs at the dense peak or bytes at 3.35 TB/s, whichever
 is longer) and the picked route's TFLOP/s; per batch the encoder sums of each route and
-of the rule's picks. ``--plans`` also times the dtype's wgmma kernel at its other block
-tiles and split-K counts, the plan ``_wgmma_plan`` gives among them, and the mma.sync
-kernel at its tiles and split counts (``_mma_plan``'s among them), each through the
-kernel's entry point, 10 calls back to back per timing (at these costs the device's
-time). Needs a CUDA device and nvcc.
+of the rule's picks. ``--plans`` also times, on the device alone (a CUDA graph of 10
+calls through the kernel's entry point, ``encoder_fused_bench.graph_ms``), the dtype's
+wgmma kernel at its other block tiles and split-K counts (the plan ``_wgmma_plan`` gives
+among them), the mma.sync kernel at its tiles and split counts (``_mma_plan``'s among
+them) and, in bf16 where the rows kernel takes the shape, its row tiles (the fewest of
+at most 64 rows, and 2, 4 and 8 times as many, of at least 8 rows) and clusters (1, 2, 4,
+8: its split-K slices; ``_rows_plan``'s among them). Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch.nn.functional as F
 from ..ops.conv import reflect_pad_pitched, zero_pad_pitched
 from ..ops.kernels import build
 from ..ops.kernels import conv1d_prelu as K
+from .encoder_fused_bench import graph_ms
 
 CHANS = [1, 64, 128, 256, 512, 1024]  # SEGAN+ encoder widths
 # Generator1D's encoder widths at the v1 paper's configuration (chip_smoke.py G1D_V1)
@@ -50,7 +53,7 @@ KW = 31
 PEAK = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}  # fp32: 3xTF32
 HBM_RATE = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-ROUTES = ("wgmma", "mma", "fma")
+ROUTES = ("rows", "wgmma", "mma", "fma")
 
 
 def times_in_turns(arms: Dict[str, Callable], reps: int, warmup: int = 2, calls: int = 1
@@ -82,13 +85,14 @@ def median_iqr(samples) -> tuple:
 
 def route_of(run: Callable) -> str:
     """The route one wrapper call took, read from the counters."""
-    before = (K.launches, K.launches_mma, K.launches_wgmma)
+    before = (K.launches, K.launches_mma, K.launches_wgmma, K.launches_rows)
     run()
     moved = (K.launches - before[0], K.launches_mma - before[1],
-             K.launches_wgmma - before[2])
+             K.launches_wgmma - before[2], K.launches_rows - before[3])
     if moved[0] != 1:
         raise RuntimeError(f"{moved[0]} launches, not 1")
-    return "wgmma" if moved[2] else ("mma" if moved[1] else "fma")
+    return ("rows" if moved[3] else "wgmma" if moved[2] else
+            ("mma" if moved[1] else "fma"))
 
 
 def rel_err(got, ref) -> float:
@@ -112,44 +116,81 @@ def layer_inputs(B: int, layer: int, dtype, g: torch.Generator, bias: bool = Fal
     return x, w, b, a, t_out
 
 
-def routes_of(dtype, cin: int, cout: int, stride: int, t_out: int) -> list:
+def routes_of(dtype, cin: int, cout: int, stride: int, t_out: int, B: int = 1) -> list:
     """The routes that take a layer shape with x in pitched rows."""
     return [r for r in ROUTES if r == "fma"
             or (r == "mma" and K._tensor_core_shape(dtype, cout, KW, stride, t_out))
-            or (r == "wgmma" and K._wgmma_shape(dtype, cin, cout, KW, stride, t_out, True))]
+            or (r == "wgmma" and K._wgmma_shape(dtype, cin, cout, KW, stride, t_out, True))
+            or (r == "rows" and K._rows_shape(dtype, cin, cout, KW, stride)
+                and K._rows_fits(B, cin, t_out))]
 
 
-def launch_plan(x, w, b, a, t_out, tiles: int, splits: int, out, stride: int = 4,
-                route: str = "wgmma"):
-    """The tensor-core kernel of `route` and x's dtype at a given block tile (wgmma:
-    m_tiles; mma: warps_m) and split-K count, through its entry point."""
+def plan_arm(x, w, b, a, t_out, tiles, splits, out, stride: int = 4,
+             route: str = "wgmma") -> Callable:
+    """A closure that launches the tensor-core kernel of `route` and x's dtype at a given
+    block tile (wgmma: m_tiles; mma: warps_m; rows: (n, rows_per_tile)) and split-K count
+    (rows: the cluster) through its entry point, into `out`: the weight copy, the split-K
+    workspace and the arguments made once, the stream read at each call, so that a CUDA
+    graph of its calls holds the kernel alone."""
     B, cin, t_in = x.shape
     cout = w.shape[0]
     fp32 = x.dtype == torch.float32
-    if route == "wgmma":  # fp32: the split pair both fp32 routes take; bf16: the permuted copy
-        fn = K._wgmma_entry(x.dtype)
-        wp = K._padded_weights(w) if fp32 else (K._permuted_weights(w),)
+    head = (x.data_ptr(),)
+    tail = (None if b is None else b.data_ptr(), a.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr())
+    part = None
+    if route == "rows":
+        fn, wp = K._rows_entries()[1], K._rows_weights(w)
+        args = head + (wp[2],) + tail + (*tiles, splits, B, cin, t_in, K._pitch(x), cout,
+                                         t_out)
     else:
-        fn = K._entries()[3 if fp32 else 2]
-        wp = K._padded_weights(w) if fp32 else (K._padded_weights(w),)
-    part = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
-    err = fn(x.data_ptr(), *(v.data_ptr() for v in wp), None if b is None else b.data_ptr(),
-             a.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-             None if part is None else part.data_ptr(), tiles, splits, B, cin, t_in,
-             K._pitch(x), cout, t_out, stride, torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{route} plan ({tiles}, {splits}): cudaError {err}")
-    return out
+        if route == "wgmma":  # fp32: the split pair both fp32 routes take; bf16: permuted
+            fn = K._wgmma_entry(x.dtype)
+            wp = K._padded_weights(w) if fp32 else (K._permuted_weights(w),)
+        else:
+            fn = K._entries()[3 if fp32 else 2]
+            wp = K._padded_weights(w) if fp32 else (K._padded_weights(w),)
+        part = (torch.empty((splits, B, cout, t_out), dtype=torch.float32, device=x.device)
+                if splits > 1 else None)
+        args = head + tuple(v.data_ptr() for v in wp) + tail + (
+            None if part is None else part.data_ptr(), tiles, splits, B, cin, t_in,
+            K._pitch(x), cout, t_out, stride)
+
+    def run():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{route} plan ({tiles}, {splits}): cudaError {err}")
+        return wp, part  # alive while the closure is
+
+    return run
 
 
-def plan_candidates(route: str, dtype, cin: int, plan) -> list:
+def rows_candidates(B: int, cin: int, t_out: int, plan) -> list:
+    """The rows kernel's ((n, rows_per_tile), cluster) plans `--plans` times: the fewest
+    row tiles of at most ROWS_TILE_ROWS and 2, 4 and 8 times as many (of at least 8 rows),
+    at each cluster whose shared memory fits; the rule's plan among them."""
+    rows = B * t_out
+    fewest = -(-rows // K.ROWS_TILE_ROWS)
+    out = {((plan[0], plan[1]), plan[2])}
+    for tiles in (fewest, 2 * fewest, 4 * fewest, 8 * fewest):
+        if tiles > fewest and -(-rows // tiles) < 8:
+            continue
+        n, per = K._rows_width(rows, tiles)
+        out |= {((n, per), c) for c in K.ROWS_CLUSTERS
+                if c <= max(1, cin // 2) and K._rows_smem(n, per, c, B, cin, t_out)
+                <= K.ROWS_MAX_SMEM}
+    return sorted(out)
+
+
+def plan_candidates(route: str, dtype, cin: int, plan, stride: int = 4) -> list:
     """The (tile, splits) plans `--plans` times for a route: wgmma's block tiles and 1-16
-    split-K slices of at least 4 channels, mma.sync's tiles of warps_m 1, 2, 4, 8 and 1-8
-    slices of at least MMA_MIN_SLICE channels; the rule's plan among them."""
+    split-K slices of at least 4 channels, mma.sync's tiles of warps_m 1, 2, 4 (and 8, which
+    the kernel has at stride 2 alone) and 1-8 slices of at least MMA_MIN_SLICE channels;
+    the rule's plan among them."""
     tiles, counts, least = ((K.WGMMA_TILES[dtype], (1, 2, 3, 4, 6, 8, 12, 16), 4)
-                            if route == "wgmma" else ((1, 2, 4, 8), (1, 2, 3, 4, 6, 8),
-                                                      K.MMA_MIN_SLICE))
+                            if route == "wgmma" else (
+                                (1, 2, 4, 8) if stride == 2 else (1, 2, 4),
+                                (1, 2, 3, 4, 6, 8), K.MMA_MIN_SLICE))
     return sorted({(t, n) for t in tiles for n in counts if n == 1 or -(-cin // n) >= least}
                   | {tuple(plan)})
 
@@ -168,7 +209,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     S = args.stride
     if not torch.cuda.is_available():
         raise RuntimeError("conv1d_routes needs a CUDA device")
-    names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32")
+    names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32", "conv1d_rows")
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source
         for name, (path, log) in zip(names, pool.map(build.build_library, names)):
             print(f"build: {name} -> {path}")
@@ -195,7 +236,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 shape = (B, cout, t_out)
                 y_ref, pre_ref = K.conv1d_prelu_plain(x, w, b, a, S)
                 pick = route_of(lambda: K.fused_conv1d_prelu(x, w, b, a, S))
-                routes = routes_of(dtype, cin, cout, S, t_out)
+                routes = routes_of(dtype, cin, cout, S, t_out, B)
                 errs = {}
                 for r in routes:
                     out = tuple(torch.full(shape, float("nan"), dtype=dtype, device="cuda")
@@ -210,30 +251,35 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                         for r in routes}
                 arms["plain"] = lambda: K.conv1d_prelu_plain(x, w, b, a, S)
                 arms["cuDNN"] = lambda: F.conv1d(x, w, b, stride=S)
-                for route in [r for r in ("wgmma", "mma") if args.plans and r in routes]:
-                    plan = (K._wgmma_plan(B, cin, cout, t_out, sms, dtype) if route == "wgmma"
-                            else K._mma_plan(B, cin, cout, t_out, sms, S, dtype))
+                for route in [r for r in ("rows", "wgmma", "mma") if args.plans and r in routes]:
+                    if route == "rows":
+                        rp = K._rows_plan(B, cin, cout, t_out, sms)
+                        plan, candidates = ((rp[0], rp[1]), rp[2]), rows_candidates(
+                            B, cin, t_out, rp)
+                    else:
+                        plan = (K._wgmma_plan(B, cin, cout, t_out, sms, dtype)
+                                if route == "wgmma"
+                                else K._mma_plan(B, cin, cout, t_out, sms, S, dtype))
+                        candidates = plan_candidates(route, dtype, cin, plan, S)
                     out = (torch.empty(shape, dtype=dtype, device="cuda"),
                            torch.empty(shape, dtype=dtype, device="cuda"))
                     plans = {}
-                    for tiles, splits in plan_candidates(route, dtype, cin, plan):
+                    for tiles, splits in candidates:
                         for o in out:
                             o.fill_(float("nan"))
-                        launch_plan(x, w, b, a, t_out, tiles, splits, out, S, route)
+                        plans[tiles, splits] = plan_arm(x, w, b, a, t_out, tiles, splits,
+                                                        out, S, route)
+                        plans[tiles, splits]()
                         torch.cuda.synchronize()
                         e = max(rel_err(out[0], y_ref), rel_err(out[1], pre_ref))
                         assert e <= TOL[dtype], (B, layer, route, tiles, splits, e)
-                        plans[tiles, splits] = (
-                            lambda t=tiles, n=splits, r=route: launch_plan(
-                                x, w, b, a, t_out, t, n, out, S, r))
-                    ptimes = {p: median_iqr(v)[0] for p, v in
-                              times_in_turns(plans, args.reps, calls=10).items()}
+                    ptimes = graph_ms(plans, calls=10, reps=args.reps)
                     best = min(ptimes, key=ptimes.get)
                     print(f"{dtype_name} B={B} enc{layer + 1} {route} plans (tile, splits), "
                           f"device ms: " + ", ".join(f"{p[0]},{p[1]} {v:.4f}"
                                                     for p, v in ptimes.items())
                           + f"; rule {plan[0]},{plan[1]} {ptimes[plan]:.4f}, best "
-                          f"{best[0]},{best[1]} {ptimes[best]:.4f}", flush=True)
+                          f"{best[0]},{best[1]} {ptimes[best]:.4f} ({smi})", flush=True)
                     res[dtype_name, B, layer, route, "plans"] = ptimes
                     regret.setdefault(route, [0.0, 0.0])
                     regret[route][0] += ptimes[plan]

@@ -186,13 +186,15 @@ def test_mma_taps_cover_the_padded_taps():
 @pytest.mark.parametrize("B", [1, 8, 64, 300])
 @pytest.mark.parametrize("layer", range(5), ids=[f"enc{i + 1}" for i in range(5)])
 def test_main_path_takes_the_mma_route(B, layer):
-    """x in contiguous rows (an odd T_in): mma.sync, but for enc1's FMA rows."""
+    """x in contiguous rows (an odd T_in): mma.sync, but for enc1's FMA rows and the rows
+    route's few-row layers (test_torch_conv1d_rows.py)."""
     _, cin, t_in, cout = _main_path(B, layer)
     t_out = (t_in - KW) // 4 + 1
     assert t_out == T // 4 ** (layer + 1)
     enc1_fma = layer == 0 and B * t_out < K.ENC1_MMA_MIN_ROWS[torch.bfloat16]
+    few_rows = layer > 0 and B == 1 and B * t_out <= K.ROWS_MAX_ROWS
     assert K._route(torch.bfloat16, B, cin, cout, KW, 4, t_out) == (
-        "fma" if enc1_fma else "mma")
+        "fma" if enc1_fma else "rows" if few_rows else "mma")
     warps_m, splits = K._mma_plan(B, cin, cout, t_out, H100_SMS)
     assert warps_m == {64: 4, 128: 2}.get(cout, 1)
     per = -(-cin // splits)
@@ -239,7 +241,7 @@ def test_mma_route_refuses_unaligned_outputs():
     out = (buf[1:1 + 1024 * 16].view(1, 1024, 16), buf[:1024 * 16].view(1, 1024, 16))
     before = (K.launches, K.launches_mma)
     with pytest.raises(ValueError, match="16-byte"):
-        K._launch(x, w, None, a, 4, 16, out=out)
+        K._launch(x, w, None, a, 4, 16, out=out, force="mma")
     assert (K.launches, K.launches_mma) == before
 
 

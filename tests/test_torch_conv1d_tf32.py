@@ -12,7 +12,6 @@ warps' tiles) is held against the plain version at full SEGAN+ width and against
 Pallas kernel in interpret mode. On the card chip_smoke.py holds the kernel itself
 against the plain version and, at enc5, against float64.
 """
-import contextlib
 import re
 
 import numpy as np
@@ -353,22 +352,21 @@ class _FakeLib:
         return call
 
 
-@pytest.mark.parametrize("dtype,entry", [(torch.float32, "tf32"), (torch.bfloat16, "mma")])
+@pytest.mark.parametrize("dtype,entry", [(torch.float32, "tf32"), (torch.bfloat16, "rows")])
 def test_launch_dispatches_by_dtype_and_counts(monkeypatch, dtype, entry):
     """Without a card: the wrapper's dispatch with the library replaced. fp32 main-path
     shapes call the 3xTF32 entry with both parts of the split weights and count in
-    launches, launches_mma and launches_tf32; bf16 calls its own entry; force="fma" the
-    FMA kernel."""
+    launches, launches_mma and launches_tf32; bf16 (16 rows) calls the rows entry with
+    its weights' tensor map; force="fma" the FMA kernel."""
     lib = _FakeLib()
     monkeypatch.setattr(K, "_entries", lambda: tuple(
         lib.entry(n) for n in ("fma", "splits", "mma", "tf32")))
+    monkeypatch.setattr(K, "_rows_entries", lambda: (lib.entry("rows_encode"),
+                                                      lib.entry("rows")))
     monkeypatch.setattr(K, "_sm_count", lambda index: H100_SMS)
-
-    class _Stream:
-        cuda_stream = 0
-
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
+    monkeypatch.setattr(K, "_records", {})  # records hold the entry points they call
+    monkeypatch.setattr(K, "_current_device", lambda: None)  # x's index on the CPU
+    monkeypatch.setattr(K, "_current_stream", lambda index: 0)
     x, w, _, a = (torch.from_numpy(v).to(dtype) if v is not None else None
                   for v in _inputs(*_main_path(1, 4), seed=2))
     before = (K.launches, K.launches_mma, K.launches_tf32)
@@ -383,7 +381,9 @@ def test_launch_dispatches_by_dtype_and_counts(monkeypatch, dtype, entry):
         assert args[1:3] == (wp[0].data_ptr(), wp[1].data_ptr())
         assert args[8:10] == K._mma_plan(1, 512, 1024, 16, H100_SMS)
     else:
-        assert args[1] == wp.data_ptr()
+        assert args[1] == K._rows_weights(w)[2]
+        assert torch.equal(K._rows_weights(w)[0], K._rows_tiles(w))
+        assert args[6:9] == K._rows_plan(1, 512, 1024, 16, H100_SMS)
     lib.calls.clear()
     K._launch(x, w, None, a, 4, 16, force="fma")
     assert [n for n, _ in lib.calls] == ["splits", "fma"]

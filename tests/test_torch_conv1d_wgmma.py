@@ -12,7 +12,6 @@ kernel in interpret mode. On the card chip_smoke.py holds the kernel itself agai
 plain version. Small-row shapes keep mma.sync, whose emulation is
 tests/test_torch_conv1d_mma.py's.
 """
-import contextlib
 import gc
 import re
 
@@ -344,6 +343,8 @@ def _expected_route(dtype, B, layer, pitched=True):
     rows = B * t_out
     if layer == 0:
         return "mma" if rows >= K.ENC1_MMA_MIN_ROWS[dtype] else "fma"
+    if dtype == torch.bfloat16 and B == 1 and rows <= K.ROWS_MAX_ROWS:
+        return "rows"
     if pitched and (rows >= K.WGMMA_MIN_ROWS[dtype]
                     or rows * cout * cin >= K.WGMMA_MIN_WORK[dtype]):
         return "wgmma"
@@ -372,14 +373,15 @@ def test_route_rule_at_every_main_path_shape(B, layer):
 def test_route_rule_pins():
     """The thresholds the rule's docstring states, and what they give: G's bf16 encoder
     from 32 chunks on wgmma from enc2 on, below it where a layer has 1024 rows (enc2 from
-    one chunk, enc3 from 4, enc4 from 16), mma.sync elsewhere; G's fp32 encoder on wgmma
+    one chunk, enc3 from 4, enc4 from 16), on the rows route at one chunk (enc3-5: up to
+    ROWS_MAX_ROWS rows of one batch row), mma.sync elsewhere; G's fp32 encoder on wgmma
     from enc2 on from 4 chunks, on mma.sync below; enc1 on the FMA kernel up to 16 chunks
     in bf16 and 32 in fp32, on mma.sync from 32 and 64."""
     assert (K.WGMMA_MIN_ROWS, K.WGMMA_MIN_WORK) == (
         {torch.bfloat16: 1 << 10, torch.float32: 1 << 13},
         {torch.bfloat16: 1 << 28, torch.float32: 1 << 25})
     assert K.ENC1_MMA_MIN_ROWS == {torch.bfloat16: 1 << 17, torch.float32: 1 << 18}
-    want = {1: ["wgmma", "mma", "mma", "mma"], 4: ["wgmma", "wgmma", "mma", "mma"],
+    want = {1: ["wgmma", "rows", "rows", "rows"], 4: ["wgmma", "wgmma", "mma", "mma"],
             8: ["wgmma", "wgmma", "mma", "mma"], 16: ["wgmma", "wgmma", "wgmma", "mma"],
             32: ["wgmma"] * 4, 64: ["wgmma"] * 4, 300: ["wgmma"] * 4}
     for B, routes in want.items():
@@ -411,13 +413,12 @@ def fake_lib(monkeypatch):
         lib.entry(n) for n in ("fma", "splits", "mma", "tf32")))
     monkeypatch.setattr(K, "_wgmma_entry", lambda dtype=torch.bfloat16: lib.entry(
         "wgmma_tf32" if dtype == torch.float32 else "wgmma"))
+    monkeypatch.setattr(K, "_rows_entries", lambda: (lib.entry("rows_encode"),
+                                                      lib.entry("rows")))
     monkeypatch.setattr(K, "_sm_count", lambda index: H100_SMS)
-
-    class _Stream:
-        cuda_stream = 0
-
-    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: _Stream())
+    monkeypatch.setattr(K, "_records", {})  # records hold the entry points they call
+    monkeypatch.setattr(K, "_current_device", lambda: None)  # x's index on the CPU
+    monkeypatch.setattr(K, "_current_stream", lambda index: 0)
     return lib
 
 
