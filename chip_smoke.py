@@ -6,9 +6,10 @@
 Phases, each fatal on failure (no CPU fallback; it exits non-zero without a CUDA card
 and when the port's package is not beside it):
   1. device facts: torch, nvcc and nvidia-smi (card name and power limit);
-  2. build the six hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
+  2. build the seven hand-written kernel sources from segan_pytorch_tpu_torch/csrc/
      (conv1d_prelu.cu, conv1d_wgmma.cu, conv1d_wgmma_tf32.cu, encoder_fused.cu,
-     encoder_fused_wgmma.cu, conv1d_rows.cu), one nvcc each (ptxas -v: registers and spills), and the host
+     encoder_fused_wgmma.cu, conv1d_rows.cu, encoder_fused_wgmma_tf32.cu), one nvcc each
+     (ptxas -v: registers and spills), and the host
      libraries of native/ (the wav gather and the P.862 scorer), one
      g++ each, all started together;
   3. the per-layer kernel (fused_conv1d_prelu) vs its plain PyTorch version on the card,
@@ -40,33 +41,37 @@ and when the port's package is not beside it):
      time, and fp32, chosen and mma.sync, no more than the FMA route; at no bf16 shape
      where the rule picks another route than mma.sync may a call back to back be slower
      than mma.sync's by more than their spread;
-  3b. the chained kernel (fused_enc23_fwd: fp32 on the tensor cores by 3xTF32 where C2
-     and C3 are multiples of 8, else on FMAs; bf16 on wgmma at SEGAN+'s widths from one
-     chunk's enc3 rows, else on mma.sync) vs enc23_plain, into NaN-filled outputs, at the
+  3b. the chained kernel (fused_enc23_fwd: at SEGAN+'s widths from one chunk's enc3 rows
+     on wgmma, fp32 by 3xTF32 with enc3's depth over a cluster of 1, 2 or 4 blocks by
+     batch; else fp32 on mma.sync by 3xTF32 where C2 and C3 are multiples of 8, else on
+     FMAs, and bf16 on mma.sync) vs enc23_plain, into NaN-filled outputs, at the
      SEGAN+ enc2+enc3 widths (h1 (B, 64, 4096) -> 128 -> 256) for B = 1, 8, 37, 64 and
      300 and 8 with bias, at those widths with T1 = 64 (both reflected ends in one tile),
      1168 (a ragged last tile, T3 % 8 != 0) and 3200 (ragged, T3 % 8 == 0), with and
      without bias, and at two narrow odd shapes, in fp32 and bf16 with the same limits,
      each route and tile read from the counters: fp32 on the route and tile the wrapper
-     picks, then at tiles 16 and 32 and on the FMA kernel forced; bf16 on the route
-     _route picks, then on the other one forced where it takes the shape; at B = 300
-     also vs the per-layer kernel chain in pitched rows (bf16, both layers on wgmma: pre2
-     bit for bit, pre3 and post3 within the limit, as enc3's depth is summed in another
-     order) and fp32 pre3 vs a float64 chain (<= 1e-4). Times in turns at B = 1, 8, 64
-     and 300 of the A/B tool's three arms, fp32 at both tiles and on the FMA kernel
-     forced, bf16 on mma.sync forced, and cuDNN's two convs alone; in fp32 at B >= 8 the
-     tensor cores must take no more time than the FMA kernel. bf16 device times at B =
-     1, 64 and 300 (CUDA graphs of 10 calls through the C entry points: the chained
+     picks, then on the wgmma kernel at each cluster size where it takes the shape
+     (every SEGAN+-width case), on enc23_tf32_kernel at tiles 16 and 32 and on the FMA
+     kernel forced; bf16 on the route _route picks, then on the other one forced where it
+     takes the shape; at B = 300 also vs the per-layer kernel chain in pitched rows
+     (bf16, both layers on wgmma: pre2 bit for bit, pre3 and post3 within the limit, as
+     enc3's depth is summed in another order) and fp32 pre3 of both 3xTF32 kernels vs a
+     float64 chain (<= 1e-4). Times in turns at B = 1, 8, 64 and 300 of the A/B tool's
+     three arms, fp32 on enc23_tf32_kernel at both tiles and on the FMA kernel forced,
+     bf16 on mma.sync forced, and cuDNN's two convs alone; in fp32 at B >= 8 the tensor
+     cores must take no more time than the FMA kernel. Device times at B = 1, 64 and 300
+     in both dtypes (CUDA graphs of 10 calls through the C entry points: the chained
      kernel on wgmma and on mma.sync, the pitched per-layer pair with its pads, cuDNN's
-     two convs): at 64 and 300 the wgmma kernel must beat mma.sync's. An fp32 call with
+     two convs): at 64 and 300 the bf16 wgmma kernel must beat mma.sync's, and wherever
+     the rule sends an fp32 call to the wgmma kernel it must beat enc23_tf32_kernel's. An fp32 call with
      C3 = 36 must take the FMA kernel and be right; a bf16 one must raise ValueError
      (whole n8 tiles) and launch nothing. Both fp32 tiles in turns at B = 16 and 32, on
      either side of where the tile rule switches;
   3c. the A/B tool (python -m segan_pytorch_tpu_torch.tools.encoder_fused_bench) at its
      defaults, batch 300 bf16, then with --dtype float32: both kernels must launch in it,
-     the chained kernel on wgmma in bf16 and on the 3xTF32 route at tile 32 in fp32, the
-     per-layer kernel (kernel x2, in pitched rows) on wgmma in both, and agree with the
-     plain chain within 2e-2 and 1e-4;
+     the chained kernel on wgmma in both dtypes (fp32 by 3xTF32) and forced onto mma.sync
+     (fp32 enc23_tf32_kernel at tile 32), the per-layer kernel (kernel x2, in pitched
+     rows) on wgmma in both, and agree with the plain chain within 2e-2 and 1e-4;
   3d. the TF32 policy: with cuDNN's TF32 on process-wide, a bare fp32 GDeconv1DBlock and
      Conv1dPReLU's backward convs on the card vs float64 on the CPU (<= 1e-4); the
      deconv's error with the ops' policy bypassed is printed beside it;
@@ -348,9 +353,11 @@ g1d_launches_per_forward and g1d_device_ms its launches in phase 13's Generator1
 and their layers' device ms at stride 2 (13b), and the same of
 fused_conv1d_prelu_wgmma_tf32 (the fp32 wgmma route) in fp32 (train_launches 5c's fp32
 steps');
-launches of fused_enc23_fwd (encoder_fused.cu) from phase 3c, launches_tf32 those of its
-fp32 run, its times the tool's at batch 300 in fp32, library_ms cuDNN's two convs from
-phase 3b, bf16_mma_ms and bf16_mma_device_ms enc23_mma_kernel forced at batch 300 (3b);
+launches of fused_enc23_fwd (encoder_fused.cu) from phase 3c, the tool's chained calls
+forced onto mma.sync (launches_tf32 those of its fp32 run, enc23_tf32_kernel), its times
+that arm's at batch 300 in fp32 (device_ms from 3b's CUDA graphs), library_ms cuDNN's two
+convs from phase 3b, bf16_mma_ms and bf16_mma_device_ms enc23_mma_kernel forced at batch
+300 (3b);
 launches of fused_enc23_fwd_wgmma (encoder_fused_wgmma.cu, the bf16 wgmma route) from phase
 3c, its times the tool's at batch 300 in bf16, device_ms and those of the other arms
 (mma_, kernel_x2_, library_) at batch 300, 64 (b64_) and 1 (b1_) from 3b's CUDA graphs;
@@ -359,6 +366,12 @@ bf16 runs (serve_ and reload_launches those of phases 8 and 9), its times one ch
 enc3-5 summed from phase 3 (ms a call in turns, device_ms and replaced_device_ms 10
 launches back to back of it and of mma.sync, call_ms and replaced_call_ms 5 calls back
 to back), its max_abs_err the worst over phase 3's rows shapes;
+launches of fused_enc23_fwd_wgmma_tf32 (encoder_fused_wgmma_tf32.cu, the fp32 wgmma
+route) from phase 3c, its times the tool's at batch 300 in fp32 (tf32_ms enc23_tf32_kernel
+forced, kernel_x2_ms the pitched per-layer pair), b1_ and b64_ the calls in turns at 1 and
+64 chunks (ms, tf32_ms, plain_ms, library_ms, bound_ms; 3b), device_ms and those of the
+other arms (tf32_, kernel_x2_, library_) at batch 300, 64 (b64_) and 1 (b1_) from 3b's
+CUDA graphs;
 the last is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -401,6 +414,9 @@ KERNELS = [  # the fixed fields of the kernels line, in its order
     dict(name="fused_conv1d_prelu_rows", route="cuda",
          source="segan_pytorch_tpu_torch/csrc/conv1d_rows.cu",
          replaces="segan_pytorch_tpu/ops/pallas/conv1d.py:127"),
+    dict(name="fused_enc23_fwd_wgmma_tf32", route="cuda",
+         source="segan_pytorch_tpu_torch/csrc/encoder_fused_wgmma_tf32.cu",
+         replaces="segan_pytorch_tpu/ops/pallas/encoder_fused.py:112"),
 ]
 
 
@@ -446,7 +462,7 @@ def phase_build():
     from segan_pytorch_tpu_torch.ops.kernels import build
 
     names = ("conv1d_prelu", "conv1d_wgmma", "conv1d_wgmma_tf32", "encoder_fused",
-             "encoder_fused_wgmma", "conv1d_rows")
+             "encoder_fused_wgmma", "conv1d_rows", "encoder_fused_wgmma_tf32")
     hosts = ("segan_io", "pesq862")  # the C++ wav gather and P.862 scorer of native/
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + len(hosts)) as pool:  # one compiler per source
@@ -1000,13 +1016,15 @@ def phase_kernel():
 
 def phase_enc23():
     """The chained kernel vs enc23_plain on the card, into NaN-filled outputs, each route
-    read from its counters: fp32 on the 3xTF32 tensor cores at both tiles and on the FMA
-    kernel forced, bf16 on the route _route picks and on the other one forced (wgmma and
-    mma.sync); at B = 300 also vs the per-layer kernel chain in pitched rows (bf16: pre2
-    bit for bit) and fp32 pre3 vs a float64 chain. Times in turns, and in bf16 at B = 1,
-    64 and 300 the device alone (CUDA graphs of 10 calls through the C entry points).
-    Returns the max abs errors at the SEGAN+ widths, the B = 300 times for the kernels
-    line and the bf16 device times by batch."""
+    read from its counters: fp32 on the route _route picks, then on the wgmma kernel at
+    each cluster size where it takes the shape, on enc23_tf32_kernel at both tiles and on
+    the FMA kernel forced; bf16 on the route _route picks and on the other one forced
+    (wgmma and mma.sync); at B = 300 also vs the per-layer kernel chain in pitched rows
+    (bf16: pre2 bit for bit) and fp32 pre3 of both 3xTF32 kernels vs a float64 chain.
+    Times in turns, and at B = 1, 64 and 300 the device alone (CUDA graphs of 10 calls
+    through the C entry points). Returns the max abs errors at the SEGAN+ widths (fp32 of
+    the rule's route and of enc23_tf32_kernel forced), the times in turns and the device
+    times, each by dtype and batch."""
     import torch
     import torch.nn.functional as F
     from segan_pytorch_tpu_torch.ops.conv import reflect_pad_1d
@@ -1035,10 +1053,11 @@ def phase_enc23():
     ]
     timed = ("B=1", "B=8", "B=64", "B=300")
     device_timed = ("B=1", "B=64", "B=300")
-    max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    at300, device = {}, {}
+    max_abs = {torch.float32: 0.0, torch.bfloat16: 0.0, "tf32 forced": 0.0}
+    timed_ms = {torch.float32: {}, torch.bfloat16: {}}
+    device = {torch.float32: {}, torch.bfloat16: {}}
     counters = lambda: (EF.launches, EF.launches_tf32, EF.launches_tile16,
-                        EF.launches_wgmma)
+                        EF.launches_wgmma, EF.launches_wgmma_tf32)
     start = counters()
 
     def launched(run, want):
@@ -1047,12 +1066,13 @@ def phase_enc23():
         out = run()
         torch.cuda.synchronize()
         moved = tuple(n - b for n, b in zip(counters(), before))
-        assert moved == want, (f"launches (all, tf32, tile 16, wgmma) moved by {moved}, "
-                               f"not {want}")
+        assert moved == want, (f"launches (all, tf32, tile 16, wgmma, wgmma_tf32) moved "
+                               f"by {moved}, not {want}")
         return out
 
-    want_of = {"tf32": lambda t: (1, 1, int(t == 16), 0), "fma": lambda t: (1, 0, 0, 0),
-               "mma": lambda t: (1, 0, 0, 0), "wgmma": lambda t: (1, 0, 0, 1)}
+    want_of = {"tf32": lambda t: (1, 1, int(t == 16), 0, 0),
+               "fma": lambda t: (1, 0, 0, 0, 0), "mma": lambda t: (1, 0, 0, 0, 0),
+               "wgmma": lambda t: (1, 0, 0, 1, 0), "wgmma_tf32": lambda t: (1, 0, 0, 0, 1)}
     for label, b, t1, c1, c2, c3, has_bias, full in cases:
         h1 = torch.randn((b, c1, t1), generator=g).cuda()
         w2 = (torch.randn((c2, c1, EF.K), generator=g) / (c1 * EF.K) ** 0.5).cuda()
@@ -1067,11 +1087,11 @@ def phase_enc23():
             shapes = [(b, c2, t1 // 4), (b, c3, t1 // 16), (b, c3, t1 // 16)]
             fp32 = dtype == torch.float32
             nan_out = lambda: nan_outputs(*shapes, dtype=dtype)
-            # the route that _route picks: fp32 on the 3xTF32 kernel at the tile by batch,
-            # bf16 on wgmma at the SEGAN+ widths from WGMMA_MIN_ROWS enc3 rows
+            # the route that _route picks: at the SEGAN+ widths from one chunk's enc3 rows
+            # wgmma (fp32 by 3xTF32), else mma.sync (fp32 by 3xTF32 at the tile by batch)
             route = EF._route(dtype, c2, c3, b * (t1 // 16), args[0].data_ptr() % 16 == 0)
             tile = EF._tf32_tile(b, t1, sms) if route == "tf32" else (
-                EF.WGMMA_TILE if route == "wgmma" else 32)
+                EF.WGMMA_TILE if route in ("wgmma", "wgmma_tf32") else 32)
             got = launched(lambda: EF._launch(*args, out=nan_out()), want_of[route](tile))
             ref = EF.enc23_plain(*args)
             err = worst(rel_err(o, r) for o, r in zip(got, ref))
@@ -1080,11 +1100,24 @@ def phase_enc23():
                 max_abs[dtype] = worst([max_abs[dtype]] + [float((o - r).abs().max())
                                                            for o, r in zip(got, ref)])
             errs = {}
-            if fp32:  # both tiles, then the FMA kernel forced
+            if fp32:  # the wgmma kernel at each cluster, both tiles of mma.sync, FMAs
+                if EF._wgmma_shape(dtype, c2, c3, True):
+                    for cl in EF.WGMMA_TF32_CLUSTERS:
+                        o = launched(lambda: EF._launch(*args, force="wgmma_tf32", cluster=cl,
+                                                        out=nan_out()),
+                                     want_of["wgmma_tf32"](0))
+                        errs[f"CL{cl}"] = worst(rel_err(v, r) for v, r in zip(o, ref))
                 for t in (16, 32):
-                    o = launched(lambda: EF._launch(*args, tile=t, out=nan_out()),
+                    o = launched(lambda: EF._launch(*args, force="tf32", tile=t,
+                                                    out=nan_out()),
                                  want_of["tf32"](t))
                     errs[f"tile {t}"] = worst(rel_err(v, r) for v, r in zip(o, ref))
+                    if full:
+                        max_abs["tf32 forced"] = worst(
+                            [max_abs["tf32 forced"]] + [float((v - w).abs().max())
+                                                        for v, w in zip(o, ref)])
+                    if t == EF._tf32_tile(b, t1, sms):
+                        forced_tf32 = o  # enc23_tf32_kernel at the tile its rule picks
                 o = launched(lambda: EF._launch(*args, force="fma", out=nan_out()),
                              want_of["fma"](0))
                 errs["fma"] = worst(rel_err(v, r) for v, r in zip(o, ref))
@@ -1111,15 +1144,20 @@ def phase_enc23():
                           f"{diffs[2]:.3e}; pre2 bit for bit {torch.equal(got[0], x2[0])}")
                     assert route != "wgmma" or torch.equal(got[0], x2[0]), diffs
                 del x2
-                if fp32:  # the deepest sum, pre3, against a float64 chain
+                if fp32:  # the deepest sum, pre3, of both 3xTF32 kernels against float64
                     ref64 = EF.enc23_plain(*[v.double() if v is not None else None
                                              for v in args])
                     errs["f64"] = rel_err(got[1], ref64[1])
+                    errs["f64 tf32"] = rel_err(forced_tf32[1], ref64[1])
                     e_plain = rel_err(ref[1], ref64[1])
                     del ref64
                     print(f"{label}: fp32 pre3 vs a float64 chain: rel err {errs['f64']:.3e} "
-                          f"(the plain chain {e_plain:.3e})")
+                          f"on {route}, {errs['f64 tf32']:.3e} on enc23_tf32_kernel (the "
+                          f"plain chain {e_plain:.3e})")
                     assert errs["f64"] <= FP32_TOL, f"{label}: pre3 vs float64 {errs['f64']}"
+                    assert errs["f64 tf32"] <= FP32_TOL, (label, errs["f64 tf32"])
+            if fp32:
+                del forced_tf32
             del got, ref
             print(f"{label:>20} {str(dtype)[6:]:>8} {route:>5} {tile:>2} | rel err {err:.2e}"
                   + "".join(f", {k} {v:.2e}" for k, v in errs.items()), flush=True)
@@ -1133,7 +1171,7 @@ def phase_enc23():
             arms = {name: lambda arm=arm: arm(*args) for name, arm in bench.ARMS.items()}
             if fp32:
                 for t in (16, 32):
-                    arms[f"tile {t}"] = lambda t=t: EF._launch(*args, tile=t)
+                    arms[f"tile {t}"] = lambda t=t: EF._launch(*args, force="tf32", tile=t)
                 arms["fma"] = lambda: EF._launch(*args, force="fma")
             elif route == "wgmma":
                 arms["mma.sync"] = lambda: EF._launch(*args, force="mma")
@@ -1148,23 +1186,26 @@ def phase_enc23():
                            else bound_ms(flops, nbytes, BF16_PEAK))
             print(f"{label:>20} {str(dtype)[6:]:>8} ms: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+            if fp32:  # enc23_tf32_kernel at the tile its rule picks
+                ms["tf32"] = ms[f"tile {EF._tf32_tile(b, t1, sms)}"]
             if fp32 and b >= 8:  # the tensor cores no slower than the FMA kernel forced
                 assert ms["fused 2+3"] <= ms["fma"], (label, ms)
-            if not fp32 and label in device_timed:
-                device[b] = bench.graph_ms(bench.device_arms(*args), reps=6)
-                device[b]["bound"] = ms["bound"]
-                print(f"{label:>20} bf16 device ms: " + ", ".join(
-                    f"{k} {v:.4f}" for k, v in device[b].items()), flush=True)
-                if b >= 64:  # the wgmma kernel ahead of its predecessor on the device
-                    assert device[b]["fused wgmma"] < device[b]["fused mma.sync"], device[b]
-            if b == 300:
-                at300[dtype] = ms
+            if label in device_timed:
+                dev = device[dtype][b] = bench.graph_ms(bench.device_arms(*args), reps=6)
+                dev["bound"] = ms["bound"]
+                print(f"{label:>20} {str(dtype)[6:]:>8} device ms: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in dev.items()), flush=True)
+                if not fp32 and b >= 64:  # the bf16 wgmma kernel ahead of mma.sync's
+                    assert dev["fused wgmma"] < dev["fused mma.sync"], dev
+                if route == "wgmma_tf32":  # where the rule sends fp32: ahead of mma.sync's
+                    assert dev["fused wgmma_tf32"] < dev["fused tf32"], dev
+            timed_ms[dtype][b] = ms
     # fp32 C3 = 36 (not whole n8 tiles) takes the FMA kernel, and is right
     odd = [(torch.randn(s, generator=g) * 0.1).cuda()
            for s in ((2, 5, 128), (24, 5, EF.K), (24,), (24,), (36, 24, EF.K), (36,), (36,))]
     shapes = [(2, 24, 32), (2, 36, 8), (2, 36, 8)]
     got = launched(lambda: EF._launch(*odd, out=nan_outputs(*shapes, dtype=torch.float32)),
-                   (1, 0, 0, 0))
+                   (1, 0, 0, 0, 0))
     err = worst(rel_err(o, r) for o, r in zip(got, EF.enc23_plain(*odd)))
     print(f"fp32 C3 = 36: FMA kernel, rel err {err:.2e}")
     assert err <= FP32_TOL, f"fp32 C3 = 36 vs plain rel err {err:.3e}"
@@ -1177,23 +1218,24 @@ def phase_enc23():
     else:
         raise AssertionError("the bf16 kernel took C3 = 36, which is not whole n8 tiles")
     assert counters() == before, "a refused call launched the kernel"
-    print("chained kernel launches in phase 3b (all, 3xTF32, of those at tile 16, wgmma): "
-          f"{tuple(n - b for n, b in zip(counters(), start))}")
+    print("chained kernel launches in phase 3b (all, mma.sync 3xTF32, of those at tile 16, "
+          f"wgmma, wgmma 3xTF32): {tuple(n - b for n, b in zip(counters(), start))}")
     # where the tile rule switches: both fp32 tiles in turns on either side of B * 8 = SMs
     for b in (16, 32):
         args = bench.make_inputs(b, dtype=torch.float32, device="cuda")
-        ms = bench.ms_in_turns({t: lambda t=t: EF._launch(*args, tile=t) for t in (16, 32)},
-                               reps=10, warmup=2)
+        ms = bench.ms_in_turns({t: lambda t=t: EF._launch(*args, force="tf32", tile=t)
+                                for t in (16, 32)}, reps=10, warmup=2)
         print(f"fp32 tiles at B={b}: 16 {ms[16]:.4f} ms, 32 {ms[32]:.4f} ms; the rule takes "
               f"{EF._tf32_tile(b, 4096, sms)}", flush=True)
-    return max_abs, at300, device
+    return max_abs, timed_ms, device
 
 
 def phase_tool():
     """The A/B tool at its defaults (batch 300, bf16: the chained kernel on wgmma, kernel
-    x2 in pitched rows on the per-layer wgmma route), then in fp32 (the 3xTF32 routes),
-    the path of the chained kernel. Returns its results by dtype and the launches of both
-    kernels in it."""
+    x2 in pitched rows on the per-layer wgmma route), then in fp32 (the chained kernel on
+    its fp32 wgmma route, the per-layer pair on wgmma by 3xTF32), each beside the chained
+    kernel forced onto mma.sync: the path of the chained kernel. Returns its results by
+    dtype and the launches of both kernels in it."""
     import torch
     from segan_pytorch_tpu_torch.ops.kernels import conv1d_prelu as K
     from segan_pytorch_tpu_torch.ops.kernels import encoder_fused as EF
@@ -1201,6 +1243,7 @@ def phase_tool():
 
     K.launches = K.launches_mma = K.launches_tf32 = K.launches_wgmma = K.launches_rows = 0
     EF.launches = EF.launches_tf32 = EF.launches_tile16 = EF.launches_wgmma = 0
+    EF.launches_wgmma_tf32 = 0
     res = {"bfloat16": bench.main([])}
     torch.cuda.synchronize()
     bf16 = {"fused_conv1d_prelu": K.launches, "fused_conv1d_prelu wgmma": K.launches_wgmma,
@@ -1209,19 +1252,24 @@ def phase_tool():
     torch.cuda.synchronize()
     counts = {"fused_conv1d_prelu": K.launches, "fused_enc23_fwd": EF.launches,
               "fused_enc23_fwd tf32": EF.launches_tf32,
-              "fused_enc23_fwd wgmma": EF.launches_wgmma}
+              "fused_enc23_fwd wgmma": EF.launches_wgmma,
+              "fused_enc23_fwd wgmma_tf32": EF.launches_wgmma_tf32,
+              "fused_enc23_fwd mma.sync": EF.launches - EF.launches_wgmma
+              - EF.launches_wgmma_tf32}
     print(f"kernel launches in the A/B tool: {counts}; in its bf16 run {bf16}; "
           f"{K.launches_mma} of the per-layer kernel's on the tensor cores, "
           f"{K.launches_wgmma} on wgmma")
     assert all(n > 0 for n in counts.values()), counts
     assert K.launches_wgmma == K.launches, "kernel x2 left wgmma at 300 chunks"
-    assert bf16["fused_enc23_fwd wgmma"] == bf16["fused_enc23_fwd"] == counts[
-        "fused_enc23_fwd wgmma"], "the bf16 chained kernel left wgmma at batch 300"
-    assert counts["fused_enc23_fwd"] == bf16["fused_enc23_fwd"] + counts[
-        "fused_enc23_fwd tf32"] and EF.launches_tile16 == 0, "fp32 off 3xTF32 at tile 32"
-    assert (res["bfloat16"]["route"], res["float32"]["route"]) == ("wgmma", "tf32"), res
-    assert all(e <= BF16_TOL for e in res["bfloat16"]["rel"].values()), res["bfloat16"]
-    assert all(e <= FP32_TOL for e in res["float32"]["rel"].values()), res["float32"]
+    assert bf16["fused_enc23_fwd wgmma"] == counts["fused_enc23_fwd wgmma"] > 0 and bf16[
+        "fused_enc23_fwd"] > bf16["fused_enc23_fwd wgmma"], "bf16: wgmma and mma.sync forced"
+    assert counts["fused_enc23_fwd mma.sync"] == bf16["fused_enc23_fwd"] - bf16[
+        "fused_enc23_fwd wgmma"] + counts["fused_enc23_fwd tf32"], "fp32 left its routes"
+    assert EF.launches_tile16 == 0, "fp32 mma.sync forced off tile 32 at 300 chunks"
+    assert (res["bfloat16"]["route"], res["float32"]["route"]) == ("wgmma", "wgmma_tf32"), res
+    for dtype, tol in (("bfloat16", BF16_TOL), ("float32", FP32_TOL)):
+        r = res[dtype]
+        assert all(e <= tol for e in r["rel"].values()) and r["rel_mma"] <= tol, r
     return res, counts
 
 
@@ -6056,7 +6104,9 @@ def main():
     # the tool's shapes, batch 300 with biases; cuDNN's two convs and the FMA kernel
     # forced at batch 300 from phase 3b
     flops, nbytes = enc23_work(300, 4096, 64, 128, 256, True, 2)
-    bf16, fp32 = (enc23_ms[torch.bfloat16], enc23_ms[torch.float32])
+    bf16, fp32 = (enc23_ms[torch.bfloat16][300], enc23_ms[torch.float32][300])
+    bound_fp32 = min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
+                     bound_ms(3 * flops, 2 * nbytes, TF32_PEAK))
     measured = [
         dict(launches=launches, launches_mma=launches_mma, launches_tf32=launches_tf32,
              launches_wgmma=wgmma_bf16 + wgmma_fp32, train_launches_per_step=train_per_step, train_run_launches=train_run,
@@ -6088,18 +6138,16 @@ def main():
              tools_launches=sum(tools.values()),
              **{f"tools_{k}_launches": v for k, v in tools.items()},
              **per_layer),
-        # encoder_fused.cu: on the tool's path in fp32 (3xTF32); bf16 mma.sync forced at
-        # batch 300 from phase 3b
-        dict(launches=tool_launches["fused_enc23_fwd"] - tool_launches[
-                 "fused_enc23_fwd wgmma"],
+        # encoder_fused.cu: on the tool's path forced onto mma.sync in both dtypes (3c:
+        # fp32 enc23_tf32_kernel, its times); bf16 mma.sync forced at batch 300 (3b)
+        dict(launches=tool_launches["fused_enc23_fwd mma.sync"],
              launches_tf32=tool_launches["fused_enc23_fwd tf32"],
-             max_abs_err=enc23_abs[torch.float32], ms=tool["float32"]["ms"]["fused 2+3"],
-             plain_ms=tool["float32"]["ms"]["plain chain"],
-             bound_ms=min(bound_ms(flops, 2 * nbytes, FP32_PEAK),
-                          bound_ms(3 * flops, 2 * nbytes, TF32_PEAK)),
+             max_abs_err=enc23_abs["tf32 forced"], ms=tool["float32"]["ms"]["fused mma.sync"],
+             plain_ms=tool["float32"]["ms"]["plain chain"], bound_ms=bound_fp32,
              bound_by="operations", library_ms=fp32["cuDNN x2"], fma_ms=fp32["fma"],
+             device_ms=enc23_device[torch.float32][300]["fused tf32"],
              bf16_mma_ms=bf16["mma.sync"],
-             bf16_mma_device_ms=enc23_device[300]["fused mma.sync"]),
+             bf16_mma_device_ms=enc23_device[torch.bfloat16][300]["fused mma.sync"]),
         # the wgmma kernels, bf16 and fp32: phase 4's launches, and 5c's in five train
         # steps at batch 300; their layers of G at 64 chunks (phase 3)
         dict(launches=wgmma_bf16, train_launches=train_wgmma["bfloat16"], **wgmma64,
@@ -6115,7 +6163,7 @@ def main():
              plain_ms=tool["bfloat16"]["ms"]["plain chain"],
              bound_ms=bound_ms(flops, nbytes, BF16_PEAK), bound_by="operations",
              library_ms=bf16["cuDNN x2"], kernel_x2_ms=tool["bfloat16"]["ms"]["kernel x2"],
-             **{f"{pre}{arm}device_ms": enc23_device[b][name]
+             **{f"{pre}{arm}device_ms": enc23_device[torch.bfloat16][b][name]
                 for b, pre in ((300, ""), (64, "b64_"), (1, "b1_"))
                 for name, arm in (("fused wgmma", ""), ("fused mma.sync", "mma_"),
                                   ("kernel x2", "kernel_x2_"), ("cuDNN x2", "library_"))}),
@@ -6123,6 +6171,24 @@ def main():
         # passes' (phases 8 and 9); its times one chunk's enc3-5 summed (phase 3)
         dict(launches=rows_bf16, serve_launches=serve_launches[4],
              reload_launches=reload_launches[4], **rows3),
+        # encoder_fused_wgmma_tf32.cu: the tool's fp32 run at batch 300 (phase 3c: its
+        # call, enc23_tf32_kernel's as tf32_ms); at 1 and 64 chunks calls in turns, and
+        # device_ms at 300, 64 and 1 beside enc23_tf32_kernel's, the pitched per-layer
+        # pair's and cuDNN's, from 3b
+        dict(launches=tool_launches["fused_enc23_fwd wgmma_tf32"],
+             max_abs_err=enc23_abs[torch.float32], ms=tool["float32"]["ms"]["fused 2+3"],
+             plain_ms=tool["float32"]["ms"]["plain chain"], bound_ms=bound_fp32,
+             bound_by="operations", library_ms=fp32["cuDNN x2"],
+             kernel_x2_ms=tool["float32"]["ms"]["kernel x2"],
+             tf32_ms=tool["float32"]["ms"]["fused mma.sync"],
+             **{f"b{b}_{key}": enc23_ms[torch.float32][b][arm] for b in (1, 64)
+                for key, arm in (("ms", "fused 2+3"), ("tf32_ms", "tf32"),
+                                 ("plain_ms", "plain chain"), ("library_ms", "cuDNN x2"),
+                                 ("bound_ms", "bound"))},
+             **{f"{pre}{arm}device_ms": enc23_device[torch.float32][b][name]
+                for b, pre in ((300, ""), (64, "b64_"), (1, "b1_"))
+                for name, arm in (("fused wgmma_tf32", ""), ("fused tf32", "tf32_"),
+                                  ("kernel x2", "kernel_x2_"), ("cuDNN x2", "library_"))}),
     ]
     print(json.dumps({"kernels": [dict(k, **m) for k, m in zip(KERNELS, measured)]}))
     print(smi)

@@ -271,7 +271,7 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
               af[c][h][i][3] = r8.y;
             }
 #pragma unroll
-        for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
+        for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
         wgmma_fence();
 #pragma unroll
         for (int c = 0; c < CC; ++c)
@@ -286,7 +286,7 @@ conv1d_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
-        for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
+        for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }

@@ -252,7 +252,7 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
             split_tf32(p[4], ab[st][2], as[st][2]);
             split_tf32(p[X::ROW8 + 4], ab[st][3], as[st][3]);
           }
-          fence_acc(part);
+          fence_regs(part);
           wgmma_fence();
 #pragma unroll
           for (int st = 0; st < STEPS; ++st) {
@@ -265,7 +265,7 @@ conv1d_wgmma_tf32_kernel(const __grid_constant__ CUtensorMap x_map,
           }
           wgmma_commit();
           wgmma_wait_all();
-          fence_acc(part);
+          fence_regs(part);
 #pragma unroll
           for (int e = 0; e < 64; ++e) acc[e] += part[e];
         }

@@ -1,8 +1,9 @@
 // The pieces of a TMA / mbarrier ring feeding wgmma, shared by the per-layer kernels of
-// csrc/conv1d_wgmma.cu (bf16) and csrc/conv1d_wgmma_tf32.cu (fp32 by 3xTF32): barriers
-// with a wait that traps instead of hanging, TMA tile loads, the descriptor of a K-major
-// tile with the 128-byte swizzle, the x windows of either stride, wgmma's fences, and on
-// the host the tensor maps
+// csrc/conv1d_wgmma.cu (bf16) and csrc/conv1d_wgmma_tf32.cu (fp32 by 3xTF32), the chained
+// ones of csrc/encoder_fused_wgmma*.cu and csrc/conv1d_rows.cu: barriers with a wait that
+// traps instead of hanging, TMA tile loads, the descriptor of a K-major tile with the
+// 128-byte swizzle, the x windows of either stride, wgmma's and the proxies' fences, and
+// on the host the tensor maps
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so that a library
 // needs no -lcuda) and the shared-memory size set once per device.
 #pragma once
@@ -127,9 +128,16 @@ struct XBoxes {
 
 // Keeps the compiler from moving reads or writes of the accumulators across the
 // asynchronous MMAs.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Orders this thread's generic writes to shared memory before later asynchronous-proxy
+// accesses of it (a TMA refill, a wgmma read).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -178,11 +186,12 @@ inline cudaError_t encode_x_map(CUtensorMap* map, CUtensorMapDataType type, int 
 }
 
 // w, `rows` rows of `cols` elements (K-major: a row is an output channel's taps), boxes
-// {box_cols, box_rows} with the 128-byte swizzle (box_cols * elem == 128; columns past
-// `cols` read as 0).
+// {box_cols, box_rows} with the 128-byte swizzle (box_cols * elem == 128), or the one
+// given (the 64-byte one: box_cols * elem == 64); columns past `cols` read as 0.
 inline cudaError_t encode_w_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
                                 const void* w, int rows, int cols, int box_cols,
-                                int box_rows) {
+                                int box_rows,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorInitializationError;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -190,7 +199,7 @@ inline cudaError_t encode_w_map(CUtensorMap* map, CUtensorMapDataType type, int 
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t ones[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(w), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess

@@ -241,7 +241,7 @@ def test_module_and_tool_import_no_jax():
     (torch.bfloat16, 128, 256, 1 << 20, False, "mma"),    # h1 off 16 bytes
     (torch.bfloat16, 64, 256, 1 << 20, True, "mma"),      # other widths
     (torch.bfloat16, 128, 512, 1 << 20, True, "mma"),
-    (torch.float32, 128, 256, 1 << 20, True, "tf32"),     # fp32 as before
+    (torch.float32, 128, 256, 1 << 20, True, "wgmma_tf32"),  # fp32: its own wgmma kernel
 ])
 def test_route_rule(dtype, c2, c3, rows, aligned, route):
     assert EF._route(dtype, c2, c3, rows, aligned) == route
